@@ -1,0 +1,31 @@
+"""Error taxonomy of the port (the subset the slice raises).
+
+Mirrors ``arkflow_tpu/errors.py``. ``EndOfInput`` is control flow, not a
+failure: a finite source is exhausted and the stream drains and shuts down.
+"""
+
+from __future__ import annotations
+
+
+class ArkError(Exception):
+    """Base class for all engine errors."""
+
+
+class ConfigError(ArkError):
+    """Invalid or missing configuration, or a key the port does not carry."""
+
+
+class ProcessError(ArkError):
+    """A processor failed on a batch."""
+
+
+class EndOfInput(ArkError):
+    """Control flow: the input is exhausted; shut the stream down gracefully."""
+
+    def __init__(self, msg: str = "end of input"):
+        super().__init__(msg)
+
+
+def not_ported(what: str) -> ConfigError:
+    """The error every config key the port does not carry yet raises."""
+    return ConfigError(f"{what} is not yet ported to arkflow_tpu_torch")

@@ -1,0 +1,5 @@
+"""Model families of the port. ``bert_classifier`` is the one ported so far."""
+
+from arkflow_tpu_torch.models.registry import get_model, register_model  # noqa: F401
+
+import arkflow_tpu_torch.models.bert  # noqa: F401

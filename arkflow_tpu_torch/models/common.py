@@ -1,0 +1,74 @@
+"""Shared building blocks of the port's models: functions on tensors.
+
+Counterpart of ``arkflow_tpu/models/common.py``. Params stay nested dicts of
+tensors in the JAX tree's layout (dense ``w`` stored ``[in, out]``). The
+casts sit where the JAX code puts them, so both packages round at the same
+places: matmuls and their bias adds in bfloat16, layer-norm statistics and
+softmax in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+
+Params = Any  # nested dict of tensors
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = True) -> Params:
+    scale = 1.0 / math.sqrt(in_dim)
+    p = {"w": torch.empty(in_dim, out_dim).uniform_(-scale, scale, generator=gen)}
+    if bias:
+        p["b"] = torch.zeros(out_dim)
+    return p
+
+
+def dense(p: Params, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def layer_norm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int, scale: float = 0.02) -> Params:
+    return {"table": torch.randn(vocab, dim, generator=gen) * scale}
+
+
+def embedding(p: Params, ids: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return p["table"].to(dtype)[ids]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None, *,
+              softmax_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Batched multi-head attention on [B, S, H, Dh] tensors: the plain
+    attention the model uses when the kernel is off.
+
+    Scores are computed in q's dtype and rounded to it before the softmax
+    cast, as the JAX version does. ``mask`` broadcasts to [B, H, Sq, Sk],
+    True = attend; masked scores take the softmax dtype's lowest value.
+    """
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(softmax_dtype) / math.sqrt(dh)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, torch.finfo(softmax_dtype).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version."""
+
+from arkflow_tpu_torch.ops.ragged_attention import (  # noqa: F401
+    ragged_attention_reference,
+    ragged_flash_attention,
+)

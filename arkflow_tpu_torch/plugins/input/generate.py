@@ -1,0 +1,82 @@
+"""Synthetic generator input: the slice's source.
+
+Counterpart of ``arkflow_tpu/plugins/input/generate.py`` without codecs or
+tenant stamping. Config:
+
+    type: generate
+    payload: 'hello world'            # one payload for every row, or
+    payloads: ['short', 'longer ...'] # a mix rotated across rows
+    interval: 10ms                    # optional; 0 = as fast as pulled
+    batch_size: 64
+    count: 2048                       # optional total-row cap, then EOF
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from typing import Optional
+
+from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.components import Ack, Input, NoopAck, Resource, register_input
+from arkflow_tpu_torch.errors import ConfigError, EndOfInput
+from arkflow_tpu_torch.utils.duration import parse_duration
+
+
+class GenerateInput(Input):
+    def __init__(self, payloads: list[bytes], interval_s: float, batch_size: int,
+                 count: Optional[int]):
+        if batch_size <= 0:
+            raise ConfigError("generate.batch_size must be positive")
+        if not payloads:
+            raise ConfigError("generate input requires a payload")
+        self.payloads = payloads
+        self.interval_s = interval_s
+        self.batch_size = batch_size
+        self.count = count
+        self._emitted = 0
+        self._template: Optional[MessageBatch] = None
+
+    async def connect(self) -> None:
+        self._emitted = 0
+
+    async def read(self) -> tuple[MessageBatch, Ack]:
+        if self.count is not None and self._emitted >= self.count:
+            raise EndOfInput()
+        if self.interval_s > 0:
+            await asyncio.sleep(self.interval_s)
+        n = self.batch_size
+        if self.count is not None:
+            n = min(n, self.count - self._emitted)
+        # rows are built once and sliced thereafter; a payload mix rotates
+        # across the rows of the template
+        if self._template is None or self._template.num_rows < n:
+            size = max(n, self.batch_size)
+            self._template = MessageBatch.new_binary(
+                [self.payloads[i % len(self.payloads)] for i in range(size)])
+        batch = self._template if n == self._template.num_rows else self._template.slice(0, n)
+        self._emitted += n
+        return batch.with_source("generate"), NoopAck()
+
+
+@register_input("generate", keys=("payload", "payloads", "interval", "batch_size", "count"))
+def _build(config: dict, resource: Resource) -> GenerateInput:
+    mix = config.get("payloads")
+    if mix is not None:
+        if not isinstance(mix, (list, tuple)) or not mix:
+            raise ConfigError("generate.payloads must be a non-empty list")
+        payloads = [(json.dumps(p) if isinstance(p, (dict, list)) else str(p)).encode()
+                    for p in mix]
+    else:
+        payload = config.get("payload")
+        if payload is None:
+            raise ConfigError("generate input requires 'payload' or 'payloads'")
+        if isinstance(payload, (dict, list)):
+            payload = json.dumps(payload)
+        payloads = [str(payload).encode()]
+    return GenerateInput(
+        payloads=payloads,
+        interval_s=parse_duration(config.get("interval", 0)),
+        batch_size=int(config.get("batch_size", 1)),
+        count=int(config["count"]) if config.get("count") is not None else None,
+    )

@@ -1,0 +1,1 @@
+import arkflow_tpu_torch.plugins.processor.gpu_inference  # noqa: F401

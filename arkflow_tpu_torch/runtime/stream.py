@@ -1,0 +1,213 @@
+"""Stream runtime: input -> N processor workers -> ordered output.
+
+Counterpart of the core loop of ``arkflow_tpu/runtime/stream.py``:
+
+- Bounded queues of ``thread_num * 4`` between stages.
+- Workers stamp a sequence number at dequeue; the output task restores
+  the input order with a reorder map before writing.
+- Backpressure: workers pause while more than ``MAX_PENDING`` batches wait
+  in the reorder window.
+- Acks fire only after every produced batch was written (at-least-once).
+  A chain that returns nothing acks at once.
+- ``EndOfInput`` drains the stream and shuts it down.
+- A processing error is logged and the batch acked (there is no
+  ``error_output`` in the port yet); a failed write is logged and nacked.
+- Ordered close: input -> pipeline -> output.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.components.base import Ack, Input, Output, Resource
+from arkflow_tpu_torch.components.registry import build_component
+from arkflow_tpu_torch.config import StreamConfig
+from arkflow_tpu_torch.errors import ArkError, EndOfInput
+from arkflow_tpu_torch.runtime.pipeline import Pipeline
+
+logger = logging.getLogger("arkflow_torch.stream")
+
+MAX_PENDING = 1024
+
+
+@dataclass
+class _WorkItem:
+    batch: MessageBatch
+    ack: Ack
+
+
+class _Done:
+    """Queue sentinel: upstream stage finished."""
+
+
+_DONE = _Done()
+
+
+class Stream:
+    def __init__(self, input_: Input, pipeline: Pipeline, output: Output,
+                 thread_num: int = 1, name: str = "stream"):
+        self.input = input_
+        self.pipeline = pipeline
+        self.output = output
+        self.thread_num = max(1, thread_num)
+        self.name = name
+        self.queue_size = self.thread_num * 4
+        self.rows_out = 0
+        self.errors = 0
+        #: seconds from the first read to the last write (warmup excluded)
+        self.traffic_seconds = 0.0
+        self._seq_assigned = 0
+        self._seq_emitted = 0
+        self._drained = asyncio.Event()
+
+    async def run(self, cancel: asyncio.Event) -> None:
+        """Run until the input ends or ``cancel`` is set; drains before returning."""
+        try:
+            # processors first: model warmup finishes before the input produces
+            await self.pipeline.connect()
+            await self.input.connect()
+            await self.output.connect()
+            t0 = time.perf_counter()
+            input_q: asyncio.Queue = asyncio.Queue(maxsize=self.queue_size)
+            output_q: asyncio.Queue = asyncio.Queue(maxsize=self.queue_size)
+            tasks = [asyncio.create_task(self._do_input(input_q, cancel),
+                                         name=f"{self.name}-input")]
+            tasks += [asyncio.create_task(self._do_processor(input_q, output_q),
+                                          name=f"{self.name}-proc-{i}")
+                      for i in range(self.thread_num)]
+            out_task = asyncio.create_task(self._do_output(output_q), name=f"{self.name}-output")
+            try:
+                await asyncio.gather(*tasks)
+                await out_task  # every worker sent its sentinel; output drains
+                self.traffic_seconds = time.perf_counter() - t0
+            except BaseException:
+                for t in [*tasks, out_task]:
+                    t.cancel()
+                await asyncio.gather(*tasks, out_task, return_exceptions=True)
+                raise
+        finally:
+            await self._close_all()
+
+    async def _close_all(self) -> None:
+        for stage, closer in (("input", self.input.close),
+                              ("pipeline", self.pipeline.close),
+                              ("output", self.output.close)):
+            try:
+                await closer()
+            except Exception:
+                logger.exception("[%s] error during close of %s", self.name, stage)
+
+    # -- stages ------------------------------------------------------------
+
+    async def _do_input(self, input_q: asyncio.Queue, cancel: asyncio.Event) -> None:
+        cancel_wait = asyncio.ensure_future(cancel.wait())
+        try:
+            while not cancel.is_set():
+                read_f = asyncio.ensure_future(self.input.read())
+                done, _ = await asyncio.wait({read_f, cancel_wait},
+                                             return_when=asyncio.FIRST_COMPLETED)
+                if read_f not in done:
+                    read_f.cancel()
+                    await asyncio.gather(read_f, return_exceptions=True)
+                    break
+                try:
+                    batch, ack = read_f.result()
+                except EndOfInput:
+                    logger.info("[%s] input exhausted (EOF)", self.name)
+                    break
+                except ArkError as e:
+                    logger.error("[%s] input read error: %s", self.name, e)
+                    await asyncio.sleep(0.1)
+                    continue
+                await input_q.put(_WorkItem(batch, ack))
+        finally:
+            cancel_wait.cancel()
+            for _ in range(self.thread_num):
+                await input_q.put(_DONE)
+
+    async def _do_processor(self, input_q: asyncio.Queue, output_q: asyncio.Queue) -> None:
+        while True:
+            # backpressure: wait (bounded) while the reorder window is full
+            while (self._seq_assigned - self._seq_emitted) > MAX_PENDING:
+                self._drained.clear()
+                try:
+                    await asyncio.wait_for(self._drained.wait(), 1.0)
+                except asyncio.TimeoutError:
+                    pass
+            item = await input_q.get()
+            if isinstance(item, _Done):
+                await output_q.put(_DONE)
+                return
+            seq = self._seq_assigned
+            self._seq_assigned += 1
+            try:
+                results = await self.pipeline.process(item.batch)
+                err = None
+            except Exception as e:  # processor failure -> error path
+                results, err = [], e
+            await output_q.put((seq, item, results, err))
+
+    async def _do_output(self, output_q: asyncio.Queue) -> None:
+        """Reorder by sequence number and write; ack only on full success."""
+        reorder: dict[int, tuple] = {}
+        next_seq = 0
+        done_workers = 0
+        while True:
+            msg = await output_q.get()
+            if isinstance(msg, _Done):
+                done_workers += 1
+                if done_workers >= self.thread_num:
+                    for seq in sorted(reorder):  # a gap at shutdown: redeliver
+                        await self._safe(reorder.pop(seq)[0].ack.nack, "nack")
+                    return
+                continue
+            seq, item, results, err = msg
+            reorder[seq] = (item, results, err)
+            while next_seq in reorder:
+                item, results, err = reorder.pop(next_seq)
+                next_seq += 1
+                self._seq_emitted = next_seq
+                if (self._seq_assigned - self._seq_emitted) <= MAX_PENDING:
+                    self._drained.set()
+                await self._emit(item, results, err)
+
+    async def _safe(self, fn, what: str) -> None:
+        try:
+            await fn()
+        except Exception as e:
+            logger.warning("[%s] %s failed: %s", self.name, what, e)
+
+    async def _emit(self, item: _WorkItem, results: list[MessageBatch],
+                    err: Optional[Exception]) -> None:
+        if err is not None:
+            self.errors += 1
+            logger.error("[%s] processing error: %s", self.name, err, exc_info=err)
+            await self._safe(item.ack.ack, "ack")
+            return
+        try:
+            for b in results:
+                await self.output.write(b)
+                self.rows_out += b.num_rows
+        except Exception as e:
+            self.errors += 1
+            logger.error("[%s] output write failed; not acking: %s", self.name, e)
+            await self._safe(item.ack.nack, "nack")
+            return
+        await self._safe(item.ack.ack, "ack")
+
+
+def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
+    """Construct a Stream from config via the builder registries."""
+    resource = Resource()
+    input_ = build_component("input", cfg.input, resource)
+    pipeline = Pipeline([build_component("processor", p, resource)
+                         for p in cfg.pipeline.processors])
+    output = build_component("output", cfg.output, resource)
+    return Stream(input_, pipeline, output,
+                  thread_num=cfg.pipeline.effective_threads(),
+                  name=name or cfg.name or "stream")

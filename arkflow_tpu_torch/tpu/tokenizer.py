@@ -1,0 +1,67 @@
+"""Deterministic hashing tokenizer for streaming text models.
+
+Counterpart of ``arkflow_tpu/tpu/tokenizer.py::HashTokenizer`` on its
+pure-Python path (the JAX package's reference implementation; its C++ tier
+gives identical ids). Hermetic: no vocabulary files.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Sequence
+
+import numpy as np
+
+_WORD = re.compile(rb"[a-z0-9]+|[^\sa-z0-9]")
+
+
+def _fnv1a32(data: bytes) -> int:
+    h = 2166136261
+    for b in data:
+        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+class HashTokenizer:
+    """Whitespace/punctuation split, stable ids.
+
+    ids: 0=pad, 1=cls, 2=sep, 3=unk; tokens FNV-1a-hash into [4, vocab).
+    """
+
+    def __init__(self, vocab_size: int = 30522):
+        self.vocab_size = vocab_size
+        self.pad_id, self.cls_id, self.sep_id = 0, 1, 2
+        self._cache: dict[bytes, int] = {}
+
+    def _token_id(self, tok: bytes) -> int:
+        tid = self._cache.get(tok)
+        if tid is None:
+            tid = 4 + _fnv1a32(tok) % (self.vocab_size - 4)
+            if len(self._cache) < 1_000_000:
+                self._cache[tok] = tid
+        return tid
+
+    def encode_batch(self, texts: Sequence[bytes], max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        raw = [t if isinstance(t, bytes) else t.encode() for t in texts]
+        return self._encode_rows(raw, max_len)
+
+    def encode_batch_view(self, values: np.ndarray, offsets: np.ndarray,
+                          max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        """Tokenize straight off a payload view (``MessageBatch.payload_view``):
+        rows are sliced out of the one values buffer."""
+        n = len(offsets) - 1
+        base = int(offsets[0]) if n else 0
+        buf = values[base: int(offsets[n]) if n else 0].tobytes()
+        return self._encode_rows(
+            [buf[offsets[i] - base: offsets[i + 1] - base] for i in range(n)], max_len)
+
+    def _encode_rows(self, raw: Sequence[bytes], max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        n = len(raw)
+        ids = np.zeros((n, max_len), np.int32)
+        mask = np.zeros((n, max_len), np.int32)
+        for i, t in enumerate(raw):
+            toks = _WORD.findall(t.lower())
+            row = [self.cls_id] + [self._token_id(tok) for tok in toks[: max_len - 2]] + [self.sep_id]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+        return ids, mask

@@ -1,0 +1,74 @@
+"""The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of ``arkflow_tpu``, and no module on the slice's
+path needs pyarrow, yaml or aiohttp at import time."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "arkflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "arkflow_tpu")
+NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp")
+
+
+def _imports(tree: ast.AST, top_level_only: bool):
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imports(tree, top_level_only=False) if m in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+    heavy = [m for m in _imports(tree, top_level_only=True) if m in NOT_AT_MODULE_LEVEL]
+    assert not heavy, f"{path} imports {heavy} at module level"
+
+
+_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp"):
+    sys.modules[name] = None  # any import of these now fails
+import asyncio
+from arkflow_tpu_torch.components import ensure_plugins_loaded
+from arkflow_tpu_torch.config import StreamConfig
+from arkflow_tpu_torch.runtime.stream import build_stream
+
+ensure_plugins_loaded()
+tiny = {"vocab_size": 128, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32,
+        "max_positions": 32}
+cfg = StreamConfig.from_mapping({
+    "input": {"type": "generate", "payloads": ["a b c", "d e f g h i j k"],
+              "batch_size": 4, "count": 10},
+    "pipeline": {"thread_num": 2, "processors": [{
+        "type": "gpu_inference", "model": "bert_classifier", "model_config": tiny,
+        "max_seq": 16, "batch_buckets": [4], "seq_buckets": [8, 16],
+        "device": "cpu", "warmup": True}]},
+    "output": {"type": "drop"}})
+stream = build_stream(cfg)
+asyncio.run(stream.run(asyncio.Event()))
+assert stream.output.dropped_rows == 10 and stream.errors == 0, stream.errors
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("PORT_OK")
+"""
+
+
+def test_port_imports_and_streams_with_jax_and_reference_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT_OK" in proc.stdout

@@ -1,0 +1,189 @@
+"""The port's stream end to end on the CPU: ``generate -> gpu_inference ->
+sink`` through the engine, CLI and stream runtime, held against the JAX
+``tpu_inference`` stream on the same config and weights."""
+
+import asyncio
+import json
+
+import jax
+import numpy as np
+import pytest
+
+from arkflow_tpu.config import StreamConfig as JaxStreamConfig
+from arkflow_tpu.runtime import build_stream as jax_build_stream
+from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.components import Ack, Input, Output, ensure_plugins_loaded
+from arkflow_tpu_torch.config import EngineConfig, StreamConfig
+from arkflow_tpu_torch.convert import params_from_jax
+from arkflow_tpu_torch.errors import ConfigError, EndOfInput
+from arkflow_tpu_torch.runtime import cli
+from arkflow_tpu_torch.runtime.stream import build_stream
+from arkflow_tpu_torch.tpu.runner import ModelRunner
+from tests.test_runtime import CollectOutput as JaxCollectOutput
+from tests.test_tpu_layer import TINY_BERT
+
+ensure_plugins_loaded()
+
+LOGIT_ATOL = 1.0 / 64  # the bf16 floor of the parity rules
+TIE_MARGIN = 0.05
+PAYLOADS = ["ok", "sensor reading looks fine", "pressure spike on line four, check valve",
+            " ".join(f"token{i}" for i in range(40)), "a b c d e f g h i j k l m n o p"]
+
+
+def _processor(**extra) -> dict:
+    return {"type": "gpu_inference", "model": "bert_classifier", "model_config": TINY_BERT,
+            "max_seq": 32, "batch_buckets": [4, 8], "seq_buckets": [16, 32],
+            "outputs": ["label", "score", "logits"], "device": "cpu", **extra}
+
+
+def _stream(count: int = 23, threads: int = 2, **proc) -> dict:
+    return {"name": "s", "input": {"type": "generate", "payloads": PAYLOADS, "batch_size": 8,
+                                   "count": count},
+            "pipeline": {"thread_num": threads, "processors": [_processor(**proc)]},
+            "output": {"type": "drop"}}
+
+
+class Collect(Output):
+    def __init__(self):
+        self.batches: list[MessageBatch] = []
+
+    async def connect(self) -> None:
+        return None
+
+    async def write(self, batch: MessageBatch) -> None:
+        self.batches.append(batch)
+
+
+class NumberedInput(Input):
+    """Distinct numbered payloads in ragged batch sizes, counting acks."""
+
+    def __init__(self, sizes):
+        self.sizes = list(sizes)
+        self.next = 0
+        self.acks = []
+
+    async def connect(self) -> None:
+        return None
+
+    async def read(self):
+        if not self.sizes:
+            raise EndOfInput()
+        n = self.sizes.pop(0)
+        rows = [f"event {self.next + i} " + "word " * ((self.next + i) % 13) for i in range(n)]
+        self.next += n
+        outer = self
+
+        class CountAck(Ack):
+            async def ack(self) -> None:
+                outer.acks.append(n)
+
+        return MessageBatch.new_binary([r.encode() for r in rows]), CountAck()
+
+
+def test_every_row_arrives_in_order_with_outputs():
+    stream = build_stream(StreamConfig.from_mapping(_stream(threads=3)))
+    stream.input = NumberedInput([5, 8, 1, 8, 3, 7, 8, 2])
+    sink = stream.output = Collect()
+    asyncio.run(stream.run(asyncio.Event()))
+    rows = [p for b in sink.batches for p in b.to_binary()]
+    assert [int(r.split()[1]) for r in rows] == list(range(42))
+    assert sorted(stream.input.acks) == sorted([5, 8, 1, 8, 3, 7, 8, 2])
+    for b in sink.batches:
+        assert b.column("label").shape == (b.num_rows,)
+        assert set(b.column("label").tolist()) <= {0, 1}
+        assert ((b.column("score") >= 0.5) & (b.column("score") <= 1)).all()
+        assert b.column("logits").shape == (b.num_rows, 2)
+    assert stream.rows_out == 42 and stream.errors == 0 and stream.traffic_seconds > 0
+
+
+def test_labels_match_the_jax_stream_on_the_same_weights():
+    jax_cfg = _stream()
+    jax_cfg["pipeline"]["processors"][0] = {**_processor(), "type": "tpu_inference"}
+    del jax_cfg["pipeline"]["processors"][0]["device"]
+    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(jax_cfg))
+    jax_sink = jax_stream.output = JaxCollectOutput()
+    asyncio.run(jax_stream.run(asyncio.Event()))
+    host = jax.device_get(jax_stream.pipeline.processors[0].runner.host_params)
+
+    stream = build_stream(StreamConfig.from_mapping(_stream()))
+    proc = stream.pipeline.processors[0]
+    proc.runner = ModelRunner("bert_classifier", TINY_BERT, buckets=proc.runner.buckets,
+                              device="cpu", host_params=params_from_jax(host))
+    sink = stream.output = Collect()
+    asyncio.run(stream.run(asyncio.Event()))
+
+    want_logits = np.concatenate([
+        np.asarray(b.column("logits").flatten()).reshape(-1, 2) for b in jax_sink.batches])
+    want_labels = np.concatenate([np.asarray(b.column("label")) for b in jax_sink.batches])
+    got_logits = np.concatenate([b.column("logits") for b in sink.batches])
+    got_labels = np.concatenate([b.column("label") for b in sink.batches])
+    assert got_labels.shape == want_labels.shape == (23,)
+    np.testing.assert_allclose(got_logits, want_logits, atol=LOGIT_ATOL, rtol=0)
+    top2 = np.sort(want_logits, axis=1)
+    tie_free = (top2[:, -1] - top2[:, -2]) > TIE_MARGIN
+    np.testing.assert_array_equal(got_labels[tie_free], want_labels[tie_free])
+    got_rows = [p for b in sink.batches for p in b.to_binary()]
+    want_rows = [p for b in jax_sink.batches for p in b.to_binary()]
+    assert got_rows == want_rows
+
+
+def _write(tmp_path, cfg: dict, name: str = "stream.json"):
+    path = tmp_path / name
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def test_cli_runs_and_validates_a_json_config(tmp_path, capsys):
+    cfg = {"streams": [{**_stream(count=9), "output": {"type": "stdout"}}],
+           "logging": {"level": "warn"}}
+    path = _write(tmp_path, cfg)
+    assert cli.main(["--config", path, "--validate"]) == 0
+    assert "config OK: 1 stream(s)" in capsys.readouterr().out
+    assert cli.main(["--config", path]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 9 and lines[:5] == PAYLOADS
+
+
+def test_toml_config_parses(tmp_path):
+    path = tmp_path / "s.toml"
+    path.write_text('[[streams]]\n[streams.input]\ntype = "generate"\npayload = "x"\n'
+                    '[streams.output]\ntype = "drop"\n')
+    cfg = EngineConfig.from_file(path)
+    assert cfg.streams[0].input == {"type": "generate", "payload": "x"}
+    assert cfg.validate_components() == []
+
+
+def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    path = tmp_path / "s.yaml"
+    path.write_text("streams: []\n")
+    with pytest.raises(ConfigError, match="yaml"):
+        EngineConfig.from_file(path)
+
+
+@pytest.mark.parametrize("where,patch", [
+    ("stream", {"buffer": {"type": "memory"}}),
+    ("stream", {"error_output": {"type": "drop"}}),
+    ("pipeline", {"ingest_shards": 2}),
+    ("processor", {"packing": True}),
+    ("processor", {"tokenizer": "bert-base-uncased"}),
+    ("processor", {"mesh": {"tp": 2}}),
+    ("processor", {"serving_dtype": "int8"}),
+    ("input", {"codec": "json"}),
+    ("engine", {"health_check": {"enabled": True}}),
+])
+def test_unported_keys_raise(tmp_path, where, patch):
+    stream = _stream(count=4)
+    cfg = {"streams": [stream], "health_check": {"enabled": False}}
+    target = {"stream": stream, "pipeline": stream["pipeline"], "engine": cfg,
+              "processor": stream["pipeline"]["processors"][0], "input": stream["input"]}[where]
+    target.update(patch)
+    with pytest.raises(ConfigError, match="not yet ported"):
+        parsed = EngineConfig.from_mapping(cfg)
+        problems = parsed.validate_components()
+        if problems:
+            raise ConfigError("; ".join(problems))
+        build_stream(parsed.streams[0])
+    assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
