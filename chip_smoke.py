@@ -46,7 +46,7 @@ from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer  # noqa: E402
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "arkflow_tpu_torch", "examples", "bert_stream.json")
-#: H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s, and
+#: H100 SXM published peaks from NVIDIA's datasheet: HBM bytes/s, and
 #: dense flop/s by operand type (f32 runs outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
