@@ -8,15 +8,20 @@ processors and acks):
 - ``Output``    push sink.
 - ``Processor`` batch -> list of batches. An empty list drops the batch
                 (and acks it); more than one entry fans out.
+- ``Buffer``    write-side accumulator between input and pipeline
+                (micro-batchers).
 
 Acks implement at-least-once delivery: an ``Ack`` fires only after the
-batches produced from its read were written downstream.
+batches produced from its read were written downstream. ``VecAck`` composes
+the acks of the sources merged into one emission; ``split_ack`` shares one
+source's ack across the emissions its rows were carved into.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 from arkflow_tpu_torch.batch import MessageBatch
 
@@ -38,6 +43,71 @@ class NoopAck(Ack):
 
     async def ack(self) -> None:
         return None
+
+
+class VecAck(Ack):
+    """Composite ack: fires a collection of child acks in order."""
+
+    def __init__(self, acks: Sequence[Ack] = ()):
+        self.acks: list[Ack] = list(acks)
+
+    async def ack(self) -> None:
+        for a in self.acks:
+            await a.ack()
+
+    async def nack(self) -> None:
+        for a in self.acks:
+            await a.nack()
+
+
+class _SplitState:
+    __slots__ = ("ack", "remaining", "nacked")
+
+    def __init__(self, ack: Ack, parts: int):
+        self.ack = ack
+        self.remaining = parts
+        self.nacked = False
+
+
+class _PartAck(Ack):
+    """One share of a split source ack (see ``split_ack``)."""
+
+    def __init__(self, state: _SplitState):
+        self._state = state
+        self._done = False
+
+    async def _resolve(self, nack: bool) -> None:
+        if self._done:  # idempotent: a retried ack must not double-count
+            return
+        self._done = True
+        st = self._state
+        st.nacked = st.nacked or nack
+        st.remaining -= 1
+        if st.remaining == 0:
+            if st.nacked:
+                await st.ack.nack()
+            else:
+                await st.ack.ack()
+
+    async def ack(self) -> None:
+        await self._resolve(False)
+
+    async def nack(self) -> None:
+        await self._resolve(True)
+
+
+def split_ack(ack: Ack, parts: int) -> list[Ack]:
+    """Split one source ack into ``parts`` shares, for a batch whose rows are
+    carved across several emissions. The source acks once every share acked;
+    if any share nacks, the source nacks instead, once all shares resolved,
+    so the whole source batch is redelivered (duplicates of the rows already
+    delivered are the at-least-once cost)."""
+    if parts < 1:
+        raise ValueError("split_ack needs at least one part")
+    if parts == 1:
+        return [ack]
+    state = _SplitState(ack, parts)
+    return [_PartAck(state) for _ in range(parts)]
 
 
 @dataclass
@@ -78,6 +148,20 @@ class Processor(abc.ABC):
     @abc.abstractmethod
     async def process(self, batch: MessageBatch) -> list[MessageBatch]:
         """Transform one batch into zero or more batches."""
+
+    async def close(self) -> None:
+        return None
+
+
+class Buffer(abc.ABC):
+    """Accumulator between input and pipeline (micro-batchers)."""
+
+    @abc.abstractmethod
+    async def write(self, batch: MessageBatch, ack: Ack) -> None: ...
+
+    @abc.abstractmethod
+    async def read(self) -> Optional[tuple[MessageBatch, Ack]]:
+        """Blocks until a merged batch is due; None when closed and drained."""
 
     async def close(self) -> None:
         return None

@@ -27,6 +27,7 @@ _REGISTRIES: dict[str, dict[str, tuple[Builder, frozenset, Optional[Check]]]] = 
     "input": {},
     "output": {},
     "processor": {},
+    "buffer": {},
 }
 
 
@@ -53,6 +54,11 @@ def register_output(type_name: str, keys: Iterable[str] = ()):
 def register_processor(type_name: str, keys: Iterable[str] = (),
                        check: Optional[Check] = None):
     return _register("processor", type_name, keys, check)
+
+
+def register_buffer(type_name: str, keys: Iterable[str] = (),
+                    check: Optional[Check] = None):
+    return _register("buffer", type_name, keys, check)
 
 
 def registered_types(family: str) -> list[str]:

@@ -20,7 +20,7 @@ from typing import Any, Mapping, Optional
 from arkflow_tpu_torch.errors import ConfigError, not_ported
 
 _ENGINE_KEYS = ("streams", "logging", "health_check")
-_STREAM_KEYS = ("input", "pipeline", "output", "name")
+_STREAM_KEYS = ("input", "buffer", "pipeline", "output", "name")
 _PIPELINE_KEYS = ("thread_num", "processors")
 
 
@@ -28,6 +28,39 @@ def _check_keys(m: Mapping[str, Any], allowed: tuple[str, ...], where: str) -> N
     for key in m:
         if key not in allowed:
             raise not_ported(f"{where}.{key}")
+
+
+def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
+    """Cross-component check of the packed path: a buffer carving
+    token-budget emissions only makes sense feeding a ``gpu_inference``
+    processor with ``packing: true`` (token-sized emissions fill a (rows,
+    seq) shape only after ``pack_tokens``; an unpacked runner would pad
+    their row counts straight back). The component builders cannot see across
+    sections, so this runs at parse time."""
+    packing_vals = []
+    for p in processors:
+        if not isinstance(p, Mapping) or p.get("type") != "gpu_inference":
+            continue
+        packing = p.get("packing", False)
+        if not isinstance(packing, bool):
+            raise ConfigError(f"gpu_inference.packing must be a bool, got {packing!r}")
+        packing_vals.append(packing)
+    if not isinstance(buffer_cfg, Mapping):
+        return
+    coalesce = buffer_cfg.get("coalesce")
+    if not isinstance(coalesce, Mapping):
+        return
+    token_budget = coalesce.get("token_budget")
+    if token_budget is None:
+        return
+    if isinstance(token_budget, bool) or not isinstance(token_budget, int) or token_budget < 1:
+        raise ConfigError(
+            f"buffer.coalesce.token_budget must be a positive int, got {token_budget!r}")
+    if packing_vals and not any(packing_vals):
+        raise ConfigError(
+            "buffer.coalesce.token_budget requires 'packing: true' on the stream's "
+            "gpu_inference processor (token-budget emissions only fill the (rows, "
+            "seq) shape after pack_tokens; set packing: true or drop token_budget)")
 
 
 @dataclass
@@ -57,6 +90,7 @@ class StreamConfig:
     input: dict
     pipeline: PipelineConfig
     output: dict
+    buffer: Optional[dict] = None
     name: Optional[str] = None
 
     @classmethod
@@ -67,9 +101,11 @@ class StreamConfig:
         for req in ("input", "output"):
             if req not in m:
                 raise ConfigError(f"stream config missing required section {req!r}")
-        return cls(input=dict(m["input"]),
-                   pipeline=PipelineConfig.from_mapping(m.get("pipeline", {})),
-                   output=dict(m["output"]), name=m.get("name"))
+        pipeline = PipelineConfig.from_mapping(m.get("pipeline", {}))
+        _validate_token_coalesce(m.get("buffer"), pipeline.processors)
+        return cls(input=dict(m["input"]), pipeline=pipeline, output=dict(m["output"]),
+                   buffer=dict(m["buffer"]) if m.get("buffer") else None,
+                   name=m.get("name"))
 
 
 @dataclass
@@ -118,6 +154,7 @@ class EngineConfig:
         problems: list[str] = []
         for i, s in enumerate(self.streams):
             for family, c in (("input", s.input), ("output", s.output),
+                              *((("buffer", s.buffer),) if s.buffer else ()),
                               *(("processor", p) for p in s.pipeline.processors)):
                 try:
                     check_component(family, c)

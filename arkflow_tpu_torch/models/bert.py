@@ -1,19 +1,23 @@
 """BERT-base sequence classifier: the flagship streaming-inference model.
 
-Counterpart of ``arkflow_tpu/models/bert.py`` (``encode``/``apply`` on
-right-padded rows). Standard BERT-base shape by default: 12 layers, hidden
-768, 12 heads, FFN 3072, vocab 30522. Params keep the JAX tree's layout --
-the same nested paths, dense ``w`` stored ``[in, out]``, per-layer params
-stacked on a leading axis -- and the layer scan is a Python loop over that
-axis. Attention goes through the ragged kernel (``ops/ragged_attention.py``)
-when ``use_flash_attention`` is on and the bucket's seq is at least
-``flash_min_seq``; otherwise through the plain masked attention.
+Counterpart of ``arkflow_tpu/models/bert.py`` (``encode``, ``apply`` on
+right-padded rows and ``apply_packed`` on token-packed rows). Standard
+BERT-base shape by default: 12 layers, hidden 768, 12 heads, FFN 3072, vocab
+30522. Params keep the JAX tree's layout -- the same nested paths, dense
+``w`` stored ``[in, out]``, per-layer params stacked on a leading axis -- and
+the layer scan is a Python loop over that axis. Right-padded rows attend
+through the ragged kernel (``ops/ragged_attention.py``) when
+``use_flash_attention`` is on and the bucket's seq is at least
+``flash_min_seq``; packed rows through the segment kernel
+(``ops/segment_attention.py``) when ``packed_flash`` is on; otherwise
+through the plain masked attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -21,10 +25,11 @@ from arkflow_tpu_torch.errors import ConfigError, not_ported
 from arkflow_tpu_torch.models import common as cm
 from arkflow_tpu_torch.models.registry import ModelFamily, register_model
 from arkflow_tpu_torch.ops.ragged_attention import ragged_flash_attention
+from arkflow_tpu_torch.ops.segment_attention import segment_flash_attention
 
 _SOFTMAX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: BertConfig fields of the JAX package that belong to paths not ported yet
-_NOT_PORTED_FIELDS = ("packed_flash", "flash_interpret")
+_NOT_PORTED_FIELDS = ("flash_interpret",)
 
 
 @dataclass(frozen=True)
@@ -48,6 +53,12 @@ class BertConfig:
     #: is on. None = no floor (the runner's auto rule leaves it at 0 until an
     #: H100 measurement says otherwise).
     flash_min_seq: "int | None" = None
+    #: packed execution only: the block-diagonal attention through the
+    #: segment kernel instead of the plain attention on a [P, 1, S, S] pair
+    #: mask. None = auto: ModelRunner resolves it to True on CUDA and False
+    #: on the CPU; direct ``apply_packed`` callers get the pair mask unless
+    #: they opt in.
+    packed_flash: "bool | None" = None
     #: softmax dtype of the plain attention ("float32" or "bfloat16")
     softmax_dtype: str = "float32"
 
@@ -111,20 +122,35 @@ def _layer(stacked: dict, i: int) -> dict:
 
 
 def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor) -> torch.Tensor:
-    """[B, S] ids/mask -> [B, S, hidden] bf16 encodings."""
+           attention_mask: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+           pair_mask: Optional[torch.Tensor] = None,
+           segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, S] ids/mask -> [B, S, hidden] bf16 encodings.
+
+    ``positions``/``pair_mask``/``segments`` are the packed-execution hooks
+    (``tpu/packing.py``): per-token position ids, and either a [B, 1, Sq, Sk]
+    block-diagonal mask for the plain attention or per-token segment ids for
+    the segment kernel. Either one turns the ragged kernel off: it reads
+    prefix lengths, which cannot express segments.
+    """
     b, s = input_ids.shape
-    positions = torch.arange(s, device=input_ids.device)[None, :]
+    if positions is None:
+        positions = torch.arange(s, device=input_ids.device)[None, :]
     x = (
         cm.embedding(params["embed"]["word"], input_ids)
         + cm.embedding(params["embed"]["position"], positions)
         + cm.embedding(params["embed"]["token_type"], torch.zeros_like(input_ids))
     )
     x = cm.layer_norm(params["embed"]["ln"], x, cfg.ln_eps)
-    use_kernel = bool(cfg.use_flash_attention) and s >= (cfg.flash_min_seq or 0)
-    if use_kernel:
+    use_kernel = (pair_mask is None and segments is None and bool(cfg.use_flash_attention)
+                  and s >= (cfg.flash_min_seq or 0))
+    if segments is not None:
+        segments = segments.to(torch.int32).contiguous()
+    elif use_kernel:
         # contiguous-prefix masks: the row sums are the lengths
         lengths = attention_mask.sum(dim=1, dtype=torch.int32)
+    elif pair_mask is not None:
+        mask = pair_mask
     else:
         mask = attention_mask[:, None, None, :].bool()  # [B, 1, 1, Sk]
     softmax_dtype = _SOFTMAX_DTYPES[cfg.softmax_dtype]
@@ -132,6 +158,11 @@ def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
     dh = cfg.hidden // h
 
     def attend(q, k, v):
+        if segments is not None:
+            # [B, S, H, D] views as in the ragged case below
+            out = segment_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), segments)
+            return out.transpose(1, 2)
         if use_kernel:
             # [B, S, H, D] -> [B, H, S, D] views: the kernel reads them in
             # place through their strides, and its output keeps q's layout
@@ -153,10 +184,8 @@ def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
     return x
 
 
-def apply(params: dict, cfg: BertConfig, *, input_ids: torch.Tensor,
-          attention_mask: torch.Tensor) -> dict:
-    x = encode(params, cfg, input_ids, attention_mask)
-    pooled = torch.tanh(cm.dense(params["pooler"], x[:, 0, :]))
+def _classify(params: dict, cls: torch.Tensor) -> dict:
+    pooled = torch.tanh(cm.dense(params["pooler"], cls))
     logits = cm.dense(params["classifier"], pooled).float()
     probs = torch.softmax(logits, dim=-1)
     return {
@@ -166,8 +195,47 @@ def apply(params: dict, cfg: BertConfig, *, input_ids: torch.Tensor,
     }
 
 
+def apply(params: dict, cfg: BertConfig, *, input_ids: torch.Tensor,
+          attention_mask: torch.Tensor) -> dict:
+    x = encode(params, cfg, input_ids, attention_mask)
+    return _classify(params, x[:, 0, :])
+
+
+def apply_packed(params: dict, cfg: BertConfig, *, input_ids: torch.Tensor,
+                 segment_ids: torch.Tensor, position_ids: torch.Tensor,
+                 example_row: torch.Tensor, example_pos: torch.Tensor) -> dict:
+    """Packed forward (``tpu/packing.py`` layout): [P, S] rows holding E
+    examples. Attention is block-diagonal on ``segment_ids`` (0 = dead),
+    position embeddings follow ``position_ids``, and each example's [CLS]
+    encoding is gathered at (example_row, example_pos): outputs are [E], in
+    example order. The encodings of dead positions differ by path (uniform
+    attention under the pair mask, exact zeros from the kernel) and are
+    never gathered."""
+    seg = segment_ids
+    live = (seg > 0).to(torch.int32)
+    if cfg.packed_flash and input_ids.shape[1] >= (cfg.flash_min_seq or 0):
+        x = encode(params, cfg, input_ids, live, positions=position_ids, segments=seg)
+    else:
+        pair = (seg[:, None, :] == seg[:, :, None]) & (seg > 0)[:, None, :]
+        x = encode(params, cfg, input_ids, live, positions=position_ids,
+                   pair_mask=pair[:, None, :, :])  # [P, 1, Sq, Sk]
+    return _classify(params, x[example_row.long(), example_pos.long()])
+
+
 def input_spec(cfg: BertConfig) -> dict:
     return {"input_ids": ("int32", ("seq",)), "attention_mask": ("int32", ("seq",))}
+
+
+def packed_input_spec(cfg: BertConfig) -> dict:
+    """Inputs of packed execution: the ``seq`` arrays share the packed-row
+    dim P, the scalar ones the example dim E."""
+    return {
+        "input_ids": ("int32", ("seq",)),
+        "segment_ids": ("int32", ("seq",)),
+        "position_ids": ("int32", ("seq",)),
+        "example_row": ("int32", ()),
+        "example_pos": ("int32", ()),
+    }
 
 
 register_model(
@@ -177,5 +245,6 @@ register_model(
         init=init,
         apply=apply,
         input_spec=input_spec,
+        extras={"apply_packed": apply_packed, "packed_input_spec": packed_input_spec},
     )
 )

@@ -4,3 +4,7 @@ from arkflow_tpu_torch.ops.ragged_attention import (  # noqa: F401
     ragged_attention_reference,
     ragged_flash_attention,
 )
+from arkflow_tpu_torch.ops.segment_attention import (  # noqa: F401
+    segment_attention_reference,
+    segment_flash_attention,
+)

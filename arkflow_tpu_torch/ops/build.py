@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-its own shared library with a plain C interface, and bound with ``ctypes``.
-The library lands in ``arkflow_tpu_torch/_build/`` under a name keyed by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing builds at import time: the first launch (or
+its own shared library with a plain C interface, and bound with ``ctypes``;
+the ``csrc/*.cuh`` headers are shared between them. The library lands in
+``arkflow_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one is reused. Nothing builds at import time: the first launch (or
 ``build_all``) builds, and a missing ``nvcc`` raises instead of falling back.
 """
 
@@ -48,8 +48,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by its source and the flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source, the shared
+    headers of ``csrc/`` and the flags."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

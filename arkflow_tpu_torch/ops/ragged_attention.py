@@ -85,17 +85,30 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             f"{_ALIGN}-byte aligned (strides {t.stride()}, {size}-byte elements)")
 
 
-def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
+def check_operands(kernel: str, q, k, v, out) -> None:
+    """What the attention kernels of ``csrc/`` take: [B, H, S, D] float32 or
+    bfloat16 operands alike in device, type and shape, a head dim they are
+    instantiated for, laid out with the head dim contiguous and aligned."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, S, D], got shape {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"ragged attention kernel takes float32 or bfloat16, got {q.dtype}")
-    b, h, s, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {KERNEL_HEAD_DIMS}")
-    out = torch.empty_like(q)  # keeps q's (possibly [B, S, H, D]) layout
+        raise ValueError(f"{kernel} kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in the kernel's {KERNEL_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_operand(name, t, q)
+
+
+def operand_strides(q, k, v, out) -> ctypes.Array:
+    """The 12 (batch, head, seq) element strides of q, k, v and out, as the
+    kernels' C interface takes them."""
+    return (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
+
+
+def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
+    out = torch.empty_like(q)  # keeps q's (possibly [B, S, H, D]) layout
+    check_operands("ragged attention", q, k, v, out)
+    b, h, s, d = q.shape
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError(
@@ -108,7 +121,7 @@ def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
+    strides = operand_strides(q, k, v, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -1,9 +1,10 @@
 """``gpu_inference`` processor: streaming model inference on the GPU.
 
 Counterpart of ``arkflow_tpu/plugins/processor/tpu_inference.py`` on its
-unpacked path: tokenize the payload column, bucket and pad the batch, run the
-model on the device, and attach the outputs as columns. Config (the keys of
-``tpu_inference`` the port carries, plus ``device``):
+single-device paths: tokenize the payload column, bucket and pad the batch
+(or pack it), run the model on the device, and attach the outputs as
+columns. Config (the keys of ``tpu_inference`` the port carries, plus
+``device``):
 
     type: gpu_inference
     model: bert_classifier
@@ -19,9 +20,15 @@ model on the device, and attach the outputs as columns. Config (the keys of
     serving_dtype: bfloat16        # float32 | bfloat16 | float16
     max_in_flight: 2               # device steps in flight
     device: cuda                   # default cuda; cpu for tests
+    packing: true                  # token packing (tpu/packing.py): pack the
+                                   # batch's texts into dense rows once, carve
+                                   # the layout into row windows on the grid
+    example_scale: 4               # packed only: the example-dim grid extends
+                                   # this far past the row grid (default 4
+                                   # with packing)
 
 Every other ``tpu_inference`` key (tokenizer, tensor_field, mesh,
-device_pool, packing, response_cache, swap, tuner, integrity, checkpoint,
+device_pool, response_cache, swap, tuner, integrity, checkpoint,
 dispatch_depth, step deadlines, health, ...) raises "not yet ported".
 """
 
@@ -36,12 +43,13 @@ from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, Me
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
 from arkflow_tpu_torch.errors import ConfigError, ProcessError, not_ported
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
+from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
 from arkflow_tpu_torch.tpu.runner import ModelRunner, check_serving_dtype
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
 KEYS = ("model", "model_config", "text_field", "max_seq", "batch_buckets",
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
-        "max_in_flight", "device")
+        "max_in_flight", "device", "packing", "example_scale")
 
 
 class GpuInferenceProcessor(Processor):
@@ -56,16 +64,25 @@ class GpuInferenceProcessor(Processor):
 
     # -- input extraction --------------------------------------------------
 
-    def _extract(self, batch: MessageBatch) -> dict[str, np.ndarray]:
-        """Tokenize the payload column off its buffer view, and cut the ids
-        to the seq bucket of the longest row."""
+    def _tokenize(self, batch: MessageBatch) -> tuple[np.ndarray, np.ndarray]:
+        """Tokenize the payload column off its buffer view."""
         col = batch.column(self.text_field)
         if not isinstance(col, BinaryColumn):
             raise ProcessError(f"gpu_inference: column {self.text_field!r} is not a binary column")
-        ids, mask = self.tokenizer.encode_batch_view(col.values, col.offsets, self.max_seq)
+        return self.tokenizer.encode_batch_view(col.values, col.offsets, self.max_seq)
+
+    def _extract(self, batch: MessageBatch) -> dict[str, np.ndarray]:
+        """Tokenize, and cut the ids to the seq bucket of the longest row."""
+        ids, mask = self._tokenize(batch)
         used = int(mask.sum(axis=1).max()) if mask.size else 1
         sb = self.runner.buckets.seq_bucket(used)
         return {"input_ids": ids[:, :sb], "attention_mask": mask[:, :sb]}
+
+    def _pack(self, batch: MessageBatch) -> list[tuple[dict[str, np.ndarray], np.ndarray]]:
+        """Tokenize, first-fit-pack every text into rows of the batch's seq
+        bucket, and carve the layout into row windows on the grid."""
+        ids, mask = self._tokenize(batch)
+        return pack_windows(ids, mask, self.runner.buckets)
 
     # -- output attachment -------------------------------------------------
 
@@ -95,13 +112,52 @@ class GpuInferenceProcessor(Processor):
             return []
         if not self._warmed:  # direct use without a stream (tests, tools)
             await self.connect()
-        inputs = await asyncio.get_running_loop().run_in_executor(None, self._extract, batch)
-        outputs = await self.runner.infer(inputs)
+        if self.runner.packed:
+            outputs = await self._infer_packed(batch)
+        else:
+            inputs = await asyncio.get_running_loop().run_in_executor(None, self._extract, batch)
+            outputs = await self.runner.infer(inputs)
         return [self._attach(batch, outputs)]
+
+    async def _infer_packed(self, batch: MessageBatch) -> dict[str, np.ndarray]:
+        """Token-packed inference: tokenize, pack and carve on an executor
+        thread, serve the windows concurrently (the runner's in-flight bound
+        pipelines them), and scatter each window's per-example outputs back
+        into row order."""
+        windows = await asyncio.get_running_loop().run_in_executor(None, self._pack, batch)
+        outs = await asyncio.gather(*[self.runner.infer(inputs) for inputs, _ in windows])
+        return scatter_windows(windows, outs, batch.num_rows)
+
+
+def pack_windows(ids: np.ndarray, mask: np.ndarray,
+                 buckets: BucketPolicy) -> list[tuple[dict[str, np.ndarray], np.ndarray]]:
+    """Pack tokenized rows at the seq bucket of the longest and carve the
+    layout into row windows that fill the grid (``carve_row_windows``)."""
+    lengths = mask.sum(axis=1).astype(np.int64)
+    sb = buckets.seq_bucket(int(lengths.max()) if len(lengths) else 1)
+    pk = pack_tokens(ids, lengths, sb)
+    return carve_row_windows(pk, buckets.max_batch(), buckets.max_examples(),
+                             buckets.batch_buckets)
+
+
+def scatter_windows(windows, outs: list[dict[str, np.ndarray]], n: int) -> dict[str, np.ndarray]:
+    """Each window's [E_w, ...] outputs back into the original row order
+    (a window's examples are in row order, not input order)."""
+    merged: dict[str, np.ndarray] = {}
+    for key in outs[0]:
+        first = np.asarray(outs[0][key])
+        out = np.empty((n, *first.shape[1:]), first.dtype)
+        for (_, idx), chunk in zip(windows, outs):
+            out[idx] = chunk[key]
+        merged[key] = out
+    return merged
 
 
 def _check(config: dict) -> None:
     check_serving_dtype(config.get("serving_dtype"))
+    packing = config.get("packing", False)
+    if not isinstance(packing, bool):
+        raise ConfigError(f"gpu_inference.packing must be a bool, got {packing!r}")
 
 
 @register_processor("gpu_inference", keys=KEYS, check=_check)
@@ -110,8 +166,13 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
     if not model:
         raise ConfigError("gpu_inference requires 'model'")
     max_seq = int(config.get("max_seq", 128))
+    packing = config.get("packing", False)
+    # packed serving: a full row bucket of short texts carries several
+    # examples per row, so the example grid defaults to 4x the row grid, or
+    # token-budget emissions would be capped by example count, not tokens
     buckets = BucketPolicy.from_config(config, max_seq=max_seq,
-                                       max_batch=int(config.get("max_batch", 256)))
+                                       max_batch=int(config.get("max_batch", 256)),
+                                       default_example_scale=4 if packing else 1)
     runner = ModelRunner(
         model, config.get("model_config"),
         buckets=buckets,
@@ -119,6 +180,7 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         device=config.get("device"),
         serving_dtype=config.get("serving_dtype"),
         max_in_flight=int(config.get("max_in_flight", 2)),
+        packed=packing,
     )
     if "input_ids" not in runner.spec:
         raise not_ported(f"gpu_inference for the tensor inputs of model {model!r}")

@@ -33,11 +33,17 @@ class Engine:
             except (NotImplementedError, RuntimeError):  # non-main thread / platform
                 pass
 
-    async def run(self) -> None:
+    def build(self) -> list[Stream]:
+        """Build every stream of the config (``run`` does it when not done)."""
         ensure_plugins_loaded()
-        self._install_signal_handlers()
         self.streams = [build_stream(s, name=s.name or f"stream-{i}")
                         for i, s in enumerate(self.config.streams)]
+        return self.streams
+
+    async def run(self) -> None:
+        if not self.streams:
+            self.build()
+        self._install_signal_handlers()
 
         async def run_one(stream: Stream) -> None:
             try:

@@ -1,4 +1,4 @@
-"""Stream runtime: input -> N processor workers -> ordered output.
+"""Stream runtime: input -> [buffer] -> N processor workers -> ordered output.
 
 Counterpart of the core loop of ``arkflow_tpu/runtime/stream.py``:
 
@@ -9,10 +9,12 @@ Counterpart of the core loop of ``arkflow_tpu/runtime/stream.py``:
   in the reorder window.
 - Acks fire only after every produced batch was written (at-least-once).
   A chain that returns nothing acks at once.
+- With a buffer, the input writes into it and a buffer task moves its
+  emissions into the worker queue; an emission's ack covers its sources.
 - ``EndOfInput`` drains the stream and shuts it down.
 - A processing error is logged and the batch acked (there is no
   ``error_output`` in the port yet); a failed write is logged and nacked.
-- Ordered close: input -> pipeline -> output.
+- Ordered close: input -> buffer -> pipeline -> output.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from arkflow_tpu_torch.batch import MessageBatch
-from arkflow_tpu_torch.components.base import Ack, Input, Output, Resource
+from arkflow_tpu_torch.components.base import Ack, Buffer, Input, Output, Resource
 from arkflow_tpu_torch.components.registry import build_component
 from arkflow_tpu_torch.config import StreamConfig
 from arkflow_tpu_torch.errors import ArkError, EndOfInput
@@ -50,8 +52,10 @@ _DONE = _Done()
 
 class Stream:
     def __init__(self, input_: Input, pipeline: Pipeline, output: Output,
-                 thread_num: int = 1, name: str = "stream"):
+                 thread_num: int = 1, name: str = "stream",
+                 buffer: Optional[Buffer] = None):
         self.input = input_
+        self.buffer = buffer
         self.pipeline = pipeline
         self.output = output
         self.thread_num = max(1, thread_num)
@@ -77,6 +81,9 @@ class Stream:
             output_q: asyncio.Queue = asyncio.Queue(maxsize=self.queue_size)
             tasks = [asyncio.create_task(self._do_input(input_q, cancel),
                                          name=f"{self.name}-input")]
+            if self.buffer is not None:
+                tasks.append(asyncio.create_task(self._do_buffer(input_q),
+                                                 name=f"{self.name}-buffer"))
             tasks += [asyncio.create_task(self._do_processor(input_q, output_q),
                                           name=f"{self.name}-proc-{i}")
                       for i in range(self.thread_num)]
@@ -95,6 +102,7 @@ class Stream:
 
     async def _close_all(self) -> None:
         for stage, closer in (("input", self.input.close),
+                              *((("buffer", self.buffer.close),) if self.buffer else ()),
                               ("pipeline", self.pipeline.close),
                               ("output", self.output.close)):
             try:
@@ -124,11 +132,27 @@ class Stream:
                     logger.error("[%s] input read error: %s", self.name, e)
                     await asyncio.sleep(0.1)
                     continue
-                await input_q.put(_WorkItem(batch, ack))
+                if self.buffer is not None:
+                    await self.buffer.write(batch, ack)
+                else:
+                    await input_q.put(_WorkItem(batch, ack))
         finally:
             cancel_wait.cancel()
-            for _ in range(self.thread_num):
-                await input_q.put(_DONE)
+            if self.buffer is not None:
+                await self.buffer.close()  # the buffer drains, then its reader ends
+            else:
+                for _ in range(self.thread_num):
+                    await input_q.put(_DONE)
+
+    async def _do_buffer(self, input_q: asyncio.Queue) -> None:
+        """Move the buffer's emissions into the worker queue."""
+        while True:
+            item = await self.buffer.read()
+            if item is None:
+                for _ in range(self.thread_num):
+                    await input_q.put(_DONE)
+                return
+            await input_q.put(_WorkItem(*item))
 
     async def _do_processor(self, input_q: asyncio.Queue, output_q: asyncio.Queue) -> None:
         while True:
@@ -208,6 +232,7 @@ def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
     pipeline = Pipeline([build_component("processor", p, resource)
                          for p in cfg.pipeline.processors])
     output = build_component("output", cfg.output, resource)
+    buffer = build_component("buffer", cfg.buffer, resource) if cfg.buffer else None
     return Stream(input_, pipeline, output,
                   thread_num=cfg.pipeline.effective_threads(),
-                  name=name or cfg.name or "stream")
+                  name=name or cfg.name or "stream", buffer=buffer)

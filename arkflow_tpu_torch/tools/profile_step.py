@@ -1,6 +1,7 @@
 """Decompose the serving step of the slice on the card: where do the ms go?
 
     python -m arkflow_tpu_torch.tools.profile_step [--config FILE] [--trace DIR]
+    python -m arkflow_tpu_torch.tools.profile_step --packed [--stream] [--config FILE]
 
 Builds the runner of the config's ``gpu_inference`` processor (default
 ``arkflow_tpu_torch/examples/bert_stream.json``: BERT-base, bf16) on CUDA and
@@ -18,6 +19,25 @@ attention, it prints one JSON line each of:
 - ``matmul_ref_ms``: one bf16 matmul doing the forward's dense flops, the
   rate the dense layers could reach.
 
+``--packed`` decomposes the packed step instead (default config
+``arkflow_tpu_torch/examples/bert_packed_stream.json``), with the segment
+kernel and with the pair-mask attention. It takes one emission of the
+stream as the stream makes it (the generate batches through the
+token-budget coalescer) and prints:
+
+- ``host_ms``: per emission, the token estimates, tokenizing, packing and
+  carving into windows;
+- per window: ``step_ms`` (``infer_sync``), ``h2d_ms``, ``forward_ms`` and
+  ``d2h_ms``;
+- ``kernels``: a profiler window over one emission's forwards, with the
+  segment kernel's share of the device time.
+
+``--stream`` also runs the config's whole stream through ``Engine`` under
+the profiler and prints its traffic rows/s beside the device's busy share
+of the traffic window: a low share means the host sets the pace.
+``--stream-threads 1 2 4`` runs it once per worker count instead of the
+config's ``thread_num``, to show how the workers contend on the host.
+
 ``--trace DIR`` also writes the chrome traces there. Needs one CUDA card.
 """
 
@@ -34,12 +54,17 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
+from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.components import NoopAck
+from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, MicroBatchCoalescer
+from arkflow_tpu_torch.tpu.extract import payload_token_estimates
+from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
 from arkflow_tpu_torch.tpu.runner import ModelRunner
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
-DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                              "examples", "bert_stream.json")
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+DEFAULT_CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
+PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -78,6 +103,12 @@ def profile_forward(forward, steps: int, trace_path=None) -> dict:
             forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, wall_ms, steps, trace_path)
+
+
+def device_summary(prof, wall_ms: float, steps: int, trace_path=None) -> dict:
+    """Per-step device time by kernel name (top 12), the busy share of a
+    ``wall_ms`` window, and launches per step, from a profiler's events."""
     by_name: dict[str, float] = defaultdict(float)
     launches = 0
     for ev in prof.events():
@@ -94,25 +125,175 @@ def profile_forward(forward, steps: int, trace_path=None) -> dict:
             "top_ms_per_step": {name[:80]: ms / steps for name, ms in top}}
 
 
+def first_emission(stream: dict) -> list[bytes]:
+    """The texts of the stream's first emission, made as the stream makes
+    them: generate batches into the token-budget coalescer until it pops."""
+    inp, co = stream["input"], stream["buffer"]["coalesce"]
+    payloads = [str(p).encode() for p in inp["payloads"]]
+    coalescer = MicroBatchCoalescer(co["batch_buckets"], token_budget=co["token_budget"],
+                                    max_row_tokens=co.get("max_row_tokens"))
+    batch = MessageBatch.new_binary([payloads[i % len(payloads)]
+                                     for i in range(inp["batch_size"])])
+    while (emission := coalescer.pop_exact()) is None:
+        coalescer.add(batch, NoopAck())
+    return emission[0].to_binary()
+
+
+def profile_packed(cfg: dict, args) -> None:
+    stream = cfg["streams"][0]
+    proc = stream["pipeline"]["processors"][0]
+    texts = first_emission(stream)
+    buckets = BucketPolicy.from_config(proc, max_seq=proc["max_seq"], default_example_scale=4)
+    col = MessageBatch.new_binary(texts).column("__value__")
+    co = stream["buffer"]["coalesce"]
+    for packed_flash in (True, False):
+        runner = ModelRunner(proc["model"], {**proc.get("model_config", {}),
+                                             "packed_flash": packed_flash},
+                             buckets=buckets, seed=proc.get("seed", 0), device="cuda",
+                             serving_dtype=proc.get("serving_dtype"), packed=True)
+        tok = HashTokenizer(runner.cfg.vocab_size)
+        ids, mask = tok.encode_batch(texts, proc["max_seq"])
+        lengths = mask.sum(axis=1).astype(np.int64)
+        sb = buckets.seq_bucket(int(lengths.max()))
+        pk = pack_tokens(ids, lengths, sb)
+        windows = carve_row_windows(pk, buckets.max_batch(), buckets.max_examples(),
+                                    buckets.batch_buckets)
+        host = {
+            "estimate": host_ms(lambda: payload_token_estimates(
+                col, max_tokens=co.get("max_row_tokens"))),
+            "tokenize": host_ms(lambda: tok.encode_batch(texts, proc["max_seq"])),
+            "pack": host_ms(lambda: pack_tokens(ids, lengths, sb)),
+            "carve": host_ms(lambda: carve_row_windows(
+                pk, buckets.max_batch(), buckets.max_examples(), buckets.batch_buckets)),
+        }
+        per_window, forwards = [], []
+        for inputs, _ in windows:
+            padded, _ = runner._prep(inputs)
+            dev = {k: torch.from_numpy(v).cuda() for k, v in padded.items()}
+
+            def forward(dev=dev):
+                with torch.inference_mode():
+                    return runner._apply(runner.params, runner.cfg, **dev)
+
+            out = forward()
+            forwards.append(forward)
+            per_window.append({
+                "rows": int(inputs["input_ids"].shape[0]),
+                "examples": int(inputs["example_row"].shape[0]),
+                "shape": list(padded["input_ids"].shape),
+                "step_ms": cuda_ms(lambda inputs=inputs: runner.infer_sync(inputs)),
+                "prep_ms": host_ms(lambda inputs=inputs: runner._prep(inputs)),
+                "h2d_ms": cuda_ms(lambda padded=padded: [
+                    torch.from_numpy(v).cuda() for v in padded.values()]),
+                "forward_ms": cuda_ms(forward),
+                "d2h_ms": cuda_ms(lambda out=out: [v.cpu() for v in out.values()]),
+            })
+        trace = (os.path.join(args.trace, f"profile_packed_{'kernel' if packed_flash else 'pair'}"
+                              ".json") if args.trace else None)
+        if trace:
+            os.makedirs(args.trace, exist_ok=True)
+        kernels = profile_forward(lambda: [f() for f in forwards], args.steps, trace)
+        k2_ms = sum(ms for name, ms in kernels["top_ms_per_step"].items()
+                    if "segment_attention_kernel" in name)
+        report = {
+            "attention": "segment_kernel" if packed_flash else "pair_mask",
+            "emission_texts": len(texts), "true_tokens": int(lengths.sum()),
+            "packed_rows": pk.num_rows, "windows": len(windows),
+            "token_fill": float((pk.segment_ids > 0).sum()) / sum(
+                buckets.batch_bucket(w["rows"]) * sb for w in per_window),
+            "host_ms": host, "per_window": per_window,
+            "emission_step_ms": sum(w["step_ms"] for w in per_window),
+            "emission_forward_ms": sum(w["forward_ms"] for w in per_window),
+            "kernels": {**kernels, "segment_kernel_ms_per_emission": k2_ms},
+        }
+        print(json.dumps(report), flush=True)
+        del runner, forwards
+        torch.cuda.empty_cache()
+    profile_streams(cfg, args)
+
+
+def profile_streams(cfg: dict, args) -> None:
+    if not (args.stream or args.stream_threads):
+        return
+    for threads in args.stream_threads or [None]:
+        if threads is not None:
+            cfg["streams"][0]["pipeline"]["thread_num"] = threads
+        report = profile_stream(cfg, args.trace)
+        print(json.dumps({"thread_num": cfg["streams"][0]["pipeline"]["thread_num"],
+                          **report}), flush=True)
+
+
+def profile_stream(cfg: dict, trace_dir=None) -> dict:
+    """The config's stream through ``Engine`` under the profiler: traffic
+    rows/s and the device's busy share of the traffic window (warmup
+    excluded: the window opens at the stream's first read)."""
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from arkflow_tpu_torch.config import EngineConfig
+    from arkflow_tpu_torch.runtime.engine import Engine
+
+    engine = Engine(EngineConfig.from_mapping(cfg))
+    stream = engine.build()[0]
+    # device activity only: recording every host op would slow the host
+    # side this measures
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    started = {}
+    inner_connect = stream.output.connect
+
+    async def connect_then_profile():
+        # the output connects last, after the warmup: traffic starts here
+        await inner_connect()
+        torch.cuda.synchronize()
+        prof.start()
+        started["t"] = time.perf_counter()
+
+    stream.output.connect = connect_then_profile
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - started["t"]) * 1e3
+    prof.stop()
+    runner = stream.pipeline.processors[0].runner
+    trace = os.path.join(trace_dir, "profile_stream.json") if trace_dir else None
+    summary = device_summary(prof, wall_ms, 1, trace)
+    return {"stream": stream.name, "rows_out": stream.rows_out, "errors": stream.errors,
+            "traffic_seconds": stream.traffic_seconds,
+            "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+            "device_steps": runner.device_steps,
+            "window_ms": wall_ms, "device_busy_ms": summary["device_ms_per_step"],
+            "device_busy_share": summary["busy_share"],
+            "launches": summary["launches_per_step"],
+            "top_device_ms": summary["top_ms_per_step"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default=DEFAULT_CONFIG)
+    ap.add_argument("--config", default=None)
     ap.add_argument("--trace", default=None, help="directory for chrome traces")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--packed", action="store_true", help="decompose the packed step")
+    ap.add_argument("--stream", action="store_true",
+                    help="also run the config's stream under the profiler")
+    ap.add_argument("--stream-threads", type=int, nargs="*", default=None,
+                    help="run the stream once per worker count")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    with open(args.config) as f:
+    with open(args.config or (PACKED_CONFIG if args.packed else DEFAULT_CONFIG)) as f:
         cfg = json.load(f)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
+    if args.packed:
+        profile_packed(cfg, args)
+        return 0
     stream = cfg["streams"][0]
     proc = stream["pipeline"]["processors"][0]
     rows = stream["input"]["batch_size"]
     payloads = [str(p).encode() for p in stream["input"]["payloads"]]
     texts = [payloads[i % len(payloads)] for i in range(rows)]
     buckets = BucketPolicy.from_config(proc, max_seq=proc.get("max_seq", 128))
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
 
     for flash in (True, False):
         runner = ModelRunner(proc["model"], {**proc.get("model_config", {}),
@@ -155,6 +336,7 @@ def main(argv=None) -> int:
         print(json.dumps(report), flush=True)
         del runner, dev
         torch.cuda.empty_cache()
+    profile_streams(cfg, args)
     return 0
 
 

@@ -1,20 +1,26 @@
-"""Shape bucketing: pad ragged batches onto a small grid of (batch, seq) shapes.
+"""Shape bucketing: pad ragged batches onto a small grid of (batch, seq) shapes,
+and coalesce stream batches into emissions that fill that grid.
 
-Counterpart of the right-padded part of ``arkflow_tpu/tpu/bucketing.py``.
-The port runs eagerly and compiles nothing per shape, but the grid still
-bounds padding waste (each dimension at most doubles), keeps the device's
-working set at a few known shapes, and keeps batches and outputs identical
-to the JAX package's for the same input.
+Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without the OOM cap bus,
+shape retargeting and suspect-solo isolation. The port runs eagerly and
+compiles nothing per shape, but the grid still bounds padding waste (each
+dimension at most doubles), keeps the device's working set at a few known
+shapes, and keeps batches and outputs identical to the JAX package's for
+the same input.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 
+from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
+from arkflow_tpu_torch.components.base import Ack, VecAck, split_ack
 from arkflow_tpu_torch.errors import ConfigError
+from arkflow_tpu_torch.tpu.extract import payload_token_estimates
 
 
 def pow2_buckets(lo: int, hi: int) -> list[int]:
@@ -31,10 +37,16 @@ def pow2_buckets(lo: int, hi: int) -> list[int]:
 class BucketPolicy:
     batch_buckets: tuple[int, ...] = tuple(pow2_buckets(8, 256))
     seq_buckets: tuple[int, ...] = tuple(pow2_buckets(32, 512))
+    #: packed serving only: how far past the row grid the EXAMPLE-dim grid
+    #: extends (a packed row holds several examples, so a full row bucket of
+    #: short texts carries more examples than rows). 1 keeps the example
+    #: grid identical to the row grid.
+    example_scale: int = 1
 
     @classmethod
     def from_config(cls, config: dict, *, max_batch: Optional[int] = None,
-                    max_seq: Optional[int] = None) -> "BucketPolicy":
+                    max_seq: Optional[int] = None,
+                    default_example_scale: int = 1) -> "BucketPolicy":
         bb = config.get("batch_buckets")
         sb = config.get("seq_buckets")
         if bb is None:
@@ -45,7 +57,10 @@ class BucketPolicy:
         sb = tuple(sorted(int(x) for x in sb))
         if not bb or not sb or bb[0] <= 0 or sb[0] <= 0:
             raise ConfigError("bucket lists must be non-empty positive ints")
-        return cls(bb, sb)
+        es = config.get("example_scale", default_example_scale)
+        if not isinstance(es, int) or isinstance(es, bool) or es < 1:
+            raise ConfigError(f"example_scale must be an int >= 1, got {es!r}")
+        return cls(bb, sb, es)
 
     @staticmethod
     def _pick(n: int, buckets: Sequence[int]) -> int:
@@ -62,6 +77,222 @@ class BucketPolicy:
 
     def max_batch(self) -> int:
         return self.batch_buckets[-1]
+
+    # -- packed serving: example-dim grid + token-budget grid ---------------
+
+    def example_buckets(self) -> tuple[int, ...]:
+        """The packed path's EXAMPLE-dim grid: the row grid, pow2-extended up
+        to ``max_batch * example_scale`` (and at least the top seq bucket, so
+        one row of minimum-length examples always has an example bucket)."""
+        out = list(self.batch_buckets)
+        top = self.batch_buckets[-1]
+        want = (max(top * self.example_scale, self.seq_buckets[-1])
+                if self.example_scale > 1 else top)
+        while top < want:
+            top *= 2
+            out.append(top)
+        return tuple(out)
+
+    def example_bucket(self, n: int) -> int:
+        return self._pick(n, self.example_buckets())
+
+    def max_examples(self) -> int:
+        return self.example_buckets()[-1]
+
+    def token_buckets(self, seq: int) -> tuple[int, ...]:
+        """Each batch bucket's row capacity in tokens at row width ``seq``."""
+        if seq < 1:
+            raise ConfigError(f"token_buckets seq must be >= 1, got {seq}")
+        return tuple(b * seq for b in self.batch_buckets)
+
+    def token_budget(self, seq: int) -> int:
+        """Tokens that fill the largest (rows, seq) shape: the natural
+        emission target of a token-budget coalescer feeding ``pack_tokens``."""
+        return self.token_buckets(seq)[-1]
+
+
+class MicroBatchCoalescer:
+    """Merges stream batches into emissions that fill the bucket grid.
+
+    Row mode: held ``(batch, ack)`` pairs are carved into emissions of
+    EXACTLY the largest batch bucket, splitting the batch that straddles the
+    boundary and sharing its ack across both emissions (``split_ack``).
+    Token-budget mode (``token_budget``): emissions carve the held row
+    prefix whose estimated token sum fills the budget
+    (``extract.payload_token_estimates``), still on ROW boundaries, so the
+    packed row count lands on the grid after ``pack_tokens``. The caller
+    (the memory buffer) owns the deadline; ``pop_flush`` carves the
+    remainder on deadline or close.
+
+    Every emission carries a ``VecAck`` over its source acks (or their split
+    shares): an acked emission acks exactly the sources whose rows it held,
+    a nacked one nacks them.
+    """
+
+    def __init__(self, batch_buckets: Sequence[int], *,
+                 token_budget: Optional[int] = None,
+                 token_field: Optional[str] = None,
+                 token_bytes: Optional[float] = None,
+                 max_row_tokens: Optional[int] = None):
+        buckets = tuple(sorted(int(b) for b in batch_buckets))
+        if not buckets or buckets[0] <= 0:
+            raise ConfigError("coalesce batch_buckets must be non-empty positive ints")
+        if token_budget is not None and token_budget < 1:
+            raise ConfigError(
+                f"coalesce token_budget must be a positive int, got {token_budget}")
+        if token_bytes is not None and token_bytes <= 0:
+            raise ConfigError(f"coalesce token_bytes must be positive, got {token_bytes}")
+        if max_row_tokens is not None and max_row_tokens < 1:
+            raise ConfigError(f"coalesce max_row_tokens must be >= 1, got {max_row_tokens}")
+        self.buckets = buckets
+        self.target = buckets[-1]
+        #: token-budget mode: emissions carve this many estimated tokens
+        #: instead of ``target`` rows (None = row mode)
+        self.token_budget = int(token_budget) if token_budget is not None else None
+        self._token_field = token_field or DEFAULT_BINARY_VALUE_FIELD
+        self._token_bytes = token_bytes
+        self._max_row_tokens = max_row_tokens
+        #: held entries: (batch, ack, per-row token estimates or None)
+        self._held: deque[tuple[MessageBatch, Ack, Optional[np.ndarray]]] = deque()
+        self._rows = 0
+        self._tokens = 0
+
+    @property
+    def rows(self) -> int:
+        return self._rows
+
+    @property
+    def tokens(self) -> int:
+        """Estimated tokens held (token-budget mode; 0 in row mode)."""
+        return self._tokens
+
+    @property
+    def pending(self) -> int:
+        """Held entries, zero-row batches whose acks still wait included."""
+        return len(self._held)
+
+    def _row_tokens(self, batch: MessageBatch) -> np.ndarray:
+        """Per-row estimates off the payload column. A batch without a usable
+        payload column counts each row as ``max_row_tokens`` (or 1), so
+        malformed traffic still flows instead of wedging the budget."""
+        col = batch.column(self._token_field) if batch.has_column(self._token_field) else None
+        if isinstance(col, BinaryColumn):
+            return payload_token_estimates(col, token_bytes=self._token_bytes,
+                                           max_tokens=self._max_row_tokens)
+        return np.full(batch.num_rows, self._max_row_tokens or 1, dtype=np.int64)
+
+    def add(self, batch: MessageBatch, ack: Ack) -> None:
+        lens = self._row_tokens(batch) if self.token_budget is not None else None
+        self._held.append((batch, ack, lens))
+        self._rows += batch.num_rows
+        if lens is not None:
+            self._tokens += int(lens.sum())
+
+    def _carve(self, rows: int) -> tuple[MessageBatch, Ack]:
+        """Take exactly ``rows`` held rows as one emission, splitting the
+        boundary batch (its source ack is shared across both emissions)."""
+        parts: list[MessageBatch] = []
+        acks: list[Ack] = []
+        need = rows
+        while need > 0:
+            batch, ack, _ = self._held.popleft()
+            if batch.num_rows <= need:
+                parts.append(batch)
+                acks.append(ack)
+                need -= batch.num_rows
+            else:
+                head_ack, tail_ack = split_ack(ack, 2)
+                parts.append(batch.slice(0, need))
+                acks.append(head_ack)
+                self._held.appendleft((batch.slice(need), tail_ack, None))
+                need = 0
+        self._rows -= rows
+        return MessageBatch.concat(parts), VecAck(acks)
+
+    def _carve_tokens(self, budget: int) -> tuple[MessageBatch, Ack]:
+        """Take the longest held row prefix whose estimated token sum fits
+        ``budget``, splitting the boundary batch at a row edge. A single row
+        whose estimate alone exceeds the budget emits solo: downstream
+        packing and truncation own over-long rows."""
+        parts: list[MessageBatch] = []
+        acks: list[Ack] = []
+        took_rows = 0
+        took_tokens = 0
+        need = budget
+        while need > 0 and self._held:
+            batch, ack, lens = self._held[0]
+            total = int(lens.sum())
+            if total <= need:
+                self._held.popleft()
+                parts.append(batch)
+                acks.append(ack)
+                took_rows += batch.num_rows
+                took_tokens += total
+                need -= total
+                continue
+            # boundary batch: rows [0, k) fit the remaining budget
+            cs = np.cumsum(lens)
+            k = int(np.searchsorted(cs, need, side="right"))
+            if k == 0:
+                if parts:
+                    break  # the next row alone would overflow: emit under budget
+                k = 1  # a single over-budget row still has to flow
+            self._held.popleft()
+            if k >= batch.num_rows:
+                # the whole batch fits after all (one over-budget row): take
+                # it intact rather than strand an empty tail and its share
+                parts.append(batch)
+                acks.append(ack)
+                took_rows += batch.num_rows
+                took_tokens += total
+                break
+            head_ack, tail_ack = split_ack(ack, 2)
+            parts.append(batch.slice(0, k))
+            acks.append(head_ack)
+            self._held.appendleft((batch.slice(k), tail_ack, lens[k:]))
+            took_rows += k
+            took_tokens += int(cs[k - 1])
+            break
+        self._rows -= took_rows
+        self._tokens -= took_tokens
+        return MessageBatch.concat(parts), VecAck(acks)
+
+    def pop_exact(self) -> Optional[tuple[MessageBatch, Ack]]:
+        """Next full emission: exactly ``target`` rows (row mode) or a
+        ``token_budget``-filling row prefix (token mode); None until held
+        rows reach it."""
+        if self.token_budget is not None:
+            if self._tokens < self.token_budget:
+                return None
+            return self._carve_tokens(self.token_budget)
+        if self._rows < self.target:
+            return None
+        return self._carve(self.target)
+
+    def _take_all(self) -> tuple[MessageBatch, Ack]:
+        parts = [b for b, _, _ in self._held]
+        acks = VecAck([a for _, a, _ in self._held])
+        self._held.clear()
+        self._rows = 0
+        self._tokens = 0
+        return MessageBatch.concat(parts), acks
+
+    def pop_flush(self) -> Optional[tuple[MessageBatch, Ack]]:
+        """Deadline/close flush, one emission per call. Row mode: carve the
+        LARGEST bucket the held rows fill exactly (40 rows against [8, 16,
+        32] emit 32, then 8), and the sub-minimum remainder as one batch.
+        Token mode: full-budget emissions first, then the whole remainder as
+        one batch (the packer right-sizes its row count to a smaller bucket)."""
+        emission = self.pop_exact()
+        if emission is not None:
+            return emission
+        if not self._held:
+            return None
+        if self.token_budget is None:
+            fitting = [b for b in self.buckets if b <= self._rows]
+            if fitting:
+                return self._carve(fitting[-1])
+        return self._take_all()
 
 
 def pad_batch_dim(arr: np.ndarray, target: int) -> np.ndarray:

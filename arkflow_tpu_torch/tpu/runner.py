@@ -15,6 +15,10 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   contiguous prefix of ones raises when flash was forced in config, and
   otherwise switches the runner to the plain attention for good, counted in
   ``flash_fallbacks``.
+- ``packed=True`` serves token-packed layouts (``tpu/packing.py``) through
+  the family's ``apply_packed``: the row dim pads to a batch bucket, the
+  example dim to an example bucket, and a layout over the grid raises
+  (callers carve it first with ``carve_row_windows``).
 """
 
 from __future__ import annotations
@@ -97,18 +101,29 @@ class ModelRunner:
         serving_dtype: Optional[str] = None,
         max_in_flight: int = 2,
         host_params: Optional[dict] = None,
+        packed: bool = False,
     ):
         self.device = resolve_device(device)
         self.family = get_model(model)
         self.cfg = self.family.make_config(**(model_config or {}))
         raw_flash = getattr(self.cfg, "use_flash_attention", False)
-        self.cfg = self._resolve_auto_flags(self.cfg, self.device)
+        self.cfg = self._resolve_auto_flags(self.cfg, self.device, packed)
         #: flash explicitly requested in config (never mutated): only then
         #: does an unservable mask raise; auto-chosen flash falls back
         self._flash_user_forced = raw_flash is True
         self._lock = threading.Lock()
         self.buckets = buckets or BucketPolicy()
-        self.spec = self.family.input_spec(self.cfg)
+        self.packed = packed
+        if packed:
+            if "apply_packed" not in self.family.extras:
+                raise ConfigError(
+                    f"model {model!r} has no packed execution (its family "
+                    "publishes no apply_packed/packed_input_spec)")
+            self._apply = self.family.extras["apply_packed"]
+            self.spec = self.family.extras["packed_input_spec"](self.cfg)
+        else:
+            self._apply = self.family.apply
+            self.spec = self.family.input_spec(self.cfg)
         if host_params is None:
             # init on the CPU from an explicit generator, then one transfer
             host_params = self.family.init(torch.Generator().manual_seed(seed), self.cfg)
@@ -123,6 +138,12 @@ class ModelRunner:
         self._in_warmup = False
         #: model steps run on the device (warmup included)
         self.device_steps = 0
+        #: of those, steps on packed layouts
+        self.packed_steps = 0
+        #: packed traffic steps (warmup excluded): true tokens, and the
+        #: token slots (bucket rows x seq) they were padded to
+        self.packed_tokens = 0
+        self.packed_slots = 0
         #: true rows inferred (warmup excluded)
         self.rows = 0
         #: times the runner switched from the kernel to the plain attention
@@ -130,15 +151,31 @@ class ModelRunner:
         self.flash_fallbacks = 0
 
     @staticmethod
-    def _resolve_auto_flags(cfg, device: torch.device):
+    def _resolve_auto_flags(cfg, device: torch.device, packed: bool = False):
         """``use_flash_attention=None`` means auto: the ragged kernel on CUDA,
         the plain attention on the CPU. ``ARKFLOW_FLASH=0`` forces the plain
-        attention even over an explicit ``use_flash_attention: true``. An
-        unset ``flash_min_seq`` takes ``ARKFLOW_FLASH_MIN_SEQ`` (default 0)."""
+        attention even over an explicit ``use_flash_attention: true`` (and
+        ``packed_flash: true``). An unset ``flash_min_seq`` takes
+        ``ARKFLOW_FLASH_MIN_SEQ`` (default 0).
+
+        Packed runners resolve ``packed_flash=None`` the same way: the
+        segment kernel on CUDA (one device here), the pair-mask attention on
+        the CPU, where an explicit ``packed_flash: true`` takes the kernel's
+        plain version through its wrapper. The JAX package leaves its
+        segment kernel off by default only because it had no A/B run on a
+        TPU (``arkflow_tpu/ops/segment_attention.py``); ``chip_smoke.py``
+        runs that A/B on the H100 (kernel against the pair mask and the
+        unpacked ragged path, same texts), so on CUDA the kernel is the
+        default."""
         if not hasattr(cfg, "use_flash_attention"):
             return cfg
+        if packed and getattr(cfg, "packed_flash", False) is None:
+            on = device.type == "cuda" and os.environ.get("ARKFLOW_FLASH", "1") != "0"
+            cfg = dataclasses.replace(cfg, packed_flash=on)
         if os.environ.get("ARKFLOW_FLASH", "1") == "0":
-            return dataclasses.replace(cfg, use_flash_attention=False)
+            return dataclasses.replace(cfg, use_flash_attention=False,
+                                       **({"packed_flash": False}
+                                          if hasattr(cfg, "packed_flash") else {}))
         if cfg.use_flash_attention is not None:
             if (cfg.use_flash_attention and cfg.flash_min_seq is None
                     and os.environ.get("ARKFLOW_FLASH_MIN_SEQ")):
@@ -161,9 +198,46 @@ class ModelRunner:
 
     # -- shape plumbing ----------------------------------------------------
 
+    def _pad_inputs_packed(self, inputs: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], int]:
+        """Pad a packed layout: the [P, S] row arrays pad P to a batch bucket
+        (dead rows: segment 0), the [E] example arrays pad E to an example
+        bucket (they point at row 0, position 0 and are sliced off by the
+        true count). Returns (padded, E)."""
+        p = inputs["input_ids"].shape[0]
+        e = inputs["example_row"].shape[0]
+        mb = self.buckets.max_batch()
+        me = self.buckets.max_examples()
+        if p > mb or e > me:
+            raise ConfigError(
+                f"packed batch ({p} rows / {e} examples) exceeds the grid (max {mb} "
+                f"rows / {me} examples); carve row windows that fit before "
+                "dispatch (tpu/packing.py carve_row_windows)")
+        pb = self.buckets.batch_bucket(p)
+        eb = self.buckets.example_bucket(e)
+        out = {}
+        for name, (dtype, trailing) in self.spec.items():
+            arr = inputs.get(name)
+            if arr is None:
+                raise ConfigError(f"model {self.family.name!r} missing input {name!r}")
+            arr = np.asarray(arr, dtype=dtype)
+            if "seq" in trailing:
+                arr = pad_seq_dim(arr, self.buckets.seq_bucket(arr.shape[1]), axis=1)
+                arr = pad_batch_dim(arr, pb)
+            else:
+                arr = pad_batch_dim(arr, eb)
+            out[name] = arr
+        if not self._in_warmup:
+            true_tokens = int(np.count_nonzero(np.asarray(inputs["segment_ids"]) > 0))
+            with self._lock:
+                self.packed_tokens += true_tokens
+                self.packed_slots += out["input_ids"].size
+        return out, e
+
     def _pad_inputs(self, inputs: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], int]:
         """Pad every input to its bucket; returns (padded, true_batch). Rows
         longer than the top seq bucket are truncated to it."""
+        if self.packed:
+            return self._pad_inputs_packed(inputs)
         n = next(iter(inputs.values())).shape[0]
         bb = self.buckets.batch_bucket(n)
         out = {}
@@ -207,10 +281,11 @@ class ModelRunner:
         Runs on an executor thread (or the caller's, for ``infer_sync``)."""
         with torch.inference_mode():
             inputs = {k: torch.from_numpy(v).to(self.device) for k, v in padded.items()}
-            out = self.family.apply(self.params, self.cfg, **inputs)
+            out = self._apply(self.params, self.cfg, **inputs)
             host = {k: v.cpu().numpy() for k, v in out.items()}
         with self._lock:
             self.device_steps += 1
+            self.packed_steps += int(self.packed)
         return host
 
     def _finish(self, out: dict[str, np.ndarray], n: int) -> dict[str, np.ndarray]:
@@ -221,10 +296,11 @@ class ModelRunner:
 
     def infer_sync(self, inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """Blocking inference: pad -> device -> unpad. Batches larger than the
-        biggest bucket are chunked and the outputs re-concatenated."""
+        biggest bucket are chunked and the outputs re-concatenated (packed
+        layouts are never chunked: their row and example dims differ)."""
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
-        if n_total > mb:
+        if n_total > mb and not self.packed:
             chunks = [self.infer_sync({k: v[i: i + mb] for k, v in inputs.items()})
                       for i in range(0, n_total, mb)]
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
@@ -246,7 +322,7 @@ class ModelRunner:
         loop = asyncio.get_running_loop()
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
-        if n_total > mb:
+        if n_total > mb and not self.packed:
             chunks = await asyncio.gather(*[
                 self.infer({k: v[i: i + mb] for k, v in inputs.items()})
                 for i in range(0, n_total, mb)])
@@ -259,18 +335,26 @@ class ModelRunner:
     def warmup(self) -> int:
         """One step per (batch, seq) bucket, so first-use costs (library
         loads, kernel builds, allocator growth) land before traffic does.
-        Returns the number of steps."""
+        Packed runners step every (row bucket, example bucket) pair with the
+        row bucket at most the example bucket (a packed row holds at least
+        one example). Returns the number of steps."""
         count = 0
         has_seq = any("seq" in t for _, t in self.spec.values())
         seqs = list(self.buckets.seq_buckets) if has_seq else [None]
+        if self.packed:
+            pairs = [(pb, eb) for eb in self.buckets.example_buckets()
+                     for pb in self.buckets.batch_buckets if pb <= eb]
+        else:
+            pairs = [(bb, bb) for bb in self.buckets.batch_buckets]
         self._in_warmup = True
         try:
-            for bb in self.buckets.batch_buckets:
+            for pb, eb in pairs:
                 for sl in seqs:
                     fake = {}
                     for name, (dtype, trailing) in self.spec.items():
+                        lead = eb if self.packed and "seq" not in trailing else pb
                         dims = tuple(sl if d == "seq" else d for d in trailing)
-                        fake[name] = np.zeros((bb, *dims), dtype=dtype)
+                        fake[name] = np.zeros((lead, *dims), dtype=dtype)
                     self.infer_sync(fake)
                     count += 1
         finally:

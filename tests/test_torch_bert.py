@@ -99,7 +99,8 @@ def test_port_init_has_the_jax_layout():
 def test_make_config_rejects_unported_and_unknown_fields():
     fam = get_model("bert_classifier")
     with pytest.raises(ConfigError, match="not yet ported"):
-        fam.make_config(packed_flash=True)
+        fam.make_config(flash_interpret=True)
+    assert fam.make_config(packed_flash=True).packed_flash is True
     with pytest.raises(ConfigError, match="unknown"):
         fam.make_config(hiden=32)
     with pytest.raises(ConfigError, match="softmax_dtype"):

@@ -1,6 +1,7 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``arkflow_tpu``, and no module on the slice's
-path needs pyarrow, yaml or aiohttp at import time."""
+neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
+paths (the padded and the packed stream) needs pyarrow, yaml or aiohttp at
+import time."""
 
 import ast
 import os
@@ -58,6 +59,19 @@ cfg = StreamConfig.from_mapping({
 stream = build_stream(cfg)
 asyncio.run(stream.run(asyncio.Event()))
 assert stream.output.dropped_rows == 10 and stream.errors == 0, stream.errors
+packed = build_stream(StreamConfig.from_mapping({
+    "input": {"type": "generate", "payloads": ["a b c", "d e f g h i j k"],
+              "batch_size": 4, "count": 10},
+    "buffer": {"type": "memory", "capacity": 4, "timeout": "5ms",
+               "coalesce": {"batch_buckets": [4], "deadline": "20ms", "token_budget": 32}},
+    "pipeline": {"thread_num": 2, "processors": [{
+        "type": "gpu_inference", "model": "bert_classifier", "model_config": tiny,
+        "max_seq": 16, "batch_buckets": [2, 4], "seq_buckets": [16], "packing": True,
+        "device": "cpu"}]},
+    "output": {"type": "drop"}}))
+asyncio.run(packed.run(asyncio.Event()))
+assert packed.output.dropped_rows == 10 and packed.errors == 0, packed.errors
+assert packed.pipeline.processors[0].runner.packed_steps > 0
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

@@ -152,3 +152,92 @@ def test_serving_dtype_and_warmup():
     assert runner.device_steps == len(BATCH) * len(SEQ) and runner.rows == 0
     with pytest.raises(ConfigError, match="not yet ported"):
         ModelRunner("bert_classifier", TINY_BERT, device="cpu", serving_dtype="int8")
+
+
+def _packed_layout(seed: int, n: int, smax: int, seq: int):
+    from arkflow_tpu_torch.tpu.packing import pack_tokens
+
+    rng = np.random.RandomState(seed)
+    lengths = np.where(rng.rand(n) < 0.8, rng.randint(2, 7, n),
+                       rng.randint(smax // 2, smax + 1, n)).astype(np.int64)
+    ids = np.zeros((n, smax), np.int32)
+    for i, length in enumerate(lengths):
+        ids[i, :length] = rng.randint(4, TINY_BERT["vocab_size"], length)
+    mask = (np.arange(smax)[None, :] < lengths[:, None]).astype(np.int32)
+    pk = pack_tokens(ids, lengths, seq)
+    packed = {k: getattr(pk, k) for k in
+              ("input_ids", "segment_ids", "position_ids", "example_row", "example_pos")}
+    return {"input_ids": ids, "attention_mask": mask}, packed
+
+
+@pytest.mark.parametrize("packed_flash", [False, True])
+def test_packed_runner_matches_padded_and_jax_runners(packed_flash):
+    """The packed runner's per-example outputs equal the padded runner's on
+    the same texts, and the JAX packed runner's on the same layout; rows
+    pad to a row bucket and examples to an example bucket."""
+    host = _host_params(2)
+    padded_in, packed_in = _packed_layout(6, 24, 24, 32)
+    buckets = BucketPolicy(BATCH, SEQ, example_scale=4)
+    packed = ModelRunner("bert_classifier", {**TINY_BERT, "packed_flash": packed_flash},
+                         buckets=buckets, device="cpu", host_params=params_from_jax(host),
+                         packed=True)
+    assert packed.cfg.packed_flash is packed_flash
+    got = packed.infer_sync(packed_in)
+    assert got["label"].shape == (24,) and packed.packed_steps == packed.device_steps == 1
+    assert packed.rows == 24
+    rows = packed_in["input_ids"].shape[0]
+    assert packed.packed_tokens == int((packed_in["segment_ids"] > 0).sum())
+    assert packed.packed_slots == packed.buckets.batch_bucket(rows) * 32
+    want = _port_runner(False, host).infer_sync(padded_in)
+    jax_packed = JaxModelRunner(
+        "bert_classifier", {**TINY_BERT, "packed_flash": packed_flash,
+                            "flash_interpret": packed_flash, "flash_min_seq": 1},
+        buckets=JaxBucketPolicy(BATCH, SEQ, example_scale=4), host_params=host,
+        packed=True).infer_sync(packed_in)
+    for ref in (want, jax_packed):
+        np.testing.assert_allclose(got["logits"], ref["logits"], atol=LOGIT_ATOL, rtol=0)
+        top2 = np.sort(ref["logits"], axis=1)
+        tie_free = (top2[:, -1] - top2[:, -2]) > TIE_MARGIN
+        np.testing.assert_array_equal(got["label"][tie_free], ref["label"][tie_free])
+
+
+def test_packed_grid_raises_rather_than_chunks():
+    runner = ModelRunner("bert_classifier", TINY_BERT, buckets=BucketPolicy(BATCH, SEQ),
+                         device="cpu", packed=True)
+    _, packed_in = _packed_layout(7, 80, 32, 32)
+    assert packed_in["input_ids"].shape[0] > BATCH[-1]
+    with pytest.raises(ConfigError, match="carve"):
+        runner.infer_sync(packed_in)
+    too_many = {k: v[:2] if v.ndim == 2 else np.zeros(BATCH[-1] + 1, np.int32)
+                for k, v in packed_in.items()}
+    with pytest.raises(ConfigError, match="exceeds the grid"):
+        runner.infer_sync(too_many)
+    assert runner.device_steps == 0
+
+
+def test_packed_warmup_steps_every_row_and_example_bucket_pair():
+    runner = ModelRunner("bert_classifier", TINY_BERT,
+                         buckets=BucketPolicy(BATCH, SEQ, example_scale=4), device="cpu",
+                         packed=True)
+    ebs = runner.buckets.example_buckets()
+    assert ebs == (4, 8, 16, 32)
+    pairs = sum(1 for eb in ebs for pb in BATCH if pb <= eb)
+    assert runner.warmup() == pairs * len(SEQ)
+    assert runner.packed_steps == pairs * len(SEQ) and runner.rows == 0
+    assert runner.packed_tokens == runner.packed_slots == 0  # warmup is not traffic
+
+
+def test_packed_flash_follows_the_device_and_kill_switch(monkeypatch):
+    from arkflow_tpu_torch.models import get_model
+
+    fam = get_model("bert_classifier")
+    resolve = ModelRunner._resolve_auto_flags
+    unset = fam.make_config(**TINY_BERT)
+    assert resolve(unset, torch.device("cuda"), True).packed_flash is True
+    assert resolve(unset, torch.device("cpu"), True).packed_flash is False
+    assert resolve(unset, torch.device("cuda")).packed_flash is None  # unpacked: untouched
+    forced = fam.make_config(**TINY_BERT, packed_flash=True)
+    assert resolve(forced, torch.device("cpu"), True).packed_flash is True
+    monkeypatch.setenv("ARKFLOW_FLASH", "0")
+    assert resolve(forced, torch.device("cuda"), True).packed_flash is False
+    assert resolve(unset, torch.device("cuda"), True).packed_flash is False

@@ -164,15 +164,17 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("where,patch", [
-    ("stream", {"buffer": {"type": "memory"}}),
+    ("stream", {"temporary": [{"name": "t", "type": "memory"}]}),
     ("stream", {"error_output": {"type": "drop"}}),
     ("pipeline", {"ingest_shards": 2}),
-    ("processor", {"packing": True}),
+    ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"tokenizer": "bert-base-uncased"}),
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"serving_dtype": "int8"}),
     ("input", {"codec": "json"}),
     ("engine", {"health_check": {"enabled": True}}),
+    ("stream", {"buffer": {"type": "memory", "capacity": 8,
+                           "coalesce": {"batch_buckets": [8], "deadline": "5ms", "dp": 2}}}),
 ])
 def test_unported_keys_raise(tmp_path, where, patch):
     stream = _stream(count=4)
@@ -187,3 +189,85 @@ def test_unported_keys_raise(tmp_path, where, patch):
             raise ConfigError("; ".join(problems))
         build_stream(parsed.streams[0])
     assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
+
+
+PACKED_TEXTS = [b"ok", b"sensor reading looks fine", b"pressure spike on line four, check valve",
+                b" ".join(b"token%d" % i for i in range(40)), b"", b"a b c d e f g h i j k l",
+                b"x, y; z!"]
+
+
+def _packed_stream(kind: str, count: int = 61) -> dict:
+    proc = {"type": kind, "model": "bert_classifier", "model_config": TINY_BERT,
+            "max_seq": 32, "batch_buckets": [2, 4, 8], "seq_buckets": [16, 32],
+            "packing": True, "outputs": ["label", "score", "logits"]}
+    if kind == "gpu_inference":
+        proc["device"] = "cpu"
+    return {"name": "packed",
+            "input": {"type": "generate", "payloads": [t.decode() for t in PACKED_TEXTS],
+                      "batch_size": 9, "count": count},
+            "buffer": {"type": "memory", "capacity": 8, "timeout": "5ms",
+                       "coalesce": {"batch_buckets": [8], "deadline": "50ms",
+                                    "token_budget": 8 * 32 - 2 * 32, "max_row_tokens": 32}},
+            "pipeline": {"thread_num": 2, "processors": [proc]},
+            "output": {"type": "drop"}}
+
+
+def test_packed_stream_matches_the_jax_packed_stream():
+    """generate -> memory buffer (token budget) -> gpu_inference(packing) on
+    the CPU against the JAX engine's tpu_inference packed stream on the same
+    texts and weights: same rows in the same order, equal tie-free labels,
+    logits within the bf16 floor."""
+    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(_packed_stream("tpu_inference")))
+    jax_sink = jax_stream.output = JaxCollectOutput()
+    asyncio.run(jax_stream.run(asyncio.Event()))
+    host = jax.device_get(jax_stream.pipeline.processors[0].runner.host_params)
+
+    stream = build_stream(StreamConfig.from_mapping(_packed_stream("gpu_inference")))
+    proc = stream.pipeline.processors[0]
+    proc.runner = ModelRunner("bert_classifier", TINY_BERT, buckets=proc.runner.buckets,
+                              device="cpu", host_params=params_from_jax(host), packed=True)
+    sink = stream.output = Collect()
+    asyncio.run(stream.run(asyncio.Event()))
+
+    got_rows = [p for b in sink.batches for p in b.to_binary()]
+    assert got_rows == [p for b in jax_sink.batches for p in b.to_binary()]
+    assert got_rows == [PACKED_TEXTS[i % 7] for n in (9,) * 6 + (7,) for i in range(n)]
+    want_logits = np.concatenate([
+        np.asarray(b.column("logits").flatten()).reshape(-1, 2) for b in jax_sink.batches])
+    want_labels = np.concatenate([np.asarray(b.column("label")) for b in jax_sink.batches])
+    got_logits = np.concatenate([b.column("logits") for b in sink.batches])
+    got_labels = np.concatenate([b.column("label") for b in sink.batches])
+    np.testing.assert_allclose(got_logits, want_logits, atol=LOGIT_ATOL, rtol=0)
+    top2 = np.sort(want_logits, axis=1)
+    tie_free = (top2[:, -1] - top2[:, -2]) > TIE_MARGIN
+    assert tie_free.sum() >= 30
+    np.testing.assert_array_equal(got_labels[tie_free], want_labels[tie_free])
+    assert stream.errors == 0 and proc.runner.packed_steps > 0
+    assert proc.runner.packed_steps == proc.runner.device_steps
+
+
+def test_packed_stream_delivers_every_row_in_order_and_acks_after_write():
+    """Ragged source batches split across token-budget emissions: every row
+    arrives once and in order, and a source acks only after all its rows
+    were written (its split shares all acked)."""
+    stream = build_stream(StreamConfig.from_mapping(_packed_stream("gpu_inference")))
+    sizes = [5, 8, 1, 8, 3, 7, 8, 2, 11]
+    sink = stream.output = Collect()
+    inp = stream.input = NumberedInput(sizes)
+    written_at_ack = []
+
+    class Recorder(list):
+        def append(self, n):  # called by NumberedInput's ack with the batch size
+            written_at_ack.append(sum(b.num_rows for b in sink.batches))
+            super().append(n)
+
+    inp.acks = Recorder()
+    asyncio.run(stream.run(asyncio.Event()))
+    rows = [p for b in sink.batches for p in b.to_binary()]
+    assert [int(r.split()[1]) for r in rows] == list(range(sum(sizes)))
+    assert sorted(inp.acks) == sorted(sizes)
+    ends = np.cumsum(sizes)
+    # acks fire in source order here (one buffer lane, ordered output)
+    assert all(w >= e for w, e in zip(written_at_ack, ends))
+    assert stream.rows_out == sum(sizes) and stream.errors == 0
+    assert stream.pipeline.processors[0].runner.packed_steps > 0
