@@ -3,8 +3,8 @@
 Counterpart of ``arkflow_tpu/models/common.py``. Params stay nested dicts of
 tensors in the JAX tree's layout (dense ``w`` stored ``[in, out]``). The
 casts sit where the JAX code puts them, so both packages round at the same
-places: matmuls and their bias adds in bfloat16, layer-norm statistics and
-softmax in float32.
+places: matmuls and their bias adds in bfloat16, layer-norm and RMS-norm
+statistics and softmax in float32.
 """
 
 from __future__ import annotations
@@ -42,6 +42,16 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rms_norm_init(dim: int, device=None) -> Params:
+    return {"scale": torch.ones(dim, device=device)}
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * p["scale"]).to(x.dtype)
 
 
 def embedding_init(gen: torch.Generator, vocab: int, dim: int, scale: float = 0.02) -> Params:

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
 from arkflow_tpu_torch.ops.ragged_attention import (  # noqa: F401
+    paged_attention_reference,
+    paged_flash_attention,
     ragged_attention_reference,
     ragged_flash_attention,
 )

@@ -1,4 +1,5 @@
-"""Ragged flash attention: per-row sequence lengths, no work on padding.
+"""Ragged flash attention: per-row sequence lengths, no work on padding;
+and paged flash attention over the serving KV page pools (at the end).
 
 Counterpart of ``arkflow_tpu/ops/ragged_attention.py::ragged_flash_attention``.
 Key j of row b is visible iff ``j < lengths[b]`` (and ``j <= i`` when
@@ -143,3 +144,121 @@ def ragged_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"ragged attention runs on cuda or cpu tensors, not {q.device}")
     return _launch(q, k, v, lengths, causal)
+
+
+# -- paged flash attention (generation) ---------------------------------------
+#
+# Counterpart of ``arkflow_tpu/ops/ragged_attention.py::paged_flash_attention``:
+# the KV context of each row lives in pages of a shared pool, named by an
+# int32 page table, and is read in place (``csrc/paged_attention.cu``).
+
+#: head dims the paged kernel is instantiated for (csrc/paged_attention.cu)
+PAGED_HEAD_DIMS = (64, 128)
+_paged_library = KernelLibrary("paged_attention")
+
+
+def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                              page_table: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Plain version of the paged kernel: gather every row's context through
+    its page table, then mask ``key_pos <= off + i``. q: [B, C, H, dh];
+    pools: [num_pages, page, kv_heads, dh]; page_table: [B, P]; off: [B].
+    Softmax and both products in float32; returns [B, C, H, dh] in q's dtype."""
+    b, c, h, dh = q.shape
+    kvh = k_pages.shape[2]
+    group = h // kvh
+    ctx = page_table.shape[1] * k_pages.shape[1]
+    table = page_table.to(device=q.device, dtype=torch.int64)
+    kk = k_pages[table].reshape(b, ctx, kvh, dh).float()
+    vv = v_pages[table].reshape(b, ctx, kvh, dh).float()
+    qf = q.float().reshape(b, c, kvh, group, dh)
+    scores = torch.einsum("bcngd,bjnd->bngcj", qf, kk) * (1.0 / math.sqrt(dh))
+    positions = off.to(device=q.device, dtype=torch.int64)[:, None] + torch.arange(
+        c, device=q.device)
+    mask = torch.arange(ctx, device=q.device)[None, None, :] <= positions[:, :, None]
+    probs = torch.softmax(scores.masked_fill(~mask[:, None, None], _NEG), dim=-1)
+    out = torch.einsum("bngcj,bjnd->bcngd", probs, vv)
+    return out.reshape(b, c, h, dh).to(q.dtype)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, off, out) -> None:
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"q must be [B, C, H, dh] and the pools [pages, page, kv_heads, dh], "
+                         f"got {tuple(q.shape)} and {tuple(k_pages.shape)}")
+    b, c, h, dh = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged attention kernel takes float32 or bfloat16 q, got {q.dtype}")
+    if dh not in PAGED_HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in the paged kernel's {PAGED_HEAD_DIMS}")
+    if k_pages.shape[2] == 0 or h % k_pages.shape[2]:
+        raise ValueError(f"q heads {h} must be a multiple of kv heads {k_pages.shape[2]}")
+    for name, pool in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if pool.device != q.device or pool.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16 on {q.device}, got {pool.dtype} "
+                             f"on {pool.device}")
+        if pool.shape != k_pages.shape or pool.shape[3] != dh or not pool.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [pages, page, kv_heads, {dh}] "
+                             f"pool like k_pages, got {tuple(pool.shape)}")
+        if pool.data_ptr() % _ALIGN:
+            raise ValueError(f"{name}: data pointer must be {_ALIGN}-byte aligned")
+    for name, t, shape in (("page_table", page_table, None), ("off", off, (b,))):
+        if (t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous()
+                or (shape is not None and t.shape != shape)
+                or (shape is None and (t.dim() != 2 or t.shape[0] != b))):
+            raise ValueError(
+                f"{name} must be a contiguous int32 tensor on {q.device} "
+                f"({'[B, P]' if shape is None else f'[{b}]'}), got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    size = q.element_size()
+    for name, t in (("q", q), ("out", out)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous (stride {t.stride(3)})")
+        if t.data_ptr() % _ALIGN or any((t.stride(i) * size) % _ALIGN for i in range(3)):
+            raise ValueError(f"{name}: data pointer and batch/position/head strides must be "
+                             f"{_ALIGN}-byte aligned (strides {t.stride()})")
+
+
+def _launch_paged(q, k_pages, v_pages, page_table, off) -> torch.Tensor:
+    out = torch.empty_like(q)
+    _check_paged(q, k_pages, v_pages, page_table, off, out)
+    b, c, h, dh = q.shape
+    if out.numel() == 0:
+        return out
+    lib = _paged_library.load()
+    fn = lib.arkflow_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    strides = (ctypes.c_longlong * 6)(*[t.stride(i) for t in (q, out) for i in range(3)])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+             page_table.data_ptr(), off.data_ptr(), b, c, h, k_pages.shape[2], dh,
+             page_table.shape[1], k_pages.shape[1], int(q.dtype == torch.bfloat16),
+             1.0 / math.sqrt(dh), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
+    paged_flash_attention.launches.add()
+    return out
+
+
+def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          page_table: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Flash attention that reads K/V straight from the serving page pools.
+
+    q: [B, C, H, dh]: C queries per row at absolute positions ``off[b] + i``
+    (decode: C=1, off=lengths; chunked prefill: off=chunk offset). k_pages,
+    v_pages: [num_pages, page, kv_heads, dh] bfloat16, one layer's pool.
+    page_table: [B, P] int32; entries past a row's context may be 0 (the
+    scratch page) and are never read. off: [B] int32. Query i attends keys
+    0..off+i, clamped to the table's P * page keys; GQA is resolved inside
+    the kernel. Returns [B, C, H, dh] in q's dtype. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises.
+    ``paged_flash_attention.launches`` counts the kernel launches."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_table, off)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cuda or cpu tensors, not {q.device}")
+    return _launch_paged(q, k_pages, v_pages, page_table, off)
+
+
+paged_flash_attention.launches = LaunchCounter()

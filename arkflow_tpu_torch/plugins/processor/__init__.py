@@ -1,1 +1,2 @@
+import arkflow_tpu_torch.plugins.processor.gpu_generate  # noqa: F401
 import arkflow_tpu_torch.plugins.processor.gpu_inference  # noqa: F401

@@ -2,6 +2,7 @@
 
     python -m arkflow_tpu_torch.tools.profile_step [--config FILE] [--trace DIR]
     python -m arkflow_tpu_torch.tools.profile_step --packed [--stream] [--config FILE]
+    python -m arkflow_tpu_torch.tools.profile_step --generate [--stream] [--config FILE]
 
 Builds the runner of the config's ``gpu_inference`` processor (default
 ``arkflow_tpu_torch/examples/bert_stream.json``: BERT-base, bf16) on CUDA and
@@ -31,6 +32,19 @@ token-budget coalescer) and prints:
   ``d2h_ms``;
 - ``kernels``: a profiler window over one emission's forwards, with the
   segment kernel's share of the device time.
+
+``--generate`` decomposes the generation steps instead (default config
+``arkflow_tpu_torch/examples/llama_generate_stream.json``: Llama-3-8B widths
+and depth, random weights). It builds the config's ``gpu_generate``
+processor and, with the paged kernel K3 and with the gather path, prints
+for one lockstep decode step over every slot (ragged contexts up to the
+server's ``max_seq``) and for one prefill chunk at offset 256:
+
+- ``host_ms``: the step's dispatch (every launch issued, nothing waited
+  for), and ``step_ms``: dispatch plus the fetch of its next tokens;
+- ``device_ms``, ``busy_share`` and ``launches`` per step from a profiler
+  window over a few steps issued back to back, and ``k3_ms`` /
+  ``k3_launches``: the paged kernel's share of them.
 
 ``--stream`` also runs the config's whole stream through ``Engine`` under
 the profiler and prints its traffic rows/s beside the device's busy share
@@ -65,6 +79,7 @@ from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 DEFAULT_CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
+GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -90,7 +105,7 @@ def host_ms(fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_forward(forward, steps: int, trace_path=None) -> dict:
+def profile_forward(forward, steps: int, trace_path=None, match: str = "") -> dict:
     """Device time by kernel name over ``steps`` forwards, and the busy
     share of the profiled window."""
     from torch.profiler import ProfilerActivity, profile
@@ -103,26 +118,35 @@ def profile_forward(forward, steps: int, trace_path=None) -> dict:
             forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_summary(prof, wall_ms, steps, trace_path)
+    return device_summary(prof, wall_ms, steps, trace_path, match)
 
 
-def device_summary(prof, wall_ms: float, steps: int, trace_path=None) -> dict:
+def device_summary(prof, wall_ms: float, steps: int, trace_path=None,
+                   match: str = "") -> dict:
     """Per-step device time by kernel name (top 12), the busy share of a
-    ``wall_ms`` window, and launches per step, from a profiler's events."""
+    ``wall_ms`` window, and launches per step, from a profiler's events;
+    with ``match``, also the ms and launches per step of the kernels whose
+    name holds it."""
     by_name: dict[str, float] = defaultdict(float)
-    launches = 0
+    launches = matched = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0:
             by_name[ev.name] += ev.device_time / 1e3  # us -> ms
             launches += 1
+            matched += bool(match) and match in ev.name
     if trace_path:
         prof.export_chrome_trace(trace_path)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"window_ms_per_step": wall_ms / steps, "device_ms_per_step": busy / steps,
-            "busy_share": busy / wall_ms if wall_ms else 0.0,
-            "launches_per_step": launches / steps,
-            "top_ms_per_step": {name[:80]: ms / steps for name, ms in top}}
+    out = {"window_ms_per_step": wall_ms / steps, "device_ms_per_step": busy / steps,
+           "busy_share": busy / wall_ms if wall_ms else 0.0,
+           "launches_per_step": launches / steps,
+           "top_ms_per_step": {name[:80]: ms / steps for name, ms in top}}
+    if match:
+        out["matched_ms_per_step"] = sum(ms for name, ms in by_name.items()
+                                         if match in name) / steps
+        out["matched_launches_per_step"] = matched / steps
+    return out
 
 
 def first_emission(stream: dict) -> list[bytes]:
@@ -212,6 +236,69 @@ def profile_packed(cfg: dict, args) -> None:
     profile_streams(cfg, args)
 
 
+def profile_generate(cfg: dict, args) -> None:
+    from arkflow_tpu_torch.components import Resource
+    from arkflow_tpu_torch.components.registry import build_component, ensure_plugins_loaded
+
+    ensure_plugins_loaded()
+    proc_cfg = cfg["streams"][0]["pipeline"]["processors"][0]
+    server = build_component("processor", {**proc_cfg, "decode_kernel": "paged"},
+                             Resource()).server
+    s, p = server.slots, server.pages_per_slot
+    table = (torch.randperm(server.num_pages - 1, generator=torch.Generator().manual_seed(3))
+             + 1)[: s * p].reshape(s, p).numpy().astype(np.int32)
+    lens = np.linspace(1, server.max_seq - 2, s).astype(np.int32)
+    act = np.ones(s, bool)
+    cur = torch.randint(3, server.cfg.vocab_size, (s,), generator=torch.Generator().manual_seed(7),
+                        dtype=torch.int32).to(server.device)
+    chunk = server.prefill_chunk or 128
+    ids = np.random.default_rng(4).integers(3, server.cfg.vocab_size, (1, chunk)).astype(np.int32)
+    steps = {
+        "decode": (lambda: server._decode(cur, lens, act, table),
+                   {"slots": s, "mean_context": float(lens.mean() + 1)}),
+        "chunk": (lambda: server._chunk(ids, 256, chunk, table[:1], True),
+                  {"chunk": chunk, "offset": 256}),
+    }
+    for kernel in ("paged", "gather"):
+        server.decode_kernel = kernel
+        for name, (dispatch, shape) in steps.items():
+            host, total = [], []
+            with torch.inference_mode():
+                for i in range(12):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fetch = dispatch()
+                    t1 = time.perf_counter()
+                    fetch.wait()
+                    if i >= 2:  # warmup
+                        host.append((t1 - t0) * 1e3)
+                        total.append((time.perf_counter() - t0) * 1e3)
+
+                def back_to_back():
+                    with torch.inference_mode():
+                        return [dispatch() for _ in range(args.steps)][-1].wait()
+
+                trace = (os.path.join(args.trace, f"profile_generate_{name}_{kernel}.json")
+                         if args.trace else None)
+                if trace:
+                    os.makedirs(args.trace, exist_ok=True)
+                kernels = profile_forward(back_to_back, 1, trace, match="paged_attention_kernel")
+            per = args.steps
+            print(json.dumps({
+                "step": name, "attention": kernel, **shape, "layers": server.cfg.layers,
+                "host_ms": statistics.median(host), "step_ms": statistics.median(total),
+                "device_ms": kernels["device_ms_per_step"] / per,
+                "busy_share": kernels["busy_share"],
+                "launches": kernels["launches_per_step"] / per,
+                "k3_ms": kernels["matched_ms_per_step"] / per,
+                "k3_launches": kernels["matched_launches_per_step"] / per,
+                "top_device_ms": {k: v / per for k, v in kernels["top_ms_per_step"].items()},
+            }), flush=True)
+    del server
+    torch.cuda.empty_cache()
+    profile_streams(cfg, args)
+
+
 def profile_streams(cfg: dict, args) -> None:
     if not (args.stream or args.stream_threads):
         return
@@ -255,12 +342,17 @@ def profile_stream(cfg: dict, trace_dir=None) -> dict:
     wall_ms = (time.perf_counter() - started["t"]) * 1e3
     prof.stop()
     runner = stream.pipeline.processors[0].runner
+    if hasattr(runner, "device_steps"):
+        steps = {"device_steps": runner.device_steps}
+    else:  # a generation server
+        steps = {"decode_steps": runner.decode_steps, "chunk_steps": runner.chunk_steps,
+                 "prefill_steps": runner.prefill_steps, "tokens": runner.tokens,
+                 "traffic_tokens_per_s": runner.tokens / stream.traffic_seconds}
     trace = os.path.join(trace_dir, "profile_stream.json") if trace_dir else None
     summary = device_summary(prof, wall_ms, 1, trace)
     return {"stream": stream.name, "rows_out": stream.rows_out, "errors": stream.errors,
             "traffic_seconds": stream.traffic_seconds,
-            "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
-            "device_steps": runner.device_steps,
+            "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds, **steps,
             "window_ms": wall_ms, "device_busy_ms": summary["device_ms_per_step"],
             "device_busy_share": summary["busy_share"],
             "launches": summary["launches_per_step"],
@@ -273,6 +365,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="directory for chrome traces")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--packed", action="store_true", help="decompose the packed step")
+    ap.add_argument("--generate", action="store_true",
+                    help="decompose the generation decode and chunk steps")
     ap.add_argument("--stream", action="store_true",
                     help="also run the config's stream under the profiler")
     ap.add_argument("--stream-threads", type=int, nargs="*", default=None,
@@ -282,9 +376,14 @@ def main(argv=None) -> int:
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    with open(args.config or (PACKED_CONFIG if args.packed else DEFAULT_CONFIG)) as f:
+    default = (GENERATE_CONFIG if args.generate else PACKED_CONFIG if args.packed
+               else DEFAULT_CONFIG)
+    with open(args.config or default) as f:
         cfg = json.load(f)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
+    if args.generate:
+        profile_generate(cfg, args)
+        return 0
     if args.packed:
         profile_packed(cfg, args)
         return 0

@@ -1,0 +1,694 @@
+"""Continuous-batching generation server over the paged KV cache.
+
+Counterpart of ``arkflow_tpu/tpu/serving.py::GenerationServer`` on one
+device: a fixed grid of decode slots steps in lockstep under one
+``paged_decode_step``; requests are admitted into free slots the moment
+pages are available, finished sequences free their pages at once, and new
+work rides along mid-flight (continuous batching, as in vLLM/Orca).
+
+- device: the steps of ``models/paged_decode.py``, run on an executor
+  thread (never on the event loop) under ``torch.inference_mode``. Every
+  step is issued on the device's one current CUDA stream, in the order the
+  serve loop issues them; the in-place pool writes rely on that order.
+- host (this module): page allocation and refcounts, slot bookkeeping,
+  EOS/max-token tracking, admission, one-shot or chunked prefill.
+
+Inputs go to the card from pinned host memory without a synchronisation,
+and each step's next tokens come back through a pinned buffer and a CUDA
+event recorded right after the step: at ``dispatch_depth`` 2, fetching
+step N waits for step N alone, not for step N+1 queued behind it, so step
+N+1 is dispatched from N's device-resident tokens before N's host
+bookkeeping runs. No other synchronisation sits between two decode steps.
+
+``decode_kernel``: ``auto`` (``paged`` on CUDA, ``gather`` on the CPU),
+``gather`` (the plain path: each slot's context gathered from the pools)
+or ``paged`` (the page-table kernel K3, ``ops/ragged_attention.py``; on CPU
+tensors its plain version). Unlike the JAX server there is no fallback: on
+CUDA ``paged`` launches the kernel or raises, and the init-time parity gate
+(``kernel_parity_check``) raises on a mismatch instead of switching to
+``gather``.
+
+Not ported yet (each raises "not yet ported"): sampling
+(``temperature > 0``, ``top_k``), ``speculative_tokens``,
+``prefix_cache_pages``, ``mesh`` (tensor-parallel pools), the step
+deadlines and health gates of ``ServingRunnerCore``, hot swap, integrity
+probes, checkpoints, and the disaggregation entry points
+(``prefill_export``, ``generate_from_pages``). Plain integer counters take
+the place of the registry metrics.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from arkflow_tpu_torch.errors import ArkError, ConfigError, not_ported
+from arkflow_tpu_torch.models.decoder import DecoderConfig, select_token
+from arkflow_tpu_torch.models.paged_decode import (
+    init_page_pool,
+    paged_decode_step,
+    paged_prefill,
+    paged_prefill_chunk,
+)
+
+logger = logging.getLogger("arkflow_torch.serving")
+
+#: the tie margin of the parity rules: a top-2 logit gap at or below it
+#: lets two correct attention paths pick different argmaxes
+TIE_MARGIN = 0.05
+
+
+class KernelParityError(ArkError):
+    """The paged kernel disagreed with the gather path at init."""
+
+
+@dataclass
+class _Request:
+    prompt: list[int]
+    max_new_tokens: int
+    future: asyncio.Future
+    tokens: list[int] = field(default_factory=list)
+    #: monotonic submit stamp for the TTFT samples
+    submitted_at: float = 0.0
+    ttft_stamped: bool = False
+    #: top-2 logit gap of every step's logits (``record_margins``)
+    margins: list[float] = field(default_factory=list)
+
+
+@dataclass
+class _Fetch:
+    """One step's next tokens on their way to the host: the device tensor
+    (fed straight into the next decode dispatch), its pinned host copy, the
+    top-2 gaps' copy (``record_margins``) and the event recorded right
+    after the copies (None on the CPU, where they are synchronous)."""
+
+    nxt: torch.Tensor
+    host: torch.Tensor
+    margin: Optional[torch.Tensor]
+    event: Optional[torch.cuda.Event]
+
+    def wait(self) -> tuple[np.ndarray, Optional[np.ndarray]]:
+        if self.event is not None:
+            self.event.synchronize()
+        return (self.host.numpy(),
+                self.margin.numpy() if self.margin is not None else None)
+
+
+@dataclass
+class _InFlightDecode:
+    """One dispatched-but-unapplied decode step (``dispatch_depth`` 2).
+    ``reqs`` snapshots per-slot request identity at dispatch: a slot whose
+    request finished (or was replaced) between dispatch and apply drops its
+    token instead of crediting it to the wrong request."""
+
+    fetch: _Fetch
+    act: np.ndarray
+    reqs: list
+
+
+class GenerationServer:
+    """Greedy continuous-batching decode over ``slots`` lockstep lanes."""
+
+    def __init__(self, params: dict, cfg: DecoderConfig, *, slots: int = 8,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 max_seq: int = 512, eos_id: int = 2,
+                 prompt_buckets: Optional[list[int]] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 prefill_chunk: int = 0, speculative_tokens: int = 0,
+                 prefix_cache_pages: int = 0, mesh=None,
+                 decode_kernel: str = "auto", kernel_parity_check: bool = True,
+                 dispatch_depth: int = 1, step_deadline_s: Optional[float] = None,
+                 step_deadline_first_s: Optional[float] = None, health_config=None,
+                 record_margins: bool = False):
+        for what, unported in (("temperature > 0 / top_k (sampling)", temperature > 0 or top_k > 0),
+                               ("speculative_tokens", speculative_tokens > 0),
+                               ("prefix_cache_pages", prefix_cache_pages > 0),
+                               ("mesh (tensor-parallel serving)", mesh is not None),
+                               ("step_deadline", step_deadline_s is not None),
+                               ("step_deadline_first", step_deadline_first_s is not None),
+                               ("health", health_config is not None)):
+            if unported:
+                raise not_ported(f"GenerationServer {what}")
+        if speculative_tokens < 0 or prefix_cache_pages < 0:
+            raise ConfigError("speculative_tokens and prefix_cache_pages must be >= 0")
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"]["table"].device
+        self.slots = int(slots)
+        self.page_size = int(page_size)
+        self.max_seq = int(max_seq)
+        self.eos_id = int(eos_id)
+        self.pages_per_slot = -(-self.max_seq // self.page_size)
+        # page 0 is scratch; the default pool fits every slot at max_seq
+        self.num_pages = num_pages or (1 + self.slots * self.pages_per_slot)
+        if self.num_pages < 1 + self.pages_per_slot:
+            raise ConfigError(
+                f"num_pages={self.num_pages} cannot hold one sequence "
+                f"({self.pages_per_slot} pages + scratch)")
+        # always top out at max_seq so every admissible prompt has a bucket
+        self.prompt_buckets = sorted(
+            {b for b in (prompt_buckets or [32, 128]) if b <= self.max_seq} | {self.max_seq})
+        self.k_pages, self.v_pages = init_page_pool(cfg, self.num_pages, self.page_size,
+                                                    self.device)
+
+        # chunked prefill: prompts longer than this admit in fixed-size chunks
+        # interleaved with decode steps (0 = one-shot)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ConfigError("prefill_chunk must be >= 0")
+        #: slot -> next absolute prefill offset (present while admitting)
+        self._prefill_pos: dict[int, int] = {}
+        self._turn_prefill = True  # alternate chunk/decode under contention
+
+        self._free_pages: list[int] = list(range(1, self.num_pages))
+        self._page_refs: dict[int, int] = {}
+        self._slot_req: list[Optional[_Request]] = [None] * self.slots
+        self._slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
+        self._lengths = np.zeros(self.slots, np.int32)
+        self._cur_tokens = np.zeros(self.slots, np.int32)
+        self._pending: deque[_Request] = deque()
+        self._loop_task: Optional[asyncio.Task] = None
+        self._closed = False
+
+        self.decode_kernel = str(decode_kernel)
+        if self.decode_kernel not in ("auto", "gather", "paged"):
+            raise ConfigError(f"decode_kernel must be auto|gather|paged, got {decode_kernel!r}")
+        if self.decode_kernel == "auto":
+            self.decode_kernel = "paged" if self.device.type == "cuda" else "gather"
+
+        # dispatch depth 2: step N+1 dispatches from step N's device-resident
+        # tokens before N's are fetched. Greedy only, as in the JAX server:
+        # the host learns of an EOS one step late, so a finished lane rides
+        # one more step and its token is dropped at apply.
+        self.dispatch_depth = int(dispatch_depth)
+        if self.dispatch_depth < 1:
+            raise ConfigError("dispatch_depth must be >= 1")
+        if self.dispatch_depth > 2:
+            raise ConfigError(
+                "dispatch_depth > 2 is not supported: lockstep decode can only lag "
+                "host bookkeeping by one step")
+        self._pipeline: Optional[_InFlightDecode] = None
+        self.record_margins = bool(record_margins)
+
+        #: counters (the JAX server's registry metrics)
+        self.decode_steps = 0
+        self.chunk_steps = 0
+        self.prefill_steps = 0
+        self.tokens = 0
+        self.truncations = 0
+        self.pipelined_dispatches = 0
+        #: submit-to-first-token seconds, one per request
+        self.ttft_samples: list[float] = []
+
+        #: the parity gate's report (None when it did not run)
+        self.parity_report: Optional[dict] = None
+        if self.decode_kernel == "paged" and kernel_parity_check:
+            self.parity_report = self.kernel_parity_check()
+
+    # -- device plumbing ---------------------------------------------------
+
+    def _to_device(self, arr) -> torch.Tensor:
+        """A host array on the device, copied from pinned memory without a
+        synchronisation (the copy is ordered on the step's stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch(self, nxt: torch.Tensor, logits: torch.Tensor) -> _Fetch:
+        """Start the copy of a step's tokens (and top-2 gaps) to the host."""
+        margin = None
+        if self.record_margins:
+            top = logits.topk(2, dim=-1).values
+            margin = top[:, 0] - top[:, 1]
+        if self.device.type != "cuda":
+            return _Fetch(nxt, nxt.clone(), None if margin is None else margin.clone(), None)
+        host = torch.empty(nxt.shape, dtype=nxt.dtype, pin_memory=True)
+        host.copy_(nxt, non_blocking=True)
+        host_margin = None
+        if margin is not None:
+            host_margin = torch.empty(margin.shape, dtype=margin.dtype, pin_memory=True)
+            host_margin.copy_(margin, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _Fetch(nxt, host, host_margin, event)
+
+    async def _run_device_step(self, fn: Callable):
+        """Run ``fn`` on an executor thread under inference mode."""
+        def blocking():
+            with torch.inference_mode():
+                return fn()
+
+        return await asyncio.get_running_loop().run_in_executor(None, blocking)
+
+    def _decode(self, cur: torch.Tensor, lens: np.ndarray, act: np.ndarray,
+                table: np.ndarray) -> _Fetch:
+        """Dispatch one lockstep decode step (no synchronisation)."""
+        logits, _, _ = paged_decode_step(
+            self.params, self.cfg, cur, self._to_device(lens), self._to_device(act),
+            self._to_device(table), self.k_pages, self.v_pages, return_logits=True,
+            attention_kernel=self.decode_kernel)
+        return self._fetch(select_token(logits), logits)
+
+    def _prefill(self, ids: np.ndarray, n: int, table: np.ndarray) -> _Fetch:
+        logits, _, _ = paged_prefill(
+            self.params, self.cfg, self._to_device(ids), self._to_device(np.asarray([n], np.int32)),
+            self._to_device(table), self.k_pages, self.v_pages, return_logits=True)
+        return self._fetch(select_token(logits), logits)
+
+    def _chunk(self, ids: np.ndarray, off: int, clen: int, table: np.ndarray,
+               final: bool) -> Optional[_Fetch]:
+        logits, _, _ = paged_prefill_chunk(
+            self.params, self.cfg, self._to_device(ids),
+            self._to_device(np.asarray([off], np.int32)),
+            self._to_device(np.asarray([clen], np.int32)), self._to_device(table),
+            self.k_pages, self.v_pages, attention_kernel=self.decode_kernel)
+        return self._fetch(select_token(logits), logits) if final else None
+
+    def kernel_parity_check(self) -> dict:
+        """Init-time parity gate of the paged kernel (a port of the JAX
+        server's ``_paged_kernel_parity_ok``): one tiny golden batch --
+        a prompt that crosses a page boundary and a one-token prompt, on
+        non-contiguous page tables -- through prefill, then one decode step
+        and one 2-token chunk with both attention paths. Every argmax must
+        agree with the gather path's wherever its top-2 gap exceeds
+        ``TIE_MARGIN`` (at a large vocabulary random weights give near-ties
+        that two correct summation orders may break differently). Raises
+        ``KernelParityError`` on a mismatch; never falls back."""
+        cfg, page = self.cfg, self.page_size
+        n0 = min(page + 1, self.max_seq)
+        pages_per = -(-(n0 + 3) // page)
+        kp, vp = init_page_pool(cfg, 1 + 2 * pages_per, page, self.device)
+        rng = np.random.RandomState(1234)
+        ids = np.zeros((2, n0), np.int32)
+        ids[0] = rng.randint(1, cfg.vocab_size, n0)
+        ids[1, 0] = rng.randint(1, cfg.vocab_size)
+        table = np.zeros((2, pages_per), np.int32)
+        table[0] = np.arange(1, 2 * pages_per, 2)[::-1]
+        table[1] = np.arange(2, 2 * pages_per + 1, 2)
+        dev = self._to_device
+        lens, tab = dev(np.asarray([n0, 1], np.int32)), dev(table)
+        report = {"rows_checked": 0, "rows_tied": 0, "mismatches": 0, "max_logit_abs_diff": 0.0}
+
+        def compare(ref: torch.Tensor, got: torch.Tensor) -> None:
+            ref, got = ref.reshape(-1, ref.shape[-1]), got.reshape(-1, got.shape[-1])
+            top = ref.topk(2, dim=-1).values
+            clear = (top[:, 0] - top[:, 1]) > TIE_MARGIN
+            agree = ref.argmax(-1) == got.argmax(-1)
+            report["rows_checked"] += int(clear.sum())
+            report["rows_tied"] += int((~clear).sum())
+            report["mismatches"] += int((clear & ~agree).sum())
+            report["max_logit_abs_diff"] = max(report["max_logit_abs_diff"],
+                                               float((ref - got).abs().max()))
+            if not bool(torch.isfinite(got).all()):
+                report["mismatches"] += 1
+
+        with torch.inference_mode():
+            paged_prefill(self.params, cfg, dev(ids), lens, tab, kp, vp)
+            tok, act = dev(ids[:, 0].copy()), dev(np.asarray([True, True]))
+            ref, *_ = paged_decode_step(self.params, cfg, tok, lens, act, tab, kp, vp,
+                                        return_logits=True)
+            got, *_ = paged_decode_step(self.params, cfg, tok, lens, act, tab, kp, vp,
+                                        return_logits=True, attention_kernel="paged")
+            compare(ref, got)
+            cids = dev(rng.randint(1, cfg.vocab_size, (2, 2)).astype(np.int32))
+            clen = dev(np.asarray([2, 2], np.int32))
+            ref, *_ = paged_prefill_chunk(self.params, cfg, cids, lens, clen, tab, kp, vp,
+                                          return_all=True)
+            got, *_ = paged_prefill_chunk(self.params, cfg, cids, lens, clen, tab, kp, vp,
+                                          return_all=True, attention_kernel="paged")
+            compare(ref, got)
+        if report["mismatches"]:
+            raise KernelParityError(
+                f"the paged attention kernel disagrees with the gather path at init: {report}")
+        return report
+
+    # -- public API --------------------------------------------------------
+
+    async def generate(self, prompt_ids: list[int], max_new_tokens: int = 64, *,
+                       with_margins: bool = False):
+        """Submit one request; resolves with its generated ids (no EOS), or
+        with (ids, top-2 logit gap of each step) when ``with_margins``
+        (``record_margins`` servers only)."""
+        if self._closed:
+            raise ConfigError("generation server is closed")
+        if with_margins and not self.record_margins:
+            raise ConfigError("with_margins needs a server built with record_margins=True")
+        if len(prompt_ids) == 0:
+            return ([], []) if with_margins else []
+        if len(prompt_ids) + max_new_tokens > self.max_seq:
+            raise ConfigError(
+                f"prompt({len(prompt_ids)}) + max_new({max_new_tokens}) exceeds "
+                f"max_seq={self.max_seq}")
+        req = _Request(list(prompt_ids), max_new_tokens,
+                       asyncio.get_running_loop().create_future(),
+                       submitted_at=time.monotonic())
+        self._pending.append(req)
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.create_task(self._serve_loop())
+        tokens = await req.future
+        return (tokens, list(req.margins)) if with_margins else tokens
+
+    async def close(self) -> None:
+        self._closed = True
+        if self._loop_task is not None:
+            await self._loop_task
+
+    def ttft_ms(self, q: float) -> Optional[float]:
+        """The q-quantile (nearest rank) of the TTFT samples, in ms."""
+        if not self.ttft_samples:
+            return None
+        ordered = sorted(self.ttft_samples)
+        return ordered[min(len(ordered) - 1, int(q * len(ordered)))] * 1e3
+
+    # -- page accounting ---------------------------------------------------
+
+    def _pages_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def _alloc_page(self) -> Optional[int]:
+        if not self._free_pages:
+            return None
+        p = self._free_pages.pop()
+        self._page_refs[p] = 1
+        return p
+
+    def _unref_page(self, p: int) -> None:
+        self._page_refs[p] -= 1
+        if self._page_refs[p] == 0:
+            del self._page_refs[p]
+            self._free_pages.append(p)
+
+    def _try_reserve(self, req: _Request) -> Optional[list[int]]:
+        """Reserve every page the request's prompt and first decode write
+        need, or nothing (no side effects) when the pool is short."""
+        need = self._pages_needed(len(req.prompt) + 1)
+        if len(self._free_pages) < need:
+            return None
+        return [self._alloc_page() for _ in range(need)]
+
+    # -- scheduler ---------------------------------------------------------
+
+    def _table_array(self) -> np.ndarray:
+        table = np.zeros((self.slots, self.pages_per_slot), np.int32)
+        for s, pages in enumerate(self._slot_pages):
+            table[s, :len(pages)] = pages
+        return table
+
+    def _bucket(self, n: int) -> int:
+        for b in self.prompt_buckets:
+            if n <= b:
+                return b
+        return self.prompt_buckets[-1]
+
+    async def _admit_one(self, slot: int, req: _Request, pages: list[int]) -> None:
+        """Seed the slot with its reserved pages and start prefill."""
+        # register FIRST: if anything below throws, the loop's crash handler
+        # fails this future instead of leaving its caller hanging
+        self._slot_req[slot] = req
+        self._slot_pages[slot] = pages
+        n = len(req.prompt)
+        if self.prefill_chunk and n > self.prefill_chunk:
+            # cooperative admission: the serve loop interleaves prefill
+            # chunks with decode; the slot joins decode once fully prefilled
+            self._prefill_pos[slot] = 0
+            return
+        ids = np.zeros((1, self._bucket(n)), np.int32)
+        ids[0, :n] = req.prompt
+        table = self._table_array()[slot:slot + 1]
+        nxt, margin = await self._run_device_step(
+            lambda: self._prefill(ids, n, table).wait())
+        self.prefill_steps += 1
+        self._lengths[slot] = n
+        self._cur_tokens[slot] = nxt[0]
+        self._handle_token(slot, int(nxt[0]), None if margin is None else float(margin[0]))
+
+    def _stamp_ttft(self, req: _Request) -> None:
+        if req.ttft_stamped:
+            return
+        req.ttft_stamped = True
+        self.ttft_samples.append(time.monotonic() - req.submitted_at)
+
+    def _handle_token(self, slot: int, token: int, margin: Optional[float] = None) -> None:
+        """Record one generated token; completes the request on EOS/limit."""
+        req = self._slot_req[slot]
+        if req is None:
+            return
+        self._stamp_ttft(req)
+        if margin is not None:
+            req.margins.append(margin)
+        if token == self.eos_id:
+            self._finish(slot)
+            return
+        req.tokens.append(token)
+        self.tokens += 1
+        if len(req.tokens) >= req.max_new_tokens:
+            self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        req = self._slot_req[slot]
+        self._slot_req[slot] = None
+        self._prefill_pos.pop(slot, None)
+        for p in self._slot_pages[slot]:
+            self._unref_page(p)
+        self._slot_pages[slot] = []
+        self._lengths[slot] = 0
+        self._cur_tokens[slot] = 0
+        if req is not None and not req.future.done():
+            req.future.set_result(req.tokens)
+
+    async def _prefill_one_chunk(self, slot: int) -> None:
+        """One fixed-size prefill chunk for an admitting slot; seeds the slot
+        for decode after the final chunk."""
+        req = self._slot_req[slot]
+        if req is None:
+            self._prefill_pos.pop(slot, None)
+            return
+        off = self._prefill_pos[slot]
+        n = len(req.prompt)
+        c = self.prefill_chunk
+        chunk = req.prompt[off:off + c]
+        ids = np.zeros((1, c), np.int32)
+        ids[0, :len(chunk)] = chunk
+        table = self._table_array()[slot:slot + 1]
+        new_off = off + len(chunk)
+        final = new_off >= n
+
+        def step():
+            fetch = self._chunk(ids, off, len(chunk), table, final)
+            return fetch.wait() if fetch is not None else None
+
+        out = await self._run_device_step(step)
+        self.chunk_steps += 1
+        if not final:
+            self._prefill_pos[slot] = new_off
+            return
+        del self._prefill_pos[slot]
+        nxt, margin = out
+        self._lengths[slot] = n
+        self._cur_tokens[slot] = nxt[0]
+        self._handle_token(slot, int(nxt[0]), None if margin is None else float(margin[0]))
+
+    def _ensure_page_capacity(self, slot: int, total: Optional[int] = None) -> bool:
+        """Grow the slot's page list to cover positions < ``total``
+        (default: the next write position, lengths+1)."""
+        if total is None:
+            total = int(self._lengths[slot]) + 1
+        need = self._pages_needed(total)
+        while len(self._slot_pages[slot]) < need:
+            p = self._alloc_page()
+            if p is None:
+                return False
+            self._slot_pages[slot].append(p)
+        return True
+
+    def _reserve_or_truncate(self, s: int, act: np.ndarray) -> None:
+        """Ensure slot ``s`` can write its next position; when the pool is
+        dry, finish the longest active sequence (its tokens so far are its
+        result) and retry, so the starved slot never scatters into the
+        scratch page and corrupts its context."""
+        while act[s] and not self._ensure_page_capacity(s):
+            candidates = [i for i in range(self.slots)
+                          if act[i] and self._slot_req[i] is not None]
+            if not candidates:
+                break
+            longest = max(candidates, key=lambda i: int(self._lengths[i]))
+            req = self._slot_req[longest]
+            logger.warning(
+                "page pool exhausted: truncating slot %d at %d tokens (%d/%d generated) "
+                "-- size num_pages for the workload", longest, int(self._lengths[longest]),
+                len(req.tokens) if req else 0, req.max_new_tokens if req else 0)
+            self.truncations += 1
+            self._finish(longest)
+            act[longest] = False
+
+    async def _serve_loop(self) -> None:
+        try:
+            while not self._closed:
+                admitted = await self._admit_pending()
+                prefilling = [s for s in range(self.slots)
+                              if s in self._prefill_pos and self._slot_req[s]]
+                active = [s for s in range(self.slots)
+                          if self._slot_req[s] and s not in self._prefill_pos]
+                if not active and not prefilling:
+                    # a pipelined successor can outlive its lanes: apply it
+                    # before idling or exiting
+                    await self._drain_pipeline()
+                    if not self._pending:
+                        return  # drained; the next generate() restarts the loop
+                    if not admitted:
+                        await asyncio.sleep(0.01)  # waiting on pages
+                    continue
+                # interleave under contention: one prefill chunk, one decode step
+                if prefilling and (not active or self._turn_prefill):
+                    self._turn_prefill = False
+                    await self._drain_pipeline()
+                    await self._prefill_one_chunk(prefilling[0])
+                    continue
+                self._turn_prefill = True
+                await self._step(active)
+            # closed with work in flight: fail it rather than hang awaiters
+            self._fail_all(ConfigError("generation server closed"))
+        except Exception as e:  # fail all in-flight requests, don't hang them
+            logger.exception("generation serve loop failed")
+            self._fail_all(e)
+            self._free_pages = list(range(1, self.num_pages))
+            self._page_refs.clear()
+
+    def _fail_all(self, err: Exception) -> None:
+        # the in-flight pipelined step dies with its requests: its tokens are
+        # never applied
+        self._pipeline = None
+        self._prefill_pos.clear()
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is not None and not req.future.done():
+                req.future.set_exception(err)
+            self._slot_req[s] = None
+            # return the slot's pages: a crash must not shrink the pool
+            for p in self._slot_pages[s]:
+                self._unref_page(p)
+            self._slot_pages[s] = []
+            self._lengths[s] = 0
+            self._cur_tokens[s] = 0
+        while self._pending:
+            req = self._pending.popleft()
+            if not req.future.done():
+                req.future.set_exception(err)
+
+    async def _admit_pending(self) -> bool:
+        admitted = False
+        for slot in range(self.slots):
+            if self._slot_req[slot] is not None or not self._pending:
+                continue
+            pages = self._try_reserve(self._pending[0])  # peek
+            if pages is None:
+                break  # head-of-line waits for pages (FIFO fairness)
+            req = self._pending.popleft()
+            # catch host state up before the admission prefill dispatches
+            await self._drain_pipeline()
+            await self._admit_one(slot, req, pages)
+            admitted = True
+        return admitted
+
+    async def _step(self, active: list[int]) -> None:
+        """One lockstep decode over all slots (inactive lanes masked); at
+        ``dispatch_depth`` 2 the pipelined path runs instead, and this
+        classic path only under page-pool pressure."""
+        if self.dispatch_depth > 1 and await self._step_pipelined(active):
+            return
+        await self._drain_pipeline()
+        # the drain may have finished requests in `active`: recompute from
+        # host truth, or truncation would serve a ghost lane
+        active = [s for s in active if self._slot_req[s] is not None]
+        if not active:
+            return
+        act = np.zeros(self.slots, bool)
+        act[active] = True
+        for s in active:
+            self._reserve_or_truncate(s, act)
+        cur, lens, table = self._cur_tokens.copy(), self._lengths.copy(), self._table_array()
+        nxt, margin = await self._run_device_step(
+            lambda: self._decode(self._to_device(cur), lens, act, table).wait())
+        self.decode_steps += 1
+        self._apply(nxt, margin, act, None)
+
+    def _apply(self, nxt: np.ndarray, margin: Optional[np.ndarray], act: np.ndarray,
+               reqs: Optional[list]) -> None:
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if not act[s] or req is None or (reqs is not None and req is not reqs[s]):
+                continue
+            self._lengths[s] += 1
+            self._cur_tokens[s] = nxt[s]
+            self._handle_token(s, int(nxt[s]), None if margin is None else float(margin[s]))
+
+    # -- pipelined dispatch (dispatch_depth 2) ---------------------------
+
+    async def _step_pipelined(self, active: list[int]) -> bool:
+        """Dispatch decode step N+1 from the in-flight step N's device
+        tokens, THEN apply N. A lane whose pending token turns out to be EOS
+        still rides N+1 and its token is dropped at apply; lanes whose
+        budget the pending token exhausts are masked out up front. Returns
+        False when the classic path should run (page-pool pressure: its
+        truncation policy lives there)."""
+        act = np.zeros(self.slots, bool)
+        act[active] = True
+        pend = self._pipeline
+        eff_lens = self._lengths.copy()
+        if pend is not None:
+            eff_lens += pend.act.astype(np.int32)
+            for s in active:
+                req = self._slot_req[s]
+                if req is None or (pend.act[s] and req is not pend.reqs[s]):
+                    act[s] = False
+                elif pend.act[s] and len(req.tokens) + 1 >= req.max_new_tokens:
+                    act[s] = False
+        if not act.any():
+            # every lane finishes on the pending step: apply it and let the
+            # loop re-evaluate (admission / drain / exit)
+            await self._drain_pipeline()
+            return True
+        for s in np.flatnonzero(act):
+            if not self._ensure_page_capacity(int(s), int(eff_lens[s]) + 1):
+                await self._drain_pipeline()
+                return False
+        cur_host = self._cur_tokens.copy()
+        table = self._table_array()
+
+        def enqueue() -> _Fetch:
+            cur = pend.fetch.nxt if pend is not None else self._to_device(cur_host)
+            return self._decode(cur, eff_lens, act, table)
+
+        fetch = await self._run_device_step(enqueue)
+        rec = _InFlightDecode(fetch=fetch, act=act, reqs=list(self._slot_req))
+        self.pipelined_dispatches += 1
+        if pend is not None:
+            self._pipeline = None
+            await self._apply_pipeline(pend)
+        self._pipeline = rec
+        return True
+
+    async def _drain_pipeline(self) -> None:
+        """Fetch and apply the in-flight decode step, if any: every other
+        event (admission, chunked prefill, loop exit) runs against
+        caught-up host state."""
+        if self._pipeline is None:
+            return
+        pend, self._pipeline = self._pipeline, None
+        await self._apply_pipeline(pend)
+
+    async def _apply_pipeline(self, rec: _InFlightDecode) -> None:
+        """Wait for one in-flight step's tokens (that step alone) and apply
+        them; a lane whose request finished or was replaced since dispatch
+        drops its token."""
+        nxt, margin = await asyncio.get_running_loop().run_in_executor(None, rec.fetch.wait)
+        self.decode_steps += 1
+        self._apply(nxt, margin, rec.act, rec.reqs)

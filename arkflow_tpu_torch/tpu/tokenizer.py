@@ -12,6 +12,8 @@ from typing import Sequence
 
 import numpy as np
 
+from arkflow_tpu_torch.batch import BinaryColumn
+
 _WORD = re.compile(rb"[a-z0-9]+|[^\sa-z0-9]")
 
 
@@ -65,3 +67,30 @@ class HashTokenizer:
             ids[i, : len(row)] = row
             mask[i, : len(row)] = 1
         return ids, mask
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Hashing has no inverse vocabulary; render ids as text verbatim."""
+        return " ".join(str(i) for i in ids)
+
+    def decode_column(self, flat: np.ndarray, offsets: np.ndarray) -> BinaryColumn:
+        """Decode a ragged id column (flat values + offsets) into a binary
+        column of UTF-8 text, each row its ids as space-joined decimals --
+        what ``decode`` gives per row -- built with numpy: the ids' digits
+        go into one buffer and the row offsets follow from their widths."""
+        flat = np.asarray(flat, np.int64)
+        offsets = np.asarray(offsets, np.int64)
+        if flat.size == 0:
+            return BinaryColumn(np.empty(0, np.uint8), np.zeros(len(offsets), np.int64))
+        counts = np.diff(offsets)
+        digits = flat.astype(str)
+        widths = np.char.str_len(digits).astype(np.int64)
+        # every id followed by one space; the space after a row's last id goes
+        buf = np.frombuffer((" ".join(digits.tolist()) + " ").encode("ascii"), np.uint8)
+        spaces = np.cumsum(widths + 1) - 1
+        keep = np.ones(buf.size, bool)
+        keep[spaces[offsets[1:][counts > 0] - 1]] = False
+        digit_cum = np.concatenate([[0], np.cumsum(widths)])
+        row_len = np.diff(digit_cum[offsets]) + np.maximum(counts - 1, 0)
+        out = np.zeros(len(offsets), np.int64)
+        np.cumsum(row_len, out=out[1:])
+        return BinaryColumn(buf[keep], out)

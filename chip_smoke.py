@@ -24,7 +24,22 @@ last line):
    the packed steps' token fill; then K2 at the stream's own layout, and
    the same texts through the packed K2 path, the packed pair-mask path and
    the padded K1 path, whose outputs must agree;
-6. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+6. K3 (paged) against its plain version at Llama-3-8B width (32 heads,
+   8 KV heads, head dim 128, page 16, 40 pages a row): decode (16 rows, one
+   query, ragged contexts on shuffled page tables), the same with every
+   page past each row's bound and the scratch page poisoned (the output
+   must not change), and 128-query chunks at offsets 0/128/256/384;
+7. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
+   (generate -> gpu_generate(decoder_lm, Llama-3-8B widths and depth,
+   continuous batching on paged KV, chunked prefill, dispatch depth 2) ->
+   drop) through ``Engine``: every row in order, at most max_new_tokens
+   each, K3 launches = layers x (decode + chunk steps), no page leaked;
+   then the step times, and the same prompts through a paged and a gather
+   server at depth 1 (streams equal up to the first near-tie) and a paged
+   server at depth 2 (equal to depth 1), and one decode step's logits:
+   K3's no further from the gather path's or its plain version's than
+   those two lie from each other, plus 1/64;
+8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 """
@@ -48,9 +63,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from arkflow_tpu_torch.batch import MessageBatch  # noqa: E402
 from arkflow_tpu_torch.components import Output  # noqa: E402
 from arkflow_tpu_torch.config import EngineConfig  # noqa: E402
+from arkflow_tpu_torch.models import paged_decode as pd  # noqa: E402
+from arkflow_tpu_torch.models.paged_decode import (  # noqa: E402
+    init_page_pool,
+    paged_decode_step,
+    paged_prefill,
+)
 from arkflow_tpu_torch.ops import ragged_attention as ra  # noqa: E402
 from arkflow_tpu_torch.ops import segment_attention as sa  # noqa: E402
-from arkflow_tpu_torch.ops.build import build_all  # noqa: E402
+from arkflow_tpu_torch.ops.build import KERNEL_SOURCES, build_all  # noqa: E402
 from arkflow_tpu_torch.plugins.processor.gpu_inference import (  # noqa: E402
     pack_windows,
     scatter_windows,
@@ -59,12 +80,14 @@ from arkflow_tpu_torch.runtime.engine import Engine  # noqa: E402
 from arkflow_tpu_torch.tools.profile_step import first_emission  # noqa: E402
 from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
 from arkflow_tpu_torch.tpu.runner import ModelRunner  # noqa: E402
+from arkflow_tpu_torch.tpu.serving import GenerationServer  # noqa: E402
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer  # noqa: E402
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "arkflow_tpu_torch", "examples")
 CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
+GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 #: H100 SXM published peaks from NVIDIA's datasheet: HBM bytes/s, and
 #: dense flop/s by operand type (f32 runs outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -72,7 +95,6 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 1.0 / 64, torch.float32: 1e-4}
 LABEL_MARGIN = 0.05
 LOGIT_TOL = 1.0 / 64
-KERNEL_SOURCES = ["ragged_attention", "segment_attention"]
 
 
 class SmokeFailure(Exception):
@@ -89,11 +111,13 @@ def ptxas_summary(text: str) -> list[dict]:
     out: list[dict] = []
     for line in text.splitlines():
         m = re.search(
-            r"Compiling entry function '\S*?(ragged|segment)_attention_kernelI(\w+?)Li(\d+)E",
-            line)
+            r"Compiling entry function '\S*?(ragged|segment|paged)_attention_kernelI(\w+?)Li(\d+)E"
+            r"(?:Li(\d+)E)?", line)
         if m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
             out.append({"kernel": m.group(1), "dtype": dtype, "D": int(m.group(3))})
+            if m.group(4):  # the paged kernel's query tile
+                out[-1]["BQ"] = int(m.group(4))
         elif out and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[-1]["spill_store_bytes"] = int(m.group(1))
         elif out and (m := re.search(r"Used (\d+) registers", line)):
@@ -297,6 +321,7 @@ def reset_counts() -> None:
     belong to that run alone."""
     ra.launches.reset()
     sa.launches.reset()
+    ra.paged_flash_attention.launches.reset()
 
 
 def run_slice(cfg_raw: dict) -> dict:
@@ -479,6 +504,313 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
     return report
 
 
+def paged_bound_ms(off: torch.Tensor, c: int, h: int, kvh: int, d: int, page: int,
+                   p: int) -> tuple[float, str]:
+    """Least time for one K3 call: the live K/V pages (every page a row's
+    last query reaches, clamped to the table) read once, q read and out
+    written once, the table and offsets read; 4*D flops per (query, head,
+    admissible key)."""
+    offs = off.to(torch.int64).cpu()
+    b, ctx = offs.numel(), p * page
+    keys = (offs + c).clamp(max=ctx)
+    pages = -(-keys // page)
+    nbytes = (2 * float(pages.sum()) * page * kvh * d * 2 + 2 * b * c * h * d * 2
+              + b * p * 4 + b * 4)
+    attended = (offs[:, None] + torch.arange(1, c + 1)[None, :]).clamp(max=ctx)
+    flops = 4.0 * float(attended.sum()) * d * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_library_call(q, kp, vp, table, off):
+    """The PyTorch library yardstick for K3 (timed as one): gather each
+    row's context through its table, then ``scaled_dot_product_attention``
+    with ``enable_gqa`` and the offset mask."""
+    b, c, h, d = q.shape
+    kvh, ctx = kp.shape[2], table.shape[1] * kp.shape[1]
+
+    def call():
+        t = table.long()
+        k = kp[t].reshape(b, ctx, kvh, d).transpose(1, 2)
+        v = vp[t].reshape(b, ctx, kvh, d).transpose(1, 2)
+        pos = off.long()[:, None] + torch.arange(c, device=q.device)
+        mask = (torch.arange(ctx, device=q.device)[None, None, :] <= pos[:, :, None])[:, None]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    return call
+
+
+def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kvh: int = 8,
+               d: int = 128, page: int = 16, p: int = 40, poison: bool = False) -> dict:
+    """K3 against its plain version on shuffled, non-contiguous page tables
+    (bf16 q and pools, the serving types). Table entries past a row's bound
+    are the scratch page 0 on even rows and stale pool pages on odd rows.
+    With ``poison`` the kernel also runs on pools in which every slot no
+    row may read, and the scratch page, hold large finite values: its
+    output must not change by a bit."""
+    npages = 1 + b * p
+    q = torch.randn(b, c, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    kp, vp = (torch.randn(npages, page, kvh, d, device="cuda", generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    table = (torch.randperm(npages - 1, device="cuda", generator=gen) + 1).reshape(b, p)
+    off = torch.tensor(offs, device="cuda", dtype=torch.int32)
+    last = ((off.long() + c - 1) // page).clamp(max=p - 1)
+    past = torch.arange(p, device="cuda")[None, :] > last[:, None]
+    even = (torch.arange(b, device="cuda") % 2 == 0)[:, None]
+    table = torch.where(past & even, 0, table).to(torch.int32).contiguous()
+    out = ra.paged_flash_attention(q, kp, vp, table, off)
+    ref = ra.paged_attention_reference(q, kp, vp, table, off)
+    lib = paged_library_call(q, kp, vp, table, off)
+    lib_out = lib()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    case = {"case": label, "B": b, "C": c, "H": h, "kv_heads": kvh, "D": d, "page": page,
+            "P": p, "off": offs, "max_abs_err": err, "tol": TOL[torch.bfloat16],
+            "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item()}
+    if poison:
+        keys = (off.long() + c).clamp(max=p * page)
+        pos = torch.arange(p * page, device="cuda")
+        valid = pos[None, :] < keys[:, None]
+        live = torch.zeros(npages, page, dtype=torch.bool, device="cuda")
+        live[table.long()[:, pos // page][valid], (pos % page).expand(b, -1)[valid]] = True
+        live[0] = False
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[~live], vp2[~live] = 3.0e4, -3.0e4
+        again = ra.paged_flash_attention(q, kp2, vp2, table, off)
+        torch.cuda.synchronize()
+        case["poisoned_slots"] = int((~live).sum()) * kvh
+        case["poisoned_equal"] = bool(torch.equal(again, out))
+    else:
+        bound, bound_by = paged_bound_ms(off, c, h, kvh, d, page, p)
+        case.update({
+            "kernel_ms": time_ms(lambda: ra.paged_flash_attention(q, kp, vp, table, off)),
+            "plain_ms": time_ms(lambda: ra.paged_attention_reference(q, kp, vp, table, off)),
+            "library_ms": time_ms(lib), "library": "gather + sdpa(enable_gqa, offset mask)",
+            "bound_ms": bound, "bound_by": bound_by})
+    print("K3 case " + json.dumps(case), flush=True)
+    check(err <= TOL[torch.bfloat16], f"K3 disagrees with its plain version: {case}")
+    check(case.get("poisoned_equal", True), f"K3 read past a row's bound: {case}")
+    return case
+
+
+class GeneratedSink(OrderedSink):
+    """Also records the generated column of every batch, in order."""
+
+    def __init__(self, inner: Output, field: str):
+        super().__init__(inner)
+        self.field = field
+        self.generated: list[bytes] = []
+
+    async def write(self, batch: MessageBatch) -> None:
+        self.generated.extend(batch.column(self.field).to_pylist())
+        await super().write(batch)
+
+
+def run_generate_slice(cfg_raw: dict) -> dict:
+    """The generate stream through ``Engine``. The server's init-time parity
+    gate runs at build and its K3 launches are read apart; the counts are
+    zeroed just before the traffic and read just after."""
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    reset_counts()
+    t0 = time.perf_counter()
+    stream = engine.build()[0]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gate_launches = ra.paged_flash_attention.launches.value
+    server = stream.pipeline.processors[0].server
+    sink = stream.output = GeneratedSink(stream.output, proc_cfg["output_field"])
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k1, k2 = ra.paged_flash_attention.launches.value, ra.launches.value, sa.launches.value
+    expected = generated_rows(cfg_raw)
+    counts = [len(g.split()) for g in sink.generated]
+    layers = server.cfg.layers
+    traffic = stream.traffic_seconds
+    report = {
+        "rows_expected": len(expected), "rows_out": stream.rows_out,
+        "rows_dropped": sink.inner.dropped_rows, "errors": stream.errors,
+        "in_order": sink.payloads == expected, "generated_rows": len(counts),
+        "max_tokens_per_row": max(counts, default=0), "max_new_tokens": proc_cfg["max_new_tokens"],
+        "tokens": server.tokens, "build_seconds": build_s, "seconds": wall,
+        "traffic_seconds": traffic, "traffic_tokens_per_s": server.tokens / traffic,
+        "traffic_rows_per_s": stream.rows_out / traffic,
+        "ttft_p50_ms": server.ttft_ms(0.5), "ttft_p99_ms": server.ttft_ms(0.99),
+        "decode_steps": server.decode_steps, "chunk_steps": server.chunk_steps,
+        "prefill_steps": server.prefill_steps,
+        "pipelined_dispatches": server.pipelined_dispatches,
+        "traffic_ms_per_decode_step": traffic * 1e3 / max(1, server.decode_steps),
+        "truncations": server.truncations, "decode_kernel": server.decode_kernel,
+        "free_pages": len(server._free_pages), "num_pages": server.num_pages,
+        "layers": layers, "dim": server.cfg.dim, "vocab": server.cfg.vocab_size,
+        "k3_launches": k3, "k3_gate_launches": gate_launches, "parity_gate": server.parity_report,
+        "k1_launches": k1, "k2_launches": k2}
+    print("generate slice " + json.dumps(report), flush=True)
+    check(stream.errors == 0, f"generate stream reported errors: {report}")
+    check(stream.rows_out == len(expected) and sink.inner.dropped_rows == len(expected)
+          and len(counts) == len(expected), f"not every row arrived: {report}")
+    check(report["in_order"], f"rows arrived out of order: {report}")
+    check(report["max_tokens_per_row"] <= proc_cfg["max_new_tokens"],
+          f"a row got more than max_new_tokens: {report}")
+    check(server.decode_kernel == "paged", f"the server did not take the paged kernel: {report}")
+    check(server.decode_steps > 0 and server.chunk_steps > 0,
+          f"the stream ran no decode or no chunk step: {report}")
+    check(k3 == layers * (server.decode_steps + server.chunk_steps),
+          f"K3 launches != layers x (decode + chunk steps): {report}")
+    check(gate_launches > 0, f"the parity gate launched no K3: {report}")
+    check(k1 == 0 and k2 == 0, f"the generate stream launched K1 or K2: {report}")
+    check(report["free_pages"] == server.num_pages - 1, f"pages leaked: {report}")
+    return {"report": report, "server": server}
+
+
+def step_times(server: GenerationServer) -> dict:
+    """One lockstep decode step over every slot (ragged contexts of up to
+    the server's max_seq) and one 128-token chunk at offset 256, each
+    dispatched and fetched as the server does it: median ms."""
+    s, p, page = server.slots, server.pages_per_slot, server.page_size
+    table = (torch.randperm(server.num_pages - 1, generator=torch.Generator().manual_seed(3))
+             + 1)[: s * p].reshape(s, p).numpy().astype(np.int32)
+    lens = np.linspace(1, server.max_seq - 2, s).astype(np.int32)
+    act = np.ones(s, bool)
+    cur = torch.randint(3, server.cfg.vocab_size, (s,), generator=torch.Generator().manual_seed(7),
+                        dtype=torch.int32).to(server.device)
+    chunk = server.prefill_chunk or 128
+    ids = np.random.default_rng(4).integers(3, server.cfg.vocab_size, (1, chunk)).astype(np.int32)
+
+    def decode():
+        with torch.inference_mode():
+            return server._decode(cur, lens, act, table).wait()
+
+    def chunk_step():
+        with torch.inference_mode():
+            return server._chunk(ids, 256, chunk, table[:1], True).wait()
+
+    out = {"decode_step_ms": time_ms(decode, iters=10, warmup=2),
+           "decode_slots": s, "decode_mean_context": float(lens.mean() + 1),
+           "chunk_step_ms": time_ms(chunk_step, iters=5, warmup=1), "chunk": chunk,
+           "chunk_offset": 256}
+    print("generate step_ms " + json.dumps(out), flush=True)
+    return out
+
+
+def generate_prompts(cfg_raw: dict, n: int) -> list[list[int]]:
+    """The first ``n`` rows of the generate stream, tokenized as the
+    processor tokenizes them."""
+    proc = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    tok = HashTokenizer(proc["model_config"]["vocab_size"])
+    ids, mask = tok.encode_batch(generated_rows(cfg_raw)[:n], proc["max_input"])
+    return [ids[i, : int(mask[i].sum())].tolist() for i in range(n)]
+
+
+def serve_prompts(server: GenerationServer, prompts: list[list[int]], max_new: int):
+    async def go():
+        outs = await asyncio.gather(*[server.generate(p, max_new_tokens=max_new,
+                                                      with_margins=True) for p in prompts])
+        await server.close()
+        return outs
+
+    outs = asyncio.run(go())
+    check(len(server._free_pages) == server.num_pages - 1, "a paths server leaked pages")
+    return outs
+
+
+def compare_generation_paths(params, cfg, proc_cfg: dict, prompts: list[list[int]],
+                             max_new: int) -> dict:
+    """The same prompts through a paged and a gather server at depth 1 and a
+    paged server at depth 2 (same weights, the stream's slots, pages and
+    chunking): the paged streams equal the gather streams up to each
+    request's first step whose gather top-2 gap is below the tie margin,
+    and depth 2 equals depth 1 bit for bit. Then one decode step over the
+    prompts' prefilled pools with the gather path, with K3, and with K3's
+    plain version in K3's place. Two correct attention paths that round
+    differently (the gather path rounds scores to bf16; K3 and its plain
+    version sum in f32 in different orders) move logits of magnitude ~3,
+    where one bf16 step is 1/64, by ~2 steps over 32 bf16 layers, so 1/64
+    holds only per kernel call (the K3 cases). Here K3's logits must lie
+    no further from either yardstick than the two yardsticks lie from each
+    other, plus 1/64."""
+    def server(kernel: str, depth: int) -> GenerationServer:
+        return GenerationServer(
+            params, cfg, slots=proc_cfg["slots"], page_size=proc_cfg["page_size"],
+            max_seq=proc_cfg["max_input"] + proc_cfg["max_new_tokens"],
+            eos_id=proc_cfg.get("eos_id", 2), prefill_chunk=proc_cfg["prefill_chunk"],
+            decode_kernel=kernel, dispatch_depth=depth, record_margins=True)
+
+    runs, seconds = {}, {}
+    for name, kernel, depth in (("paged_d1", "paged", 1), ("gather_d1", "gather", 1),
+                                ("paged_d2", "paged", 2)):
+        srv = server(kernel, depth)
+        t0 = time.perf_counter()
+        runs[name] = serve_prompts(srv, prompts, max_new)
+        seconds[name] = time.perf_counter() - t0
+        del srv
+        torch.cuda.empty_cache()
+    compared, tied_rows, mismatched = 0, 0, []
+    for i, ((pt, _), (gt, gm)) in enumerate(zip(runs["paged_d1"], runs["gather_d1"])):
+        tie = next((j for j, m in enumerate(gm) if m <= LABEL_MARGIN), None)
+        k = len(gt) if tie is None else tie
+        tied_rows += tie is not None
+        compared += k
+        if pt[:k] != gt[:k] or (tie is None and pt != gt):
+            mismatched.append(i)
+    depth_equal = [t for t, _ in runs["paged_d2"]] == [t for t, _ in runs["paged_d1"]]
+
+    b, page = len(prompts), proc_cfg["page_size"]
+    p = -(-(proc_cfg["max_input"] + proc_cfg["max_new_tokens"]) // page)
+    device = params["embed"]["table"].device
+    kp, vp = init_page_pool(cfg, 1 + b * p, page, device)
+    table = (torch.randperm(b * p, generator=torch.Generator().manual_seed(5)) + 1).reshape(b, p)
+    lens = np.asarray([len(x) for x in prompts], np.int32)
+    ids = np.zeros((b, int(lens.max())), np.int32)
+    for i, x in enumerate(prompts):
+        ids[i, : len(x)] = x
+    dev = {"ids": torch.from_numpy(ids).to(device), "lens": torch.from_numpy(lens).to(device),
+           "table": table.to(device=device, dtype=torch.int32)}
+    with torch.inference_mode():
+        nxt, _, _ = paged_prefill(params, cfg, dev["ids"], dev["lens"], dev["table"], kp, vp)
+        act = torch.ones(b, dtype=torch.bool, device=device)
+
+        def step(kernel: str) -> torch.Tensor:  # rewrites the same K/V each time
+            return paged_decode_step(params, cfg, nxt, dev["lens"], act, dev["table"], kp, vp,
+                                     return_logits=True, attention_kernel=kernel)[0]
+
+        logits = {"gather": step("gather"), "paged": step("paged")}
+        pd.paged_flash_attention = ra.paged_attention_reference
+        try:
+            logits["paged_plain"] = step("paged")
+        finally:
+            pd.paged_flash_attention = ra.paged_flash_attention
+
+    def err(a: str, b: str) -> float:
+        return (logits[a] - logits[b]).abs().max().item()
+
+    logit_err = {"paged_vs_plain": err("paged", "paged_plain"),
+                 "paged_vs_gather": err("paged", "gather"),
+                 "plain_vs_gather": err("paged_plain", "gather"),
+                 "max_abs_logit": logits["gather"].abs().max().item()}
+    del kp, vp, logits
+    torch.cuda.empty_cache()
+    report = {"prompts": b, "max_new_tokens": max_new,
+              "tokens": {n: sum(len(t) for t, _ in r) for n, r in runs.items()},
+              "tie_free_steps_compared": compared, "rows_with_a_near_tie": tied_rows,
+              "tie_margin": LABEL_MARGIN, "rows_mismatched_before_a_tie": mismatched,
+              "depth2_equals_depth1": depth_equal, "first_step_max_logit_abs_err": logit_err,
+              "logit_tol": LOGIT_TOL, "seconds": seconds}
+    print("generate paths " + json.dumps(report), flush=True)
+    check(not mismatched, f"paged and gather streams differ before a near-tie: {report}")
+    check(depth_equal, f"depth 2 changed the paged streams: {report}")
+    floor = logit_err["plain_vs_gather"] + LOGIT_TOL
+    check(logit_err["paged_vs_plain"] <= floor and logit_err["paged_vs_gather"] <= floor,
+          f"first decode step logits: K3 further from a yardstick than the yardsticks "
+          f"are from each other: {report}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -492,7 +824,7 @@ def main() -> int:
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
 
-    built = build_all(KERNEL_SOURCES, verbose=True)
+    built = build_all(list(KERNEL_SOURCES), verbose=True)
     print("build " + json.dumps({k: round(v["seconds"], 3) for k, v in built.items()}), flush=True)
     for name, rep in built.items():
         print(f"ptxas {name} " + json.dumps(ptxas_summary(rep["output"])), flush=True)
@@ -536,6 +868,29 @@ def main() -> int:
                                      f"stream window {rows} rows"))
     k2_main = k2_cases[0]  # the largest window
     compare_packed_paths(prunner, runner, packed_proc, rows=320, seed=2)
+    del runner, prunner, result["runner"], packed["runner"]
+    torch.cuda.empty_cache()
+
+    # K3 at the generate stream's shapes: decode over 16 slots with contexts
+    # ragged over 1..639, then 128-token chunks
+    offs = [int(x) for x in torch.randint(0, 639, (16,), generator=torch.Generator().manual_seed(6))]
+    offs[:3] = [0, 638, 15]
+    k3_main = paged_case(gen, 16, 1, offs, "decode")
+    paged_case(gen, 16, 1, offs, "decode, poisoned past the bound", poison=True)
+    for o in (0, 128, 256, 384):
+        paged_case(gen, 1, 128, [o], f"chunk at {o}")
+    paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows")
+    paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows, poisoned past the bound",
+               poison=True)
+
+    with open(GENERATE_CONFIG) as f:
+        gen_raw = json.load(f)
+    gen_proc = gen_raw["streams"][0]["pipeline"]["processors"][0]
+    generated = run_generate_slice(gen_raw)
+    server = generated["server"]
+    step_times(server)
+    compare_generation_paths(server.params, server.cfg, gen_proc,
+                             generate_prompts(gen_raw, gen_proc["slots"]), max_new=64)
 
     kernels = [{
         "name": "ragged_flash_attention", "route": "cuda",
@@ -553,6 +908,14 @@ def main() -> int:
         "max_abs_err": k2_main["max_abs_err"], "ms": k2_main["kernel_ms"],
         "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"], "library_ms": k2_main["library_ms"],
+    }, {
+        "name": "paged_flash_attention", "route": "cuda",
+        "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
+        "launches": generated["report"]["k3_launches"], "ok": True,
+        "max_abs_err": k3_main["max_abs_err"], "ms": k3_main["kernel_ms"],
+        "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
+        "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
-paths (the padded and the packed stream) needs pyarrow, yaml or aiohttp at
-import time."""
+paths (the padded, the packed and the generate stream) needs pyarrow, yaml
+or aiohttp at import time."""
 
 import ast
 import os
@@ -72,6 +72,17 @@ packed = build_stream(StreamConfig.from_mapping({
 asyncio.run(packed.run(asyncio.Event()))
 assert packed.output.dropped_rows == 10 and packed.errors == 0, packed.errors
 assert packed.pipeline.processors[0].runner.packed_steps > 0
+gen = build_stream(StreamConfig.from_mapping({
+    "input": {"type": "generate", "payloads": ["a b c", "d e f g h i j k"],
+              "batch_size": 2, "count": 3},
+    "pipeline": {"thread_num": 2, "processors": [{
+        "type": "gpu_generate", "model_config": {"vocab_size": 64, "dim": 16, "layers": 1,
+                                                 "heads": 2, "kv_heads": 1, "ffn": 32},
+        "serving": "continuous", "slots": 2, "page_size": 4, "max_input": 12,
+        "max_new_tokens": 3, "prefill_chunk": 4, "dispatch_depth": 2, "device": "cpu"}]},
+    "output": {"type": "drop"}}))
+asyncio.run(gen.run(asyncio.Event()))
+assert gen.output.dropped_rows == 3 and gen.errors == 0, gen.errors
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

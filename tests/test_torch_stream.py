@@ -1,6 +1,7 @@
 """The port's stream end to end on the CPU: ``generate -> gpu_inference ->
-sink`` through the engine, CLI and stream runtime, held against the JAX
-``tpu_inference`` stream on the same config and weights."""
+sink`` and ``generate -> gpu_generate -> sink`` through the engine, CLI and
+stream runtime, held against the JAX ``tpu_inference`` and ``tpu_generate``
+streams on the same config and weights."""
 
 import asyncio
 import json
@@ -189,6 +190,90 @@ def test_unported_keys_raise(tmp_path, where, patch):
             raise ConfigError("; ".join(problems))
         build_stream(parsed.streams[0])
     assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
+
+
+TINY_DECODER = dict(vocab_size=128, dim=64, layers=2, heads=4, kv_heads=2, ffn=96, max_seq=64)
+GEN_TEXTS = ["sensor alpha", " ".join(f"w{i}" for i in range(20)), "x",
+             "pressure spike on line four"]
+
+
+def _generate_stream(kind: str, **extra) -> dict:
+    """generate -> {gpu,tpu}_generate(continuous, TINY decoder) -> drop; the
+    20-word text is longer than the prefill chunk of 8. Each batch takes the
+    texts from the first, so the fourth is never sent."""
+    proc = {"type": kind, "model": "decoder_lm", "model_config": TINY_DECODER,
+            "serving": "continuous", "slots": 2, "page_size": 4, "max_input": 24,
+            "max_new_tokens": 5, "seq_buckets": [8, 24], "prefill_chunk": 8,
+            "dispatch_depth": 2, **extra}
+    if kind == "gpu_generate":
+        proc["device"] = "cpu"
+    return {"name": "gen",
+            "input": {"type": "generate", "payloads": GEN_TEXTS, "batch_size": 3, "count": 7},
+            "pipeline": {"thread_num": 2, "processors": [proc]},
+            "output": {"type": "drop"}}
+
+
+def test_generate_stream_matches_the_jax_generate_stream():
+    """generate -> gpu_generate(continuous) on the CPU against the JAX
+    engine's tpu_generate continuous stream on the same texts and weights:
+    the same rows in the same order, each with the same generated ids."""
+    from arkflow_tpu_torch.models import get_model
+    from arkflow_tpu_torch.tpu.serving import GenerationServer
+
+    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(_generate_stream("tpu_generate")))
+    jax_sink = jax_stream.output = JaxCollectOutput()
+    asyncio.run(jax_stream.run(asyncio.Event()))
+    jproc = jax_stream.pipeline.processors[0]
+    host = params_from_jax(jax.device_get(jproc.params))
+
+    stream = build_stream(StreamConfig.from_mapping(_generate_stream("gpu_generate")))
+    proc = stream.pipeline.processors[0]
+    old = proc.server
+    proc.server = GenerationServer(
+        host, get_model("decoder_lm").make_config(**TINY_DECODER), slots=2, page_size=4,
+        max_seq=old.max_seq, prompt_buckets=old.prompt_buckets, prefill_chunk=8,
+        dispatch_depth=2)
+    sink = stream.output = Collect()
+    asyncio.run(stream.run(asyncio.Event()))
+
+    got_rows = [p for b in sink.batches for p in b.to_binary()]
+    assert got_rows == [p for b in jax_sink.batches for p in b.to_binary()]
+    assert got_rows == [GEN_TEXTS[i % 4].encode() for n in (3, 3, 1) for i in range(n)]
+    want = [t for b in jax_sink.batches for t in b.column("generated").to_pylist()]
+    got = [t.decode() for b in sink.batches for t in b.column("generated").to_pylist()]
+    assert got == want and all(len(t.split()) <= 5 for t in got)
+    assert proc.server.chunk_steps > 0 and proc.server.decode_steps > 0
+    assert proc.tokens == sum(len(t.split()) for t in got) > 0
+    assert stream.errors == 0 and stream.rows_out == 7
+
+
+@pytest.mark.parametrize("patch", [{"serving": "batch"}, {"tokenizer": "gpt2"},
+                                   {"speculative_tokens": 2}, {"prefix_cache_pages": 8},
+                                   {"mesh": {"tp": 2}}, {"kernel_interpret": True},
+                                   {"step_deadline": "1s"}, {"health": {}},
+                                   {"checkpoint": "/ckpt"}, {"swap": {}}, {"integrity": {}},
+                                   {"temperature": 0.8}, {"top_k": 4}, {"batch_buckets": [4]},
+                                   {"model_config": {**TINY_DECODER, "num_experts": 4}}])
+def test_gpu_generate_unported_keys_raise(tmp_path, patch):
+    stream = _generate_stream("gpu_generate", **patch)
+    cfg = {"streams": [stream]}
+    with pytest.raises(ConfigError, match="not yet ported"):
+        parsed = EngineConfig.from_mapping(cfg)
+        problems = parsed.validate_components()
+        if problems:
+            raise ConfigError("; ".join(problems))
+        build_stream(parsed.streams[0])
+    assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
+
+
+def test_gpu_generate_without_a_card_raises_unless_asked_for_the_cpu(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = _generate_stream("gpu_generate")
+    del stream["pipeline"]["processors"][0]["device"]
+    with pytest.raises(ConfigError, match="no CUDA device"):
+        build_stream(StreamConfig.from_mapping(stream))
 
 
 PACKED_TEXTS = [b"ok", b"sensor reading looks fine", b"pressure spike on line four, check valve",
