@@ -1,8 +1,8 @@
-// Pieces shared by the attention kernels of csrc/ (ragged_attention.cu,
-// segment_attention.cu): their tile sizes and thread layout, 4-wide loads and
-// stores of f32 or bf16 operands as float4, the (batch, head, seq) strides
-// they address q/k/v/o with, and the float4 arithmetic of their online
-// softmax.
+// Pieces shared by the attention kernels of csrc/ (flash_tile.cuh, which K1
+// and K4 instantiate, segment_attention.cu and paged_attention.cu): their
+// tile sizes and thread layout, 4-wide loads and stores of f32 or bf16
+// operands as float4, the (batch, head, seq) strides they address q/k/v/o
+// with, and the float4 arithmetic of their online softmax.
 
 #pragma once
 

@@ -14,6 +14,8 @@ from typing import Any, Optional
 
 import torch
 
+from arkflow_tpu_torch.models.quantize import dense_w8a8
+
 Params = Any  # nested dict of tensors
 
 
@@ -26,6 +28,8 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = 
 
 
 def dense(p: Params, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    if "w_q" in p:  # W8A8 serving form (models/quantize.py): an int8 product
+        return dense_w8a8(p, x, dtype)
     y = x.to(dtype) @ p["w"].to(dtype)
     if "b" in p:
         y = y + p["b"].to(dtype)

@@ -121,7 +121,12 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 def num_layers(params: dict) -> int:
-    return params["layers"]["wq"]["w"].shape[0]
+    """The stack's depth, read off any leaf (an int8 tree has ``w_q`` where a
+    float tree has ``w``)."""
+    node = params["layers"]
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node.shape[0]
 
 
 def rope_angles(positions: torch.Tensor, dh: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:

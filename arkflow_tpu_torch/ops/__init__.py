@@ -1,5 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
+from arkflow_tpu_torch.ops.flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_reference,
+)
 from arkflow_tpu_torch.ops.ragged_attention import (  # noqa: F401
     paged_attention_reference,
     paged_flash_attention,

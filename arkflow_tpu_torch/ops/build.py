@@ -25,8 +25,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-#: every kernel source of ``csrc/``: K1 ragged, K2 segment, K3 paged attention
-KERNEL_SOURCES = ("ragged_attention", "segment_attention", "paged_attention")
+#: every kernel source of ``csrc/``: K1 ragged, K2 segment, K3 paged and K4
+#: dense flash attention
+KERNEL_SOURCES = ("ragged_attention", "segment_attention", "paged_attention",
+                  "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

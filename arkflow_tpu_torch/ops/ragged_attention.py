@@ -26,7 +26,7 @@ import torch
 from arkflow_tpu_torch.ops.build import KernelLibrary
 
 _NEG = -1e30
-#: head dims the kernel is instantiated for (csrc/ragged_attention.cu)
+#: head dims the kernel is instantiated for (csrc/flash_tile.cuh, K1 and K4)
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel loads 16-byte (f32) / 8-byte (bf16) vectors
 

@@ -17,7 +17,9 @@ columns. Config (the keys of ``tpu_inference`` the port carries, plus
     outputs: [label, score]        # default: all rank-1 outputs
     warmup: true                   # one step per bucket at connect
     seed: 0                        # weights drawn from torch.Generator(seed)
-    serving_dtype: bfloat16        # float32 | bfloat16 | float16
+    serving_dtype: bfloat16        # float32 | bfloat16 | float16 | int8 (W8A8:
+                                   # int8 dense layers, models/quantize.py;
+                                   # with packing too)
     max_in_flight: 2               # device steps in flight
     device: cuda                   # default cuda; cpu for tests
     packing: true                  # token packing (tpu/packing.py): pack the

@@ -19,6 +19,9 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   the family's ``apply_packed``: the row dim pads to a batch bucket, the
   example dim to an example bucket, and a layout over the grid raises
   (callers carve it first with ``carve_row_windows``).
+- ``serving_dtype="int8"`` quantizes the host tree (``models/quantize.py``)
+  before the transfer, padded or packed; every dense layer then runs an
+  int8 product and the attention stays on the float path.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from arkflow_tpu_torch.errors import ConfigError, not_ported
+from arkflow_tpu_torch.errors import ConfigError
 from arkflow_tpu_torch.models import get_model
+from arkflow_tpu_torch.models.quantize import quantize_for_serving
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, pad_batch_dim, pad_seq_dim
 
 logger = logging.getLogger("arkflow_torch.runner")
@@ -70,15 +74,24 @@ def resolve_device(device: Any = None) -> torch.device:
 
 
 def check_serving_dtype(serving_dtype: Optional[str]) -> None:
-    if serving_dtype == "int8":
-        raise not_ported("serving_dtype: int8")
-    if serving_dtype not in (None, *_SERVING_DTYPES):
-        raise ConfigError(f"serving_dtype {serving_dtype!r} invalid (float32/bfloat16/float16)")
+    if serving_dtype not in (None, "int8", *_SERVING_DTYPES):
+        raise ConfigError(
+            f"serving_dtype {serving_dtype!r} invalid (float32/bfloat16/float16/int8)")
 
 
-def convert_for_serving(params, serving_dtype: Optional[str]):
-    """Cast every floating leaf of a host param tree to the serving dtype."""
+def convert_for_serving(params, serving_dtype: Optional[str], family_name: str = ""):
+    """Cast or quantize a host param tree for the serving dtype, before it
+    goes to the device (as the JAX runner does):
+
+    - ``int8``: W8A8 dynamic quantization (``models/quantize.py``): dense
+      weights to per-channel int8, every other floating leaf to bf16;
+    - ``bfloat16``/``float16``: every floating leaf cast;
+    - ``float32``/None: unchanged."""
     check_serving_dtype(serving_dtype)
+    if serving_dtype == "int8":
+        params, n_q = quantize_for_serving(params)
+        logger.info("[%s] int8 serving: %d dense layers quantized", family_name, n_q)
+        return params
     if serving_dtype in (None, "float32"):
         return params
     target = _SERVING_DTYPES[serving_dtype]
@@ -127,7 +140,7 @@ class ModelRunner:
         if host_params is None:
             # init on the CPU from an explicit generator, then one transfer
             host_params = self.family.init(torch.Generator().manual_seed(seed), self.cfg)
-        host_params = convert_for_serving(host_params, serving_dtype)
+        host_params = convert_for_serving(host_params, serving_dtype, model)
         self.params = _tree_map(lambda t: t.to(self.device), host_params)
         # 2: one step computes while the next one's host work overlaps it
         if max_in_flight < 1:

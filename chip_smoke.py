@@ -12,24 +12,39 @@ last line):
 3. each kernel against its plain PyTorch version at BERT-base shapes, with
    its time, the plain version's, one PyTorch library call's and the bound:
    K1 (ragged) on random lengths, K2 (segment) on packed layouts;
-4. the padded stream ``arkflow_tpu_torch/examples/bert_stream.json``
+4. K4 (dense flash attention) through its entry point
+   ``arkflow_tpu_torch.ops.flash_attention``, once at each case's shape with
+   the counts read around those calls (no other kernel may launch, and tiles
+   that do not divide S raise before a launch); then each case against the
+   plain version: the padded BERT-base step with every row full, Llama-3-8B's
+   full-sequence forward at 512 and at 4096 tokens (causal), and the last in
+   f32; and K1 with every length S at the BERT shape beside it;
+5. the padded stream ``arkflow_tpu_torch/examples/bert_stream.json``
    (generate -> gpu_inference(bert_classifier, full BERT-base width, bf16)
    -> drop) through the port's ``Engine``, with the launch counts read
    around that run only, then the K1 path's outputs against the plain
    attention's on a few hundred rows;
-5. the packed stream ``arkflow_tpu_torch/examples/bert_packed_stream.json``
+6. the packed stream ``arkflow_tpu_torch/examples/bert_packed_stream.json``
    (generate -> memory buffer with token-budget coalescing ->
    gpu_inference(packing, BERT-base, bf16) -> drop) through ``Engine``:
    every row in order, K2 launches = layers x packed steps, no K1 launch,
    the packed steps' token fill; then K2 at the stream's own layout, and
    the same texts through the packed K2 path, the packed pair-mask path and
    the padded K1 path, whose outputs must agree;
-6. K3 (paged) against its plain version at Llama-3-8B width (32 heads,
+7. the int8 stream ``arkflow_tpu_torch/examples/int8_bert_stream.json``
+   (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
+   int8) -> drop) through ``Engine``, and the same config at bfloat16: every
+   row in order, K1 launches = layers x steps, int8 products = dense layers
+   x steps (none at bf16); then int8 against bf16 on the same texts (labels
+   equal wherever the bf16 top-2 gap exceeds twice the largest logit
+   difference), their step times, and the int8 product against the bf16 one
+   at BERT-base's FFN shape;
+8. K3 (paged) against its plain version at Llama-3-8B width (32 heads,
    8 KV heads, head dim 128, page 16, 40 pages a row): decode (16 rows, one
    query, ragged contexts on shuffled page tables), the same with every
    page past each row's bound and the scratch page poisoned (the output
    must not change), and 128-query chunks at offsets 0/128/256/384;
-7. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
+9. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
    (generate -> gpu_generate(decoder_lm, Llama-3-8B widths and depth,
    continuous batching on paged KV, chunked prefill, dispatch depth 2) ->
    drop) through ``Engine``: every row in order, at most max_new_tokens
@@ -39,7 +54,7 @@ last line):
    server at depth 2 (equal to depth 1), and one decode step's logits:
    K3's no further from the gather path's or its plain version's than
    those two lie from each other, plus 1/64;
-8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+10. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 """
@@ -69,6 +84,9 @@ from arkflow_tpu_torch.models.paged_decode import (  # noqa: E402
     paged_decode_step,
     paged_prefill,
 )
+from arkflow_tpu_torch.models import quantize as q8  # noqa: E402
+from arkflow_tpu_torch.models.common import dense  # noqa: E402
+from arkflow_tpu_torch.ops import flash_attention, flash_attention_reference  # noqa: E402
 from arkflow_tpu_torch.ops import ragged_attention as ra  # noqa: E402
 from arkflow_tpu_torch.ops import segment_attention as sa  # noqa: E402
 from arkflow_tpu_torch.ops.build import KERNEL_SOURCES, build_all  # noqa: E402
@@ -88,10 +106,12 @@ EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
+INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 #: H100 SXM published peaks from NVIDIA's datasheet: HBM bytes/s, and
 #: dense flop/s by operand type (f32 runs outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+INT8_PEAK_OPS = 1979e12  # dense int8 on the tensor cores
 TOL = {torch.bfloat16: 1.0 / 64, torch.float32: 1e-4}
 LABEL_MARGIN = 0.05
 LOGIT_TOL = 1.0 / 64
@@ -111,13 +131,15 @@ def ptxas_summary(text: str) -> list[dict]:
     out: list[dict] = []
     for line in text.splitlines():
         m = re.search(
-            r"Compiling entry function '\S*?(ragged|segment|paged)_attention_kernelI(\w+?)Li(\d+)E"
-            r"(?:Li(\d+)E)?", line)
+            r"Compiling entry function '\S*?(segment_attention|paged_attention|flash_tile)_kernelI"
+            r"(\w+?)Li(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
             out.append({"kernel": m.group(1), "dtype": dtype, "D": int(m.group(3))})
             if m.group(4):  # the paged kernel's query tile
                 out[-1]["BQ"] = int(m.group(4))
+            if m.group(5):  # the tile kernel's ragged switch: K1 (1) or K4 (0)
+                out[-1]["ragged"] = m.group(5) == "1"
         elif out and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[-1]["spill_store_bytes"] = int(m.group(1))
         elif out and (m := re.search(r"Used (\d+) registers", line)):
@@ -192,6 +214,82 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     print("K1 case " + json.dumps(case), flush=True)
     check(err <= TOL[dtype], f"K1 disagrees with its plain version: {case}")
     check(pad_zero, f"K1 left pad queries non-zero: {case}")
+    return case
+
+
+#: K4's cases, [B, H, S, D], causal, dtype: the padded BERT-base step with
+#: every row full; Llama-3-8B's full-sequence forward (KV heads repeated to
+#: 32) at the generate smoke's 16 slots and max_input 512, and at 4096 tokens
+#: (llama3_8b().max_seq is 8192); and that last in f32
+K4_CASES = (((64, 12, 256, 64), False, torch.bfloat16),
+            ((16, 32, 512, 128), True, torch.bfloat16),
+            ((1, 32, 4096, 128), True, torch.bfloat16),
+            ((1, 32, 4096, 128), True, torch.float32))
+
+
+def dense_operands(gen, shape, dtype):
+    """q, k, v [B, H, S, D] as views of [B, S, H, D] storage, the layout a
+    model's projections hand over."""
+    b, h, s, d = shape
+    return [torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+            for _ in range(3)]
+
+
+def run_dense_path(gen) -> dict:
+    """K4's path: its entry point ``arkflow_tpu_torch.ops.flash_attention``,
+    called as a user calls it, once at each case's shape, with the counts
+    zeroed just before and read just after. No other kernel may launch; a
+    sequence that does not divide the tiles raises before any launch."""
+    operands = [(dense_operands(gen, shape, dtype), causal) for shape, causal, dtype in K4_CASES]
+    reset_counts()
+    for (q, k, v), causal in operands:
+        flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    report = {"calls": len(operands), "k4_launches": flash_attention.launches.value,
+              "k1_launches": ra.launches.value, "k2_launches": sa.launches.value,
+              "k3_launches": ra.paged_flash_attention.launches.value}
+    ragged = torch.zeros(1, 1, 30, 64, device="cuda", dtype=torch.bfloat16)
+    try:
+        flash_attention(ragged, ragged, ragged, tile_q=16, tile_k=16)
+        report["ragged_tiles_raised"] = False
+    except ValueError:
+        report["ragged_tiles_raised"] = True
+    report["k4_launches_after_ragged"] = flash_attention.launches.value
+    print("K4 path " + json.dumps(report), flush=True)
+    check(report["k4_launches"] == len(operands), f"K4 did not launch once a call: {report}")
+    check(report["k1_launches"] == report["k2_launches"] == report["k3_launches"] == 0,
+          f"the K4 path launched another kernel: {report}")
+    check(report["ragged_tiles_raised"] and report["k4_launches_after_ragged"] == len(operands),
+          f"ragged tiles did not raise before a launch: {report}")
+    return report
+
+
+def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
+    """K4 against its plain version, plus its time, the plain version's,
+    the library's (``scaled_dot_product_attention`` with ``is_causal``) and
+    the bound (K1's with every length S). K1's count must not move."""
+    b, h, s, d = shape
+    q, k, v = dense_operands(gen, shape, dtype)
+    k1_before = ra.launches.value
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_reference(q, k, v, causal=causal)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+    lib_out = lib()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    bound, bound_by = attention_bound_ms(torch.full((b,), s), h, s, d, dtype, causal)
+    case = {
+        "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+        "max_abs_err": err, "tol": TOL[dtype],
+        "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item(),
+        "kernel_ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, causal=causal), iters=5),
+        "library_ms": time_ms(lib), "bound_ms": bound, "bound_by": bound_by,
+        "k1_launches_during": ra.launches.value - k1_before,
+    }
+    print("K4 case " + json.dumps(case), flush=True)
+    check(err <= TOL[dtype], f"K4 disagrees with its plain version: {case}")
+    check(case["k1_launches_during"] == 0, f"K1 launched during a K4 case: {case}")
     return case
 
 
@@ -322,6 +420,8 @@ def reset_counts() -> None:
     ra.launches.reset()
     sa.launches.reset()
     ra.paged_flash_attention.launches.reset()
+    flash_attention.launches.reset()
+    q8.int8_products.reset()
 
 
 def run_slice(cfg_raw: dict) -> dict:
@@ -501,6 +601,143 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
         name: {"ms_per_call": statistics.median(t), "runs": t, "device_steps": steps[name],
                "ms_per_step": statistics.median(t) / steps[name]}
         for name, t in times.items()}), flush=True)
+    return report
+
+
+def run_int8_slice(cfg_raw: dict) -> dict:
+    """The int8 stream (or the same config at another serving dtype) through
+    ``Engine``, its sink wrapped to check order; the counts are zeroed just
+    before the run and read just after. Every step runs K1 once a layer, and
+    at int8 every dense layer runs an int8 product and none a float one: six
+    a layer, then the pooler and the classifier."""
+    proc = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    sink = stream.output = OrderedSink(stream.output)
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, products = ra.launches.value, sa.launches.value, q8.int8_products.value
+    runner = stream.pipeline.processors[0].runner
+    expected = generated_rows(cfg_raw)
+    layers = runner.cfg.layers
+    per_step = 6 * layers + 2 if proc["serving_dtype"] == "int8" else 0
+    report = {"serving_dtype": proc["serving_dtype"], "rows_expected": len(expected),
+              "rows_out": stream.rows_out, "rows_dropped": sink.inner.dropped_rows,
+              "errors": stream.errors, "in_order": sink.payloads == expected,
+              "seconds": wall, "traffic_seconds": stream.traffic_seconds,
+              "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+              "device_steps": runner.device_steps, "layers": layers, "hidden": runner.cfg.hidden,
+              "k1_launches": k1, "k2_launches": k2, "int8_products": products,
+              "int8_products_per_step": per_step, "flash_fallbacks": runner.flash_fallbacks}
+    print("int8 slice " + json.dumps(report), flush=True)
+    check(stream.errors == 0, f"int8-config stream reported errors: {report}")
+    check(stream.rows_out == len(expected) and sink.inner.dropped_rows == len(expected),
+          f"not every row arrived: {report}")
+    check(report["in_order"], f"rows arrived out of order: {report}")
+    check(k1 > 0 and k1 == layers * runner.device_steps and k2 == 0,
+          f"K1 launches != layers x device steps: {report}")
+    check(products == per_step * runner.device_steps,
+          f"int8 products != dense layers x device steps: {report}")
+    if per_step:
+        w_q = runner.params["layers"]["ffn_in"]["w_q"][0]
+        check(w_q.is_cuda and w_q.stride(0) == 1,
+              f"the int8 weights lost their column-major layout on the card: {w_q.stride()}")
+    return {"report": report, "runner": runner}
+
+
+def compare_int8(int8: ModelRunner, bf16: ModelRunner, proc_cfg: dict, rows: int,
+                 seed: int) -> dict:
+    """The same ``rows`` texts of mixed lengths through the int8 stream's
+    runner and the bf16 one (same seed, so the same float weights before
+    quantization): labels equal on every row whose bf16 top-2 gap exceeds
+    twice the largest |logit difference|; then both runners' step times at
+    the two batch buckets, in turns."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, size=int(n))).encode()
+             for n in rng.integers(1, proc_cfg["max_seq"] - 2, size=rows)]
+    ids, mask = HashTokenizer(int8.cfg.vocab_size).encode_batch(texts, proc_cfg["max_seq"])
+    a = int8.infer_sync({"input_ids": ids, "attention_mask": mask})
+    b = bf16.infer_sync({"input_ids": ids, "attention_mask": mask})
+    check(np.isfinite(a["logits"]).all() and a["logits"].shape == (rows, 2),
+          "int8 logits not finite")
+    delta = float(np.abs(a["logits"] - b["logits"]).max())
+    top2 = np.sort(b["logits"], axis=1)
+    clear = (top2[:, -1] - top2[:, -2]) > 2 * delta
+    report = {"rows": rows, "max_logit_abs_delta": delta,
+              "max_abs_logit": float(np.abs(b["logits"]).max()),
+              "rows_gap_above_2x_delta": int(clear.sum()),
+              "rows_gap_at_or_below_2x_delta": int((~clear).sum()),
+              "label_mismatches_above_gap": int((a["label"][clear] != b["label"][clear]).sum()),
+              "label_mismatches_all": int((a["label"] != b["label"]).sum())}
+    print("int8 vs bf16 " + json.dumps(report), flush=True)
+    check(report["label_mismatches_above_gap"] == 0,
+          f"int8 changed a label whose bf16 gap exceeds twice the logit delta: {report}")
+    steps = {}
+    for n in (256, 32):
+        one = {"input_ids": ids[:n], "attention_mask": mask[:n]}
+        seq = int8.buckets.seq_bucket(int(mask[:n].sum(1).max()))
+        times = {"int8": [], "bf16": []}
+        for name in ("int8", "bf16", "bf16", "int8"):
+            r = int8 if name == "int8" else bf16
+            times[name].append(time_ms(lambda: r.infer_sync(one), iters=10, warmup=2))
+        steps[f"{n}x{seq}"] = {k: statistics.median(v) for k, v in times.items()}
+        steps[f"{n}x{seq}"]["runs"] = times
+    print("int8 step_ms " + json.dumps(steps), flush=True)
+    return report
+
+
+def product_times(gen) -> dict:
+    """``torch._int_mm``'s limits on the card (it refuses rows <= 16 and K
+    or N off a multiple of 8), ``int8_matmul`` exact on and off them, then
+    the int8 product and the whole W8A8 dense against the bf16 ones at
+    BERT-base's FFN shape, [16384, 768] x [768, 3072], each beside its
+    bound."""
+    refused = {}
+    for m, k, n in ((16, 768, 768), (32, 768, 2), (32, 12, 16)):
+        try:
+            torch._int_mm(torch.ones(m, k, device="cuda", dtype=torch.int8),
+                          torch.ones(k, n, device="cuda", dtype=torch.int8))
+            refused[f"{m}x{k}x{n}"] = False
+        except RuntimeError:
+            refused[f"{m}x{k}x{n}"] = True
+    exact = {}
+    for m, k, n in ((4, 768, 2), (32, 768, 2), (256, 768, 768), (17, 13, 5)):
+        a = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8, generator=gen)
+        w = torch.randint(-127, 128, (k, n), device="cuda", dtype=torch.int8, generator=gen)
+        got = q8.int8_matmul(a, w).cpu()
+        exact[f"{m}x{k}x{n}"] = bool(torch.equal(got.long(), a.cpu().long() @ w.cpu().long()))
+    m, k, n = 16384, 768, 3072
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+    p_bf16 = {"w": w.to(torch.bfloat16), "b": torch.zeros(n, device="cuda", dtype=torch.bfloat16)}
+    p_int8 = q8.quantize_dense({"w": w, "b": p_bf16["b"]})
+    x_q = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8, generator=gen)
+    flops = 2.0 * m * k * n
+
+    def bound(nbytes: float, peak: float) -> tuple[float, str]:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    i8_bound, i8_by = bound(m * k + k * n + 4 * m * n, INT8_PEAK_OPS)
+    bf_bound, bf_by = bound(2 * (m * k + k * n + m * n), PEAK_FLOPS[torch.bfloat16])
+    w_rows = p_int8["w_q"].contiguous()  # the same weight, row-major
+    report = {
+        "int_mm_refuses": refused, "exact": exact, "shape": [m, k, n],
+        "w_q_strides": list(p_int8["w_q"].stride()),
+        "int8_product_ms": time_ms(lambda: q8.int8_matmul(x_q, p_int8["w_q"])),
+        "int8_product_row_major_w_ms": time_ms(lambda: q8.int8_matmul(x_q, w_rows)),
+        "int8_product_bound_ms": i8_bound, "int8_product_bound_by": i8_by,
+        "bf16_product_ms": time_ms(lambda: x @ p_bf16["w"]),
+        "bf16_product_bound_ms": bf_bound, "bf16_product_bound_by": bf_by,
+        "int8_dense_ms": time_ms(lambda: dense(p_int8, x)),
+        "bf16_dense_ms": time_ms(lambda: dense(p_bf16, x)),
+    }
+    print("int8 product " + json.dumps(report), flush=True)
+    check(all(exact.values()), f"the int8 product is not exact on the card: {report}")
     return report
 
 
@@ -840,6 +1077,12 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             segment_case(gen, seg, 12, 64, dtype, f"layouts S={s}")
 
+    k4_path = run_dense_path(gen)
+    k4_cases = [dense_case(gen, shape, causal, dtype) for shape, causal, dtype in K4_CASES]
+    # K1 with every length S at K4's BERT shape: the same function
+    kernel_case(gen, 64, 12, 256, 64, torch.bfloat16, causal=False,
+                lengths=torch.full((64,), 256))
+
     with open(CONFIG) as f:
         cfg_raw = json.load(f)
     proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
@@ -869,6 +1112,20 @@ def main() -> int:
     k2_main = k2_cases[0]  # the largest window
     compare_packed_paths(prunner, runner, packed_proc, rows=320, seed=2)
     del runner, prunner, result["runner"], packed["runner"]
+    torch.cuda.empty_cache()
+
+    with open(INT8_CONFIG) as f:
+        int8_raw = json.load(f)
+    int8_proc = int8_raw["streams"][0]["pipeline"]["processors"][0]
+    bf16_raw = json.loads(json.dumps(int8_raw))
+    bf16_raw["streams"][0]["pipeline"]["processors"][0]["serving_dtype"] = "bfloat16"
+    int8_run, bf16_run = run_int8_slice(int8_raw), run_int8_slice(bf16_raw)
+    print("int8 traffic rows/s " + json.dumps({
+        "int8": int8_run["report"]["traffic_rows_per_s"],
+        "bfloat16": bf16_run["report"]["traffic_rows_per_s"]}), flush=True)
+    compare_int8(int8_run["runner"], bf16_run["runner"], int8_proc, rows=320, seed=3)
+    product_times(gen)
+    del int8_run["runner"], bf16_run["runner"]
     torch.cuda.empty_cache()
 
     # K3 at the generate stream's shapes: decode over 16 slots with contexts
@@ -916,6 +1173,14 @@ def main() -> int:
         "max_abs_err": k3_main["max_abs_err"], "ms": k3_main["kernel_ms"],
         "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "arkflow_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "arkflow_tpu/ops/flash_attention.py:70",
+        "launches": k4_path["k4_launches"], "ok": True,
+        "max_abs_err": k4_cases[0]["max_abs_err"], "ms": k4_cases[0]["kernel_ms"],
+        "plain_ms": k4_cases[0]["plain_ms"], "bound_ms": k4_cases[0]["bound_ms"],
+        "bound_by": k4_cases[0]["bound_by"], "library_ms": k4_cases[0]["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

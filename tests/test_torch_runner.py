@@ -150,8 +150,12 @@ def test_serving_dtype_and_warmup():
     assert runner.params["layers"]["q"]["w"].dtype == torch.bfloat16
     assert runner.warmup() == len(BATCH) * len(SEQ)
     assert runner.device_steps == len(BATCH) * len(SEQ) and runner.rows == 0
-    with pytest.raises(ConfigError, match="not yet ported"):
-        ModelRunner("bert_classifier", TINY_BERT, device="cpu", serving_dtype="int8")
+    int8 = ModelRunner("bert_classifier", TINY_BERT, buckets=BucketPolicy(BATCH, SEQ),
+                       device="cpu", serving_dtype="int8")
+    assert int8.params["layers"]["q"]["w_q"].dtype == torch.int8
+    assert int8.infer_sync(_inputs(3, 3, 10, 10))["label"].shape == (3,)
+    with pytest.raises(ConfigError, match="invalid"):
+        ModelRunner("bert_classifier", TINY_BERT, device="cpu", serving_dtype="fp8")
 
 
 def _packed_layout(seed: int, n: int, smax: int, seq: int):

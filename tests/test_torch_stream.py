@@ -171,7 +171,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"tokenizer": "bert-base-uncased"}),
     ("processor", {"mesh": {"tp": 2}}),
-    ("processor", {"serving_dtype": "int8"}),
+    ("processor", {"dispatch_depth": 2}),
     ("input", {"codec": "json"}),
     ("engine", {"health_check": {"enabled": True}}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
