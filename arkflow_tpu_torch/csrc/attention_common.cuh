@@ -1,8 +1,8 @@
-// Pieces shared by the attention kernels of csrc/ (flash_tile.cuh, which K1
-// and K4 instantiate, segment_attention.cu and paged_attention.cu): their
-// tile sizes and thread layout, 4-wide loads and stores of f32 or bf16
-// operands as float4, the (batch, head, seq) strides they address q/k/v/o
-// with, and the float4 arithmetic of their online softmax.
+// Pieces shared by the attention kernels of csrc/ (flash_tile.cuh, the FMA
+// body of K1, K2 and K4, and paged_attention.cu, K3): their tile sizes and
+// thread layout, 4-wide loads and stores of f32 or bf16 operands as float4,
+// the (batch, head, seq) strides they address q/k/v/o with (mma_tile.cuh
+// too), and the float4 arithmetic of their online softmax.
 
 #pragma once
 

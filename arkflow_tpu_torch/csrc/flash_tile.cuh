@@ -1,36 +1,59 @@
-// The flash-attention tile kernel shared by K1 (ragged_attention.cu) and K4
-// (flash_attention.cu): [B, H, S, D] q/k/v/o addressed through (batch, head,
-// seq) strides, one block per (64-query tile, head, batch row), K and V
-// staged through shared memory 32 keys at a time as f32, the online softmax
-// in registers with the TPU kernels' constants (scale 1/sqrt(D) applied to
-// the dot product, mask value -1e30, the normaliser floored at 1e-30).
+// The FMA flash tile: the f32 body of K1, K2 and K4, and their bf16 body at
+// D = 8 (the tensor-core tile of mma_tile.cuh takes bf16 at D >= 16).
+// [B, H, S, D] q/k/v/o addressed through (batch, head, seq) strides, one
+// block per (64-query tile, head, batch row), K and V staged through shared
+// memory 32 keys at a time as f32, the online softmax in registers with the
+// TPU kernels' constants (scale 1/sqrt(D) applied to the dot product, mask
+// value -1e30, the normaliser floored at 1e-30), f32 FMAs throughout: the
+// f32 contract (1e-4 against the plain version, TF32 off) rules out bf16
+// tensor cores.
 //
-// kRagged selects what bounds a row at compile time:
-// - true (K1): row b holds lengths[b] live tokens; keys past it are never
-//   loaded, query rows past it are written as 0, and a block whose whole
-//   query tile lies past it writes zeros and returns without reading.
-// - false (K4): every row holds S tokens; the lengths pointer is never read.
-// With `causal`, key j is visible to query i only if j <= i, and a block's
-// K/V loop stops at its query tile's last position.
+// kMask selects what bounds a row at compile time (the same three policies
+// as mma_tile.cuh):
+// - kMaskRagged (K1): row b holds lengths[b] live tokens; keys past it are
+//   never loaded, query rows past it are written as 0, and a block whose
+//   whole query tile lies past it writes zeros and returns without reading.
+// - kMaskDense (K4): every row holds S tokens; `aux` is never read.
+// - kMaskSegment (K2): query i sees key j iff seg[b, i] == seg[b, j] > 0
+//   (aux = seg, [B, S] int32); dead queries (id 0) are written as 0. The
+//   block reduces its query tile's live ids to a range [lo, hi] and loads a
+//   key tile only if the range of its live ids meets [lo, hi]: a key that
+//   matches some live query has an id inside both ranges, so no needed tile
+//   is skipped for ANY segment_ids. pack_tokens numbers segments in the
+//   examples' original order, not in position order, so nothing may assume
+//   sorted ids. A query tile with no live query writes zeros and returns.
+// With `causal` (K1 and K4), key j is visible to query i only if j <= i, and
+// a block's K/V loop stops at its query tile's last position.
 
 #pragma once
+
+#include <climits>
 
 #include "attention_common.cuh"
 
 namespace arkflow {
 
-template <typename T, int D, bool kRagged>
+constexpr int kMaskDense = 0;
+constexpr int kMaskRagged = 1;
+constexpr int kMaskSegment = 2;
+
+static_assert(kBlockK == 32, "one warp reduces a key tile's segment ids");
+
+template <typename T, int D, int kMask>
 __global__ void __launch_bounds__(Layout<D>::kThreads)
 flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
-                  const int* __restrict__ lengths, int S, int causal,
-                  float scale, Strides qs, Strides ks, Strides vs, Strides os) {
+                  const int* __restrict__ aux, int S, int causal, float scale,
+                  Strides qs, Strides ks, Strides vs, Strides os) {
   using L = Layout<D>;
   constexpr int TPR = L::kThreadsPerRow;
   constexpr int NV = L::kChunks;
   constexpr int D4 = L::kD4;
+  constexpr bool kSegment = kMask == kMaskSegment;
   __shared__ float4 k_tile[kBlockK][D4];
   __shared__ float4 v_tile[kBlockK][D4];
+  __shared__ int k_seg[kSegment ? kBlockK : 1];
+  __shared__ int q_lo, q_hi, tile_live;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -39,14 +62,32 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int part = threadIdx.x % TPR;
   const int qi = q0 + row;
   int len = S;
-  if constexpr (kRagged) {
-    len = lengths[b];
+  if constexpr (kMask == kMaskRagged) {
+    len = aux[b];
     len = len < 0 ? 0 : (len > S ? S : len);
+  }
+  const int* seg_row = kSegment ? aux + (long long)b * S : aux;  // kMaskSegment only
+  int my_seg = 0, lo = 0, hi = 0;
+  if constexpr (kSegment) {  // the live id range of this query tile
+    my_seg = qi < S ? seg_row[qi] : 0;
+    if (threadIdx.x == 0) {
+      q_lo = INT_MAX;
+      q_hi = 0;
+    }
+    __syncthreads();
+    if (part == 0 && my_seg > 0) {
+      atomicMin(&q_lo, my_seg);
+      atomicMax(&q_hi, my_seg);
+    }
+    __syncthreads();
+    lo = q_lo;
+    hi = q_hi;
   }
 
   T* orow = o + b * os.b + h * os.h + (long long)qi * os.s;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (kRagged && q0 >= len) {  // the whole query tile is padding
+  const bool tile_dead = kMask == kMaskRagged ? q0 >= len : (kSegment && hi == 0);
+  if (tile_dead) {  // the whole query tile is padding or dead
     if (qi < S) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) Vec4<T>::store(orow + (part + i * TPR) * 4, zero);
@@ -64,7 +105,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kNeg;
   float l = 0.f;
-  const bool q_valid = qi < len;
+  const bool q_valid = kSegment ? my_seg > 0 : qi < len;
 
   int kv_end = len;  // keys past the row's length are never loaded
   if (causal && q0 + kBlockQ < kv_end) kv_end = q0 + kBlockQ;
@@ -74,7 +115,19 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
-    __syncthreads();  // the previous tile is consumed
+    __syncthreads();  // the previous tile (K, V, ids, flag) is consumed
+    if constexpr (kSegment) {
+      if (threadIdx.x < kBlockK) {  // warp 0: the key tile's ids and range
+        const int j = k0 + threadIdx.x;
+        const int id = j < S ? seg_row[j] : 0;
+        k_seg[threadIdx.x] = id;
+        const int k_lo = __reduce_min_sync(0xffffffffu, id > 0 ? id : INT_MAX);
+        const int k_hi = __reduce_max_sync(0xffffffffu, id);
+        if (threadIdx.x == 0) tile_live = k_hi > 0 && k_lo <= hi && k_hi >= lo;
+      }
+      __syncthreads();
+      if (!tile_live) continue;  // block-uniform: no key here meets a live query
+    }
     for (int idx = threadIdx.x; idx < kBlockK * D4; idx += L::kThreads) {
       const int jj = idx / D4;
       const int c = idx % D4;
@@ -100,7 +153,11 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int off = TPR / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int j = k0 + jj;
-      const bool ok = q_valid && j < len && (!causal || j <= qi);
+      bool ok;
+      if constexpr (kSegment)
+        ok = q_valid && k_seg[jj] == my_seg;  // dead keys have id 0
+      else
+        ok = q_valid && j < len && (!causal || j <= qi);
       s[jj] = ok ? dot * scale : kNeg;
       tile_max = fmaxf(tile_max, s[jj]);
     }
@@ -124,7 +181,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       float4 out = zero;
-      if (q_valid)  // pad queries emit zeros: a fully masked softmax is uniform
+      if (q_valid)  // pad and dead queries emit zeros: a fully masked softmax is uniform
         out = make_float4(acc[i].x / denom, acc[i].y / denom, acc[i].z / denom,
                           acc[i].w / denom);
       Vec4<T>::store(orow + (part + i * TPR) * 4, out);
@@ -132,46 +189,39 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kRagged>
+template <typename T, int D, int kMask>
 cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
-                              const int* lengths, int B, int H, int S, int causal,
+                              const int* aux, int B, int H, int S, int causal,
                               float scale, const long long* st, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]};
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_tile_kernel<T, D, kRagged><<<grid, Layout<D>::kThreads, 0, stream>>>(
+  flash_tile_kernel<T, D, kMask><<<grid, Layout<D>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lengths, S, causal, scale,
-      qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), aux, S, causal, scale, qs,
+      ks, vs, os);
   return cudaGetLastError();
 }
 
-// q, k, v, o: [B, H, S, D] addressed through `st` (12 element strides:
-// batch, head, seq for q, k, v, o in that order; the head dim is
-// contiguous). lengths: [B] int32 on the device when kRagged, else unused.
-template <bool kRagged>
+// The FMA body's instantiations: f32 at every head dim, bf16 at D = 8 only
+// (bf16 at D >= 16 runs on the tensor-core tile).
+template <int kMask>
 cudaError_t launch_flash_tile_any(const void* q, const void* k, const void* v,
-                                  void* o, const int* lengths, int B, int H,
-                                  int S, int D, int is_bf16, int causal,
-                                  float scale, const long long* st,
-                                  void* stream_ptr) {
-  if (B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define ARKFLOW_FLASH_TILE_CASE(DIM)                                            \
-  case DIM:                                                                     \
-    return is_bf16 ? launch_flash_tile<__nv_bfloat16, DIM, kRagged>(           \
-                         q, k, v, o, lengths, B, H, S, causal, scale, st, stream) \
-                   : launch_flash_tile<float, DIM, kRagged>(                   \
-                         q, k, v, o, lengths, B, H, S, causal, scale, st, stream);
+                                  void* o, const int* aux, int B, int H, int S,
+                                  int D, int is_bf16, int causal, float scale,
+                                  const long long* st, cudaStream_t stream) {
+  if (is_bf16)
+    return D == 8 ? launch_flash_tile<__nv_bfloat16, 8, kMask>(
+                        q, k, v, o, aux, B, H, S, causal, scale, st, stream)
+                  : cudaErrorInvalidValue;
   switch (D) {
-    ARKFLOW_FLASH_TILE_CASE(8)
-    ARKFLOW_FLASH_TILE_CASE(16)
-    ARKFLOW_FLASH_TILE_CASE(32)
-    ARKFLOW_FLASH_TILE_CASE(64)
-    ARKFLOW_FLASH_TILE_CASE(128)
+    case 8: return launch_flash_tile<float, 8, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    case 16: return launch_flash_tile<float, 16, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    case 32: return launch_flash_tile<float, 32, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    case 64: return launch_flash_tile<float, 64, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    case 128: return launch_flash_tile<float, 128, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
     default: return cudaErrorInvalidValue;
   }
-#undef ARKFLOW_FLASH_TILE_CASE
 }
 
 }  // namespace arkflow

@@ -1,42 +1,42 @@
-// Ragged flash attention for Hopper (sm_90a): per-row sequence lengths, no
-// work on padding.
+// Ragged flash attention for Hopper (sm_90a): K1, per-row sequence lengths,
+// no work on padding.
 //
-// Replaces: arkflow_tpu/ops/ragged_attention.py, ragged_flash_attention
-// (Pallas kernel _ragged_kernel + flash_softmax_loop). Same function: for row
-// b, key j is visible to query i iff j < lengths[b] (and j <= i when causal);
-// query rows i >= lengths[b] are written as 0. Online softmax in f32 with the
-// same constants as the TPU kernel: scale 1/sqrt(D) applied to the dot
-// product, mask value -1e30, the normaliser l floored at 1e-30.
+// Replaces: arkflow_tpu/ops/ragged_attention.py:95, ragged_flash_attention
+// (pallas_call :118; Pallas kernel _ragged_kernel + flash_softmax_loop :27).
+// Same function: for row b, key j is visible to query i iff j < lengths[b]
+// (and j <= i when causal); query rows i >= lengths[b] are written as 0.
+// Online softmax in f32 with the TPU kernel's constants: scale 1/sqrt(D)
+// applied to the dot product, mask value -1e30, the normaliser floored at
+// 1e-30.
 //
 // What bounds it on the H100: at the serving shapes (D = 64, S <= 512, bf16)
-// one call moves q, k, v and o once (~25 MB each at B=64, H=12, S=256) and
-// does 4 * len^2 * D flops per (row, head) -- far below the 295 flop/byte
-// ridge, so device memory bandwidth is the bound, then latency of the many
-// small blocks.
+// one call reads the q, k and v rows inside the lengths once and writes o
+// once (14.7 us at the padded BERT step's stream lengths, 3.35 TB/s), and
+// does 4 * len^2 * D flops per (row, head): far below the 295 flop/byte
+// ridge, so the bytes bound it, then the latency of many small blocks.
 //
-// What the design does about it:
-// - Every input byte is read from device memory once per query tile: K and V
-//   tiles are staged through shared memory (as f32, 32 keys at a time) and
-//   shared by the block's 64 queries. Loads are 16-byte vectors on
-//   neighbouring addresses.
-// - Ragged skipping: the K/V loop of a block stops at the row's length (and
-//   at the tile's causal bound), so padded keys are never loaded; a block
-//   whose whole query tile lies past the length writes zeros and returns
-//   without reading anything. Bucket-padding rows (length 0) cost one store.
-// - No layout copies: q, k, v and o are addressed through (batch, head, seq)
-//   strides, so the [B, S, H, D] projections of the model are read in place.
-// - The TPU kernel keeps the whole row's K/V in VMEM and runs its grid in
-//   order; here blocks run in parallel with no carried state, each block
-//   reads its row's length itself (the TPU kernel scalar-prefetches it).
-// Tensor cores (mma/wgmma) and TMA are not used yet: the math is f32 FMAs.
-//
-// The kernel itself is flash_tile.cuh's, instantiated with kRagged = true;
-// K4 (flash_attention.cu) instantiates it without the lengths.
+// What the design does about it (the tile is mma_tile.cuh's, under the
+// ragged mask policy; its note has the details):
+// - bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulation, P
+//   rounded to bf16 in registers), K and V staged as bf16 by cp.async into a
+//   two-stage ring so the next tile loads while this one computes;
+// - a block's K/V loop stops at its row's length (and at its tile's causal
+//   bound), so padded keys are never loaded, and a block whose whole query
+//   tile lies past the length writes zeros without reading; a warp whose
+//   rows are all padding skips the math;
+// - no layout copies: (batch, head, seq) strides read the model's
+//   [B, S, H, D] projections in place;
+// - the TPU kernel keeps a row's K/V in VMEM and runs its grid in order;
+//   here blocks run in parallel with no carried state, and each reads its
+//   row's length itself (the TPU kernel scalar-prefetches it).
+// f32 and D = 8 run flash_tile.cuh's FMA body (the f32 contract rules out
+// bf16 tensor cores; mma.sync needs D a multiple of 16). wgmma and TMA wait:
+// the shapes are bound by bytes, not by mma.sync's rate (mma_tile.cuh).
 //
 // C interface (bound with ctypes): arkflow_ragged_attention(...) launches on
 // the given stream, does not synchronise, and returns cudaGetLastError().
 
-#include "flash_tile.cuh"
+#include "mma_tile.cuh"
 
 // q, k, v, o: [B, H, S, D] addressed through `strides` (12 element strides:
 // batch, head, seq for q, k, v, o in that order; the head dim is contiguous).
@@ -47,7 +47,6 @@ extern "C" int arkflow_ragged_attention(const void* q, const void* k,
                                         int S, int D, int is_bf16, int causal,
                                         float scale, const long long* strides,
                                         void* stream) {
-  return arkflow::launch_flash_tile_any<true>(q, k, v, o, lengths, B, H, S, D,
-                                              is_bf16, causal, scale, strides,
-                                              stream);
+  return arkflow::launch_attention<arkflow::kMaskRagged>(
+      q, k, v, o, lengths, B, H, S, D, is_bf16, causal, scale, strides, stream);
 }

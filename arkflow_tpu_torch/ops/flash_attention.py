@@ -12,12 +12,15 @@ Three parts:
   body's arithmetic over all queries at once: f32 operands, scores scaled by
   1/sqrt(D), an online softmax over key tiles of ``tile_k``, the result
   divided by ``max(l, 1e-30)``.
-- the CUDA kernel ``csrc/flash_attention.cu`` (K1's tile kernel with the
-  lengths compiled out), built for sm_90a at first use.
+- the CUDA kernel ``csrc/flash_attention.cu`` (K1's tile under the dense
+  mask policy, which reads no lengths: ``csrc/mma_tile.cuh`` for bf16 at
+  D >= 16, ``csrc/flash_tile.cuh`` for f32 and D = 8), built for sm_90a at
+  first use.
 - ``flash_attention``: the wrapper. A CPU tensor takes the plain version; a
   CUDA tensor launches the kernel or raises. ``flash_attention.launches``
-  counts the kernel launches, apart from K1's. (The package exports the
-  function under this module's name, so the count hangs on the function.)
+  counts the kernel launches, apart from K1's, in all and per variant
+  (``kernel_variant``). (The package exports the function under this
+  module's name, so the count hangs on the function.)
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ import math
 import torch
 
 from arkflow_tpu_torch.ops.build import KernelLibrary
-from arkflow_tpu_torch.ops.ragged_attention import LaunchCounter, check_operands, operand_strides
+from arkflow_tpu_torch.ops.ragged_attention import (
+    VARIANTS,
+    LaunchCounter,
+    check_operands,
+    operand_strides,
+)
 
 _NEG = -1e30
 
@@ -70,7 +78,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)  # keeps q's (possibly [B, S, H, D]) layout
-    check_operands("flash attention", q, k, v, out)
+    variant = check_operands("flash attention", q, k, v, out)
     b, h, s, d = q.shape
     if out.numel() == 0:
         return out
@@ -85,7 +93,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
              operand_strides(q, k, v, out), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches.add()
+    flash_attention.launches.add(variant)
     return out
 
 
@@ -105,4 +113,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, causal)
 
 
-flash_attention.launches = LaunchCounter()
+flash_attention.launches = LaunchCounter(VARIANTS)

@@ -9,10 +9,12 @@ float32; the output has q's dtype.
 Three parts:
 - ``ragged_attention_reference``: the plain PyTorch version (masked softmax
   over the full score matrix), the port's analogue of Pallas interpret mode.
-- the CUDA kernel ``csrc/ragged_attention.cu``, built for sm_90a at first use.
+- the CUDA kernel ``csrc/ragged_attention.cu``, built for sm_90a at first use:
+  the tensor-core tile of ``csrc/mma_tile.cuh`` for bf16 at D >= 16, the FMA
+  body of ``csrc/flash_tile.cuh`` for f32 and D = 8 (``kernel_variant``).
 - ``ragged_flash_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises. ``launches`` counts
-  the kernel launches.
+  the kernel launches, in all and per variant.
 """
 
 from __future__ import annotations
@@ -26,29 +28,58 @@ import torch
 from arkflow_tpu_torch.ops.build import KernelLibrary
 
 _NEG = -1e30
-#: head dims the kernel is instantiated for (csrc/flash_tile.cuh, K1 and K4)
+#: head dims K1, K2 and K4 are instantiated for (csrc/flash_tile.cuh,
+#: csrc/mma_tile.cuh)
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
-_ALIGN = 16  # bytes: the kernel loads 16-byte (f32) / 8-byte (bf16) vectors
+#: head dims of the tensor-core tile: mma.sync's k is 16 bf16 values
+MMA_HEAD_DIMS = (16, 32, 64, 128)
+#: keys per staged tile of the tensor-core tile, by head dim (kMmaBlockK in
+#: mma_tile.cuh, chosen with tools/tile_sweep.py)
+MMA_BLOCK_K = {16: 64, 32: 64, 64: 64, 128: 32}
+#: the bodies a K1, K2 or K4 launch may run: the bf16 tensor-core tile and
+#: the f32 FMA loop
+VARIANTS = ("mma", "fma")
+_ALIGN = 16  # bytes: the kernels copy 16-byte vectors
 
 
 class LaunchCounter:
     """A thread-safe count of kernel launches (runner steps may launch from
-    several executor threads at once)."""
+    several executor threads at once), in all (``value``) and, for a kernel
+    with several bodies, per variant (``variants``)."""
 
-    def __init__(self):
+    def __init__(self, variants: tuple[str, ...] = ()):
         self._lock = threading.Lock()
         self.value = 0
+        self.variants = dict.fromkeys(variants, 0)
 
-    def add(self) -> None:
+    def add(self, variant: str | None = None) -> None:
         with self._lock:
             self.value += 1
+            if variant is not None:
+                self.variants[variant] += 1
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+            self.variants = dict.fromkeys(self.variants, 0)
 
 
-launches = LaunchCounter()
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The body a K1, K2 or K4 launch runs, from its dtype and head dim
+    alone, chosen before the launch: ``"mma"`` (bf16 on the tensor cores,
+    ``csrc/mma_tile.cuh``) for bf16 at D in ``MMA_HEAD_DIMS``, ``"fma"``
+    (``csrc/flash_tile.cuh``) for f32, whose 1e-4 contract rules out bf16
+    products, and for D = 8, below mma.sync's k of 16. The C entries apply
+    the same rule. Raises ``ValueError`` for a dtype or head dim no body
+    takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the attention kernels take float32 or bfloat16, got {dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in the kernels' {KERNEL_HEAD_DIMS}")
+    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "fma"
+
+
+launches = LaunchCounter(VARIANTS)
 _library = KernelLibrary("ragged_attention")
 
 
@@ -86,18 +117,17 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             f"{_ALIGN}-byte aligned (strides {t.stride()}, {size}-byte elements)")
 
 
-def check_operands(kernel: str, q, k, v, out) -> None:
+def check_operands(kernel: str, q, k, v, out) -> str:
     """What the attention kernels of ``csrc/`` take: [B, H, S, D] float32 or
     bfloat16 operands alike in device, type and shape, a head dim they are
-    instantiated for, laid out with the head dim contiguous and aligned."""
+    instantiated for, laid out with the head dim contiguous and aligned.
+    Returns the variant the launch runs (``kernel_variant``)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, S, D], got shape {tuple(q.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{kernel} kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not in the kernel's {KERNEL_HEAD_DIMS}")
+    variant = kernel_variant(q.dtype, q.shape[3])
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_operand(name, t, q)
+    return variant
 
 
 def operand_strides(q, k, v, out) -> ctypes.Array:
@@ -108,7 +138,7 @@ def operand_strides(q, k, v, out) -> ctypes.Array:
 
 def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)  # keeps q's (possibly [B, S, H, D]) layout
-    check_operands("ragged attention", q, k, v, out)
+    variant = check_operands("ragged attention", q, k, v, out)
     b, h, s, d = q.shape
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
@@ -130,7 +160,7 @@ def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
              int(causal), 1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA error {err}")
-    launches.add()
+    launches.add(variant)
     return out
 
 

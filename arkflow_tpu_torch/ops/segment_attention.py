@@ -10,16 +10,18 @@ Three parts:
   over the full [B, 1, S, S] pair mask), the port's analogue of Pallas
   interpret mode.
 - the CUDA kernel ``csrc/segment_attention.cu``, built for sm_90a at first
-  use. It replaces the Pallas kernel ``_segment_kernel``; at the packed
-  serving shapes it is bound by device-memory bytes (each live q/k/v row
-  read once, the output written once), so it stages K/V tiles through
-  shared memory once per 64-query tile and loads only key tiles whose
-  segment-id range meets the query tile's -- a test that holds for any
-  ``segment_ids``, since ``pack_tokens`` numbers segments out of position
-  order. A query tile with no live query writes zeros and reads nothing.
+  use: K1's tile under the segment mask policy (``csrc/mma_tile.cuh`` for
+  bf16 at D >= 16, ``csrc/flash_tile.cuh`` for f32 and D = 8). It replaces
+  the Pallas kernel ``_segment_kernel``; at the packed serving shapes it is
+  bound by device-memory bytes (each live q/k/v row read once, the output
+  written once), so it stages K/V tiles through shared memory once per
+  64-query tile and loads only key tiles whose segment-id range meets the
+  query tile's -- a test that holds for any ``segment_ids``, since
+  ``pack_tokens`` numbers segments out of position order. A query tile with
+  no live query writes zeros and reads nothing.
 - ``segment_flash_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises. ``launches`` counts
-  the kernel launches.
+  the kernel launches, in all and per variant (``kernel_variant``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from arkflow_tpu_torch.ops.build import KernelLibrary
 from arkflow_tpu_torch.ops.ragged_attention import (
+    VARIANTS,
     LaunchCounter,
     check_operands,
     operand_strides,
@@ -38,7 +41,7 @@ from arkflow_tpu_torch.ops.ragged_attention import (
 
 _NEG = -1e30
 
-launches = LaunchCounter()
+launches = LaunchCounter(VARIANTS)
 _library = KernelLibrary("segment_attention")
 
 
@@ -59,7 +62,7 @@ def segment_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 def _launch(q, k, v, segment_ids) -> torch.Tensor:
     out = torch.empty_like(q)  # keeps q's (possibly [B, S, H, D]) layout
-    check_operands("segment attention", q, k, v, out)
+    variant = check_operands("segment attention", q, k, v, out)
     b, h, s, d = q.shape
     if (segment_ids.device != q.device or segment_ids.dtype != torch.int32
             or segment_ids.shape != (b, s) or not segment_ids.is_contiguous()):
@@ -81,7 +84,7 @@ def _launch(q, k, v, segment_ids) -> torch.Tensor:
              1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"segment attention kernel launch failed: CUDA error {err}")
-    launches.add()
+    launches.add(variant)
     return out
 
 

@@ -9,9 +9,15 @@ last line):
 1. the card's identity (nvidia-smi name and power limit, torch's name);
 2. building every CUDA kernel of the paths from ``arkflow_tpu_torch/csrc``
    (one nvcc per source, all started together);
-3. each kernel against its plain PyTorch version at BERT-base shapes, with
-   its time, the plain version's, one PyTorch library call's and the bound:
-   K1 (ragged) on random lengths, K2 (segment) on packed layouts;
+3. K1, K2 and K4 against their plain versions at the tiles' edges (every
+   head dim in bf16 and f32, S off the tile grid, lengths 0/1/S, causal,
+   unsorted segment ids); then each kernel against its plain PyTorch
+   version at BERT-base shapes, with its time, the plain version's, one
+   PyTorch library call's and the bound:
+   K1 (ragged) on random lengths, K2 (segment) on packed layouts, and K2 at
+   head dim 128 (the tensor-core tile's dynamic shared memory). Every K1,
+   K2 and K4 case checks the variant its launch ran: ``mma`` (the bf16
+   tensor-core tile) for bf16, ``fma`` for f32;
 4. K4 (dense flash attention) through its entry point
    ``arkflow_tpu_torch.ops.flash_attention``, once at each case's shape with
    the counts read around those calls (no other kernel may launch, and tiles
@@ -30,7 +36,8 @@ last line):
    every row in order, K2 launches = layers x packed steps, no K1 launch,
    the packed steps' token fill; then K2 at the stream's own layout, and
    the same texts through the packed K2 path, the packed pair-mask path and
-   the padded K1 path, whose outputs must agree;
+   the padded K1 path, whose outputs must agree (every K1 and K2 launch of
+   the three BERT streams must be ``mma``);
 7. the int8 stream ``arkflow_tpu_torch/examples/int8_bert_stream.json``
    (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
    int8) -> drop) through ``Engine``, and the same config at bfloat16: every
@@ -113,6 +120,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 INT8_PEAK_OPS = 1979e12  # dense int8 on the tensor cores
 TOL = {torch.bfloat16: 1.0 / 64, torch.float32: 1e-4}
+#: the kernels line's mark on K1, K2 and K4, which run the tensor-core tile
+REDESIGN = "bf16 mma.sync tile, arkflow_tpu_torch/csrc/mma_tile.cuh"
+#: the body every case here must run (all have head dims of 64 or 128)
+EXPECTED_VARIANT = {torch.bfloat16: "mma", torch.float32: "fma"}
 LABEL_MARGIN = 0.05
 LOGIT_TOL = 1.0 / 64
 
@@ -126,20 +137,28 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: the mask policies of csrc/flash_tile.cuh and csrc/mma_tile.cuh, by value
+MASKS = {0: "dense", 1: "ragged", 2: "segment"}
+
+
 def ptxas_summary(text: str) -> list[dict]:
-    """Registers and spill bytes per kernel instantiation, from ``-Xptxas -v``."""
+    """Registers and spill bytes per kernel instantiation, from ``-Xptxas -v``:
+    the kernel, dtype, D, and for the flash tiles the mask policy and the
+    variant (``mma``: the bf16 tensor-core tile; ``fma``: the f32 FMA body),
+    for the paged kernel its query tile."""
     out: list[dict] = []
     for line in text.splitlines():
-        m = re.search(
-            r"Compiling entry function '\S*?(segment_attention|paged_attention|flash_tile)_kernelI"
-            r"(\w+?)Li(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
+        m = re.search(r"Compiling entry function '\S*?(mma_tile|flash_tile|paged_attention)"
+                      r"_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)+)", line)
         if m:
-            dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
-            out.append({"kernel": m.group(1), "dtype": dtype, "D": int(m.group(3))})
-            if m.group(4):  # the paged kernel's query tile
-                out[-1]["BQ"] = int(m.group(4))
-            if m.group(5):  # the tile kernel's ragged switch: K1 (1) or K4 (0)
-                out[-1]["ragged"] = m.group(5) == "1"
+            kernel, ints = m.group(1), [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
+            bf16 = kernel == "mma_tile" or m.group(2) == "13__nv_bfloat16"
+            out.append({"kernel": kernel, "dtype": "bf16" if bf16 else "f32", "D": ints[0]})
+            if kernel == "paged_attention":
+                out[-1]["BQ"] = ints[1]
+            else:
+                out[-1]["mask"] = MASKS[ints[1]]
+                out[-1]["variant"] = "mma" if kernel == "mma_tile" else "fma"
         elif out and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[-1]["spill_store_bytes"] = int(m.group(1))
         elif out and (m := re.search(r"Used (\d+) registers", line)):
@@ -188,6 +207,17 @@ def sdpa_call(q, k, v, lengths, causal: bool):
     return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def launched_variant(counter, call) -> tuple[str, torch.Tensor]:
+    """Run ``call`` once; return the variant its launch counted, and its
+    output. Fails unless exactly one launch was counted."""
+    before = dict(counter.variants)
+    out = call()
+    delta = {k: n - before[k] for k, n in counter.variants.items() if n != before[k]}
+    check(len(delta) == 1 and sum(delta.values()) == 1,
+          f"expected one counted launch, got {delta}")
+    return next(iter(delta)), out
+
+
 def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     """K1 against its plain version on [B, S, H, D]-laid-out operands (the
     layout the model hands it), plus the timings."""
@@ -197,7 +227,8 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
         lengths = torch.randint(0, s + 1, (b,), device="cuda", generator=gen)
         lengths[:3] = torch.tensor([0, 1, s])
     lengths = lengths.to(device="cuda", dtype=torch.int32)
-    out = ra.ragged_flash_attention(q, k, v, lengths, causal=causal)
+    variant, out = launched_variant(
+        ra.launches, lambda: ra.ragged_flash_attention(q, k, v, lengths, causal=causal))
     ref = ra.ragged_attention_reference(q, k, v, lengths, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -205,13 +236,14 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     bound, bound_by = attention_bound_ms(lengths, h, s, d, dtype, causal)
     case = {
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-        "max_abs_err": err, "tol": TOL[dtype], "pad_rows_zero": pad_zero,
+        "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "pad_rows_zero": pad_zero,
         "kernel_ms": time_ms(lambda: ra.ragged_flash_attention(q, k, v, lengths, causal=causal)),
         "plain_ms": time_ms(lambda: ra.ragged_attention_reference(q, k, v, lengths, causal=causal)),
         "library_ms": time_ms(sdpa_call(q, k, v, lengths, causal)),
         "bound_ms": bound, "bound_by": bound_by,
     }
     print("K1 case " + json.dumps(case), flush=True)
+    check(variant == EXPECTED_VARIANT[dtype], f"K1 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K1 disagrees with its plain version: {case}")
     check(pad_zero, f"K1 left pad queries non-zero: {case}")
     return case
@@ -246,6 +278,7 @@ def run_dense_path(gen) -> dict:
         flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     report = {"calls": len(operands), "k4_launches": flash_attention.launches.value,
+              "k4_variants": dict(flash_attention.launches.variants),
               "k1_launches": ra.launches.value, "k2_launches": sa.launches.value,
               "k3_launches": ra.paged_flash_attention.launches.value}
     ragged = torch.zeros(1, 1, 30, 64, device="cuda", dtype=torch.bfloat16)
@@ -257,6 +290,9 @@ def run_dense_path(gen) -> dict:
     report["k4_launches_after_ragged"] = flash_attention.launches.value
     print("K4 path " + json.dumps(report), flush=True)
     check(report["k4_launches"] == len(operands), f"K4 did not launch once a call: {report}")
+    check(report["k4_variants"] == {
+        v: sum(EXPECTED_VARIANT[dtype] == v for _, _, dtype in K4_CASES) for v in ra.VARIANTS},
+        f"K4's launches ran the wrong variants: {report}")
     check(report["k1_launches"] == report["k2_launches"] == report["k3_launches"] == 0,
           f"the K4 path launched another kernel: {report}")
     check(report["ragged_tiles_raised"] and report["k4_launches_after_ragged"] == len(operands),
@@ -271,7 +307,8 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
     b, h, s, d = shape
     q, k, v = dense_operands(gen, shape, dtype)
     k1_before = ra.launches.value
-    out = flash_attention(q, k, v, causal=causal)
+    variant, out = launched_variant(flash_attention.launches,
+                                    lambda: flash_attention(q, k, v, causal=causal))
     ref = flash_attention_reference(q, k, v, causal=causal)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
     lib_out = lib()
@@ -280,7 +317,7 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
     bound, bound_by = attention_bound_ms(torch.full((b,), s), h, s, d, dtype, causal)
     case = {
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-        "max_abs_err": err, "tol": TOL[dtype],
+        "variant": variant, "max_abs_err": err, "tol": TOL[dtype],
         "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item(),
         "kernel_ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
         "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, causal=causal), iters=5),
@@ -288,9 +325,60 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
         "k1_launches_during": ra.launches.value - k1_before,
     }
     print("K4 case " + json.dumps(case), flush=True)
+    check(variant == EXPECTED_VARIANT[dtype], f"K4 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K4 disagrees with its plain version: {case}")
     check(case["k1_launches_during"] == 0, f"K1 launched during a K4 case: {case}")
     return case
+
+
+def edge_cases(gen) -> dict:
+    """K1, K2 and K4 against their plain versions where the tiles have
+    edges: every head dim of both bodies in bf16 and f32, sequences off the
+    64-query and key-tile grid (S = 1, 37, 100, 200), lengths 0, 1, S and
+    random, causal on and off, and unsorted, interleaved segment ids with
+    dead holes. Each launch must run the variant ``kernel_variant`` names,
+    and pad and dead query rows must be exactly 0."""
+    rng = np.random.default_rng(7)
+    worst: dict[str, float] = {}
+    launches = 0
+    for d in ra.KERNEL_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            want = ra.kernel_variant(dtype, d)
+            for s in (1, 37, 100, 200):
+                b, h = 4, 2
+                q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+                           .transpose(1, 2) for _ in range(3))
+                lengths = torch.tensor([0, 1, s, int(rng.integers(0, s + 1))],
+                                       device="cuda", dtype=torch.int32).clamp(max=s)
+                seg_np = rng.integers(0, 5, (b, s)).astype(np.int32)
+                seg_np[0], seg_np[1] = 0, 1
+                seg = torch.from_numpy(seg_np).cuda()
+                calls = []
+                for causal in (False, True):
+                    calls.append((f"K1 causal={causal}", ra.launches,
+                                  lambda c=causal: ra.ragged_flash_attention(q, k, v, lengths, causal=c),
+                                  ra.ragged_attention_reference(q, k, v, lengths, causal=causal),
+                                  torch.arange(s, device="cuda")[None, :] >= lengths[:, None]))
+                    calls.append((f"K4 causal={causal}", flash_attention.launches,
+                                  lambda c=causal: flash_attention(q, k, v, causal=c, tile_q=s, tile_k=s),
+                                  flash_attention_reference(q, k, v, causal=causal, tile_k=s), None))
+                calls.append(("K2", sa.launches, lambda: sa.segment_flash_attention(q, k, v, seg),
+                              sa.segment_attention_reference(q, k, v, seg), seg == 0))
+                for name, counter, call, ref, dead in calls:
+                    variant, out = launched_variant(counter, call)
+                    launches += 1
+                    err = (out.float() - ref.float()).abs().max().item()
+                    key = f"{name} D={d} {str(dtype).replace('torch.', '')}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    where = f"{name} at D={d}, S={s}, {dtype}"
+                    check(variant == want, f"{where} ran {variant}, not {want}")
+                    check(err <= TOL[dtype], f"{where} off its plain version by {err}")
+                    if dead is not None:
+                        check(bool((out.transpose(1, 2)[dead] == 0).all()),
+                              f"{where} left pad or dead query rows non-zero")
+    report = {"launches": launches, "max_abs_err": worst}
+    print("edge cases " + json.dumps(report), flush=True)
+    return report
 
 
 def segment_layouts(rng: np.random.Generator, b: int, s: int) -> np.ndarray:
@@ -337,7 +425,7 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
                for _ in range(3))
     seg = torch.from_numpy(seg_np).to("cuda")
-    out = sa.segment_flash_attention(q, k, v, seg)
+    variant, out = launched_variant(sa.launches, lambda: sa.segment_flash_attention(q, k, v, seg))
     ref = sa.segment_attention_reference(q, k, v, seg)
     live = (seg > 0)[:, None, :, None].expand_as(out)
     pair = ((seg[:, :, None] == seg[:, None, :]) & (seg > 0)[:, :, None])[:, None]
@@ -350,7 +438,7 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
     bound, bound_by = segment_bound_ms(seg_np, h, d, dtype)
     case = {
         "case": label, "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""),
-        "live_tokens": int((seg_np > 0).sum()), "max_abs_err": err, "tol": TOL[dtype],
+        "variant": variant, "live_tokens": int((seg_np > 0).sum()), "max_abs_err": err, "tol": TOL[dtype],
         "dead_rows_zero": dead_zero, "library_live_max_abs_err": lib_err,
         "kernel_ms": time_ms(lambda: sa.segment_flash_attention(q, k, v, seg)),
         "plain_ms": time_ms(lambda: sa.segment_attention_reference(q, k, v, seg)),
@@ -358,6 +446,7 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
         "bound_ms": bound, "bound_by": bound_by,
     }
     print("K2 case " + json.dumps(case), flush=True)
+    check(variant == EXPECTED_VARIANT[dtype], f"K2 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K2 disagrees with its plain version: {case}")
     check(dead_zero, f"K2 left dead queries non-zero: {case}")
     return case
@@ -434,6 +523,7 @@ def run_slice(cfg_raw: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = ra.launches.value
     k2_launches = sa.launches.value
+    k1_variants = dict(ra.launches.variants)
     stream = engine.streams[0]
     runner = stream.pipeline.processors[0].runner
     count = cfg_raw["streams"][0]["input"]["count"]
@@ -444,7 +534,7 @@ def run_slice(cfg_raw: dict) -> dict:
               "traffic_seconds": stream.traffic_seconds,
               "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
               "device_steps": runner.device_steps, "layers": layers,
-              "k1_launches": launches, "k2_launches": k2_launches,
+              "k1_launches": launches, "k1_variants": k1_variants, "k2_launches": k2_launches,
               "flash_fallbacks": runner.flash_fallbacks,
               "hidden": runner.cfg.hidden, "heads": runner.cfg.heads}
     print("slice " + json.dumps(report), flush=True)
@@ -455,6 +545,7 @@ def run_slice(cfg_raw: dict) -> dict:
     check(launches > 0 and launches == layers * runner.device_steps,
           f"K1 launches != layers x device steps: {report}")
     check(runner.flash_fallbacks == 0, f"the runner fell back from the kernel: {report}")
+    check(k1_variants["mma"] == launches, f"a bf16 K1 launch missed the mma tile: {report}")
     return {"report": report, "runner": runner}
 
 
@@ -502,6 +593,7 @@ def run_packed_slice(cfg_raw: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = ra.launches.value, sa.launches.value
+    k2_variants = dict(sa.launches.variants)
     runner = stream.pipeline.processors[0].runner
     expected = generated_rows(cfg_raw)
     count = len(expected)
@@ -520,7 +612,7 @@ def run_packed_slice(cfg_raw: dict) -> dict:
               "packed_token_fill": runner.packed_tokens / max(1, runner.packed_slots),
               "packed_tokens": runner.packed_tokens, "packed_slots": runner.packed_slots,
               "packed_flash": runner.cfg.packed_flash, "layers": layers,
-              "k1_launches": k1, "k2_launches": k2}
+              "k1_launches": k1, "k2_launches": k2, "k2_variants": k2_variants}
     print("packed slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"packed stream reported errors: {report}")
     check(stream.rows_out == count and sink.inner.dropped_rows == count,
@@ -529,6 +621,7 @@ def run_packed_slice(cfg_raw: dict) -> dict:
     check(k2 > 0 and k2 == layers * runner.packed_steps,
           f"K2 launches != layers x packed steps: {report}")
     check(k1 == 0, f"the packed stream launched K1: {report}")
+    check(k2_variants["mma"] == k2, f"a bf16 K2 launch missed the mma tile: {report}")
     return {"report": report, "runner": runner}
 
 
@@ -620,6 +713,7 @@ def run_int8_slice(cfg_raw: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, products = ra.launches.value, sa.launches.value, q8.int8_products.value
+    k1_variants = dict(ra.launches.variants)
     runner = stream.pipeline.processors[0].runner
     expected = generated_rows(cfg_raw)
     layers = runner.cfg.layers
@@ -630,7 +724,8 @@ def run_int8_slice(cfg_raw: dict) -> dict:
               "seconds": wall, "traffic_seconds": stream.traffic_seconds,
               "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
               "device_steps": runner.device_steps, "layers": layers, "hidden": runner.cfg.hidden,
-              "k1_launches": k1, "k2_launches": k2, "int8_products": products,
+              "k1_launches": k1, "k1_variants": k1_variants, "k2_launches": k2,
+              "int8_products": products,
               "int8_products_per_step": per_step, "flash_fallbacks": runner.flash_fallbacks}
     print("int8 slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"int8-config stream reported errors: {report}")
@@ -641,6 +736,7 @@ def run_int8_slice(cfg_raw: dict) -> dict:
           f"K1 launches != layers x device steps: {report}")
     check(products == per_step * runner.device_steps,
           f"int8 products != dense layers x device steps: {report}")
+    check(k1_variants["mma"] == k1, f"a bf16 K1 launch missed the mma tile: {report}")
     if per_step:
         w_q = runner.params["layers"]["ffn_in"]["w_q"][0]
         check(w_q.is_cuda and w_q.stride(0) == 1,
@@ -1067,6 +1163,7 @@ def main() -> int:
         print(f"ptxas {name} " + json.dumps(ptxas_summary(rep["output"])), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    edge_cases(gen)
     for s in (128, 256, 512):
         for dtype in (torch.bfloat16, torch.float32):
             kernel_case(gen, 64, 12, s, 64, dtype, causal=False)
@@ -1076,6 +1173,9 @@ def main() -> int:
         seg = segment_layouts(rng, 64, s)
         for dtype in (torch.bfloat16, torch.float32):
             segment_case(gen, seg, 12, 64, dtype, f"layouts S={s}")
+    # head dim 128: the tensor-core tile in dynamic shared memory
+    segment_case(gen, segment_layouts(rng, 32, 256), 8, 128, torch.bfloat16,
+                 "layouts S=256, D=128")
 
     k4_path = run_dense_path(gen)
     k4_cases = [dense_case(gen, shape, causal, dtype) for shape, causal, dtype in K4_CASES]
@@ -1157,6 +1257,7 @@ def main() -> int:
         "max_abs_err": main_case["max_abs_err"], "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+        "variant": main_case["variant"], "redesigned": REDESIGN,
     }, {
         "name": "segment_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
@@ -1165,11 +1266,12 @@ def main() -> int:
         "max_abs_err": k2_main["max_abs_err"], "ms": k2_main["kernel_ms"],
         "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"], "library_ms": k2_main["library_ms"],
+        "variant": k2_main["variant"], "redesigned": REDESIGN,
     }, {
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
-        "launches": generated["report"]["k3_launches"], "ok": True,
+        "launches": generated["report"]["k3_launches"], "ok": True, "variant": "fma",
         "max_abs_err": k3_main["max_abs_err"], "ms": k3_main["kernel_ms"],
         "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
@@ -1181,6 +1283,7 @@ def main() -> int:
         "max_abs_err": k4_cases[0]["max_abs_err"], "ms": k4_cases[0]["kernel_ms"],
         "plain_ms": k4_cases[0]["plain_ms"], "bound_ms": k4_cases[0]["bound_ms"],
         "bound_by": k4_cases[0]["bound_by"], "library_ms": k4_cases[0]["library_ms"],
+        "variant": k4_cases[0]["variant"], "redesigned": REDESIGN,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
