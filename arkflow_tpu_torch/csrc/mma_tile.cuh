@@ -59,31 +59,24 @@
 
 #pragma once
 
+#include <map>
 #include <mutex>
 
 #include "flash_tile.cuh"
 
 namespace arkflow {
 
-// 0: the key-tile width by head dim (kMmaBlockK); 32 or 64: that width at
-// every D (tools/tile_sweep.py builds both to compare them)
-#ifndef ARKFLOW_MMA_BLOCK_K
-#define ARKFLOW_MMA_BLOCK_K 0
-#endif
-
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaBlockQ = 16 * kMmaWarps;  // queries per block
 constexpr int kMmaStages = 2;               // the K/V ring
 constexpr int kMmaPad = 8;                  // bf16 padding per staged row
-// Keys per staged tile, chosen by measurement (tools/tile_sweep.py, H100):
-// at D <= 64 the two widths tie on K1 and K2, and 64 halves the barriers;
-// at D = 128, 32 keys take 52 KB of shared memory a block against 87, so
-// more blocks fit on an SM, and K4's causal prefills run 12-16% faster.
+// Keys per staged tile, chosen by timing both widths on the H100 (PERF.md):
+// at D <= 64 the two tie on K1 and K2, and 64 halves the barriers; at
+// D = 128, 32 keys take 52 KB of shared memory a block against 87, so more
+// blocks fit on an SM, and K4's causal prefills run 12-16% faster.
 template <int D>
-constexpr int kMmaBlockK = ARKFLOW_MMA_BLOCK_K ? ARKFLOW_MMA_BLOCK_K : (D == 128 ? 32 : 64);
-static_assert(ARKFLOW_MMA_BLOCK_K == 0 || ARKFLOW_MMA_BLOCK_K == 32 ||
-              ARKFLOW_MMA_BLOCK_K == 64, "key tiles of 32 or 64");
+constexpr int kMmaBlockK = D == 128 ? 32 : 64;
 
 // Byte offsets into the block's dynamic shared memory.
 template <int D>
@@ -463,9 +456,10 @@ mma_tile_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// static: its lock and grant stay this library's own (a function-local
+// static: its lock and grants stay this library's own (a function-local
 // static of a template with external linkage is one object in the whole
-// process, shared by every library built from this header)
+// process, shared by every library built from this header). The caller
+// makes q's device current: the attribute is set per device.
 template <int D, int kMask>
 static cudaError_t launch_mma_tile(const void* q, const void* k, const void* v, void* o,
                                    const int* aux, int B, int H, int S, int causal,
@@ -475,16 +469,20 @@ static cudaError_t launch_mma_tile(const void* q, const void* k, const void* v, 
   const size_t smem = MmaSmem<D>::bytes(kMask, (S + kMmaBlockK<D> - 1) / kMmaBlockK<D>);
   auto kernel = mma_tile_kernel<D, kMask>;
   if (smem > 48 * 1024) {
-    // raised only, under a lock: launches from several host threads never
-    // see the limit fall below what they need
+    // raised only, per device and under a lock: launches from several host
+    // threads never see the limit fall below what they need
     static std::mutex lock;
-    static size_t granted = 48 * 1024;
+    static std::map<int, size_t> granted;  // device -> dynamic bytes allowed
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
     std::lock_guard<std::mutex> guard(lock);
-    if (smem > granted) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    auto it = granted.try_emplace(device, 48 * 1024).first;
+    if (smem > it->second) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      granted = smem;
+      it->second = smem;
     }
   }
   const dim3 grid((S + kMmaBlockQ - 1) / kMmaBlockQ, H, B);

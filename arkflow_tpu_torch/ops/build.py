@@ -6,9 +6,6 @@ the ``csrc/*.cuh`` headers are shared between them. The library lands in
 ``arkflow_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one is reused. Nothing builds at import time: the first launch (or
 ``build_all``) builds, and a missing ``nvcc`` raises instead of falling back.
-``defines`` (``NAME=VALUE`` macros, e.g. ``ARKFLOW_MMA_BLOCK_K=32``) build a
-variant of a source beside the default one, under its own name; only
-``tools/tile_sweep.py`` uses them.
 """
 
 from __future__ import annotations
@@ -55,49 +52,42 @@ def find_nvcc() -> str:
         "of arkflow_tpu_torch are compiled for sm_90a at first use")
 
 
-def _define_flags(defines: tuple[str, ...]) -> list[str]:
-    return [f"-D{d}" for d in defines]
-
-
-def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by its source, the shared
-    headers of ``csrc/``, the flags and the defines."""
+    headers of ``csrc/`` and the flags."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join((*NVCC_FLAGS, *_define_flags(defines))).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, verbose: bool,
-           defines: tuple[str, ...]) -> Optional[tuple[subprocess.Popen, Path, Path]]:
-    out = library_path(name, defines)
+def _start(name: str, verbose: bool) -> Optional[tuple[subprocess.Popen, Path, Path]]:
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines),
-           *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, Path(tmp), out
 
 
-def build_all(names: list[str], verbose: bool = False,
-              defines: tuple[str, ...] = ()) -> dict[str, dict]:
+def build_all(names: list[str], verbose: bool = False) -> dict[str, dict]:
     """Compile every named kernel source at once (one ``nvcc`` each, all
     started together) and wait for all of them. Returns, per name, the
     seconds its build took (0 when the library was already built) and the
     compiler's output. Raises if any build fails."""
     t0 = time.perf_counter()
-    started = {n: _start(n, verbose, defines) for n in names}
+    started = {n: _start(n, verbose) for n in names}
     report: dict[str, dict] = {}
     failures = []
     for name, job in started.items():
         if job is None:
-            report[name] = {"seconds": 0.0, "output": "",
-                            "library": str(library_path(name, defines))}
+            report[name] = {"seconds": 0.0, "output": "", "library": str(library_path(name))}
             continue
         proc, tmp, out = job
         text, _ = proc.communicate()
@@ -116,15 +106,14 @@ def build_all(names: list[str], verbose: bool = False,
 class KernelLibrary:
     """One kernel source's shared library, built and loaded at first use."""
 
-    def __init__(self, name: str, defines: tuple[str, ...] = ()):
+    def __init__(self, name: str):
         self.name = name
-        self.defines = defines
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                build_all([self.name], defines=self.defines)
-                self._lib = ctypes.CDLL(str(library_path(self.name, self.defines)))
+                build_all([self.name])
+                self._lib = ctypes.CDLL(str(library_path(self.name)))
             return self._lib

@@ -34,7 +34,7 @@ KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: head dims of the tensor-core tile: mma.sync's k is 16 bf16 values
 MMA_HEAD_DIMS = (16, 32, 64, 128)
 #: keys per staged tile of the tensor-core tile, by head dim (kMmaBlockK in
-#: mma_tile.cuh, chosen with tools/tile_sweep.py)
+#: mma_tile.cuh, chosen by timing both widths on the card)
 MMA_BLOCK_K = {16: 64, 32: 64, 64: 64, 128: 32}
 #: the bodies a K1, K2 or K4 launch may run: the bf16 tensor-core tile and
 #: the f32 FMA loop
@@ -153,11 +153,11 @@ def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     strides = operand_strides(q, k, v, out)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device):  # the tile's shared-memory grant is per device
         stream = torch.cuda.current_stream().cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lengths.data_ptr(), b, h, s, d, int(q.dtype == torch.bfloat16),
-             int(causal), 1.0 / math.sqrt(d), strides, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lengths.data_ptr(), b, h, s, d, int(q.dtype == torch.bfloat16),
+                 int(causal), 1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA error {err}")
     launches.add(variant)

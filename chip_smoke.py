@@ -17,7 +17,11 @@ last line):
    K1 (ragged) on random lengths, K2 (segment) on packed layouts, and K2 at
    head dim 128 (the tensor-core tile's dynamic shared memory). Every K1,
    K2 and K4 case checks the variant its launch ran: ``mma`` (the bf16
-   tensor-core tile) for bf16, ``fma`` for f32;
+   tensor-core tile) for bf16, ``fma`` for f32. Beside the 1/64 ceiling
+   against the plain version, every bf16 output element is held to a limit
+   scaled to its size and its row (``tile_err_ratio``) against
+   ``emulate_mma_tile``, the plain version with the tile's rounding (P in
+   bf16 over its key tiles);
 4. K4 (dense flash attention) through its entry point
    ``arkflow_tpu_torch.ops.flash_attention``, once at each case's shape with
    the counts read around those calls (no other kernel may launch, and tiles
@@ -70,6 +74,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
 import re
 import statistics
@@ -120,6 +125,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 INT8_PEAK_OPS = 1979e12  # dense int8 on the tensor cores
 TOL = {torch.bfloat16: 1.0 / 64, torch.float32: 1e-4}
+#: beside TOL's ceiling, a bf16 output of K1, K2 or K4 may lie from the
+#: emulation of its body's rounding (``tile_err_ratio``) by one bf16 step
+#: of its own size, this much for the f32 sums' order, and, on the tile,
+#: P_FLIPS P values of its row that round to their other bf16 neighbour
+#: (the card's __expf and sums differ from the emulation's by ~1e-6, which
+#: tips a value lying at a rounding midpoint): one such flip moves o_i by
+#: at most 2^-7 (|v_j| + |o_i|) / l_i, l_i the row's softmax normaliser
+TILE_ATOL = 2.0 ** -12
+P_FLIPS = 2
+#: the FMA body's key tile (kBlockK in csrc/attention_common.cuh)
+FMA_BLOCK_K = 32
 #: the kernels line's mark on K1, K2 and K4, which run the tensor-core tile
 REDESIGN = "bf16 mma.sync tile, arkflow_tpu_torch/csrc/mma_tile.cuh"
 #: the body every case here must run (all have head dims of 64 or 128)
@@ -218,6 +234,85 @@ def launched_variant(counter, call) -> tuple[str, torch.Tensor]:
     return next(iter(delta)), out
 
 
+def ragged_masks(lengths, s: int, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's visibility rule (K4's with every length S): ``allowed`` [B, 1,
+    S, S], which keys each query sees, and ``live`` [B, S], the queries
+    inside their row's length (the others are written as 0)."""
+    lens = torch.as_tensor(lengths)
+    pos = torch.arange(s, device=lens.device)
+    live = pos[None, :] < lens[:, None]
+    allowed = live[:, None, :, None] & live[:, None, None, :]
+    if causal:
+        allowed = allowed & (pos[None, :] <= pos[:, None])
+    return allowed, live
+
+
+def segment_masks(seg) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's rule: a query sees the keys of its own segment; id 0 is dead."""
+    seg = torch.as_tensor(seg).long()
+    live = seg > 0
+    return ((seg[:, :, None] == seg[:, None, :]) & live[:, :, None])[:, None], live
+
+
+def emulate_mma_tile(q, k, v, allowed, live, *, block_k=None, round_p=True,
+                     dtype=torch.float32, return_norm=False):
+    """The tensor-core tile's arithmetic in plain PyTorch, on q's device.
+    q/k/v: [B, H, S, D] (bf16 values); allowed: [B, 1, Sq, Sk] bool, which
+    keys a query sees; live: [B, Sq] bool, the queries that are not padding
+    or dead (their rows are 0). Per key tile of ``block_k`` keys
+    (``MMA_BLOCK_K[D]`` by default): S = Q K^T summed in ``dtype`` from bf16
+    products, scaled by 1/sqrt(D), masked to -1e30; the online softmax; P
+    rounded to bf16 (``round_p``), summed into the normaliser and multiplied
+    by V. Returns bf16, and with ``return_norm`` also each row's normaliser
+    [B, H, S] (the sum of its P, the largest of which is 1)."""
+    qf, kf, vf = (x.to(torch.bfloat16).to(dtype) for x in (q, k, v))
+    b, h, s, d = qf.shape
+    block_k = block_k or ra.MMA_BLOCK_K[d]
+    m = torch.full((b, h, s), -1e30, dtype=dtype, device=qf.device)
+    l = torch.zeros(b, h, s, dtype=dtype, device=qf.device)
+    o = torch.zeros(b, h, s, d, dtype=dtype, device=qf.device)
+    for k0 in range(0, s, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        scores = torch.matmul(qf, kt.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+        scores = torch.where(allowed[..., k0:k0 + block_k], scores, -1e30)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        if round_p:
+            p = p.to(torch.bfloat16).to(dtype)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.matmul(p, vt)
+        m = m_new
+    out = o / torch.clamp_min(l[..., None], 1e-30)
+    out = torch.where(live[:, None, :, None], out, 0.0).to(torch.bfloat16)
+    return (out, l) if return_norm else out
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each |x| (2^-7 of its binade)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.exp2((e - 8).float())
+
+
+def tile_err_ratio(out, q, k, v, allowed, live, variant: str) -> float:
+    """A bf16 output's largest error over its per-element limit, against a
+    reference that rounds as its body does: the tile's P in bf16 over its
+    key tiles (``mma``), or only the output (``fma``). The limit is one
+    bf16 step of the reference's element, ``TILE_ATOL``, and on the tile
+    room for ``P_FLIPS`` P values rounded the other way; at most 1
+    passes."""
+    d = q.shape[-1]
+    mma = variant == "mma"
+    ref, norm = emulate_mma_tile(q, k, v, allowed, live, round_p=mma, return_norm=True,
+                                 block_k=ra.MMA_BLOCK_K[d] if mma else FMA_BLOCK_K)
+    ref = ref.float()
+    limit = bf16_step(ref) + TILE_ATOL
+    if mma:
+        v_max = v.float().abs().amax(dim=2, keepdim=True)  # [B, H, 1, D]: over every key
+        limit = limit + P_FLIPS * 2.0 ** -7 * (v_max + ref.abs()) / norm.float().clamp_min(1.0)[..., None]
+    return ((out.float() - ref).abs() / limit).max().item()
+
+
 def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     """K1 against its plain version on [B, S, H, D]-laid-out operands (the
     layout the model hands it), plus the timings."""
@@ -233,10 +328,13 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     pad_zero = all(bool((out[i, :, int(n):] == 0).all()) for i, n in enumerate(lengths.tolist()))
+    ratio = (tile_err_ratio(out, q, k, v, *ragged_masks(lengths, s, causal), variant)
+             if dtype == torch.bfloat16 else None)
     bound, bound_by = attention_bound_ms(lengths, h, s, d, dtype, causal)
     case = {
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-        "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "pad_rows_zero": pad_zero,
+        "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
+        "pad_rows_zero": pad_zero,
         "kernel_ms": time_ms(lambda: ra.ragged_flash_attention(q, k, v, lengths, causal=causal)),
         "plain_ms": time_ms(lambda: ra.ragged_attention_reference(q, k, v, lengths, causal=causal)),
         "library_ms": time_ms(sdpa_call(q, k, v, lengths, causal)),
@@ -245,6 +343,7 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
     print("K1 case " + json.dumps(case), flush=True)
     check(variant == EXPECTED_VARIANT[dtype], f"K1 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K1 disagrees with its plain version: {case}")
+    check(ratio is None or ratio <= 1, f"K1 off its rounding emulation: {case}")
     check(pad_zero, f"K1 left pad queries non-zero: {case}")
     return case
 
@@ -314,10 +413,13 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
     lib_out = lib()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    ratio = (tile_err_ratio(out, q, k, v, *ragged_masks(torch.full((b,), s, device="cuda"), s,
+                                                         causal), variant)
+             if dtype == torch.bfloat16 else None)
     bound, bound_by = attention_bound_ms(torch.full((b,), s), h, s, d, dtype, causal)
     case = {
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-        "variant": variant, "max_abs_err": err, "tol": TOL[dtype],
+        "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
         "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item(),
         "kernel_ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
         "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, causal=causal), iters=5),
@@ -327,6 +429,7 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
     print("K4 case " + json.dumps(case), flush=True)
     check(variant == EXPECTED_VARIANT[dtype], f"K4 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K4 disagrees with its plain version: {case}")
+    check(ratio is None or ratio <= 1, f"K4 off its rounding emulation: {case}")
     check(case["k1_launches_during"] == 0, f"K1 launched during a K4 case: {case}")
     return case
 
@@ -337,9 +440,11 @@ def edge_cases(gen) -> dict:
     64-query and key-tile grid (S = 1, 37, 100, 200), lengths 0, 1, S and
     random, causal on and off, and unsorted, interleaved segment ids with
     dead holes. Each launch must run the variant ``kernel_variant`` names,
-    and pad and dead query rows must be exactly 0."""
+    and pad and dead query rows must be exactly 0; bf16 outputs are also
+    held per element to the emulation of their body's rounding."""
     rng = np.random.default_rng(7)
     worst: dict[str, float] = {}
+    worst_ratio: dict[str, float] = {}
     launches = 0
     for d in ra.KERNEL_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -353,18 +458,20 @@ def edge_cases(gen) -> dict:
                 seg_np = rng.integers(0, 5, (b, s)).astype(np.int32)
                 seg_np[0], seg_np[1] = 0, 1
                 seg = torch.from_numpy(seg_np).cuda()
+                full = torch.full((b,), s, device="cuda")
                 calls = []
                 for causal in (False, True):
                     calls.append((f"K1 causal={causal}", ra.launches,
                                   lambda c=causal: ra.ragged_flash_attention(q, k, v, lengths, causal=c),
                                   ra.ragged_attention_reference(q, k, v, lengths, causal=causal),
-                                  torch.arange(s, device="cuda")[None, :] >= lengths[:, None]))
+                                  ragged_masks(lengths, s, causal), True))
                     calls.append((f"K4 causal={causal}", flash_attention.launches,
                                   lambda c=causal: flash_attention(q, k, v, causal=c, tile_q=s, tile_k=s),
-                                  flash_attention_reference(q, k, v, causal=causal, tile_k=s), None))
+                                  flash_attention_reference(q, k, v, causal=causal, tile_k=s),
+                                  ragged_masks(full, s, causal), False))
                 calls.append(("K2", sa.launches, lambda: sa.segment_flash_attention(q, k, v, seg),
-                              sa.segment_attention_reference(q, k, v, seg), seg == 0))
-                for name, counter, call, ref, dead in calls:
+                              sa.segment_attention_reference(q, k, v, seg), segment_masks(seg), True))
+                for name, counter, call, ref, (allowed, live), has_dead in calls:
                     variant, out = launched_variant(counter, call)
                     launches += 1
                     err = (out.float() - ref.float()).abs().max().item()
@@ -373,10 +480,14 @@ def edge_cases(gen) -> dict:
                     where = f"{name} at D={d}, S={s}, {dtype}"
                     check(variant == want, f"{where} ran {variant}, not {want}")
                     check(err <= TOL[dtype], f"{where} off its plain version by {err}")
-                    if dead is not None:
-                        check(bool((out.transpose(1, 2)[dead] == 0).all()),
+                    if dtype == torch.bfloat16:
+                        ratio = tile_err_ratio(out, q, k, v, allowed, live, variant)
+                        worst_ratio[key] = max(worst_ratio.get(key, 0.0), ratio)
+                        check(ratio <= 1, f"{where} off its rounding emulation ({ratio} of the limit)")
+                    if has_dead:
+                        check(bool((out.transpose(1, 2)[~live] == 0).all()),
                               f"{where} left pad or dead query rows non-zero")
-    report = {"launches": launches, "max_abs_err": worst}
+    report = {"launches": launches, "max_abs_err": worst, "tile_err_ratio": worst_ratio}
     print("edge cases " + json.dumps(report), flush=True)
     return report
 
@@ -435,10 +546,13 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
     err = (out.float() - ref.float()).abs().max().item()
     dead_zero = bool((out[~live] == 0).all())
     lib_err = (lib_out.float() - ref.float())[live].abs().max().item()
+    ratio = (tile_err_ratio(out, q, k, v, *segment_masks(seg), variant)
+             if dtype == torch.bfloat16 else None)
     bound, bound_by = segment_bound_ms(seg_np, h, d, dtype)
     case = {
         "case": label, "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""),
         "variant": variant, "live_tokens": int((seg_np > 0).sum()), "max_abs_err": err, "tol": TOL[dtype],
+        "tile_err_ratio": ratio,
         "dead_rows_zero": dead_zero, "library_live_max_abs_err": lib_err,
         "kernel_ms": time_ms(lambda: sa.segment_flash_attention(q, k, v, seg)),
         "plain_ms": time_ms(lambda: sa.segment_attention_reference(q, k, v, seg)),
@@ -448,6 +562,7 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
     print("K2 case " + json.dumps(case), flush=True)
     check(variant == EXPECTED_VARIANT[dtype], f"K2 ran the wrong variant: {case}")
     check(err <= TOL[dtype], f"K2 disagrees with its plain version: {case}")
+    check(ratio is None or ratio <= 1, f"K2 off its rounding emulation: {case}")
     check(dead_zero, f"K2 left dead queries non-zero: {case}")
     return case
 
@@ -1258,6 +1373,7 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
         "variant": main_case["variant"], "redesigned": REDESIGN,
+        "tile_err_ratio": main_case["tile_err_ratio"],
     }, {
         "name": "segment_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
@@ -1267,6 +1383,7 @@ def main() -> int:
         "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"], "library_ms": k2_main["library_ms"],
         "variant": k2_main["variant"], "redesigned": REDESIGN,
+        "tile_err_ratio": k2_main["tile_err_ratio"],
     }, {
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
@@ -1284,6 +1401,7 @@ def main() -> int:
         "plain_ms": k4_cases[0]["plain_ms"], "bound_ms": k4_cases[0]["bound_ms"],
         "bound_by": k4_cases[0]["bound_by"], "library_ms": k4_cases[0]["library_ms"],
         "variant": k4_cases[0]["variant"], "redesigned": REDESIGN,
+        "tile_err_ratio": k4_cases[0]["tile_err_ratio"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

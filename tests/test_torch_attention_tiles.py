@@ -3,8 +3,8 @@ the CPU can see it.
 
 - **The rounding budget.** The tile runs both products on bf16 tensor cores
   with f32 sums and rounds P to bf16 before P V, over key tiles of
-  ``MMA_BLOCK_K[D]`` keys. ``emulate_mma_tile`` repeats that arithmetic on
-  the CPU.
+  ``MMA_BLOCK_K[D]`` keys. ``chip_smoke.emulate_mma_tile`` repeats that
+  arithmetic in plain PyTorch.
   It stays within 1/64 of the Pallas kernels run in interpret mode (and of
   the port's plain versions, which ``chip_smoke.py`` holds the tile
   against on the card) for K1, K2 and K4, at D 16 and 64 (K4 also at 128,
@@ -13,6 +13,13 @@ the CPU can see it.
   precision, in bf16 passes, so rounding P to bf16 is the TPU's own
   rounding, and bf16 outputs are held to the bf16 floor (1/64) anyway.
   With P kept in f32 the emulation is the plain online softmax (2e-5).
+- **The per-element limit.** ``chip_smoke.py`` also holds each bf16
+  output of the tile against the emulation to one bf16 step of its size,
+  2^-12, and room for two P values of its row rounded the other way
+  (``tile_err_ratio``). The emulation with its sums in float64 (another
+  order of sums, as the card's) stays inside that limit; one key tile
+  weighted 1.5x for the late rows of a 4096-token causal prefill, which
+  stays within 1/64 of the plain version, does not.
 - **The variant chooser.** bf16 at D in {16, 32, 64, 128} runs the tile
   (``mma``); f32, and D = 8, the FMA body (``fma``); anything else raises
   before a launch. The header's constants match the wrapper's.
@@ -31,6 +38,7 @@ import pytest
 import torch
 
 import chip_smoke
+from chip_smoke import emulate_mma_tile, ragged_masks, segment_masks, tile_err_ratio
 from arkflow_tpu.ops.flash_attention import flash_attention as jax_flash
 from arkflow_tpu.ops.ragged_attention import ragged_flash_attention as jax_ragged
 from arkflow_tpu.ops.segment_attention import segment_flash_attention as jax_segment
@@ -41,37 +49,6 @@ from arkflow_tpu_torch.ops import segment_attention as sa
 CSRC = Path(__file__).resolve().parent.parent / "arkflow_tpu_torch" / "csrc"
 BF16_ATOL = 1.0 / 64  # the bf16 floor: the budget of the tile's rounding
 F32_ATOL = 2e-5  # the f32 floor of the parity rules
-_NEG = -1e30
-
-
-def emulate_mma_tile(q, k, v, allowed, live, *, block_k=None, round_p=True):
-    """The tile's arithmetic on the CPU. q/k/v: [B, H, S, D] (bf16 values);
-    allowed: [B, 1, Sq, Sk] bool, which keys a query sees; live: [B, Sq]
-    bool, the queries that are not padding or dead (their rows are 0).
-    Per key tile: S = Q K^T as f32 sums of bf16 products, scaled by
-    1/sqrt(D), masked to -1e30; the online softmax in f32; P rounded to bf16
-    (``round_p``), summed into the normaliser and multiplied by V with f32
-    sums. Returns bf16."""
-    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
-    b, h, s, d = qf.shape
-    block_k = block_k or ra.MMA_BLOCK_K[d]
-    m = torch.full((b, h, s), _NEG)
-    l = torch.zeros(b, h, s)
-    o = torch.zeros(b, h, s, d)
-    for k0 in range(0, s, block_k):
-        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        scores = torch.matmul(qf, kt.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-        scores = torch.where(allowed[..., k0:k0 + block_k], scores, _NEG)
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(scores - m_new[..., None])
-        if round_p:
-            p = p.to(torch.bfloat16).float()
-        l = l * corr + p.sum(dim=-1)
-        o = o * corr[..., None] + torch.matmul(p, vt)
-        m = m_new
-    out = o / torch.clamp_min(l[..., None], 1e-30)
-    return torch.where(live[:, None, :, None], out, 0.0).to(torch.bfloat16)
 
 
 def _qkv(seed: int, b: int, h: int, s: int, d: int):
@@ -79,22 +56,6 @@ def _qkv(seed: int, b: int, h: int, s: int, d: int):
     bf16 operands."""
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3)]
-
-
-def _ragged_masks(lengths, s, causal):
-    pos = torch.arange(s)
-    lens = torch.as_tensor(lengths)
-    inside = pos[None, :] < lens[:, None]
-    allowed = inside[:, None, :, None] & inside[:, None, None, :]
-    if causal:
-        allowed = allowed & (pos[None, :] <= pos[:, None])
-    return allowed, inside
-
-
-def _segment_masks(seg):
-    seg = torch.as_tensor(seg).long()
-    live = seg > 0
-    return ((seg[:, :, None] == seg[:, None, :]) & live[:, :, None])[:, None], live
 
 
 def _to_jax(x):
@@ -113,7 +74,7 @@ def test_ragged_rounding_within_budget(d, causal):
     lengths = np.array([0, 77, s], np.int32)
     want = np.asarray(jax_ragged(*map(_to_jax, (q, k, v)), jnp.asarray(lengths), causal=causal,
                                  tile_q=32, tile_k=32, interpret=True).astype(jnp.float32))
-    allowed, live = _ragged_masks(lengths, s, causal)
+    allowed, live = ragged_masks(lengths, s, causal)
     got = emulate_mma_tile(*map(_bf16, (q, k, v)), allowed, live).float().numpy()
     np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
     plain = ra.ragged_attention_reference(*map(_bf16, (q, k, v)), torch.from_numpy(lengths),
@@ -129,7 +90,7 @@ def test_segment_rounding_within_budget(d):
     seg = chip_smoke.segment_layouts(np.random.default_rng(d), b, s)
     want = np.asarray(jax_segment(*map(_to_jax, (q, k, v)), jnp.asarray(seg), tile_q=32,
                                   tile_k=32, interpret=True).astype(jnp.float32))
-    allowed, live = _segment_masks(seg)
+    allowed, live = segment_masks(seg)
     got = emulate_mma_tile(*map(_bf16, (q, k, v)), allowed, live).float().numpy()
     np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
     plain = sa.segment_attention_reference(*map(_bf16, (q, k, v)),
@@ -146,7 +107,7 @@ def test_dense_rounding_within_budget(d, causal):
     q, k, v = _qkv(10 + d + causal, b, h, s, d)
     want = np.asarray(jax_flash(*map(_to_jax, (q, k, v)), causal=causal, tile_q=32, tile_k=32,
                                 interpret=True).astype(jnp.float32))
-    allowed, live = _ragged_masks(np.full(b, s), s, causal)
+    allowed, live = ragged_masks(np.full(b, s), s, causal)
     got = emulate_mma_tile(*map(_bf16, (q, k, v)), allowed, live).float().numpy()
     np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
     plain = flash_attention_reference(*map(_bf16, (q, k, v)), causal=causal).float().numpy()
@@ -160,12 +121,53 @@ def test_emulation_without_p_rounding_is_the_plain_softmax(block_k):
     b, h, s, d = 3, 2, 100, 16
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float() for x in _qkv(5, b, h, s, d))
     lengths = np.array([0, 1, 63], np.int32)
-    allowed, live = _ragged_masks(lengths, s, True)
+    allowed, live = ragged_masks(lengths, s, True)
     got = emulate_mma_tile(q, k, v, allowed, live, block_k=block_k, round_p=False)
     want = ra.ragged_attention_reference(q.to(torch.bfloat16), k.to(torch.bfloat16),
                                          v.to(torch.bfloat16), torch.from_numpy(lengths),
                                          causal=True)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("x,step", [(1.0, 2.0 ** -7), (-3.0, 2.0 ** -6), (0.03, 2.0 ** -13),
+                                    (2.0 ** -6, 2.0 ** -13), (0.0, 2.0 ** -133)])
+def test_bf16_step_is_the_spacing_of_bf16_values(x, step):
+    got = chip_smoke.bf16_step(torch.tensor([x])).item()
+    assert got == step
+    if x:  # |x| in bf16 and the next bf16 value up lie one step apart
+        xb = torch.tensor([abs(x)]).to(torch.bfloat16)
+        up = (xb.view(torch.int16) + 1).view(torch.bfloat16)
+        assert up.item() - xb.item() == step
+
+
+@pytest.mark.parametrize("b,h,s,d,causal", [(8, 4, 256, 64, False), (4, 2, 37, 16, True),
+                                            (2, 4, 512, 128, True), (2, 2, 2048, 128, True)])
+def test_tile_limit_holds_sums_in_another_order(b, h, s, d, causal):
+    """The card sums in another order than the emulation's f32 matmuls: the
+    emulation in float64 stands in for it, and stays inside the limit."""
+    q, k, v = map(_bf16, _qkv(s + d, b, h, s, d))
+    lengths = np.random.default_rng(s).integers(0, s + 1, b)
+    lengths[:2] = [1, s]
+    allowed, live = ragged_masks(torch.from_numpy(lengths), s, causal)
+    other_order = emulate_mma_tile(q, k, v, allowed, live, dtype=torch.float64)
+    assert tile_err_ratio(other_order, q, k, v, allowed, live, "mma") < 1
+
+
+def test_tile_limit_catches_a_misweighted_key_tile():
+    """One key tile weighted 1.5x for the last quarter of a 4096-token
+    causal prefill's rows: within the 1/64 ceiling of the plain version,
+    because those rows' outputs are small, but far outside the per-element
+    limit."""
+    b, h, s, d = 1, 2, 4096, 128
+    q, k, v = map(_bf16, _qkv(3, b, h, s, d))
+    allowed, live = ragged_masks(torch.full((b,), s), s, True)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    w = torch.softmax(torch.where(allowed, scores, -1e30), dim=-1)
+    w[:, :, 3 * s // 4:, :ra.MMA_BLOCK_K[d]] *= 1.5
+    wrong = (torch.matmul(w, v.float()) / w.sum(-1, keepdim=True)).to(torch.bfloat16)
+    plain = flash_attention_reference(q, k, v, causal=True)
+    assert (wrong.float() - plain.float()).abs().max().item() <= BF16_ATOL
+    assert tile_err_ratio(wrong, q, k, v, allowed, live, "mma") > 10
 
 
 @pytest.mark.parametrize("d", ra.KERNEL_HEAD_DIMS)
@@ -200,11 +202,11 @@ def test_header_constants_match_the_wrapper():
     """The key-tile widths and the tile's head dims in ``mma_tile.cuh`` are
     the ones ``MMA_BLOCK_K`` and ``kernel_variant`` state."""
     text = (CSRC / "mma_tile.cuh").read_text()
-    assert re.search(r"#define ARKFLOW_MMA_BLOCK_K (\d+)", text).group(1) == "0"
-    big, wide, narrow = re.search(
-        r"ARKFLOW_MMA_BLOCK_K : \(D == (\d+) \? (\d+) : (\d+)\);", text).groups()
-    assert ra.MMA_BLOCK_K == {d: int(wide) if d == int(big) else int(narrow)
+    big, at_big, other = re.search(
+        r"constexpr int kMmaBlockK = D == (\d+) \? (\d+) : (\d+);", text).groups()
+    assert ra.MMA_BLOCK_K == {d: int(at_big) if d == int(big) else int(other)
                               for d in ra.MMA_HEAD_DIMS}
+    assert "kBlockK = %d;" % chip_smoke.FMA_BLOCK_K in (CSRC / "attention_common.cuh").read_text()
     rule = re.search(r"takes_mma_tile\(int is_bf16, int D\) \{\s*return is_bf16 && \(([^;]*)\);",
                      text).group(1)
     assert tuple(int(x) for x in re.findall(r"D == (\d+)", rule)) == ra.MMA_HEAD_DIMS
