@@ -2,7 +2,8 @@
 // body of K1, K2 and K4, and paged_attention.cu, K3): their tile sizes and
 // thread layout, 4-wide loads and stores of f32 or bf16 operands as float4,
 // the (batch, head, seq) strides they address q/k/v/o with (mma_tile.cuh
-// too), and the float4 arithmetic of their online softmax.
+// too), the float4 arithmetic of their online softmax, and the codes of the
+// bodies a launch may run.
 
 #pragma once
 
@@ -16,6 +17,12 @@ namespace arkflow {
 
 // the mask value of the online softmax: the TPU kernels' _NEG
 constexpr float kNeg = -1e30f;
+// The body a launch runs, chosen by the Python wrapper and passed into every
+// C entry (the index into ops/ragged_attention.py's VARIANTS). An entry
+// launches the body it is given and returns cudaErrorInvalidValue for a
+// dtype or head dim that body does not take.
+constexpr int kVariantMma = 0;  // bf16 on the tensor cores (mma.sync)
+constexpr int kVariantFma = 1;  // f32 FMAs
 constexpr int kBlockQ = 64;  // queries per block
 constexpr int kBlockK = 32;  // keys per shared-memory tile
 

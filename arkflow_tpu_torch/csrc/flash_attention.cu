@@ -39,12 +39,14 @@
 
 // q, k, v, o: [B, H, S, D] addressed through `strides` (12 element strides:
 // batch, head, seq for q, k, v, o in that order; the head dim is contiguous).
-// is_bf16: 1 for bfloat16, 0 for float32.
+// is_bf16: 1 for bfloat16, 0 for float32. variant: the body to launch
+// (kVariantMma or kVariantFma, attention_common.cuh).
 extern "C" int arkflow_flash_attention(const void* q, const void* k,
                                        const void* v, void* o, int B, int H,
-                                       int S, int D, int is_bf16, int causal,
-                                       float scale, const long long* strides,
-                                       void* stream) {
+                                       int S, int D, int is_bf16, int variant,
+                                       int causal, float scale,
+                                       const long long* strides, void* stream) {
   return arkflow::launch_attention<arkflow::kMaskDense>(
-      q, k, v, o, nullptr, B, H, S, D, is_bf16, causal, scale, strides, stream);
+      q, k, v, o, nullptr, B, H, S, D, is_bf16, variant, causal, scale,
+      strides, stream);
 }

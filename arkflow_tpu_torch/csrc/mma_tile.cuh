@@ -1,5 +1,7 @@
 // The tensor-core flash tile for Hopper (sm_90a): the bf16 body of K1, K2
-// and K4, written once and instantiated with three mask policies.
+// and K4, written once and instantiated with three mask policies. K3's split
+// kernel (paged_attention.cu) builds on this header's copy, ldmatrix and
+// mma.sync helpers and its shared-memory grant.
 //
 // Replaces (with the FMA body of flash_tile.cuh for f32 and D = 8):
 // - K1 arkflow_tpu/ops/ragged_attention.py:95 ragged_flash_attention
@@ -61,6 +63,7 @@
 
 #include <map>
 #include <mutex>
+#include <utility>
 
 #include "flash_tile.cuh"
 
@@ -456,10 +459,32 @@ mma_tile_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// static: its lock and grants stay this library's own (a function-local
-// static of a template with external linkage is one object in the whole
-// process, shared by every library built from this header). The caller
-// makes q's device current: the attribute is set per device.
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device
+// (above 48 KB only after cudaFuncSetAttribute). Raised only, per (device,
+// kernel) and under a lock: launches from several host threads never see the
+// limit fall below what they need. static: its lock and grants stay this
+// library's own (a function-local static of a function with external linkage
+// is one object in the whole process, shared by every library built from
+// this header). The caller makes the launch's device current.
+static cudaError_t grant_dynamic_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static std::mutex lock;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::pair<int, const void*> key(device, kernel);
+  std::lock_guard<std::mutex> guard(lock);
+  size_t& have = granted.try_emplace(key, 48 * 1024).first->second;
+  if (bytes > have) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    have = bytes;
+  }
+  return cudaSuccess;
+}
+
 template <int D, int kMask>
 static cudaError_t launch_mma_tile(const void* q, const void* k, const void* v, void* o,
                                    const int* aux, int B, int H, int S, int causal,
@@ -468,23 +493,8 @@ static cudaError_t launch_mma_tile(const void* q, const void* k, const void* v, 
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const size_t smem = MmaSmem<D>::bytes(kMask, (S + kMmaBlockK<D> - 1) / kMmaBlockK<D>);
   auto kernel = mma_tile_kernel<D, kMask>;
-  if (smem > 48 * 1024) {
-    // raised only, per device and under a lock: launches from several host
-    // threads never see the limit fall below what they need
-    static std::mutex lock;
-    static std::map<int, size_t> granted;  // device -> dynamic bytes allowed
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    std::lock_guard<std::mutex> guard(lock);
-    auto it = granted.try_emplace(device, 48 * 1024).first;
-    if (smem > it->second) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      it->second = smem;
-    }
-  }
+  const cudaError_t err = grant_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((S + kMmaBlockQ - 1) / kMmaBlockQ, H, B);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -493,33 +503,30 @@ static cudaError_t launch_mma_tile(const void* q, const void* k, const void* v, 
   return cudaGetLastError();
 }
 
-// The variant a launch takes, from its dtype and head dim alone: bf16 at
-// D in {16, 32, 64, 128} runs this tile, f32 and D = 8 the FMA body.
-// ops/ragged_attention.py's kernel_variant applies the same rule before the
-// launch and counts it.
-inline bool takes_mma_tile(int is_bf16, int D) {
-  return is_bf16 && (D == 16 || D == 32 || D == 64 || D == 128);
-}
-
 // q, k, v, o: [B, H, S, D] addressed through `st` (12 element strides:
 // batch, head, seq for q, k, v, o in that order; the head dim is
 // contiguous). aux: lengths [B] (kMaskRagged), segment ids [B, S]
-// (kMaskSegment), or unused (kMaskDense); int32 on the device.
+// (kMaskSegment), or unused (kMaskDense); int32 on the device. variant:
+// kVariantMma runs this tile (bf16 at D in {16, 32, 64, 128}), kVariantFma
+// flash_tile.cuh's FMA body (f32 at D in {8, 16, 32, 64, 128}, bf16 at
+// D = 8); anything else is refused with cudaErrorInvalidValue.
 template <int kMask>
 cudaError_t launch_attention(const void* q, const void* k, const void* v, void* o,
                              const int* aux, int B, int H, int S, int D, int is_bf16,
-                             int causal, float scale, const long long* st,
+                             int variant, int causal, float scale, const long long* st,
                              void* stream_ptr) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!takes_mma_tile(is_bf16, D))
+  if (variant == kVariantFma)
     return launch_flash_tile_any<kMask>(q, k, v, o, aux, B, H, S, D, is_bf16, causal,
                                         scale, st, stream);
+  if (variant != kVariantMma || !is_bf16) return cudaErrorInvalidValue;
   switch (D) {
     case 16: return launch_mma_tile<16, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
     case 32: return launch_mma_tile<32, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
     case 64: return launch_mma_tile<64, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
-    default: return launch_mma_tile<128, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    case 128: return launch_mma_tile<128, kMask>(q, k, v, o, aux, B, H, S, causal, scale, st, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -41,12 +41,14 @@
 // q, k, v, o: [B, H, S, D] addressed through `strides` (12 element strides:
 // batch, head, seq for q, k, v, o in that order; the head dim is contiguous).
 // lengths: [B] int32 on the device. is_bf16: 1 for bfloat16, 0 for float32.
+// variant: the body to launch (kVariantMma or kVariantFma, attention_common.cuh).
 extern "C" int arkflow_ragged_attention(const void* q, const void* k,
                                         const void* v, void* o,
                                         const int* lengths, int B, int H,
-                                        int S, int D, int is_bf16, int causal,
-                                        float scale, const long long* strides,
-                                        void* stream) {
+                                        int S, int D, int is_bf16, int variant,
+                                        int causal, float scale,
+                                        const long long* strides, void* stream) {
   return arkflow::launch_attention<arkflow::kMaskRagged>(
-      q, k, v, o, lengths, B, H, S, D, is_bf16, causal, scale, strides, stream);
+      q, k, v, o, lengths, B, H, S, D, is_bf16, variant, causal, scale, strides,
+      stream);
 }

@@ -46,13 +46,14 @@
 // q, k, v, o: [B, H, S, D] addressed through `strides` (12 element strides:
 // batch, head, seq for q, k, v, o in that order; the head dim is contiguous).
 // seg: [B, S] int32 on the device, contiguous. is_bf16: 1 for bfloat16, 0 for
-// float32.
+// float32. variant: the body to launch (kVariantMma or kVariantFma,
+// attention_common.cuh).
 extern "C" int arkflow_segment_attention(const void* q, const void* k,
                                          const void* v, void* o,
                                          const int* seg, int B, int H, int S,
-                                         int D, int is_bf16, float scale,
-                                         const long long* strides,
+                                         int D, int is_bf16, int variant,
+                                         float scale, const long long* strides,
                                          void* stream) {
   return arkflow::launch_attention<arkflow::kMaskSegment>(
-      q, k, v, o, seg, B, H, S, D, is_bf16, 0, scale, strides, stream);
+      q, k, v, o, seg, B, H, S, D, is_bf16, variant, 0, scale, strides, stream);
 }

@@ -84,13 +84,13 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         return out
     fn = _library.load().arkflow_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     with torch.cuda.device(q.device):  # the tile's shared-memory grant is per device
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
-                 int(q.dtype == torch.bfloat16), int(causal), 1.0 / math.sqrt(d),
-                 operand_strides(q, k, v, out), stream)
+                 int(q.dtype == torch.bfloat16), VARIANTS.index(variant), int(causal),
+                 1.0 / math.sqrt(d), operand_strides(q, k, v, out), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     flash_attention.launches.add(variant)

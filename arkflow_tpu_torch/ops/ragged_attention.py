@@ -11,7 +11,8 @@ Three parts:
   over the full score matrix), the port's analogue of Pallas interpret mode.
 - the CUDA kernel ``csrc/ragged_attention.cu``, built for sm_90a at first use:
   the tensor-core tile of ``csrc/mma_tile.cuh`` for bf16 at D >= 16, the FMA
-  body of ``csrc/flash_tile.cuh`` for f32 and D = 8 (``kernel_variant``).
+  body of ``csrc/flash_tile.cuh`` for f32 and D = 8 (``kernel_variant``; the
+  wrapper passes its choice into the C entry, which launches that body).
 - ``ragged_flash_attention``: the wrapper. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises. ``launches`` counts
   the kernel launches, in all and per variant.
@@ -36,8 +37,9 @@ MMA_HEAD_DIMS = (16, 32, 64, 128)
 #: keys per staged tile of the tensor-core tile, by head dim (kMmaBlockK in
 #: mma_tile.cuh, chosen by timing both widths on the card)
 MMA_BLOCK_K = {16: 64, 32: 64, 64: 64, 128: 32}
-#: the bodies a K1, K2 or K4 launch may run: the bf16 tensor-core tile and
-#: the f32 FMA loop
+#: the bodies a launch of K1, K2, K3 or K4 may run: bf16 on the tensor cores
+#: and the f32 FMA loop; a body's index here is its code in the C entries
+#: (kVariantMma, kVariantFma in csrc/attention_common.cuh)
 VARIANTS = ("mma", "fma")
 _ALIGN = 16  # bytes: the kernels copy 16-byte vectors
 
@@ -69,9 +71,9 @@ def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     alone, chosen before the launch: ``"mma"`` (bf16 on the tensor cores,
     ``csrc/mma_tile.cuh``) for bf16 at D in ``MMA_HEAD_DIMS``, ``"fma"``
     (``csrc/flash_tile.cuh``) for f32, whose 1e-4 contract rules out bf16
-    products, and for D = 8, below mma.sync's k of 16. The C entries apply
-    the same rule. Raises ``ValueError`` for a dtype or head dim no body
-    takes."""
+    products, and for D = 8, below mma.sync's k of 16. The wrapper passes
+    the choice into the C entry, which launches that body or refuses it.
+    Raises ``ValueError`` for a dtype or head dim no body takes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the attention kernels take float32 or bfloat16, got {dtype}")
     if head_dim not in KERNEL_HEAD_DIMS:
@@ -150,14 +152,14 @@ def _launch(q, k, v, lengths, causal: bool) -> torch.Tensor:
     lib = _library.load()
     fn = lib.arkflow_ragged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     strides = operand_strides(q, k, v, out)
     with torch.cuda.device(q.device):  # the tile's shared-memory grant is per device
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lengths.data_ptr(), b, h, s, d, int(q.dtype == torch.bfloat16),
-                 int(causal), 1.0 / math.sqrt(d), strides, stream)
+                 VARIANTS.index(variant), int(causal), 1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA error {err}")
     launches.add(variant)
@@ -180,10 +182,19 @@ def ragged_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #
 # Counterpart of ``arkflow_tpu/ops/ragged_attention.py::paged_flash_attention``:
 # the KV context of each row lives in pages of a shared pool, named by an
-# int32 page table, and is read in place (``csrc/paged_attention.cu``).
+# int32 page table, and is read in place (``csrc/paged_attention.cu``). bf16
+# q runs the split-context tensor-core kernel (flash-decoding: one block per
+# split of ``PAGED_SPLIT_K`` keys, then a combine kernel), f32 q the FMA
+# kernel (``paged_variant``).
 
 #: head dims the paged kernel is instantiated for (csrc/paged_attention.cu)
 PAGED_HEAD_DIMS = (64, 128)
+#: keys a split of the bf16 body holds (kSplitK in csrc/paged_attention.cu)
+PAGED_SPLIT_K = 64
+#: up to this many folded queries (C x group) a split block takes the decode
+#: form: its warps split the keys; above it, 16 folded queries a warp
+#: (kDecodeRows in csrc/paged_attention.cu)
+PAGED_DECODE_ROWS = 16
 _paged_library = KernelLibrary("paged_attention")
 
 
@@ -210,15 +221,34 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor, v_pages: t
     return out.reshape(b, c, h, dh).to(q.dtype)
 
 
-def _check_paged(q, k_pages, v_pages, page_table, off, out) -> None:
+def paged_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The body a K3 launch runs: ``"mma"`` (bf16 q on the tensor cores, the
+    split-context kernel and its combine) or ``"fma"`` (f32 q, whose 1e-4
+    contract rules out bf16 products), at a head dim in ``PAGED_HEAD_DIMS``.
+    The wrapper passes it into the C entry. Raises ``ValueError`` for a
+    dtype or head dim no body takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged attention kernel takes float32 or bfloat16 q, got {dtype}")
+    if head_dim not in PAGED_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in the paged kernel's {PAGED_HEAD_DIMS}")
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def paged_scratch_floats(b: int, c: int, h: int, kv_heads: int, dh: int, p: int,
+                         page: int) -> int:
+    """Floats of partials the bf16 body needs: per (row, KV head, split,
+    folded query) the split's unnormalised output (dh floats), its max and
+    its normaliser."""
+    splits = -(-p * page // PAGED_SPLIT_K)
+    return b * kv_heads * splits * c * (h // kv_heads) * (dh + 2)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, off, out) -> str:
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q must be [B, C, H, dh] and the pools [pages, page, kv_heads, dh], "
                          f"got {tuple(q.shape)} and {tuple(k_pages.shape)}")
     b, c, h, dh = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"paged attention kernel takes float32 or bfloat16 q, got {q.dtype}")
-    if dh not in PAGED_HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in the paged kernel's {PAGED_HEAD_DIMS}")
+    variant = paged_variant(q.dtype, dh)
     if k_pages.shape[2] == 0 or h % k_pages.shape[2]:
         raise ValueError(f"q heads {h} must be a multiple of kv heads {k_pages.shape[2]}")
     for name, pool in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -245,29 +275,35 @@ def _check_paged(q, k_pages, v_pages, page_table, off, out) -> None:
         if t.data_ptr() % _ALIGN or any((t.stride(i) * size) % _ALIGN for i in range(3)):
             raise ValueError(f"{name}: data pointer and batch/position/head strides must be "
                              f"{_ALIGN}-byte aligned (strides {t.stride()})")
+    return variant
 
 
 def _launch_paged(q, k_pages, v_pages, page_table, off) -> torch.Tensor:
     out = torch.empty_like(q)
-    _check_paged(q, k_pages, v_pages, page_table, off, out)
+    variant = _check_paged(q, k_pages, v_pages, page_table, off, out)
     b, c, h, dh = q.shape
     if out.numel() == 0:
         return out
     lib = _paged_library.load()
     fn = lib.arkflow_paged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p]
     strides = (ctypes.c_longlong * 6)(*[t.stride(i) for t in (q, out) for i in range(3)])
-    with torch.cuda.device(q.device):
+    kvh, page, p = k_pages.shape[2], k_pages.shape[1], page_table.shape[1]
+    with torch.cuda.device(q.device):  # the split kernel's shared-memory grant is per device
+        # the bf16 body's partials, on the call's device and stream
+        n = paged_scratch_floats(b, c, h, kvh, dh, p, page) if variant == "mma" else 0
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream().cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-             page_table.data_ptr(), off.data_ptr(), b, c, h, k_pages.shape[2], dh,
-             page_table.shape[1], k_pages.shape[1], int(q.dtype == torch.bfloat16),
-             1.0 / math.sqrt(dh), strides, stream)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                 page_table.data_ptr(), off.data_ptr(), b, c, h, kvh, dh, p, page,
+                 int(q.dtype == torch.bfloat16), VARIANTS.index(variant),
+                 1.0 / math.sqrt(dh), strides, scratch.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
-    paged_flash_attention.launches.add()
+    paged_flash_attention.launches.add(variant)
     return out
 
 
@@ -282,8 +318,11 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     scratch page) and are never read. off: [B] int32. Query i attends keys
     0..off+i, clamped to the table's P * page keys; GQA is resolved inside
     the kernel. Returns [B, C, H, dh] in q's dtype. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises.
-    ``paged_flash_attention.launches`` counts the kernel launches."""
+    plain version; a CUDA tensor launches the kernel or raises: bf16 q the
+    split-context tensor-core body, f32 q the FMA body (``paged_variant``).
+    ``paged_flash_attention.launches`` counts the calls that launched, in
+    all and per body (a bf16 call launches the split kernel and its
+    combine)."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table, off)
     if q.device.type != "cuda":
@@ -291,4 +330,4 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     return _launch_paged(q, k_pages, v_pages, page_table, off)
 
 
-paged_flash_attention.launches = LaunchCounter()
+paged_flash_attention.launches = LaunchCounter(VARIANTS)

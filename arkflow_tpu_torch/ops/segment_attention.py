@@ -74,14 +74,14 @@ def _launch(q, k, v, segment_ids) -> torch.Tensor:
     lib = _library.load()
     fn = lib.arkflow_segment_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     strides = operand_strides(q, k, v, out)
     with torch.cuda.device(q.device):  # the tile's shared-memory grant is per device
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  segment_ids.data_ptr(), b, h, s, d, int(q.dtype == torch.bfloat16),
-                 1.0 / math.sqrt(d), strides, stream)
+                 VARIANTS.index(variant), 1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"segment attention kernel launch failed: CUDA error {err}")
     launches.add(variant)

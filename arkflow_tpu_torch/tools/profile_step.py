@@ -43,8 +43,9 @@ server's ``max_seq``) and for one prefill chunk at offset 256:
 - ``host_ms``: the step's dispatch (every launch issued, nothing waited
   for), and ``step_ms``: dispatch plus the fetch of its next tokens;
 - ``device_ms``, ``busy_share`` and ``launches`` per step from a profiler
-  window over a few steps issued back to back, and ``k3_ms`` /
-  ``k3_launches``: the paged kernel's share of them.
+  window over a few steps issued back to back, ``k3_ms`` / ``k3_launches``:
+  the paged kernels' share of them (a bf16 call launches the split kernel
+  and its combine), and ``k3_calls``: the wrapper's calls per step.
 
 ``--stream`` also runs the config's whole stream through ``Engine`` under
 the profiler and prints its traffic rows/s beside the device's busy share
@@ -70,6 +71,7 @@ import torch
 
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.components import NoopAck
+from arkflow_tpu_torch.ops.ragged_attention import paged_flash_attention
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, MicroBatchCoalescer
 from arkflow_tpu_torch.tpu.extract import payload_token_estimates
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
@@ -80,6 +82,9 @@ EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 DEFAULT_CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
+#: K3's kernels in csrc/paged_attention.cu: the bf16 split kernel and its
+#: combine, and the f32 FMA kernel
+K3_KERNELS = ("paged_split_kernel", "paged_combine_kernel", "paged_attention_kernel")
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -105,7 +110,7 @@ def host_ms(fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_forward(forward, steps: int, trace_path=None, match: str = "") -> dict:
+def profile_forward(forward, steps: int, trace_path=None, match: tuple[str, ...] = ()) -> dict:
     """Device time by kernel name over ``steps`` forwards, and the busy
     share of the profiled window."""
     from torch.profiler import ProfilerActivity, profile
@@ -122,18 +127,18 @@ def profile_forward(forward, steps: int, trace_path=None, match: str = "") -> di
 
 
 def device_summary(prof, wall_ms: float, steps: int, trace_path=None,
-                   match: str = "") -> dict:
+                   match: tuple[str, ...] = ()) -> dict:
     """Per-step device time by kernel name (top 12), the busy share of a
     ``wall_ms`` window, and launches per step, from a profiler's events;
     with ``match``, also the ms and launches per step of the kernels whose
-    name holds it."""
+    name holds one of its strings."""
     by_name: dict[str, float] = defaultdict(float)
     launches = matched = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0:
             by_name[ev.name] += ev.device_time / 1e3  # us -> ms
             launches += 1
-            matched += bool(match) and match in ev.name
+            matched += any(m in ev.name for m in match)
     if trace_path:
         prof.export_chrome_trace(trace_path)
     busy = sum(by_name.values())
@@ -144,7 +149,7 @@ def device_summary(prof, wall_ms: float, steps: int, trace_path=None,
            "top_ms_per_step": {name[:80]: ms / steps for name, ms in top}}
     if match:
         out["matched_ms_per_step"] = sum(ms for name, ms in by_name.items()
-                                         if match in name) / steps
+                                         if any(m in name for m in match)) / steps
         out["matched_launches_per_step"] = matched / steps
     return out
 
@@ -282,7 +287,9 @@ def profile_generate(cfg: dict, args) -> None:
                          if args.trace else None)
                 if trace:
                     os.makedirs(args.trace, exist_ok=True)
-                kernels = profile_forward(back_to_back, 1, trace, match="paged_attention_kernel")
+                calls = paged_flash_attention.launches.value
+                kernels = profile_forward(back_to_back, 1, trace, match=K3_KERNELS)
+                calls = paged_flash_attention.launches.value - calls
             per = args.steps
             print(json.dumps({
                 "step": name, "attention": kernel, **shape, "layers": server.cfg.layers,
@@ -292,6 +299,7 @@ def profile_generate(cfg: dict, args) -> None:
                 "launches": kernels["launches_per_step"] / per,
                 "k3_ms": kernels["matched_ms_per_step"] / per,
                 "k3_launches": kernels["matched_launches_per_step"] / per,
+                "k3_calls": calls / (2 * per),  # back_to_back ran twice: warmup, then profiled
                 "top_device_ms": {k: v / per for k, v in kernels["top_ms_per_step"].items()},
             }), flush=True)
     del server

@@ -13,7 +13,9 @@ last line):
    head dim in bf16 and f32, S off the tile grid, lengths 0/1/S, causal,
    unsorted segment ids); then each kernel against its plain PyTorch
    version at BERT-base shapes, with its time, the plain version's, one
-   PyTorch library call's and the bound:
+   PyTorch library call's (each as the device's own time, from a CUDA
+   graph of many calls, and as one eager call timed by CUDA events) and
+   the bound:
    K1 (ragged) on random lengths, K2 (segment) on packed layouts, and K2 at
    head dim 128 (the tensor-core tile's dynamic shared memory). Every K1,
    K2 and K4 case checks the variant its launch ran: ``mma`` (the bf16
@@ -50,22 +52,31 @@ last line):
    equal wherever the bf16 top-2 gap exceeds twice the largest logit
    difference), their step times, and the int8 product against the bf16 one
    at BERT-base's FFN shape;
-8. K3 (paged) against its plain version at Llama-3-8B width (32 heads,
-   8 KV heads, head dim 128, page 16, 40 pages a row): decode (16 rows, one
-   query, ragged contexts on shuffled page tables), the same with every
-   page past each row's bound and the scratch page poisoned (the output
-   must not change), and 128-query chunks at offsets 0/128/256/384;
+8. K3 (paged) against its plain version where its splits and folds have
+   edges (both head dims in bf16 and f32, GQA groups 1 to 8, decode and
+   chunk folds, pages that straddle a split, padded chunk queries past the
+   table); then at Llama-3-8B width (32 heads, 8 KV heads, head dim 128,
+   page 16, 40 pages a row): decode (16 rows, one query, ragged contexts
+   on shuffled page tables), the same with every page past each row's
+   bound and the scratch page poisoned (the output must not change), the
+   same in f32 (the FMA body), and 128-query chunks at offsets
+   0/128/256/384, each timed. Every bf16 case must run the split-context
+   tensor-core body (``mma``) and is held per element to
+   ``emulate_paged_split``, the plain version with that body's splits,
+   softmax tiles and P rounded to bf16;
 9. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
    (generate -> gpu_generate(decoder_lm, Llama-3-8B widths and depth,
    continuous batching on paged KV, chunked prefill, dispatch depth 2) ->
    drop) through ``Engine``: every row in order, at most max_new_tokens
-   each, K3 launches = layers x (decode + chunk steps), no page leaked;
+   each, K3 launches = layers x (decode + chunk steps), every one on the
+   tensor-core body, no page leaked;
    then the step times, and the same prompts through a paged and a gather
    server at depth 1 (streams equal up to the first near-tie) and a paged
    server at depth 2 (equal to depth 1), and one decode step's logits:
    K3's no further from the gather path's or its plain version's than
    those two lie from each other, plus 1/64;
-10. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+10. one ``{"kernels": [...]}`` line (times are device times; ``eager_ms``
+    holds the eager calls' event times), then ``{"ok": true, "device": ...}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 """
@@ -138,6 +149,9 @@ P_FLIPS = 2
 FMA_BLOCK_K = 32
 #: the kernels line's mark on K1, K2 and K4, which run the tensor-core tile
 REDESIGN = "bf16 mma.sync tile, arkflow_tpu_torch/csrc/mma_tile.cuh"
+#: and on K3, which splits each row's context over blocks
+PAGED_REDESIGN = ("split-context bf16 mma.sync flash-decoding (64-key splits, combine "
+                  "kernel), arkflow_tpu_torch/csrc/paged_attention.cu")
 #: the body every case here must run (all have head dims of 64 or 128)
 EXPECTED_VARIANT = {torch.bfloat16: "mma", torch.float32: "fma"}
 LABEL_MARGIN = 0.05
@@ -159,22 +173,24 @@ MASKS = {0: "dense", 1: "ragged", 2: "segment"}
 
 def ptxas_summary(text: str) -> list[dict]:
     """Registers and spill bytes per kernel instantiation, from ``-Xptxas -v``:
-    the kernel, dtype, D, and for the flash tiles the mask policy and the
-    variant (``mma``: the bf16 tensor-core tile; ``fma``: the f32 FMA body),
-    for the paged kernel its query tile."""
+    the kernel, dtype, D, the variant (``mma``: bf16 on the tensor cores;
+    ``fma``: the f32 FMA body), for the flash tiles the mask policy, and for
+    K3's split kernel (``paged_split``, whose partials ``paged_combine``
+    merges) and its FMA kernel (``paged_attention``) the query tile."""
     out: list[dict] = []
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(mma_tile|flash_tile|paged_attention)"
-                      r"_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)+)", line)
+        m = re.search(r"Compiling entry function '\S*?(mma_tile|flash_tile|paged_attention"
+                      r"|paged_split|paged_combine)_kernelI(13__nv_bfloat16|f)?((?:Li\d+E)+)", line)
         if m:
             kernel, ints = m.group(1), [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
-            bf16 = kernel == "mma_tile" or m.group(2) == "13__nv_bfloat16"
+            mma = kernel in ("mma_tile", "paged_split", "paged_combine")
+            bf16 = mma or m.group(2) == "13__nv_bfloat16"
             out.append({"kernel": kernel, "dtype": "bf16" if bf16 else "f32", "D": ints[0]})
-            if kernel == "paged_attention":
+            if kernel in ("paged_attention", "paged_split"):
                 out[-1]["BQ"] = ints[1]
-            else:
+            elif kernel != "paged_combine":
                 out[-1]["mask"] = MASKS[ints[1]]
-                out[-1]["variant"] = "mma" if kernel == "mma_tile" else "fma"
+            out[-1]["variant"] = "mma" if mma else "fma"
         elif out and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[-1]["spill_store_bytes"] = int(m.group(1))
         elif out and (m := re.search(r"Used (\d+) registers", line)):
@@ -196,6 +212,60 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Median device time of one call: ``calls`` calls captured into one CUDA
+    graph (after a warmup on a side stream), the graph replayed and timed
+    with CUDA events. The host's work for each call (a wrapper's checks, the
+    launches) is done once at capture, so it is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def call_times(kernel, plain, library, plain_iters: int = 20, plain_calls: int = 20) -> dict:
+    """A case's kernel, plain version and library call, each timed two
+    ways: ``*_ms``, CUDA events around one eager call (the host's work
+    before the launch included: where it exceeds the device's, that is
+    what the event times), and ``*_device_ms``, the device's own time
+    (``device_ms``)."""
+    out = {}
+    for name, fn, iters, calls in (("kernel", kernel, 20, 20),
+                                   ("plain", plain, plain_iters, plain_calls),
+                                   ("library", library, 20, 20)):
+        out[f"{name}_ms"] = time_ms(fn, iters=iters)
+        out[f"{name}_device_ms"] = device_ms(fn, calls=calls)
+    return out
+
+
+def kernel_line(case: dict) -> dict:
+    """A case's numbers as the kernels line gives them: the device times,
+    and the eager calls' event times beside them."""
+    return {"max_abs_err": case["max_abs_err"], "ms": case["kernel_device_ms"],
+            "plain_ms": case["plain_device_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_device_ms"],
+            "eager_ms": {k: case[f"{k}_ms"] for k in ("kernel", "plain", "library")},
+            "variant": case["variant"], "tile_err_ratio": case["tile_err_ratio"]}
 
 
 def attention_bound_ms(lengths: torch.Tensor, h: int, s: int, d: int,
@@ -294,6 +364,19 @@ def bf16_step(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2((e - 8).float())
 
 
+def rounding_limit(ref: torch.Tensor, norm=None, v_max=None) -> torch.Tensor:
+    """The per-element limit of a bf16 output against the emulation of its
+    body's rounding: one bf16 step of the reference's element and
+    ``TILE_ATOL``; with ``norm`` (each row's softmax normaliser, broadcast
+    like ``ref`` without its last dim) also room for ``P_FLIPS`` P values
+    rounded the other way, each moving the element by at most
+    2^-7 (``v_max`` + |ref|) / max(norm, 1)."""
+    limit = bf16_step(ref) + TILE_ATOL
+    if norm is not None:
+        limit = limit + P_FLIPS * 2.0 ** -7 * (v_max + ref.abs()) / norm.float().clamp_min(1.0)[..., None]
+    return limit
+
+
 def tile_err_ratio(out, q, k, v, allowed, live, variant: str) -> float:
     """A bf16 output's largest error over its per-element limit, against a
     reference that rounds as its body does: the tile's P in bf16 over its
@@ -306,11 +389,88 @@ def tile_err_ratio(out, q, k, v, allowed, live, variant: str) -> float:
     ref, norm = emulate_mma_tile(q, k, v, allowed, live, round_p=mma, return_norm=True,
                                  block_k=ra.MMA_BLOCK_K[d] if mma else FMA_BLOCK_K)
     ref = ref.float()
-    limit = bf16_step(ref) + TILE_ATOL
-    if mma:
-        v_max = v.float().abs().amax(dim=2, keepdim=True)  # [B, H, 1, D]: over every key
-        limit = limit + P_FLIPS * 2.0 ** -7 * (v_max + ref.abs()) / norm.float().clamp_min(1.0)[..., None]
+    v_max = v.float().abs().amax(dim=2, keepdim=True)  # [B, H, 1, D]: over every key
+    limit = rounding_limit(ref, norm, v_max) if mma else rounding_limit(ref)
     return ((out.float() - ref).abs() / limit).max().item()
+
+
+def merge_partials(o, m, l):
+    """Merges partial softmax results along the last dim of ``m`` and ``l``
+    (``o``: one more dim, D) as K3's split kernel and combine do: M = the
+    largest m; each part weighted by exp(m - M). A part in which a query
+    sees no key (m = -1e30, o a sum of V rows, l its count) gets weight 0
+    as long as another part holds a key. Returns (o, M, l) merged."""
+    mx = m.amax(dim=-1)
+    w = torch.exp(m - mx[..., None])
+    return (w[..., None] * o).sum(dim=-2), mx, (w * l).sum(dim=-1)
+
+
+def emulate_paged_split(q, k_pages, v_pages, page_table, off, *, split_k=None, round_p=True,
+                        dtype=torch.float32, return_norm=False):
+    """K3's tensor-core body in plain PyTorch, on q's device. q: [B, C, H,
+    D]; pools [pages, page, KVH, D]; page_table [B, P]; off [B]. Each row's
+    context (P x page keys, padded with masked keys to whole splits) is cut
+    into splits of ``split_k`` keys (``PAGED_SPLIT_K`` by default), and each
+    split into softmax tiles: ``split_k / 4`` keys (one a warp) when the
+    folded queries C x group number at most ``PAGED_DECODE_ROWS`` (the
+    decode form), the whole split otherwise (the chunk form). Per tile, for
+    folded query f = (chunk position f // group, group member f % group):
+    S = Q K^T summed in ``dtype`` from bf16 values, scaled by 1/sqrt(D),
+    masked to -1e30 past key off + f // group (clamped to the table); m =
+    the tile's row max; P = exp(S - m), rounded to bf16 (``round_p``);
+    l = sum P; O = P V. Tiles merge into their split, then splits into the
+    row (``merge_partials``); the output is O / max(l, 1e-30). Returns
+    [B, C, H, D] in q's dtype, and with ``return_norm`` also each query's merged
+    normaliser [B, C, H] (its largest P is 1)."""
+    split_k = split_k or ra.PAGED_SPLIT_K
+    b, c, h, d = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    group, nq = h // kvh, c * h // kvh
+    ctx = page_table.shape[1] * page
+    splits = -(-ctx // split_k)
+    tile = split_k // 4 if nq <= ra.PAGED_DECODE_ROWS else split_k
+    dev = q.device
+    table = page_table.to(device=dev, dtype=torch.int64)
+    pad = splits * split_k - ctx
+
+    def context(pool):  # [B, KVH, splits * split_k, D]
+        x = pool[table].reshape(b, ctx, kvh, d).to(torch.bfloat16).to(dtype).transpose(1, 2)
+        return torch.nn.functional.pad(x, (0, 0, 0, pad))
+
+    kk, vv = context(k_pages), context(v_pages)
+    qf = (q.to(torch.bfloat16).to(dtype).reshape(b, c, kvh, group, d).transpose(1, 2)
+          .reshape(b, kvh, nq, d))
+    scores = torch.matmul(qf, kk.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B, KVH, nq, keys]
+    pos = off.to(device=dev, dtype=torch.int64).clamp_min(0)[:, None] + torch.arange(
+        nq, device=dev) // group
+    keys = torch.arange(splits * split_k, device=dev)
+    seen = (keys[None, None, :] <= pos[:, :, None]) & (keys < ctx)  # [B, nq, keys]
+    scores = torch.where(seen[:, None], scores, -1e30).reshape(b, kvh, nq, splits, -1, tile)
+    m = scores.amax(dim=-1)  # [B, KVH, nq, splits, tiles]
+    p = torch.exp(scores - m[..., None])
+    if round_p:
+        p = p.to(torch.bfloat16).to(dtype)
+    o = torch.einsum("bnfstk,bnstkd->bnfstd", p, vv.reshape(b, kvh, splits, -1, tile, d))
+    o, m, l = merge_partials(o, m, p.sum(dim=-1))  # tiles into splits
+    o, _, l = merge_partials(o, m, l)  # splits into rows
+    out = o / torch.clamp_min(l[..., None], 1e-30)
+    out = out.reshape(b, kvh, c, group, d).transpose(1, 2).reshape(b, c, h, d).to(q.dtype)
+    if not return_norm:
+        return out
+    return out, l.reshape(b, kvh, c, group).transpose(1, 2).reshape(b, c, h)
+
+
+def paged_err_ratio(out, q, k_pages, v_pages, page_table, off) -> float:
+    """A bf16 K3 output's largest error over its per-element limit
+    (``rounding_limit``, with the merged normaliser) against
+    ``emulate_paged_split``; at most 1 passes."""
+    ref, norm = emulate_paged_split(q, k_pages, v_pages, page_table, off, return_norm=True)
+    ref = ref.float()
+    b, c, h, d = q.shape
+    kvh = k_pages.shape[2]
+    vv = v_pages[page_table.to(device=q.device, dtype=torch.int64)].reshape(b, -1, kvh, d)
+    v_max = vv.float().abs().amax(dim=1).repeat_interleave(h // kvh, dim=1)[:, None]  # [B, 1, H, D]
+    return ((out.float() - ref).abs() / rounding_limit(ref, norm, v_max)).max().item()
 
 
 def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
@@ -335,9 +495,9 @@ def kernel_case(gen, b, h, s, d, dtype, causal, lengths=None) -> dict:
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
         "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
         "pad_rows_zero": pad_zero,
-        "kernel_ms": time_ms(lambda: ra.ragged_flash_attention(q, k, v, lengths, causal=causal)),
-        "plain_ms": time_ms(lambda: ra.ragged_attention_reference(q, k, v, lengths, causal=causal)),
-        "library_ms": time_ms(sdpa_call(q, k, v, lengths, causal)),
+        **call_times(lambda: ra.ragged_flash_attention(q, k, v, lengths, causal=causal),
+                     lambda: ra.ragged_attention_reference(q, k, v, lengths, causal=causal),
+                     sdpa_call(q, k, v, lengths, causal)),
         "bound_ms": bound, "bound_by": bound_by,
     }
     print("K1 case " + json.dumps(case), flush=True)
@@ -421,9 +581,10 @@ def dense_case(gen, shape, causal: bool, dtype: torch.dtype) -> dict:
         "shape": [b, h, s, d], "dtype": str(dtype).replace("torch.", ""), "causal": causal,
         "variant": variant, "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
         "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item(),
-        "kernel_ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
-        "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, causal=causal), iters=5),
-        "library_ms": time_ms(lib), "bound_ms": bound, "bound_by": bound_by,
+        **call_times(lambda: flash_attention(q, k, v, causal=causal),
+                     lambda: flash_attention_reference(q, k, v, causal=causal), lib,
+                     plain_iters=5, plain_calls=2),
+        "bound_ms": bound, "bound_by": bound_by,
         "k1_launches_during": ra.launches.value - k1_before,
     }
     print("K4 case " + json.dumps(case), flush=True)
@@ -554,9 +715,8 @@ def segment_case(gen, seg_np: np.ndarray, h: int, d: int, dtype: torch.dtype,
         "variant": variant, "live_tokens": int((seg_np > 0).sum()), "max_abs_err": err, "tol": TOL[dtype],
         "tile_err_ratio": ratio,
         "dead_rows_zero": dead_zero, "library_live_max_abs_err": lib_err,
-        "kernel_ms": time_ms(lambda: sa.segment_flash_attention(q, k, v, seg)),
-        "plain_ms": time_ms(lambda: sa.segment_attention_reference(q, k, v, seg)),
-        "library_ms": time_ms(lib),
+        **call_times(lambda: sa.segment_flash_attention(q, k, v, seg),
+                     lambda: sa.segment_attention_reference(q, k, v, seg), lib),
         "bound_ms": bound, "bound_by": bound_by,
     }
     print("K2 case " + json.dumps(case), flush=True)
@@ -980,8 +1140,8 @@ def paged_library_call(q, kp, vp, table, off):
 
     def call():
         t = table.long()
-        k = kp[t].reshape(b, ctx, kvh, d).transpose(1, 2)
-        v = vp[t].reshape(b, ctx, kvh, d).transpose(1, 2)
+        k = kp[t].reshape(b, ctx, kvh, d).transpose(1, 2).to(q.dtype)
+        v = vp[t].reshape(b, ctx, kvh, d).transpose(1, 2).to(q.dtype)
         pos = off.long()[:, None] + torch.arange(c, device=q.device)
         mask = (torch.arange(ctx, device=q.device)[None, None, :] <= pos[:, :, None])[:, None]
         return torch.nn.functional.scaled_dot_product_attention(
@@ -991,15 +1151,18 @@ def paged_library_call(q, kp, vp, table, off):
 
 
 def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kvh: int = 8,
-               d: int = 128, page: int = 16, p: int = 40, poison: bool = False) -> dict:
+               d: int = 128, page: int = 16, p: int = 40, poison: bool = False,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
     """K3 against its plain version on shuffled, non-contiguous page tables
-    (bf16 q and pools, the serving types). Table entries past a row's bound
-    are the scratch page 0 on even rows and stale pool pages on odd rows.
-    With ``poison`` the kernel also runs on pools in which every slot no
-    row may read, and the scratch page, hold large finite values: its
-    output must not change by a bit."""
+    (bf16 pools; q bf16, the serving type, or f32 for the FMA body). Table
+    entries past a row's bound are the scratch page 0 on even rows and stale
+    pool pages on odd rows. The launch must run ``EXPECTED_VARIANT``'s body,
+    and a bf16 output is held per element to ``emulate_paged_split``. With
+    ``poison`` the kernel also runs on pools in which every slot no row may
+    read, and the scratch page, hold large finite values: its output must
+    not change by a bit."""
     npages = 1 + b * p
-    q = torch.randn(b, c, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, c, h, d, device="cuda", generator=gen).to(dtype)
     kp, vp = (torch.randn(npages, page, kvh, d, device="cuda", generator=gen).to(torch.bfloat16)
               for _ in range(2))
     table = (torch.randperm(npages - 1, device="cuda", generator=gen) + 1).reshape(b, p)
@@ -1008,14 +1171,17 @@ def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kv
     past = torch.arange(p, device="cuda")[None, :] > last[:, None]
     even = (torch.arange(b, device="cuda") % 2 == 0)[:, None]
     table = torch.where(past & even, 0, table).to(torch.int32).contiguous()
-    out = ra.paged_flash_attention(q, kp, vp, table, off)
+    call = lambda: ra.paged_flash_attention(q, kp, vp, table, off)  # noqa: E731
+    variant, out = launched_variant(ra.paged_flash_attention.launches, call)
     ref = ra.paged_attention_reference(q, kp, vp, table, off)
     lib = paged_library_call(q, kp, vp, table, off)
     lib_out = lib()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    ratio = paged_err_ratio(out, q, kp, vp, table, off) if dtype == torch.bfloat16 else None
     case = {"case": label, "B": b, "C": c, "H": h, "kv_heads": kvh, "D": d, "page": page,
-            "P": p, "off": offs, "max_abs_err": err, "tol": TOL[torch.bfloat16],
+            "P": p, "off": offs, "dtype": str(dtype).replace("torch.", ""), "variant": variant,
+            "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
             "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item()}
     if poison:
         keys = (off.long() + c).clamp(max=p * page)
@@ -1033,14 +1199,62 @@ def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kv
     else:
         bound, bound_by = paged_bound_ms(off, c, h, kvh, d, page, p)
         case.update({
-            "kernel_ms": time_ms(lambda: ra.paged_flash_attention(q, kp, vp, table, off)),
-            "plain_ms": time_ms(lambda: ra.paged_attention_reference(q, kp, vp, table, off)),
-            "library_ms": time_ms(lib), "library": "gather + sdpa(enable_gqa, offset mask)",
+            **call_times(call, lambda: ra.paged_attention_reference(q, kp, vp, table, off), lib),
+            "library": "gather + sdpa(enable_gqa, offset mask)",
             "bound_ms": bound, "bound_by": bound_by})
     print("K3 case " + json.dumps(case), flush=True)
-    check(err <= TOL[torch.bfloat16], f"K3 disagrees with its plain version: {case}")
+    check(variant == EXPECTED_VARIANT[dtype], f"K3 ran the wrong variant: {case}")
+    check(err <= TOL[dtype], f"K3 disagrees with its plain version: {case}")
+    check(ratio is None or ratio <= 1, f"K3 off its rounding emulation: {case}")
     check(case.get("poisoned_equal", True), f"K3 read past a row's bound: {case}")
     return case
+
+
+def paged_edge_cases(gen) -> dict:
+    """K3 against its plain version where its splits and folds have edges:
+    both head dims in bf16 (the split kernel) and f32 (the FMA body), GQA
+    groups of 1 to 8, decode and chunk folds on both sides of 16 folded
+    queries, pages of 16 and of 12 (pages that straddle a split), contexts
+    from 1 key to past the table (padded chunk queries), on shuffled tables.
+    Each launch must run the variant ``paged_variant`` names; bf16 outputs
+    are also held per element to ``emulate_paged_split``."""
+    rng = np.random.default_rng(8)
+    worst: dict[str, float] = {}
+    worst_ratio: dict[str, float] = {}
+    launches = 0
+    for d in ra.PAGED_HEAD_DIMS:
+        for c, h, kvh in ((1, 4, 4), (1, 32, 8), (3, 8, 2), (5, 16, 2), (40, 8, 2)):
+            for page in (16, 12):
+                b, p = 3, 7
+                npages = 1 + b * p
+                ctx = p * page
+                kp, vp = (torch.randn(npages, page, kvh, d, device="cuda", generator=gen)
+                          .to(torch.bfloat16) for _ in range(2))
+                table = (torch.randperm(npages - 1, device="cuda", generator=gen) + 1)
+                table = table.reshape(b, p).to(torch.int32).contiguous()
+                off = torch.tensor([0, int(rng.integers(0, ctx)), ctx - 1 - c // 2],
+                                   device="cuda", dtype=torch.int32)
+                for dtype in (torch.bfloat16, torch.float32):
+                    q = torch.randn(b, c, h, d, device="cuda", generator=gen).to(dtype)
+                    want = ra.paged_variant(dtype, d)
+                    variant, out = launched_variant(
+                        ra.paged_flash_attention.launches,
+                        lambda: ra.paged_flash_attention(q, kp, vp, table, off))
+                    launches += 1
+                    ref = ra.paged_attention_reference(q, kp, vp, table, off)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    key = f"D={d} {str(dtype).replace('torch.', '')}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    where = f"K3 at D={d}, C={c}, H={h}, KVH={kvh}, page={page}, {dtype}"
+                    check(variant == want, f"{where} ran {variant}, not {want}")
+                    check(err <= TOL[dtype], f"{where} off its plain version by {err}")
+                    if dtype == torch.bfloat16:
+                        ratio = paged_err_ratio(out, q, kp, vp, table, off)
+                        worst_ratio[key] = max(worst_ratio.get(key, 0.0), ratio)
+                        check(ratio <= 1, f"{where} off its rounding emulation ({ratio} of the limit)")
+    report = {"launches": launches, "max_abs_err": worst, "tile_err_ratio": worst_ratio}
+    print("K3 edge cases " + json.dumps(report), flush=True)
+    return report
 
 
 class GeneratedSink(OrderedSink):
@@ -1076,6 +1290,7 @@ def run_generate_slice(cfg_raw: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k3, k1, k2 = ra.paged_flash_attention.launches.value, ra.launches.value, sa.launches.value
+    k3_variants = dict(ra.paged_flash_attention.launches.variants)
     expected = generated_rows(cfg_raw)
     counts = [len(g.split()) for g in sink.generated]
     layers = server.cfg.layers
@@ -1096,7 +1311,8 @@ def run_generate_slice(cfg_raw: dict) -> dict:
         "truncations": server.truncations, "decode_kernel": server.decode_kernel,
         "free_pages": len(server._free_pages), "num_pages": server.num_pages,
         "layers": layers, "dim": server.cfg.dim, "vocab": server.cfg.vocab_size,
-        "k3_launches": k3, "k3_gate_launches": gate_launches, "parity_gate": server.parity_report,
+        "k3_launches": k3, "k3_variants": k3_variants, "k3_gate_launches": gate_launches,
+        "parity_gate": server.parity_report,
         "k1_launches": k1, "k2_launches": k2}
     print("generate slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"generate stream reported errors: {report}")
@@ -1110,6 +1326,7 @@ def run_generate_slice(cfg_raw: dict) -> dict:
           f"the stream ran no decode or no chunk step: {report}")
     check(k3 == layers * (server.decode_steps + server.chunk_steps),
           f"K3 launches != layers x (decode + chunk steps): {report}")
+    check(k3_variants["mma"] == k3, f"a bf16 K3 launch missed the tensor-core body: {report}")
     check(gate_launches > 0, f"the parity gate launched no K3: {report}")
     check(k1 == 0 and k2 == 0, f"the generate stream launched K1 or K2: {report}")
     check(report["free_pages"] == server.num_pages - 1, f"pages leaked: {report}")
@@ -1347,10 +1564,11 @@ def main() -> int:
     # ragged over 1..639, then 128-token chunks
     offs = [int(x) for x in torch.randint(0, 639, (16,), generator=torch.Generator().manual_seed(6))]
     offs[:3] = [0, 638, 15]
+    paged_edge_cases(gen)
     k3_main = paged_case(gen, 16, 1, offs, "decode")
     paged_case(gen, 16, 1, offs, "decode, poisoned past the bound", poison=True)
-    for o in (0, 128, 256, 384):
-        paged_case(gen, 1, 128, [o], f"chunk at {o}")
+    paged_case(gen, 16, 1, offs, "decode, f32 q", dtype=torch.float32)
+    k3_chunks = {o: paged_case(gen, 1, 128, [o], f"chunk at {o}") for o in (0, 128, 256, 384)}
     paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows")
     paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows, poisoned past the bound",
                poison=True)
@@ -1369,39 +1587,28 @@ def main() -> int:
         "source": "arkflow_tpu_torch/csrc/ragged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:95",
         "launches": result["report"]["k1_launches"], "ok": True,
-        "max_abs_err": main_case["max_abs_err"], "ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-        "variant": main_case["variant"], "redesigned": REDESIGN,
-        "tile_err_ratio": main_case["tile_err_ratio"],
+        **kernel_line(main_case), "redesigned": REDESIGN,
     }, {
         "name": "segment_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
         "launches": packed["report"]["k2_launches"], "ok": True,
-        "max_abs_err": k2_main["max_abs_err"], "ms": k2_main["kernel_ms"],
-        "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound_ms"],
-        "bound_by": k2_main["bound_by"], "library_ms": k2_main["library_ms"],
-        "variant": k2_main["variant"], "redesigned": REDESIGN,
-        "tile_err_ratio": k2_main["tile_err_ratio"],
+        **kernel_line(k2_main), "redesigned": REDESIGN,
     }, {
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
-        "launches": generated["report"]["k3_launches"], "ok": True, "variant": "fma",
-        "max_abs_err": k3_main["max_abs_err"], "ms": k3_main["kernel_ms"],
-        "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
-        "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
+        "launches": generated["report"]["k3_launches"], "ok": True,
+        **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
+        "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",
+                                                     "bound_ms", "tile_err_ratio")}
+                   for o in (256, 384)},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/flash_attention.cu",
         "replaces": "arkflow_tpu/ops/flash_attention.py:70",
         "launches": k4_path["k4_launches"], "ok": True,
-        "max_abs_err": k4_cases[0]["max_abs_err"], "ms": k4_cases[0]["kernel_ms"],
-        "plain_ms": k4_cases[0]["plain_ms"], "bound_ms": k4_cases[0]["bound_ms"],
-        "bound_by": k4_cases[0]["bound_by"], "library_ms": k4_cases[0]["library_ms"],
-        "variant": k4_cases[0]["variant"], "redesigned": REDESIGN,
-        "tile_err_ratio": k4_cases[0]["tile_err_ratio"],
+        **kernel_line(k4_cases[0]), "redesigned": REDESIGN,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,10 +22,11 @@ the CPU can see it.
   stays within 1/64 of the plain version, does not.
 - **The variant chooser.** bf16 at D in {16, 32, 64, 128} runs the tile
   (``mma``); f32, and D = 8, the FMA body (``fma``); anything else raises
-  before a launch. The header's constants match the wrapper's.
+  before a launch. The wrapper passes its choice into the C entry, which
+  launches that body; the headers' constants match the wrapper's.
 - **The per-variant counters** count nothing on the CPU path.
 - **``chip_smoke.py``'s ptxas parser** names kernel, dtype, D, mask policy
-  and variant for every instantiation.
+  (K3: query tile) and variant for every instantiation.
 """
 
 import math
@@ -200,20 +201,34 @@ def test_check_operands_raises_before_any_launch():
 
 def test_header_constants_match_the_wrapper():
     """The key-tile widths and the tile's head dims in ``mma_tile.cuh`` are
-    the ones ``MMA_BLOCK_K`` and ``kernel_variant`` state."""
+    the ones ``MMA_BLOCK_K`` and ``kernel_variant`` state; the variant codes
+    the wrappers pass in are the C entries' own; K3's split size, decode
+    fold and head dims are the wrapper's."""
     text = (CSRC / "mma_tile.cuh").read_text()
     big, at_big, other = re.search(
         r"constexpr int kMmaBlockK = D == (\d+) \? (\d+) : (\d+);", text).groups()
     assert ra.MMA_BLOCK_K == {d: int(at_big) if d == int(big) else int(other)
                               for d in ra.MMA_HEAD_DIMS}
-    assert "kBlockK = %d;" % chip_smoke.FMA_BLOCK_K in (CSRC / "attention_common.cuh").read_text()
-    rule = re.search(r"takes_mma_tile\(int is_bf16, int D\) \{\s*return is_bf16 && \(([^;]*)\);",
-                     text).group(1)
-    assert tuple(int(x) for x in re.findall(r"D == (\d+)", rule)) == ra.MMA_HEAD_DIMS
+    common = (CSRC / "attention_common.cuh").read_text()
+    assert "kBlockK = %d;" % chip_smoke.FMA_BLOCK_K in common
+    # the body is chosen once, in Python, and passed in: the C side launches it
+    assert "takes_mma_tile" not in text
+    for name, code in (("kVariantMma", ra.VARIANTS.index("mma")),
+                       ("kVariantFma", ra.VARIANTS.index("fma"))):
+        assert f"constexpr int {name} = {code};" in common
+    mma_branch = text[text.index("if (variant != kVariantMma"):]
+    mma_branch = mma_branch[:mma_branch.index("default:")]
+    assert tuple(int(x) for x in re.findall(r"case (\d+):", mma_branch)) == ra.MMA_HEAD_DIMS
+    paged = (CSRC / "paged_attention.cu").read_text()
+    assert f"constexpr int kSplitK = {ra.PAGED_SPLIT_K};" in paged
+    assert f"constexpr int kDecodeRows = {ra.PAGED_DECODE_ROWS};" in paged
+    entry = paged[paged.index('extern "C" int arkflow_paged_attention'):]
+    assert tuple(int(x) for x in re.findall(r"case (\d+):", entry)) == ra.PAGED_HEAD_DIMS
     # segment_attention.cu holds no kernel of its own: one tile serves K1, K2, K4
     for entry in ("ragged_attention.cu", "segment_attention.cu", "flash_attention.cu"):
         source = (CSRC / entry).read_text()
         assert "__global__" not in source and '#include "mma_tile.cuh"' in source
+        assert "int variant" in source
 
 
 def test_launch_counter_counts_per_variant():
@@ -226,7 +241,7 @@ def test_launch_counter_counts_per_variant():
         c.add("wgmma")
     c.reset()
     assert c.value == 0 and c.variants == {"mma": 0, "fma": 0}
-    plain = ra.LaunchCounter()  # K3's: no variants
+    plain = ra.LaunchCounter()  # a kernel with one body counts no variants
     plain.add()
     assert plain.value == 1 and plain.variants == {}
 
@@ -245,7 +260,8 @@ def test_counters_do_not_move_on_the_cpu_path(dtype, d):
     assert all(set(c.variants) == set(ra.VARIANTS) for c in counters)
 
 
-#: ``-Xptxas -v`` lines as nvcc prints them for the tiles and K3
+#: ``-Xptxas -v`` lines as nvcc prints them for the tiles and K3's split,
+#: combine and FMA kernels
 PTXAS = """\
 ptxas info    : Compiling entry function '_ZN7arkflow15mma_tile_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_PKiiifNS_7StridesES7_S7_S7_' for 'sm_90a'
 ptxas info    : Function properties for _ZN7arkflow15mma_tile_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_PKiiifNS_7StridesES7_S7_S7_
@@ -257,9 +273,15 @@ ptxas info    : Used 126 registers, 4620 bytes smem, 456 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN7arkflow17flash_tile_kernelI13__nv_bfloat16Li8ELi0EEEvPKT_S3_S3_PS1_PKiiifNS_7StridesES7_S7_S7_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 72 registers, 272 bytes smem, 456 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_attention_kernelI13__nv_bfloat16Li128ELi16EEEvPKT_PKS1_S6_PS2_PKiS9_iiiiifN7arkflow7StridesESB_' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86c3b524_18_paged_attention_cu_b7cb823d18paged_split_kernelILi128ELi16EEEvPK13__nv_bfloat16S3_S3_PKiS5_PfS6_iiiiiixfN7arkflow7StridesE' for 'sm_90a'
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86c3b524_18_paged_attention_cu_b7cb823d20paged_combine_kernelILi64EEEvPKfS2_P13__nv_bfloat16PKiiiiiiixN7arkflow7StridesE' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 109 registers, 16384 bytes smem, 440 bytes cmem[0]
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86c3b524_18_paged_attention_cu_b7cb823d22paged_attention_kernelIfLi128ELi64EEEvPKT_PK13__nv_bfloat16S7_PS1_PKiSA_iiiiifN7arkflow7StridesESC_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers, 32768 bytes smem
 """
 
 
@@ -271,6 +293,10 @@ def test_ptxas_summary_names_every_instantiation():
          "spill_store_bytes": 0, "registers": 126},
         {"kernel": "flash_tile", "dtype": "bf16", "D": 8, "mask": "dense", "variant": "fma",
          "spill_store_bytes": 0, "registers": 72},
-        {"kernel": "paged_attention", "dtype": "bf16", "D": 128, "BQ": 16,
-         "spill_store_bytes": 0, "registers": 109},
+        {"kernel": "paged_split", "dtype": "bf16", "D": 128, "BQ": 16, "variant": "mma",
+         "spill_store_bytes": 8, "registers": 72},
+        {"kernel": "paged_combine", "dtype": "bf16", "D": 64, "variant": "mma",
+         "spill_store_bytes": 0, "registers": 32},
+        {"kernel": "paged_attention", "dtype": "f32", "D": 128, "BQ": 64, "variant": "fma",
+         "spill_store_bytes": 0, "registers": 127},
     ]
