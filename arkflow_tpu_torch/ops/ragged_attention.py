@@ -20,6 +20,7 @@ Three parts:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -44,10 +45,17 @@ VARIANTS = ("mma", "fma")
 _ALIGN = 16  # bytes: the kernels copy 16-byte vectors
 
 
+#: per thread: the tally of the CUDA graph capture running on it, if any
+_capture = threading.local()
+
+
 class LaunchCounter:
     """A thread-safe count of kernel launches (runner steps may launch from
     several executor threads at once), in all (``value``) and, for a kernel
-    with several bodies, per variant (``variants``)."""
+    with several bodies, per variant (``variants``). A launch recorded while
+    a CUDA graph is captured on the calling thread (``capturing``) runs no
+    kernel: it goes to the capture's tally instead, which each replay of the
+    graph adds back (``CapturedLaunches.replay``)."""
 
     def __init__(self, variants: tuple[str, ...] = ()):
         self._lock = threading.Lock()
@@ -55,15 +63,54 @@ class LaunchCounter:
         self.variants = dict.fromkeys(variants, 0)
 
     def add(self, variant: str | None = None) -> None:
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally.record(self, variant)
+            return
+        self.add_many(1, {variant: 1} if variant is not None else {})
+
+    def add_many(self, n: int, variants: dict[str, int]) -> None:
         with self._lock:
-            self.value += 1
-            if variant is not None:
-                self.variants[variant] += 1
+            self.value += n
+            for variant, k in variants.items():
+                self.variants[variant] += k
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
             self.variants = dict.fromkeys(self.variants, 0)
+
+
+class CapturedLaunches:
+    """The launches one capture recorded, per counter and per variant: the
+    delta each replay of its graph adds to the counts."""
+
+    def __init__(self):
+        self.counts: dict[LaunchCounter, tuple[int, dict[str, int]]] = {}
+
+    def record(self, counter: LaunchCounter, variant: str | None) -> None:
+        n, variants = self.counts.get(counter, (0, {}))
+        if variant is not None:
+            variants = {**variants, variant: variants.get(variant, 0) + 1}
+        self.counts[counter] = (n + 1, variants)
+
+    def replay(self) -> None:
+        for counter, (n, variants) in self.counts.items():
+            counter.add_many(n, variants)
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured on this thread: the launches its
+    wrappers count go to the yielded ``CapturedLaunches``, not to the
+    counts (the kernels do not run at capture). Other threads count as
+    usual."""
+    outer = getattr(_capture, "tally", None)
+    _capture.tally = tally = CapturedLaunches()
+    try:
+        yield tally
+    finally:
+        _capture.tally = outer
 
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:

@@ -24,6 +24,8 @@ port carries, plus ``device``):
     decode_kernel: auto      # auto (paged on CUDA, gather on the CPU) | gather | paged
     kernel_parity_check: true  # init-time golden check of the paged kernel (raises)
     dispatch_depth: 2        # 2 dispatches decode N+1 before N is fetched
+                             # (the decode, chunk and prefill steps are CUDA
+                             # graphs, captured at connect)
     seed: 0                  # weights drawn from torch.Generator(seed) on the device
     temperature: 0.0         # greedy only (sampling is not ported)
     top_k: 0
@@ -70,6 +72,12 @@ class GpuGenerateProcessor(Processor):
         self.output_field = output_field
         #: tokens generated by this processor
         self.tokens = 0
+
+    async def connect(self) -> None:
+        """Capture the decode, chunk and one-shot prefill graphs (after the
+        server's parity gate, which ran at build) before the input starts
+        producing."""
+        await asyncio.get_running_loop().run_in_executor(None, self.server.warmup)
 
     async def process(self, batch: MessageBatch) -> list[MessageBatch]:
         if batch.num_rows == 0:

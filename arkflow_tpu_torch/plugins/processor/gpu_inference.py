@@ -15,12 +15,16 @@ columns. Config (the keys of ``tpu_inference`` the port carries, plus
     seq_buckets: [64, 128, 256]    # default pow2 grid up to max_seq
     max_batch: 256
     outputs: [label, score]        # default: all rank-1 outputs
-    warmup: true                   # one step per bucket at connect
+    warmup: true                   # capture every bucket's CUDA graph at
+                                   # connect (one step per bucket)
     seed: 0                        # weights drawn from torch.Generator(seed)
     serving_dtype: bfloat16        # float32 | bfloat16 | float16 | int8 (W8A8:
                                    # int8 dense layers, models/quantize.py;
                                    # with packing too)
     max_in_flight: 2               # device steps in flight
+    dispatch_depth: 2              # 2 = release the in-flight permit once a
+                                   # step is enqueued: its output fetch runs
+                                   # outside it (default 1)
     device: cuda                   # default cuda; cpu for tests
     packing: true                  # token packing (tpu/packing.py): pack the
                                    # batch's texts into dense rows once, carve
@@ -30,8 +34,8 @@ columns. Config (the keys of ``tpu_inference`` the port carries, plus
                                    # with packing)
 
 Every other ``tpu_inference`` key (tokenizer, tensor_field, mesh,
-device_pool, response_cache, swap, tuner, integrity, checkpoint,
-dispatch_depth, step deadlines, health, ...) raises "not yet ported".
+device_pool, response_cache, swap, tuner, integrity, checkpoint, step
+deadlines, health, ...) raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
 KEYS = ("model", "model_config", "text_field", "max_seq", "batch_buckets",
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
-        "max_in_flight", "device", "packing", "example_scale")
+        "max_in_flight", "dispatch_depth", "device", "packing", "example_scale")
 
 
 class GpuInferenceProcessor(Processor):
@@ -155,8 +159,24 @@ def scatter_windows(windows, outs: list[dict[str, np.ndarray]], n: int) -> dict[
     return merged
 
 
+def _dispatch_depth(config: dict) -> int:
+    """``dispatch_depth`` as the JAX processor reads it: an int, 1 when
+    unset; below 1 raises."""
+    raw = config.get("dispatch_depth")
+    if raw is None:
+        return 1
+    try:
+        depth = int(raw)
+    except (TypeError, ValueError):
+        raise ConfigError(f"gpu_inference.dispatch_depth must be an int, got {raw!r}") from None
+    if depth < 1:
+        raise ConfigError(f"dispatch_depth must be >= 1, got {depth}")
+    return depth
+
+
 def _check(config: dict) -> None:
     check_serving_dtype(config.get("serving_dtype"))
+    _dispatch_depth(config)
     packing = config.get("packing", False)
     if not isinstance(packing, bool):
         raise ConfigError(f"gpu_inference.packing must be a bool, got {packing!r}")
@@ -182,6 +202,7 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         device=config.get("device"),
         serving_dtype=config.get("serving_dtype"),
         max_in_flight=int(config.get("max_in_flight", 2)),
+        dispatch_depth=_dispatch_depth(config),
         packed=packing,
     )
     if "input_ids" not in runner.spec:

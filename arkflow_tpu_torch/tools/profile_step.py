@@ -1,6 +1,7 @@
 """Decompose the serving step of the slice on the card: where do the ms go?
 
     python -m arkflow_tpu_torch.tools.profile_step [--config FILE] [--trace DIR]
+    python -m arkflow_tpu_torch.tools.profile_step --int8 [--stream] [--config FILE]
     python -m arkflow_tpu_torch.tools.profile_step --packed [--stream] [--config FILE]
     python -m arkflow_tpu_torch.tools.profile_step --generate [--stream] [--config FILE]
 
@@ -18,7 +19,15 @@ attention, it prints one JSON line each of:
   time per step by kernel name (top 12), the device's busy share of the
   window, and the number of kernel launches per step;
 - ``matmul_ref_ms``: one bf16 matmul doing the forward's dense flops, the
-  rate the dense layers could reach.
+  rate the dense layers could reach;
+- ``modes``: the runner's own step, graphed (one CUDA graph per shape, the
+  default) and eager (``eager=True``): ``host_ms`` (prep, prefetch and
+  dispatch, nothing waited for), ``step_ms`` (dispatch plus fetch), and
+  from a profiler window over a few steps ``device_ms``, ``busy_share`` and
+  ``launches`` per step.
+
+``--int8`` decomposes the int8 step the same way (default config
+``arkflow_tpu_torch/examples/int8_bert_stream.json``: BERT-base, W8A8).
 
 ``--packed`` decomposes the packed step instead (default config
 ``arkflow_tpu_torch/examples/bert_packed_stream.json``), with the segment
@@ -31,7 +40,9 @@ token-budget coalescer) and prints:
 - per window: ``step_ms`` (``infer_sync``), ``h2d_ms``, ``forward_ms`` and
   ``d2h_ms``;
 - ``kernels``: a profiler window over one emission's forwards, with the
-  segment kernel's share of the device time.
+  segment kernel's share of the device time;
+- ``modes``: the emission's steps through the runner, graphed and eager,
+  as for the padded step (per emission).
 
 ``--generate`` decomposes the generation steps instead (default config
 ``arkflow_tpu_torch/examples/llama_generate_stream.json``: Llama-3-8B widths
@@ -45,11 +56,17 @@ server's ``max_seq``) and for one prefill chunk at offset 256:
 - ``device_ms``, ``busy_share`` and ``launches`` per step from a profiler
   window over a few steps issued back to back, ``k3_ms`` / ``k3_launches``:
   the paged kernels' share of them (a bf16 call launches the split kernel
-  and its combine), and ``k3_calls``: the wrapper's calls per step.
+  and its combine), and ``k3_calls``: the wrapper's calls per step;
+
+each for the graphed steps (``mode``: one CUDA graph per step key, the
+default) and the eager ones (a twin server on the same weights and pools,
+``eager=True``).
 
 ``--stream`` also runs the config's whole stream through ``Engine`` under
-the profiler and prints its traffic rows/s beside the device's busy share
-of the traffic window: a low share means the host sets the pace.
+the profiler, graphed and then eager (the processor's runner or server
+swapped for its twin), and prints its traffic rows/s beside the device's
+busy share of the traffic window (a low share means the host sets the
+pace) and the runner's own ``duty_cycle()``.
 ``--stream-threads 1 2 4`` runs it once per worker count instead of the
 config's ``thread_num``, to show how the workers contend on the host.
 
@@ -59,12 +76,15 @@ config's ``thread_num``, to show how the workers contend on the host.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import sys
 import time
 from collections import defaultdict
+
+import itertools
 
 import numpy as np
 import torch
@@ -76,11 +96,13 @@ from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, MicroBatchCoalescer
 from arkflow_tpu_torch.tpu.extract import payload_token_estimates
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
 from arkflow_tpu_torch.tpu.runner import ModelRunner
+from arkflow_tpu_torch.tpu.serving import GenerationServer
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 DEFAULT_CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
+INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 #: K3's kernels in csrc/paged_attention.cu: the bf16 split kernel and its
 #: combine, and the f32 FMA kernel
@@ -99,6 +121,75 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def eager_twin(runner: ModelRunner) -> ModelRunner:
+    """The same runner with graphs off (``eager=True``): its device params
+    (already converted for serving), config, buckets and dispatch plane."""
+    return ModelRunner(runner.family.name, dataclasses.asdict(runner.cfg),
+                       buckets=runner.buckets, device=runner.device,
+                       max_in_flight=runner.max_in_flight,
+                       dispatch_depth=runner.dispatch_depth, host_params=runner.params,
+                       packed=runner.packed, eager=True)
+
+
+def server_twin(server: GenerationServer, eager: bool, **overrides) -> GenerationServer:
+    """A server on the same weights and settings as ``server`` (its own KV
+    pools, no parity gate: ``server``'s ran), graphed or ``eager``."""
+    kw = dict(slots=server.slots, page_size=server.page_size, num_pages=server.num_pages,
+              max_seq=server.max_seq, eos_id=server.eos_id,
+              prompt_buckets=server.prompt_buckets, prefill_chunk=server.prefill_chunk,
+              decode_kernel=server.decode_kernel, dispatch_depth=server.dispatch_depth,
+              record_margins=server.record_margins)
+    return GenerationServer(server.params, server.cfg, kernel_parity_check=False,
+                            eager=eager, **{**kw, **overrides})
+
+
+def step_modes(runner: ModelRunner, batches: list[dict], steps: int) -> dict:
+    """``batches`` (one step each, an emission's windows for the packed
+    runner) through the runner's own step, graphed and eager: the host's
+    dispatch (prep, prefetch, enqueue; nothing waited for), dispatch plus
+    fetch, and a profiler window over ``steps`` rounds."""
+    out = {}
+    for mode, r in (("graphed", runner), ("eager", eager_twin(runner))):
+        def dispatch(r=r):
+            sets = []
+            for inputs in batches:
+                bufs, n = r._prep(inputs)
+                r._to_device(bufs)
+                r._enqueue(bufs)
+                sets.append((bufs, n))
+            return sets
+
+        def fetch(sets, r=r):
+            for bufs, n in sets:
+                r._fetch(bufs, n)
+                r._staging.release(bufs)
+
+        def one_round():
+            fetch(dispatch())
+
+        one_round()  # the shapes' captures
+        host, total = [], []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sets = dispatch()
+            t1 = time.perf_counter()
+            fetch(sets)
+            host.append((t1 - t0) * 1e3)
+            total.append((time.perf_counter() - t0) * 1e3)
+        kernels = profile_forward(one_round, steps)
+        out[mode] = {"host_ms": statistics.median(host), "step_ms": statistics.median(total),
+                     "device_ms": kernels["device_ms_per_step"],
+                     "busy_share": kernels["busy_share"],
+                     "launches": kernels["launches_per_step"], "captures": r.captures}
+    return out
+
+
+def prep(runner: ModelRunner, inputs: dict) -> None:
+    """The runner's host prep of one batch, its staging set recycled."""
+    runner._staging.release(runner._prep(inputs)[0])
 
 
 def host_ms(fn, iters: int = 5) -> float:
@@ -197,7 +288,7 @@ def profile_packed(cfg: dict, args) -> None:
         }
         per_window, forwards = [], []
         for inputs, _ in windows:
-            padded, _ = runner._prep(inputs)
+            padded = dict(runner._prep(inputs)[0].arrays)
             dev = {k: torch.from_numpy(v).cuda() for k, v in padded.items()}
 
             def forward(dev=dev):
@@ -211,7 +302,7 @@ def profile_packed(cfg: dict, args) -> None:
                 "examples": int(inputs["example_row"].shape[0]),
                 "shape": list(padded["input_ids"].shape),
                 "step_ms": cuda_ms(lambda inputs=inputs: runner.infer_sync(inputs)),
-                "prep_ms": host_ms(lambda inputs=inputs: runner._prep(inputs)),
+                "prep_ms": host_ms(lambda inputs=inputs: prep(runner, inputs)),
                 "h2d_ms": cuda_ms(lambda padded=padded: [
                     torch.from_numpy(v).cuda() for v in padded.values()]),
                 "forward_ms": cuda_ms(forward),
@@ -222,8 +313,10 @@ def profile_packed(cfg: dict, args) -> None:
         if trace:
             os.makedirs(args.trace, exist_ok=True)
         kernels = profile_forward(lambda: [f() for f in forwards], args.steps, trace)
+        # K2 runs the attention tile (mma_tile_kernel for bf16,
+        # flash_tile_kernel for f32), the only one in the packed step
         k2_ms = sum(ms for name, ms in kernels["top_ms_per_step"].items()
-                    if "segment_attention_kernel" in name)
+                    if "tile_kernel" in name)
         report = {
             "attention": "segment_kernel" if packed_flash else "pair_mask",
             "emission_texts": len(texts), "true_tokens": int(lengths.sum()),
@@ -234,6 +327,7 @@ def profile_packed(cfg: dict, args) -> None:
             "emission_step_ms": sum(w["step_ms"] for w in per_window),
             "emission_forward_ms": sum(w["forward_ms"] for w in per_window),
             "kernels": {**kernels, "segment_kernel_ms_per_emission": k2_ms},
+            "modes": step_modes(runner, [w for w, _ in windows], args.steps),
         }
         print(json.dumps(report), flush=True)
         del runner, forwards
@@ -258,14 +352,17 @@ def profile_generate(cfg: dict, args) -> None:
                         dtype=torch.int32).to(server.device)
     chunk = server.prefill_chunk or 128
     ids = np.random.default_rng(4).integers(3, server.cfg.vocab_size, (1, chunk)).astype(np.int32)
-    steps = {
-        "decode": (lambda: server._decode(cur, lens, act, table),
-                   {"slots": s, "mean_context": float(lens.mean() + 1)}),
-        "chunk": (lambda: server._chunk(ids, 256, chunk, table[:1], True),
-                  {"chunk": chunk, "offset": 256}),
-    }
-    for kernel in ("paged", "gather"):
-        server.decode_kernel = kernel
+    eager = server_twin(server, eager=True)
+    eager.k_pages, eager.v_pages = server.k_pages, server.v_pages  # the same context
+    for (mode, srv), kernel in itertools.product((("graphed", server), ("eager", eager)),
+                                                 ("paged", "gather")):
+        srv.decode_kernel = kernel
+        steps = {
+            "decode": (lambda srv=srv: srv._decode(cur, lens, act, table),
+                       {"slots": s, "mean_context": float(lens.mean() + 1)}),
+            "chunk": (lambda srv=srv: srv._chunk(ids, 256, chunk, table[:1], True),
+                      {"chunk": chunk, "offset": 256}),
+        }
         for name, (dispatch, shape) in steps.items():
             host, total = [], []
             with torch.inference_mode():
@@ -283,7 +380,8 @@ def profile_generate(cfg: dict, args) -> None:
                     with torch.inference_mode():
                         return [dispatch() for _ in range(args.steps)][-1].wait()
 
-                trace = (os.path.join(args.trace, f"profile_generate_{name}_{kernel}.json")
+                trace = (os.path.join(args.trace,
+                                      f"profile_generate_{name}_{kernel}_{mode}.json")
                          if args.trace else None)
                 if trace:
                     os.makedirs(args.trace, exist_ok=True)
@@ -292,7 +390,8 @@ def profile_generate(cfg: dict, args) -> None:
                 calls = paged_flash_attention.launches.value - calls
             per = args.steps
             print(json.dumps({
-                "step": name, "attention": kernel, **shape, "layers": server.cfg.layers,
+                "step": name, "attention": kernel, "mode": mode, **shape,
+                "layers": server.cfg.layers,
                 "host_ms": statistics.median(host), "step_ms": statistics.median(total),
                 "device_ms": kernels["device_ms_per_step"] / per,
                 "busy_share": kernels["busy_share"],
@@ -302,7 +401,7 @@ def profile_generate(cfg: dict, args) -> None:
                 "k3_calls": calls / (2 * per),  # back_to_back ran twice: warmup, then profiled
                 "top_device_ms": {k: v / per for k, v in kernels["top_ms_per_step"].items()},
             }), flush=True)
-    del server
+    del server, eager
     torch.cuda.empty_cache()
     profile_streams(cfg, args)
 
@@ -310,18 +409,19 @@ def profile_generate(cfg: dict, args) -> None:
 def profile_streams(cfg: dict, args) -> None:
     if not (args.stream or args.stream_threads):
         return
-    for threads in args.stream_threads or [None]:
+    for threads, mode in itertools.product(args.stream_threads or [None], ("graphed", "eager")):
         if threads is not None:
             cfg["streams"][0]["pipeline"]["thread_num"] = threads
-        report = profile_stream(cfg, args.trace)
+        report = profile_stream(cfg, args.trace, eager=mode == "eager")
         print(json.dumps({"thread_num": cfg["streams"][0]["pipeline"]["thread_num"],
-                          **report}), flush=True)
+                          "mode": mode, **report}), flush=True)
 
 
-def profile_stream(cfg: dict, trace_dir=None) -> dict:
+def profile_stream(cfg: dict, trace_dir=None, eager: bool = False) -> dict:
     """The config's stream through ``Engine`` under the profiler: traffic
     rows/s and the device's busy share of the traffic window (warmup
-    excluded: the window opens at the stream's first read)."""
+    excluded: the window opens at the stream's first read). ``eager``: the
+    processor's runner (or server) swapped for its eager twin first."""
     import asyncio
 
     from torch.profiler import ProfilerActivity, profile
@@ -331,6 +431,11 @@ def profile_stream(cfg: dict, trace_dir=None) -> dict:
 
     engine = Engine(EngineConfig.from_mapping(cfg))
     stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]
+    if eager and hasattr(proc, "server"):
+        proc.server = proc.runner = server_twin(proc.server, eager=True)
+    elif eager:
+        proc.runner = eager_twin(proc.runner)
     # device activity only: recording every host op would slow the host
     # side this measures
     prof = profile(activities=[ProfilerActivity.CUDA])
@@ -363,7 +468,7 @@ def profile_stream(cfg: dict, trace_dir=None) -> dict:
             "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds, **steps,
             "window_ms": wall_ms, "device_busy_ms": summary["device_ms_per_step"],
             "device_busy_share": summary["busy_share"],
-            "launches": summary["launches_per_step"],
+            "launches": summary["launches_per_step"], "duty_cycle": runner.duty_cycle(),
             "top_device_ms": summary["top_ms_per_step"]}
 
 
@@ -373,6 +478,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="directory for chrome traces")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--packed", action="store_true", help="decompose the packed step")
+    ap.add_argument("--int8", action="store_true",
+                    help="decompose the int8 step (default config: the int8 stream)")
     ap.add_argument("--generate", action="store_true",
                     help="decompose the generation decode and chunk steps")
     ap.add_argument("--stream", action="store_true",
@@ -385,7 +492,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     default = (GENERATE_CONFIG if args.generate else PACKED_CONFIG if args.packed
-               else DEFAULT_CONFIG)
+               else INT8_CONFIG if args.int8 else DEFAULT_CONFIG)
     with open(args.config or default) as f:
         cfg = json.load(f)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
@@ -411,7 +518,7 @@ def main(argv=None) -> int:
         ids, mask = tok.encode_batch(texts, proc["max_seq"])
         sb = buckets.seq_bucket(int(mask.sum(1).max()))
         inputs = {"input_ids": ids[:, :sb], "attention_mask": mask[:, :sb]}
-        padded, _ = runner._prep(inputs)
+        padded = dict(runner._prep(inputs)[0].arrays)
         dev = {k: torch.from_numpy(v).cuda() for k, v in padded.items()}
 
         def forward():
@@ -429,7 +536,7 @@ def main(argv=None) -> int:
             "step_ms": cuda_ms(lambda: runner.infer_sync(inputs)),
             "forward_ms": cuda_ms(forward),
             "host_ms": {"tokenize": host_ms(lambda: tok.encode_batch(texts, proc["max_seq"])),
-                        "prep": host_ms(lambda: runner._prep(inputs))},
+                        "prep": host_ms(lambda: prep(runner, inputs))},
             "kernels": profile_forward(forward, args.steps, trace),
         }
         c = runner.cfg
@@ -440,6 +547,8 @@ def main(argv=None) -> int:
                         dtype=torch.bfloat16)
         report["matmul_ref_ms"] = cuda_ms(lambda: a @ w)
         report["dense_gflop"] = dense_flops / 1e9
+        report["serving_dtype"] = proc.get("serving_dtype")
+        report["modes"] = step_modes(runner, [inputs], args.steps)
         print(json.dumps(report), flush=True)
         del runner, dev
         torch.cuda.empty_cache()

@@ -293,28 +293,3 @@ class MicroBatchCoalescer:
             if fitting:
                 return self._carve(fitting[-1])
         return self._take_all()
-
-
-def pad_batch_dim(arr: np.ndarray, target: int) -> np.ndarray:
-    """Pad axis 0 with zeros up to ``target`` rows."""
-    n = arr.shape[0]
-    if n == target:
-        return arr
-    if n > target:
-        raise ValueError(f"batch {n} exceeds bucket {target}")
-    pad = [(0, target - n)] + [(0, 0)] * (arr.ndim - 1)
-    return np.pad(arr, pad)
-
-
-def pad_seq_dim(arr: np.ndarray, target: int, axis: int = 1) -> np.ndarray:
-    """Pad (or truncate) ``axis`` to ``target`` positions."""
-    n = arr.shape[axis]
-    if n == target:
-        return arr
-    if n > target:
-        slicer = [slice(None)] * arr.ndim
-        slicer[axis] = slice(0, target)
-        return arr[tuple(slicer)]
-    pad = [(0, 0)] * arr.ndim
-    pad[axis] = (0, target - n)
-    return np.pad(arr, pad)

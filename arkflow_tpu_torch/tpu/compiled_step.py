@@ -1,0 +1,268 @@
+"""The compiled step: one CUDA graph per warmed shape key.
+
+Counterpart of what ``jax.jit`` gives the JAX runner and generation server
+(``arkflow_tpu/tpu/runner.py`` ``_build_jitted``, ``tpu/serving.py``'s
+jitted decode, prefill and chunk): an executable per input shape, built at
+the first step of that shape and kept warm. Here it is a
+``torch.cuda.CUDAGraph`` per shape key, replayed over static input and
+output buffers, so a step costs one graph launch of host work instead of
+one launch per op.
+
+``CompiledStep.run(key, fn, inputs, out)`` copies ``inputs`` into the key's
+static inputs, replays the key's graph (or, at the key's first step,
+captures it), copies the static outputs into the host buffers ``out`` and
+records an event after that copy. A lock covers copy-in -> replay -> the
+enqueue of the copy-out, so steps of several executor threads never cross
+static buffers.
+
+Capture, at the first step of a key:
+
+- one eager call of ``fn`` on the capture's own stream. It is that step's
+  real work, and its outputs are the step's outputs; it also loads the
+  kernel libraries, makes the tile's per-device shared-memory grant
+  (``csrc/mma_tile.cuh``) and creates the cuBLAS handle and workspace of
+  that stream before the capture needs them;
+- then ``torch.cuda.graph(..., capture_error_mode="thread_local")``: other
+  executor threads may pin memory or wait on events meanwhile, which the
+  default global mode would count against the capture.
+
+The graphs of one ``CompiledStep`` share one memory pool. That is safe
+because every step is issued on the one stream of the device in the order
+the callers take the lock, and every static output is copied out (or, for
+the generation server's device-resident next tokens, copied into the next
+step's static input) before the next replay is enqueued: no graph's
+intermediates can overwrite another graph's outputs that are still to be
+read.
+
+Launch counts: a kernel wrapper ticks its ``LaunchCounter`` when the step
+is captured, and the kernel does not run then. The capture's ticks are
+tallied apart (``capturing``) instead of counted, kept with the graph, and
+added again at every replay, so a count still equals the launches that ran.
+
+On a CPU device (tests) and with ``eager=True`` (the A/B comparisons of
+``chip_smoke.py`` and ``profile_step``) the same object calls ``fn`` on
+the same static buffers at every step, without capture. On CUDA a capture
+or replay error raises: nothing quietly carries on eagerly.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from arkflow_tpu_torch.ops.ragged_attention import CapturedLaunches, capturing
+
+StepFn = Callable[..., dict]
+
+
+@dataclass
+class _Entry:
+    """One shape key: its static inputs, and on CUDA its graph, static
+    outputs and the launches its capture recorded."""
+
+    inputs: dict[str, torch.Tensor]
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    outputs: dict[str, torch.Tensor] = field(default_factory=dict)
+    launches: Optional[CapturedLaunches] = None
+
+
+@dataclass
+class Step:
+    """One enqueued step: the host buffers its outputs are copied into,
+    the event recorded after that copy (None on the CPU, where the copy is
+    synchronous), and the outputs on the device (the static outputs of a
+    replayed graph: valid until the next step of this ``CompiledStep``)."""
+
+    out: dict[str, torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    result: dict[str, torch.Tensor]
+
+
+class CompiledStep:
+    """One CUDA graph per shape key, replayed over static buffers."""
+
+    def __init__(self, device: torch.device, *, eager: bool = False):
+        self.device = device
+        self.eager = eager
+        #: graphs are captured on CUDA unless eager
+        self.graphed = device.type == "cuda" and not eager
+        self._lock = threading.Lock()
+        self._entries: dict[Any, _Entry] = {}
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+        #: shape keys built: on CUDA (not eager) each is a captured graph,
+        #: on the CPU and with ``eager`` the key's static buffers alone
+        self.captures = 0
+        #: steps per key after its first (its capture), warmup included
+        self.replays: dict[Any, int] = {}
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._entries)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every graph and static buffer (the next step of each key
+        captures again), once the steps in flight have finished reading
+        them."""
+        with self._lock:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._entries.clear()
+            self.replays.clear()
+            self._pool = None
+
+    def run(self, key, fn: StepFn, inputs: dict[str, torch.Tensor],
+            out: Optional[dict[str, torch.Tensor]] = None,
+            event: Optional[torch.cuda.Event] = None,
+            wait: Optional[torch.cuda.Event] = None) -> Step:
+        """Enqueue one step of ``key``: ``inputs`` (host or device tensors
+        of the key's shapes) into the static inputs, the graph's replay (at
+        the key's first step its capture; on the CPU or eager ``fn``), the
+        outputs into ``out`` (host buffers, made, pinned on CUDA, when
+        None), then ``event`` (made when None) recorded. ``wait``: an event
+        the step's stream waits for first (a prefetch's copies). Nothing
+        here waits for the device."""
+        with self._lock:
+            cuda = self.device.type == "cuda"
+            if cuda and wait is not None:
+                torch.cuda.current_stream(self.device).wait_event(wait)
+            entry = self._entries.get(key)
+            if entry is None:
+                return self._first_step(key, fn, inputs, out, event)
+            for name, t in entry.inputs.items():
+                t.copy_(inputs[name], non_blocking=True)
+            if entry.graph is not None:
+                entry.graph.replay()
+                entry.launches.replay()
+                result = entry.outputs
+            else:
+                result = fn(**entry.inputs)
+            self.replays[key] += 1
+            return self._copy_out(result, out, event)
+
+    def _first_step(self, key, fn: StepFn, inputs, out, event) -> Step:
+        static = {name: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                  for name, t in inputs.items()}
+        entry = _Entry(inputs=static)
+        if not self.graphed:
+            for name, t in static.items():
+                t.copy_(inputs[name], non_blocking=True)
+            step = self._copy_out(fn(**static), out, event)
+        else:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            side, main = self._stream, torch.cuda.current_stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for name, t in static.items():
+                    t.copy_(inputs[name], non_blocking=True)
+                step = self._copy_out(fn(**static), out, event)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with capturing() as launched:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    entry.outputs = fn(**static)
+            entry.graph, entry.launches = graph, launched
+        self._entries[key] = entry
+        self.replays[key] = 0
+        self.captures += 1
+        return step
+
+    def _copy_out(self, result: dict, out, event) -> Step:
+        cuda = self.device.type == "cuda"
+        if out is None:
+            out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=cuda)
+                   for k, v in result.items()}
+        for k, v in result.items():
+            out[k].copy_(v, non_blocking=True)
+        if cuda:
+            event = event if event is not None else torch.cuda.Event()
+            event.record()
+        return Step(out, event if cuda else None, result)
+
+
+class HostSet:
+    """The host buffers of one step at one shape key: its inputs (``arrays``
+    are numpy views to fill in place) and, from its first step on, its
+    outputs; pinned on CUDA, so both copies run without a synchronisation.
+    ``event`` is recorded after the step's copy-out: the set may be filled
+    again, or its outputs read, once it has passed. ``device`` and
+    ``ready`` hold a runner's prefetched device copies of the inputs and
+    the event after those copies."""
+
+    def __init__(self, key, shapes: dict[str, tuple[tuple, Any]], pinned: bool):
+        self.key = key
+        self.inputs: dict[str, torch.Tensor] = {}
+        self.arrays: dict[str, np.ndarray] = {}
+        for name, (shape, dtype) in shapes.items():
+            t = torch.from_numpy(np.zeros(shape, dtype))
+            if pinned:
+                t = t.pin_memory()
+            self.inputs[name] = t
+            self.arrays[name] = t.numpy()
+        self.out: Optional[dict[str, torch.Tensor]] = None
+        self.event: Optional[torch.cuda.Event] = None
+        self.device: Optional[dict[str, torch.Tensor]] = None
+        self.ready: Optional[torch.cuda.Event] = None
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def take(self, step: Step) -> None:
+        """Keep a step's output buffers and event for the set's next step."""
+        self.out, self.event = step.out, step.event
+
+    def outputs(self, n: Optional[int] = None) -> dict[str, np.ndarray]:
+        """Wait for the copy-out, then copies of the first ``n`` rows of
+        every output (the set's buffers are refilled by its next step)."""
+        self.wait()
+        return {k: v.numpy()[:n].copy() for k, v in self.out.items()}
+
+
+class DutyCycle:
+    """The busy share of a device queue on the host clock: busy from the
+    dispatch that finds it empty to the completion that empties it, idle
+    between (``arkflow_tpu/tpu/runner.py`` ``_track_dispatch``,
+    ``_track_complete``, ``duty_cycle``). A step counts as busy from its
+    dispatch, so an eager step's own host dispatch is busy time too."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.inflight = 0
+        self.busy_s = 0.0
+        self.stall_s = 0.0
+        self._busy_start = 0.0
+        self._last_idle_start: Optional[float] = None
+
+    def dispatch(self, now: float) -> None:
+        with self._lock:
+            if self.inflight == 0:
+                if self._last_idle_start is not None:
+                    self.stall_s += now - self._last_idle_start
+                self._busy_start = now
+            self.inflight += 1
+
+    def complete(self, now: float) -> None:
+        with self._lock:
+            self.inflight -= 1
+            if self.inflight == 0:
+                self.busy_s += now - self._busy_start
+                self._last_idle_start = now
+
+    def share(self) -> float:
+        """Busy fraction since the first dispatch (1.0 = never idle)."""
+        with self._lock:
+            total = self.busy_s + self.stall_s
+            return self.busy_s / total if total > 0 else 0.0

@@ -7,10 +7,22 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   runner raises instead of carrying on quietly on the CPU. ``device="cpu"``
   runs the same code on the CPU (tests), where the model's attention takes
   the kernel's plain version.
-- ``infer`` runs host prep and the step on executor threads, never on the
-  event loop, and bounds steps in flight with a semaphore so several stream
-  workers keep the device busy. ``torch.inference_mode`` is entered inside
-  the executor thread (it is thread-local); outputs come back to the host.
+- The step is compiled: one CUDA graph per padded shape key
+  (``tpu/compiled_step.py``), captured at the key's first step -- every
+  key of ``grid_shapes`` at ``warmup`` -- and replayed after, counted in
+  ``captures`` and ``dispatch_counts()``. ``eager=True`` (a keyword only,
+  like ``jax.disable_jit``) runs every step op by op, for A/B comparisons.
+- The dispatch plane of the JAX runner: ``_pad_inputs`` pads into a
+  recycled pinned staging set (``StagingPool``); the eager prefetch copies
+  it to the device on a copy stream before the in-flight permit, bounded
+  by ``max_in_flight + 1``; ``infer`` runs host prep and the step on
+  executor threads, never on the event loop, with at most
+  ``max_in_flight`` steps dispatching at once; ``dispatch_depth`` 2
+  releases the permit once a step is enqueued and fetches its outputs
+  outside it; ``duty_cycle()`` is the device queue's busy share.
+  ``torch.inference_mode`` is entered inside the executor thread (it is
+  thread-local); outputs come back to the host through the set's pinned
+  output buffers and one event.
 - The ragged kernel needs right-padded masks. A mask that is not a
   contiguous prefix of ones raises when flash was forced in config, and
   otherwise switches the runner to the plain attention for good, counted in
@@ -31,6 +43,7 @@ import dataclasses
 import logging
 import os
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -39,7 +52,8 @@ import torch
 from arkflow_tpu_torch.errors import ConfigError
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.quantize import quantize_for_serving
-from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, pad_batch_dim, pad_seq_dim
+from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
+from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet
 
 logger = logging.getLogger("arkflow_torch.runner")
 
@@ -102,6 +116,62 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+class StagingPool:
+    """Recycled host staging buffers (``HostSet``s, pinned on CUDA), keyed
+    by padded shape, as the JAX runner's ``_StagingPool``: in steady state
+    every step lands in an already-seen bucket, so ``_pad_inputs`` pads into
+    a recycled set instead of allocating. A set is checked out in prep and
+    returned only after its step's outputs were fetched, so a recycled set
+    can never race a copy still in flight. Thread-safe: prep runs on
+    executor threads.
+
+    Sizing invariant: ``max_per_key`` must cover every set that can be
+    checked out on one key at once -- the dispatched-not-fetched steps
+    (``dispatch_depth`` of them at depth > 1, in-flight steps otherwise)
+    plus one set in prep. ``acquire`` never blocks (it returns None on an
+    empty stack and the caller allocates), but an undersized cap silently
+    brings back a fresh pinned allocation per step (``release`` drops sets
+    beyond the cap), so the owner states the bound (``min_required``) and
+    construction asserts the cap covers it."""
+
+    def __init__(self, max_per_key: int, min_required: int = 1):
+        assert max_per_key >= min_required >= 1, (
+            f"staging max_per_key={max_per_key} cannot cover the "
+            f"{min_required} concurrently-held buffer sets per key")
+        self._free: dict[tuple, list[HostSet]] = {}
+        self._max = max_per_key
+        self._lock = threading.Lock()
+
+    def acquire(self, key: tuple) -> Optional[HostSet]:
+        with self._lock:
+            stack = self._free.get(key)
+            return stack.pop() if stack else None
+
+    def release(self, bufs: HostSet) -> None:
+        with self._lock:
+            stack = self._free.setdefault(bufs.key, [])
+            if len(stack) < self._max:
+                stack.append(bufs)
+
+
+def _pad_into(dst: np.ndarray, src: np.ndarray) -> None:
+    """``src`` into the leading corner of ``dst``, zeros elsewhere: the JAX
+    ``pad_seq_dim`` then ``pad_batch_dim``, in place. A seq dim longer than
+    ``dst``'s is cut (the top seq bucket truncates); more rows than ``dst``
+    holds raise."""
+    if src.shape[0] > dst.shape[0]:
+        raise ValueError(f"batch {src.shape[0]} exceeds bucket {dst.shape[0]}")
+    region = tuple(slice(0, min(a, b)) for a, b in zip(dst.shape, src.shape))
+    dst.fill(0)
+    dst[region] = src[region]
+
+
+def shape_key(shapes: dict[str, tuple]) -> tuple:
+    """A padded step's shape key: its name-sorted (name, shape) pairs, as
+    the JAX runner's ``_shape_key`` and ``_grid_shape_key``."""
+    return tuple((k, tuple(v)) for k, v in sorted(shapes.items()))
+
+
 class ModelRunner:
     def __init__(
         self,
@@ -113,8 +183,10 @@ class ModelRunner:
         device: Any = None,
         serving_dtype: Optional[str] = None,
         max_in_flight: int = 2,
+        dispatch_depth: int = 1,
         host_params: Optional[dict] = None,
         packed: bool = False,
+        eager: bool = False,
     ):
         self.device = resolve_device(device)
         self.family = get_model(model)
@@ -146,8 +218,36 @@ class ModelRunner:
         if max_in_flight < 1:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
         self.max_in_flight = max_in_flight
+        #: 1: a step holds its in-flight permit through dispatch and output
+        #: fetch. 2: the permit is released once the step is enqueued, and
+        #: the fetch (the wait for its copy-out) runs outside the in-flight
+        #: window under the depth permit, so the next step's copies and
+        #: replay overlap this one's compute even at max_in_flight 1
+        if dispatch_depth < 1:
+            raise ConfigError(f"dispatch_depth must be >= 1, got {dispatch_depth}")
+        self.dispatch_depth = dispatch_depth
         self._inflight_sem: Optional[asyncio.Semaphore] = None
+        #: bounds prefetched input sets on the device (held through the
+        #: step): one more than the in-flight depth
+        self._prefetch_sem: Optional[asyncio.Semaphore] = None
+        #: bounds dispatched-not-fetched steps at dispatch_depth > 1
+        self._depth_sem: Optional[asyncio.Semaphore] = None
         self._sem_loop: Optional[asyncio.AbstractEventLoop] = None
+        # held sets per key: at depth > 1 the depth permit bounds the
+        # dispatched-not-fetched steps (each holds its set until the fetch),
+        # at depth 1 the in-flight permit; plus one set in prep either way
+        self._staging = StagingPool(
+            max_per_key=self.max_in_flight + self.dispatch_depth,
+            min_required=(self.dispatch_depth if self.dispatch_depth > 1
+                          else self.max_in_flight) + 1)
+        #: the prefetch's host-to-device copies run on their own stream
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        #: one CUDA graph per padded shape key (``eager``: none, every step
+        #: runs op by op, for A/B comparisons)
+        self._compiled = CompiledStep(self.device, eager=eager)
+        self._duty = DutyCycle()
+        self._dispatch_counts: dict[tuple, int] = {}
         self._in_warmup = False
         #: model steps run on the device (warmup included)
         self.device_steps = 0
@@ -162,6 +262,12 @@ class ModelRunner:
         #: times the runner switched from the kernel to the plain attention
         #: because a mask was not right-padded
         self.flash_fallbacks = 0
+
+    @property
+    def captures(self) -> int:
+        """Shape keys captured (the JAX runner's compile count): a CUDA graph
+        each on CUDA; on the CPU or ``eager``, the key's static buffers."""
+        return self._compiled.captures
 
     @staticmethod
     def _resolve_auto_flags(cfg, device: torch.device, packed: bool = False):
@@ -202,110 +308,194 @@ class ModelRunner:
 
     def _disable_flash(self) -> None:
         """Auto fallback: serve with the plain attention from now on.
-        Concurrent prep threads may call this together; it counts once."""
+        Concurrent prep threads may call this together; it counts once. The
+        captured graphs replay the kernel, so every one is dropped: the next
+        step of each shape captures again from the new ``cfg`` (the JAX
+        ``_build_jitted`` rebuilds for the same reason)."""
         with self._lock:
             if not self.cfg.use_flash_attention:
                 return
             self.cfg = dataclasses.replace(self.cfg, use_flash_attention=False)
             self.flash_fallbacks += 1
+            self._compiled.clear()
 
     # -- shape plumbing ----------------------------------------------------
 
-    def _pad_inputs_packed(self, inputs: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], int]:
-        """Pad a packed layout: the [P, S] row arrays pad P to a batch bucket
-        (dead rows: segment 0), the [E] example arrays pad E to an example
-        bucket (they point at row 0, position 0 and are sliced off by the
-        true count). Returns (padded, E)."""
-        p = inputs["input_ids"].shape[0]
-        e = inputs["example_row"].shape[0]
-        mb = self.buckets.max_batch()
-        me = self.buckets.max_examples()
-        if p > mb or e > me:
-            raise ConfigError(
-                f"packed batch ({p} rows / {e} examples) exceeds the grid (max {mb} "
-                f"rows / {me} examples); carve row windows that fit before "
-                "dispatch (tpu/packing.py carve_row_windows)")
-        pb = self.buckets.batch_bucket(p)
-        eb = self.buckets.example_bucket(e)
-        out = {}
-        for name, (dtype, trailing) in self.spec.items():
+    def _padded_shapes(self, inputs: dict[str, np.ndarray]) -> dict[str, tuple]:
+        """Every input's bucket shape. Packed: the [P, S] row arrays take a
+        batch bucket, the [E] example arrays an example bucket."""
+        if self.packed:
+            rows = self.buckets.batch_bucket(inputs["input_ids"].shape[0])
+            examples = self.buckets.example_bucket(inputs["example_row"].shape[0])
+        else:
+            rows = examples = self.buckets.batch_bucket(next(iter(inputs.values())).shape[0])
+        shapes = {}
+        for name, (_, trailing) in self.spec.items():
             arr = inputs.get(name)
             if arr is None:
                 raise ConfigError(f"model {self.family.name!r} missing input {name!r}")
-            arr = np.asarray(arr, dtype=dtype)
-            if "seq" in trailing:
-                arr = pad_seq_dim(arr, self.buckets.seq_bucket(arr.shape[1]), axis=1)
-                arr = pad_batch_dim(arr, pb)
-            else:
-                arr = pad_batch_dim(arr, eb)
-            out[name] = arr
-        if not self._in_warmup:
+            dims = tuple(self.buckets.seq_bucket(arr.shape[1]) if d == "seq" else d
+                         for d in trailing)
+            shapes[name] = (rows if "seq" in trailing else examples, *dims)
+        return shapes
+
+    def _staging_set(self, shapes: dict[str, tuple]) -> HostSet:
+        key = shape_key(shapes)
+        bufs = self._staging.acquire(key)
+        if bufs is None:
+            bufs = HostSet(key, {n: (s, self.spec[n][0]) for n, s in shapes.items()},
+                           pinned=self.device.type == "cuda")
+        return bufs
+
+    def _pad_inputs(self, inputs: dict[str, np.ndarray]) -> tuple[HostSet, int]:
+        """Pad every input to its bucket, straight into a staging set
+        (``HostSet.arrays``); returns (set, true count: rows, or examples
+        when packed). Rows longer than the top seq bucket are truncated to
+        it. Packed layouts pad P to a batch bucket (dead rows: segment 0)
+        and E to an example bucket (pad examples point at row 0, position 0
+        and are sliced off by the true count); a layout over the grid
+        raises."""
+        if self.packed:
+            p = inputs["input_ids"].shape[0]
+            e = inputs["example_row"].shape[0]
+            mb, me = self.buckets.max_batch(), self.buckets.max_examples()
+            if p > mb or e > me:
+                raise ConfigError(
+                    f"packed batch ({p} rows / {e} examples) exceeds the grid (max {mb} "
+                    f"rows / {me} examples); carve row windows that fit before "
+                    "dispatch (tpu/packing.py carve_row_windows)")
+            n = e
+        else:
+            n = next(iter(inputs.values())).shape[0]
+        bufs = self._staging_set(self._padded_shapes(inputs))
+        for name, (dtype, _) in self.spec.items():
+            _pad_into(bufs.arrays[name], np.asarray(inputs[name], dtype=dtype))
+        if self.packed and not self._in_warmup:
             true_tokens = int(np.count_nonzero(np.asarray(inputs["segment_ids"]) > 0))
             with self._lock:
                 self.packed_tokens += true_tokens
-                self.packed_slots += out["input_ids"].size
-        return out, e
+                self.packed_slots += bufs.arrays["input_ids"].size
+        return bufs, n
 
-    def _pad_inputs(self, inputs: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], int]:
-        """Pad every input to its bucket; returns (padded, true_batch). Rows
-        longer than the top seq bucket are truncated to it."""
+    def _prep(self, inputs: dict[str, np.ndarray]) -> tuple[HostSet, int]:
+        bufs, n = self._pad_inputs(inputs)
+        try:
+            self._check_mask(bufs.arrays)
+        except BaseException:
+            self._staging.release(bufs)
+            raise
+        return bufs, n
+
+    def _check_mask(self, padded: dict[str, np.ndarray]) -> None:
+        if not getattr(self.cfg, "use_flash_attention", False) or "attention_mask" not in padded:
+            return
+        m = padded["attention_mask"]
+        # buckets below the floor take the plain attention, which serves
+        # any mask: no reason to fail or to give up the kernel for them
+        if m.shape[1] < (self.cfg.flash_min_seq or 0):
+            return
+        # the kernel reads row sums as prefix lengths; a non-contiguous
+        # mask (left padding) would silently mis-attend
+        lengths = m.sum(axis=1)
+        prefix = (np.arange(m.shape[1])[None, :] < lengths[:, None]).astype(m.dtype)
+        if not np.array_equal(prefix, m):
+            if self._flash_user_forced:
+                raise ConfigError(
+                    "use_flash_attention requires right-padded attention "
+                    "masks (contiguous prefix of ones)")
+            logger.warning(
+                "[%s] non-right-padded attention mask: switching from the "
+                "ragged kernel to the plain attention", self.family.name)
+            self._disable_flash()
+
+    def grid_shapes(self, policy: BucketPolicy) -> list[dict[str, tuple]]:
+        """Every padded-input shape ``policy`` can put on the device, as
+        the JAX runner's ``grid_shapes``: each (batch, seq) bucket; packed,
+        each (row bucket, example bucket) pair with the row bucket at most
+        the example bucket (a packed row holds at least one example), at
+        each seq bucket. ``warmup`` walks it."""
+        has_seq = any("seq" in t for _, t in self.spec.values())
+        seqs = list(policy.seq_buckets) if has_seq else [None]
         if self.packed:
-            return self._pad_inputs_packed(inputs)
-        n = next(iter(inputs.values())).shape[0]
-        bb = self.buckets.batch_bucket(n)
-        out = {}
-        for name, (dtype, trailing) in self.spec.items():
-            arr = inputs.get(name)
-            if arr is None:
-                raise ConfigError(f"model {self.family.name!r} missing input {name!r}")
-            arr = np.asarray(arr, dtype=dtype)
-            if "seq" in trailing:
-                arr = pad_seq_dim(arr, self.buckets.seq_bucket(arr.shape[1]), axis=1)
-            out[name] = pad_batch_dim(arr, bb)
-        return out, n
-
-    def _prep(self, inputs: dict[str, np.ndarray]) -> tuple[dict[str, np.ndarray], int]:
-        padded, n = self._pad_inputs(inputs)
-        if getattr(self.cfg, "use_flash_attention", False) and "attention_mask" in padded:
-            m = padded["attention_mask"]
-            # buckets below the floor take the plain attention, which serves
-            # any mask: no reason to fail or to give up the kernel for them
-            if m.shape[1] < (self.cfg.flash_min_seq or 0):
-                return padded, n
-            # the kernel reads row sums as prefix lengths; a non-contiguous
-            # mask (left padding) would silently mis-attend
-            lengths = m.sum(axis=1)
-            prefix = (np.arange(m.shape[1])[None, :] < lengths[:, None]).astype(m.dtype)
-            if not np.array_equal(prefix, m):
-                if self._flash_user_forced:
-                    raise ConfigError(
-                        "use_flash_attention requires right-padded attention "
-                        "masks (contiguous prefix of ones)")
-                logger.warning(
-                    "[%s] non-right-padded attention mask: switching from the "
-                    "ragged kernel to the plain attention", self.family.name)
-                self._disable_flash()
-        return padded, n
+            pairs = [(pb, eb) for eb in policy.example_buckets()
+                     for pb in policy.batch_buckets if pb <= eb]
+        else:
+            pairs = [(bb, bb) for bb in policy.batch_buckets]
+        shapes = []
+        for pb, eb in pairs:
+            for sl in seqs:
+                shapes.append({
+                    name: (eb if self.packed and "seq" not in trailing else pb,
+                           *(sl if d == "seq" else d for d in trailing))
+                    for name, (_, trailing) in self.spec.items()})
+        return shapes
 
     # -- execution ---------------------------------------------------------
 
-    def _step(self, padded: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """One blocking model step: host -> device, forward, device -> host.
-        Runs on an executor thread (or the caller's, for ``infer_sync``)."""
+    def _forward(self, **inputs: torch.Tensor) -> dict:
+        return self._apply(self.params, self.cfg, **inputs)
+
+    def _to_device(self, bufs: HostSet) -> None:
+        """The eager prefetch: the set's inputs to device buffers of its
+        own on the copy stream, without a synchronisation; the step's
+        stream waits for ``bufs.ready`` before its copy into the graph's
+        static inputs. Runs before the in-flight permit, so batch n+1's
+        transfer overlaps batch n's compute. On the CPU the host buffers
+        serve as they are."""
+        if self._copy_stream is None:
+            bufs.device = bufs.inputs
+            return
+        with torch.cuda.stream(self._copy_stream):
+            if bufs.device is None:
+                # allocated on the copy stream that writes them: a block
+                # from the step stream's pool may still be in use by a step
+                # in flight there, which the copy is not ordered after
+                bufs.device = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                               for k, v in bufs.inputs.items()}
+                bufs.ready = torch.cuda.Event()
+            # the device buffers are the set's own: the step that last read
+            # them finished before the set came back to the pool
+            for k, v in bufs.inputs.items():
+                bufs.device[k].copy_(v, non_blocking=True)
+            bufs.ready.record()
+
+    def _enqueue(self, bufs: HostSet) -> None:
+        """Dispatch one step without waiting for it: the prefetched inputs
+        into the shape's static inputs, its graph's replay (its capture at
+        the shape's first step), the outputs into the set's pinned output
+        buffers, and the set's event after them."""
         with torch.inference_mode():
-            inputs = {k: torch.from_numpy(v).to(self.device) for k, v in padded.items()}
-            out = self._apply(self.params, self.cfg, **inputs)
-            host = {k: v.cpu().numpy() for k, v in out.items()}
+            bufs.take(self._compiled.run(bufs.key, self._forward, bufs.device,
+                                         out=bufs.out, event=bufs.event, wait=bufs.ready))
         with self._lock:
             self.device_steps += 1
             self.packed_steps += int(self.packed)
-        return host
+            if not self._in_warmup:
+                self._dispatch_counts[bufs.key] = self._dispatch_counts.get(bufs.key, 0) + 1
 
-    def _finish(self, out: dict[str, np.ndarray], n: int) -> dict[str, np.ndarray]:
+    def _fetch(self, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
+        """Wait for the set's copy-out; the first ``n`` rows of every output."""
+        out = bufs.outputs(n)
         if not self._in_warmup:
             with self._lock:
                 self.rows += n
-        return {k: v[:n] for k, v in out.items()}
+        return out
+
+    def _step(self, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
+        """One blocking step of a prefetched set: dispatch, then fetch.
+        Runs on an executor thread (or the caller's, for ``infer_sync``)."""
+        self._enqueue(bufs)
+        return self._fetch(bufs, n)
+
+    def dispatch_counts(self) -> dict[tuple, int]:
+        """Traffic steps per padded shape key (warmup excluded)."""
+        with self._lock:
+            return dict(self._dispatch_counts)
+
+    def duty_cycle(self) -> float:
+        """The device queue's busy share since the first ``infer`` dispatch,
+        on the host clock (1.0 = never idle)."""
+        return self._duty.share()
 
     def infer_sync(self, inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """Blocking inference: pad -> device -> unpad. Batches larger than the
@@ -317,21 +507,29 @@ class ModelRunner:
             chunks = [self.infer_sync({k: v[i: i + mb] for k, v in inputs.items()})
                       for i in range(0, n_total, mb)]
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        padded, n = self._prep(inputs)
-        return self._finish(self._step(padded), n)
+        bufs, n = self._prep(inputs)
+        try:
+            self._to_device(bufs)
+            return self._step(bufs, n)
+        finally:
+            self._staging.release(bufs)
 
-    def _ensure_sem(self) -> asyncio.Semaphore:
-        """(Re)bind the in-flight semaphore to the running loop: a runner may
-        outlive one loop (tests, tools) and serve the next."""
+    def _ensure_sems(self) -> None:
+        """(Re)bind the in-flight, prefetch and depth semaphores to the
+        running loop: a runner may outlive one loop (tests, tools) and
+        serve the next."""
         loop = asyncio.get_running_loop()
         if self._sem_loop is not loop:
             self._inflight_sem = asyncio.Semaphore(self.max_in_flight)
+            self._prefetch_sem = asyncio.Semaphore(self.max_in_flight + 1)
+            self._depth_sem = asyncio.Semaphore(self.dispatch_depth)
             self._sem_loop = loop
-        return self._inflight_sem
 
     async def infer(self, inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """Pipelined inference: host prep off the loop, at most
-        ``max_in_flight`` steps on the device at once."""
+        """Pipelined inference: host prep off the loop, the prefetch before
+        the in-flight permit, at most ``max_in_flight`` steps dispatching
+        at once (and at ``dispatch_depth`` > 1 at most that many
+        dispatched and not yet fetched)."""
         loop = asyncio.get_running_loop()
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
@@ -340,37 +538,54 @@ class ModelRunner:
                 self.infer({k: v[i: i + mb] for k, v in inputs.items()})
                 for i in range(0, n_total, mb)])
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        padded, n = await loop.run_in_executor(None, self._prep, inputs)
-        async with self._ensure_sem():
-            out = await loop.run_in_executor(None, self._step, padded)
-        return self._finish(out, n)
+        bufs, n = await loop.run_in_executor(None, self._prep, inputs)
+        self._ensure_sems()
+        try:
+            async with self._prefetch_sem:
+                await loop.run_in_executor(None, self._to_device, bufs)
+                if self.dispatch_depth > 1:
+                    return await self._step_split(loop, bufs, n)
+                async with self._inflight_sem:
+                    self._duty.dispatch(time.perf_counter())
+                    try:
+                        return await loop.run_in_executor(None, self._step, bufs, n)
+                    finally:
+                        self._duty.complete(time.perf_counter())
+        finally:
+            self._staging.release(bufs)
+
+    async def _step_split(self, loop, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
+        """``dispatch_depth`` > 1: the in-flight permit covers the dispatch
+        only; the depth permit, held from before the enqueue until the
+        outputs are fetched, bounds the dispatched-not-fetched steps (the
+        device queue's backpressure, and the bound the staging pool is
+        sized against)."""
+        async with self._depth_sem:
+            async with self._inflight_sem:
+                self._duty.dispatch(time.perf_counter())
+                try:
+                    await loop.run_in_executor(None, self._enqueue, bufs)
+                except BaseException:
+                    self._duty.complete(time.perf_counter())
+                    raise
+            try:
+                return await loop.run_in_executor(None, self._fetch, bufs, n)
+            finally:
+                self._duty.complete(time.perf_counter())
 
     def warmup(self) -> int:
-        """One step per (batch, seq) bucket, so first-use costs (library
-        loads, kernel builds, allocator growth) land before traffic does.
-        Packed runners step every (row bucket, example bucket) pair with the
-        row bucket at most the example bucket (a packed row holds at least
-        one example). Returns the number of steps."""
-        count = 0
-        has_seq = any("seq" in t for _, t in self.spec.values())
-        seqs = list(self.buckets.seq_buckets) if has_seq else [None]
-        if self.packed:
-            pairs = [(pb, eb) for eb in self.buckets.example_buckets()
-                     for pb in self.buckets.batch_buckets if pb <= eb]
-        else:
-            pairs = [(bb, bb) for bb in self.buckets.batch_buckets]
+        """One step at every shape of ``grid_shapes``, so every graph is
+        captured (and the first-use costs -- library loads, kernel builds,
+        allocator growth -- land) before traffic does. Returns the number of
+        steps."""
+        shapes = self.grid_shapes(self.buckets)
         self._in_warmup = True
         try:
-            for pb, eb in pairs:
-                for sl in seqs:
-                    fake = {}
-                    for name, (dtype, trailing) in self.spec.items():
-                        lead = eb if self.packed and "seq" not in trailing else pb
-                        dims = tuple(sl if d == "seq" else d for d in trailing)
-                        fake[name] = np.zeros((lead, *dims), dtype=dtype)
-                    self.infer_sync(fake)
-                    count += 1
+            for shape in shapes:
+                self.infer_sync({name: np.zeros(s, dtype=self.spec[name][0])
+                                 for name, s in shape.items()})
         finally:
             self._in_warmup = False
-        logger.info("[%s] warmed %d bucket shapes", self.family.name, count)
-        return count
+        logger.info("[%s] warmed %d bucket shapes (%d captured)", self.family.name,
+                    len(shapes), self.captures)
+        return len(shapes)

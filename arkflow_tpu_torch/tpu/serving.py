@@ -13,12 +13,29 @@ work rides along mid-flight (continuous batching, as in vLLM/Orca).
 - host (this module): page allocation and refcounts, slot bookkeeping,
   EOS/max-token tracking, admission, one-shot or chunked prefill.
 
-Inputs go to the card from pinned host memory without a synchronisation,
-and each step's next tokens come back through a pinned buffer and a CUDA
-event recorded right after the step: at ``dispatch_depth`` 2, fetching
+The steps are compiled (``tpu/compiled_step.py``): one CUDA graph per step
+key, keyed as the JAX server's ``_seen_steps`` keys its jitted steps, with
+the attention path beside it -- ``("decode", kernel)``, ``("prefill",
+bucket)`` for every prompt bucket a one-shot prefill can take, and
+``("chunk", prefill_chunk, kernel)`` -- captured at ``warmup`` (the
+``gpu_generate`` processor's connect) or at a key's first step, and
+replayed after. The graphs' static inputs are the token ids, lengths,
+active mask, ``[slots, pages_per_slot]`` page table, offset and chunk
+length; the params and the KV pools are captured in place, and the greedy
+pick and the top-2 gap run inside the graph. ``eager=True`` (a keyword
+only) runs every step op by op, for A/B comparisons; the init-time parity
+gate always runs eagerly, before any capture.
+
+Inputs go to the card from persistent pinned host buffers (one set per step
+key, and per depth slot for decode) without a synchronisation, and each
+step's next tokens come back through the set's pinned output buffers and
+one event recorded right after the step: at ``dispatch_depth`` 2, fetching
 step N waits for step N alone, not for step N+1 queued behind it, so step
 N+1 is dispatched from N's device-resident tokens before N's host
-bookkeeping runs. No other synchronisation sits between two decode steps.
+bookkeeping runs. Those tokens are the decode graph's static output: the
+copy into N+1's static token ids and N's copy to the host are both
+enqueued before N+1's replay overwrites them. No other synchronisation sits
+between two decode steps.
 
 ``decode_kernel``: ``auto`` (``paged`` on CUDA, ``gather`` on the CPU),
 ``gather`` (the plain path: each slot's context gathered from the pools)
@@ -57,6 +74,7 @@ from arkflow_tpu_torch.models.paged_decode import (
     paged_prefill,
     paged_prefill_chunk,
 )
+from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet
 
 logger = logging.getLogger("arkflow_torch.serving")
 
@@ -85,20 +103,16 @@ class _Request:
 @dataclass
 class _Fetch:
     """One step's next tokens on their way to the host: the device tensor
-    (fed straight into the next decode dispatch), its pinned host copy, the
-    top-2 gaps' copy (``record_margins``) and the event recorded right
-    after the copies (None on the CPU, where they are synchronous)."""
+    (fed straight into the next decode dispatch), and the host set whose
+    output buffers receive them and the top-2 gaps (``record_margins``),
+    with its event recorded right after the copies."""
 
     nxt: torch.Tensor
-    host: torch.Tensor
-    margin: Optional[torch.Tensor]
-    event: Optional[torch.cuda.Event]
+    bufs: HostSet
 
     def wait(self) -> tuple[np.ndarray, Optional[np.ndarray]]:
-        if self.event is not None:
-            self.event.synchronize()
-        return (self.host.numpy(),
-                self.margin.numpy() if self.margin is not None else None)
+        out = self.bufs.outputs()
+        return out["nxt"], out.get("margin")
 
 
 @dataclass
@@ -126,7 +140,7 @@ class GenerationServer:
                  decode_kernel: str = "auto", kernel_parity_check: bool = True,
                  dispatch_depth: int = 1, step_deadline_s: Optional[float] = None,
                  step_deadline_first_s: Optional[float] = None, health_config=None,
-                 record_margins: bool = False):
+                 record_margins: bool = False, eager: bool = False):
         for what, unported in (("temperature > 0 / top_k (sampling)", temperature > 0 or top_k > 0),
                                ("speculative_tokens", speculative_tokens > 0),
                                ("prefix_cache_pages", prefix_cache_pages > 0),
@@ -196,6 +210,12 @@ class GenerationServer:
                 "host bookkeeping by one step")
         self._pipeline: Optional[_InFlightDecode] = None
         self.record_margins = bool(record_margins)
+        #: one CUDA graph per step key (``eager``: none, for A/B runs)
+        self._compiled = CompiledStep(self.device, eager=eager)
+        #: persistent host buffers per (step key, depth slot)
+        self._host: dict[tuple, HostSet] = {}
+        self._decode_slot = 0
+        self._duty = DutyCycle()
 
         #: counters (the JAX server's registry metrics)
         self.decode_steps = 0
@@ -214,63 +234,146 @@ class GenerationServer:
 
     # -- device plumbing ---------------------------------------------------
 
-    def _to_device(self, arr) -> torch.Tensor:
-        """A host array on the device, copied from pinned memory without a
-        synchronisation (the copy is ordered on the step's stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _on_device(self, arr) -> torch.Tensor:
+        """A host array on the device, copied synchronously (the parity
+        gate's inputs)."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _fetch(self, nxt: torch.Tensor, logits: torch.Tensor) -> _Fetch:
-        """Start the copy of a step's tokens (and top-2 gaps) to the host."""
-        margin = None
+    @property
+    def captures(self) -> int:
+        """Step keys captured: a CUDA graph each on CUDA; on the CPU or
+        ``eager``, the key's static buffers."""
+        return self._compiled.captures
+
+    def replay_counts(self) -> dict:
+        """Steps per step key after its capture (warmup included)."""
+        return dict(self._compiled.replays)
+
+    def duty_cycle(self) -> float:
+        """The device queue's busy share since the first step, on the host
+        clock: a step is busy from its dispatch until its tokens are
+        fetched (or, for a chunk that is not its prompt's last, dispatched)."""
+        return self._duty.share()
+
+    def _select(self, logits: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The step's outputs, inside the graph: the greedy pick, and the
+        top-2 logit gap with ``record_margins``."""
+        out = {"nxt": select_token(logits)}
         if self.record_margins:
             top = logits.topk(2, dim=-1).values
-            margin = top[:, 0] - top[:, 1]
-        if self.device.type != "cuda":
-            return _Fetch(nxt, nxt.clone(), None if margin is None else margin.clone(), None)
-        host = torch.empty(nxt.shape, dtype=nxt.dtype, pin_memory=True)
-        host.copy_(nxt, non_blocking=True)
-        host_margin = None
-        if margin is not None:
-            host_margin = torch.empty(margin.shape, dtype=margin.dtype, pin_memory=True)
-            host_margin.copy_(margin, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return _Fetch(nxt, host, host_margin, event)
+            out["margin"] = top[:, 0] - top[:, 1]
+        return out
 
-    async def _run_device_step(self, fn: Callable):
-        """Run ``fn`` on an executor thread under inference mode."""
+    def _dispatch(self, key: tuple, fn: Callable, arrays: dict[str, np.ndarray],
+                  slot: int = 0, **on_device: torch.Tensor) -> _Fetch:
+        """Enqueue one compiled step (no synchronisation): ``arrays`` into
+        the key's persistent pinned set for ``slot``, once that set's last
+        copies are done; ``on_device`` tensors stand in for the set's
+        inputs of the same name."""
+        bufs = self._host.get((key, slot))
+        if bufs is None:
+            bufs = self._host[(key, slot)] = HostSet(
+                key, {n: (a.shape, a.dtype) for n, a in arrays.items()},
+                pinned=self.device.type == "cuda")
+        bufs.wait()
+        for name, a in arrays.items():
+            bufs.arrays[name][...] = a
+        step = self._compiled.run(key, fn, {**bufs.inputs, **on_device},
+                                  out=bufs.out, event=bufs.event)
+        bufs.take(step)
+        return _Fetch(step.result["nxt"], bufs)
+
+    async def _run_device_step(self, fn: Callable, track: bool = True):
+        """Run ``fn`` on an executor thread under inference mode; with
+        ``track``, as one busy span of the duty cycle."""
         def blocking():
             with torch.inference_mode():
                 return fn()
 
-        return await asyncio.get_running_loop().run_in_executor(None, blocking)
+        if track:
+            self._duty.dispatch(time.perf_counter())
+        try:
+            return await asyncio.get_running_loop().run_in_executor(None, blocking)
+        finally:
+            if track:
+                self._duty.complete(time.perf_counter())
 
-    def _decode(self, cur: torch.Tensor, lens: np.ndarray, act: np.ndarray,
+    def _decode(self, cur, lens: np.ndarray, act: np.ndarray,
                 table: np.ndarray) -> _Fetch:
-        """Dispatch one lockstep decode step (no synchronisation)."""
-        logits, _, _ = paged_decode_step(
-            self.params, self.cfg, cur, self._to_device(lens), self._to_device(act),
-            self._to_device(table), self.k_pages, self.v_pages, return_logits=True,
-            attention_kernel=self.decode_kernel)
-        return self._fetch(select_token(logits), logits)
+        """Dispatch one lockstep decode step (no synchronisation). ``cur``:
+        the slots' tokens, on the host or on the device (a pipelined step's
+        next tokens, copied into the graph's static input in stream order);
+        the decode sets alternate over the depth's slots."""
+        kernel = self.decode_kernel
+
+        def fn(token_ids, lengths, active, page_table):
+            logits, _, _ = paged_decode_step(
+                self.params, self.cfg, token_ids, lengths, active, page_table,
+                self.k_pages, self.v_pages, return_logits=True, attention_kernel=kernel)
+            return self._select(logits)
+
+        slot, self._decode_slot = self._decode_slot, (self._decode_slot + 1) % self.dispatch_depth
+        on_device = {"token_ids": cur} if isinstance(cur, torch.Tensor) else {}
+        # a device ``cur`` stands in for the set's token ids, whose host
+        # copy then carries the host state unused
+        host_cur = self._cur_tokens if on_device else cur
+        return self._dispatch(("decode", kernel), fn,
+                              {"token_ids": host_cur, "lengths": lens, "active": act,
+                               "page_table": table}, slot, **on_device)
 
     def _prefill(self, ids: np.ndarray, n: int, table: np.ndarray) -> _Fetch:
-        logits, _, _ = paged_prefill(
-            self.params, self.cfg, self._to_device(ids), self._to_device(np.asarray([n], np.int32)),
-            self._to_device(table), self.k_pages, self.v_pages, return_logits=True)
-        return self._fetch(select_token(logits), logits)
+        def fn(input_ids, lengths, page_table):
+            logits, _, _ = paged_prefill(self.params, self.cfg, input_ids, lengths, page_table,
+                                         self.k_pages, self.v_pages, return_logits=True)
+            return self._select(logits)
+
+        return self._dispatch(("prefill", ids.shape[1]), fn,
+                              {"input_ids": ids, "lengths": np.asarray([n], np.int32),
+                               "page_table": table})
 
     def _chunk(self, ids: np.ndarray, off: int, clen: int, table: np.ndarray,
                final: bool) -> Optional[_Fetch]:
-        logits, _, _ = paged_prefill_chunk(
-            self.params, self.cfg, self._to_device(ids),
-            self._to_device(np.asarray([off], np.int32)),
-            self._to_device(np.asarray([clen], np.int32)), self._to_device(table),
-            self.k_pages, self.v_pages, attention_kernel=self.decode_kernel)
-        return self._fetch(select_token(logits), logits) if final else None
+        kernel = self.decode_kernel
+
+        def fn(input_ids, chunk_off, chunk_len, page_table):
+            logits, _, _ = paged_prefill_chunk(
+                self.params, self.cfg, input_ids, chunk_off, chunk_len, page_table,
+                self.k_pages, self.v_pages, attention_kernel=kernel)
+            return self._select(logits)
+
+        fetch = self._dispatch(("chunk", ids.shape[1], kernel), fn,
+                               {"input_ids": ids, "chunk_off": np.asarray([off], np.int32),
+                                "chunk_len": np.asarray([clen], np.int32),
+                                "page_table": table})
+        return fetch if final else None
+
+    def _one_shot_buckets(self) -> list[int]:
+        """The prompt buckets a one-shot prefill can take: with chunking,
+        only prompts of at most ``prefill_chunk`` tokens admit in one shot."""
+        b = self.prompt_buckets
+        return [x for i, x in enumerate(b)
+                if not self.prefill_chunk or i == 0 or b[i - 1] < self.prefill_chunk]
+
+    def warmup(self) -> int:
+        """Capture every step graph before traffic: decode, the chunk (when
+        chunking) and every one-shot prefill bucket, on inactive lanes and
+        zero lengths, so every write lands in the scratch page 0. Returns
+        the number of keys captured (0 with ``eager``)."""
+        if self._compiled.eager:
+            return 0
+        s, c = self.slots, self.prefill_chunk
+        table = np.zeros((s, self.pages_per_slot), np.int32)
+        zeros = np.zeros(s, np.int32)
+        with torch.inference_mode():
+            fetches = [self._decode(zeros, zeros, np.zeros(s, bool), table)]
+            if c:
+                fetches.append(self._chunk(np.zeros((1, c), np.int32), 0, 0, table[:1], True))
+            for b in self._one_shot_buckets():
+                fetches.append(self._prefill(np.zeros((1, b), np.int32), 0, table[:1]))
+            for fetch in fetches:
+                fetch.wait()
+        logger.info("generation server: %d step keys captured", len(fetches))
+        return len(fetches)
 
     def kernel_parity_check(self) -> dict:
         """Init-time parity gate of the paged kernel (a port of the JAX
@@ -293,7 +396,7 @@ class GenerationServer:
         table = np.zeros((2, pages_per), np.int32)
         table[0] = np.arange(1, 2 * pages_per, 2)[::-1]
         table[1] = np.arange(2, 2 * pages_per + 1, 2)
-        dev = self._to_device
+        dev = self._on_device
         lens, tab = dev(np.asarray([n0, 1], np.int32)), dev(table)
         report = {"rows_checked": 0, "rows_tied": 0, "mismatches": 0, "max_logit_abs_diff": 0.0}
 
@@ -565,6 +668,8 @@ class GenerationServer:
     def _fail_all(self, err: Exception) -> None:
         # the in-flight pipelined step dies with its requests: its tokens are
         # never applied
+        if self._pipeline is not None:
+            self._duty.complete(time.perf_counter())
         self._pipeline = None
         self._prefill_pos.clear()
         for s in range(self.slots):
@@ -616,7 +721,7 @@ class GenerationServer:
             self._reserve_or_truncate(s, act)
         cur, lens, table = self._cur_tokens.copy(), self._lengths.copy(), self._table_array()
         nxt, margin = await self._run_device_step(
-            lambda: self._decode(self._to_device(cur), lens, act, table).wait())
+            lambda: self._decode(cur, lens, act, table).wait())
         self.decode_steps += 1
         self._apply(nxt, margin, act, None)
 
@@ -664,10 +769,16 @@ class GenerationServer:
         table = self._table_array()
 
         def enqueue() -> _Fetch:
-            cur = pend.fetch.nxt if pend is not None else self._to_device(cur_host)
+            cur = pend.fetch.nxt if pend is not None else cur_host
             return self._decode(cur, eff_lens, act, table)
 
-        fetch = await self._run_device_step(enqueue)
+        # busy from this dispatch to its fetch in _apply_pipeline
+        self._duty.dispatch(time.perf_counter())
+        try:
+            fetch = await self._run_device_step(enqueue, track=False)
+        except BaseException:
+            self._duty.complete(time.perf_counter())
+            raise
         rec = _InFlightDecode(fetch=fetch, act=act, reqs=list(self._slot_req))
         self.pipelined_dispatches += 1
         if pend is not None:
@@ -689,6 +800,9 @@ class GenerationServer:
         """Wait for one in-flight step's tokens (that step alone) and apply
         them; a lane whose request finished or was replaced since dispatch
         drops its token."""
-        nxt, margin = await asyncio.get_running_loop().run_in_executor(None, rec.fetch.wait)
+        try:
+            nxt, margin = await asyncio.get_running_loop().run_in_executor(None, rec.fetch.wait)
+        finally:
+            self._duty.complete(time.perf_counter())
         self.decode_steps += 1
         self._apply(nxt, margin, rec.act, rec.reqs)

@@ -34,13 +34,20 @@ last line):
 5. the padded stream ``arkflow_tpu_torch/examples/bert_stream.json``
    (generate -> gpu_inference(bert_classifier, full BERT-base width, bf16)
    -> drop) through the port's ``Engine``, with the launch counts read
-   around that run only, then the K1 path's outputs against the plain
-   attention's on a few hundred rows;
+   around that run only; every step is a replay of one CUDA graph per
+   shape key (``tpu/compiled_step.py``), captured at the processor's
+   warmup, and the exact counts hold under replay. Then the same stream
+   with the runner's eager twin (``eager=True``, same weights) for the
+   A/B; every captured key's graph against the eager twin on random
+   inputs of that shape (``graphs padded``: 0 differing elements, the
+   captures, ``memory_reserved`` around them); then the K1 path's outputs
+   against the plain attention's on a few hundred rows;
 6. the packed stream ``arkflow_tpu_torch/examples/bert_packed_stream.json``
    (generate -> memory buffer with token-budget coalescing ->
    gpu_inference(packing, BERT-base, bf16) -> drop) through ``Engine``:
    every row in order, K2 launches = layers x packed steps, no K1 launch,
-   the packed steps' token fill; then K2 at the stream's own layout, and
+   the packed steps' token fill; the eager run and ``graphs packed`` as
+   for the padded stream (18 keys); then K2 at the stream's own layout, and
    the same texts through the packed K2 path, the packed pair-mask path and
    the padded K1 path, whose outputs must agree (every K1 and K2 launch of
    the three BERT streams must be ``mma``);
@@ -48,7 +55,8 @@ last line):
    (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
    int8) -> drop) through ``Engine``, and the same config at bfloat16: every
    row in order, K1 launches = layers x steps, int8 products = dense layers
-   x steps (none at bf16); then int8 against bf16 on the same texts (labels
+   x steps (none at bf16); the int8 stream's eager run and ``graphs
+   int8``; then int8 against bf16 on the same texts (labels
    equal wherever the bf16 top-2 gap exceeds twice the largest logit
    difference), their step times, and the int8 product against the bf16 one
    at BERT-base's FFN shape;
@@ -69,14 +77,25 @@ last line):
    continuous batching on paged KV, chunked prefill, dispatch depth 2) ->
    drop) through ``Engine``: every row in order, at most max_new_tokens
    each, K3 launches = layers x (decode + chunk steps), every one on the
-   tensor-core body, no page leaked;
-   then the step times, and the same prompts through a paged and a gather
+   tensor-core body, no page leaked (the counts zeroed when the output
+   connects, after the processor captured the decode, chunk and prefill
+   graphs); then the graphed and eager decode and chunk step times, in
+   turns, and the same prompts through a paged and a gather
    server at depth 1 (streams equal up to the first near-tie) and a paged
    server at depth 2 (equal to depth 1), and one decode step's logits:
    K3's no further from the gather path's or its plain version's than
-   those two lie from each other, plus 1/64;
-10. one ``{"kernels": [...]}`` line (times are device times; ``eager_ms``
-    holds the eager calls' event times), then ``{"ok": true, "device": ...}``.
+   those two lie from each other, plus 1/64; then ``graphs generate``:
+   every step key (decode, chunk, each one-shot prefill bucket; paged and
+   gather) of a graphed server against an eager twin on the same weights,
+   pools and inputs, 0 differing elements in next tokens and top-2 gaps;
+   then the generate stream again with an eager twin server, for the A/B;
+10. the ``graphs`` line (per path: captures, keys checked, differing
+    elements, ``memory_reserved`` before and after the captures) and the
+    ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
+    TTFT p50/p99 and traffic ms per decode step, and the runner's
+    ``duty_cycle()``); one ``{"kernels": [...]}`` line (times are device
+    times; ``eager_ms`` holds the eager calls' event times), then
+    ``{"ok": true, "device": ...}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 """
@@ -118,7 +137,11 @@ from arkflow_tpu_torch.plugins.processor.gpu_inference import (  # noqa: E402
     scatter_windows,
 )
 from arkflow_tpu_torch.runtime.engine import Engine  # noqa: E402
-from arkflow_tpu_torch.tools.profile_step import first_emission  # noqa: E402
+from arkflow_tpu_torch.tools.profile_step import (  # noqa: E402
+    eager_twin,
+    first_emission,
+    server_twin,
+)
 from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
 from arkflow_tpu_torch.tpu.runner import ModelRunner  # noqa: E402
 from arkflow_tpu_torch.tpu.serving import GenerationServer  # noqa: E402
@@ -788,9 +811,53 @@ def reset_counts() -> None:
     q8.int8_products.reset()
 
 
-def run_slice(cfg_raw: dict) -> dict:
-    cfg = EngineConfig.from_mapping(cfg_raw)
-    engine = Engine(cfg)
+def reserved_bytes() -> int:
+    """``torch.cuda.memory_reserved()`` with the allocator's free cached
+    blocks released first (each capture releases them too), so that two
+    readings differ by what stays held: live tensors and graph pools."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def measure_warmup(obj, report: dict) -> None:
+    """Wrap ``obj.warmup`` (a runner's or a server's, which the processor
+    calls at connect) to record ``reserved_bytes()`` just before and just
+    after it: the captures' memory."""
+    inner = obj.warmup
+
+    def warmup():
+        report["reserved_before_captures"] = reserved_bytes()
+        n = inner()
+        report["reserved_after_captures"] = reserved_bytes()
+        return n
+
+    obj.warmup = warmup
+
+
+def build_stream_runner(cfg_raw: dict, eager: bool):
+    """The config's engine, built, with its runner swapped for its eager
+    twin when ``eager``; the warmup's memory is recorded in ``memory``."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]
+    if eager:
+        proc.runner = eager_twin(proc.runner)
+    memory: dict = {}
+    measure_warmup(proc.runner, memory)
+    return engine, stream, proc.runner, memory
+
+
+def mode_report(runner, memory: dict) -> dict:
+    """What each stream's report adds for the A/B: the mode, the captures,
+    the traffic steps per shape key and the runner's duty cycle."""
+    return {"mode": "eager" if runner._compiled.eager else "graphed",
+            "captures": runner.captures, "traffic_keys": len(runner.dispatch_counts()),
+            "duty_cycle": runner.duty_cycle(), **memory}
+
+
+def run_slice(cfg_raw: dict, eager: bool = False) -> dict:
+    engine, stream, runner, memory = build_stream_runner(cfg_raw, eager)
     reset_counts()
     t0 = time.perf_counter()
     asyncio.run(engine.run())
@@ -799,8 +866,6 @@ def run_slice(cfg_raw: dict) -> dict:
     launches = ra.launches.value
     k2_launches = sa.launches.value
     k1_variants = dict(ra.launches.variants)
-    stream = engine.streams[0]
-    runner = stream.pipeline.processors[0].runner
     count = cfg_raw["streams"][0]["input"]["count"]
     layers = runner.cfg.layers
     report = {"rows_expected": count, "rows_out": stream.rows_out,
@@ -811,7 +876,8 @@ def run_slice(cfg_raw: dict) -> dict:
               "device_steps": runner.device_steps, "layers": layers,
               "k1_launches": launches, "k1_variants": k1_variants, "k2_launches": k2_launches,
               "flash_fallbacks": runner.flash_fallbacks,
-              "hidden": runner.cfg.hidden, "heads": runner.cfg.heads}
+              "hidden": runner.cfg.hidden, "heads": runner.cfg.heads,
+              **mode_report(runner, memory)}
     print("slice " + json.dumps(report), flush=True)
     check(k2_launches == 0, f"the padded stream launched K2: {report}")
     check(stream.errors == 0, f"stream reported errors: {report}")
@@ -856,11 +922,10 @@ def generated_rows(cfg_raw: dict) -> list[bytes]:
     return rows
 
 
-def run_packed_slice(cfg_raw: dict) -> dict:
+def run_packed_slice(cfg_raw: dict, eager: bool = False) -> dict:
     """The packed stream through ``Engine``, its sink wrapped to check order;
     the launch counts are zeroed just before the run and read just after."""
-    engine = Engine(EngineConfig.from_mapping(cfg_raw))
-    stream = engine.build()[0]
+    engine, stream, runner, memory = build_stream_runner(cfg_raw, eager)
     sink = stream.output = OrderedSink(stream.output)
     reset_counts()
     t0 = time.perf_counter()
@@ -869,7 +934,6 @@ def run_packed_slice(cfg_raw: dict) -> dict:
     wall = time.perf_counter() - t0
     k1, k2 = ra.launches.value, sa.launches.value
     k2_variants = dict(sa.launches.variants)
-    runner = stream.pipeline.processors[0].runner
     expected = generated_rows(cfg_raw)
     count = len(expected)
     layers = runner.cfg.layers
@@ -887,7 +951,8 @@ def run_packed_slice(cfg_raw: dict) -> dict:
               "packed_token_fill": runner.packed_tokens / max(1, runner.packed_slots),
               "packed_tokens": runner.packed_tokens, "packed_slots": runner.packed_slots,
               "packed_flash": runner.cfg.packed_flash, "layers": layers,
-              "k1_launches": k1, "k2_launches": k2, "k2_variants": k2_variants}
+              "k1_launches": k1, "k2_launches": k2, "k2_variants": k2_variants,
+              **mode_report(runner, memory)}
     print("packed slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"packed stream reported errors: {report}")
     check(stream.rows_out == count and sink.inner.dropped_rows == count,
@@ -972,15 +1037,14 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
     return report
 
 
-def run_int8_slice(cfg_raw: dict) -> dict:
+def run_int8_slice(cfg_raw: dict, eager: bool = False) -> dict:
     """The int8 stream (or the same config at another serving dtype) through
     ``Engine``, its sink wrapped to check order; the counts are zeroed just
     before the run and read just after. Every step runs K1 once a layer, and
     at int8 every dense layer runs an int8 product and none a float one: six
     a layer, then the pooler and the classifier."""
     proc = cfg_raw["streams"][0]["pipeline"]["processors"][0]
-    engine = Engine(EngineConfig.from_mapping(cfg_raw))
-    stream = engine.build()[0]
+    engine, stream, runner, memory = build_stream_runner(cfg_raw, eager)
     sink = stream.output = OrderedSink(stream.output)
     reset_counts()
     t0 = time.perf_counter()
@@ -989,7 +1053,6 @@ def run_int8_slice(cfg_raw: dict) -> dict:
     wall = time.perf_counter() - t0
     k1, k2, products = ra.launches.value, sa.launches.value, q8.int8_products.value
     k1_variants = dict(ra.launches.variants)
-    runner = stream.pipeline.processors[0].runner
     expected = generated_rows(cfg_raw)
     layers = runner.cfg.layers
     per_step = 6 * layers + 2 if proc["serving_dtype"] == "int8" else 0
@@ -1001,7 +1064,8 @@ def run_int8_slice(cfg_raw: dict) -> dict:
               "device_steps": runner.device_steps, "layers": layers, "hidden": runner.cfg.hidden,
               "k1_launches": k1, "k1_variants": k1_variants, "k2_launches": k2,
               "int8_products": products,
-              "int8_products_per_step": per_step, "flash_fallbacks": runner.flash_fallbacks}
+              "int8_products_per_step": per_step, "flash_fallbacks": runner.flash_fallbacks,
+              **mode_report(runner, memory)}
     print("int8 slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"int8-config stream reported errors: {report}")
     check(stream.rows_out == len(expected) and sink.inner.dropped_rows == len(expected),
@@ -1258,22 +1322,31 @@ def paged_edge_cases(gen) -> dict:
 
 
 class GeneratedSink(OrderedSink):
-    """Also records the generated column of every batch, in order."""
+    """Also records the generated column of every batch, in order, and zeroes
+    the launch counts when it connects: the output connects last, after the
+    processor's warmup, so the counts read after the run are the traffic's."""
 
     def __init__(self, inner: Output, field: str):
         super().__init__(inner)
         self.field = field
         self.generated: list[bytes] = []
 
+    async def connect(self) -> None:
+        await super().connect()
+        torch.cuda.synchronize()
+        reset_counts()
+
     async def write(self, batch: MessageBatch) -> None:
         self.generated.extend(batch.column(self.field).to_pylist())
         await super().write(batch)
 
 
-def run_generate_slice(cfg_raw: dict) -> dict:
-    """The generate stream through ``Engine``. The server's init-time parity
-    gate runs at build and its K3 launches are read apart; the counts are
-    zeroed just before the traffic and read just after."""
+def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
+    """The generate stream through ``Engine`` (its server swapped for an
+    eager twin on the same weights when ``eager``). The server's init-time
+    parity gate runs at build and its K3 launches are read apart; the
+    processor's connect captures the step graphs; the counts are zeroed
+    when the output connects, after that, and read just after the run."""
     proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
     engine = Engine(EngineConfig.from_mapping(cfg_raw))
     reset_counts()
@@ -1282,9 +1355,14 @@ def run_generate_slice(cfg_raw: dict) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     gate_launches = ra.paged_flash_attention.launches.value
-    server = stream.pipeline.processors[0].server
+    proc = stream.pipeline.processors[0]
+    if eager:
+        proc.server = proc.runner = server_twin(proc.server, eager=True)
+        torch.cuda.empty_cache()
+    server = proc.server
+    memory: dict = {}
+    measure_warmup(server, memory)
     sink = stream.output = GeneratedSink(stream.output, proc_cfg["output_field"])
-    reset_counts()
     t0 = time.perf_counter()
     asyncio.run(engine.run())
     torch.cuda.synchronize()
@@ -1313,7 +1391,10 @@ def run_generate_slice(cfg_raw: dict) -> dict:
         "layers": layers, "dim": server.cfg.dim, "vocab": server.cfg.vocab_size,
         "k3_launches": k3, "k3_variants": k3_variants, "k3_gate_launches": gate_launches,
         "parity_gate": server.parity_report,
-        "k1_launches": k1, "k2_launches": k2}
+        "k1_launches": k1, "k2_launches": k2,
+        "mode": "eager" if eager else "graphed", "captures": server.captures,
+        "replays": {" ".join(map(str, k)): n for k, n in server.replay_counts().items()},
+        "duty_cycle": server.duty_cycle(), **memory}
     print("generate slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"generate stream reported errors: {report}")
     check(stream.rows_out == len(expected) and sink.inner.dropped_rows == len(expected)
@@ -1336,8 +1417,20 @@ def run_generate_slice(cfg_raw: dict) -> dict:
 def step_times(server: GenerationServer) -> dict:
     """One lockstep decode step over every slot (ragged contexts of up to
     the server's max_seq) and one 128-token chunk at offset 256, each
-    dispatched and fetched as the server does it: median ms."""
-    s, p, page = server.slots, server.pages_per_slot, server.page_size
+    dispatched and fetched as the server does it, graphed (``server``) and
+    eager (a twin on its weights and pools), in turns: median ms."""
+    eager = server_twin(server, eager=True)
+    eager.k_pages, eager.v_pages = server.k_pages, server.v_pages
+    out = {}
+    for name, srv in (("graphed", server), ("eager", eager), ("graphed_again", server),
+                      ("eager_again", eager)):
+        out[name] = step_times_of(srv)
+    print("generate step_ms " + json.dumps(out), flush=True)
+    return out
+
+
+def step_times_of(server: GenerationServer) -> dict:
+    s, p = server.slots, server.pages_per_slot
     table = (torch.randperm(server.num_pages - 1, generator=torch.Generator().manual_seed(3))
              + 1)[: s * p].reshape(s, p).numpy().astype(np.int32)
     lens = np.linspace(1, server.max_seq - 2, s).astype(np.int32)
@@ -1355,12 +1448,10 @@ def step_times(server: GenerationServer) -> dict:
         with torch.inference_mode():
             return server._chunk(ids, 256, chunk, table[:1], True).wait()
 
-    out = {"decode_step_ms": time_ms(decode, iters=10, warmup=2),
-           "decode_slots": s, "decode_mean_context": float(lens.mean() + 1),
-           "chunk_step_ms": time_ms(chunk_step, iters=5, warmup=1), "chunk": chunk,
-           "chunk_offset": 256}
-    print("generate step_ms " + json.dumps(out), flush=True)
-    return out
+    return {"decode_step_ms": time_ms(decode, iters=10, warmup=2),
+            "decode_slots": s, "decode_mean_context": float(lens.mean() + 1),
+            "chunk_step_ms": time_ms(chunk_step, iters=5, warmup=1), "chunk": chunk,
+            "chunk_offset": 256}
 
 
 def generate_prompts(cfg_raw: dict, n: int) -> list[list[int]]:
@@ -1476,6 +1567,143 @@ def compare_generation_paths(params, cfg, proc_cfg: dict, prompts: list[list[int
     return report
 
 
+def differing_elements(a: dict, b: dict) -> int:
+    """Elements of ``a``'s outputs whose bytes differ from ``b``'s."""
+    check(set(a) == set(b), f"output names differ: {sorted(a)} vs {sorted(b)}")
+    n = 0
+    for k in a:
+        x, y = np.ascontiguousarray(a[k]), np.ascontiguousarray(b[k])
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"output {k}: {x.dtype} {x.shape} vs {y.dtype} {y.shape}")
+        bx, by = x.view(np.uint8).reshape(x.size, -1), y.view(np.uint8).reshape(y.size, -1)
+        n += int(np.count_nonzero((bx != by).any(axis=1)))
+    return n
+
+
+def key_inputs(runner: ModelRunner, key: tuple, rng: np.random.Generator) -> dict:
+    """Random inputs of exactly one padded shape key of ``runner``: right-
+    padded rows of random lengths; packed, every row holding its share of
+    the key's examples in segments of random lengths."""
+    shapes = dict(key)
+    vocab = runner.cfg.vocab_size
+    rows, seq = shapes["input_ids"]
+    if not runner.packed:
+        lengths = rng.integers(1, seq + 1, rows)
+        mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+        return {"input_ids": rng.integers(4, vocab, (rows, seq)).astype(np.int32) * mask,
+                "attention_mask": mask}
+    examples = shapes["example_row"][0]
+    per_row = np.full(rows, examples // rows)
+    per_row[: examples % rows] += 1
+    ids, seg, pos = (np.zeros((rows, seq), np.int32) for _ in range(3))
+    ex_row, ex_pos = [], []
+    for r, n in enumerate(per_row):
+        start = 0
+        for j in range(n):
+            length = int(rng.integers(1, seq // n + 1))
+            ids[r, start:start + length] = rng.integers(4, vocab, length)
+            seg[r, start:start + length] = j + 1
+            pos[r, start:start + length] = np.arange(length)
+            ex_row.append(r)
+            ex_pos.append(start)
+            start += length
+    return {"input_ids": ids, "segment_ids": seg, "position_ids": pos,
+            "example_row": np.asarray(ex_row, np.int32),
+            "example_pos": np.asarray(ex_pos, np.int32)}
+
+
+def key_name(key: tuple) -> str:
+    shapes = dict(key)
+    name = "x".join(map(str, shapes["input_ids"]))
+    return name + (f" e{shapes['example_row'][0]}" if "example_row" in shapes else "")
+
+
+def graph_check_runner(path: str, runner: ModelRunner, memory: dict, seed: int) -> dict:
+    """Every captured shape key of a stream's runner: its graph's replay
+    against the eager twin on the same random inputs of that shape; 0
+    differing elements required."""
+    twin = eager_twin(runner)
+    rng = np.random.default_rng(seed)
+    keys = runner._compiled.keys()
+    per_key = {}
+    for key in keys:
+        inputs = key_inputs(runner, key, rng)
+        before = runner._compiled.replays[key]
+        got = runner.infer_sync(inputs)
+        check(runner._compiled.replays[key] == before + 1,
+              f"{path}: the step did not replay the graph of {key_name(key)}")
+        per_key[key_name(key)] = differing_elements(got, twin.infer_sync(inputs))
+    report = {"captures": runner.captures, "keys_checked": len(keys),
+              "differing_elements": sum(per_key.values()), "per_key": per_key,
+              **{k: memory.get(k) for k in ("reserved_before_captures",
+                                            "reserved_after_captures")}}
+    print(f"graphs {path} " + json.dumps(report), flush=True)
+    check(runner._compiled.graphed and len(keys) == runner.captures > 0,
+          f"{path}: no graph captured: {report}")
+    check(report["differing_elements"] == 0, f"{path}: graphed != eager: {report}")
+    return report
+
+
+def graph_check_server(server: GenerationServer) -> dict:
+    """Every step key of the generate path, with K3 (``paged``) and with the
+    gather path: a graphed server on the stream server's weights and
+    settings, every key captured by ``warmup``, against an eager twin on
+    the same weights and the same KV pools (each step rewrites the K/V the
+    other wrote, value for value), on the same inputs: next tokens and
+    top-2 logit gaps, 0 differing elements required."""
+    graphed = server_twin(server, eager=False, record_margins=True, decode_kernel="paged")
+    eager = server_twin(server, eager=True, record_margins=True, decode_kernel="paged")
+    eager.k_pages, eager.v_pages = graphed.k_pages, graphed.v_pages
+    memory = {"reserved_before_captures": reserved_bytes()}
+    for kernel in ("paged", "gather"):
+        graphed.decode_kernel = kernel
+        graphed.warmup()
+    memory["reserved_after_captures"] = reserved_bytes()
+    s, p, c = graphed.slots, graphed.pages_per_slot, graphed.prefill_chunk
+    table = (torch.randperm(graphed.num_pages - 1, generator=torch.Generator().manual_seed(8))
+             + 1)[: s * p].reshape(s, p).numpy().astype(np.int32)
+    rng = np.random.default_rng(9)
+    lens = np.linspace(1, graphed.max_seq - 2, s).astype(np.int32)
+    act = np.ones(s, bool)
+    cur = rng.integers(3, graphed.cfg.vocab_size, s).astype(np.int32)
+    per_key = {}
+    with torch.inference_mode():
+        for key in graphed._compiled.keys():
+            kind, size = key[0], key[1]
+            kernel = key[-1] if kind != "prefill" else "paged"
+            ids = rng.integers(3, graphed.cfg.vocab_size, (1, size if kind != "decode" else 1))
+            ids = ids.astype(np.int32)
+
+            def step(srv):
+                srv.decode_kernel = kernel
+                if kind == "decode":
+                    return srv._decode(cur, lens, act, table).wait()
+                if kind == "chunk":
+                    return srv._chunk(ids, 256, size, table[:1], True).wait()
+                return srv._prefill(ids, size, table[:1]).wait()
+
+            before = graphed._compiled.replays[key]
+            (a_nxt, a_gap), (b_nxt, b_gap) = step(graphed), step(eager)
+            check(graphed._compiled.replays[key] == before + 1,
+                  f"generate: the step did not replay the graph of {key}")
+            per_key[" ".join(map(str, key))] = differing_elements(
+                {"nxt": a_nxt, "margin": a_gap}, {"nxt": b_nxt, "margin": b_gap})
+    report = {"captures": graphed.captures, "keys_checked": len(per_key),
+              "differing_elements": sum(per_key.values()), "per_key": per_key, **memory}
+    print("graphs generate " + json.dumps(report), flush=True)
+    check(len(per_key) == graphed.captures > 0, f"generate: no graph captured: {report}")
+    check(report["differing_elements"] == 0, f"generate: graphed != eager: {report}")
+    return report
+
+
+def ab_numbers(report: dict) -> dict:
+    """One stream run's numbers for the A/B line."""
+    keys = (("traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "traffic_ms_per_decode_step")
+            if "traffic_tokens_per_s" in report else ("traffic_rows_per_s",))
+    return {**{k: report[k] for k in keys}, "duty_cycle": report["duty_cycle"],
+            "captures": report["captures"], "traffic_seconds": report["traffic_seconds"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1521,6 +1749,10 @@ def main() -> int:
     batch = cfg_raw["streams"][0]["input"]["batch_size"]
     result = run_slice(cfg_raw)
     runner = result["runner"]
+    # the A/B: each stream graphed (the default), then eager on the same rows
+    ab = {"padded": {"graphed": ab_numbers(result["report"]),
+                     "eager": ab_numbers(run_slice(cfg_raw, eager=True)["report"])}}
+    graphs = {"padded": graph_check_runner("padded", runner, result["report"], seed=11)}
     main_len = slice_lengths(cfg_raw, batch)
     main_seq = runner.buckets.seq_bucket(int(main_len.max()))
     main_case = kernel_case(gen, batch, runner.cfg.heads, main_seq,
@@ -1533,6 +1765,9 @@ def main() -> int:
     packed_proc = packed_raw["streams"][0]["pipeline"]["processors"][0]
     packed = run_packed_slice(packed_raw)
     prunner = packed["runner"]
+    ab["packed"] = {"graphed": ab_numbers(packed["report"]),
+                    "eager": ab_numbers(run_packed_slice(packed_raw, eager=True)["report"])}
+    graphs["packed"] = graph_check_runner("packed", prunner, packed["report"], seed=12)
     dh = prunner.cfg.hidden // prunner.cfg.heads
     k2_cases = []
     for w, _ in stream_layout(packed_raw, prunner.buckets):  # one emission's windows
@@ -1552,6 +1787,9 @@ def main() -> int:
     bf16_raw = json.loads(json.dumps(int8_raw))
     bf16_raw["streams"][0]["pipeline"]["processors"][0]["serving_dtype"] = "bfloat16"
     int8_run, bf16_run = run_int8_slice(int8_raw), run_int8_slice(bf16_raw)
+    ab["int8"] = {"graphed": ab_numbers(int8_run["report"]),
+                  "eager": ab_numbers(run_int8_slice(int8_raw, eager=True)["report"])}
+    graphs["int8"] = graph_check_runner("int8", int8_run["runner"], int8_run["report"], seed=13)
     print("int8 traffic rows/s " + json.dumps({
         "int8": int8_run["report"]["traffic_rows_per_s"],
         "bfloat16": bf16_run["report"]["traffic_rows_per_s"]}), flush=True)
@@ -1581,6 +1819,22 @@ def main() -> int:
     step_times(server)
     compare_generation_paths(server.params, server.cfg, gen_proc,
                              generate_prompts(gen_raw, gen_proc["slots"]), max_new=64)
+    graphs["generate"] = graph_check_server(server)
+    graphs["generate"]["stream"] = {k: generated["report"].get(k) for k in (
+        "captures", "reserved_before_captures", "reserved_after_captures")}
+    del server, generated["server"]
+    torch.cuda.empty_cache()
+    generated_eager = run_generate_slice(gen_raw, eager=True)
+    ab["generate"] = {"graphed": ab_numbers(generated["report"]),
+                      "eager": ab_numbers(generated_eager["report"])}
+    del generated_eager
+    torch.cuda.empty_cache()
+    print("graphs " + json.dumps({path: {k: g[k] for k in ("captures", "keys_checked",
+                                                         "differing_elements",
+                                                         "reserved_before_captures",
+                                                         "reserved_after_captures")}
+                                  for path, g in graphs.items()}), flush=True)
+    print("ab " + json.dumps(ab), flush=True)
 
     kernels = [{
         "name": "ragged_flash_attention", "route": "cuda",

@@ -11,6 +11,7 @@ from arkflow_tpu.tpu.tokenizer import HashTokenizer as JaxTokenizer
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.errors import ArkError
 from arkflow_tpu_torch.tpu import bucketing as tb
+from arkflow_tpu_torch.tpu.runner import _pad_into
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
 TEXTS = [b"", b"hello world", b"Hello, WORLD!! 42 times", "café naïve — ok".encode(),
@@ -52,12 +53,15 @@ def test_bucket_policy_picks_and_pads_like_the_jax_policy():
     ref_defaults = jb.BucketPolicy.from_config({}, max_batch=32, max_seq=128)
     assert defaults.batch_buckets == ref_defaults.batch_buckets
     assert defaults.seq_buckets == ref_defaults.seq_buckets
+    # the runner pads into its staging buffers in place, as the JAX policy's
+    # pad_seq_dim then pad_batch_dim do
     arr = np.arange(12, dtype=np.int32).reshape(3, 4)
-    np.testing.assert_array_equal(tb.pad_batch_dim(arr, 5), jb.pad_batch_dim(arr, 5))
-    for target in (2, 4, 7):
-        np.testing.assert_array_equal(tb.pad_seq_dim(arr, target), jb.pad_seq_dim(arr, target))
+    for rows, target in ((5, 2), (5, 4), (3, 7)):
+        dst = np.full((rows, target), -1, np.int32)
+        _pad_into(dst, arr)
+        np.testing.assert_array_equal(dst, jb.pad_batch_dim(jb.pad_seq_dim(arr, target), rows))
     with pytest.raises(ValueError):
-        tb.pad_batch_dim(arr, 2)
+        _pad_into(np.zeros((2, 4), np.int32), arr)
 
 
 def test_payload_layout_matches_the_arrow_batch():

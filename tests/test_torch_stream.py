@@ -171,7 +171,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"tokenizer": "bert-base-uncased"}),
     ("processor", {"mesh": {"tp": 2}}),
-    ("processor", {"dispatch_depth": 2}),
+    ("processor", {"step_deadline": "5s"}),
     ("input", {"codec": "json"}),
     ("engine", {"health_check": {"enabled": True}}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
