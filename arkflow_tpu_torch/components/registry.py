@@ -5,8 +5,8 @@ callable ``(config: dict, resource: Resource) -> component``, registered with
 a decorator so plugin modules self-register on import. Each registration
 also names the config keys the port carries for that type: any other key
 raises ``ConfigError(... not yet ported ...)`` at ``--validate`` and at build,
-so no key the JAX package reads is ever silently ignored. A processor may
-add a ``check(config)`` that validates values at the same two points.
+so no key the JAX package reads is ever silently ignored. A builder may add
+a ``check(config)`` that validates values at the same two points.
 
     @register_input("generate", keys=("payload", "batch_size"))
     def _build(config, resource): return GenerateInput(...)
@@ -43,12 +43,14 @@ def _register(family: str, type_name: str, keys: Iterable[str],
     return deco
 
 
-def register_input(type_name: str, keys: Iterable[str] = ()):
-    return _register("input", type_name, keys)
+def register_input(type_name: str, keys: Iterable[str] = (),
+                   check: Optional[Check] = None):
+    return _register("input", type_name, keys, check)
 
 
-def register_output(type_name: str, keys: Iterable[str] = ()):
-    return _register("output", type_name, keys)
+def register_output(type_name: str, keys: Iterable[str] = (),
+                    check: Optional[Check] = None):
+    return _register("output", type_name, keys, check)
 
 
 def register_processor(type_name: str, keys: Iterable[str] = (),

@@ -19,9 +19,13 @@ from typing import Any, Mapping, Optional
 
 from arkflow_tpu_torch.errors import ConfigError, not_ported
 
-_ENGINE_KEYS = ("streams", "logging", "health_check")
+#: ``description`` is free text for the reader; the engine ignores it
+_ENGINE_KEYS = ("streams", "logging", "health_check", "description")
+#: ``health_check`` keys the port carries (``profiling_dir``, the JAX
+#: package's ``/debug/profile`` capture, is not ported)
+_HEALTH_KEYS = ("enabled", "host", "port", "path")
 _STREAM_KEYS = ("input", "buffer", "pipeline", "output", "name")
-_PIPELINE_KEYS = ("thread_num", "processors")
+_PIPELINE_KEYS = ("thread_num", "processors", "max_delivery_attempts")
 
 
 def _check_keys(m: Mapping[str, Any], allowed: tuple[str, ...], where: str) -> None:
@@ -67,6 +71,9 @@ def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
 class PipelineConfig:
     thread_num: int = 0  # 0 -> cpu count
     processors: list[dict] = field(default_factory=list)
+    #: deliveries of a failing batch before it is given up on (acked and
+    #: counted); below it a batch from a redelivering source is nacked
+    max_delivery_attempts: int = 1
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "PipelineConfig":
@@ -79,7 +86,12 @@ class PipelineConfig:
         procs = m.get("processors", [])
         if not isinstance(procs, list):
             raise ConfigError("pipeline.processors must be a list")
-        return cls(thread_num=threads, processors=[dict(p) for p in procs])
+        attempts = m.get("max_delivery_attempts", 1)
+        if isinstance(attempts, bool) or not isinstance(attempts, int) or attempts < 1:
+            raise ConfigError(
+                f"pipeline.max_delivery_attempts must be an int >= 1, got {attempts!r}")
+        return cls(thread_num=threads, processors=[dict(p) for p in procs],
+                   max_delivery_attempts=attempts)
 
     def effective_threads(self) -> int:
         return self.thread_num if self.thread_num > 0 else (os.cpu_count() or 1)
@@ -126,24 +138,52 @@ class LoggingConfig:
 
 
 @dataclass
+class HealthCheckConfig:
+    """The engine's health server (``runtime/engine.py``). Off unless
+    ``enabled: true``: the JAX package starts it by default, the port only
+    when asked."""
+
+    enabled: bool = False
+    host: str = "0.0.0.0"
+    port: int = 8080
+    path: str = "/health"
+
+    @classmethod
+    def from_mapping(cls, m: Any) -> "HealthCheckConfig":
+        if not isinstance(m, Mapping):
+            raise ConfigError(f"health_check must be a mapping, got {m!r}")
+        _check_keys(m, _HEALTH_KEYS, "health_check")
+        c = cls()
+        c.enabled = bool(m.get("enabled", c.enabled))
+        c.host = str(m.get("host", c.host))
+        try:
+            c.port = int(m.get("port", c.port))
+        except (TypeError, ValueError):
+            raise ConfigError(f"health_check.port must be an int, got {m.get('port')!r}") from None
+        c.path = str(m.get("path", c.path))
+        if not c.path.startswith("/"):
+            raise ConfigError(f"health_check.path must start with '/', got {c.path!r}")
+        return c
+
+
+@dataclass
 class EngineConfig:
     streams: list[StreamConfig]
     logging: LoggingConfig = field(default_factory=LoggingConfig)
+    health_check: HealthCheckConfig = field(default_factory=HealthCheckConfig)
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "EngineConfig":
         if not isinstance(m, Mapping):
             raise ConfigError("engine config must be a mapping")
         _check_keys(m, _ENGINE_KEYS, "engine")
-        health = m.get("health_check") or {}
-        if not isinstance(health, Mapping) or health.get("enabled", False) is not False:
-            # the port has no health/metrics server yet
-            raise not_ported("health_check.enabled: true")
+        health = HealthCheckConfig.from_mapping(m.get("health_check") or {})
         raw_streams = m.get("streams")
         if not raw_streams or not isinstance(raw_streams, list):
             raise ConfigError("engine config requires a non-empty 'streams' list")
         return cls(streams=[StreamConfig.from_mapping(s) for s in raw_streams],
-                   logging=LoggingConfig.from_mapping(m.get("logging", {}) or {}))
+                   logging=LoggingConfig.from_mapping(m.get("logging", {}) or {}),
+                   health_check=health)
 
     def validate_components(self) -> list[str]:
         """Check every component's type tag and keys against the registries.

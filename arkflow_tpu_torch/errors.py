@@ -26,6 +26,22 @@ class EndOfInput(ArkError):
         super().__init__(msg)
 
 
+class StepDeadlineExceeded(ArkError):
+    """A device step missed its ``step_deadline``: the runner treats the
+    device as hung (UNHEALTHY), abandons the step, and the stream nacks the
+    batch so a redelivering source delivers it again."""
+
+
+class RunnerDead(ArkError):
+    """A runner is DEAD (its recovery probes ran out) or quarantined
+    (CORRUPT); it serves no batch."""
+
+
+class SwapError(ArkError):
+    """A hot swap (``tpu/swap.py``) was rejected or rolled back; the prior
+    weights served throughout."""
+
+
 def not_ported(what: str) -> ConfigError:
     """The error every config key the port does not carry yet raises."""
     return ConfigError(f"{what} is not yet ported to arkflow_tpu_torch")

@@ -5,3 +5,4 @@ import arkflow_tpu_torch.plugins.buffer  # noqa: F401
 import arkflow_tpu_torch.plugins.input  # noqa: F401
 import arkflow_tpu_torch.plugins.output  # noqa: F401
 import arkflow_tpu_torch.plugins.processor  # noqa: F401
+import arkflow_tpu_torch.plugins.fault  # noqa: F401

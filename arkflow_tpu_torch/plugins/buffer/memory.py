@@ -8,7 +8,8 @@ passes since the first write, then leave as one merged batch whose
 downstream. With ``coalesce`` the emissions are carved by
 ``MicroBatchCoalescer`` instead: exactly the top batch bucket (row mode) or
 a token-budget-filling row prefix (token mode, for packed serving), with the
-``deadline`` bounding how long rows wait for a full emission.
+``deadline`` bounding how long rows wait for a full emission. The coalescer
+registers with ``bucket_cap_bus()``, so a runner's OOM cap shrinks it.
 
     type: memory
     capacity: 64           # rows (flush threshold; backpressure bound x4)
@@ -33,7 +34,7 @@ from typing import Optional
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.components import Ack, Buffer, Resource, VecAck, register_buffer
 from arkflow_tpu_torch.errors import ConfigError, not_ported
-from arkflow_tpu_torch.tpu.bucketing import MicroBatchCoalescer
+from arkflow_tpu_torch.tpu.bucketing import MicroBatchCoalescer, bucket_cap_bus
 from arkflow_tpu_torch.utils.duration import parse_duration
 
 #: the tenant column of the JAX package's multi-tenant lanes
@@ -65,6 +66,8 @@ class MemoryBuffer(Buffer):
             self._coalescer = MicroBatchCoalescer(
                 coalesce_buckets, token_budget=token_budget, token_field=token_field,
                 token_bytes=token_bytes, max_row_tokens=max_row_tokens)
+            # a runner's device OOM caps this coalescer's grid too
+            bucket_cap_bus().register(self._coalescer)
             self._deadline_s = (coalesce_deadline_s if coalesce_deadline_s is not None
                                 else timeout_s)
             if self._deadline_s is None:

@@ -32,10 +32,31 @@ columns. Config (the keys of ``tpu_inference`` the port carries, plus
     example_scale: 4               # packed only: the example-dim grid extends
                                    # this far past the row grid (default 4
                                    # with packing)
+    checkpoint: /path/to/ckpt      # restore at build (tpu/checkpoint.py,
+                                   # torch-native), then the serving dtype
+    step_deadline: 1s              # per-step watchdog: a step past it is
+                                   # abandoned, the runner goes UNHEALTHY
+                                   # and the batch nacks for redelivery
+    step_deadline_first: 60s       # a key's first step (capture; without
+                                   # warmup a kernel build); default 10x
+    health:                        # recovery-probe schedule (tpu/health.py)
+      probe_backoff: 100ms
+      probe_backoff_cap: 30s
+      dead_after: 8
+    swap:                          # hot swap (tpu/swap.py; POST /admin/swap
+      canary: {rows: 4}            # works without this block)
+    integrity:                     # golden probes and param digests
+      probe_interval: 10s          # (tpu/integrity.py); opt-in
+      digest_every: 3
+      golden: {rows: 2, seed: 42}
+      repair: true
 
+The processor exposes ``runner``, ``swapper`` and ``integrity`` (the
+engine's ``/health`` and ``POST /admin/swap`` and the fault plugin reach
+them); ``connect`` starts the integrity monitor and ``close`` stops it.
 Every other ``tpu_inference`` key (tokenizer, tensor_field, mesh,
-device_pool, response_cache, swap, tuner, integrity, checkpoint, step
-deadlines, health, ...) raises "not yet ported".
+pp_microbatch_rows, pp_profile, pp_layer_costs, device_pool,
+response_cache, tuner) raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -49,19 +70,30 @@ from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, Me
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
 from arkflow_tpu_torch.errors import ConfigError, ProcessError, not_ported
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
+from arkflow_tpu_torch.tpu.integrity import build_integrity_monitor, parse_integrity_config
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
 from arkflow_tpu_torch.tpu.runner import ModelRunner, check_serving_dtype
+from arkflow_tpu_torch.tpu.serving_core import parse_core_config
+from arkflow_tpu_torch.tpu.swap import build_batch_swapper, parse_swap_config
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
 
 KEYS = ("model", "model_config", "text_field", "max_seq", "batch_buckets",
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
-        "max_in_flight", "dispatch_depth", "device", "packing", "example_scale")
+        "max_in_flight", "dispatch_depth", "device", "packing", "example_scale",
+        "checkpoint", "step_deadline", "step_deadline_first", "health", "swap",
+        "integrity")
 
 
 class GpuInferenceProcessor(Processor):
     def __init__(self, runner: ModelRunner, *, text_field: str, tokenizer, max_seq: int,
-                 outputs: Optional[list[str]], warmup: bool = False):
+                 outputs: Optional[list[str]], warmup: bool = False, swapper=None,
+                 integrity=None):
         self.runner = runner
+        #: the hot-swap manager (tpu/swap.py): POST /admin/swap and the fault
+        #: plugin's swap_corrupt/swap_crash reach it here
+        self.swapper = swapper
+        #: the integrity monitor (tpu/integrity.py), None without the block
+        self.integrity = integrity
         self.text_field = text_field
         self.tokenizer = tokenizer
         self.max_seq = max_seq
@@ -108,10 +140,17 @@ class GpuInferenceProcessor(Processor):
     # -- Processor ---------------------------------------------------------
 
     async def connect(self) -> None:
-        """Run one step per bucket before the input starts producing."""
+        """Run one step per bucket before the input starts producing, then
+        start the integrity monitor."""
         if not self._warmed:
             self._warmed = True
             await asyncio.get_running_loop().run_in_executor(None, self.runner.warmup)
+        if self.integrity is not None:
+            self.integrity.start()
+
+    async def close(self) -> None:
+        if self.integrity is not None:
+            await self.integrity.stop()
 
     async def process(self, batch: MessageBatch) -> list[MessageBatch]:
         if batch.num_rows == 0:
@@ -180,6 +219,12 @@ def _check(config: dict) -> None:
     packing = config.get("packing", False)
     if not isinstance(packing, bool):
         raise ConfigError(f"gpu_inference.packing must be a bool, got {packing!r}")
+    core = parse_core_config(config)
+    for key in ("step_deadline_s", "step_deadline_first_s"):
+        if core[key] is not None and core[key] <= 0:
+            raise ConfigError(f"{key[:-2]} must be positive, got {core[key]}")
+    parse_swap_config(config.get("swap"), who="gpu_inference")
+    parse_integrity_config(config.get("integrity"), who="gpu_inference")
 
 
 @register_processor("gpu_inference", keys=KEYS, check=_check)
@@ -204,9 +249,20 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         max_in_flight=int(config.get("max_in_flight", 2)),
         dispatch_depth=_dispatch_depth(config),
         packed=packing,
+        checkpoint=config.get("checkpoint"),
+        **parse_core_config(config),
     )
     if "input_ids" not in runner.spec:
         raise not_ported(f"gpu_inference for the tensor inputs of model {model!r}")
+    swapper = build_batch_swapper(
+        runner, model=str(model), serving_dtype=config.get("serving_dtype"),
+        swap_cfg=parse_swap_config(config.get("swap"), who="gpu_inference"),
+        checkpoint=config.get("checkpoint"))
+    integrity = build_integrity_monitor(
+        runner, model=str(model),
+        cfg=parse_integrity_config(config.get("integrity"), who="gpu_inference"))
+    # probing quiesces across a swap, and a commit rebuilds the reference
+    swapper.integrity = integrity
     return GpuInferenceProcessor(
         runner,
         text_field=config.get("text_field", DEFAULT_BINARY_VALUE_FIELD),
@@ -214,4 +270,6 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         max_seq=max_seq,
         outputs=config.get("outputs"),
         warmup=bool(config.get("warmup", False)),
+        swapper=swapper,
+        integrity=integrity,
     )

@@ -1,22 +1,53 @@
-"""Engine: builds and runs every stream of a config.
+"""Engine: builds and runs every stream of a config, with its health server.
 
-Counterpart of ``arkflow_tpu/runtime/engine.py`` without the health/metrics
-server and without restart policies: build every stream, run them
-concurrently, and let SIGINT/SIGTERM flip a cancellation event that drains
-them. A crashed stream is logged without taking the engine down.
+Counterpart of ``arkflow_tpu/runtime/engine.py`` without restart policies:
+build every stream, run them concurrently, and let SIGINT/SIGTERM flip a
+cancellation event that drains them. A crashed stream is logged without
+taking the engine down.
+
+With ``health_check: {enabled: true, host, port, path}`` the engine serves
+HTTP/1.1 on the standard library's ``asyncio.start_server`` (the card's
+machine has no aiohttp, and the port imports none):
+
+- ``GET <path>`` (default ``/health``): the status, the stream count and
+  per stream its runners' health reports, its hot-swap managers' and its
+  integrity monitors' reports, under the JAX package's keys (``runners``,
+  ``swap``, ``integrity``; a ``type: fault`` wrapper exposes its inner
+  processor's ``runner``, ``swapper`` and ``integrity``);
+- ``GET /readiness``: 503 before the streams are built, and while every
+  runner of some stream is DEAD or CORRUPT; 200 otherwise;
+- ``GET /liveness``: 200;
+- ``POST /admin/swap {"checkpoint": path, "stream"?: name}``: a hot swap on
+  every swappable processor of the targeted streams, in turn; 200 when
+  every swap committed, 409 when one rolled back, 404 when there was none
+  to run, 400 for a malformed body.
+
+``/metrics``, ``/trace``, ``/admin/tune`` and ``/debug/profile`` answer 404
+with a "not yet ported" body: the port has no metrics registry, tracer or
+shape tuner yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import signal
+from typing import Optional
 
 from arkflow_tpu_torch.components.registry import ensure_plugins_loaded
 from arkflow_tpu_torch.config import EngineConfig
+from arkflow_tpu_torch.errors import SwapError
 from arkflow_tpu_torch.runtime.stream import Stream, build_stream
 
 logger = logging.getLogger("arkflow_torch.engine")
+
+_NOT_PORTED_ROUTES = ("/metrics", "/trace", "/admin/tune", "/debug/profile")
+_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
+            409: "Conflict", 503: "Service Unavailable"}
+#: request head and body bounds of the health server
+_MAX_HEAD = 16384
+_MAX_BODY = 1 << 20
 
 
 class Engine:
@@ -24,6 +55,11 @@ class Engine:
         self.config = config
         self.cancel = asyncio.Event()
         self.streams: list[Stream] = []
+        self._ready = False
+        self._server: Optional[asyncio.AbstractServer] = None
+        #: the health server's bound port (``health_check.port: 0`` picks a
+        #: free one), None while it is not serving
+        self.health_port: Optional[int] = None
 
     def _install_signal_handlers(self) -> None:
         loop = asyncio.get_running_loop()
@@ -43,6 +79,7 @@ class Engine:
     async def run(self) -> None:
         if not self.streams:
             self.build()
+        await self.start_health_server()
         self._install_signal_handlers()
 
         async def run_one(stream: Stream) -> None:
@@ -52,7 +89,171 @@ class Engine:
             except Exception:
                 logger.exception("[%s] stream crashed", stream.name)
 
-        await asyncio.gather(*(run_one(s) for s in self.streams))
+        self._ready = True
+        try:
+            await asyncio.gather(*(run_one(s) for s in self.streams))
+        finally:
+            self._ready = False
+            await self.stop_health_server()
 
     def shutdown(self) -> None:
         self.cancel.set()
+
+    # -- introspection --------------------------------------------------------
+
+    @staticmethod
+    def _processors(stream: Stream) -> list:
+        return list(getattr(stream.pipeline, "processors", None) or [])
+
+    @classmethod
+    def stream_runner_reports(cls, stream: Stream) -> list[dict]:
+        """The health report of every device runner of a stream."""
+        reports = []
+        for proc in cls._processors(stream):
+            report = getattr(getattr(proc, "runner", None), "health_report", None)
+            if report is None:
+                continue
+            try:
+                rep = report()
+            except Exception:  # a sick runner must not break /health itself
+                logger.exception("health_report failed for stream %s", stream.name)
+                continue
+            reports.extend(rep if isinstance(rep, list) else [rep])
+        return reports
+
+    @classmethod
+    def stream_swappers(cls, stream: Stream) -> list:
+        return [sw for sw in (getattr(p, "swapper", None) for p in cls._processors(stream))
+                if sw is not None and hasattr(sw, "swap")]
+
+    def stream_health(self) -> dict:
+        """Per stream: its runners', swap managers' and integrity monitors'
+        reports."""
+        out: dict[str, dict] = {}
+        for s in self.streams:
+            info: dict = {}
+            runners = self.stream_runner_reports(s)
+            if runners:
+                info["runners"] = runners
+            for key, objs in (("swap", self.stream_swappers(s)),
+                              ("integrity", [m for m in (getattr(p, "integrity", None)
+                                                         for p in self._processors(s))
+                                             if m is not None])):
+                reps = []
+                for obj in objs:
+                    try:
+                        reps.append(obj.report())
+                    except Exception:  # introspection must not break /health
+                        logger.exception("%s report failed for stream %s", key, s.name)
+                if reps:
+                    info[key] = reps
+            out[s.name] = info
+        return out
+
+    # -- the health server ----------------------------------------------------
+
+    async def start_health_server(self) -> None:
+        """Serve the health routes when ``health_check.enabled``."""
+        hc = self.config.health_check
+        if not hc.enabled or self._server is not None:
+            return
+        self._server = await asyncio.start_server(self._serve, hc.host, hc.port)
+        self.health_port = self._server.sockets[0].getsockname()[1]
+        logger.info("health server on %s:%d", hc.host, self.health_port)
+
+    async def stop_health_server(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = self.health_port = None
+
+    async def _serve(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        try:
+            try:
+                head = await reader.readuntil(b"\r\n\r\n")
+            except (asyncio.IncompleteReadError, asyncio.LimitOverrunError):
+                return
+            lines = head.decode("latin-1").split("\r\n")
+            parts = lines[0].split()
+            headers = {k.strip().lower(): v.strip() for k, _, v in
+                       (line.partition(":") for line in lines[1:] if line)}
+            length = int(headers.get("content-length", "0") or 0)
+            if len(parts) < 2 or len(head) > _MAX_HEAD or not 0 <= length <= _MAX_BODY:
+                status, body = 400, {"error": "malformed request"}
+            else:
+                payload = await reader.readexactly(length) if length else b""
+                status, body = await self._route(parts[0].upper(), parts[1].split("?")[0],
+                                                 payload)
+            data = json.dumps(body).encode()
+            writer.write(f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
+                         "Content-Type: application/json\r\n"
+                         f"Content-Length: {len(data)}\r\nConnection: close\r\n\r\n"
+                         .encode() + data)
+            await writer.drain()
+        except Exception:  # one bad connection must not take the server down
+            logger.exception("health server request failed")
+        finally:
+            writer.close()
+
+    async def _route(self, method: str, path: str, payload: bytes) -> tuple[int, dict]:
+        hc = self.config.health_check
+        if path in _NOT_PORTED_ROUTES:
+            return 404, {"error": f"{path} is not yet ported to arkflow_tpu_torch"}
+        if path == "/admin/swap":
+            if method != "POST":
+                return 405, {"error": "POST only"}
+            return await self._admin_swap(payload)
+        if method != "GET":
+            return 405, {"error": "GET only"}
+        if path == hc.path:
+            return 200, {"status": "ok" if not self.cancel.is_set() else "shutting_down",
+                         "streams": len(self.streams), "stream_health": self.stream_health()}
+        if path == "/readiness":
+            return self._readiness()
+        if path == "/liveness":
+            return 200, {"status": "alive"}
+        return 404, {"error": f"no route {path}"}
+
+    def _readiness(self) -> tuple[int, dict]:
+        if not self._ready:
+            return 503, {"status": "not_ready"}
+        # a stream whose runners are all DEAD or CORRUPT cannot serve
+        dead, runners = {}, {}
+        for s in self.streams:
+            reports = self.stream_runner_reports(s)
+            if not reports:
+                continue
+            runners[s.name] = [r.get("state") for r in reports]
+            if all(r.get("state") in ("dead", "corrupt") for r in reports):
+                dead[s.name] = len(reports)
+        if dead:
+            return 503, {"status": "not_ready", "dead_runner_streams": dead, "runners": runners}
+        return 200, {"status": "ready", **({"runners": runners} if runners else {})}
+
+    async def _admin_swap(self, payload: bytes) -> tuple[int, dict]:
+        try:
+            body = json.loads(payload or b"null")
+        except ValueError:
+            return 400, {"error": "body must be JSON"}
+        ckpt = body.get("checkpoint") if isinstance(body, dict) else None
+        if not ckpt or not isinstance(ckpt, str):
+            return 400, {"error": "a 'checkpoint' path is required"}
+        target = body.get("stream")
+        results: dict[str, list] = {}
+        ok_all, found = True, False
+        for s in self.streams:
+            if target is not None and s.name != target:
+                continue
+            for sw in self.stream_swappers(s):
+                found = True
+                try:
+                    rep = {"ok": True, **(await sw.swap(ckpt))}
+                except SwapError as e:
+                    ok_all, rep = False, {"ok": False, "error": str(e)}
+                except Exception as e:  # an unexpected fault must still answer
+                    ok_all, rep = False, {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                results.setdefault(s.name, []).append(rep)
+        if not found:
+            return 404, {"error": "no hot-swappable processors"
+                         + (f" in stream {target!r}" if target else "")}
+        return (200 if ok_all else 409), {"ok": ok_all, "results": results}

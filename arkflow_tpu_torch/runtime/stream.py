@@ -12,8 +12,14 @@ Counterpart of the core loop of ``arkflow_tpu/runtime/stream.py``:
 - With a buffer, the input writes into it and a buffer task moves its
   emissions into the worker queue; an emission's ack covers its sources.
 - ``EndOfInput`` drains the stream and shuts it down.
-- A processing error is logged and the batch acked (there is no
-  ``error_output`` in the port yet); a failed write is logged and nacked.
+- A processing error counts a delivery attempt of the batch (keyed by
+  ``batch_fingerprint``). Below ``max_delivery_attempts`` a batch whose
+  source delivers a nacked batch again (its ack is ``redeliverable``: the
+  fault input with ``redeliver_unacked``) is nacked, so a transient
+  failure such as a step deadline miss heals on redelivery. Otherwise the
+  error is logged, the batch acked and counted in ``dropped_batches``
+  (there is no ``error_output`` in the port yet). The default of 1, as in
+  the JAX package, never nacks. A failed write is logged and nacked.
 - Ordered close: input -> buffer -> pipeline -> output.
 """
 
@@ -25,7 +31,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
-from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.batch import MessageBatch, batch_fingerprint
 from arkflow_tpu_torch.components.base import Ack, Buffer, Input, Output, Resource
 from arkflow_tpu_torch.components.registry import build_component
 from arkflow_tpu_torch.config import StreamConfig
@@ -35,6 +41,9 @@ from arkflow_tpu_torch.runtime.pipeline import Pipeline
 logger = logging.getLogger("arkflow_torch.stream")
 
 MAX_PENDING = 1024
+#: failing batches whose delivery attempts are tracked at once (the oldest
+#: entry is dropped beyond it)
+MAX_TRACKED_ATTEMPTS = 8192
 
 
 @dataclass
@@ -53,7 +62,7 @@ _DONE = _Done()
 class Stream:
     def __init__(self, input_: Input, pipeline: Pipeline, output: Output,
                  thread_num: int = 1, name: str = "stream",
-                 buffer: Optional[Buffer] = None):
+                 buffer: Optional[Buffer] = None, max_delivery_attempts: int = 1):
         self.input = input_
         self.buffer = buffer
         self.pipeline = pipeline
@@ -61,8 +70,13 @@ class Stream:
         self.thread_num = max(1, thread_num)
         self.name = name
         self.queue_size = self.thread_num * 4
+        self.max_delivery_attempts = max(1, max_delivery_attempts)
         self.rows_out = 0
         self.errors = 0
+        #: failed batches acked after their last delivery attempt
+        self.dropped_batches = 0
+        #: delivery attempts per failing batch fingerprint; cleared on success
+        self._attempts: dict[bytes, int] = {}
         #: seconds from the first read to the last write (warmup excluded)
         self.traffic_seconds = 0.0
         self._seq_assigned = 0
@@ -210,9 +224,21 @@ class Stream:
                     err: Optional[Exception]) -> None:
         if err is not None:
             self.errors += 1
-            logger.error("[%s] processing error: %s", self.name, err, exc_info=err)
+            attempts = self._bump_attempts(item.batch)
+            if attempts < self.max_delivery_attempts and getattr(
+                    item.ack, "redeliverable", False):
+                logger.warning("[%s] processing failed (delivery %d/%d); nacked for "
+                               "redelivery: %s", self.name, attempts,
+                               self.max_delivery_attempts, err)
+                await self._safe(item.ack.nack, "nack")
+                return
+            logger.error("[%s] processing error after %d delivery attempt(s); batch "
+                         "dropped: %s", self.name, attempts, err, exc_info=err)
+            self.dropped_batches += 1
+            self._clear_attempts(item.batch)
             await self._safe(item.ack.ack, "ack")
             return
+        self._clear_attempts(item.batch)
         try:
             for b in results:
                 await self.output.write(b)
@@ -223,6 +249,20 @@ class Stream:
             await self._safe(item.ack.nack, "nack")
             return
         await self._safe(item.ack.ack, "ack")
+
+    def _bump_attempts(self, batch: MessageBatch) -> int:
+        key = batch_fingerprint(batch)
+        n = self._attempts.pop(key, 0) + 1
+        if len(self._attempts) >= MAX_TRACKED_ATTEMPTS:
+            self._attempts.pop(next(iter(self._attempts)))
+        self._attempts[key] = n
+        return n
+
+    def _clear_attempts(self, batch: MessageBatch) -> None:
+        """Forget a batch's failed attempts; hashes only while some are
+        tracked, so the healthy path never pays for it."""
+        if self._attempts:
+            self._attempts.pop(batch_fingerprint(batch), None)
 
 
 def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
@@ -235,4 +275,5 @@ def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
     buffer = build_component("buffer", cfg.buffer, resource) if cfg.buffer else None
     return Stream(input_, pipeline, output,
                   thread_num=cfg.pipeline.effective_threads(),
-                  name=name or cfg.name or "stream", buffer=buffer)
+                  name=name or cfg.name or "stream", buffer=buffer,
+                  max_delivery_attempts=cfg.pipeline.max_delivery_attempts)

@@ -1,16 +1,20 @@
 """Shape bucketing: pad ragged batches onto a small grid of (batch, seq) shapes,
 and coalesce stream batches into emissions that fill that grid.
 
-Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without the OOM cap bus,
-shape retargeting and suspect-solo isolation. The port runs eagerly and
-compiles nothing per shape, but the grid still bounds padding waste (each
-dimension at most doubles), keeps the device's working set at a few known
-shapes, and keeps batches and outputs identical to the JAX package's for
-the same input.
+Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without shape retargeting
+and suspect-solo isolation. The grid bounds padding waste (each dimension at
+most doubles), keeps the device's working set at a few known shapes (one
+CUDA graph each, ``tpu/compiled_step.py``), and keeps batches and outputs
+identical to the JAX package's for the same input. After a device OOM the
+runner caps its grid (``BucketPolicy.capped``) and announces the cap on the
+process-wide ``bucket_cap_bus()``, which shrinks every registered
+coalescer's target (``MicroBatchCoalescer.cap``).
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -78,6 +82,15 @@ class BucketPolicy:
     def max_batch(self) -> int:
         return self.batch_buckets[-1]
 
+    def capped(self, below: int) -> Optional["BucketPolicy"]:
+        """OOM degradation: the grid with only the batch buckets strictly
+        below ``below`` (the bucket the device failed to hold); None when no
+        smaller bucket exists."""
+        smaller = tuple(b for b in self.batch_buckets if b < below)
+        if not smaller:
+            return None
+        return BucketPolicy(smaller, self.seq_buckets, self.example_scale)
+
     # -- packed serving: example-dim grid + token-budget grid ---------------
 
     def example_buckets(self) -> tuple[int, ...]:
@@ -109,6 +122,48 @@ class BucketPolicy:
         """Tokens that fill the largest (rows, seq) shape: the natural
         emission target of a token-budget coalescer feeding ``pack_tokens``."""
         return self.token_buckets(seq)[-1]
+
+
+class BucketCapBus:
+    """Process-wide fan-out of device OOM caps to live coalescers: the
+    runner and the memory buffer are built from different config sections,
+    and when the device proves it cannot hold a bucket every registered
+    coalescer stops carving emissions of it. A coalescer registered after a
+    cap gets the standing cap, and caps only shrink."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._coalescers: "weakref.WeakSet[MicroBatchCoalescer]" = weakref.WeakSet()
+        self._cap: Optional[int] = None
+
+    @property
+    def cap(self) -> Optional[int]:
+        return self._cap
+
+    def register(self, coalescer: "MicroBatchCoalescer") -> None:
+        with self._lock:
+            self._coalescers.add(coalescer)
+            if self._cap is not None:
+                coalescer.cap(self._cap)
+
+    def announce(self, cap: int) -> None:
+        with self._lock:
+            self._cap = cap if self._cap is None else min(self._cap, cap)
+            for c in list(self._coalescers):
+                c.cap(self._cap)
+
+    def reset(self) -> None:
+        """Test hook: forget the cap and the registrations."""
+        with self._lock:
+            self._cap = None
+            self._coalescers.clear()
+
+
+_CAP_BUS = BucketCapBus()
+
+
+def bucket_cap_bus() -> BucketCapBus:
+    return _CAP_BUS
 
 
 class MicroBatchCoalescer:
@@ -170,6 +225,21 @@ class MicroBatchCoalescer:
     def pending(self) -> int:
         """Held entries, zero-row batches whose acks still wait included."""
         return len(self._held)
+
+    def cap(self, max_bucket: int) -> None:
+        """Shrink the target grid after a device OOM (``BucketCapBus``):
+        drop the buckets above ``max_bucket``; if none is left the cap is
+        the only bucket. Token-budget mode shrinks the budget by the same
+        ratio. Held rows drain at the new target."""
+        fitting = tuple(b for b in self.buckets if b <= max_bucket)
+        if not fitting:
+            fitting = (max(1, int(max_bucket)),)
+        if fitting == self.buckets:
+            return
+        if self.token_budget is not None:
+            self.token_budget = max(1, int(self.token_budget * fitting[-1] / self.target))
+        self.buckets = fitting
+        self.target = fitting[-1]
 
     def _row_tokens(self, batch: MessageBatch) -> np.ndarray:
         """Per-row estimates off the payload column. A batch without a usable

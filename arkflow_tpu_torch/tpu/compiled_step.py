@@ -43,6 +43,25 @@ On a CPU device (tests) and with ``eager=True`` (the A/B comparisons of
 ``chip_smoke.py`` and ``profile_step``) the same object calls ``fn`` on
 the same static buffers at every step, without capture. On CUDA a capture
 or replay error raises: nothing quietly carries on eagerly.
+
+Two lifecycle primitives (the runner's swap, repair and rebuild,
+``tpu/runner.py``):
+
+- **A capture that raises is discarded.** The key gets no entry, so no
+  half-captured graph is ever replayed, and its next step captures anew.
+  The blocks the failed capture allocated go back to the shared pool's free
+  list; when no other graph shares the pool, the pool is dropped with the
+  graph and its memory returned to the device. An allocator OOM inside
+  ``torch.cuda.graph(...)`` leaves as that OOM, even when ending the broken
+  capture raises too, so it reaches the runner's OOM path like any other.
+- **``copy_params_(live, new)``** copies a new param tree into the live
+  tensors in place: the graphs read the addresses they were captured with,
+  so a weight change may never rebind a tensor they hold. Shapes, dtypes
+  and strides are checked first (a mismatch raises ``ConfigError``; the
+  column-major int8 ``w_q`` of ``models/quantize.py`` keeps its strides).
+  The copies are enqueued on the step stream under the lock, so every
+  replay enqueued before them reads the old weights and every later one
+  the new.
 """
 
 from __future__ import annotations
@@ -54,6 +73,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from arkflow_tpu_torch.errors import ConfigError
 from arkflow_tpu_torch.ops.ragged_attention import CapturedLaunches, capturing
 
 StepFn = Callable[..., dict]
@@ -103,6 +123,10 @@ class CompiledStep:
     def keys(self) -> list:
         with self._lock:
             return list(self._entries)
+
+    def __contains__(self, key) -> bool:
+        """Has ``key`` a graph (on the CPU or eager: static buffers) yet?"""
+        return key in self._entries
 
     def __len__(self) -> int:
         with self._lock:
@@ -169,15 +193,40 @@ class CompiledStep:
                 step = self._copy_out(fn(**static), out, event)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with capturing() as launched:
-                with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    entry.outputs = fn(**static)
+            try:
+                with capturing() as launched:
+                    with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        entry.outputs = fn(**static)
+            except BaseException as e:
+                del graph
+                if not any(x.graph is not None for x in self._entries.values()):
+                    self._pool = None
+                torch.cuda.empty_cache()
+                raise _first_oom(e) from e
             entry.graph, entry.launches = graph, launched
         self._entries[key] = entry
         self.replays[key] = 0
         self.captures += 1
         return step
+
+    def copy_params_(self, live: dict, new: dict, *, retain: bool = False) -> Optional[dict]:
+        """Copy the tree ``new`` into the tensors of ``live`` in place (the
+        graphs keep reading the same addresses), after checking that both
+        trees have the same leaves with the same shapes, dtypes and
+        strides. ``retain``: first copy the live tree into fresh tensors of
+        the same strides and return it (a rollback token). The copies are
+        enqueued on the step stream under the lock, behind every step
+        already enqueued."""
+        pairs = _leaf_pairs(live, new)
+        with self._lock:
+            kept = None
+            if retain:
+                kept = tree_map(lambda t: t.clone(memory_format=torch.preserve_format), live)
+            with torch.no_grad():
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
+            return kept
 
     def _copy_out(self, result: dict, out, event) -> Step:
         cuda = self.device.type == "cuda"
@@ -190,6 +239,46 @@ class CompiledStep:
             event = event if event is not None else torch.cuda.Event()
             event.record()
         return Step(out, event if cuda else None, result)
+
+
+def _first_oom(e: BaseException) -> BaseException:
+    """The allocator OOM in ``e``'s chain (ending a capture that an OOM
+    broke may raise an error of its own), else ``e``."""
+    seen = e
+    while seen is not None:
+        if isinstance(seen, torch.cuda.OutOfMemoryError):
+            return seen
+        seen = seen.__cause__ or seen.__context__
+    return e
+
+
+def tree_map(fn, tree: dict) -> dict:
+    """``fn`` on every leaf of a param tree (nested dicts of tensors)."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaf_pairs(live: dict, new: dict, path: str = "") -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(live leaf, new leaf) of two trees that must match leaf for leaf in
+    shape, dtype and strides; a ``ConfigError`` names the first that does
+    not."""
+    if set(live) != set(new):
+        missing, extra = sorted(set(live) - set(new)), sorted(set(new) - set(live))
+        raise ConfigError(f"param tree mismatch at {path or 'the root'}: the new tree "
+                          f"lacks {missing} and has {extra} beyond the live one")
+    pairs = []
+    for k, dst in live.items():
+        src, where = new[k], f"{path}[{k!r}]"
+        if isinstance(dst, dict) or isinstance(src, dict):
+            if not (isinstance(dst, dict) and isinstance(src, dict)):
+                raise ConfigError(f"param tree mismatch at {where}: a subtree against a leaf")
+            pairs += _leaf_pairs(dst, src, where)
+            continue
+        if dst.shape != src.shape or dst.dtype != src.dtype or dst.stride() != src.stride():
+            raise ConfigError(
+                f"param {where}: live {dst.dtype} {tuple(dst.shape)} strides {dst.stride()} "
+                f"vs new {src.dtype} {tuple(src.shape)} strides {src.stride()}")
+        pairs.append((dst, src))
+    return pairs
 
 
 class HostSet:

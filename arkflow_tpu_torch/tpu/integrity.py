@@ -1,0 +1,579 @@
+"""Silent-data-corruption defense, the batch-runner side: digests, golden
+probes, quarantine and repair.
+
+Counterpart of ``arkflow_tpu/tpu/integrity.py``:
+
+1. **Param digests** (``tree_digests``): one blake2b-128 per leaf over its
+   dtype string, numpy's shape string and its bytes, keyed by the JAX
+   package's ``keystr`` path. A port tree and the JAX tree it was converted
+   from (``convert.params_from_jax``) give identical maps: a bf16 leaf is
+   hashed from its raw 2-byte words under ``"bfloat16"`` (numpy has no
+   bfloat16, and an upcast would change the bytes), and a column-major int8
+   ``w_q`` in row-major order of its logical ``[in, out]`` shape.
+2. **Golden probes**: a deterministic golden batch, tie-free by
+   construction (``find_golden_reference`` searches seeds until the
+   smallest top-1/top-2 logit gap clears the serving dtype's noise floor),
+   whose reference signature is computed with the family's forward on the
+   serving device (the kernels, on the card), runs through the runner's
+   real step (heal gate, deadline, graph) on the probe cadence. A mismatch
+   is proof of corruption: the runner is quarantined (``CORRUPT``) and
+   repaired by re-adopting the retained host tree through
+   ``CompiledStep.copy_params_``, then re-verified.
+3. **Quarantine hooks**: whatever caches a corrupt runner's answers
+   registers to be flushed.
+
+Not here yet: ``ServerIntegrityMember`` and
+``build_generate_integrity_monitor`` (the generation server's lifecycle),
+and the cluster dispatcher's shadow verification.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import logging
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from arkflow_tpu_torch.errors import ConfigError, RunnerDead
+from arkflow_tpu_torch.tpu.compiled_step import tree_map
+from arkflow_tpu_torch.tpu.health import CORRUPT, DEAD
+from arkflow_tpu_torch.utils.duration import parse_duration
+
+logger = logging.getLogger("arkflow_torch.integrity")
+
+#: the results a probe counts under (``IntegrityMonitor.results``)
+PROBE_RESULTS = ("ok", "mismatch", "digest_mismatch", "error")
+
+
+# -- param digests ----------------------------------------------------------
+
+
+def keystr(path: tuple) -> str:
+    """The JAX package's ``keystr`` of a path of dict keys, e.g.
+    ``['encoder']['layers']['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def flatten(tree: Mapping, path: tuple = ()) -> dict[str, Any]:
+    """A nested dict's leaves keyed by their ``keystr`` path."""
+    out: dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten(v, (*path, k)))
+        else:
+            out[keystr((*path, k))] = v
+    return out
+
+
+def _leaf_digest(leaf) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            dtype, data = "bfloat16", t.view(torch.int16).numpy()
+        else:
+            data = t.numpy()
+            dtype = str(data.dtype)
+        shape = str(tuple(t.shape))
+    else:
+        data = np.ascontiguousarray(np.asarray(leaf))
+        dtype, shape = str(data.dtype), str(data.shape)
+    h.update(dtype.encode())
+    h.update(shape.encode())
+    h.update(data.tobytes())
+    return h.hexdigest()
+
+
+def leaf_digests(flat: Mapping[str, Any]) -> dict[str, str]:
+    """Digests of a flat ``{keystr: leaf}`` map (a checkpoint's)."""
+    return {path: _leaf_digest(leaf) for path, leaf in flat.items()}
+
+
+def tree_digests(tree: Mapping) -> dict[str, str]:
+    """Per-leaf blake2b-128 digests keyed by ``keystr`` path. Blocking: every
+    leaf is copied to the host. The digest covers dtype, shape and bytes: a
+    corrupt value, a silent re-cast and a re-shape all read as drift."""
+    return leaf_digests(flatten(tree))
+
+
+def combined_digest(digests: Mapping[str, str]) -> str:
+    """One order-independent digest over a ``tree_digests`` map."""
+    h = hashlib.blake2b(digest_size=16)
+    for path in sorted(digests):
+        h.update(path.encode())
+        h.update(digests[path].encode())
+    return h.hexdigest()
+
+
+def diff_digests(baseline: Mapping[str, str], current: Mapping[str, str]) -> list[str]:
+    """Leaf paths whose digests differ (missing and extra leaves included)."""
+    return [p for p in sorted(set(baseline) | set(current))
+            if baseline.get(p) != current.get(p)]
+
+
+# -- tie-free golden reference ----------------------------------------------
+
+#: minimum top-1/top-2 logit gap of a golden batch, per serving dtype: below
+#: it, benign rounding between the reference and the serving step could flip
+#: an argmax and read as corruption
+MARGIN_FLOOR = {
+    None: 1e-5,
+    "float32": 1e-5,
+    "bfloat16": 1.0 / 64,
+    "float16": 1e-3,
+    "int8": 1e-2,
+}
+
+
+@dataclass(frozen=True)
+class GoldenReference:
+    """A golden batch (in the runner's layout: packed when it packs), its
+    reference argmax signature, the seed that made it tie-free and the
+    margin it cleared."""
+
+    inputs: dict[str, np.ndarray]
+    signature: np.ndarray
+    seed: int
+    margin: float
+
+
+def _packed_golden(spec_cfg, rows: int, seq: int, seed: int) -> dict[str, np.ndarray]:
+    """Golden batch in the packed layout: equal-length full-seq examples,
+    one per row, so the [E] outputs land in input example order."""
+    from arkflow_tpu_torch.tpu.packing import pack_tokens
+
+    rng = np.random.default_rng(seed)
+    vocab = int(getattr(spec_cfg, "vocab_size", 256) or 256)
+    ids = rng.integers(1, max(vocab, 2), size=(rows, seq)).astype(np.int32)
+    pk = pack_tokens(ids, np.full(rows, seq, np.int64), seq)
+    return {"input_ids": pk.input_ids, "segment_ids": pk.segment_ids,
+            "position_ids": pk.position_ids, "example_row": pk.example_row,
+            "example_pos": pk.example_pos}
+
+
+def device_forward(apply_fn, params: dict, cfg, inputs: Mapping[str, np.ndarray],
+                   device: torch.device) -> dict[str, np.ndarray]:
+    """One eager forward of ``apply_fn`` on ``device`` (``params`` already
+    there), its outputs as float32/int numpy arrays."""
+    with torch.inference_mode():
+        out = apply_fn(params, cfg, **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                                       for k, v in inputs.items()})
+        return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                for k, v in out.items()}
+
+
+def find_golden_reference(family, cfg, host_params: dict, *, rows: int, seq: int, seed: int,
+                          serving_dtype: Optional[str], packed: bool = False,
+                          device: Any = "cpu") -> GoldenReference:
+    """A tie-free golden batch and its reference signature: seeds ``seed``,
+    ``seed + 1``, ... until the batch's ``signature_margin`` clears the
+    serving dtype's ``MARGIN_FLOOR``. The forward runs on ``device`` on the
+    converted tree, as the runner serves it."""
+    from arkflow_tpu_torch.tpu.swap import argmax_signature, golden_inputs, signature_margin
+
+    device = torch.device(device)
+    floor = MARGIN_FLOOR.get(serving_dtype, 1e-2)
+    apply_fn = family.extras["apply_packed"] if packed else family.apply
+    params = tree_map(lambda t: t.to(device), host_params)
+    best: Optional[tuple[float, int]] = None
+    for k in range(64):
+        s = seed + k
+        golden = (_packed_golden(cfg, rows, seq, s) if packed
+                  else golden_inputs(family.input_spec(cfg), cfg, rows, s, seq=seq))
+        out = device_forward(apply_fn, params, cfg, golden, device)
+        margin = signature_margin(out)
+        if margin >= floor:
+            return GoldenReference(inputs=golden, signature=argmax_signature(out),
+                                   seed=s, margin=margin)
+        if best is None or margin > best[0]:
+            best = (margin, s)
+    raise ConfigError(
+        f"integrity: no tie-free golden batch for {family.name} in 64 seeds "
+        f"(best margin {best[0]:.2e} at seed {best[1]}, need >= {floor:.2e} "
+        f"for serving_dtype {serving_dtype or 'float32'}); raise golden.rows "
+        "or pick another golden.seed")
+
+
+# -- config -----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class IntegrityConfig:
+    """The ``integrity:`` block of ``gpu_inference`` (opt-in: no block, no
+    monitor)."""
+
+    #: golden-probe cadence
+    probe_interval_s: float = 10.0
+    #: every Nth probe tick also re-verifies the param digests (0 disables)
+    digest_every: int = 3
+    #: golden-batch rows
+    golden_rows: int = 2
+    #: golden-batch sequence length (clamped to the smallest seq bucket)
+    golden_seq: int = 16
+    #: base seed of the tie-free seed search
+    golden_seed: int = 0x90D
+    #: repair a quarantined runner (re-adopt the retained host tree,
+    #: re-baseline, golden re-verify); False = quarantine only
+    repair: bool = True
+
+
+def parse_integrity_config(cfg: Any, who: str = "processor") -> Optional[IntegrityConfig]:
+    """Parse an ``integrity:`` block (at ``--validate`` and at build). None
+    in, None out."""
+    if cfg is None:
+        return None
+    if not isinstance(cfg, Mapping):
+        raise ConfigError(f"{who}.integrity must be a mapping, got {cfg!r}")
+    unknown = set(cfg) - {"probe_interval", "digest_every", "golden", "repair"}
+    if unknown:
+        raise ConfigError(
+            f"{who}.integrity: unknown keys {sorted(unknown)} "
+            "(allowed: probe_interval, digest_every, golden, repair)")
+    out: dict[str, Any] = {}
+    if cfg.get("probe_interval") is not None:
+        v = parse_duration(cfg["probe_interval"])
+        if v <= 0:
+            raise ConfigError(f"{who}.integrity.probe_interval must be positive")
+        out["probe_interval_s"] = v
+    de = cfg.get("digest_every")
+    if de is not None:
+        if isinstance(de, bool) or not isinstance(de, int) or de < 0:
+            raise ConfigError(f"{who}.integrity.digest_every must be an int >= 0, got {de!r}")
+        out["digest_every"] = de
+    golden = cfg.get("golden")
+    if golden is not None:
+        if not isinstance(golden, Mapping):
+            raise ConfigError(f"{who}.integrity.golden must be a mapping, got {golden!r}")
+        bad = set(golden) - {"rows", "seq", "seed"}
+        if bad:
+            raise ConfigError(
+                f"{who}.integrity.golden: unknown keys {sorted(bad)} (allowed: rows, seq, seed)")
+        for key, lo in (("rows", 1), ("seq", 1), ("seed", None)):
+            v = golden.get(key)
+            if v is None:
+                continue
+            if isinstance(v, bool) or not isinstance(v, int) or (lo is not None and v < lo):
+                raise ConfigError(
+                    f"{who}.integrity.golden.{key} must be an int"
+                    f"{f' >= {lo}' if lo is not None else ''}, got {v!r}")
+            out[f"golden_{key}"] = v
+    repair = cfg.get("repair")
+    if repair is not None:
+        if not isinstance(repair, bool):
+            raise ConfigError(f"{who}.integrity.repair must be a bool, got {repair!r}")
+        out["repair"] = repair
+    return IntegrityConfig(**out)
+
+
+# -- the runner member -------------------------------------------------------
+
+
+class RunnerIntegrityMember:
+    """Integrity surface over one ``ModelRunner``: the golden probe is one
+    real step through the runner's own path (heal gate, deadline, graph),
+    digests ride ``verify_params_live``, and repair copies the retained host
+    tree into the live tensors."""
+
+    def __init__(self, runner, label: str, golden: GoldenReference):
+        self.runner = runner
+        self.label = label
+        self.golden = golden
+        self.last_probe_at: Optional[float] = None
+        self.last_result = "never"
+
+    @property
+    def health(self):
+        return self.runner.health
+
+    def state(self) -> str:
+        return self.runner.health.state
+
+    async def verify_digests(self) -> list[str]:
+        return await self.runner.verify_params_live()
+
+    async def golden_probe(self) -> bool:
+        from arkflow_tpu_torch.tpu.swap import argmax_signature
+
+        out = await self.runner.infer({k: v.copy() for k, v in self.golden.inputs.items()},
+                                      probe=True)
+        return bool(np.array_equal(argmax_signature(out), self.golden.signature))
+
+    def note_probe_failure(self, e: Exception) -> None:
+        """A probe step that raised is an incident, not proof of corruption."""
+        self.runner.core.note_external_failure(e)
+
+    async def repair(self) -> None:
+        """Copy the retained known-good host tree into the live tensors,
+        clear an armed ``sdc`` fault (the replaced device), and take the
+        digest baseline from the repaired tree."""
+        loop = asyncio.get_running_loop()
+        r = self.runner
+        await loop.run_in_executor(None, lambda: r.adopt_params(r.host_params, retain=False))
+        r.core.clear_sdc()
+        await loop.run_in_executor(None, r.rebaseline_digests)
+
+    def report(self) -> dict:
+        rep = {"label": self.label, "state": self.state(), "last_probe": self.last_result}
+        if self.last_probe_at is not None:
+            rep["last_probe_age_s"] = round(time.monotonic() - self.last_probe_at, 3)
+        return rep
+
+    def baseline_digests(self) -> Optional[dict[str, str]]:
+        return self.runner.param_digests
+
+    def reset_baseline(self) -> None:
+        self.runner.param_digests = None
+
+
+# -- the monitor -------------------------------------------------------------
+
+
+class IntegrityMonitor:
+    """Periodic verification, quarantine and repair over a list of members.
+
+    Per tick, for every member: skip DEAD; repair CORRUPT (when enabled);
+    otherwise run the golden probe, and on every ``digest_every``-th tick
+    verify the digests first. A digest drift names the leaves, marks the
+    member UNHEALTHY and leaves the decision to the golden probe; a probe
+    mismatch is proof: the member goes CORRUPT, the quarantine hooks fire,
+    and the repair re-adopts known-good params, re-baselines and re-verifies
+    before ``mark_repaired`` re-admits it."""
+
+    def __init__(self, *, name: str, cfg: IntegrityConfig, members: Sequence[Any]):
+        if not members:
+            raise ConfigError("IntegrityMonitor needs at least one member")
+        self.name = name
+        self.cfg = cfg
+        self.members = list(members)
+        self._task: Optional[asyncio.Task] = None
+        self._tick = 0
+        self._quarantine_hooks: list[Callable[[], None]] = []
+        self._lock = asyncio.Lock()
+        #: probing held off during a weights transition (a hot swap)
+        self._suspended = False
+        #: recomputes the golden reference for a committed swap's host tree
+        self._golden_factory: Optional[Callable[[Any], GoldenReference]] = None
+        #: members probed, golden mismatches, quarantines, repairs
+        self.probes = self.mismatches = self.quarantines = self.repairs = 0
+        #: probes by result
+        self.results = dict.fromkeys(PROBE_RESULTS, 0)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        """Start the probe loop (the processor's ``connect``)."""
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._task = None
+
+    def add_quarantine_hook(self, hook: Callable[[], None]) -> None:
+        """Run whenever a member is quarantined: its past answers are no
+        longer trusted."""
+        self._quarantine_hooks.append(hook)
+
+    async def _loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.cfg.probe_interval_s)
+            try:
+                await self.probe_now()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("[%s] integrity probe tick failed", self.name)
+
+    # -- swap coexistence ----------------------------------------------------
+
+    async def begin_quiesce(self) -> None:
+        """Hold off probing for a weights transition: mid-swap the flipped
+        runner legitimately diverges from the golden reference, and a probe
+        would quarantine it (and its repair would roll the swap back).
+        Waits for a tick in flight."""
+        self._suspended = True
+        async with self._lock:
+            pass
+
+    def end_quiesce(self) -> None:
+        self._suspended = False
+
+    def rebuild_reference(self, host_params) -> None:
+        """Recompute the golden reference and reset the digest baselines
+        for newly committed weights (blocking: device forwards)."""
+        if self._golden_factory is None:
+            raise ConfigError(f"IntegrityMonitor[{self.name}] has no golden factory; "
+                              "cannot follow a weights swap")
+        golden = self._golden_factory(host_params)
+        for m in self.members:
+            m.golden = golden
+            m.reset_baseline()
+        logger.info("[%s] integrity reference rebuilt for new weights (golden seed %d, "
+                    "margin %.2e)", self.name, golden.seed, golden.margin)
+
+    # -- probing -------------------------------------------------------------
+
+    async def probe_now(self) -> dict:
+        """One verification pass over every member; returns a summary."""
+        if self._suspended:
+            return {"tick": self._tick, "suspended": True, "checked": 0, "ok": 0,
+                    "mismatches": 0, "repaired": 0}
+        async with self._lock:
+            self._tick += 1
+            with_digests = bool(self.cfg.digest_every) and (
+                self._tick % self.cfg.digest_every == 0)
+            summary = {"tick": self._tick, "checked": 0, "ok": 0, "mismatches": 0,
+                       "repaired": 0}
+            for m in self.members:
+                await self._probe_member(m, with_digests, summary)
+            return summary
+
+    def _count(self, m, result: str) -> None:
+        self.results[result] += 1
+        m.last_result = result
+
+    async def _probe_member(self, m, with_digests: bool, summary: dict) -> None:
+        state = m.state()
+        if state == DEAD:
+            return
+        if state == CORRUPT:
+            if self.cfg.repair:
+                summary["repaired"] += await self._repair(m)
+            return
+        summary["checked"] += 1
+        self.probes += 1
+        if with_digests:
+            try:
+                drifted = await m.verify_digests()
+            except RunnerDead:
+                return
+            except Exception as e:
+                self._count(m, "error")
+                m.note_probe_failure(e)
+                return
+            if drifted:
+                self._count(m, "digest_mismatch")
+                preview = drifted[:3] + (["..."] if len(drifted) > 3 else [])
+                logger.error("[%s] %s: param digest drift on %d leaves: %s", self.name,
+                             m.label, len(drifted), preview)
+                m.health.mark_unhealthy(f"param digest drift: {preview}")
+        try:
+            ok = await m.golden_probe()
+        except RunnerDead:
+            return
+        except Exception as e:
+            self._count(m, "error")
+            m.note_probe_failure(e)
+            return
+        m.last_probe_at = time.monotonic()
+        if ok:
+            self.results["ok"] += 1
+            if m.last_result != "digest_mismatch":
+                m.last_result = "ok"
+            summary["ok"] += 1
+            return
+        self._count(m, "mismatch")
+        self.mismatches += 1
+        summary["mismatches"] += 1
+        self.quarantine(m, "golden-probe signature mismatch")
+        if self.cfg.repair:
+            summary["repaired"] += await self._repair(m)
+
+    # -- quarantine and repair -----------------------------------------------
+
+    def quarantine(self, m, reason: str) -> None:
+        """Mark a member CORRUPT and fire the quarantine hooks."""
+        m.health.mark_corrupt(reason)
+        self.quarantines += 1
+        for hook in self._quarantine_hooks:
+            try:
+                hook()
+            except Exception:
+                logger.exception("[%s] quarantine hook failed", self.name)
+
+    async def _repair(self, m) -> int:
+        """Repair one CORRUPT member, then golden re-verify before it serves
+        again. 1 on re-admission, 0 when it stays quarantined."""
+        try:
+            await m.repair()
+        except Exception:
+            logger.exception("[%s] %s: repair failed; member stays quarantined",
+                             self.name, m.label)
+            return 0
+        # re-admit first (the heal gate rejects CORRUPT, so the verifying
+        # probe could not run), then verify; a failure re-quarantines
+        m.health.mark_repaired()
+        try:
+            ok = await m.golden_probe()
+        except Exception as e:
+            m.health.mark_corrupt(f"repair re-verify errored: {e}")
+            return 0
+        m.last_probe_at = time.monotonic()
+        if not ok:
+            m.health.mark_corrupt("repair failed golden re-verify")
+            m.last_result = "mismatch"
+            return 0
+        m.last_result = "ok"
+        self.repairs += 1
+        logger.info("[%s] %s: repaired, re-verified, re-admitted", self.name, m.label)
+        return 1
+
+    # -- introspection -------------------------------------------------------
+
+    def digest_epoch(self) -> Optional[str]:
+        """One digest over every member's baseline; None until every member
+        has one."""
+        parts: dict[str, str] = {}
+        for i, m in enumerate(self.members):
+            base = m.baseline_digests()
+            if base is None:
+                return None
+            parts[str(i)] = combined_digest(base)
+        return combined_digest(parts)
+
+    def report(self) -> dict:
+        """JSON-able snapshot for the engine's ``/health``: the JAX keys, and
+        the probes by result."""
+        rep = {"probes": self.probes, "mismatches": self.mismatches,
+               "quarantined": self.quarantines, "repaired": self.repairs,
+               "results": dict(self.results),
+               "members": [m.report() for m in self.members]}
+        epoch = self.digest_epoch()
+        if epoch is not None:
+            rep["digest_epoch"] = epoch
+        return rep
+
+
+def build_integrity_monitor(runner, *, model: str,
+                            cfg: Optional[IntegrityConfig]) -> Optional[IntegrityMonitor]:
+    """A monitor over a ``ModelRunner`` (one member per swap unit); None when
+    the ``integrity:`` block is absent. The reference is computed once, on
+    the runner's device, from the retained host tree."""
+    if cfg is None:
+        return None
+    units = runner.swap_units()
+    first = units[0][1]
+    seq = min(first.buckets.seq_buckets)
+
+    def factory(host) -> GoldenReference:
+        return find_golden_reference(
+            first.family, first.cfg, host, rows=cfg.golden_rows,
+            seq=min(cfg.golden_seq, seq), seed=cfg.golden_seed,
+            serving_dtype=first.serving_dtype, packed=first.packed, device=first.device)
+
+    golden = factory(first.host_params)
+    mon = IntegrityMonitor(name=model, cfg=cfg,
+                           members=[RunnerIntegrityMember(r, label, golden)
+                                    for label, r in units])
+    mon._golden_factory = factory
+    return mon

@@ -34,6 +34,33 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
 - ``serving_dtype="int8"`` quantizes the host tree (``models/quantize.py``)
   before the transfer, padded or packed; every dense layer then runs an
   int8 product and the attention stays on the float path.
+
+The lifecycle (the JAX runner's self-healing, swap and integrity surfaces):
+
+- **Composition.** The runner composes a ``ServingRunnerCore``
+  (``tpu/serving_core.py``): ``infer_sync`` and ``infer`` pass its heal gate,
+  then run the step under ``run_deadlined*`` when ``step_deadline`` is set.
+  A key with no graph yet takes ``step_deadline_first``: it covers the
+  capture, its eager first step and, without warmup, a kernel's first
+  build.
+- **Chaos** (``inject_step_fault``) runs at the top of the step, before
+  the ``CompiledStep`` lock, so a ``hang`` holds no lock the probe needs.
+  A step that misses its deadline (the zombie) keeps its staging set until
+  it ends.
+- **Rebuild.** After a miss, the probe's gate builds a new ``CompiledStep``
+  (fresh lock, static buffers and graph pool) and captures the warmed keys
+  again, under the first-step deadline; the old one is left to the zombie
+  and dropped when it returns. ``captures`` counts the recaptures.
+- **OOM.** A step that runs out of device memory caps the batch grid below
+  its bucket (``bucket_cap``), announces the cap on ``bucket_cap_bus()`` and
+  marks the runner DEGRADED; a padded batch is split and retried on the
+  capped grid, a packed one re-raised so it is repacked on redelivery.
+- **Weights.** Every change keeps the live tensors' addresses, which the
+  graphs read: ``adopt_params`` (swap, rollback, repair) copies a tree into
+  them (``CompiledStep.copy_params_``) and returns the prior tree as a
+  copy, and a chaos ``bitflip`` writes one leaf in place. ``place_params``
+  stages a candidate in fresh tensors; ``host_params`` keeps the converted
+  host tree, the integrity repair's source.
 """
 
 from __future__ import annotations
@@ -44,16 +71,19 @@ import logging
 import os
 import threading
 import time
+from functools import partial
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from arkflow_tpu_torch.errors import ConfigError
+from arkflow_tpu_torch.errors import ConfigError, StepDeadlineExceeded
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.quantize import quantize_for_serving
-from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
-from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet
+from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, bucket_cap_bus
+from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet, tree_map
+from arkflow_tpu_torch.tpu.health import HealthConfig
+from arkflow_tpu_torch.tpu.serving_core import ServingRunnerCore, is_oom_error
 
 logger = logging.getLogger("arkflow_torch.runner")
 
@@ -109,11 +139,20 @@ def convert_for_serving(params, serving_dtype: Optional[str], family_name: str =
     if serving_dtype in (None, "float32"):
         return params
     target = _SERVING_DTYPES[serving_dtype]
-    return _tree_map(lambda t: t.to(target) if t.is_floating_point() else t, params)
+    return tree_map(lambda t: t.to(target) if t.is_floating_point() else t, params)
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def init_host_params(family, cfg, seed: int, checkpoint: Optional[str] = None) -> dict:
+    """A param tree on the host: the family's init from
+    ``torch.Generator().manual_seed(seed)``, then, with ``checkpoint``, the
+    checkpoint restored into its structure (``tpu/checkpoint.py``)."""
+    params = family.init(torch.Generator().manual_seed(seed), cfg)
+    if checkpoint:
+        from arkflow_tpu_torch.tpu.checkpoint import restore
+
+        params = restore(checkpoint, params)
+        logger.info("restored checkpoint from %s", checkpoint)
+    return params
 
 
 class StagingPool:
@@ -187,6 +226,10 @@ class ModelRunner:
         host_params: Optional[dict] = None,
         packed: bool = False,
         eager: bool = False,
+        checkpoint: Optional[str] = None,
+        step_deadline_s: Optional[float] = None,
+        step_deadline_first_s: Optional[float] = None,
+        health_config: Optional[HealthConfig] = None,
     ):
         self.device = resolve_device(device)
         self.family = get_model(model)
@@ -209,11 +252,23 @@ class ModelRunner:
         else:
             self._apply = self.family.apply
             self.spec = self.family.input_spec(self.cfg)
+        self.serving_dtype = serving_dtype
         if host_params is None:
             # init on the CPU from an explicit generator, then one transfer
-            host_params = self.family.init(torch.Generator().manual_seed(seed), self.cfg)
-        host_params = convert_for_serving(host_params, serving_dtype, model)
-        self.params = _tree_map(lambda t: t.to(self.device), host_params)
+            host_params = init_host_params(self.family, self.cfg, seed, checkpoint)
+        #: the layout a checkpoint restores into (a swap's ``prepare``): the
+        #: unconverted tree's shapes, dtypes and strides, as meta tensors
+        self.checkpoint_layout = tree_map(
+            lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta"),
+            host_params)
+        #: the converted host tree: the integrity repair re-adopts it and the
+        #: golden reference is computed from it
+        self.host_params = tree_map(lambda t: t.cpu(),
+                                     convert_for_serving(host_params, serving_dtype, model))
+        self.params = self.place_params(self.host_params)
+        #: per-leaf digests of the live tree (``tpu/integrity.py``); None until
+        #: the integrity monitor's first digest pass after boot or an adopt
+        self.param_digests: Optional[dict[str, str]] = None
         # 2: one step computes while the next one's host work overlaps it
         if max_in_flight < 1:
             raise ConfigError(f"max_in_flight must be >= 1, got {max_in_flight}")
@@ -246,6 +301,8 @@ class ModelRunner:
         #: one CUDA graph per padded shape key (``eager``: none, every step
         #: runs op by op, for A/B comparisons)
         self._compiled = CompiledStep(self.device, eager=eager)
+        #: captures of the ``CompiledStep``s that rebuilds replaced
+        self._retired_captures = 0
         self._duty = DutyCycle()
         self._dispatch_counts: dict[tuple, int] = {}
         self._in_warmup = False
@@ -262,12 +319,36 @@ class ModelRunner:
         #: times the runner switched from the kernel to the plain attention
         #: because a mask was not right-padded
         self.flash_fallbacks = 0
+        #: steps that ran out of device memory
+        self.ooms = 0
+        #: milliseconds of the last rebuild (a new ``CompiledStep`` and the
+        #: recaptures), None before the first
+        self.last_rebuild_ms: Optional[float] = None
+        self.core = ServingRunnerCore(
+            name=model, step_deadline_s=step_deadline_s,
+            step_deadline_first_s=step_deadline_first_s, health_config=health_config,
+            rebuild_fn=self._rebuild_after_incident)
+        self.health = self.core.health
 
     @property
     def captures(self) -> int:
-        """Shape keys captured (the JAX runner's compile count): a CUDA graph
-        each on CUDA; on the CPU or ``eager``, the key's static buffers."""
-        return self._compiled.captures
+        """Shape keys captured (the JAX runner's compile count), rebuilds'
+        recaptures included: a CUDA graph each on CUDA; on the CPU or
+        ``eager``, the key's static buffers."""
+        return self._retired_captures + self._compiled.captures
+
+    @property
+    def bucket_cap(self) -> int:
+        """The largest batch bucket served; shrinks after a device OOM."""
+        return self.buckets.max_batch()
+
+    @property
+    def deadline_misses(self) -> int:
+        return self.core.deadline_misses
+
+    @property
+    def rebuilds(self) -> int:
+        return self.core.rebuilds
 
     @staticmethod
     def _resolve_auto_flags(cfg, device: torch.device, packed: bool = False):
@@ -459,32 +540,40 @@ class ModelRunner:
                 bufs.device[k].copy_(v, non_blocking=True)
             bufs.ready.record()
 
-    def _enqueue(self, bufs: HostSet) -> None:
-        """Dispatch one step without waiting for it: the prefetched inputs
-        into the shape's static inputs, its graph's replay (its capture at
-        the shape's first step), the outputs into the set's pinned output
-        buffers, and the set's event after them."""
+    def _enqueue(self, compiled: CompiledStep, bufs: HostSet, traffic: bool = True) -> None:
+        """Dispatch one step on ``compiled`` without waiting for it: the
+        prefetched inputs into the shape's static inputs, its graph's replay
+        (its capture at the shape's first step), the outputs into the set's
+        pinned output buffers, and the set's event after them."""
         with torch.inference_mode():
-            bufs.take(self._compiled.run(bufs.key, self._forward, bufs.device,
-                                         out=bufs.out, event=bufs.event, wait=bufs.ready))
+            bufs.take(compiled.run(bufs.key, self._forward, bufs.device,
+                                   out=bufs.out, event=bufs.event, wait=bufs.ready))
         with self._lock:
             self.device_steps += 1
             self.packed_steps += int(self.packed)
-            if not self._in_warmup:
+            if traffic:
                 self._dispatch_counts[bufs.key] = self._dispatch_counts.get(bufs.key, 0) + 1
 
     def _fetch(self, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
-        """Wait for the set's copy-out; the first ``n`` rows of every output."""
-        out = bufs.outputs(n)
+        """Wait for the set's copy-out; the first ``n`` rows of every output
+        (garbled while a chaos ``sdc`` fault is armed)."""
+        out = self.core.corrupt_outputs(bufs.outputs(n))
         if not self._in_warmup:
             with self._lock:
                 self.rows += n
         return out
 
-    def _step(self, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
-        """One blocking step of a prefetched set: dispatch, then fetch.
-        Runs on an executor thread (or the caller's, for ``infer_sync``)."""
-        self._enqueue(bufs)
+    def _step(self, compiled: CompiledStep, bufs: HostSet, n: int,
+              probe: bool = False) -> dict[str, np.ndarray]:
+        """One blocking step of a prefetched set: chaos (not on a ``probe``),
+        dispatch, fetch. Runs on an executor or watchdog thread (or the
+        caller's, for ``infer_sync``). ``compiled`` was read when the step
+        began: a step abandoned at its deadline finishes on the
+        ``CompiledStep`` it began on, never on the one a rebuild put in its
+        place."""
+        if not probe:
+            self.core.apply_chaos()
+        self._enqueue(compiled, bufs, traffic=not self._in_warmup)
         return self._fetch(bufs, n)
 
     def dispatch_counts(self) -> dict[tuple, int]:
@@ -497,22 +586,82 @@ class ModelRunner:
         on the host clock (1.0 = never idle)."""
         return self._duty.share()
 
-    def infer_sync(self, inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    def _bucket_rows(self, bufs: HostSet) -> int:
+        return dict(bufs.key)["input_ids" if self.packed else next(iter(self.spec))][0]
+
+    def _note_oom(self, bucket_rows: int) -> bool:
+        """A step ran out of device memory on a ``bucket_rows`` bucket: cap
+        the batch grid below it for good, announce the cap to the
+        coalescers and mark the runner DEGRADED. True when a smaller bucket
+        exists (the caller splits and retries); False at the smallest
+        bucket, which marks the runner UNHEALTHY."""
+        with self._lock:
+            self.ooms += 1
+            capped = self.buckets.capped(bucket_rows)
+            if capped is not None and capped.max_batch() < self.buckets.max_batch():
+                self.buckets = capped
+        if capped is None:
+            self.health.mark_unhealthy(f"device OOM at the smallest bucket ({bucket_rows} rows)")
+            return False
+        cap = self.bucket_cap
+        bucket_cap_bus().announce(cap)
+        self.health.mark_degraded(f"device OOM: batch buckets capped at {cap}")
+        logger.warning("[%s] device OOM on a %d-row bucket: batch grid capped at %d",
+                       self.family.name, bucket_rows, cap)
+        return True
+
+    def _after_failure(self, e: Exception, bucket_rows: int) -> bool:
+        """A step that raised: True when it ran out of memory on a padded
+        bucket with a smaller one below (retry on the capped grid). A packed
+        layout cannot be split here: the grid is capped and the error
+        raised, so the redelivered batch is packed on the capped grid."""
+        return is_oom_error(e) and self._note_oom(bucket_rows) and not self.packed
+
+    def infer_sync(self, inputs: dict[str, np.ndarray], *,
+                   probe: bool = False) -> dict[str, np.ndarray]:
         """Blocking inference: pad -> device -> unpad. Batches larger than the
         biggest bucket are chunked and the outputs re-concatenated (packed
-        layouts are never chunked: their row and example dims differ)."""
+        layouts are never chunked: their row and example dims differ). With
+        ``step_deadline`` the step runs on a watchdog thread; a device OOM
+        caps the grid and retries the batch split onto it. ``probe``: a
+        verification step (a golden probe, a swap's probe), which the
+        one-shot chaos faults pass over, so that an armed fault lands on
+        traffic."""
+        probing = self.core.heal_gate_sync()
+        try:
+            return self._infer_sync_admitted(inputs, probe)
+        except Exception as e:
+            if probing:
+                self.core.end_failed_probe(e)
+            raise
+
+    def _infer_sync_admitted(self, inputs: dict[str, np.ndarray],
+                             probe: bool) -> dict[str, np.ndarray]:
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
         if n_total > mb and not self.packed:
-            chunks = [self.infer_sync({k: v[i: i + mb] for k, v in inputs.items()})
+            chunks = [self._infer_sync_admitted({k: v[i: i + mb] for k, v in inputs.items()},
+                                                probe)
                       for i in range(0, n_total, mb)]
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         bufs, n = self._prep(inputs)
+        compiled = self._compiled
+        deadline = self.core.deadline_for(bufs.key not in compiled)
         try:
             self._to_device(bufs)
-            return self._step(bufs, n)
-        finally:
+            step = partial(self._step, compiled, bufs, n, probe)
+            out = (step() if deadline is None else self.core.run_deadlined_sync(
+                step, deadline, on_zombie=partial(self._staging.release, bufs)))
+        except StepDeadlineExceeded:
+            raise  # the zombie holds the set until it ends
+        except Exception as e:
             self._staging.release(bufs)
+            if self._after_failure(e, self._bucket_rows(bufs)):
+                return self._infer_sync_admitted(inputs, probe)
+            raise
+        self._staging.release(bufs)
+        self.health.mark_success()
+        return out
 
     def _ensure_sems(self) -> None:
         """(Re)bind the in-flight, prefetch and depth semaphores to the
@@ -525,51 +674,99 @@ class ModelRunner:
             self._depth_sem = asyncio.Semaphore(self.dispatch_depth)
             self._sem_loop = loop
 
-    async def infer(self, inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """Pipelined inference: host prep off the loop, the prefetch before
-        the in-flight permit, at most ``max_in_flight`` steps dispatching
-        at once (and at ``dispatch_depth`` > 1 at most that many
-        dispatched and not yet fetched)."""
+    async def infer(self, inputs: dict[str, np.ndarray], *,
+                    probe: bool = False) -> dict[str, np.ndarray]:
+        """Pipelined inference: the heal gate, host prep off the loop, the
+        prefetch before the in-flight permit, at most ``max_in_flight``
+        steps dispatching at once (and at ``dispatch_depth`` > 1 at most that
+        many dispatched and not yet fetched), each under its deadline.
+        ``probe`` as for ``infer_sync``."""
+        probing = await self.core.heal_gate()
+        try:
+            return await self._infer_admitted(inputs, probe)
+        except Exception as e:
+            if probing:
+                self.core.end_failed_probe(e)
+            raise
+
+    async def _infer_admitted(self, inputs: dict[str, np.ndarray],
+                              probe: bool) -> dict[str, np.ndarray]:
         loop = asyncio.get_running_loop()
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
         if n_total > mb and not self.packed:
             chunks = await asyncio.gather(*[
-                self.infer({k: v[i: i + mb] for k, v in inputs.items()})
+                self._infer_admitted({k: v[i: i + mb] for k, v in inputs.items()}, probe)
                 for i in range(0, n_total, mb)])
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         bufs, n = await loop.run_in_executor(None, self._prep, inputs)
         self._ensure_sems()
+        compiled = self._compiled
+        first = bufs.key not in compiled
+        deadline = self.core.deadline_for(first)
+        release = partial(self._staging.release, bufs)
+        retry = False
         try:
             async with self._prefetch_sem:
                 await loop.run_in_executor(None, self._to_device, bufs)
-                if self.dispatch_depth > 1:
-                    return await self._step_split(loop, bufs, n)
-                async with self._inflight_sem:
-                    self._duty.dispatch(time.perf_counter())
-                    try:
-                        return await loop.run_in_executor(None, self._step, bufs, n)
-                    finally:
-                        self._duty.complete(time.perf_counter())
+                # a key's first step captures inside the dispatch: it takes
+                # the watched path, whose deadline covers the capture
+                if self.dispatch_depth > 1 and not first:
+                    out = await self._step_split(loop, compiled, bufs, n, deadline, probe)
+                else:
+                    async with self._inflight_sem:
+                        self._duty.dispatch(time.perf_counter())
+                        try:
+                            step = partial(self._step, compiled, bufs, n, probe)
+                            out = await (loop.run_in_executor(None, step) if deadline is None
+                                         else self.core.run_deadlined(step, deadline,
+                                                                      on_zombie=release))
+                        finally:
+                            self._duty.complete(time.perf_counter())
+        except StepDeadlineExceeded:
+            release = None  # the zombie holds the set until it ends
+            raise
+        except Exception as e:
+            retry = self._after_failure(e, self._bucket_rows(bufs))
+            if not retry:
+                raise
         finally:
-            self._staging.release(bufs)
+            if release is not None:
+                release()
+        if retry:
+            return await self._infer_admitted(inputs, probe)
+        self.health.mark_success()
+        return out
 
-    async def _step_split(self, loop, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
+    async def _step_split(self, loop, compiled: CompiledStep, bufs: HostSet, n: int,
+                          deadline: Optional[float], probe: bool) -> dict[str, np.ndarray]:
         """``dispatch_depth`` > 1: the in-flight permit covers the dispatch
         only; the depth permit, held from before the enqueue until the
         outputs are fetched, bounds the dispatched-not-fetched steps (the
         device queue's backpressure, and the bound the staging pool is
-        sized against)."""
+        sized against). Chaos and the deadline watch the fetch, whose
+        budget runs from the step's own enqueue."""
         async with self._depth_sem:
             async with self._inflight_sem:
                 self._duty.dispatch(time.perf_counter())
                 try:
-                    await loop.run_in_executor(None, self._enqueue, bufs)
+                    await loop.run_in_executor(None, self._enqueue, compiled, bufs)
                 except BaseException:
                     self._duty.complete(time.perf_counter())
                     raise
+                dispatched_at = time.monotonic()
+
+            def fetch():
+                if not probe:
+                    self.core.apply_chaos()
+                return self._fetch(bufs, n)
+
             try:
-                return await loop.run_in_executor(None, self._fetch, bufs, n)
+                if deadline is None:
+                    return await loop.run_in_executor(None, fetch)
+                return await self.core.run_deadlined(
+                    fetch, self.core.deadline_remaining(deadline, dispatched_at),
+                    on_zombie=partial(self._staging.release, bufs))
             finally:
                 self._duty.complete(time.perf_counter())
 
@@ -589,3 +786,137 @@ class ModelRunner:
         logger.info("[%s] warmed %d bucket shapes (%d captured)", self.family.name,
                     len(shapes), self.captures)
         return len(shapes)
+
+    # -- rebuild after a deadline miss --------------------------------------
+
+    def _rebuild_after_incident(self) -> None:
+        """The core's rebuild (the probe's heal gate, after a deadline
+        miss): graphs replayed across a device hang are not trusted. A new
+        ``CompiledStep`` (fresh lock, static buffers and graph pool) takes
+        the old one's place, which is left to the zombie step and dropped
+        when it returns: cleared in place, a late zombie would write into
+        buffers the next step reads. Every key the old one held that the
+        grid still holds (an OOM cap drops some) is captured again before
+        the probe step, under the first-step deadline."""
+        with self._lock:
+            old = self._compiled
+            self._compiled = CompiledStep(self.device, eager=old.eager)
+            self._retired_captures += old.captures
+        t0 = time.perf_counter()
+        grid = {shape_key(s) for s in self.grid_shapes(self.buckets)}
+        # not old.keys(): a zombie first step (capture, kernel build) may
+        # hold the old lock for as long as it runs; a copy of the dict is
+        # atomic under the GIL, and a key the zombie adds after it is not
+        # needed
+        keys = [k for k in list(old._entries) if k in grid]
+        del old
+        recapture = partial(self._capture_keys, self._compiled, keys)
+        deadline = self.core.deadline_for(True)
+        if deadline is None:
+            recapture()
+        else:
+            self.core.run_deadlined_sync(recapture, deadline * max(1, len(keys)))
+        self.last_rebuild_ms = (time.perf_counter() - t0) * 1e3
+        logger.warning("[%s] rebuilt the compiled step after a deadline miss: %d keys "
+                       "captured again", self.family.name, len(keys))
+
+    def _capture_keys(self, compiled: CompiledStep, keys: list) -> None:
+        """One step of zeros at each shape key on ``compiled`` (warmup's
+        inputs), which captures its graph; not traffic."""
+        for key in keys:
+            bufs = self._staging_set(dict(key))
+            try:
+                for arr in bufs.arrays.values():
+                    arr.fill(0)
+                self._to_device(bufs)
+                self._enqueue(compiled, bufs, traffic=False)
+                bufs.wait()
+            finally:
+                self._staging.release(bufs)
+
+    # -- swap and integrity surfaces (tpu/swap.py, tpu/integrity.py) ---------
+
+    def place_params(self, host_params: dict) -> dict:
+        """A converted host tree on the runner's device in fresh tensors of
+        the same strides (a swap's candidate; the canary runs on it)."""
+        return tree_map(lambda t: t.to(self.device, copy=True), host_params)
+
+    def adopt_params(self, placed: dict, retain: bool = True) -> Optional[dict]:
+        """Serve ``placed`` from the next step on: its values are copied into
+        the live tensors, whose addresses the graphs hold (no capture runs
+        again), behind every step already enqueued. Returns the prior tree
+        as a copy, the rollback token (``retain``). The digest baseline
+        described the prior tree: the integrity monitor takes a new one at
+        its next pass."""
+        old = self._compiled.copy_params_(self.params, placed, retain=retain)
+        self.param_digests = None
+        return old
+
+    def swap_units(self) -> list[tuple[str, "ModelRunner"]]:
+        """A single runner is one flippable unit."""
+        return [("runner", self)]
+
+    def inject_step_fault(self, kind: str, duration_s: float = 0.0) -> None:
+        """Arm a chaos fault (the fault plugin's processor wrapper): ``hang``,
+        ``oom`` and ``sdc`` live in the core; ``bitflip`` corrupts the
+        largest float leaf of the live tree in place, the HBM corruption the
+        integrity plane exists to catch."""
+        if kind == "bitflip":
+            self._bitflip_params()
+            return
+        self.core.inject_step_fault(kind, duration_s)
+
+    def _bitflip_params(self) -> None:
+        """Garble the largest float leaf of ``params`` in place (the JAX
+        runner's ``x * -1000 + 3.7``). The digest baseline is left as it is:
+        the drift is silent until the integrity monitor finds it."""
+        from arkflow_tpu_torch.tpu.integrity import flatten
+
+        floats = [(path, t) for path, t in flatten(self.params).items() if t.is_floating_point()]
+        if not floats:
+            raise ConfigError("bitflip: model has no float param leaf to corrupt")
+        best_path, best = max(floats, key=lambda item: item[1].numel())
+        garbled = (best.float() * -1000.0 + 3.7).to(best.dtype)
+        self._compiled.copy_params_({"leaf": best}, {"leaf": garbled})
+        logger.warning("[%s] chaos: bitflip corrupted param leaf %s", self.family.name,
+                       best_path)
+
+    def digest_params(self) -> dict[str, str]:
+        """Per-leaf digests of the live tree (blocking: every leaf is copied
+        to the host)."""
+        from arkflow_tpu_torch.tpu.integrity import tree_digests
+
+        return tree_digests(self.params)
+
+    def rebaseline_digests(self) -> dict[str, str]:
+        """Take the digest baseline from the live tree, at a known-good
+        moment (a committed swap, a verified repair)."""
+        self.param_digests = self.digest_params()
+        return self.param_digests
+
+    async def verify_params_live(self) -> list[str]:
+        """Digest the live tree while serving, on an executor thread holding
+        an in-flight permit, under the first-step deadline. Returns the
+        drifted leaves; the first pass after boot or an adopt takes the
+        baseline instead."""
+        from arkflow_tpu_torch.tpu.integrity import diff_digests
+
+        self._ensure_sems()
+        async with self._inflight_sem:
+            deadline = self.core.deadline_for(True)
+            if deadline is None:
+                digests = await asyncio.get_running_loop().run_in_executor(
+                    None, self.digest_params)
+            else:
+                digests = await self.core.run_deadlined(self.digest_params, deadline)
+        if self.param_digests is None:
+            self.param_digests = digests
+            return []
+        return diff_digests(self.param_digests, digests)
+
+    def health_report(self) -> dict:
+        """JSON-able snapshot for the engine's ``/health``."""
+        rep = self.core.health_report()
+        rep.update(model=self.family.name, bucket_cap=self.bucket_cap, ooms=self.ooms,
+                   captures=self.captures, last_rebuild_ms=self.last_rebuild_ms)
+        return rep

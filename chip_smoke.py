@@ -60,7 +60,36 @@ last line):
    equal wherever the bf16 top-2 gap exceeds twice the largest logit
    difference), their step times, and the int8 product against the bf16 one
    at BERT-base's FFN shape;
-8. K3 (paged) against its plain version where its splits and folds have
+8. the lifecycle phase (BERT-base, bf16; the seed-0 and seed-1 init trees
+   saved as port checkpoints in a temporary directory):
+   the self-healing stream ``arkflow_tpu_torch/examples/bert_lifecycle_stream.json``
+   (a redelivering fault input over 2048 rows; the 5th step hung 3 s past
+   its 1 s deadline, the 9th out of memory; golden probes every second,
+   digests every 2 s), with the counts zeroed after the build: every row
+   delivered, exactly one nacked and redelivered batch, one miss, one rebuild (the
+   graphs captured again), one OOM capping the 64-row bucket, HEALTHY at
+   the end, every integrity probe passing, K1 = 12 x the runner's steps
+   (probes, golden and recapture steps included), all ``mma``; then on
+   that runner a bitflip and an ``sdc`` fault, each caught by the monitor
+   (digest drift, a failing golden probe through the graphed step),
+   quarantined, repaired, the outputs back bit for bit, with the digest
+   pass and golden probe times; then a hot swap through the health
+   server's ``POST /admin/swap`` while a stream runs, on the padded, the
+   packed (K2) and the int8 runner: the seed-1 swap answers 200 with
+   version 1, a fixed 256-row batch then equals an ``eager=True`` runner
+   on the seed-1 weights (0 differing elements), the live tensors kept
+   their addresses and no graph was captured again; ``swap_corrupt`` (and
+   on the padded runner ``swap_crash``) answer 409 and the outputs stay bit
+   for bit; then a real allocator OOM in a child process (``--oom-child``:
+   the memory fraction capped halfway through the top bucket's capture
+   growth): the failed capture leaves no entry, the grid is capped, the
+   batch is split and delivered, the child exits 0; then the cost of the
+   lifecycle keys: the plain padded stream, the lifecycle stream without
+   faults and the plain one again, ``COST_ROWS`` rows each (several digest
+   periods), with the digest passes and golden probes timed where the
+   monitor calls them; and the ``lifecycle`` line. Every health server
+   binds port 0 (a free port, read back from ``Engine.health_port``);
+9. K3 (paged) against its plain version where its splits and folds have
    edges (both head dims in bf16 and f32, GQA groups 1 to 8, decode and
    chunk folds, pages that straddle a split, padded chunk queries past the
    table); then at Llama-3-8B width (32 heads, 8 KV heads, head dim 128,
@@ -72,7 +101,7 @@ last line):
    tensor-core body (``mma``) and is held per element to
    ``emulate_paged_split``, the plain version with that body's splits,
    softmax tiles and P rounded to bf16;
-9. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
+10. the generate stream ``arkflow_tpu_torch/examples/llama_generate_stream.json``
    (generate -> gpu_generate(decoder_lm, Llama-3-8B widths and depth,
    continuous batching on paged KV, chunked prefill, dispatch depth 2) ->
    drop) through ``Engine``: every row in order, at most max_new_tokens
@@ -89,7 +118,7 @@ last line):
    gather) of a graphed server against an eager twin on the same weights,
    pools and inputs, 0 differing elements in next tokens and top-2 gaps;
    then the generate stream again with an eager twin server, for the A/B;
-10. the ``graphs`` line (per path: captures, keys checked, differing
+11. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
@@ -103,6 +132,7 @@ Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import os
@@ -110,6 +140,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +151,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from arkflow_tpu_torch.batch import MessageBatch  # noqa: E402
 from arkflow_tpu_torch.components import Output  # noqa: E402
 from arkflow_tpu_torch.config import EngineConfig  # noqa: E402
+from arkflow_tpu_torch.models import get_model  # noqa: E402
 from arkflow_tpu_torch.models import paged_decode as pd  # noqa: E402
 from arkflow_tpu_torch.models.paged_decode import (  # noqa: E402
     init_page_pool,
@@ -133,6 +165,7 @@ from arkflow_tpu_torch.ops import ragged_attention as ra  # noqa: E402
 from arkflow_tpu_torch.ops import segment_attention as sa  # noqa: E402
 from arkflow_tpu_torch.ops.build import KERNEL_SOURCES, build_all  # noqa: E402
 from arkflow_tpu_torch.plugins.processor.gpu_inference import (  # noqa: E402
+    GpuInferenceProcessor,
     pack_windows,
     scatter_windows,
 )
@@ -142,8 +175,11 @@ from arkflow_tpu_torch.tools.profile_step import (  # noqa: E402
     first_emission,
     server_twin,
 )
+from arkflow_tpu_torch.tpu import checkpoint  # noqa: E402
+from arkflow_tpu_torch.tpu.bucketing import BucketPolicy  # noqa: E402
+from arkflow_tpu_torch.tpu.integrity import flatten  # noqa: E402
 from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
-from arkflow_tpu_torch.tpu.runner import ModelRunner  # noqa: E402
+from arkflow_tpu_torch.tpu.runner import ModelRunner, init_host_params, shape_key  # noqa: E402
 from arkflow_tpu_torch.tpu.serving import GenerationServer  # noqa: E402
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer  # noqa: E402
 
@@ -153,6 +189,10 @@ CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
+LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "bert_lifecycle_stream.json")
+#: rows of each stream of the lifecycle cost comparison: ~13 s of traffic,
+#: four digest passes of the lifecycle example or more
+COST_ROWS = 40960
 #: H100 SXM published peaks from NVIDIA's datasheet: HBM bytes/s, and
 #: dense flop/s by operand type (f32 runs outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1704,12 +1744,439 @@ def ab_numbers(report: dict) -> dict:
             "captures": report["captures"], "traffic_seconds": report["traffic_seconds"]}
 
 
+# -- the lifecycle phase ------------------------------------------------------
+
+
+def lifecycle_config(ckpt_dir: str, *, faults: bool = True, count: int | None = None,
+                     interval: str | None = None, **overrides) -> dict:
+    """``bert_lifecycle_stream.json`` restoring the seed-0 checkpoint of
+    ``ckpt_dir``: without its fault schedule when not ``faults``, with the
+    generate input's ``count`` and ``interval`` and the processor's keys
+    overridden; the health server on a free port."""
+    with open(LIFECYCLE_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["health_check"]["port"] = 0
+    stream = cfg["streams"][0]
+    fault = stream["pipeline"]["processors"][0]
+    fault["inner"].update(checkpoint=os.path.join(ckpt_dir, "seed0"), **overrides)
+    if not faults:
+        fault["faults"] = []
+    if count is not None:
+        stream["input"]["inner"]["count"] = count
+    if interval is not None:
+        stream["input"]["inner"]["interval"] = interval
+    return cfg
+
+
+def save_checkpoints(ckpt_dir: str) -> dict:
+    """The seed-0 and seed-1 BERT-base init trees as port checkpoints."""
+    family = get_model("bert_classifier")
+    cfg = family.make_config()
+    out = {}
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        checkpoint.save(os.path.join(ckpt_dir, f"seed{seed}"), init_host_params(family, cfg, seed))
+        out[f"save_seed{seed}_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def outputs_of(batch: MessageBatch, names=("label", "score")) -> dict:
+    return {k: np.asarray(batch.column(k)) for k in names}
+
+
+def param_ptrs(params: dict) -> list[int]:
+    return [t.data_ptr() for t in flatten(params).values()]
+
+
+def fixed_batch(cfg_raw: dict, rows: int, offset: int = 7) -> MessageBatch:
+    """``rows`` texts of the stream's payload mix, rotated from ``offset``
+    so every length occurs."""
+    payloads = cfg_raw["streams"][0]["input"]["inner"]["payloads"]
+    return MessageBatch.new_binary([str(payloads[(offset + i) % len(payloads)]).encode()
+                                    for i in range(rows)])
+
+
+async def http(port: int, method: str, path: str, body=None) -> tuple[int, dict]:
+    """One request to the engine's health server (HTTP/1.1, one connection)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(payload)
+
+
+def wait_zombies(runner: ModelRunner, timeout_s: float = 30.0) -> None:
+    """Wait until every step abandoned at its deadline has ended (it counts
+    its launches and steps when it does)."""
+    end = time.monotonic() + timeout_s
+    while runner.core.zombies and time.monotonic() < end:
+        time.sleep(0.05)
+    check(runner.core.zombies == 0, "an abandoned step never ended")
+
+
+def run_selfheal(cfg_raw: dict) -> dict:
+    """The self-healing stream: the fault processor hangs the 5th step past
+    its deadline and runs the 9th out of memory. Counts zeroed after the
+    build (the golden reference's forward) and read once the stream and the
+    abandoned step have ended."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]._inner
+    runner, mon = proc.runner, proc.integrity
+    sink = stream.output = OrderedSink(stream.output)
+    count = cfg_raw["streams"][0]["input"]["inner"]["count"]
+    grid_top = runner.bucket_cap
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    wait_zombies(runner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k1_variants = ra.launches.value, dict(ra.launches.variants)
+    expected = generated_rows({"streams": [{"input": cfg_raw["streams"][0]["input"]["inner"]}]})
+    report = {"rows_expected": count, "rows_out": stream.rows_out,
+              "rows_dropped": sink.inner.dropped_rows, "in_order": sink.payloads == expected,
+              "nacked": stream.errors, "redeliveries": stream.input.redeliveries,
+              "seconds": wall, "device_steps": runner.device_steps, "layers": runner.cfg.layers,
+              "k1_launches": k1, "k1_variants": k1_variants, "k2_launches": sa.launches.value,
+              "bucket_cap_before": grid_top, **runner.health_report(),
+              "integrity": {k: v for k, v in mon.report().items() if k != "members"}}
+    print("lifecycle stream " + json.dumps(report), flush=True)
+    check(stream.rows_out == count and sink.inner.dropped_rows == count and report["in_order"],
+          f"the self-healing stream lost or reordered rows: {report}")
+    check(stream.errors == 1 and stream.input.redeliveries == 1,
+          f"not exactly one nacked and redelivered batch: {report}")
+    check(report["deadline_misses"] == 1 and report["rebuilds"] == 1 and report["ooms"] == 1,
+          f"not exactly one miss, one rebuild and one OOM: {report}")
+    check(runner.bucket_cap < grid_top, f"the OOM did not cap the grid: {report}")
+    check(report["state"] == "healthy", f"the runner did not end HEALTHY: {report}")
+    # every probe that ended passed (a tick in flight at close is cancelled)
+    results = mon.results
+    check(results["ok"] >= 1
+          and results["mismatch"] == results["error"] == results["digest_mismatch"] == 0,
+          f"integrity probes missing or failing: {report}")
+    check(k1 > 0 and k1 == runner.cfg.layers * runner.device_steps and report["k2_launches"] == 0,
+          f"K1 launches != layers x device steps: {report}")
+    check(k1_variants["mma"] == k1, f"a K1 launch missed the mma tile: {report}")
+    return {"report": report, "proc": proc, "wall": wall}
+
+
+def eager_processor(proc, ckpt: str, serving_dtype: str):
+    """An ``eager=True`` processor like ``proc`` on the checkpoint's weights."""
+    r = proc.runner
+    eager = ModelRunner("bert_classifier", {}, buckets=r.buckets, device="cuda",
+                        serving_dtype=serving_dtype, packed=r.packed, eager=True,
+                        checkpoint=ckpt)
+    return GpuInferenceProcessor(eager, text_field=proc.text_field, tokenizer=proc.tokenizer,
+                                 max_seq=proc.max_seq, outputs=proc.outputs)
+
+
+def swap_check(label: str, ckpt_dir: str, crash: bool, **overrides) -> dict:
+    """A hot swap through the health server while a stream runs: POST a
+    seed-1 checkpoint (200, version 1), then a fixed 256-row batch equals
+    an eager runner on the seed-1 weights with 0 differing elements, the
+    live tensors kept their addresses and no graph was captured again;
+    with ``swap_corrupt`` (and ``crash``: ``swap_crash``) armed the answer
+    is 409 and the outputs stay bit for bit. The canary's ``min_agreement``
+    is 0: seed-1 weights are a behaviour-changing update."""
+    serving_dtype = overrides.get("serving_dtype", "bfloat16")
+    cfg_raw = lifecycle_config(ckpt_dir, faults=False, count=10 ** 7, interval="20ms",
+                               swap={"canary": {"rows": 4, "min_agreement": 0.0}}, **overrides)
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]._inner
+    runner, swapper = proc.runner, proc.swapper
+    keys = len(runner.grid_shapes(runner.buckets))
+    batch = fixed_batch(cfg_raw, 256)
+    seed1 = os.path.join(ckpt_dir, "seed1")
+    report: dict = {"path": label, "keys": keys}
+
+    async def go():
+        task = asyncio.create_task(engine.run())
+        try:
+            end = time.monotonic() + 300
+            while runner.captures < keys or not engine._ready or engine.health_port is None:
+                check(time.monotonic() < end and not task.done(), f"{label}: warmup never ended")
+                await asyncio.sleep(0.05)
+            port = engine.health_port
+            before = outputs_of((await proc.process(batch))[0])
+            ptrs, captures = param_ptrs(runner.params), runner.captures
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            status, body = await http(port, "POST", "/admin/swap", {"checkpoint": seed1})
+            report["swap_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            report["params_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in flatten(runner.params).values())
+            report["status"], report["stage_ms"] = status, swapper.stage_ms
+            rep = body.get("results", {}).get(stream.name, [{}])[0]
+            check(status == 200 and rep.get("version") == 1, f"{label}: swap answered {body}")
+            after = outputs_of((await proc.process(batch))[0])
+            want = outputs_of((await eager_processor(proc, seed1, serving_dtype).process(batch))[0])
+            report["differing_vs_eager_seed1"] = differing_elements(after, want)
+            report["differing_vs_before"] = differing_elements(after, before)
+            report["ptrs_kept"] = param_ptrs(runner.params) == ptrs
+            report["captures_kept"] = runner.captures == captures
+            # a corrupt tree is the canary's to reject: exact agreement
+            swapper.cfg = dataclasses.replace(swapper.cfg, min_agreement=1.0)
+            for kind in ("swap_corrupt",) + (("swap_crash",) if crash else ()):
+                swapper.inject_swap_fault(kind)
+                status, body = await http(port, "POST", "/admin/swap", {"checkpoint": seed1})
+                again = outputs_of((await proc.process(batch))[0])
+                report[kind] = {"status": status, "differing": differing_elements(again, after),
+                                "ptrs_kept": param_ptrs(runner.params) == ptrs,
+                                "error": swapper.report().get("last_error")}
+            status, body = await http(port, "GET", "/health")
+            report["health"] = {"status": status,
+                                "runners": body["stream_health"][stream.name]["runners"]}
+        finally:
+            engine.shutdown()
+            await asyncio.wait_for(task, 120)
+
+    asyncio.run(go())
+    print(f"lifecycle swap {label} " + json.dumps(report), flush=True)
+    check(report["differing_vs_eager_seed1"] == 0,
+          f"{label}: the swapped outputs differ from an eager runner on the new weights: {report}")
+    check(report["differing_vs_before"] > 0, f"{label}: the swap changed no output: {report}")
+    check(report["ptrs_kept"] and report["captures_kept"],
+          f"{label}: the swap moved a live tensor or captured again: {report}")
+    for kind in ("swap_corrupt",) + (("swap_crash",) if crash else ()):
+        check(report[kind]["status"] == 409 and report[kind]["differing"] == 0
+              and report[kind]["ptrs_kept"], f"{label}: {kind} did not roll back: {report}")
+    check(report["health"]["status"] == 200, f"{label}: /health failed: {report}")
+    return report
+
+
+def integrity_check(proc, batch: MessageBatch) -> dict:
+    """On the self-healing stream's runner: a bitflip, then an sdc fault,
+    each caught by the monitor (digest drift, a failing golden probe
+    through the graphed step), quarantined and repaired, the outputs back
+    bit for bit; the digest pass and golden probe times."""
+    runner, mon = proc.runner, proc.integrity
+    mon.cfg = dataclasses.replace(mon.cfg, digest_every=1)
+    member = mon.members[0]
+    report: dict = {}
+
+    async def go():
+        before = outputs_of((await proc.process(batch))[0])
+        await mon.probe_now()
+        epoch, ptrs = mon.digest_epoch(), param_ptrs(runner.params)
+        report["golden_probe_ms"] = statistics.median([await timed(member.golden_probe)
+                                                       for _ in range(5)])
+        for kind in ("bitflip", "sdc"):
+            runner.inject_step_fault(kind)
+            summary = await mon.probe_now()
+            after = outputs_of((await proc.process(batch))[0])
+            report[kind] = {**summary, "state": runner.health.state,
+                            "epoch_kept": mon.digest_epoch() == epoch,
+                            "ptrs_kept": param_ptrs(runner.params) == ptrs,
+                            "differing": differing_elements(after, before)}
+        report["results"] = dict(mon.results)
+
+    async def timed(fn):
+        t0 = time.perf_counter()
+        ok = await fn()
+        check(ok, "a golden probe failed on a healthy runner")
+        return (time.perf_counter() - t0) * 1e3
+
+    asyncio.run(go())
+    runner.digest_params()
+    digest_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner.digest_params()
+        digest_times.append((time.perf_counter() - t0) * 1e3)
+    report["digest_pass_ms"] = statistics.median(digest_times)
+    print("lifecycle integrity " + json.dumps(report), flush=True)
+    for kind in ("bitflip", "sdc"):
+        r = report[kind]
+        check(r["mismatches"] == 1 and r["repaired"] == 1 and r["state"] == "healthy"
+              and r["differing"] == 0 and r["ptrs_kept"] and r["epoch_kept"],
+              f"{kind} was not caught, quarantined and repaired: {report}")
+    check(report["results"]["digest_mismatch"] >= 1, f"no digest drift was seen: {report}")
+    return report
+
+
+def oom_child() -> int:
+    """Child process: a real allocator OOM. The top bucket's capture peak is
+    measured on one runner; a second runner on the same weights is capped
+    (``set_per_process_memory_fraction``) halfway between the reserved
+    memory after its small bucket's capture and that peak, then handed a
+    top-bucket batch: the capture that fails leaves no entry, the grid is
+    capped, and the batch is split and delivered."""
+    family = get_model("bert_classifier")
+    host = init_host_params(family, family.make_config(), 0)
+    buckets = BucketPolicy((16, 64), (256,))
+    rng = np.random.default_rng(5)
+
+    def inputs(rows):
+        return {"input_ids": rng.integers(4, 30522, (rows, 256)).astype(np.int32),
+                "attention_mask": np.ones((rows, 256), np.int32)}
+
+    small, top = inputs(16), inputs(64)
+
+    def runner():
+        return ModelRunner("bert_classifier", {}, buckets=buckets, device="cuda",
+                           serving_dtype="bfloat16", host_params=host)
+
+    a = runner()
+    a.infer_sync(small)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_top = torch.cuda.memory_reserved()
+    a.infer_sync(top)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_reserved() - before_top
+    want = a.infer_sync(top)
+    del a
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    b = runner()
+    b.infer_sync(small)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    cap = held + growth // 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    top_key = shape_key({n: (64, 256) for n in b.spec})
+    got = b.infer_sync(top)
+    top2 = np.sort(want["logits"], axis=1)
+    tie_free = (top2[:, -1] - top2[:, -2]) > LABEL_MARGIN
+    report = {"top_capture_growth_bytes": growth, "held_reserved": held, "cap_bytes": cap,
+              "ooms": b.ooms, "bucket_cap": b.bucket_cap,
+              "top_key_captured": top_key in b._compiled, "rows": int(got["logits"].shape[0]),
+              "max_abs_logit_diff": float(np.abs(got["logits"] - want["logits"]).max()),
+              "labels_equal_tie_free": bool(np.array_equal(got["label"][tie_free],
+                                                           want["label"][tie_free])),
+              "state": b.health.state}
+    print("lifecycle oom " + json.dumps(report), flush=True)
+    check(b.ooms == 1 and b.bucket_cap == 16 and not report["top_key_captured"]
+          and report["rows"] == 64, f"the real OOM did not cap and split: {report}")
+    check(report["max_abs_logit_diff"] <= LOGIT_TOL and report["labels_equal_tie_free"],
+          f"the split batch's outputs differ from the top bucket's: {report}")
+    return 0
+
+
+def run_oom_child() -> None:
+    """The real OOM in a child process, so that an allocator it leaves
+    broken cannot spoil later phases; the smoke fails unless it exits 0."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--oom-child"],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("lifecycle oom"):
+            print(line, flush=True)
+    check(proc.returncode == 0, f"the OOM child exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+
+def traffic_run(cfg_raw: dict, label: str, instrument=None) -> tuple[float, float]:
+    """One stream of ``cfg_raw`` on the card: (traffic rows/s, traffic
+    seconds); ``instrument(stream)`` runs after the build."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    if instrument is not None:
+        instrument(stream)
+    asyncio.run(engine.run())
+    rows = cfg_raw["streams"][0]["input"].get("inner", cfg_raw["streams"][0]["input"])["count"]
+    check(stream.errors == 0 and stream.rows_out == rows,
+          f"{label}: {stream.errors} errors, {stream.rows_out} of {rows} rows")
+    return stream.rows_out / stream.traffic_seconds, stream.traffic_seconds
+
+
+def lifecycle_cost(ckpt_dir: str) -> dict:
+    """The lifecycle keys' cost on the fault-free stream, reported and not
+    gated: the plain padded stream (``bert_stream.json``), the lifecycle
+    stream without faults, the plain stream again, ``COST_ROWS`` rows each,
+    so that the lifecycle window holds several digest periods. Each digest
+    pass (the host copy and hash of the live tree) and golden probe is
+    timed where the monitor calls it."""
+    with open(CONFIG) as f:
+        plain = json.load(f)
+    plain["streams"][0]["input"]["count"] = COST_ROWS
+    timed: dict[str, list[float]] = {"digest": [], "probe": []}
+
+    def instrument(stream) -> None:
+        proc = stream.pipeline.processors[0]._inner
+        runner, member = proc.runner, proc.integrity.members[0]
+
+        def wrap(fn, into):
+            def timed_fn(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    into.append(time.perf_counter() - t0)
+            return timed_fn
+
+        async def probe():
+            t0 = time.perf_counter()
+            try:
+                return await golden()
+            finally:
+                timed["probe"].append(time.perf_counter() - t0)
+
+        runner.digest_params = wrap(runner.digest_params, timed["digest"])
+        golden, member.golden_probe = member.golden_probe, probe
+
+    before, _ = traffic_run(plain, "plain stream")
+    life, life_s = traffic_run(lifecycle_config(ckpt_dir, faults=False, count=COST_ROWS),
+                               "lifecycle stream without faults", instrument)
+    after, _ = traffic_run(plain, "plain stream again")
+    report = {"cost_rows": COST_ROWS, "plain_traffic_rows_per_s": before,
+              "lifecycle_traffic_rows_per_s": life, "plain_again_traffic_rows_per_s": after,
+              "lifecycle_traffic_seconds": life_s, "digest_passes": len(timed["digest"]),
+              "digest_share": sum(timed["digest"]) / life_s,
+              "golden_probes": len(timed["probe"]),
+              "golden_probe_share": sum(timed["probe"]) / life_s}
+    print("lifecycle cost " + json.dumps(report), flush=True)
+    check(report["digest_passes"] >= 3 and report["golden_probes"] >= 5,
+          f"the lifecycle window held too few digest passes or probes: {report}")
+    return report
+
+
+def run_lifecycle() -> dict:
+    """The lifecycle phase on BERT-base (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        timings = save_checkpoints(ckpt_dir)
+        healed = run_selfheal(lifecycle_config(ckpt_dir))
+        proc = healed["proc"]
+        integrity = integrity_check(proc, fixed_batch(lifecycle_config(ckpt_dir), 256))
+        swaps = {"padded": swap_check("padded", ckpt_dir, crash=True)}
+        swaps["packed"] = swap_check(
+            "packed", ckpt_dir, crash=False, packing=True, max_seq=256,
+            batch_buckets=[8, 16, 32, 64], seq_buckets=[256])
+        swaps["int8"] = swap_check(
+            "int8", ckpt_dir, crash=False, serving_dtype="int8", max_seq=64,
+            batch_buckets=[32, 256], seq_buckets=[64])
+        run_oom_child()
+        cost = lifecycle_cost(ckpt_dir)
+        padded = swaps["padded"]
+        line = {
+            **timings, "swap_stage_ms": padded["stage_ms"],
+            "swap_peak_bytes": padded["swap_peak_bytes"], "params_bytes": padded["params_bytes"],
+            "digest_pass_ms": integrity["digest_pass_ms"],
+            "golden_probe_ms": integrity["golden_probe_ms"],
+            "rebuild_recapture_ms": healed["report"]["last_rebuild_ms"],
+            "captures_after_rebuild": healed["report"]["captures"],
+            **cost, "selfheal_seconds": healed["wall"],
+        }
+        print("lifecycle " + json.dumps(line), flush=True)
+        return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--oom-child" in sys.argv[1:]:
+        return oom_child()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -1796,6 +2263,8 @@ def main() -> int:
     compare_int8(int8_run["runner"], bf16_run["runner"], int8_proc, rows=320, seed=3)
     product_times(gen)
     del int8_run["runner"], bf16_run["runner"]
+    torch.cuda.empty_cache()
+    run_lifecycle()
     torch.cuda.empty_cache()
 
     # K3 at the generate stream's shapes: decode over 16 slots with contexts

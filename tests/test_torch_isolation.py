@@ -1,7 +1,8 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
-paths (the padded, the packed and the generate stream) needs pyarrow, yaml
-or aiohttp at import time."""
+paths (the padded, the packed and the generate stream, and the lifecycle
+stream with its health server) needs pyarrow, yaml or aiohttp at import
+time or at run time."""
 
 import ast
 import os
@@ -83,6 +84,26 @@ gen = build_stream(StreamConfig.from_mapping({
     "output": {"type": "drop"}}))
 asyncio.run(gen.run(asyncio.Event()))
 assert gen.output.dropped_rows == 3 and gen.errors == 0, gen.errors
+from arkflow_tpu_torch.config import EngineConfig
+from arkflow_tpu_torch.runtime.engine import Engine
+
+life = Engine(EngineConfig.from_mapping({
+    "health_check": {"enabled": True, "host": "127.0.0.1", "port": 0},
+    "streams": [{"input": {"type": "fault", "redeliver_unacked": True,
+                           "inner": {"type": "generate", "payload": "a b c",
+                                     "batch_size": 4, "count": 8}},
+                 "pipeline": {"thread_num": 1, "processors": [{
+                     "type": "fault", "faults": [{"kind": "oom", "at": 1}],
+                     "inner": {"type": "gpu_inference", "model": "bert_classifier",
+                               "model_config": tiny, "max_seq": 16, "batch_buckets": [2, 4],
+                               "seq_buckets": [16], "device": "cpu", "warmup": True,
+                               "step_deadline": "5s", "swap": {},
+                               "integrity": {"probe_interval": "10ms"}}}]},
+                 "output": {"type": "drop"}}]}))
+life_stream = life.build()[0]
+asyncio.run(life.run())
+assert life_stream.output.dropped_rows == 8 and life_stream.errors == 0, life_stream.errors
+assert life_stream.pipeline.processors[0].runner.ooms == 1
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

@@ -171,9 +171,9 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"tokenizer": "bert-base-uncased"}),
     ("processor", {"mesh": {"tp": 2}}),
-    ("processor", {"step_deadline": "5s"}),
+    ("processor", {"tuner": {"interval": "30s"}}),
     ("input", {"codec": "json"}),
-    ("engine", {"health_check": {"enabled": True}}),
+    ("engine", {"health_check": {"enabled": True, "profiling_dir": "traces"}}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
                            "coalesce": {"batch_buckets": [8], "deadline": "5ms", "dp": 2}}}),
 ])
