@@ -15,7 +15,7 @@ lifecycle slice needs:
 
     processors:
       - type: fault
-        inner: {type: gpu_inference, ...}
+        inner: {type: gpu_inference, ...}  # or gpu_generate
         faults:
           - {kind: hang, at: 5, duration: 3s}  # wedge the runner's next step
           - {kind: oom, at: 9}                 # the next step runs out of memory
@@ -25,8 +25,10 @@ lifecycle slice needs:
           - {kind: swap_crash, at: 8}          # the next swap crashes mid-flip
           - {kind: error, match: poison}       # raise on a poison batch
 
-The step kinds are armed on the inner processor's ``runner`` and the swap
-kinds on its ``swapper``, reached through ``_inner`` as in the JAX package.
+The step kinds are armed on the inner processor's ``runner`` (a
+``gpu_generate`` processor's is its generation server, which refuses
+``sdc``: it picks tokens on the device) and the swap kinds on its
+``swapper``, reached through ``_inner`` as in the JAX package.
 The wrapper exposes that ``runner``, ``swapper`` and ``integrity`` as its
 own, so the engine's ``/health`` and ``/admin/swap`` see them through any
 depth of wrapping.
@@ -189,7 +191,7 @@ class FaultInjectingProcessor(Processor):
                 inject = getattr(self.swapper, "inject_swap_fault", None)
                 if inject is None:
                     raise ProcessError(f"chaos: {spec.kind} requires a hot-swappable inner "
-                                       "processor (gpu_inference)")
+                                       "processor (gpu_inference, gpu_generate)")
                 inject(spec.kind)
             else:  # error
                 raise ProcessError(spec.message)
@@ -208,7 +210,7 @@ class FaultInjectingProcessor(Processor):
             return
         if spec.kind in _SDC_KINDS:
             raise ProcessError(f"chaos: {spec.kind} requires an inner processor with a "
-                               "device runner (gpu_inference)")
+                               "device runner (gpu_inference, gpu_generate)")
         if spec.kind == "hang":
             await asyncio.sleep(spec.duration_s if spec.duration_s > 0 else 30.0)
         else:

@@ -133,16 +133,18 @@ def eager_twin(runner: ModelRunner) -> ModelRunner:
                        packed=runner.packed, eager=True)
 
 
-def server_twin(server: GenerationServer, eager: bool, **overrides) -> GenerationServer:
-    """A server on the same weights and settings as ``server`` (its own KV
-    pools, no parity gate: ``server``'s ran), graphed or ``eager``."""
+def server_twin(server: GenerationServer, eager: bool, params: dict | None = None,
+                **overrides) -> GenerationServer:
+    """A server on the same settings as ``server`` and on its weights, or on
+    ``params`` (its own KV pools, no parity gate: ``server``'s ran),
+    graphed or ``eager``."""
     kw = dict(slots=server.slots, page_size=server.page_size, num_pages=server.num_pages,
               max_seq=server.max_seq, eos_id=server.eos_id,
               prompt_buckets=server.prompt_buckets, prefill_chunk=server.prefill_chunk,
               decode_kernel=server.decode_kernel, dispatch_depth=server.dispatch_depth,
               record_margins=server.record_margins)
-    return GenerationServer(server.params, server.cfg, kernel_parity_check=False,
-                            eager=eager, **{**kw, **overrides})
+    return GenerationServer(server.params if params is None else params, server.cfg,
+                            kernel_parity_check=False, eager=eager, **{**kw, **overrides})
 
 
 def step_modes(runner: ModelRunner, batches: list[dict], steps: int) -> dict:

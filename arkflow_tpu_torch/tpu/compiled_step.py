@@ -44,8 +44,8 @@ On a CPU device (tests) and with ``eager=True`` (the A/B comparisons of
 the same static buffers at every step, without capture. On CUDA a capture
 or replay error raises: nothing quietly carries on eagerly.
 
-Two lifecycle primitives (the runner's swap, repair and rebuild,
-``tpu/runner.py``):
+Three lifecycle primitives (the swap, repair and rebuild of the runner,
+``tpu/runner.py``, and of the generation server, ``tpu/serving.py``):
 
 - **A capture that raises is discarded.** The key gets no entry, so no
   half-captured graph is ever replayed, and its next step captures anew.
@@ -62,6 +62,8 @@ Two lifecycle primitives (the runner's swap, repair and rebuild,
   The copies are enqueued on the step stream under the lock, so every
   replay enqueued before them reads the old weights and every later one
   the new.
+- **``zero_(*tensors)``** zeroes state the graphs read by address (the
+  generation server's KV pools after a swap) the same way.
 """
 
 from __future__ import annotations
@@ -227,6 +229,14 @@ class CompiledStep:
                 for dst, src in pairs:
                     dst.copy_(src, non_blocking=True)
             return kept
+
+    def zero_(self, *tensors: torch.Tensor) -> None:
+        """Zero ``tensors`` in place (state the graphs read by address, such
+        as KV pools), enqueued on the step stream under the lock like
+        ``copy_params_``."""
+        with self._lock, torch.no_grad():
+            for t in tensors:
+                t.zero_()
 
     def _copy_out(self, result: dict, out, event) -> Step:
         cuda = self.device.type == "cuda"

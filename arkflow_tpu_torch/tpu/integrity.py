@@ -22,14 +22,22 @@ Counterpart of ``arkflow_tpu/tpu/integrity.py``:
 3. **Quarantine hooks**: whatever caches a corrupt runner's answers
    registers to be flushed.
 
-Not here yet: ``ServerIntegrityMember`` and
-``build_generate_integrity_monitor`` (the generation server's lifecycle),
-and the cluster dispatcher's shadow verification.
+The continuous generation server is one member (``ServerIntegrityMember``,
+built by ``build_generate_integrity_monitor``): its golden probe is the
+family's forward of the server's live tree on its device, off the event
+loop (the serve loop picks tokens on the device, so its outputs carry no
+signature to compare), its digests hash that tree, and its repair
+re-places the retained host tree through ``swap_params``, which drains the
+slot grid and zeroes the KV pools: KV written by corrupt weights must not
+survive the repair.
+
+Not here yet: the cluster dispatcher's shadow verification.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import hashlib
 import logging
 import time
@@ -48,6 +56,10 @@ logger = logging.getLogger("arkflow_torch.integrity")
 
 #: the results a probe counts under (``IntegrityMonitor.results``)
 PROBE_RESULTS = ("ok", "mismatch", "digest_mismatch", "error")
+#: leaves copied and hashed at once by ``leaf_digests``
+_DIGEST_THREADS = 4
+#: bytes of a card's leaf copied to the host at a time for its digest
+_DIGEST_CHUNK = 64 << 20
 
 
 # -- param digests ----------------------------------------------------------
@@ -70,10 +82,49 @@ def flatten(tree: Mapping, path: tuple = ()) -> dict[str, Any]:
     return out
 
 
+def _update_from_device(h, t: torch.Tensor) -> None:
+    """Hash a card's leaf in row-major order without a host copy of it
+    all: ``_DIGEST_CHUNK``-byte slices go to two pinned buffers in turn on
+    a side stream (after the work already queued on the current one, and
+    never holding back the serving steps queued behind it), each hashed
+    while the next is copied. blake2b over the slices in order equals
+    blake2b over the whole."""
+    flat = t.contiguous().view(-1).view(torch.uint8)
+    n = flat.numel()
+    side = torch.cuda.Stream(t.device)
+    side.wait_stream(torch.cuda.current_stream(t.device))
+    bufs = [torch.empty(min(n, _DIGEST_CHUNK), dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    done = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def enqueue(lo: int, slot: int) -> None:
+        hi = min(n, lo + _DIGEST_CHUNK)
+        with torch.cuda.stream(side):
+            bufs[slot][: hi - lo].copy_(flat[lo:hi], non_blocking=True)
+            done[slot].record(side)
+
+    enqueue(0, 0)
+    for i, lo in enumerate(range(0, n, _DIGEST_CHUNK)):
+        slot = i % 2
+        if lo + _DIGEST_CHUNK < n:
+            enqueue(lo + _DIGEST_CHUNK, 1 - slot)  # that buffer was hashed last turn
+        done[slot].synchronize()
+        h.update(bufs[slot][: min(n, lo + _DIGEST_CHUNK) - lo].numpy())
+
+
 def _leaf_digest(leaf) -> str:
     h = hashlib.blake2b(digest_size=16)
+    if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+        t = leaf.detach()
+        dtype = "bfloat16" if t.dtype == torch.bfloat16 else \
+            str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+        h.update(dtype.encode())
+        h.update(str(tuple(t.shape)).encode())
+        if t.numel():
+            _update_from_device(h, t)
+        return h.hexdigest()
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = leaf.detach().contiguous()
         if t.dtype == torch.bfloat16:
             dtype, data = "bfloat16", t.view(torch.int16).numpy()
         else:
@@ -85,13 +136,18 @@ def _leaf_digest(leaf) -> str:
         dtype, shape = str(data.dtype), str(data.shape)
     h.update(dtype.encode())
     h.update(shape.encode())
-    h.update(data.tobytes())
+    h.update(np.ascontiguousarray(data).reshape(-1).view(np.uint8))
     return h.hexdigest()
 
 
 def leaf_digests(flat: Mapping[str, Any]) -> dict[str, str]:
-    """Digests of a flat ``{keystr: leaf}`` map (a checkpoint's)."""
-    return {path: _leaf_digest(leaf) for path, leaf in flat.items()}
+    """Digests of a flat ``{keystr: leaf}`` map (a checkpoint's). The
+    leaves are copied and hashed on a few threads at once (the copies and
+    blake2b release the GIL): a Llama-3-8B tree is 16 GB."""
+    paths = list(flat)
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(_DIGEST_THREADS, max(1, len(paths)))) as ex:
+        return dict(zip(paths, ex.map(_leaf_digest, (flat[p] for p in paths))))
 
 
 def tree_digests(tree: Mapping) -> dict[str, str]:
@@ -328,6 +384,84 @@ class RunnerIntegrityMember:
 
     def reset_baseline(self) -> None:
         self.runner.param_digests = None
+
+
+class ServerIntegrityMember:
+    """Integrity surface over a continuous ``GenerationServer``: the golden
+    probe is the family's forward of the server's live tree on its device
+    (off the event loop), digests hash that tree, and repair re-places the
+    retained host tree through ``swap_params`` (drain, copy in place, KV
+    pools zeroed), clears an armed ``sdc`` fault and takes a new digest
+    baseline."""
+
+    def __init__(self, server, label: str, golden: GoldenReference, *, family, cfg,
+                 place_fn: Callable[[Any], Any], host_source: Callable[[], Any],
+                 drain_timeout_s: float = 30.0, owner=None):
+        self.server = server
+        self.label = label
+        self.golden = golden
+        self.family = family
+        self.cfg = cfg
+        self._place_fn = place_fn
+        self._host_source = host_source
+        self._drain_timeout_s = drain_timeout_s
+        self._owner = owner
+        self._baseline: Optional[dict[str, str]] = None
+        self.last_probe_at: Optional[float] = None
+        self.last_result = "never"
+
+    @property
+    def health(self):
+        return self.server.core.health
+
+    def state(self) -> str:
+        return self.server.core.health.state
+
+    async def verify_digests(self) -> list[str]:
+        digests = await asyncio.get_running_loop().run_in_executor(
+            None, tree_digests, self.server.params)
+        if self._baseline is None:
+            self._baseline = digests
+            return []
+        return diff_digests(self._baseline, digests)
+
+    async def golden_probe(self) -> bool:
+        from arkflow_tpu_torch.tpu.swap import argmax_signature
+
+        def forward() -> np.ndarray:
+            return argmax_signature(device_forward(self.family.apply, self.server.params,
+                                                   self.cfg, self.golden.inputs,
+                                                   self.server.device))
+
+        sig = await asyncio.get_running_loop().run_in_executor(None, forward)
+        return bool(np.array_equal(sig, self.golden.signature))
+
+    def note_probe_failure(self, e: Exception) -> None:
+        """A probe that raised is an incident, not proof of corruption."""
+        self.server.core.note_external_failure(e)
+
+    async def repair(self) -> None:
+        loop = asyncio.get_running_loop()
+        host = await loop.run_in_executor(None, self._host_source)
+        placed = await loop.run_in_executor(None, self._place_fn, host)
+        await self.server.swap_params(placed, self._drain_timeout_s, retain=False)
+        del placed
+        if self._owner is not None:
+            self._owner.params = self.server.params
+        self.server.core.clear_sdc()
+        self._baseline = await loop.run_in_executor(None, tree_digests, self.server.params)
+
+    def report(self) -> dict:
+        rep = {"label": self.label, "state": self.state(), "last_probe": self.last_result}
+        if self.last_probe_at is not None:
+            rep["last_probe_age_s"] = round(time.monotonic() - self.last_probe_at, 3)
+        return rep
+
+    def baseline_digests(self) -> Optional[dict[str, str]]:
+        return self._baseline
+
+    def reset_baseline(self) -> None:
+        self._baseline = None
 
 
 # -- the monitor -------------------------------------------------------------
@@ -575,5 +709,46 @@ def build_integrity_monitor(runner, *, model: str,
     mon = IntegrityMonitor(name=model, cfg=cfg,
                            members=[RunnerIntegrityMember(r, label, golden)
                                     for label, r in units])
+    mon._golden_factory = factory
+    return mon
+
+
+def serving_dtype_of(params: Mapping) -> Optional[str]:
+    """The dtype name of a tree's first float leaf in JAX's flatten order
+    (keys sorted), as the JAX generate monitor picks its margin floor."""
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, Mapping):
+            found = serving_dtype_of(v)
+            if found is not None:
+                return found
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            return str(v.dtype).removeprefix("torch.")
+    return None
+
+
+def build_generate_integrity_monitor(proc, *, model: str,
+                                     cfg: Optional[IntegrityConfig]) -> Optional[IntegrityMonitor]:
+    """A monitor over a ``gpu_generate`` processor's continuous server (one
+    member); None when the ``integrity:`` block is absent. The margin floor
+    is that of the tree's first float leaf's dtype, as in JAX. The golden
+    reference of a tree is computed on the live tensors, which hold it bit
+    for bit at build and after a committed swap: the 16 GB host tree of a
+    Llama-3-8B model is not placed a second time."""
+    if cfg is None:
+        return None
+    server = proc.server
+    dtype = serving_dtype_of(server.params)
+
+    def factory(host) -> GoldenReference:
+        return find_golden_reference(
+            proc.family, proc.cfg, server.params, rows=cfg.golden_rows, seq=cfg.golden_seq,
+            seed=cfg.golden_seed, serving_dtype=dtype, device=server.device)
+
+    golden = factory(proc.host_params)
+    member = ServerIntegrityMember(
+        server, "generate[continuous]", golden, family=proc.family, cfg=proc.cfg,
+        place_fn=proc.place_params, host_source=lambda: proc.host_params, owner=proc)
+    mon = IntegrityMonitor(name=model, cfg=cfg, members=[member])
     mon._golden_factory = factory
     return mon

@@ -45,11 +45,45 @@ CUDA ``paged`` launches the kernel or raises, and the init-time parity gate
 (``kernel_parity_check``) raises on a mismatch instead of switching to
 ``gather``.
 
-Not ported yet (each raises "not yet ported"): sampling
-(``temperature > 0``, ``top_k``), ``speculative_tokens``,
-``prefix_cache_pages``, ``mesh`` (tensor-parallel pools), the step
-deadlines and health gates of ``ServingRunnerCore``, hot swap, integrity
-probes, checkpoints, and the disaggregation entry points
+The lifecycle (the JAX server's self-healing, swap and integrity surfaces):
+
+- **Composition.** The server composes a ``ServingRunnerCore``
+  (``tpu/serving_core.py``) named ``<model>[generate]``. Every prefill,
+  chunk and classic decode step passes its heal gate, runs ``apply_chaos``
+  before the replay and, with ``step_deadline``, runs on a watchdog thread
+  under ``deadline_for(first)``: a key is first while it has no graph (the
+  JAX ``_seen_steps``). At ``dispatch_depth`` 2 the pipelined decode runs
+  only on a HEALTHY server with a warm decode key, and its deadline and
+  chaos watch the fetch, timed from the step's own dispatch; probe steps
+  and cold keys take the depth-1 path, as in JAX.
+- **Binding.** A step binds its ``CompiledStep``, host sets and KV pools
+  on the event loop before it leaves it (``_Bound``), as the JAX server
+  binds its donated pools: a step abandoned at its deadline (the zombie)
+  that wakes later replays its old graph into the old pools, never into
+  state a later step owns.
+- **Incidents.** A failed or abandoned step fails every request in flight
+  (their batches nack for redelivery) and resets the page ledger
+  (``_reset_device_state``). After a deadline miss the zombie may still
+  write the pools, so new pools are allocated and the probe's heal gate
+  rebuilds (``_rebuild_after_incident``): a new ``CompiledStep`` with new
+  host sets captures every warmed key again over them, under the
+  first-step deadline; the old one, its sets and pools go with the zombie.
+  A step that raised on its own thread (an OOM, an error) leaves no writer
+  behind: the pools are zeroed in place and the graphs kept, so no
+  allocation follows an allocation failure. Nothing falls back to eager
+  steps or to ``gather``.
+- **Weights.** ``swap_params`` pauses admission, waits until the slot grid
+  is empty and the depth-2 pipeline applied, then copies the new tree into
+  the live tensors (``CompiledStep.copy_params_``, whose addresses the
+  graphs hold) and zeroes both pools in place, on the step stream under
+  the step lock: KV written under the old weights must not survive. A
+  chaos ``bitflip`` writes ``-1000 x + 3.7`` into the largest float leaf
+  in place (the leaf JAX's ``_bitflip_params`` picks); ``sdc`` raises, as
+  in JAX: the token is picked on the device.
+
+Not ported yet (each raises "not yet ported"): sampling (``temperature >
+0``, ``top_k``), ``speculative_tokens``, ``prefix_cache_pages``, ``mesh``
+(tensor-parallel pools), and the disaggregation entry points
 (``prefill_export``, ``generate_from_pages``). Plain integer counters take
 the place of the registry metrics.
 """
@@ -58,6 +92,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -66,7 +101,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from arkflow_tpu_torch.errors import ArkError, ConfigError, not_ported
+from arkflow_tpu_torch.errors import (ArkError, ConfigError, StepDeadlineExceeded, SwapError,
+                                     not_ported)
 from arkflow_tpu_torch.models.decoder import DecoderConfig, select_token
 from arkflow_tpu_torch.models.paged_decode import (
     init_page_pool,
@@ -75,6 +111,8 @@ from arkflow_tpu_torch.models.paged_decode import (
     paged_prefill_chunk,
 )
 from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet
+from arkflow_tpu_torch.tpu.health import HEALTHY, HealthConfig
+from arkflow_tpu_torch.tpu.serving_core import ServingRunnerCore, is_oom_error
 
 logger = logging.getLogger("arkflow_torch.serving")
 
@@ -125,6 +163,39 @@ class _InFlightDecode:
     fetch: _Fetch
     act: np.ndarray
     reqs: list
+    #: monotonic dispatch stamp: the fetch's deadline runs from it
+    dispatched_at: float = 0.0
+
+
+class _HostSets:
+    """The persistent pinned host sets of one ``CompiledStep``, per (step
+    key, depth slot), and whose turn the next decode step's slot is."""
+
+    def __init__(self):
+        self.by_key: dict[tuple, HostSet] = {}
+        self.decode_turn = 0
+
+
+@dataclass(frozen=True)
+class _Bound:
+    """What one step reads and writes, bound on the event loop before the
+    step leaves it: the compiled step, its host sets and the KV pools. A
+    rebuild or a reset replaces the server's, never a bound one's."""
+
+    compiled: CompiledStep
+    host: _HostSets
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+
+
+def _jax_leaf_order(tree: dict, path: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
+    """(path, leaf) of a param tree in the order JAX flattens a dict tree
+    (keys sorted at every level)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _jax_leaf_order(v, (*path, k)) if isinstance(v, dict) else [((*path, k), v)]
+    return out
 
 
 class GenerationServer:
@@ -139,15 +210,13 @@ class GenerationServer:
                  prefix_cache_pages: int = 0, mesh=None,
                  decode_kernel: str = "auto", kernel_parity_check: bool = True,
                  dispatch_depth: int = 1, step_deadline_s: Optional[float] = None,
-                 step_deadline_first_s: Optional[float] = None, health_config=None,
+                 step_deadline_first_s: Optional[float] = None,
+                 health_config: Optional[HealthConfig] = None, name: str = "decoder_lm",
                  record_margins: bool = False, eager: bool = False):
         for what, unported in (("temperature > 0 / top_k (sampling)", temperature > 0 or top_k > 0),
                                ("speculative_tokens", speculative_tokens > 0),
                                ("prefix_cache_pages", prefix_cache_pages > 0),
-                               ("mesh (tensor-parallel serving)", mesh is not None),
-                               ("step_deadline", step_deadline_s is not None),
-                               ("step_deadline_first", step_deadline_first_s is not None),
-                               ("health", health_config is not None)):
+                               ("mesh (tensor-parallel serving)", mesh is not None)):
             if unported:
                 raise not_ported(f"GenerationServer {what}")
         if speculative_tokens < 0 or prefix_cache_pages < 0:
@@ -190,6 +259,8 @@ class GenerationServer:
         self._pending: deque[_Request] = deque()
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
+        #: a hot swap is waiting for the slot grid to run dry: no admission
+        self._draining = False
 
         self.decode_kernel = str(decode_kernel)
         if self.decode_kernel not in ("auto", "gather", "paged"):
@@ -213,9 +284,18 @@ class GenerationServer:
         #: one CUDA graph per step key (``eager``: none, for A/B runs)
         self._compiled = CompiledStep(self.device, eager=eager)
         #: persistent host buffers per (step key, depth slot)
-        self._host: dict[tuple, HostSet] = {}
-        self._decode_slot = 0
+        self._host = _HostSets()
+        #: every step key captured so far: a rebuild captures them again
+        self._warm_keys: list[tuple] = []
+        self._retired_captures = 0
         self._duty = DutyCycle()
+
+        #: the self-healing core: health, deadlines, chaos and rebuilds
+        self.core = ServingRunnerCore(
+            name=f"{name}[generate]", step_deadline_s=step_deadline_s,
+            step_deadline_first_s=step_deadline_first_s, health_config=health_config,
+            rebuild_fn=self._rebuild_after_incident)
+        self.health = self.core.health
 
         #: counters (the JAX server's registry metrics)
         self.decode_steps = 0
@@ -224,8 +304,22 @@ class GenerationServer:
         self.tokens = 0
         self.truncations = 0
         self.pipelined_dispatches = 0
+        #: steps dispatched to the device per kind (decode, chunk, prefill):
+        #: traffic, warmup and recapture steps, and abandoned steps that
+        #: ran after all
+        self.device_steps = dict.fromkeys(("decode", "chunk", "prefill"), 0)
+        self._count_lock = threading.Lock()
+        #: KV pools allocated anew after a deadline miss
+        self.pool_renewals = 0
+        #: steps that ran out of device memory
+        self.ooms = 0
+        #: ms of the last rebuild (new ``CompiledStep`` and recaptures)
+        self.last_rebuild_ms: Optional[float] = None
         #: submit-to-first-token seconds, one per request
         self.ttft_samples: list[float] = []
+        #: windowed generated tokens per second (the JAX ``m_tps`` gauge)
+        self.tokens_per_sec = 0.0
+        self._rate_window: Optional[tuple[float, int]] = None
 
         #: the parity gate's report (None when it did not run)
         self.parity_report: Optional[dict] = None
@@ -241,12 +335,13 @@ class GenerationServer:
 
     @property
     def captures(self) -> int:
-        """Step keys captured: a CUDA graph each on CUDA; on the CPU or
-        ``eager``, the key's static buffers."""
-        return self._compiled.captures
+        """Step keys captured, rebuilds' recaptures included: a CUDA graph
+        each on CUDA; on the CPU or ``eager``, the key's static buffers."""
+        return self._retired_captures + self._compiled.captures
 
     def replay_counts(self) -> dict:
-        """Steps per step key after its capture (warmup included)."""
+        """Steps per step key after its capture (warmup included), on the
+        current ``CompiledStep``."""
         return dict(self._compiled.replays)
 
     def duty_cycle(self) -> float:
@@ -264,87 +359,139 @@ class GenerationServer:
             out["margin"] = top[:, 0] - top[:, 1]
         return out
 
+    def _bound(self) -> _Bound:
+        return _Bound(self._compiled, self._host, self.k_pages, self.v_pages)
+
     def _dispatch(self, key: tuple, fn: Callable, arrays: dict[str, np.ndarray],
-                  slot: int = 0, **on_device: torch.Tensor) -> _Fetch:
+                  bound: _Bound, slot: int = 0, **on_device: torch.Tensor) -> _Fetch:
         """Enqueue one compiled step (no synchronisation): ``arrays`` into
         the key's persistent pinned set for ``slot``, once that set's last
         copies are done; ``on_device`` tensors stand in for the set's
         inputs of the same name."""
-        bufs = self._host.get((key, slot))
+        bufs = bound.host.by_key.get((key, slot))
         if bufs is None:
-            bufs = self._host[(key, slot)] = HostSet(
+            bufs = bound.host.by_key[(key, slot)] = HostSet(
                 key, {n: (a.shape, a.dtype) for n, a in arrays.items()},
                 pinned=self.device.type == "cuda")
         bufs.wait()
         for name, a in arrays.items():
             bufs.arrays[name][...] = a
-        step = self._compiled.run(key, fn, {**bufs.inputs, **on_device},
+        with self._count_lock:
+            self.device_steps[key[0]] += 1
+        step = bound.compiled.run(key, fn, {**bufs.inputs, **on_device},
                                   out=bufs.out, event=bufs.event)
         bufs.take(step)
         return _Fetch(step.result["nxt"], bufs)
 
-    async def _run_device_step(self, fn: Callable, track: bool = True):
-        """Run ``fn`` on an executor thread under inference mode; with
-        ``track``, as one busy span of the duty cycle."""
+    async def _run_device_step(self, key: tuple, step: Callable[[_Bound], object],
+                               track: bool = True):
+        """One health-gated step (the JAX server's ``_run_device_step``):
+        the core's heal gate (DEAD and CORRUPT raise; UNHEALTHY waits out
+        the backoff, claims the probe and rebuilds first), the state bound
+        here on the loop, then ``step(bound)`` on an executor thread under
+        inference mode after the chaos hook, under ``deadline_for(first)``
+        when deadlines are on; with ``track``, as one busy span of the duty
+        cycle. A miss raises (the core marked the server UNHEALTHY and
+        scheduled the rebuild); any other failure marks it UNHEALTHY."""
+        core = self.core
+        await core.heal_gate()
+        bound = self._bound()
+        deadline = core.deadline_for(key not in bound.compiled)
+
         def blocking():
+            core.apply_chaos()
             with torch.inference_mode():
-                return fn()
+                return step(bound)
 
         if track:
             self._duty.dispatch(time.perf_counter())
         try:
-            return await asyncio.get_running_loop().run_in_executor(None, blocking)
+            if deadline is None:
+                out = await asyncio.get_running_loop().run_in_executor(None, blocking)
+            else:
+                out = await core.run_deadlined(blocking, deadline)
+        except StepDeadlineExceeded:
+            raise
+        except Exception as e:
+            self._note_failure(e)
+            raise
         finally:
+            # an abandoned step counts complete: the reset starts over
             if track:
                 self._duty.complete(time.perf_counter())
+        core.health.mark_success()
+        return out
 
-    def _decode(self, cur, lens: np.ndarray, act: np.ndarray,
-                table: np.ndarray) -> _Fetch:
+    def _note_failure(self, e: Exception) -> None:
+        """A step that raised (not a deadline miss): counted when it ran out
+        of device memory, and the server marked UNHEALTHY, as in JAX."""
+        if is_oom_error(e):
+            self.ooms += 1
+        self.core.health.mark_unhealthy(f"generate step failed: {e}")
+
+    def _decode_key(self, kernel: Optional[str] = None) -> tuple:
+        return ("decode", kernel or self.decode_kernel)
+
+    def _chunk_key(self, kernel: Optional[str] = None) -> tuple:
+        return ("chunk", self.prefill_chunk, kernel or self.decode_kernel)
+
+    def _decode(self, cur, lens: np.ndarray, act: np.ndarray, table: np.ndarray,
+                bound: Optional[_Bound] = None, kernel: Optional[str] = None) -> _Fetch:
         """Dispatch one lockstep decode step (no synchronisation). ``cur``:
         the slots' tokens, on the host or on the device (a pipelined step's
         next tokens, copied into the graph's static input in stream order);
         the decode sets alternate over the depth's slots."""
-        kernel = self.decode_kernel
+        bound = bound or self._bound()
+        key = self._decode_key(kernel)
+        kp, vp = bound.k_pages, bound.v_pages
 
         def fn(token_ids, lengths, active, page_table):
             logits, _, _ = paged_decode_step(
                 self.params, self.cfg, token_ids, lengths, active, page_table,
-                self.k_pages, self.v_pages, return_logits=True, attention_kernel=kernel)
+                kp, vp, return_logits=True, attention_kernel=key[1])
             return self._select(logits)
 
-        slot, self._decode_slot = self._decode_slot, (self._decode_slot + 1) % self.dispatch_depth
+        sets = bound.host
+        slot, sets.decode_turn = sets.decode_turn, (sets.decode_turn + 1) % self.dispatch_depth
         on_device = {"token_ids": cur} if isinstance(cur, torch.Tensor) else {}
         # a device ``cur`` stands in for the set's token ids, whose host
         # copy then carries the host state unused
         host_cur = self._cur_tokens if on_device else cur
-        return self._dispatch(("decode", kernel), fn,
+        return self._dispatch(key, fn,
                               {"token_ids": host_cur, "lengths": lens, "active": act,
-                               "page_table": table}, slot, **on_device)
+                               "page_table": table}, bound, slot, **on_device)
 
-    def _prefill(self, ids: np.ndarray, n: int, table: np.ndarray) -> _Fetch:
+    def _prefill(self, ids: np.ndarray, n: int, table: np.ndarray,
+                 bound: Optional[_Bound] = None) -> _Fetch:
+        bound = bound or self._bound()
+        kp, vp = bound.k_pages, bound.v_pages
+
         def fn(input_ids, lengths, page_table):
             logits, _, _ = paged_prefill(self.params, self.cfg, input_ids, lengths, page_table,
-                                         self.k_pages, self.v_pages, return_logits=True)
+                                         kp, vp, return_logits=True)
             return self._select(logits)
 
         return self._dispatch(("prefill", ids.shape[1]), fn,
                               {"input_ids": ids, "lengths": np.asarray([n], np.int32),
-                               "page_table": table})
+                               "page_table": table}, bound)
 
     def _chunk(self, ids: np.ndarray, off: int, clen: int, table: np.ndarray,
-               final: bool) -> Optional[_Fetch]:
-        kernel = self.decode_kernel
+               final: bool, bound: Optional[_Bound] = None,
+               kernel: Optional[str] = None) -> Optional[_Fetch]:
+        bound = bound or self._bound()
+        key = ("chunk", ids.shape[1], kernel or self.decode_kernel)
+        kp, vp = bound.k_pages, bound.v_pages
 
         def fn(input_ids, chunk_off, chunk_len, page_table):
             logits, _, _ = paged_prefill_chunk(
                 self.params, self.cfg, input_ids, chunk_off, chunk_len, page_table,
-                self.k_pages, self.v_pages, attention_kernel=kernel)
+                kp, vp, attention_kernel=key[2])
             return self._select(logits)
 
-        fetch = self._dispatch(("chunk", ids.shape[1], kernel), fn,
+        fetch = self._dispatch(key, fn,
                                {"input_ids": ids, "chunk_off": np.asarray([off], np.int32),
                                 "chunk_len": np.asarray([clen], np.int32),
-                                "page_table": table})
+                                "page_table": table}, bound)
         return fetch if final else None
 
     def _one_shot_buckets(self) -> list[int]:
@@ -356,24 +503,38 @@ class GenerationServer:
 
     def warmup(self) -> int:
         """Capture every step graph before traffic: decode, the chunk (when
-        chunking) and every one-shot prefill bucket, on inactive lanes and
-        zero lengths, so every write lands in the scratch page 0. Returns
-        the number of keys captured (0 with ``eager``)."""
+        chunking) and every one-shot prefill bucket. Returns the number of
+        keys captured (0 with ``eager``)."""
         if self._compiled.eager:
             return 0
-        s, c = self.slots, self.prefill_chunk
+        keys = [self._decode_key()] + ([self._chunk_key()] if self.prefill_chunk else [])
+        keys += [("prefill", b) for b in self._one_shot_buckets()]
+        self._capture_keys(keys, self._bound())
+        logger.info("generation server: %d step keys captured", len(keys))
+        return len(keys)
+
+    def _capture_keys(self, keys: list[tuple], bound: _Bound) -> None:
+        """One step at each key on ``bound`` (its first there: the capture),
+        on inactive lanes and zero lengths, so every write lands in the
+        scratch page 0; not traffic."""
+        s = self.slots
         table = np.zeros((s, self.pages_per_slot), np.int32)
         zeros = np.zeros(s, np.int32)
         with torch.inference_mode():
-            fetches = [self._decode(zeros, zeros, np.zeros(s, bool), table)]
-            if c:
-                fetches.append(self._chunk(np.zeros((1, c), np.int32), 0, 0, table[:1], True))
-            for b in self._one_shot_buckets():
-                fetches.append(self._prefill(np.zeros((1, b), np.int32), 0, table[:1]))
+            fetches = []
+            for key in keys:
+                if key[0] == "decode":
+                    fetches.append(self._decode(zeros, zeros, np.zeros(s, bool), table, bound,
+                                                kernel=key[1]))
+                elif key[0] == "chunk":
+                    fetches.append(self._chunk(np.zeros((1, key[1]), np.int32), 0, 0, table[:1],
+                                               True, bound, kernel=key[2]))
+                else:
+                    fetches.append(self._prefill(np.zeros((1, key[1]), np.int32), 0, table[:1],
+                                                 bound))
             for fetch in fetches:
                 fetch.wait()
-        logger.info("generation server: %d step keys captured", len(fetches))
-        return len(fetches)
+        self._warm_keys += [k for k in keys if k not in self._warm_keys]
 
     def kernel_parity_check(self) -> dict:
         """Init-time parity gate of the paged kernel (a port of the JAX
@@ -433,6 +594,155 @@ class GenerationServer:
                 f"the paged attention kernel disagrees with the gather path at init: {report}")
         return report
 
+    # -- incidents ---------------------------------------------------------
+
+    def _rebuild_after_incident(self) -> None:
+        """The core's rebuild (the probe's heal gate, after a deadline
+        miss): graphs replayed across a hung step are not trusted. A new
+        ``CompiledStep`` (fresh lock, side stream, static buffers and graph
+        pool) and new host sets take the old ones' place, which are left to
+        the zombie and dropped when it ends; every warmed key is captured
+        again over the current pools (the ones the miss's reset allocated),
+        under the first-step deadline. Runs on an executor thread; a
+        failure leaves the server UNHEALTHY with the rebuild re-armed."""
+        old = self._compiled
+        self._compiled = CompiledStep(self.device, eager=old.eager)
+        self._host = _HostSets()
+        self._retired_captures += old.captures
+        # a copy of the dict is atomic under the GIL: a zombie first step
+        # may still be adding its key to it
+        keys = self._warm_keys + [k for k in list(old._entries) if k not in self._warm_keys]
+        del old
+        t0 = time.perf_counter()
+        bound = self._bound()
+        deadline = self.core.deadline_for(True)
+        if deadline is None:
+            self._capture_keys(keys, bound)
+        else:
+            self.core.run_deadlined_sync(lambda: self._capture_keys(keys, bound),
+                                         deadline * max(1, len(keys)))
+        self.last_rebuild_ms = (time.perf_counter() - t0) * 1e3
+        logger.warning("generation server rebuilt its compiled steps after a deadline miss: "
+                       "%d keys captured again", len(keys))
+
+    def _reset_device_state(self, zombie: bool) -> None:
+        """The serve loop's reset after a failed or abandoned step (every
+        request was failed first): a clean page ledger, the un-applied
+        pipeline record dropped, and pools no step can still write. With a
+        ``zombie`` (a deadline miss) new pools are allocated, the old ones
+        left to it; the rebuild then captures over the new ones. Otherwise
+        the pools are zeroed in place, after every step already enqueued."""
+        self._pipeline = None
+        self._clear_pages()
+        if zombie:
+            self.k_pages, self.v_pages = init_page_pool(self.cfg, self.num_pages,
+                                                        self.page_size, self.device)
+            self.pool_renewals += 1
+        else:
+            with torch.no_grad():
+                self.k_pages.zero_()
+                self.v_pages.zero_()
+
+    # -- hot swap and chaos (tpu/swap.py, tpu/integrity.py) -----------------
+
+    async def swap_params(self, placed: dict, drain_timeout_s: float = 30.0, *,
+                          retain: bool = True) -> Optional[dict]:
+        """Serve ``placed`` with no request dropped: admission pauses
+        (queued requests wait), the slot grid and the depth-2 pipeline run
+        dry, then the tree is copied into the live tensors and both pools
+        are zeroed, in place on the step stream under the step lock (the
+        graphs keep their addresses and no capture runs again), and the
+        page ledger is reset. Returns the prior tree as a copy (the
+        rollback token, ``retain``). Raises ``SwapError``, the old weights
+        serving, when the grid does not drain within ``drain_timeout_s``."""
+        self._draining = True
+        try:
+            end = time.monotonic() + drain_timeout_s
+            while self._pipeline is not None or any(r is not None for r in self._slot_req):
+                if time.monotonic() >= end:
+                    busy = sum(1 for r in self._slot_req if r is not None)
+                    raise SwapError(f"slot grid did not drain within {drain_timeout_s:.3g}s "
+                                    f"({busy} slots still busy); old params still serving")
+                await asyncio.sleep(0.01)
+            compiled = self._compiled
+
+            def flip() -> Optional[dict]:
+                old = compiled.copy_params_(self.params, placed, retain=retain)
+                compiled.zero_(self.k_pages, self.v_pages)
+                return old
+
+            old = await asyncio.get_running_loop().run_in_executor(None, flip)
+            self._clear_pages()
+            return old
+        finally:
+            self._draining = False
+
+    def inject_step_fault(self, kind: str, duration_s: float = 0.0) -> None:
+        """Arm a chaos fault (the fault plugin's processor wrapper): ``hang``
+        and ``oom`` on the next step, in the core; ``bitflip`` corrupts the
+        largest float leaf of the live tree in place. ``sdc`` raises: the
+        token is picked on the device, so garbling host outputs would not
+        model a corrupt device."""
+        if kind == "sdc":
+            raise ConfigError(
+                "chaos: 'sdc' is not supported on the generation server — "
+                "decode argmax/sampling happens on device, so host-side "
+                "output corruption would be a lie; arm 'bitflip' instead")
+        if kind == "bitflip":
+            self._bitflip_params()
+            return
+        self.core.inject_step_fault(kind, duration_s)
+
+    def bitflip_leaf(self) -> str:
+        """The ``keystr`` path of the leaf a ``bitflip`` garbles: the first
+        largest float leaf in JAX's flatten order, as JAX's
+        ``_bitflip_params`` picks it."""
+        from arkflow_tpu_torch.tpu.integrity import keystr
+
+        best = None
+        for path, leaf in _jax_leaf_order(self.params):
+            if leaf.is_floating_point() and leaf.numel() and (
+                    best is None or leaf.numel() > best[1].numel()):
+                best = (path, leaf)
+        if best is None:
+            raise ConfigError("bitflip: model has no float param leaf to corrupt")
+        return keystr(best[0])
+
+    def _bitflip_params(self) -> None:
+        """Write ``x * -1000 + 3.7`` (computed in float32) into the
+        ``bitflip_leaf`` in place, on the step stream under the step lock.
+        Nothing on the serving path notices by itself: only the integrity
+        monitor's digests and golden probe can."""
+        from arkflow_tpu_torch.tpu.integrity import flatten
+
+        path = self.bitflip_leaf()
+        leaf = flatten(self.params)[path]
+        garbled = (leaf.float() * -1000.0 + 3.7).to(leaf.dtype)
+        self._compiled.copy_params_({"leaf": leaf}, {"leaf": garbled})
+        logger.warning("chaos: bitflip corrupted generation param leaf %s", path)
+
+    def health_report(self) -> dict:
+        """JSON-able snapshot for the engine's ``/health``: the core's report
+        and the JAX server's serving keys (the prefix cache is not ported:
+        zeros), then the port's captures, rebuild, pool and OOM counters."""
+        rep = self.core.health_report()
+        total = self.num_pages - 1
+        rep.update(
+            serving="continuous", decode_kernel=self.decode_kernel,
+            dispatch_depth=self.dispatch_depth, draining=self._draining, slots=self.slots,
+            slots_busy=sum(1 for r in self._slot_req if r is not None),
+            page_pool_occupancy=(round((total - len(self._free_pages)) / total, 4)
+                                 if total else 0.0),
+            prefix_cache={"entries": 0, "pages": 0, "capacity_pages": 0},
+            tokens_per_sec=round(self.tokens_per_sec, 1))
+        if self.ttft_samples:
+            rep["ttft"] = {"count": len(self.ttft_samples),
+                           "p50_ms": round(self.ttft_ms(0.5), 3),
+                           "p99_ms": round(self.ttft_ms(0.99), 3)}
+        rep.update(captures=self.captures, last_rebuild_ms=self.last_rebuild_ms,
+                   pool_renewals=self.pool_renewals, ooms=self.ooms)
+        return rep
+
     # -- public API --------------------------------------------------------
 
     async def generate(self, prompt_ids: list[int], max_new_tokens: int = 64, *,
@@ -472,6 +782,11 @@ class GenerationServer:
         return ordered[min(len(ordered) - 1, int(q * len(ordered)))] * 1e3
 
     # -- page accounting ---------------------------------------------------
+
+    def _clear_pages(self) -> None:
+        """Every page free (page 0 is scratch) and no reference held."""
+        self._page_refs.clear()
+        self._free_pages = list(range(1, self.num_pages))
 
     def _pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -527,7 +842,7 @@ class GenerationServer:
         ids[0, :n] = req.prompt
         table = self._table_array()[slot:slot + 1]
         nxt, margin = await self._run_device_step(
-            lambda: self._prefill(ids, n, table).wait())
+            ("prefill", ids.shape[1]), lambda bound: self._prefill(ids, n, table, bound).wait())
         self.prefill_steps += 1
         self._lengths[slot] = n
         self._cur_tokens[slot] = nxt[0]
@@ -584,11 +899,11 @@ class GenerationServer:
         new_off = off + len(chunk)
         final = new_off >= n
 
-        def step():
-            fetch = self._chunk(ids, off, len(chunk), table, final)
+        def step(bound: _Bound):
+            fetch = self._chunk(ids, off, len(chunk), table, final, bound)
             return fetch.wait() if fetch is not None else None
 
-        out = await self._run_device_step(step)
+        out = await self._run_device_step(self._chunk_key(), step)
         self.chunk_steps += 1
         if not final:
             self._prefill_pos[slot] = new_off
@@ -636,6 +951,7 @@ class GenerationServer:
         try:
             while not self._closed:
                 admitted = await self._admit_pending()
+                self._update_rate()
                 prefilling = [s for s in range(self.slots)
                               if s in self._prefill_pos and self._slot_req[s]]
                 active = [s for s in range(self.slots)
@@ -662,8 +978,18 @@ class GenerationServer:
         except Exception as e:  # fail all in-flight requests, don't hang them
             logger.exception("generation serve loop failed")
             self._fail_all(e)
-            self._free_pages = list(range(1, self.num_pages))
-            self._page_refs.clear()
+            self._reset_device_state(zombie=isinstance(e, StepDeadlineExceeded))
+
+    def _update_rate(self) -> None:
+        """The windowed tokens/s of ``health_report`` (the JAX ``m_tps``)."""
+        now = time.monotonic()
+        if self._rate_window is None:
+            self._rate_window = (now, self.tokens)
+            return
+        t0, tok0 = self._rate_window
+        if now - t0 >= 0.25:
+            self.tokens_per_sec = (self.tokens - tok0) / (now - t0)
+            self._rate_window = (now, self.tokens)
 
     def _fail_all(self, err: Exception) -> None:
         # the in-flight pipelined step dies with its requests: its tokens are
@@ -689,17 +1015,25 @@ class GenerationServer:
                 req.future.set_exception(err)
 
     async def _admit_pending(self) -> bool:
+        """Admit queued requests into free slots, head of line first; none
+        while a swap drains the grid. The pipeline is applied before a
+        request leaves the queue, and its slot is registered before the
+        next await, so a swap never sees a request in neither place."""
         admitted = False
         for slot in range(self.slots):
+            if self._draining:
+                break
             if self._slot_req[slot] is not None or not self._pending:
                 continue
-            pages = self._try_reserve(self._pending[0])  # peek
-            if pages is None:
+            if len(self._free_pages) < self._pages_needed(len(self._pending[0].prompt) + 1):
                 break  # head-of-line waits for pages (FIFO fairness)
-            req = self._pending.popleft()
             # catch host state up before the admission prefill dispatches
+            # (applying a step only frees pages)
             await self._drain_pipeline()
-            await self._admit_one(slot, req, pages)
+            if self._draining:
+                break
+            req = self._pending.popleft()
+            await self._admit_one(slot, req, self._try_reserve(req))
             admitted = True
         return admitted
 
@@ -721,7 +1055,7 @@ class GenerationServer:
             self._reserve_or_truncate(s, act)
         cur, lens, table = self._cur_tokens.copy(), self._lengths.copy(), self._table_array()
         nxt, margin = await self._run_device_step(
-            lambda: self._decode(cur, lens, act, table).wait())
+            self._decode_key(), lambda bound: self._decode(cur, lens, act, table, bound).wait())
         self.decode_steps += 1
         self._apply(nxt, margin, act, None)
 
@@ -742,8 +1076,13 @@ class GenerationServer:
         tokens, THEN apply N. A lane whose pending token turns out to be EOS
         still rides N+1 and its token is dropped at apply; lanes whose
         budget the pending token exhausts are masked out up front. Returns
-        False when the classic path should run (page-pool pressure: its
-        truncation policy lives there)."""
+        False when the classic path should run: a cold decode key (its
+        first step takes the first-step budget), a server that is not
+        HEALTHY (probe steps take the gated path), or page-pool pressure
+        (its truncation policy lives there)."""
+        if self._decode_key() not in self._compiled or self.core.health.state != HEALTHY:
+            await self._drain_pipeline()
+            return False
         act = np.zeros(self.slots, bool)
         act[active] = True
         pend = self._pipeline
@@ -767,42 +1106,63 @@ class GenerationServer:
                 return False
         cur_host = self._cur_tokens.copy()
         table = self._table_array()
+        bound = self._bound()
 
         def enqueue() -> _Fetch:
             cur = pend.fetch.nxt if pend is not None else cur_host
-            return self._decode(cur, eff_lens, act, table)
+            with torch.inference_mode():
+                return self._decode(cur, eff_lens, act, table, bound)
 
         # busy from this dispatch to its fetch in _apply_pipeline
         self._duty.dispatch(time.perf_counter())
         try:
-            fetch = await self._run_device_step(enqueue, track=False)
+            fetch = await asyncio.get_running_loop().run_in_executor(None, enqueue)
         except BaseException:
             self._duty.complete(time.perf_counter())
             raise
-        rec = _InFlightDecode(fetch=fetch, act=act, reqs=list(self._slot_req))
         self.pipelined_dispatches += 1
+        # the new step is in flight before N is applied: a failure of N's
+        # fetch drops both with their requests
+        self._pipeline = _InFlightDecode(fetch=fetch, act=act, reqs=list(self._slot_req),
+                                         dispatched_at=time.monotonic())
         if pend is not None:
-            self._pipeline = None
             await self._apply_pipeline(pend)
-        self._pipeline = rec
         return True
 
     async def _drain_pipeline(self) -> None:
         """Fetch and apply the in-flight decode step, if any: every other
-        event (admission, chunked prefill, loop exit) runs against
-        caught-up host state."""
+        event (admission, chunked prefill, a swap's drain, loop exit) runs
+        against caught-up host state."""
         if self._pipeline is None:
             return
         pend, self._pipeline = self._pipeline, None
         await self._apply_pipeline(pend)
 
     async def _apply_pipeline(self, rec: _InFlightDecode) -> None:
-        """Wait for one in-flight step's tokens (that step alone) and apply
-        them; a lane whose request finished or was replaced since dispatch
-        drops its token."""
+        """Wait for one in-flight step's tokens (that step alone) after the
+        chaos hook, under the warm deadline timed from the step's own
+        dispatch, and apply them; a lane whose request finished or was
+        replaced since dispatch drops its token."""
+        core = self.core
+
+        def blocking():
+            core.apply_chaos()
+            return rec.fetch.wait()
+
+        deadline = core.deadline_for(False)
         try:
-            nxt, margin = await asyncio.get_running_loop().run_in_executor(None, rec.fetch.wait)
+            if deadline is None:
+                nxt, margin = await asyncio.get_running_loop().run_in_executor(None, blocking)
+            else:
+                nxt, margin = await core.run_deadlined(
+                    blocking, core.deadline_remaining(deadline, rec.dispatched_at))
+        except StepDeadlineExceeded:
+            raise
+        except Exception as e:
+            self._note_failure(e)
+            raise
         finally:
             self._duty.complete(time.perf_counter())
+        core.health.mark_success()
         self.decode_steps += 1
         self._apply(nxt, margin, rec.act, rec.reqs)

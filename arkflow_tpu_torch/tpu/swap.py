@@ -22,12 +22,19 @@ weights a serving runner answers with, without a restart:
    error or a chaos crash copies the prior tree back and raises
    ``SwapError``; the old weights served throughout.
 
+The continuous generation server is one unit (``GenerationServerUnit``):
+its flip is ``GenerationServer.swap_params``, which drains the slot grid
+first and zeroes the KV pools after the copy; its probe is one real
+2-token generation. ``build_generate_swapper`` builds the manager over a
+``gpu_generate`` processor; the batch-mode unit waits for ``serving:
+batch``.
+
 Chaos: ``inject_swap_fault("swap_corrupt")`` mangles the next swap's
 restored tree (the canary rejects it); ``"swap_crash"`` raises after the
 flip (the rollback path). Both are armed by the fault plugin's processor
 wrapper. The helpers (``golden_inputs``, ``argmax_signature``,
 ``signature_margin``) use numpy only and equal the JAX package's bit for
-bit. The generation server's units wait for its lifecycle slice.
+bit.
 """
 
 from __future__ import annotations
@@ -214,6 +221,43 @@ class BatchRunnerUnit:
         except Exception as e:
             self.runner.core.note_external_failure(e)
             raise
+
+
+class GenerationServerUnit:
+    """The continuous ``GenerationServer``: the flip is its ``swap_params``
+    (drain, copy in place, pools zeroed); the probe is one real generation
+    through its heal gate and deadline. ``owner`` (the ``gpu_generate``
+    processor) keeps its ``params`` alias and its known-good host tree in
+    step with the server."""
+
+    label = "generate[continuous]"
+
+    def __init__(self, server, place_fn: Callable[[Any], Any], drain_timeout_s: float,
+                 owner=None):
+        self.server = server
+        self._place_fn = place_fn
+        self._drain_timeout_s = drain_timeout_s
+        self._owner = owner
+
+    def live(self):
+        return self.server.params
+
+    def place(self, host_params):
+        return self._place_fn(host_params)
+
+    async def adopt(self, placed):
+        old = await self.server.swap_params(placed, self._drain_timeout_s)
+        if self._owner is not None:
+            self._owner.params = self.server.params
+        return old
+
+    def note_committed_host(self, host) -> None:
+        if self._owner is not None:
+            self._owner.host_params = host
+
+    async def probe(self) -> None:
+        vocab = int(getattr(self.server.cfg, "vocab_size", 256) or 256)
+        await self.server.generate([t % max(vocab, 2) for t in (3, 5, 7)], max_new_tokens=2)
 
 
 # -- the manager -------------------------------------------------------------
@@ -434,4 +478,32 @@ def build_batch_swapper(runner, *, model: str, serving_dtype: Optional[str],
     return ModelSwapManager(
         name=model, config=swap_cfg, prepare=prepare, canary=canary,
         units=[BatchRunnerUnit(member, label) for label, member in runner.swap_units()],
+        checkpoint=checkpoint)
+
+
+def build_generate_swapper(proc, *, model: str, swap_cfg: Optional[SwapConfig],
+                           checkpoint: Optional[str] = None) -> ModelSwapManager:
+    """A swapper over a ``gpu_generate`` processor's continuous server:
+    ``prepare`` restores into the layout of the live tree (the decoder's
+    stacked layers, its dtypes); the canary is the family's forward on the
+    server's device."""
+    from arkflow_tpu_torch.tpu.checkpoint import restore
+    from arkflow_tpu_torch.tpu.integrity import device_forward
+
+    server, family, cfg = proc.server, proc.family, proc.cfg
+    swap_cfg = swap_cfg or SwapConfig()
+
+    def prepare(path: str):
+        return restore(path, server.params)
+
+    def canary(params) -> np.ndarray:
+        golden = golden_inputs(family.input_spec(cfg), cfg, swap_cfg.canary_rows,
+                               seed=swap_cfg.canary_seed)
+        return argmax_signature(device_forward(family.apply, params, cfg, golden,
+                                               server.device))
+
+    return ModelSwapManager(
+        name=model, config=swap_cfg, prepare=prepare, canary=canary,
+        units=[GenerationServerUnit(server, proc.place_params, swap_cfg.drain_timeout_s,
+                                    owner=proc)],
         checkpoint=checkpoint)

@@ -118,7 +118,31 @@ last line):
    gather) of a graphed server against an eager twin on the same weights,
    pools and inputs, 0 differing elements in next tokens and top-2 gaps;
    then the generate stream again with an eager twin server, for the A/B;
-11. the ``graphs`` line (per path: captures, keys checked, differing
+11. the generate lifecycle phase (``llama_lifecycle_stream.json``: the
+    generate stream of step 10 behind a redelivering ``fault`` input, with
+    ``step_deadline`` 1 s, ``health``, ``swap`` and ``integrity``, at
+    Llama-3-8B widths and depth): the stream without faults (the yardstick
+    and the cost), then with them (a step hung 3 s past its deadline, one
+    out of memory): every row in order, the nacked batches redelivered,
+    exactly one miss, one rebuild over new pools (another ``data_ptr``) and
+    one failed OOM step, HEALTHY with no zombie at the end, no page leaked,
+    K3 launches = layers x (decode + chunk steps run on the card, recapture
+    and abandoned steps included), all ``mma``, and every row's ids equal
+    to the fault-free run's up to its first near-tie (``generate lifecycle
+    stream``); then on an idle stream with its health server, a seed-1
+    checkpoint (16 GB, written to a temporary directory under
+    ``checkpoints/`` and removed) swapped in through ``POST /admin/swap``
+    while four clients keep requests in flight: none dropped, the streams
+    after it equal an ``eager=True`` server on the seed-1 weights bit for
+    bit, the live addresses and captures kept, the pools zero and every
+    page free at the flip, a ``swap_corrupt`` swap rolled back (``generate
+    lifecycle swap``: stage ms, peak memory); then a ``bitflip`` quarantined
+    (``/readiness`` 503), repaired from the host copy and the streams back
+    bit for bit (``generate lifecycle integrity``: digest pass, golden probe,
+    golden margin); and ``generate lifecycle cost``: the fault-free
+    lifecycle stream's tokens/s and TTFT beside the generate stream's of
+    step 10 (same rows);
+12. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
@@ -133,6 +157,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -177,7 +202,7 @@ from arkflow_tpu_torch.tools.profile_step import (  # noqa: E402
 )
 from arkflow_tpu_torch.tpu import checkpoint  # noqa: E402
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy  # noqa: E402
-from arkflow_tpu_torch.tpu.integrity import flatten  # noqa: E402
+from arkflow_tpu_torch.tpu.integrity import flatten, tree_digests  # noqa: E402
 from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
 from arkflow_tpu_torch.tpu.runner import ModelRunner, init_host_params, shape_key  # noqa: E402
 from arkflow_tpu_torch.tpu.serving import GenerationServer  # noqa: E402
@@ -190,6 +215,13 @@ PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "bert_lifecycle_stream.json")
+GEN_LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "llama_lifecycle_stream.json")
+#: where the generate lifecycle phase writes its 16 GB checkpoint (in a
+#: temporary directory it removes; the directory is ignored by git)
+CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
+#: prompts and new tokens of the generate lifecycle's swap and repair checks
+GEN_CHECK_PROMPTS = 16
+GEN_CHECK_NEW = 32
 #: rows of each stream of the lifecycle cost comparison: ~13 s of traffic,
 #: four digest passes of the lifecycle example or more
 COST_ROWS = 40960
@@ -2169,6 +2201,393 @@ def run_lifecycle() -> dict:
         return line
 
 
+# -- the generate lifecycle phase ---------------------------------------------
+
+
+def gen_lifecycle_config(*, faults: bool = True, idle: bool = False, **overrides) -> dict:
+    """``llama_lifecycle_stream.json`` with the health server on a free port:
+    without its fault schedule when not ``faults``; with ``idle`` the input
+    waits an hour before its first batch (the stream carries no traffic of
+    its own, the engine and its health server run); the processor's keys
+    overridden."""
+    with open(GEN_LIFECYCLE_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["health_check"]["port"] = 0
+    stream = cfg["streams"][0]
+    fault = stream["pipeline"]["processors"][0]
+    fault["inner"].update(overrides)
+    if not faults:
+        fault["faults"] = []
+    if idle:
+        stream["input"]["inner"].update(count=10 ** 7, interval="3600s")
+    return cfg
+
+
+def gen_rows(cfg_raw: dict) -> list[bytes]:
+    """The rows of a lifecycle config's generate input, in order."""
+    return generated_rows({"streams": [{"input": cfg_raw["streams"][0]["input"]["inner"]}]})
+
+
+def gen_prompts(cfg_raw: dict, n: int) -> list[list[int]]:
+    """The first ``n`` rows of a lifecycle config, tokenized as its
+    processor tokenizes them."""
+    proc = cfg_raw["streams"][0]["pipeline"]["processors"][0]["inner"]
+    tok = HashTokenizer(proc["model_config"]["vocab_size"])
+    ids, mask = tok.encode_batch(gen_rows(cfg_raw)[:n], proc["max_input"])
+    return [ids[i, : int(mask[i].sum())].tolist() for i in range(n)]
+
+
+class StepsSink(GeneratedSink):
+    """A ``GeneratedSink`` that also snapshots the server's device steps and
+    its pools' address when it zeroes the counts."""
+
+    def __init__(self, inner: Output, field: str, server: GenerationServer):
+        super().__init__(inner, field)
+        self.server = server
+        self.steps0: dict = {}
+        self.pool_ptr0 = 0
+
+    async def connect(self) -> None:
+        await super().connect()
+        self.steps0 = dict(self.server.device_steps)
+        self.pool_ptr0 = self.server.k_pages.data_ptr()
+
+
+def release_memory() -> None:
+    """Collect what a finished phase built (16 GB of weights on the card and
+    a 16 GB host copy per server) before the next phase builds its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def gen_reference_run(cfg_raw: dict) -> dict:
+    """The fault-free lifecycle stream: every row's generated ids (the
+    yardstick of the faulted run) and its traffic tokens/s and TTFT."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]._inner
+    server = proc.server
+    sink = stream.output = GeneratedSink(stream.output, proc.output_field)
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    rows = gen_rows(cfg_raw)
+    check(stream.errors == 0 and stream.rows_out == len(rows) and sink.payloads == rows,
+          f"the fault-free lifecycle stream lost rows: {stream.errors} errors, "
+          f"{stream.rows_out} of {len(rows)}")
+    out = {"tokens": [[int(t) for t in g.split()] for g in sink.generated],
+           "traffic_tokens_per_s": server.tokens / stream.traffic_seconds,
+           "traffic_seconds": stream.traffic_seconds,
+           "ttft_p50_ms": server.ttft_ms(0.5), "ttft_p99_ms": server.ttft_ms(0.99),
+           "integrity_probes": proc.integrity.probes}
+    return out
+
+
+def first_near_tie(gaps: list[float]) -> int | None:
+    return next((j for j, g in enumerate(gaps) if g <= LABEL_MARGIN), None)
+
+
+def run_gen_lifecycle_stream(cfg_raw: dict, reference: list[list[int]]) -> dict:
+    """The faulted lifecycle stream: a step after the fault processor's 2nd
+    call hangs 3 s past its 1 s deadline, a step after its 5th runs out of
+    memory. Counts zeroed when the output connects (after the captures) and
+    read once the stream and the abandoned step have ended. Every row's ids
+    are held to the fault-free run's up to the first step whose top-2 gap
+    (recorded in this run) is at or below the tie margin."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]._inner
+    server, mon = proc.server, proc.integrity
+    server.record_margins = True
+    gaps: dict[tuple, list[float]] = {}
+    generate = server.generate
+
+    async def generate_with_gaps(prompt, max_new_tokens=64):
+        ids, g = await generate(prompt, max_new_tokens, with_margins=True)
+        gaps[tuple(prompt)] = g
+        return ids
+
+    server.generate = generate_with_gaps
+    sink = stream.output = StepsSink(stream.output, proc.output_field, server)
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    wait_zombies(server)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k3_variants = ra.paged_flash_attention.launches.value, \
+        dict(ra.paged_flash_attention.launches.variants)
+    steps = {k: server.device_steps[k] - sink.steps0[k] for k in server.device_steps}
+    rows = gen_rows(cfg_raw)
+    prompts = gen_prompts(cfg_raw, len(rows))
+    got = [[int(t) for t in g.split()] for g in sink.generated]
+    compared, tied, mismatched = 0, 0, []
+    for i, (a, b) in enumerate(zip(got, reference)):
+        tie = first_near_tie(gaps.get(tuple(prompts[i]), []))
+        k = len(b) if tie is None else tie
+        tied += tie is not None
+        compared += min(k, len(b))
+        if a[:k] != b[:k] or (tie is None and a != b):
+            mismatched.append(i)
+    rep = server.health_report()
+    report = {
+        "rows_expected": len(rows), "rows_out": stream.rows_out,
+        "rows_dropped": sink.inner.dropped_rows, "in_order": sink.payloads == rows,
+        "nacked": stream.errors, "redeliveries": stream.input.redeliveries, "seconds": wall,
+        "layers": server.cfg.layers, "dim": server.cfg.dim, "vocab": server.cfg.vocab_size,
+        "k3_launches": k3, "k3_variants": k3_variants, "device_steps": steps,
+        "traffic_steps": {"decode": server.decode_steps, "chunk": server.chunk_steps,
+                          "prefill": server.prefill_steps},
+        "pool_ptr_before": sink.pool_ptr0, "pool_ptr_after": server.k_pages.data_ptr(),
+        "free_pages": len(server._free_pages), "num_pages": server.num_pages,
+        "tie_free_tokens_compared": compared, "rows_with_a_near_tie": tied,
+        "rows_mismatched_before_a_tie": mismatched, "tie_margin": LABEL_MARGIN,
+        "rebuild_recapture_ms": rep["last_rebuild_ms"],
+        **{k: rep[k] for k in ("state", "deadline_misses", "rebuilds", "zombies", "ooms",
+                               "pool_renewals", "captures", "tokens_per_sec")},
+        "integrity": {k: v for k, v in mon.report().items() if k != "members"}}
+    print("generate lifecycle stream " + json.dumps(report), flush=True)
+    check(stream.rows_out == len(rows) and sink.inner.dropped_rows == len(rows)
+          and report["in_order"], f"the generate lifecycle stream lost or reordered rows: {report}")
+    check(stream.errors >= 1 and stream.input.redeliveries == stream.errors,
+          f"the failed batches were not nacked and redelivered: {report}")
+    check(report["deadline_misses"] == 1 and report["rebuilds"] == 1 and report["ooms"] == 1,
+          f"not exactly one miss, one rebuild and one failed OOM step: {report}")
+    check(report["state"] == "healthy" and report["zombies"] == 0,
+          f"the server did not end HEALTHY with no zombie: {report}")
+    check(report["free_pages"] == server.num_pages - 1, f"pages leaked: {report}")
+    check(report["pool_renewals"] == 1 and report["pool_ptr_after"] != report["pool_ptr_before"],
+          f"the rebuild did not serve from new pools: {report}")
+    decode_chunk = steps["decode"] + steps["chunk"]
+    check(k3 > 0 and k3 == server.cfg.layers * decode_chunk,
+          f"K3 launches != layers x (decode + chunk steps): {report}")
+    check(k3_variants.get("mma") == k3, f"a K3 launch missed the tensor-core body: {report}")
+    check(not mismatched, f"a row's ids differ from the fault-free run before a near-tie: "
+          f"{report}")
+    results = mon.results
+    check(results["mismatch"] == results["error"] == results["digest_mismatch"] == 0,
+          f"an integrity probe failed on a healthy server: {report}")
+    return report
+
+
+async def gen_serve(server: GenerationServer, prompts: list[list[int]],
+                    max_new: int) -> list[list[int]]:
+    return list(await asyncio.gather(*[server.generate(p, max_new_tokens=max_new)
+                                       for p in prompts]))
+
+
+def save_decoder_checkpoint(path: str, cfg, seed: int) -> float:
+    """The seed's decoder tree, drawn on the card as ``gpu_generate`` draws
+    it, written as a port checkpoint; ms."""
+    t0 = time.perf_counter()
+    tree = get_model("decoder_lm").init(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    checkpoint.save(path, tree)
+    del tree
+    torch.cuda.empty_cache()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_gen_swap_integrity(cfg_raw: dict, ckpt_dir: str) -> dict:
+    """On an idle lifecycle stream (its engine and health server running):
+    a hot swap to a seed-1 checkpoint through ``POST /admin/swap`` under
+    in-flight requests, then the streams against an ``eager=True`` server on
+    the seed-1 weights, bit for bit; a ``swap_corrupt`` swap rolled back;
+    then a ``bitflip`` quarantined (``/readiness`` 503), repaired from the
+    host copy, the streams back bit for bit. Prints the swap and the
+    integrity lines."""
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]._inner
+    server, swapper, mon = proc.server, proc.swapper, proc.integrity
+    member = mon.members[0]
+    seed1 = os.path.join(ckpt_dir, "seed1")
+    save_ms = save_decoder_checkpoint(seed1, server.cfg, 1)
+    prompts = gen_prompts(cfg_raw, GEN_CHECK_PROMPTS)
+    swap_rep: dict = {"save_seed1_ms": save_ms, "prompts": len(prompts),
+                      "max_new_tokens": GEN_CHECK_NEW}
+    integ: dict = {"golden_seed": member.golden.seed, "golden_margin": member.golden.margin,
+                   "golden_rows": int(member.golden.inputs["input_ids"].shape[0]),
+                   "golden_seq": int(member.golden.inputs["input_ids"].shape[1])}
+    flip_state: dict = {}
+    swap_params = server.swap_params
+
+    async def watched_swap_params(placed, drain_timeout_s=30.0, **kw):
+        old = await swap_params(placed, drain_timeout_s, **kw)
+        flip_state.setdefault("pools_zero", not (server.k_pages.any() or server.v_pages.any()))
+        flip_state.setdefault("free_pages", len(server._free_pages))
+        return old
+
+    server.swap_params = watched_swap_params
+
+    async def go():
+        task = asyncio.create_task(engine.run())
+        try:
+            end = time.monotonic() + 600
+            # the monitor starts once the processor's connect captured the graphs
+            while not engine._ready or engine.health_port is None or mon._task is None:
+                check(time.monotonic() < end and not task.done(), "generate warmup never ended")
+                await asyncio.sleep(0.05)
+            port = engine.health_port
+            seed0 = await gen_serve(server, prompts, GEN_CHECK_NEW)
+            ptrs, captures = param_ptrs(server.params), server.captures
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            stop = asyncio.Event()
+            served, failed = [0], []
+
+            async def client(i: int) -> None:
+                # requests one after another until the swap answered: some
+                # are in flight at the flip, some queue while it drains
+                while not stop.is_set():
+                    try:
+                        await server.generate(prompts[i % len(prompts)],
+                                              max_new_tokens=GEN_CHECK_NEW)
+                        served[0] += 1
+                    except Exception as e:  # a dropped request fails the check
+                        failed.append(f"{type(e).__name__}: {e}")
+                    i += 4
+
+            clients = [asyncio.create_task(client(i)) for i in range(4)]
+            await asyncio.sleep(0.5)
+            status, body = await http(port, "POST", "/admin/swap", {"checkpoint": seed1})
+            stop.set()
+            await asyncio.gather(*clients)
+            swap_rep["peak_bytes_over_live"] = torch.cuda.max_memory_allocated() - base
+            swap_rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+            swap_rep["live_bytes"] = base
+            swap_rep["params_bytes"] = sum(t.numel() * t.element_size()
+                                           for t in flatten(server.params).values())
+            swap_rep["status"], swap_rep["stage_ms"] = status, dict(swapper.stage_ms)
+            rep = body.get("results", {}).get(stream.name, [{}])[0]
+            check(status == 200 and rep.get("version") == 1, f"generate swap answered {body}")
+            swap_rep["requests_during_swap"] = served[0]
+            swap_rep["requests_dropped"] = failed
+            after = await gen_serve(server, prompts, GEN_CHECK_NEW)
+            swap_rep["ptrs_kept"] = param_ptrs(server.params) == ptrs
+            swap_rep["captures_kept"] = server.captures == captures
+            swap_rep.update(flip_state)
+            swap_rep["num_pages"] = server.num_pages
+            swap_rep["rows_changed_vs_seed0"] = sum(a != b for a, b in zip(after, seed0))
+            tree = get_model("decoder_lm").init(
+                torch.Generator(device="cuda").manual_seed(1), server.cfg)
+            eager = server_twin(server, eager=True, params=tree)
+            want = await gen_serve(eager, prompts, GEN_CHECK_NEW)
+            await eager.close()
+            del eager, tree
+            torch.cuda.empty_cache()
+            swap_rep["rows_differing_vs_eager_seed1"] = sum(a != b for a, b in zip(after, want))
+            # a corrupt tree is the canary's to reject: exact agreement
+            swapper.cfg = dataclasses.replace(swapper.cfg, min_agreement=1.0)
+            swapper.inject_swap_fault("swap_corrupt")
+            status, body = await http(port, "POST", "/admin/swap", {"checkpoint": seed1})
+            again = await gen_serve(server, prompts, GEN_CHECK_NEW)
+            swap_rep["swap_corrupt"] = {
+                "status": status, "rows_differing": sum(a != b for a, b in zip(again, after)),
+                "ptrs_kept": param_ptrs(server.params) == ptrs,
+                "error": swapper.report().get("last_error")}
+            swap_rep["version"] = swapper.version
+
+            # integrity on the seed-1 weights: the baseline, then a bitflip
+            # quarantined (no repair), readiness, and the repair
+            loop = asyncio.get_running_loop()
+            t0 = time.perf_counter()
+            digests = await loop.run_in_executor(None, tree_digests, server.params)
+            integ["digest_pass_ms"] = (time.perf_counter() - t0) * 1e3
+            # the card's digests (pinned slices) against the manifest save()
+            # wrote from host tensors, for the same seed-1 tree
+            with open(f"{seed1}.digests.json") as f:
+                integ["digests_equal_manifest"] = digests == json.load(f)["digests"]
+            probe_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                check(await member.golden_probe(), "a golden probe failed on a healthy server")
+                probe_ms.append((time.perf_counter() - t0) * 1e3)
+            integ["golden_probe_ms"] = statistics.median(probe_ms)
+            mon.cfg = dataclasses.replace(mon.cfg, digest_every=1, repair=False)
+            integ["baseline"] = await mon.probe_now()
+            epoch = mon.digest_epoch()
+            integ["bitflip_leaf"] = server.bitflip_leaf()
+            server.inject_step_fault("bitflip")
+            t0 = time.perf_counter()
+            integ["quarantine"] = await mon.probe_now()
+            integ["quarantine_ms"] = (time.perf_counter() - t0) * 1e3
+            integ["state_quarantined"] = server.health.state
+            status, body = await http(port, "GET", "/readiness")
+            integ["readiness_quarantined"] = {"status": status, "body": body}
+            mon.cfg = dataclasses.replace(mon.cfg, repair=True)
+            t0 = time.perf_counter()
+            integ["repair"] = await mon.probe_now()
+            integ["repair_ms"] = (time.perf_counter() - t0) * 1e3
+            integ["state_repaired"] = server.health.state
+            integ["epoch_kept"] = mon.digest_epoch() == epoch
+            integ["ptrs_kept"] = param_ptrs(server.params) == ptrs
+            repaired = await gen_serve(server, prompts, GEN_CHECK_NEW)
+            integ["rows_differing_vs_before_flip"] = sum(a != b for a, b in zip(repaired, after))
+            status, _ = await http(port, "GET", "/readiness")
+            integ["readiness_repaired"] = status
+            integ["results"] = dict(mon.results)
+        finally:
+            engine.shutdown()
+            await asyncio.wait_for(task, 300)
+
+    asyncio.run(go())
+    print("generate lifecycle swap " + json.dumps(swap_rep), flush=True)
+    check(swap_rep["requests_during_swap"] > 0 and not swap_rep["requests_dropped"],
+          f"the swap dropped a request: {swap_rep}")
+    check(swap_rep["rows_differing_vs_eager_seed1"] == 0,
+          f"the swapped streams differ from an eager server on the seed-1 weights: {swap_rep}")
+    check(swap_rep["rows_changed_vs_seed0"] > 0, f"the swap changed no stream: {swap_rep}")
+    check(swap_rep["ptrs_kept"] and swap_rep["captures_kept"],
+          f"the swap moved a live tensor or captured again: {swap_rep}")
+    check(swap_rep.get("pools_zero") and swap_rep.get("free_pages") == server.num_pages - 1,
+          f"the swap left KV or pages behind: {swap_rep}")
+    sc = swap_rep["swap_corrupt"]
+    check(sc["status"] == 409 and sc["rows_differing"] == 0 and sc["ptrs_kept"]
+          and swap_rep["version"] == 1, f"swap_corrupt did not roll back: {swap_rep}")
+    print("generate lifecycle integrity " + json.dumps(integ), flush=True)
+    q, r = integ["quarantine"], integ["repair"]
+    check(q["mismatches"] == 1 and q["repaired"] == 0 and integ["state_quarantined"] == "corrupt",
+          f"the bitflip was not caught and quarantined: {integ}")
+    check(integ["readiness_quarantined"]["status"] == 503 and integ["readiness_repaired"] == 200,
+          f"/readiness did not answer 503 while CORRUPT and 200 after: {integ}")
+    check(r["repaired"] == 1 and integ["state_repaired"] == "healthy" and integ["epoch_kept"]
+          and integ["ptrs_kept"] and integ["rows_differing_vs_before_flip"] == 0,
+          f"the repair did not bring the weights and streams back: {integ}")
+    check(integ["results"]["digest_mismatch"] >= 1, f"no digest drift was seen: {integ}")
+    check(integ["digests_equal_manifest"],
+          f"the card's digests of the seed-1 tree differ from its manifest: {integ}")
+    return {"swap": swap_rep, "integrity": integ}
+
+
+def run_gen_lifecycle(plain: dict) -> dict:
+    """The generate lifecycle phase (see the module docstring): the
+    fault-free lifecycle stream, the faulted one, the swap and integrity
+    checks, and the cost line beside ``plain`` (the graphed generate
+    stream's report, same rows, this run)."""
+    clean = gen_reference_run(gen_lifecycle_config(faults=False))
+    release_memory()
+    stream_rep = run_gen_lifecycle_stream(gen_lifecycle_config(), clean["tokens"])
+    release_memory()
+    os.makedirs(CHECKPOINT_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CHECKPOINT_ROOT) as ckpt_dir:
+        checks = run_gen_swap_integrity(gen_lifecycle_config(
+            faults=False, idle=True,
+            swap={"canary": {"rows": 4, "min_agreement": 0.0}, "drain_timeout": "120s"},
+            integrity={"probe_interval": "3600s", "digest_every": 1,
+                       "golden": {"rows": 1, "seq": 8}}), ckpt_dir)
+    release_memory()
+    cost = {"plain_traffic_tokens_per_s": plain["traffic_tokens_per_s"],
+            "plain_ttft_p50_ms": plain["ttft_p50_ms"], "plain_ttft_p99_ms": plain["ttft_p99_ms"],
+            "lifecycle_traffic_tokens_per_s": clean["traffic_tokens_per_s"],
+            "lifecycle_ttft_p50_ms": clean["ttft_p50_ms"],
+            "lifecycle_ttft_p99_ms": clean["ttft_p99_ms"],
+            "lifecycle_traffic_seconds": clean["traffic_seconds"],
+            "lifecycle_integrity_probes": clean["integrity_probes"],
+            "rows": len(clean["tokens"])}
+    print("generate lifecycle cost " + json.dumps(cost), flush=True)
+    return {"stream": stream_rep, **checks, "cost": cost}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2297,7 +2716,8 @@ def main() -> int:
     ab["generate"] = {"graphed": ab_numbers(generated["report"]),
                       "eager": ab_numbers(generated_eager["report"])}
     del generated_eager
-    torch.cuda.empty_cache()
+    release_memory()
+    gen_life = run_gen_lifecycle(generated["report"])
     print("graphs " + json.dumps({path: {k: g[k] for k in ("captures", "keys_checked",
                                                          "differing_elements",
                                                          "reserved_before_captures",
@@ -2321,7 +2741,8 @@ def main() -> int:
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
-        "launches": generated["report"]["k3_launches"], "ok": True,
+        "launches": generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"],
+        "ok": True,
         **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
         "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",
                                                      "bound_ms", "tile_err_ratio")}

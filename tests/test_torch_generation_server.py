@@ -196,8 +196,7 @@ def test_a_failed_parity_gate_raises_and_never_falls_back(weights, monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     {"temperature": 0.7}, {"top_k": 5}, {"speculative_tokens": 2},
-    {"prefix_cache_pages": 4}, {"mesh": object()}, {"step_deadline_s": 1.0},
-    {"step_deadline_first_s": 5.0}, {"health_config": {}},
+    {"prefix_cache_pages": 4}, {"mesh": object()},
 ])
 def test_unported_options_raise(weights, kw):
     _, _, params, cfg = weights

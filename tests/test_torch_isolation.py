@@ -1,8 +1,8 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
-paths (the padded, the packed and the generate stream, and the lifecycle
-stream with its health server) needs pyarrow, yaml or aiohttp at import
-time or at run time."""
+paths (the padded, the packed and the generate stream, and the BERT and
+Llama lifecycle streams with their health servers) needs pyarrow, yaml or
+aiohttp at import time or at run time."""
 
 import ast
 import os
@@ -104,6 +104,20 @@ life_stream = life.build()[0]
 asyncio.run(life.run())
 assert life_stream.output.dropped_rows == 8 and life_stream.errors == 0, life_stream.errors
 assert life_stream.pipeline.processors[0].runner.ooms == 1
+import json
+gen_cfg = json.load(open("arkflow_tpu_torch/examples/llama_lifecycle_stream.json"))
+gen_cfg["health_check"]["port"] = 0
+gen_inner = gen_cfg["streams"][0]["pipeline"]["processors"][0]["inner"]
+gen_inner.update(model_config={"vocab_size": 64, "dim": 16, "layers": 1, "heads": 2,
+                               "kv_heads": 1, "ffn": 32}, device="cpu")
+gen_inner["integrity"]["probe_interval"] = "200ms"
+gen_life = Engine(EngineConfig.from_mapping(gen_cfg))
+gen_stream = gen_life.build()[0]
+asyncio.run(gen_life.run())
+gen_count = gen_cfg["streams"][0]["input"]["inner"]["count"]
+assert gen_stream.output.dropped_rows == gen_count and gen_stream.errors >= 2, gen_stream.errors
+gen_server = gen_stream.pipeline.processors[0].runner
+assert gen_server.core.deadline_misses == 1 and gen_server.health.state == "healthy"
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

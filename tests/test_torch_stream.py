@@ -250,8 +250,6 @@ def test_generate_stream_matches_the_jax_generate_stream():
 @pytest.mark.parametrize("patch", [{"serving": "batch"}, {"tokenizer": "gpt2"},
                                    {"speculative_tokens": 2}, {"prefix_cache_pages": 8},
                                    {"mesh": {"tp": 2}}, {"kernel_interpret": True},
-                                   {"step_deadline": "1s"}, {"health": {}},
-                                   {"checkpoint": "/ckpt"}, {"swap": {}}, {"integrity": {}},
                                    {"temperature": 0.8}, {"top_k": 4}, {"batch_buckets": [4]},
                                    {"model_config": {**TINY_DECODER, "num_experts": 4}}])
 def test_gpu_generate_unported_keys_raise(tmp_path, patch):
