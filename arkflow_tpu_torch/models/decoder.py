@@ -2,17 +2,43 @@
 
 Counterpart of ``arkflow_tpu/models/decoder.py`` on one device: ``init``,
 ``_rope``, ``_mlp`` (dense SwiGLU), ``_attention_block``, ``forward`` /
-``apply`` and greedy ``select_token``. Params keep the JAX tree's layout --
-the same nested paths, dense ``w`` stored ``[in, out]``, per-layer params
-stacked on a leading axis -- and the layer scan is a Python loop over that
-axis. Defaults are a small test shape; ``llama3_8b()`` gives the
-production shape. The incremental paths over the paged KV cache are in
-``models/paged_decode.py``.
+``apply``, ``select_token`` (greedy, or temperature / top-k sampling) and
+the contiguous KV cache of batched generation (``init_kv_cache``,
+``prefill``, ``decode_step``, ``generate``). Params keep the JAX tree's
+layout -- the same nested paths, dense ``w`` stored ``[in, out]``,
+per-layer params stacked on a leading axis -- and the layer scan is a
+Python loop over that axis. Defaults are a small test shape;
+``llama3_8b()`` gives the production shape. The incremental paths over the
+paged KV cache are in ``models/paged_decode.py``; the CUDA-graph form of
+``generate`` is ``tpu/batch_generate.py``.
 
-Not ported yet (each raises "not yet ported"): MoE (``num_experts > 1``),
-ring attention, ``remat`` (a training knob), sampling (``temperature > 0``,
-``top_k``), and the contiguous-cache ``prefill`` / ``decode_step`` /
-``generate``. ``loss_fn``, ``make_train_step``, ``param_specs`` and
+Sampling keys. JAX threads a ``jax.random`` key through every sampled
+step; its stream cannot be reproduced here, so the port has keys of its
+own with the same roles: ``make_key(seed)`` (``PRNGKey``) and
+``split_key(key) -> (key, subkey)`` (``split``) are 64-bit integers mixed
+on the host (splitmix64), and a step draws from its subkey's two 32-bit
+words (``key_words``), passed to the device as an int64 tensor. The draw
+is Gumbel-max, as ``jax.random.categorical`` is: a counter-based hash of
+(key, row, vocabulary index) in int64 tensor ops (every product below
+2^63, so the integer stage is the same on the CPU and the card), 23 bits
+of it as a uniform strictly inside (0, 1), and ``argmax(logits / T +
+gumbel)``. Nothing reads a global generator, so a CUDA graph that takes
+the subkey as an input draws new numbers at every replay and the same
+numbers as the eager step.
+
+The contiguous cache is written in place (the JAX functions return a new
+cache that XLA updates in place): ``prefill`` and ``decode_step`` return
+the cache they were given, its K/V, cursor and lengths updated. The write
+cursor and the lengths stay device tensors, so one captured decode step
+serves every step of a generation.
+
+Where the port departs from the JAX code without changing the function:
+``prefill`` runs the final norm and the LM head on each row's last true
+position only (both are row-wise), as ``models/paged_decode.py`` does.
+
+Not ported yet (each raises "not yet ported"): MoE (``num_experts > 1``,
+in the config and in the cache paths), ring attention and ``remat`` (a
+training knob). ``loss_fn``, ``make_train_step``, ``param_specs`` and
 ``pp_stage_fns`` wait for the training and multi-device slices.
 """
 
@@ -21,8 +47,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from arkflow_tpu_torch.errors import ConfigError, not_ported
@@ -193,24 +220,314 @@ def apply(params: dict, cfg: DecoderConfig, *, input_ids: torch.Tensor) -> dict:
     return {"logits": logits, "next_token": select_token(logits[:, -1, :])}
 
 
-def select_token(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
-    """Greedy: [B, V] float32 logits -> [B] int32 ids. Sampling is not
-    ported yet."""
-    if temperature > 0.0 or top_k > 0:
-        raise not_ported("decoder_lm sampling (temperature > 0 / top_k)")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+# -- sampling keys and the draw ------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def make_key(seed: int) -> int:
+    """A sampling key from a seed (the role of ``jax.random.PRNGKey``)."""
+    return _splitmix64(int(seed) & _M64)
+
+
+def split_key(key: int) -> tuple[int, int]:
+    """(next key, subkey), on the host (the role of ``jax.random.split``)."""
+    return _splitmix64(key ^ 0x5851F42D4C957F2D), _splitmix64(key ^ 0x14057B7EF767814F)
+
+
+def key_words(key: int) -> np.ndarray:
+    """The key's low and high 32-bit words as int64: a step's key input."""
+    return np.asarray([key & 0xFFFFFFFF, key >> 32], np.int64)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 for int64 x in [0, 2^32): the constant in 16-bit
+    halves, so no product reaches 2^63."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply) on int64 tensors in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def open_uniform(h: torch.Tensor) -> torch.Tensor:
+    """The top 23 bits of 32-bit hashes as float32 uniforms strictly inside
+    (0, 1): ``(x + 0.5) / 2^23`` is exact in float32 for x < 2^23 (with 24
+    bits, ``2^24 - 0.5`` would round up to 1.0 and its Gumbel draw to
+    +inf, which a masked -inf logit turns into NaN)."""
+    return ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel_noise(key: torch.Tensor, rows: int, vocab: int, device) -> torch.Tensor:
+    """[rows, vocab] float32 standard Gumbel noise from a key's two words
+    (an int64 tensor of 2): a hash of (key, row, index), as a uniform in
+    (0, 1) (``open_uniform``), then ``-log(-log(u))``, finite."""
+    key = key.to(device=device, dtype=torch.int64)
+    row = torch.arange(rows, device=device, dtype=torch.int64)
+    col = torch.arange(vocab, device=device, dtype=torch.int64)
+    hr = _hash32(_hash32(row ^ key[0]) ^ key[1])
+    h = _hash32(_hash32(col[None, :] ^ hr[:, None]) ^ key[0])
+    return -torch.log(-torch.log(open_uniform(h)))
+
+
+def select_token(logits: torch.Tensor, key: Union[int, torch.Tensor, None] = None,
+                 temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
+    """Greedy (``temperature <= 0``) or temperature / top-k categorical
+    sampling: [B, V] float32 logits -> [B] int32 ids. ``key``: a key
+    (``make_key``/``split_key``) or its words as an int64 tensor; required
+    when sampling. Top-k keeps every logit at or above the k-th largest
+    (k clamped to the vocabulary), found by ``topk``, not a full sort."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if key is None:
+        raise ConfigError("select_token: sampling (temperature > 0) needs a key")
+    if not isinstance(key, torch.Tensor):
+        key = torch.from_numpy(key_words(key))
+    scaled = logits / temperature
+    if top_k > 0:
+        k = min(int(top_k), scaled.shape[-1])
+        kth = scaled.topk(k, dim=-1).values[..., -1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    noise = gumbel_noise(key, scaled.shape[0], scaled.shape[-1], scaled.device)
+    return torch.argmax(scaled + noise, dim=-1).to(torch.int32)
 
 
 def input_spec(cfg: DecoderConfig) -> dict:
     return {"input_ids": ("int32", ("seq",))}
 
 
-def _contiguous_cache(name: str):
-    def unported(*args, **kwargs):
-        raise not_ported(f"decoder_lm {name} (the contiguous KV cache)")
+# -- the contiguous KV cache (batched generation) ------------------------------
 
-    unported.__name__ = name
-    return unported
+
+def _no_moe(cfg: DecoderConfig, name: str) -> None:
+    if cfg.num_experts > 1:
+        raise not_ported(f"decoder_lm {name} with num_experts > 1 (MoE)")
+
+
+def head(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + LM head: [..., dim] -> [..., vocab] float32 logits."""
+    return cm.dense(params["lm_head"], cm.rms_norm(params["norm_out"], x, cfg.norm_eps)).float()
+
+
+def last_rows(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Row b's hidden state at position clip(n[b] - 1, 0, T - 1)."""
+    last = (n.long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, device=None) -> dict:
+    """Cache layout for ragged batched generation, as in JAX:
+
+    - ``k``, ``v``: [layers, batch, max_len, kv_heads, dh] bfloat16;
+    - ``length``: the write cursor (one slot for every row), a 0-d int32;
+    - ``lengths``: [batch] per-row true context lengths (RoPE positions;
+      the padding slots between ``lengths[i]`` and ``prompt_len`` stay
+      masked out of attention forever);
+    - ``prompt_len``: width of the prefilled block (0 = pure stepwise)."""
+    dh = cfg.dim // cfg.heads
+    shape = (cfg.layers, batch, max_len, cfg.kv_heads, dh)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)  # noqa: E731
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "length": zeros(), "lengths": zeros(batch), "prompt_len": zeros()}
+
+
+def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor, cache: dict,
+            lengths: Optional[torch.Tensor] = None, return_logits: bool = False):
+    """Fill a FRESH cache with right-padded prompts in one forward pass.
+
+    input_ids: [B, T]; ``lengths``: [B] true prompt lengths (default T for
+    every row). Attention masks each row's padding keys out, and the next
+    token is read at position ``lengths[i] - 1``. K/V go into the cache as
+    bfloat16, but this pass attends with the fresh (unrounded) k and v, as
+    the JAX function does. The cursor lands at T. Returns (next ids [B]
+    int32 -- or the last true position's logits [B, vocab] with
+    ``return_logits`` -- , cache), the cache updated in place."""
+    _no_moe(cfg, "prefill")
+    b, t = input_ids.shape
+    dev = input_ids.device
+    dh = cfg.dim // cfg.heads
+    group = cfg.heads // cfg.kv_heads
+    if lengths is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
+    lengths = lengths.to(dev)
+    positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+    rope = rope_angles(positions, dh, cfg.rope_theta)
+    causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None, None]
+    key_valid = (positions < lengths[:, None])[:, None, None, :]
+    mask = causal & key_valid
+    x = cm.embedding(params["embed"], input_ids)
+    for i in range(num_layers(params)):
+        lp = layer_params(params["layers"], i)
+        y = cm.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q = apply_rope(cm.dense(lp["wq"], y).reshape(b, t, cfg.heads, dh), *rope)
+        k = apply_rope(cm.dense(lp["wk"], y).reshape(b, t, cfg.kv_heads, dh), *rope)
+        v = cm.dense(lp["wv"], y).reshape(b, t, cfg.kv_heads, dh)
+        cache["k"][i, :, :t] = k.to(torch.bfloat16)
+        cache["v"][i, :, :t] = v.to(torch.bfloat16)
+        attn = cm.attention(q, k.repeat_interleave(group, dim=2),
+                            v.repeat_interleave(group, dim=2), mask)
+        x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+    logits = head(params, cfg, last_rows(x, lengths))
+    cache["length"].fill_(t)
+    cache["lengths"].copy_(lengths)
+    cache["prompt_len"].fill_(t)
+    if return_logits:
+        return logits, cache
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def decode_step(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor, cache: dict,
+                return_logits: bool = False):
+    """One token per sequence: [B, 1] ids + cache -> ([B] next ids -- or
+    [B, vocab] logits with ``return_logits`` -- , cache). The new K/V go in
+    at the shared cursor; RoPE positions are the per-row ``lengths``; a row
+    attends its real prompt keys (``k < lengths``) and the generated block
+    (``prompt_len <= k <= cursor``), from the bfloat16 cache. The cursor and
+    the lengths advance by one, in place."""
+    _no_moe(cfg, "decode_step")
+    b = token_ids.shape[0]
+    dev = token_ids.device
+    dh = cfg.dim // cfg.heads
+    group = cfg.heads // cfg.kv_heads
+    pos = cache["length"]
+    lengths = cache["lengths"]
+    prompt_len = cache["prompt_len"]
+    max_len = cache["k"].shape[2]
+    rope = rope_angles(lengths[:, None], dh, cfg.rope_theta)
+    ks = torch.arange(max_len, device=dev)[None, :]
+    valid = ((ks < lengths[:, None]) | ((ks >= prompt_len) & (ks <= pos)))[:, None, None, :]
+    at = pos.reshape(1).long()
+    x = cm.embedding(params["embed"], token_ids)
+    for i in range(num_layers(params)):
+        lp = layer_params(params["layers"], i)
+        y = cm.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q = apply_rope(cm.dense(lp["wq"], y).reshape(b, 1, cfg.heads, dh), *rope)
+        k = apply_rope(cm.dense(lp["wk"], y).reshape(b, 1, cfg.kv_heads, dh), *rope)
+        v = cm.dense(lp["wv"], y).reshape(b, 1, cfg.kv_heads, dh)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache.index_copy_(1, at, k.to(torch.bfloat16))
+        v_cache.index_copy_(1, at, v.to(torch.bfloat16))
+        attn = cm.attention(q, k_cache.repeat_interleave(group, dim=2),
+                            v_cache.repeat_interleave(group, dim=2), valid)
+        x = x + cm.dense(lp["wo"], attn.reshape(b, 1, cfg.heads * dh))
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+    logits = head(params, cfg, x[:, -1, :])
+    pos.add_(1)
+    lengths.add_(1)
+    if return_logits:
+        return logits, cache
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def generation_keys(key: int, max_new_tokens: int) -> np.ndarray:
+    """The subkeys one generation draws with, split as JAX's ``generate``
+    splits its key: row 0 for the prefill's token, row 1 + s for loop step
+    s (step 0 emits the prefill's token and draws nothing). [max_new + 1,
+    2] int64 words."""
+    key, sub = split_key(key)
+    subs = [sub]
+    for _ in range(max_new_tokens):
+        key, sub = split_key(key)
+        subs.append(sub)
+    return np.stack([key_words(k) for k in subs])
+
+
+def emit(state: dict, nxt: torch.Tensor, eos_id: int) -> None:
+    """One loop step's bookkeeping, in place on the generation state
+    (``nxt``, ``done``, ``counts``, ``out``, ``step``): a row not yet done
+    that did not pick EOS emits its token at column ``step``, others emit
+    0; EOS marks the row done; the step advances."""
+    done = state["done"]
+    is_eos = nxt == eos_id
+    keep = ~done & ~is_eos
+    col = state["step"].reshape(1, 1).expand(nxt.shape[0], 1)
+    state["out"].scatter_(1, col, torch.where(keep, nxt, 0)[:, None])
+    state["counts"].add_(keep.to(torch.int32))
+    done.logical_or_(is_eos)
+    state["nxt"].copy_(nxt)
+    state["step"].add_(1)
+
+
+def generation_state(batch: int, max_new_tokens: int, device=None) -> dict:
+    """The loop state of one generation (the JAX while-loop carry beside
+    the cache)."""
+    return {"nxt": torch.zeros(batch, dtype=torch.int32, device=device),
+            "done": torch.zeros(batch, dtype=torch.bool, device=device),
+            "counts": torch.zeros(batch, dtype=torch.int32, device=device),
+            "out": torch.zeros(batch, max_new_tokens, dtype=torch.int32, device=device),
+            "step": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def start_generation(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                     lengths: torch.Tensor, n_real: torch.Tensor, keys: torch.Tensor,
+                     cache: dict, state: dict, *, eos_id: int, temperature: float,
+                     top_k: int) -> None:
+    """Prefill into ``cache``, pick the first token with ``keys[0]``, and
+    run loop step 0 (its emission): the state is reset first, rows at or
+    past ``n_real`` start done (batch padding never gates the exit)."""
+    cache["k"].zero_()
+    cache["v"].zero_()
+    logits, _ = prefill(params, cfg, input_ids, cache, lengths=lengths, return_logits=True)
+    nxt = select_token(logits, keys[0], temperature, top_k)
+    b = input_ids.shape[0]
+    state["done"].copy_(torch.arange(b, device=input_ids.device) >= n_real.reshape(()))
+    state["counts"].zero_()
+    state["out"].zero_()
+    state["step"].zero_()
+    emit(state, nxt, eos_id)
+
+
+def continue_generation(params: dict, cfg: DecoderConfig, keys: torch.Tensor, cache: dict,
+                        state: dict, *, eos_id: int, temperature: float, top_k: int) -> None:
+    """One loop step after step 0: decode the last picked tokens at the top
+    of the step, pick with ``keys[1 + step]``, emit."""
+    logits, _ = decode_step(params, cfg, state["nxt"][:, None], cache, return_logits=True)
+    key = keys.index_select(0, state["step"].reshape(1) + 1)[0]
+    emit(state, select_token(logits, key, temperature, top_k), eos_id)
+
+
+def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+             lengths: torch.Tensor, max_new_tokens: int, eos_id: int = 2,
+             n_real: Optional[int] = None, temperature: float = 0.0, top_k: int = 0,
+             rng_key: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-sequence generation: prefill, then a loop that decodes at the
+    TOP for steps >= 1 and exits early once every row is done (EOS), as the
+    JAX ``while_loop`` does; op by op, reading ``all(done)`` on the host
+    every step. ``temperature <= 0`` is greedy; otherwise temperature /
+    top-k sampling from ``rng_key`` (``make_key``; default key 0), one
+    split per step. Returns (tokens [B, max_new_tokens] int32, zero-padded
+    after EOS, counts [B] of real tokens per row)."""
+    _no_moe(cfg, "generate")
+    b, t = input_ids.shape
+    dev = input_ids.device
+    keys = torch.from_numpy(generation_keys(make_key(0) if rng_key is None else rng_key,
+                                            max_new_tokens)).to(dev)
+    cache = init_kv_cache(cfg, b, t + max_new_tokens, dev)
+    state = generation_state(b, max_new_tokens, dev)
+    n = torch.tensor(b if n_real is None else int(n_real), device=dev)
+    sample = dict(eos_id=eos_id, temperature=temperature, top_k=top_k)
+    start_generation(params, cfg, input_ids, lengths.to(dev), n, keys, cache, state, **sample)
+    for _ in range(1, max_new_tokens):
+        if bool(state["done"].all()):
+            break
+        continue_generation(params, cfg, keys, cache, state, **sample)
+    return state["out"], state["counts"]
 
 
 register_model(
@@ -224,9 +541,10 @@ register_model(
             "forward": forward,
             "llama3_8b": llama3_8b,
             "select_token": select_token,
-            "prefill": _contiguous_cache("prefill"),
-            "decode_step": _contiguous_cache("decode_step"),
-            "generate": _contiguous_cache("generate"),
+            "init_kv_cache": init_kv_cache,
+            "prefill": prefill,
+            "decode_step": decode_step,
+            "generate": generate,
         },
     )
 )

@@ -39,6 +39,8 @@ from arkflow_tpu_torch.models.decoder import (
     DecoderConfig,
     _mlp,
     apply_rope,
+    head,
+    last_rows,
     layer_params,
     num_layers,
     rope_angles,
@@ -85,17 +87,6 @@ def _attend_gather(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     return cm.attention(q, kk, vv, mask)
 
 
-def _head(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head: [..., dim] -> [..., vocab] float32 logits."""
-    return cm.dense(params["lm_head"], cm.rms_norm(params["norm_out"], x, cfg.norm_eps)).float()
-
-
-def _last_rows(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """Row b's hidden state at position clip(n[b] - 1, 0, T - 1)."""
-    last = (n.long() - 1).clamp(0, x.shape[1] - 1)
-    return x[torch.arange(x.shape[0], device=x.device), last]
-
-
 def paged_prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                   lengths: torch.Tensor, page_table: torch.Tensor, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, return_logits: bool = False, kv_sharding=None):
@@ -135,7 +126,7 @@ def paged_prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                             v.repeat_interleave(group, dim=2), mask)
         x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
         x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
-    logits = _head(params, cfg, _last_rows(x, lengths))
+    logits = head(params, cfg, last_rows(x, lengths))
     if return_logits:
         return logits, k_pages, v_pages
     return torch.argmax(logits, dim=-1).to(torch.int32), k_pages, v_pages
@@ -193,8 +184,8 @@ def paged_prefill_chunk(params: dict, cfg: DecoderConfig, input_ids: torch.Tenso
         x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
         x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
     if return_all:
-        return _head(params, cfg, x), k_pages, v_pages
-    return _head(params, cfg, _last_rows(x, chunk_len.to(dev))), k_pages, v_pages
+        return head(params, cfg, x), k_pages, v_pages
+    return head(params, cfg, last_rows(x, chunk_len.to(dev))), k_pages, v_pages
 
 
 def paged_decode_step(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
@@ -246,7 +237,7 @@ def paged_decode_step(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
             attn = _attend_gather(q, kp, vp, page_table, valid, cfg)
         x = x + cm.dense(lp["wo"], attn.reshape(s, 1, cfg.heads * dh))
         x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
-    logits = _head(params, cfg, x[:, -1, :])
+    logits = head(params, cfg, x[:, -1, :])
     if return_logits:
         return logits, k_pages, v_pages
     return torch.argmax(logits, dim=-1).to(torch.int32), k_pages, v_pages

@@ -142,7 +142,10 @@ def server_twin(server: GenerationServer, eager: bool, params: dict | None = Non
               max_seq=server.max_seq, eos_id=server.eos_id,
               prompt_buckets=server.prompt_buckets, prefill_chunk=server.prefill_chunk,
               decode_kernel=server.decode_kernel, dispatch_depth=server.dispatch_depth,
-              record_margins=server.record_margins)
+              record_margins=server.record_margins, temperature=server.temperature,
+              top_k=server.top_k, seed=server.seed, check_top_k=server.check_top_k,
+              speculative_tokens=server.speculative_tokens,
+              prefix_cache_pages=server.prefix_cache_pages)
     return GenerationServer(server.params if params is None else params, server.cfg,
                             kernel_parity_check=False, eager=eager, **{**kw, **overrides})
 
@@ -434,7 +437,7 @@ def profile_stream(cfg: dict, trace_dir=None, eager: bool = False) -> dict:
     engine = Engine(EngineConfig.from_mapping(cfg))
     stream = engine.build()[0]
     proc = stream.pipeline.processors[0]
-    if eager and hasattr(proc, "server"):
+    if eager and getattr(proc, "server", None) is not None:
         proc.server = proc.runner = server_twin(proc.server, eager=True)
     elif eager:
         proc.runner = eager_twin(proc.runner)

@@ -24,7 +24,9 @@ Capture, at the first step of a key:
   that stream before the capture needs them;
 - then ``torch.cuda.graph(..., capture_error_mode="thread_local")``: other
   executor threads may pin memory or wait on events meanwhile, which the
-  default global mode would count against the capture.
+  default global mode would count against the capture. Automatic garbage
+  collection is off while it runs: a collection in the capturing thread
+  could destroy another object's graph, which invalidates the capture.
 
 The graphs of one ``CompiledStep`` share one memory pool. That is safe
 because every step is issued on the one stream of the device in the order
@@ -68,6 +70,7 @@ Three lifecycle primitives (the swap, repair and rebuild of the runner,
 
 from __future__ import annotations
 
+import gc
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -195,6 +198,11 @@ class CompiledStep:
                 step = self._copy_out(fn(**static), out, event)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            # no automatic collection inside the capture: it could free
+            # another object's graph here (``cudaGraphExecDestroy``), which
+            # a capturing stream refuses, and the capture would be lost
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with capturing() as launched:
                     with torch.cuda.graph(graph, pool=self._pool, stream=side,
@@ -206,6 +214,9 @@ class CompiledStep:
                     self._pool = None
                 torch.cuda.empty_cache()
                 raise _first_oom(e) from e
+            finally:
+                if collecting:
+                    gc.enable()
             entry.graph, entry.launches = graph, launched
         self._entries[key] = entry
         self.replays[key] = 0

@@ -734,10 +734,16 @@ def build_generate_integrity_monitor(proc, *, model: str,
     is that of the tree's first float leaf's dtype, as in JAX. The golden
     reference of a tree is computed on the live tensors, which hold it bit
     for bit at build and after a committed swap: the 16 GB host tree of a
-    Llama-3-8B model is not placed a second time."""
+    Llama-3-8B model is not placed a second time. ``serving: batch`` holds
+    no resident member to probe: the block raises there, with JAX's words."""
     if cfg is None:
         return None
     server = proc.server
+    if server is None:
+        raise ConfigError(
+            "gpu_generate: integrity requires serving: continuous (batch "
+            "mode holds no resident serving member to probe); drop the "
+            "integrity block or switch serving modes")
     dtype = serving_dtype_of(server.params)
 
     def factory(host) -> GoldenReference:

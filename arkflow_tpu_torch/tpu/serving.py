@@ -16,15 +16,40 @@ work rides along mid-flight (continuous batching, as in vLLM/Orca).
 The steps are compiled (``tpu/compiled_step.py``): one CUDA graph per step
 key, keyed as the JAX server's ``_seen_steps`` keys its jitted steps, with
 the attention path beside it -- ``("decode", kernel)``, ``("prefill",
-bucket)`` for every prompt bucket a one-shot prefill can take, and
-``("chunk", prefill_chunk, kernel)`` -- captured at ``warmup`` (the
-``gpu_generate`` processor's connect) or at a key's first step, and
-replayed after. The graphs' static inputs are the token ids, lengths,
-active mask, ``[slots, pages_per_slot]`` page table, offset and chunk
-length; the params and the KV pools are captured in place, and the greedy
-pick and the top-2 gap run inside the graph. ``eager=True`` (a keyword
+bucket)`` for every prompt bucket a one-shot prefill can take,
+``("chunk", width, kernel)`` (the prefill chunk, or with the prefix cache
+and no chunking each prompt bucket) and ``("verify", k, kernel)`` for
+speculative decoding -- captured at ``warmup`` (the ``gpu_generate``
+processor's connect) or at a key's first step, and replayed after. The
+graphs' static inputs are the token ids, lengths, active mask, ``[slots,
+pages_per_slot]`` page table, offset, chunk length and, when sampling, the
+step's subkey; the params and the KV pools are captured in place, and the
+pick (greedy, or the sampled draw of ``decoder.select_token``), the top-2
+gap and the top-k check run inside the graph. ``eager=True`` (a keyword
 only) runs every step op by op, for A/B comparisons; the init-time parity
 gate always runs eagerly, before any capture.
+
+The generation features of the JAX server:
+
+- **Sampling** (``temperature > 0``, ``top_k``): the server's key
+  (``decoder.make_key(seed)``) is split on the event loop where JAX splits
+  its ``_key`` -- a one-shot prefill, a prompt's final chunk and a
+  classic decode step -- and the subkey goes into the graph as an input,
+  so a replay draws new numbers and the same numbers as the eager step.
+  ``check_top_k`` (a keyword) adds an in-graph check that every picked
+  token lies in its step's top-k set; misses are counted.
+- **The prefix cache** (``prefix_cache_pages``): a finished request donates
+  its prompt's FULL pages to an LRU keyed by the token prefix; a later
+  request with that prefix aliases them (refcounted; decode only writes
+  positions at or past the prompt, so they are read-only) and prefills the
+  rest through the chunk step from the cached boundary. Every place that
+  zeroes or renews the pools (a reset after an error or a deadline miss, a
+  swap, a repair) flushes the cache with them.
+- **Speculative decoding** (``speculative_tokens``, greedy): each active
+  slot drafts up to k - 1 tokens by 2-gram lookup over its own history and
+  scores them with its current token in one ``("verify", k, kernel)`` step
+  (``paged_prefill_chunk(return_all=True)``, K3 with k queries at the
+  slot's length); the argmax-consistent prefix is accepted.
 
 Inputs go to the card from persistent pinned host buffers (one set per step
 key, and per depth slot for decode) without a synchronisation, and each
@@ -81,11 +106,10 @@ The lifecycle (the JAX server's self-healing, swap and integrity surfaces):
   in place (the leaf JAX's ``_bitflip_params`` picks); ``sdc`` raises, as
   in JAX: the token is picked on the device.
 
-Not ported yet (each raises "not yet ported"): sampling (``temperature >
-0``, ``top_k``), ``speculative_tokens``, ``prefix_cache_pages``, ``mesh``
-(tensor-parallel pools), and the disaggregation entry points
-(``prefill_export``, ``generate_from_pages``). Plain integer counters take
-the place of the registry metrics.
+Not ported yet: ``mesh`` (tensor-parallel pools; raises "not yet ported")
+and the disaggregation entry points (``prefill_export``,
+``generate_from_pages``). Plain integer counters take the place of the
+registry metrics.
 """
 
 from __future__ import annotations
@@ -94,7 +118,7 @@ import asyncio
 import logging
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -103,7 +127,8 @@ import torch
 
 from arkflow_tpu_torch.errors import (ArkError, ConfigError, StepDeadlineExceeded, SwapError,
                                      not_ported)
-from arkflow_tpu_torch.models.decoder import DecoderConfig, select_token
+from arkflow_tpu_torch.models.decoder import (DecoderConfig, key_words, make_key,
+                                             select_token, split_key)
 from arkflow_tpu_torch.models.paged_decode import (
     init_page_pool,
     paged_decode_step,
@@ -142,14 +167,18 @@ class _Request:
 class _Fetch:
     """One step's next tokens on their way to the host: the device tensor
     (fed straight into the next decode dispatch), and the host set whose
-    output buffers receive them and the top-2 gaps (``record_margins``),
-    with its event recorded right after the copies."""
+    output buffers receive them, the top-2 gaps (``record_margins``) and the
+    top-k misses (``check_top_k``), with its event recorded right after the
+    copies; ``misses`` receives the top-k misses."""
 
     nxt: torch.Tensor
     bufs: HostSet
+    misses: Optional[Callable[[int], None]] = None
 
     def wait(self) -> tuple[np.ndarray, Optional[np.ndarray]]:
         out = self.bufs.outputs()
+        if "topk_miss" in out and self.misses is not None:
+            self.misses(int(out["topk_miss"].sum()))
         return out["nxt"], out.get("margin")
 
 
@@ -199,28 +228,24 @@ def _jax_leaf_order(tree: dict, path: tuple = ()) -> list[tuple[tuple, torch.Ten
 
 
 class GenerationServer:
-    """Greedy continuous-batching decode over ``slots`` lockstep lanes."""
+    """Continuous-batching decode over ``slots`` lockstep lanes: greedy, or
+    sampled; with the prefix cache and speculative decoding on request."""
 
     def __init__(self, params: dict, cfg: DecoderConfig, *, slots: int = 8,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_seq: int = 512, eos_id: int = 2,
                  prompt_buckets: Optional[list[int]] = None,
-                 temperature: float = 0.0, top_k: int = 0,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  prefill_chunk: int = 0, speculative_tokens: int = 0,
                  prefix_cache_pages: int = 0, mesh=None,
                  decode_kernel: str = "auto", kernel_parity_check: bool = True,
                  dispatch_depth: int = 1, step_deadline_s: Optional[float] = None,
                  step_deadline_first_s: Optional[float] = None,
                  health_config: Optional[HealthConfig] = None, name: str = "decoder_lm",
-                 record_margins: bool = False, eager: bool = False):
-        for what, unported in (("temperature > 0 / top_k (sampling)", temperature > 0 or top_k > 0),
-                               ("speculative_tokens", speculative_tokens > 0),
-                               ("prefix_cache_pages", prefix_cache_pages > 0),
-                               ("mesh (tensor-parallel serving)", mesh is not None)):
-            if unported:
-                raise not_ported(f"GenerationServer {what}")
-        if speculative_tokens < 0 or prefix_cache_pages < 0:
-            raise ConfigError("speculative_tokens and prefix_cache_pages must be >= 0")
+                 record_margins: bool = False, check_top_k: bool = False,
+                 eager: bool = False):
+        if mesh is not None:
+            raise not_ported("GenerationServer mesh (tensor-parallel serving)")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["table"].device
@@ -249,6 +274,36 @@ class GenerationServer:
         #: slot -> next absolute prefill offset (present while admitting)
         self._prefill_pos: dict[int, int] = {}
         self._turn_prefill = True  # alternate chunk/decode under contention
+
+        # the prefix cache (0 = off; N = max cached pages): an LRU keyed by
+        # the token prefix, of the FULL prompt pages finished requests donate
+        self.prefix_cache_pages = int(prefix_cache_pages)
+        if self.prefix_cache_pages < 0:
+            raise ConfigError("prefix_cache_pages must be >= 0")
+        self._prefix_cache: OrderedDict[tuple, list[int]] = OrderedDict()
+        #: DISTINCT pages held by cache entries (page -> entry count): nested
+        #: prefixes share pages, so capacity counts physical pages
+        self._cache_pages: dict[int, int] = {}
+        #: token lengths present in the cache (length -> entry count): a
+        #: lookup probes only stored lengths
+        self._prefix_lengths: dict[int, int] = {}
+
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        #: the sampling key, split on the event loop per sampled step
+        self._key = make_key(self.seed)
+        self.check_top_k = bool(check_top_k)
+        # speculative decoding: k - 1 drafts by 2-gram lookup, verified with
+        # the current token in one chunk step; greedy only (acceptance
+        # compares argmax)
+        self.speculative_tokens = int(speculative_tokens)
+        if self.speculative_tokens < 0:
+            raise ConfigError("speculative_tokens must be >= 0")
+        if self.speculative_tokens > 0 and self.temperature != 0.0:
+            raise ConfigError(
+                "speculative_tokens requires greedy decoding (temperature 0); "
+                "sampled acceptance is not implemented")
 
         self._free_pages: list[int] = list(range(1, self.num_pages))
         self._page_refs: dict[int, int] = {}
@@ -279,6 +334,16 @@ class GenerationServer:
             raise ConfigError(
                 "dispatch_depth > 2 is not supported: lockstep decode can only lag "
                 "host bookkeeping by one step")
+        if self.dispatch_depth > 1:
+            if self.temperature != 0.0:
+                raise ConfigError(
+                    "dispatch_depth > 1 requires greedy decoding "
+                    "(temperature 0): a lane that finished at step N still "
+                    "rides step N+1, which would consume sampling RNG")
+            if self.speculative_tokens > 0:
+                raise ConfigError(
+                    "dispatch_depth > 1 and speculative_tokens are mutually "
+                    "exclusive (both restructure the decode loop)")
         self._pipeline: Optional[_InFlightDecode] = None
         self.record_margins = bool(record_margins)
         #: one CUDA graph per step key (``eager``: none, for A/B runs)
@@ -304,10 +369,21 @@ class GenerationServer:
         self.tokens = 0
         self.truncations = 0
         self.pipelined_dispatches = 0
-        #: steps dispatched to the device per kind (decode, chunk, prefill):
-        #: traffic, warmup and recapture steps, and abandoned steps that
-        #: ran after all
-        self.device_steps = dict.fromkeys(("decode", "chunk", "prefill"), 0)
+        self.verify_steps = 0
+        #: speculative drafts offered for verification, and accepted
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        #: admissions that reused cached prefix pages, the pages they
+        #: aliased, and cache entries evicted
+        self.prefix_hits = 0
+        self.prefix_pages_shared = 0
+        self.prefix_evictions = 0
+        #: picked tokens outside their step's top-k set (``check_top_k``)
+        self.top_k_misses = 0
+        #: steps dispatched to the device per kind (decode, chunk, prefill,
+        #: verify): traffic, warmup and recapture steps, and abandoned steps
+        #: that ran after all
+        self.device_steps = dict.fromkeys(("decode", "chunk", "prefill", "verify"), 0)
         self._count_lock = threading.Lock()
         #: KV pools allocated anew after a deadline miss
         self.pool_renewals = 0
@@ -350,14 +426,52 @@ class GenerationServer:
         fetched (or, for a chunk that is not its prompt's last, dispatched)."""
         return self._duty.share()
 
-    def _select(self, logits: torch.Tensor) -> dict[str, torch.Tensor]:
-        """The step's outputs, inside the graph: the greedy pick, and the
-        top-2 logit gap with ``record_margins``."""
-        out = {"nxt": select_token(logits)}
+    @property
+    def sampling(self) -> bool:
+        return self.temperature > 0.0
+
+    def _select(self, logits: torch.Tensor, key: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None) -> dict[str, torch.Tensor]:
+        """The step's outputs, inside the graph: the pick (greedy, or drawn
+        with the step's subkey ``key``), the top-2 logit gap with
+        ``record_margins``, and with ``check_top_k`` the rows (``active``
+        ones) whose pick lies outside the step's top-k set."""
+        nxt = select_token(logits, key, self.temperature, self.top_k)
+        out = {"nxt": nxt}
         if self.record_margins:
             top = logits.topk(2, dim=-1).values
             out["margin"] = top[:, 0] - top[:, 1]
+        if self.check_top_k:
+            picked = logits.gather(1, nxt.long()[:, None])[:, 0]
+            if self.top_k > 0:
+                kth = logits.topk(min(self.top_k, logits.shape[-1]), dim=-1).values[:, -1]
+                miss = picked < kth
+            else:  # no top-k filter: any finite logit may be drawn
+                miss = ~torch.isfinite(picked)
+            if active is not None:
+                miss = miss & active
+            out["topk_miss"] = miss.to(torch.int32).sum().reshape(1)
         return out
+
+    def _note_top_k_misses(self, n: int) -> None:
+        with self._count_lock:
+            self.top_k_misses += n
+
+    def _sample_input(self, key: Optional[int]) -> dict[str, np.ndarray]:
+        """The step's subkey input (sampling servers only; zeros when the
+        step draws nothing, as at a capture or a chunk that is not its
+        prompt's last)."""
+        if not self.sampling:
+            return {}
+        return {"key": key_words(0 if key is None else key)}
+
+    def _split(self) -> Optional[int]:
+        """A subkey of the server's key, split on the event loop (sampling
+        servers only)."""
+        if not self.sampling:
+            return None
+        self._key, sub = split_key(self._key)
+        return sub
 
     def _bound(self) -> _Bound:
         return _Bound(self._compiled, self._host, self.k_pages, self.v_pages)
@@ -381,7 +495,7 @@ class GenerationServer:
         step = bound.compiled.run(key, fn, {**bufs.inputs, **on_device},
                                   out=bufs.out, event=bufs.event)
         bufs.take(step)
-        return _Fetch(step.result["nxt"], bufs)
+        return _Fetch(step.result["nxt"], bufs, self._note_top_k_misses)
 
     async def _run_device_step(self, key: tuple, step: Callable[[_Bound], object],
                                track: bool = True):
@@ -432,24 +546,28 @@ class GenerationServer:
     def _decode_key(self, kernel: Optional[str] = None) -> tuple:
         return ("decode", kernel or self.decode_kernel)
 
-    def _chunk_key(self, kernel: Optional[str] = None) -> tuple:
-        return ("chunk", self.prefill_chunk, kernel or self.decode_kernel)
+    def _chunk_key(self, width: Optional[int] = None, kernel: Optional[str] = None) -> tuple:
+        return ("chunk", width or self.prefill_chunk, kernel or self.decode_kernel)
+
+    def _verify_key(self, kernel: Optional[str] = None) -> tuple:
+        return ("verify", self.speculative_tokens + 1, kernel or self.decode_kernel)
 
     def _decode(self, cur, lens: np.ndarray, act: np.ndarray, table: np.ndarray,
-                bound: Optional[_Bound] = None, kernel: Optional[str] = None) -> _Fetch:
+                bound: Optional[_Bound] = None, kernel: Optional[str] = None,
+                key: Optional[int] = None) -> _Fetch:
         """Dispatch one lockstep decode step (no synchronisation). ``cur``:
         the slots' tokens, on the host or on the device (a pipelined step's
         next tokens, copied into the graph's static input in stream order);
         the decode sets alternate over the depth's slots."""
         bound = bound or self._bound()
-        key = self._decode_key(kernel)
+        step_key = self._decode_key(kernel)
         kp, vp = bound.k_pages, bound.v_pages
 
-        def fn(token_ids, lengths, active, page_table):
+        def fn(token_ids, lengths, active, page_table, key=None):
             logits, _, _ = paged_decode_step(
                 self.params, self.cfg, token_ids, lengths, active, page_table,
-                kp, vp, return_logits=True, attention_kernel=key[1])
-            return self._select(logits)
+                kp, vp, return_logits=True, attention_kernel=step_key[1])
+            return self._select(logits, key, active)
 
         sets = bound.host
         slot, sets.decode_turn = sets.decode_turn, (sets.decode_turn + 1) % self.dispatch_depth
@@ -457,42 +575,64 @@ class GenerationServer:
         # a device ``cur`` stands in for the set's token ids, whose host
         # copy then carries the host state unused
         host_cur = self._cur_tokens if on_device else cur
-        return self._dispatch(key, fn,
+        return self._dispatch(step_key, fn,
                               {"token_ids": host_cur, "lengths": lens, "active": act,
-                               "page_table": table}, bound, slot, **on_device)
+                               "page_table": table, **self._sample_input(key)},
+                              bound, slot, **on_device)
 
     def _prefill(self, ids: np.ndarray, n: int, table: np.ndarray,
-                 bound: Optional[_Bound] = None) -> _Fetch:
+                 bound: Optional[_Bound] = None, key: Optional[int] = None) -> _Fetch:
         bound = bound or self._bound()
         kp, vp = bound.k_pages, bound.v_pages
 
-        def fn(input_ids, lengths, page_table):
+        def fn(input_ids, lengths, page_table, key=None):
             logits, _, _ = paged_prefill(self.params, self.cfg, input_ids, lengths, page_table,
                                          kp, vp, return_logits=True)
-            return self._select(logits)
+            return self._select(logits, key)
 
         return self._dispatch(("prefill", ids.shape[1]), fn,
                               {"input_ids": ids, "lengths": np.asarray([n], np.int32),
-                               "page_table": table}, bound)
+                               "page_table": table, **self._sample_input(key)}, bound)
 
     def _chunk(self, ids: np.ndarray, off: int, clen: int, table: np.ndarray,
                final: bool, bound: Optional[_Bound] = None,
-               kernel: Optional[str] = None) -> Optional[_Fetch]:
+               kernel: Optional[str] = None, key: Optional[int] = None) -> Optional[_Fetch]:
         bound = bound or self._bound()
-        key = ("chunk", ids.shape[1], kernel or self.decode_kernel)
+        step_key = self._chunk_key(ids.shape[1], kernel)
+        kp, vp = bound.k_pages, bound.v_pages
+
+        def fn(input_ids, chunk_off, chunk_len, page_table, key=None):
+            logits, _, _ = paged_prefill_chunk(
+                self.params, self.cfg, input_ids, chunk_off, chunk_len, page_table,
+                kp, vp, attention_kernel=step_key[2])
+            return self._select(logits, key)
+
+        fetch = self._dispatch(step_key, fn,
+                               {"input_ids": ids, "chunk_off": np.asarray([off], np.int32),
+                                "chunk_len": np.asarray([clen], np.int32),
+                                "page_table": table, **self._sample_input(key)}, bound)
+        return fetch if final else None
+
+    def _verify(self, ids: np.ndarray, lens: np.ndarray, clen: np.ndarray, table: np.ndarray,
+                bound: Optional[_Bound] = None, kernel: Optional[str] = None) -> _Fetch:
+        """Dispatch one speculative verify step over every slot: each slot's
+        ``clen`` tokens (its current one, then its drafts) scored at its
+        length in one chunk call; the argmax (and the top-2 gap) at every
+        position, [slots, k]."""
+        bound = bound or self._bound()
+        step_key = self._verify_key(kernel)
         kp, vp = bound.k_pages, bound.v_pages
 
         def fn(input_ids, chunk_off, chunk_len, page_table):
             logits, _, _ = paged_prefill_chunk(
                 self.params, self.cfg, input_ids, chunk_off, chunk_len, page_table,
-                kp, vp, attention_kernel=key[2])
-            return self._select(logits)
+                kp, vp, return_all=True, attention_kernel=step_key[2])
+            s, k, v = logits.shape
+            out = self._select(logits.reshape(s * k, v))
+            return {name: t.reshape(s, k) for name, t in out.items() if name != "topk_miss"}
 
-        fetch = self._dispatch(key, fn,
-                               {"input_ids": ids, "chunk_off": np.asarray([off], np.int32),
-                                "chunk_len": np.asarray([clen], np.int32),
-                                "page_table": table}, bound)
-        return fetch if final else None
+        return self._dispatch(step_key, fn, {"input_ids": ids, "chunk_off": lens,
+                                             "chunk_len": clen, "page_table": table}, bound)
 
     def _one_shot_buckets(self) -> list[int]:
         """The prompt buckets a one-shot prefill can take: with chunking,
@@ -501,13 +641,22 @@ class GenerationServer:
         return [x for i, x in enumerate(b)
                 if not self.prefill_chunk or i == 0 or b[i - 1] < self.prefill_chunk]
 
+    def _chunk_widths(self) -> list[int]:
+        """The widths a chunk step can take: the prefill chunk; or, with the
+        prefix cache and no chunking, a cached prompt's remainder in one
+        bucketed span (every prompt bucket)."""
+        if self.prefill_chunk:
+            return [self.prefill_chunk]
+        return list(self.prompt_buckets) if self.prefix_cache_pages else []
+
     def warmup(self) -> int:
-        """Capture every step graph before traffic: decode, the chunk (when
-        chunking) and every one-shot prefill bucket. Returns the number of
-        keys captured (0 with ``eager``)."""
+        """Capture every step graph before traffic: decode (or, speculative,
+        verify), every chunk width and every one-shot prefill bucket.
+        Returns the number of keys captured (0 with ``eager``)."""
         if self._compiled.eager:
             return 0
-        keys = [self._decode_key()] + ([self._chunk_key()] if self.prefill_chunk else [])
+        keys = [self._verify_key() if self.speculative_tokens else self._decode_key()]
+        keys += [self._chunk_key(w) for w in self._chunk_widths()]
         keys += [("prefill", b) for b in self._one_shot_buckets()]
         self._capture_keys(keys, self._bound())
         logger.info("generation server: %d step keys captured", len(keys))
@@ -529,6 +678,9 @@ class GenerationServer:
                 elif key[0] == "chunk":
                     fetches.append(self._chunk(np.zeros((1, key[1]), np.int32), 0, 0, table[:1],
                                                True, bound, kernel=key[2]))
+                elif key[0] == "verify":
+                    fetches.append(self._verify(np.zeros((s, key[1]), np.int32), zeros, zeros,
+                                                table, bound, kernel=key[2]))
                 else:
                     fetches.append(self._prefill(np.zeros((1, key[1]), np.int32), 0, table[:1],
                                                  bound))
@@ -723,8 +875,8 @@ class GenerationServer:
 
     def health_report(self) -> dict:
         """JSON-able snapshot for the engine's ``/health``: the core's report
-        and the JAX server's serving keys (the prefix cache is not ported:
-        zeros), then the port's captures, rebuild, pool and OOM counters."""
+        and the JAX server's serving keys, then the port's captures, rebuild,
+        pool and OOM counters."""
         rep = self.core.health_report()
         total = self.num_pages - 1
         rep.update(
@@ -733,7 +885,8 @@ class GenerationServer:
             slots_busy=sum(1 for r in self._slot_req if r is not None),
             page_pool_occupancy=(round((total - len(self._free_pages)) / total, 4)
                                  if total else 0.0),
-            prefix_cache={"entries": 0, "pages": 0, "capacity_pages": 0},
+            prefix_cache={"entries": len(self._prefix_cache), "pages": self._cache_held,
+                          "capacity_pages": self.prefix_cache_pages},
             tokens_per_sec=round(self.tokens_per_sec, 1))
         if self.ttft_samples:
             rep["ttft"] = {"count": len(self.ttft_samples),
@@ -784,7 +937,12 @@ class GenerationServer:
     # -- page accounting ---------------------------------------------------
 
     def _clear_pages(self) -> None:
-        """Every page free (page 0 is scratch) and no reference held."""
+        """Every page free (page 0 is scratch), no reference held, and the
+        prefix cache flushed: its pages are zeroed or renewed with the
+        pools, so a cached prefix would read as valid K/V that is not."""
+        self._prefix_cache.clear()
+        self._cache_pages.clear()
+        self._prefix_lengths.clear()
         self._page_refs.clear()
         self._free_pages = list(range(1, self.num_pages))
 
@@ -792,11 +950,16 @@ class GenerationServer:
         return -(-n_tokens // self.page_size)
 
     def _alloc_page(self) -> Optional[int]:
-        if not self._free_pages:
-            return None
+        """One fresh page (ref 1); evicts LRU prefix entries under pressure."""
+        while not self._free_pages:
+            if not self._evict_one():
+                return None
         p = self._free_pages.pop()
         self._page_refs[p] = 1
         return p
+
+    def _ref_page(self, p: int) -> None:
+        self._page_refs[p] += 1
 
     def _unref_page(self, p: int) -> None:
         self._page_refs[p] -= 1
@@ -804,13 +967,111 @@ class GenerationServer:
             del self._page_refs[p]
             self._free_pages.append(p)
 
-    def _try_reserve(self, req: _Request) -> Optional[list[int]]:
-        """Reserve every page the request's prompt and first decode write
-        need, or nothing (no side effects) when the pool is short."""
-        need = self._pages_needed(len(req.prompt) + 1)
-        if len(self._free_pages) < need:
+    @property
+    def _cache_held(self) -> int:
+        """Physical pages held by the prefix cache."""
+        return len(self._cache_pages)
+
+    def _evict_one(self) -> bool:
+        """Drop the least recently used cache entry and its page refs."""
+        if not self._prefix_cache:
+            return False
+        self.prefix_evictions += 1
+        key, pages = self._prefix_cache.popitem(last=False)
+        self._prefix_lengths[len(key)] -= 1
+        if self._prefix_lengths[len(key)] == 0:
+            del self._prefix_lengths[len(key)]
+        for p in pages:
+            self._cache_pages[p] -= 1
+            if self._cache_pages[p] == 0:
+                del self._cache_pages[p]
+            self._unref_page(p)
+        return True
+
+    def _lookup_prefix(self, prompt: list[int]) -> Optional[tuple]:
+        """Key of the longest cached full-page prefix (no side effects). At
+        least one prompt token is always left to prefill: the last
+        position's logits seed generation."""
+        if not self._prefix_cache:
             return None
-        return [self._alloc_page() for _ in range(need)]
+        limit = ((len(prompt) - 1) // self.page_size) * self.page_size
+        for length in sorted(self._prefix_lengths, reverse=True):
+            if length > limit:
+                continue
+            key = tuple(prompt[:length])
+            if key in self._prefix_cache:
+                return key
+        return None
+
+    def _cache_prefix(self, req: _Request, pages: list[int]) -> None:
+        """Donate the prompt's full pages to the cache (at finish, before
+        the slot's refs drop)."""
+        if not self.prefix_cache_pages:
+            return
+        count = min(len(req.prompt) // self.page_size, len(pages))
+        if count == 0:
+            return
+        key = tuple(req.prompt[:count * self.page_size])
+        if key in self._prefix_cache:
+            self._prefix_cache.move_to_end(key)
+            return
+        held = pages[:count]
+        for p in held:
+            self._ref_page(p)
+            self._cache_pages[p] = self._cache_pages.get(p, 0) + 1
+        self._prefix_cache[key] = list(held)
+        self._prefix_lengths[len(key)] = self._prefix_lengths.get(len(key), 0) + 1
+        while self._cache_held > self.prefix_cache_pages:
+            if not self._evict_one():
+                break
+
+    def _evictable_pages(self, keep: Optional[tuple]) -> int:
+        """DISTINCT pages the cache could free by evicting every entry other
+        than ``keep``: pages all of whose refs come from those entries."""
+        keep_pages = set(self._prefix_cache.get(keep, ())) if keep is not None else set()
+        counts: dict[int, int] = {}
+        for key, pages in self._prefix_cache.items():
+            if key == keep:
+                continue
+            for p in pages:
+                counts[p] = counts.get(p, 0) + 1
+        return sum(1 for p, c in counts.items()
+                   if p not in keep_pages and self._page_refs.get(p) == c)
+
+    def _reservable(self, req: _Request) -> Optional[tuple]:
+        """(cache key or None, fresh pages needed) when every page the
+        request's prompt and first decode write need can be had -- aliased
+        prefix pages plus fresh ones, evicting other cache entries if need
+        be -- else None. No side effects."""
+        key = self._lookup_prefix(req.prompt)
+        shared = len(self._prefix_cache[key]) if key is not None else 0
+        fresh = self._pages_needed(len(req.prompt) + 1) - shared
+        if len(self._free_pages) + self._evictable_pages(key) < fresh:
+            return None
+        return key, fresh
+
+    def _try_reserve(self, req: _Request) -> Optional[tuple[list[int], int]]:
+        """Reserve the request's pages: (pages, tokens of the shared prefix),
+        or None without side effects (no eviction, no count) when the pool
+        is short: a head-of-line stall must not wipe the cache."""
+        plan = self._reservable(req)
+        if plan is None:
+            return None
+        key, fresh = plan
+        shared = list(self._prefix_cache[key]) if key is not None else []
+        if key is not None:
+            self._prefix_cache.move_to_end(key)
+            for p in shared:
+                self._ref_page(p)
+        pages = list(shared)
+        for _ in range(fresh):
+            p = self._alloc_page()
+            if p is None:  # not after the feasibility check
+                for q in pages:
+                    self._unref_page(q)
+                return None
+            pages.append(p)
+        return pages, len(shared) * self.page_size
 
     # -- scheduler ---------------------------------------------------------
 
@@ -826,23 +1087,31 @@ class GenerationServer:
                 return b
         return self.prompt_buckets[-1]
 
-    async def _admit_one(self, slot: int, req: _Request, pages: list[int]) -> None:
-        """Seed the slot with its reserved pages and start prefill."""
+    async def _admit_one(self, slot: int, req: _Request, pages: list[int],
+                         shared_len: int) -> None:
+        """Seed the slot with its reserved pages and start prefill: one shot,
+        or in chunks from the cached prefix's boundary (``shared_len``) or
+        from 0 when the prompt is longer than the prefill chunk."""
         # register FIRST: if anything below throws, the loop's crash handler
         # fails this future instead of leaving its caller hanging
         self._slot_req[slot] = req
         self._slot_pages[slot] = pages
         n = len(req.prompt)
-        if self.prefill_chunk and n > self.prefill_chunk:
+        if shared_len > 0:
+            self.prefix_hits += 1
+            self.prefix_pages_shared += shared_len // self.page_size
+        if shared_len > 0 or (self.prefill_chunk and n > self.prefill_chunk):
             # cooperative admission: the serve loop interleaves prefill
             # chunks with decode; the slot joins decode once fully prefilled
-            self._prefill_pos[slot] = 0
+            self._prefill_pos[slot] = shared_len
             return
         ids = np.zeros((1, self._bucket(n)), np.int32)
         ids[0, :n] = req.prompt
         table = self._table_array()[slot:slot + 1]
+        key = self._split()
         nxt, margin = await self._run_device_step(
-            ("prefill", ids.shape[1]), lambda bound: self._prefill(ids, n, table, bound).wait())
+            ("prefill", ids.shape[1]),
+            lambda bound: self._prefill(ids, n, table, bound, key=key).wait())
         self.prefill_steps += 1
         self._lengths[slot] = n
         self._cur_tokens[slot] = nxt[0]
@@ -873,7 +1142,11 @@ class GenerationServer:
     def _finish(self, slot: int) -> None:
         req = self._slot_req[slot]
         self._slot_req[slot] = None
+        fully_prefilled = slot not in self._prefill_pos
         self._prefill_pos.pop(slot, None)
+        if req is not None and fully_prefilled:
+            # donate the prompt's full pages before the slot's refs drop
+            self._cache_prefix(req, self._slot_pages[slot])
         for p in self._slot_pages[slot]:
             self._unref_page(p)
         self._slot_pages[slot] = []
@@ -891,19 +1164,23 @@ class GenerationServer:
             return
         off = self._prefill_pos[slot]
         n = len(req.prompt)
-        c = self.prefill_chunk
+        # the prefill chunk, or (a cached prefix's remainder with chunking
+        # off) one bucketed span covering the rest
+        c = self.prefill_chunk if self.prefill_chunk else self._bucket(n - off)
         chunk = req.prompt[off:off + c]
         ids = np.zeros((1, c), np.int32)
         ids[0, :len(chunk)] = chunk
         table = self._table_array()[slot:slot + 1]
         new_off = off + len(chunk)
         final = new_off >= n
+        # the final chunk samples the first generated token
+        key = self._split() if final else None
 
         def step(bound: _Bound):
-            fetch = self._chunk(ids, off, len(chunk), table, final, bound)
+            fetch = self._chunk(ids, off, len(chunk), table, final, bound, key=key)
             return fetch.wait() if fetch is not None else None
 
-        out = await self._run_device_step(self._chunk_key(), step)
+        out = await self._run_device_step(self._chunk_key(c), step)
         self.chunk_steps += 1
         if not final:
             self._prefill_pos[slot] = new_off
@@ -972,7 +1249,10 @@ class GenerationServer:
                     await self._prefill_one_chunk(prefilling[0])
                     continue
                 self._turn_prefill = True
-                await self._step(active)
+                if self.speculative_tokens > 0:
+                    await self._step_speculative(active)
+                else:
+                    await self._step(active)
             # closed with work in flight: fail it rather than hang awaiters
             self._fail_all(ConfigError("generation server closed"))
         except Exception as e:  # fail all in-flight requests, don't hang them
@@ -1025,15 +1305,18 @@ class GenerationServer:
                 break
             if self._slot_req[slot] is not None or not self._pending:
                 continue
-            if len(self._free_pages) < self._pages_needed(len(self._pending[0].prompt) + 1):
+            if self._reservable(self._pending[0]) is None:
                 break  # head-of-line waits for pages (FIFO fairness)
             # catch host state up before the admission prefill dispatches
-            # (applying a step only frees pages)
+            # (applying a step only frees pages and donates cached ones)
             await self._drain_pipeline()
             if self._draining:
                 break
+            reserved = self._try_reserve(self._pending[0])
+            if reserved is None:
+                break
             req = self._pending.popleft()
-            await self._admit_one(slot, req, self._try_reserve(req))
+            await self._admit_one(slot, req, *reserved)
             admitted = True
         return admitted
 
@@ -1054,8 +1337,10 @@ class GenerationServer:
         for s in active:
             self._reserve_or_truncate(s, act)
         cur, lens, table = self._cur_tokens.copy(), self._lengths.copy(), self._table_array()
+        key = self._split()
         nxt, margin = await self._run_device_step(
-            self._decode_key(), lambda bound: self._decode(cur, lens, act, table, bound).wait())
+            self._decode_key(),
+            lambda bound: self._decode(cur, lens, act, table, bound, key=key).wait())
         self.decode_steps += 1
         self._apply(nxt, margin, act, None)
 
@@ -1166,3 +1451,70 @@ class GenerationServer:
         core.health.mark_success()
         self.decode_steps += 1
         self._apply(nxt, margin, rec.act, rec.reqs)
+
+    # -- speculative decode ------------------------------------------------
+
+    @staticmethod
+    def _draft(req: _Request, n: int) -> list[int]:
+        """``n`` draft tokens by 2-gram lookup over the sequence's own
+        history (prompt-lookup decoding): the tokens that followed the most
+        recent earlier occurrence of the trailing bigram, padded with the
+        last token. A wrong draft costs nothing: the slot's verify then
+        degenerates to one decode."""
+        hist = req.prompt + req.tokens
+        out: list[int] = []
+        if len(hist) >= 2 and n > 0:
+            a, b = hist[-2], hist[-1]
+            for i in range(len(hist) - 3, -1, -1):
+                if hist[i] == a and hist[i + 1] == b:
+                    out = hist[i + 2:i + 2 + n]
+                    break
+        while len(out) < n:
+            out.append(hist[-1] if hist else 0)
+        return out[:n]
+
+    async def _step_speculative(self, active: list[int]) -> None:
+        """One verify step: each active slot scores its current token and up
+        to ``speculative_tokens`` drafts in one chunk call at its length;
+        the argmax-consistent prefix all lands this step. Width-1 capacity
+        comes first (the truncation policy of ``_step``); a slot widens only
+        as far as free pages allow."""
+        k = self.speculative_tokens + 1
+        act = np.zeros(self.slots, bool)
+        act[active] = True
+        clen = np.zeros(self.slots, np.int32)
+        ids = np.zeros((self.slots, k), np.int32)
+        for s in active:
+            self._reserve_or_truncate(s, act)
+            if not act[s] or self._slot_req[s] is None:
+                continue
+            req = self._slot_req[s]
+            remaining = req.max_new_tokens - len(req.tokens)
+            room = self.max_seq - int(self._lengths[s])
+            c = max(1, min(k, remaining, room))
+            while c > 1 and not self._ensure_page_capacity(s, int(self._lengths[s]) + c):
+                c -= 1
+            clen[s] = c
+            ids[s, 0] = self._cur_tokens[s]
+            if c > 1:
+                ids[s, 1:c] = self._draft(req, c - 1)
+        lens, table = self._lengths.copy(), self._table_array()
+        outs, margins = await self._run_device_step(
+            self._verify_key(), lambda bound: self._verify(ids, lens, clen, table, bound).wait())
+        self.verify_steps += 1
+        for s in range(self.slots):
+            if not act[s] or self._slot_req[s] is None or clen[s] == 0:
+                continue
+            c = int(clen[s])
+            accepted = 0
+            while accepted < c - 1 and ids[s, accepted + 1] == outs[s, accepted]:
+                accepted += 1
+            self.spec_drafted += c - 1
+            self.spec_accepted += accepted
+            self._lengths[s] += accepted + 1
+            self._cur_tokens[s] = int(outs[s, accepted])
+            for j in range(accepted + 1):
+                self._handle_token(s, int(outs[s, j]),
+                                   None if margins is None else float(margins[s, j]))
+                if self._slot_req[s] is None:
+                    break

@@ -24,10 +24,12 @@ weights a serving runner answers with, without a restart:
 
 The continuous generation server is one unit (``GenerationServerUnit``):
 its flip is ``GenerationServer.swap_params``, which drains the slot grid
-first and zeroes the KV pools after the copy; its probe is one real
-2-token generation. ``build_generate_swapper`` builds the manager over a
-``gpu_generate`` processor; the batch-mode unit waits for ``serving:
-batch``.
+first, zeroes the KV pools after the copy and flushes the prefix cache; its
+probe is one real 2-token generation. ``serving: batch`` is
+``BatchGenerateUnit``: its flip copies into the live tensors the batch
+generator's graphs read, between two generations; its probe is one
+generation at a fixed key. ``build_generate_swapper`` builds the manager
+over a ``gpu_generate`` processor and picks the unit by its mode.
 
 Chaos: ``inject_swap_fault("swap_corrupt")`` mangles the next swap's
 restored tree (the canary rejects it); ``"swap_crash"`` raises after the
@@ -221,6 +223,45 @@ class BatchRunnerUnit:
         except Exception as e:
             self.runner.core.note_external_failure(e)
             raise
+
+
+class BatchGenerateUnit:
+    """``gpu_generate`` in batch mode: the flip copies the tree into the
+    live tensors of the processor's ``BatchGenerator`` (its prefill and
+    decode graphs keep their addresses) between generations, and returns
+    the prior tree; the probe is one generation at a fixed key (key 0), so
+    it never advances the serving key."""
+
+    label = "generate[batch]"
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    def live(self):
+        return self.proc.params
+
+    def place(self, host_params):
+        return self.proc.place_params(host_params)
+
+    async def adopt(self, placed):
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self.proc.generator.adopt, placed)
+
+    def note_committed_host(self, host) -> None:
+        self.proc.host_params = host
+
+    def _probe_blocking(self) -> None:
+        from arkflow_tpu_torch.models.decoder import make_key
+
+        p = self.proc
+        # the smallest warmed shape (JAX probes [batch_bucket(1), min(8, seq_bucket(8))])
+        seq = min(p.buckets.seq_bucket(8), p.max_input)
+        rows = p.buckets.batch_bucket(1)
+        p.generator.generate(np.ones((rows, seq), np.int32), np.ones(rows, np.int32), 1,
+                             make_key(0))
+
+    async def probe(self) -> None:
+        await asyncio.get_running_loop().run_in_executor(None, self._probe_blocking)
 
 
 class GenerationServerUnit:
@@ -483,27 +524,30 @@ def build_batch_swapper(runner, *, model: str, serving_dtype: Optional[str],
 
 def build_generate_swapper(proc, *, model: str, swap_cfg: Optional[SwapConfig],
                            checkpoint: Optional[str] = None) -> ModelSwapManager:
-    """A swapper over a ``gpu_generate`` processor's continuous server:
-    ``prepare`` restores into the layout of the live tree (the decoder's
-    stacked layers, its dtypes); the canary is the family's forward on the
-    server's device."""
+    """A swapper over a ``gpu_generate`` processor: the continuous server's
+    unit, or the batch generator's (``serving: batch``). ``prepare``
+    restores into the layout of the live tree (the decoder's stacked
+    layers, its dtypes); the canary is the family's forward on the
+    processor's device."""
     from arkflow_tpu_torch.tpu.checkpoint import restore
     from arkflow_tpu_torch.tpu.integrity import device_forward
 
-    server, family, cfg = proc.server, proc.family, proc.cfg
+    family, cfg = proc.family, proc.cfg
     swap_cfg = swap_cfg or SwapConfig()
+    if proc.server is not None:
+        units: list[Any] = [GenerationServerUnit(proc.server, proc.place_params,
+                                                 swap_cfg.drain_timeout_s, owner=proc)]
+    else:
+        units = [BatchGenerateUnit(proc)]
 
     def prepare(path: str):
-        return restore(path, server.params)
+        return restore(path, proc.params)
 
     def canary(params) -> np.ndarray:
         golden = golden_inputs(family.input_spec(cfg), cfg, swap_cfg.canary_rows,
                                seed=swap_cfg.canary_seed)
         return argmax_signature(device_forward(family.apply, params, cfg, golden,
-                                               server.device))
+                                               proc.device))
 
-    return ModelSwapManager(
-        name=model, config=swap_cfg, prepare=prepare, canary=canary,
-        units=[GenerationServerUnit(server, proc.place_params, swap_cfg.drain_timeout_s,
-                                    owner=proc)],
-        checkpoint=checkpoint)
+    return ModelSwapManager(name=model, config=swap_cfg, prepare=prepare, canary=canary,
+                            units=units, checkpoint=checkpoint)

@@ -97,7 +97,11 @@ last line):
    on shuffled page tables), the same with every page past each row's
    bound and the scratch page poisoned (the output must not change), the
    same in f32 (the FMA body), and 128-query chunks at offsets
-   0/128/256/384, each timed. Every bf16 case must run the split-context
+   0/128/256/384, each timed; then the forms speculative decoding and the
+   prefix cache give it (``K3 verify cases``): C = 4 over 8 slots at
+   offsets 0/15/16/63/64/500/256/636, the same over tables whose rows
+   share their first 6 pages, and a 128-query chunk from a cached
+   boundary over shared pages. Every bf16 case must run the split-context
    tensor-core body (``mma``) and is held per element to
    ``emulate_paged_split``, the plain version with that body's splits,
    softmax tiles and P rounded to bf16;
@@ -129,9 +133,10 @@ last line):
     K3 launches = layers x (decode + chunk steps run on the card, recapture
     and abandoned steps included), all ``mma``, and every row's ids equal
     to the fault-free run's up to its first near-tie (``generate lifecycle
-    stream``); then on an idle stream with its health server, a seed-1
-    checkpoint (16 GB, written to a temporary directory under
-    ``checkpoints/`` and removed) swapped in through ``POST /admin/swap``
+    stream``); then on an idle stream with its health server, at full
+    width and ``GEN_SWAP_LAYERS`` (8) layers, a seed-1 checkpoint (5.6 GB,
+    written to a temporary directory under ``checkpoints/`` and removed)
+    swapped in through ``POST /admin/swap``
     while four clients keep requests in flight: none dropped, the streams
     after it equal an ``eager=True`` server on the seed-1 weights bit for
     bit, the live addresses and captures kept, the pools zero and every
@@ -142,7 +147,28 @@ last line):
     golden margin); and ``generate lifecycle cost``: the fault-free
     lifecycle stream's tokens/s and TTFT beside the generate stream's of
     step 10 (same rows);
-12. the ``graphs`` line (per path: captures, keys checked, differing
+12. the generation features: the serving stream
+    ``llama_serving_stream.json`` (8 slots, chunk 128, speculative 3,
+    prefix cache 64 pages; 48 rows behind one 96-token instruction)
+    graphed: rows in order, the pages still held are the cache's alone,
+    K3 = layers x (chunk + verify steps), all ``mma``, hits, reused pages,
+    evictions, drafts and accepted drafts reported; its rows against a
+    server with both features off, equal up to each row's first near-tie;
+    ``graphs serving`` (the verify key's graph against eager); the stream
+    eager. ``sampling``: the generate stream at temperature 0.8, top-k 50,
+    depth 1, with the in-graph top-k check (0 misses); then on 16 prompts
+    two graphed runs from one seed equal, eager equal to them, top-k 1
+    equal to greedy up to the first exact tie. ``batch generate``:
+    ``llama_batch_stream.json`` (``serving`` absent: batch mode, buckets 4
+    and 16, 256 + 64 positions): rows in order, every generation replayed
+    on an ``eager=True`` generator bit for bit, the ms per step of one
+    generation graphed and eager, rows against the continuous server up to
+    the first near-tie (padded rows up to their second token: the
+    reference's mask lets them attend padding after it), no kernel
+    launched; ``batch swap``: at full width and 4 layers, a seed-1 swap
+    served bit for bit as a processor built on it, a ``swap_crash``
+    rolled back;
+13. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
@@ -216,10 +242,16 @@ GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "bert_lifecycle_stream.json")
 GEN_LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "llama_lifecycle_stream.json")
+SERVING_CONFIG = os.path.join(EXAMPLES, "llama_serving_stream.json")
+BATCH_CONFIG = os.path.join(EXAMPLES, "llama_batch_stream.json")
 #: where the generate lifecycle phase writes its 16 GB checkpoint (in a
 #: temporary directory it removes; the directory is ignored by git)
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 #: prompts and new tokens of the generate lifecycle's swap and repair checks
+#: depth of the generate lifecycle's swap and integrity checks (full width):
+#: the checkpoint save, prepare, digest passes and repair scale with the
+#: tree, and the 32-layer (16 GB) swap ran green in earlier runs
+GEN_SWAP_LAYERS = 8
 GEN_CHECK_PROMPTS = 16
 GEN_CHECK_NEW = 32
 #: rows of each stream of the lifecycle cost comparison: ~13 s of traffic,
@@ -898,9 +930,9 @@ def measure_warmup(obj, report: dict) -> None:
     after it: the captures' memory."""
     inner = obj.warmup
 
-    def warmup():
+    def warmup(*args):
         report["reserved_before_captures"] = reserved_bytes()
-        n = inner()
+        n = inner(*args)
         report["reserved_after_captures"] = reserved_bytes()
         return n
 
@@ -1249,16 +1281,20 @@ def product_times(gen) -> dict:
 
 
 def paged_bound_ms(off: torch.Tensor, c: int, h: int, kvh: int, d: int, page: int,
-                   p: int) -> tuple[float, str]:
+                   p: int, table: torch.Tensor | None = None) -> tuple[float, str]:
     """Least time for one K3 call: the live K/V pages (every page a row's
-    last query reaches, clamped to the table) read once, q read and out
-    written once, the table and offsets read; 4*D flops per (query, head,
-    admissible key)."""
+    last query reaches, clamped to the table; a page two rows' tables share
+    counted once) read once, q read and out written once, the table and
+    offsets read; 4*D flops per (query, head, admissible key)."""
     offs = off.to(torch.int64).cpu()
     b, ctx = offs.numel(), p * page
     keys = (offs + c).clamp(max=ctx)
     pages = -(-keys // page)
-    nbytes = (2 * float(pages.sum()) * page * kvh * d * 2 + 2 * b * c * h * d * 2
+    live = float(pages.sum())
+    if table is not None:
+        rows = table.cpu().tolist()
+        live = float(len({pg for r, n in enumerate(pages.tolist()) for pg in rows[r][:n]}))
+    nbytes = (2 * live * page * kvh * d * 2 + 2 * b * c * h * d * 2
               + b * p * 4 + b * 4)
     attended = (offs[:, None] + torch.arange(1, c + 1)[None, :]).clamp(max=ctx)
     flops = 4.0 * float(attended.sum()) * d * h
@@ -1288,20 +1324,23 @@ def paged_library_call(q, kp, vp, table, off):
 
 def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kvh: int = 8,
                d: int = 128, page: int = 16, p: int = 40, poison: bool = False,
-               dtype: torch.dtype = torch.bfloat16) -> dict:
+               dtype: torch.dtype = torch.bfloat16, shared: int = 0) -> dict:
     """K3 against its plain version on shuffled, non-contiguous page tables
     (bf16 pools; q bf16, the serving type, or f32 for the FMA body). Table
     entries past a row's bound are the scratch page 0 on even rows and stale
-    pool pages on odd rows. The launch must run ``EXPECTED_VARIANT``'s body,
-    and a bf16 output is held per element to ``emulate_paged_split``. With
-    ``poison`` the kernel also runs on pools in which every slot no row may
-    read, and the scratch page, hold large finite values: its output must
-    not change by a bit."""
+    pool pages on odd rows; with ``shared`` every row's first ``shared``
+    entries are row 0's (the prefix cache's aliased pages). The launch must
+    run ``EXPECTED_VARIANT``'s body, and a bf16 output is held per element
+    to ``emulate_paged_split``. With ``poison`` the kernel also runs on
+    pools in which every slot no row may read, and the scratch page, hold
+    large finite values: its output must not change by a bit."""
     npages = 1 + b * p
     q = torch.randn(b, c, h, d, device="cuda", generator=gen).to(dtype)
     kp, vp = (torch.randn(npages, page, kvh, d, device="cuda", generator=gen).to(torch.bfloat16)
               for _ in range(2))
     table = (torch.randperm(npages - 1, device="cuda", generator=gen) + 1).reshape(b, p)
+    if shared:
+        table[:, :shared] = table[0, :shared]
     off = torch.tensor(offs, device="cuda", dtype=torch.int32)
     last = ((off.long() + c - 1) // page).clamp(max=p - 1)
     past = torch.arange(p, device="cuda")[None, :] > last[:, None]
@@ -1316,7 +1355,8 @@ def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kv
     err = (out.float() - ref.float()).abs().max().item()
     ratio = paged_err_ratio(out, q, kp, vp, table, off) if dtype == torch.bfloat16 else None
     case = {"case": label, "B": b, "C": c, "H": h, "kv_heads": kvh, "D": d, "page": page,
-            "P": p, "off": offs, "dtype": str(dtype).replace("torch.", ""), "variant": variant,
+            "P": p, "off": offs, "shared_pages": shared,
+            "dtype": str(dtype).replace("torch.", ""), "variant": variant,
             "max_abs_err": err, "tol": TOL[dtype], "tile_err_ratio": ratio,
             "library_max_abs_err": (lib_out.float() - ref.float()).abs().max().item()}
     if poison:
@@ -1333,7 +1373,7 @@ def paged_case(gen, b: int, c: int, offs: list[int], label: str, h: int = 32, kv
         case["poisoned_slots"] = int((~live).sum()) * kvh
         case["poisoned_equal"] = bool(torch.equal(again, out))
     else:
-        bound, bound_by = paged_bound_ms(off, c, h, kvh, d, page, p)
+        bound, bound_by = paged_bound_ms(off, c, h, kvh, d, page, p, table)
         case.update({
             **call_times(call, lambda: ra.paged_attention_reference(q, kp, vp, table, off), lib),
             "library": "gather + sdpa(enable_gqa, offset mask)",
@@ -1413,12 +1453,16 @@ class GeneratedSink(OrderedSink):
         await super().write(batch)
 
 
-def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
-    """The generate stream through ``Engine`` (its server swapped for an
-    eager twin on the same weights when ``eager``). The server's init-time
-    parity gate runs at build and its K3 launches are read apart; the
-    processor's connect captures the step graphs; the counts are zeroed
-    when the output connects, after that, and read just after the run."""
+def run_generate_slice(cfg_raw: dict, eager: bool = False, label: str = "generate",
+                       prepare=None) -> dict:
+    """A continuous generate stream through ``Engine`` (its server swapped
+    for an eager twin on the same weights when ``eager``; ``prepare`` called
+    on the server before the run). The server's init-time parity gate runs
+    at build and its K3 launches are read apart; the processor's connect
+    captures the step graphs; the counts are zeroed when the output
+    connects, after that, and read just after the run. K3 launches = layers
+    x (decode + chunk + verify steps); the pages still held are the prefix
+    cache's alone."""
     proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
     engine = Engine(EngineConfig.from_mapping(cfg_raw))
     reset_counts()
@@ -1432,6 +1476,8 @@ def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
         proc.server = proc.runner = server_twin(proc.server, eager=True)
         torch.cuda.empty_cache()
     server = proc.server
+    if prepare is not None:
+        prepare(server)
     memory: dict = {}
     measure_warmup(server, memory)
     sink = stream.output = GeneratedSink(stream.output, proc_cfg["output_field"])
@@ -1455,9 +1501,16 @@ def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
         "traffic_rows_per_s": stream.rows_out / traffic,
         "ttft_p50_ms": server.ttft_ms(0.5), "ttft_p99_ms": server.ttft_ms(0.99),
         "decode_steps": server.decode_steps, "chunk_steps": server.chunk_steps,
-        "prefill_steps": server.prefill_steps,
+        "prefill_steps": server.prefill_steps, "verify_steps": server.verify_steps,
         "pipelined_dispatches": server.pipelined_dispatches,
-        "traffic_ms_per_decode_step": traffic * 1e3 / max(1, server.decode_steps),
+        "traffic_ms_per_decode_step": traffic * 1e3 / max(1, server.decode_steps
+                                                          + server.verify_steps),
+        "spec_drafted": server.spec_drafted, "spec_accepted": server.spec_accepted,
+        "prefix_hits": server.prefix_hits, "prefix_pages_shared": server.prefix_pages_shared,
+        "prefix_evictions": server.prefix_evictions,
+        "prefix_cache": server.health_report()["prefix_cache"],
+        "temperature": server.temperature, "top_k": server.top_k,
+        "top_k_misses": server.top_k_misses if server.check_top_k else None,
         "truncations": server.truncations, "decode_kernel": server.decode_kernel,
         "free_pages": len(server._free_pages), "num_pages": server.num_pages,
         "layers": layers, "dim": server.cfg.dim, "vocab": server.cfg.vocab_size,
@@ -1467,7 +1520,7 @@ def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
         "mode": "eager" if eager else "graphed", "captures": server.captures,
         "replays": {" ".join(map(str, k)): n for k, n in server.replay_counts().items()},
         "duty_cycle": server.duty_cycle(), **memory}
-    print("generate slice " + json.dumps(report), flush=True)
+    print(f"{label} slice " + json.dumps(report), flush=True)
     check(stream.errors == 0, f"generate stream reported errors: {report}")
     check(stream.rows_out == len(expected) and sink.inner.dropped_rows == len(expected)
           and len(counts) == len(expected), f"not every row arrived: {report}")
@@ -1475,15 +1528,19 @@ def run_generate_slice(cfg_raw: dict, eager: bool = False) -> dict:
     check(report["max_tokens_per_row"] <= proc_cfg["max_new_tokens"],
           f"a row got more than max_new_tokens: {report}")
     check(server.decode_kernel == "paged", f"the server did not take the paged kernel: {report}")
-    check(server.decode_steps > 0 and server.chunk_steps > 0,
+    check(server.decode_steps + server.verify_steps > 0 and server.chunk_steps > 0,
           f"the stream ran no decode or no chunk step: {report}")
-    check(k3 == layers * (server.decode_steps + server.chunk_steps),
-          f"K3 launches != layers x (decode + chunk steps): {report}")
+    check(k3 == layers * (server.decode_steps + server.chunk_steps + server.verify_steps),
+          f"K3 launches != layers x (decode + chunk + verify steps): {report}")
     check(k3_variants["mma"] == k3, f"a bf16 K3 launch missed the tensor-core body: {report}")
     check(gate_launches > 0, f"the parity gate launched no K3: {report}")
     check(k1 == 0 and k2 == 0, f"the generate stream launched K1 or K2: {report}")
-    check(report["free_pages"] == server.num_pages - 1, f"pages leaked: {report}")
-    return {"report": report, "server": server}
+    check(report["free_pages"] + server._cache_held == server.num_pages - 1
+          and all(n == server._cache_pages.get(pg) for pg, n in server._page_refs.items()),
+          f"pages leaked: {report}")
+    check(not server.check_top_k or server.top_k_misses == 0,
+          f"a sampled token fell outside its step's top-k set: {report}")
+    return {"report": report, "server": server, "rows": sink.generated}
 
 
 def step_times(server: GenerationServer) -> dict:
@@ -1578,14 +1635,7 @@ def compare_generation_paths(params, cfg, proc_cfg: dict, prompts: list[list[int
         seconds[name] = time.perf_counter() - t0
         del srv
         torch.cuda.empty_cache()
-    compared, tied_rows, mismatched = 0, 0, []
-    for i, ((pt, _), (gt, gm)) in enumerate(zip(runs["paged_d1"], runs["gather_d1"])):
-        tie = next((j for j, m in enumerate(gm) if m <= LABEL_MARGIN), None)
-        k = len(gt) if tie is None else tie
-        tied_rows += tie is not None
-        compared += k
-        if pt[:k] != gt[:k] or (tie is None and pt != gt):
-            mismatched.append(i)
+    streams = compare_to_first_tie([t for t, _ in runs["paged_d1"]], runs["gather_d1"])
     depth_equal = [t for t, _ in runs["paged_d2"]] == [t for t, _ in runs["paged_d1"]]
 
     b, page = len(prompts), proc_cfg["page_size"]
@@ -1625,12 +1675,11 @@ def compare_generation_paths(params, cfg, proc_cfg: dict, prompts: list[list[int
     torch.cuda.empty_cache()
     report = {"prompts": b, "max_new_tokens": max_new,
               "tokens": {n: sum(len(t) for t, _ in r) for n, r in runs.items()},
-              "tie_free_steps_compared": compared, "rows_with_a_near_tie": tied_rows,
-              "tie_margin": LABEL_MARGIN, "rows_mismatched_before_a_tie": mismatched,
-              "depth2_equals_depth1": depth_equal, "first_step_max_logit_abs_err": logit_err,
+              **streams, "depth2_equals_depth1": depth_equal, "first_step_max_logit_abs_err": logit_err,
               "logit_tol": LOGIT_TOL, "seconds": seconds}
     print("generate paths " + json.dumps(report), flush=True)
-    check(not mismatched, f"paged and gather streams differ before a near-tie: {report}")
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"paged and gather streams differ before a near-tie: {report}")
     check(depth_equal, f"depth 2 changed the paged streams: {report}")
     floor = logit_err["plain_vs_gather"] + LOGIT_TOL
     check(logit_err["paged_vs_plain"] <= floor and logit_err["paged_vs_gather"] <= floor,
@@ -1716,55 +1765,66 @@ def graph_check_runner(path: str, runner: ModelRunner, memory: dict, seed: int) 
     return report
 
 
-def graph_check_server(server: GenerationServer) -> dict:
-    """Every step key of the generate path, with K3 (``paged``) and with the
+def graph_check_server(server: GenerationServer, path: str = "generate",
+                       kernels: tuple = ("paged", "gather")) -> dict:
+    """Every step key of a generate path, with K3 (``paged``) and with the
     gather path: a graphed server on the stream server's weights and
     settings, every key captured by ``warmup``, against an eager twin on
     the same weights and the same KV pools (each step rewrites the K/V the
-    other wrote, value for value), on the same inputs: next tokens and
-    top-2 logit gaps, 0 differing elements required."""
+    other wrote, value for value), on the same inputs (a sampling server's
+    steps on the same subkey): next tokens, top-2 logit gaps and top-k
+    misses, 0 differing elements required. A speculative server's keys are
+    verify, chunk and prefill; its verify step scores 1 to k tokens a slot."""
     graphed = server_twin(server, eager=False, record_margins=True, decode_kernel="paged")
     eager = server_twin(server, eager=True, record_margins=True, decode_kernel="paged")
     eager.k_pages, eager.v_pages = graphed.k_pages, graphed.v_pages
     memory = {"reserved_before_captures": reserved_bytes()}
-    for kernel in ("paged", "gather"):
+    for kernel in kernels:
         graphed.decode_kernel = kernel
         graphed.warmup()
     memory["reserved_after_captures"] = reserved_bytes()
-    s, p, c = graphed.slots, graphed.pages_per_slot, graphed.prefill_chunk
+    s, p = graphed.slots, graphed.pages_per_slot
     table = (torch.randperm(graphed.num_pages - 1, generator=torch.Generator().manual_seed(8))
              + 1)[: s * p].reshape(s, p).numpy().astype(np.int32)
     rng = np.random.default_rng(9)
-    lens = np.linspace(1, graphed.max_seq - 2, s).astype(np.int32)
+    lens = np.linspace(1, graphed.max_seq - 8, s).astype(np.int32)
     act = np.ones(s, bool)
     cur = rng.integers(3, graphed.cfg.vocab_size, s).astype(np.int32)
+    sub = 0x5EED if graphed.sampling else None
     per_key = {}
     with torch.inference_mode():
         for key in graphed._compiled.keys():
             kind, size = key[0], key[1]
             kernel = key[-1] if kind != "prefill" else "paged"
-            ids = rng.integers(3, graphed.cfg.vocab_size, (1, size if kind != "decode" else 1))
-            ids = ids.astype(np.int32)
+            width = {"decode": 1, "verify": s * size}.get(kind, size)
+            ids = rng.integers(3, graphed.cfg.vocab_size, (1, width)).astype(np.int32)
+            clen = (np.arange(s) % size + 1).astype(np.int32) if kind == "verify" else None
 
             def step(srv):
                 srv.decode_kernel = kernel
                 if kind == "decode":
-                    return srv._decode(cur, lens, act, table).wait()
+                    return srv._decode(cur, lens, act, table, key=sub).wait()
+                if kind == "verify":
+                    return srv._verify(ids.reshape(s, size), lens, clen, table).wait()
                 if kind == "chunk":
-                    return srv._chunk(ids, 256, size, table[:1], True).wait()
-                return srv._prefill(ids, size, table[:1]).wait()
+                    off = max(0, min(256, srv.max_seq - size))
+                    return srv._chunk(ids, off, size, table[:1], True, key=sub).wait()
+                return srv._prefill(ids, size, table[:1], key=sub).wait()
 
             before = graphed._compiled.replays[key]
             (a_nxt, a_gap), (b_nxt, b_gap) = step(graphed), step(eager)
             check(graphed._compiled.replays[key] == before + 1,
-                  f"generate: the step did not replay the graph of {key}")
+                  f"{path}: the step did not replay the graph of {key}")
             per_key[" ".join(map(str, key))] = differing_elements(
                 {"nxt": a_nxt, "margin": a_gap}, {"nxt": b_nxt, "margin": b_gap})
     report = {"captures": graphed.captures, "keys_checked": len(per_key),
-              "differing_elements": sum(per_key.values()), "per_key": per_key, **memory}
-    print("graphs generate " + json.dumps(report), flush=True)
-    check(len(per_key) == graphed.captures > 0, f"generate: no graph captured: {report}")
-    check(report["differing_elements"] == 0, f"generate: graphed != eager: {report}")
+              "differing_elements": sum(per_key.values()), "per_key": per_key,
+              "top_k_misses": [graphed.top_k_misses, eager.top_k_misses], **memory}
+    print(f"graphs {path} " + json.dumps(report), flush=True)
+    check(len(per_key) == graphed.captures > 0, f"{path}: no graph captured: {report}")
+    check(report["differing_elements"] == 0, f"{path}: graphed != eager: {report}")
+    del graphed, eager
+    release_memory()
     return report
 
 
@@ -1774,6 +1834,314 @@ def ab_numbers(report: dict) -> dict:
             if "traffic_tokens_per_s" in report else ("traffic_rows_per_s",))
     return {**{k: report[k] for k in keys}, "duty_cycle": report["duty_cycle"],
             "captures": report["captures"], "traffic_seconds": report["traffic_seconds"]}
+
+
+# -- the generation features: serving, sampling, batch ----------------------
+
+
+def row_ids(rows: list[bytes]) -> list[list[int]]:
+    """A generated column's rows as token ids."""
+    return [[int(t) for t in g.split()] for g in rows]
+
+
+def compare_to_first_tie(got: list[list[int]], ref: list[tuple[list[int], list[float]]],
+                         margin: float = LABEL_MARGIN, limits: list | None = None) -> dict:
+    """Every row of ``got`` against ``ref``'s (ids, top-2 gaps) up to the
+    first step whose gap in ``ref`` is at or below ``margin`` (and, where
+    ``limits`` gives one, up to that row's limit); all of it where there is
+    none."""
+    compared, tied, mismatched = 0, 0, []
+    for i, (a, (b, gaps)) in enumerate(zip(got, ref)):
+        tie = next((j for j, g in enumerate(gaps) if g <= margin), None)
+        limit = None if limits is None else limits[i]
+        stops = [x for x in (tie, limit) if x is not None]
+        k = min(stops) if stops else len(b)
+        tied += tie is not None
+        compared += min(k, len(b))
+        if a[:k] != b[:k] or (not stops and a != b):
+            mismatched.append(i)
+    return {"rows": len(ref), "tokens_compared": compared, "rows_with_a_tie": tied,
+            "tie_margin": margin, "rows_mismatched_before_a_tie": mismatched}
+
+
+def k3_verify_cases(gen) -> dict:
+    """K3 in the forms speculative decoding and the prefix cache give it:
+    the verify step (8 slots, C = 4 queries at offsets from 0 to past a
+    split, 500 and the table's end), the same over tables whose rows share
+    their first 6 pages (the cached 96-token instruction), and a 128-query
+    chunk from a cached boundary over shared pages. Each held to its plain
+    version and to ``emulate_paged_split``, timed, beside its bound and the
+    gather + SDPA library call."""
+    cases = {
+        "verify": paged_case(gen, 8, 4, [0, 15, 16, 63, 64, 500, 256, 636], "verify C=4"),
+        "verify_shared": paged_case(gen, 8, 4, [96, 101, 112, 160, 255, 500, 96, 400],
+                                    "verify C=4, 6 shared pages", shared=6),
+        "chunk_shared": paged_case(gen, 2, 128, [96, 96],
+                                   "chunk from a cached boundary, 6 shared pages", shared=6),
+    }
+    line = {name: {k: c[k] for k in ("B", "C", "off", "shared_pages", "max_abs_err",
+                                     "tile_err_ratio", "kernel_device_ms", "kernel_ms",
+                                     "library_device_ms", "plain_device_ms", "bound_ms",
+                                     "bound_by", "variant")}
+            for name, c in cases.items()}
+    print("K3 verify cases " + json.dumps(line), flush=True)
+    return cases
+
+
+def run_serving_features(cfg_raw: dict) -> dict:
+    """``llama_serving_stream.json`` (8 slots, chunk 128, speculative 3,
+    prefix cache 64 pages, 48 rows behind one 96-token instruction) graphed,
+    its rows against a server with both features off (ids equal up to each
+    row's first near-tie), its step keys' graphs against eager (the verify
+    key included), then the stream eager."""
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    graphed = run_generate_slice(cfg_raw, label="serving")
+    server, rep = graphed["server"], graphed["report"]
+    check(rep["verify_steps"] > 0 and rep["decode_steps"] == 0,
+          f"the speculative stream ran no verify step: {rep}")
+    check(rep["prefix_hits"] > 0 and rep["prefix_pages_shared"] > 0,
+          f"the stream never hit the prefix cache: {rep}")
+    prompts = generate_prompts(cfg_raw, len(graphed["rows"]))
+    plain = GenerationServer(
+        server.params, server.cfg, slots=proc_cfg["slots"], page_size=proc_cfg["page_size"],
+        max_seq=server.max_seq, eos_id=server.eos_id, prompt_buckets=server.prompt_buckets,
+        prefill_chunk=proc_cfg["prefill_chunk"], decode_kernel="paged",
+        kernel_parity_check=False, record_margins=True)
+    t0 = time.perf_counter()
+    ref = serve_prompts(plain, prompts, proc_cfg["max_new_tokens"])
+    plain_s = time.perf_counter() - t0
+    del plain
+    release_memory()
+    streams = {**compare_to_first_tie(row_ids(graphed["rows"]), ref),
+               "features_off_seconds": plain_s,
+               "features_off_tokens": sum(len(t) for t, _ in ref)}
+    print("serving streams " + json.dumps(streams), flush=True)
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"the features changed a row before its first near-tie: {streams}")
+    graphs = graph_check_server(server, path="serving", kernels=("paged",))
+    check(any(k.startswith("verify") for k in graphs["per_key"]),
+          f"serving: no verify graph checked: {graphs}")
+    del server, graphed["server"]
+    release_memory()
+    eager = run_generate_slice(cfg_raw, eager=True, label="serving")
+    del eager["server"]
+    release_memory()
+    return {"report": rep, "eager": eager["report"], "streams": streams, "graphs": graphs}
+
+
+def run_sampling(gen_raw: dict) -> dict:
+    """The generate stream sampled (``temperature`` 0.8, ``top_k`` 50,
+    dispatch depth 1) with the in-graph top-k check on; then on its first
+    ``GEN_CHECK_PROMPTS`` prompts, all submitted at once: two graphed runs
+    from one seed equal, an eager run equal to them, no top-k miss, and
+    ``top_k`` 1 equal to the greedy stream up to its first exact tie (a
+    top-2 gap of 0: ``top_k`` keeps every logit tied with the k-th, as in
+    JAX, and the draw then picks among them)."""
+    cfg = json.loads(json.dumps(gen_raw))
+    cfg["streams"][0]["pipeline"]["processors"][0].update(
+        temperature=0.8, top_k=50, dispatch_depth=1)
+    run = run_generate_slice(cfg, label="sampling",
+                             prepare=lambda srv: setattr(srv, "check_top_k", True))
+    server = run["server"]
+    prompts = generate_prompts(cfg, GEN_CHECK_PROMPTS)
+    outs, misses = {}, {}
+    for name, kw in (("graphed", {}), ("graphed_again", {}), ("eager", {"eager": True}),
+                     ("top_k_1", {"top_k": 1}), ("greedy", {"temperature": 0.0, "top_k": 0})):
+        twin = server_twin(server, eager=kw.pop("eager", False), record_margins=True,
+                           check_top_k=True, seed=7, **kw)
+        outs[name] = serve_prompts(twin, prompts, GEN_CHECK_NEW)
+        misses[name] = twin.top_k_misses
+        del twin
+        release_memory()
+    ids = {k: [t for t, _ in v] for k, v in outs.items()}
+    top1 = compare_to_first_tie(ids["top_k_1"], outs["greedy"], margin=0.0)
+    report = {"stream": {k: run["report"][k] for k in (
+                  "traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tokens",
+                  "decode_steps", "chunk_steps", "prefill_steps", "top_k_misses", "k3_launches")},
+              "prompts": len(prompts), "max_new_tokens": GEN_CHECK_NEW,
+              "same_seed_equal": ids["graphed"] == ids["graphed_again"],
+              "graphed_equals_eager": ids["graphed"] == ids["eager"],
+              "top_k_misses": misses, "top_k_1_vs_greedy": top1,
+              "tokens": {k: sum(len(t) for t in v) for k, v in ids.items()}}
+    print("sampling " + json.dumps(report), flush=True)
+    check(report["same_seed_equal"], f"one seed gave two streams: {report}")
+    check(report["graphed_equals_eager"], f"sampled graphs != eager: {report}")
+    check(not any(misses.values()), f"a draw fell outside its top-k set: {report}")
+    check(not top1["rows_mismatched_before_a_tie"],
+          f"top_k 1 differs from greedy before an exact tie: {report}")
+    del server, run["server"]
+    release_memory()
+    return report
+
+
+def run_batch_generate(cfg_raw: dict) -> dict:
+    """``llama_batch_stream.json`` (``serving`` absent: batch mode, buckets
+    4/16, 256 + 64 positions) through ``Engine``: every row in order; every
+    generation replayed on an ``eager=True`` generator from the same inputs
+    and key, tokens and counts equal bit for bit; every row's ids equal to
+    a continuous paged server's greedy stream on the same prompts up to the
+    first near-tie (the contiguous plain attention against K3); no kernel
+    launched by the batch path."""
+    from arkflow_tpu_torch.tpu.batch_generate import BatchGenerator
+
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    engine = Engine(EngineConfig.from_mapping(cfg_raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]
+    gen = proc.generator
+    memory: dict = {}
+    measure_warmup(gen, memory)
+    calls = []
+    inner = gen.generate
+
+    def generate(ids, lengths, n, key):
+        out = inner(ids, lengths, n, key)
+        calls.append((ids.copy(), lengths.copy(), n, key, out))
+        return out
+
+    gen.generate = generate
+    sink = stream.output = GeneratedSink(stream.output, proc_cfg["output_field"])
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": ra.launches.value, "k2": sa.launches.value,
+                "k3": ra.paged_flash_attention.launches.value}
+    rows = generated_rows(cfg_raw)
+    traffic = stream.traffic_seconds
+    tokens = sum(len(g.split()) for g in sink.generated)
+    eager = BatchGenerator(gen.params, gen.cfg, max_new_tokens=gen.max_new_tokens,
+                           eos_id=gen.eos_id, eager=True)
+    differing = 0
+    t1 = time.perf_counter()
+    for ids, lengths, n, key, (tok, cnt, steps) in calls:
+        e_tok, e_cnt, e_steps = eager.generate(ids, lengths, n, key)
+        differing += int((e_tok != tok).sum()) + int((e_cnt != cnt).sum()) + (e_steps != steps)
+    eager_s = time.perf_counter() - t1
+    stream_steps, stream_generations = list(gen.steps), gen.generations
+    # one generation again, graphed and eager in turns: wall ms per step
+    ids, lengths, n, key, (_, _, steps) = calls[0]
+    per_step = {}
+    for name, run in (("graphed", inner), ("eager", eager.generate), ("graphed_again", inner)):
+        t1 = time.perf_counter()
+        run(ids, lengths, n, key)
+        torch.cuda.synchronize()
+        per_step[name] = (time.perf_counter() - t1) * 1e3 / (steps + 1)
+    del eager
+    release_memory()
+    prompts = generate_prompts(cfg_raw, len(rows))
+    server = GenerationServer(
+        gen.params, gen.cfg, slots=16, page_size=16,
+        max_seq=proc_cfg["max_input"] + proc_cfg["max_new_tokens"], eos_id=gen.eos_id,
+        prefill_chunk=128, decode_kernel="paged", kernel_parity_check=False,
+        record_margins=True)
+    ref = serve_prompts(server, prompts, proc_cfg["max_new_tokens"])
+    del server
+    release_memory()
+    # the reference's mask (``k < lengths`` with lengths advancing each
+    # step, JAX ``decoder.decode_step``) lets a row shorter than its batch's
+    # prompt width attend its first padding slot from token 2 on: such rows
+    # are held to the server up to token 2, full-width rows up to a tie
+    padded = [bool(lengths[r] < ids.shape[1]) for ids, lengths, n, _, _ in calls
+              for r in range(n)]
+    streams = compare_to_first_tie(row_ids(sink.generated), ref,
+                                   limits=[2 if p else None for p in padded])
+    streams["padded_rows"] = sum(padded)
+    streams["padded_rows_equal_in_full"] = sum(
+        1 for p, a, (b, _) in zip(padded, row_ids(sink.generated), ref) if p and a == b)
+    report = {"rows_expected": len(rows), "rows_out": stream.rows_out,
+              "errors": stream.errors, "in_order": sink.payloads == rows, "tokens": tokens,
+              "seconds": wall, "traffic_seconds": traffic,
+              "traffic_tokens_per_s": tokens / traffic,
+              "generations": stream_generations, "decode_steps_per_generation": stream_steps,
+              "batch_shapes": [list(c[0].shape) for c in calls],
+              "captures": gen.captures, **memory,
+              "replays": {" ".join(map(str, k)): v for k, v in gen.replay_counts().items()},
+              "eager_replay_differing": differing, "eager_seconds": eager_s,
+              "ms_per_step_of_one_generation": per_step,
+              "launches": launches, "vs_continuous": streams}
+    print("batch generate " + json.dumps(report), flush=True)
+    check(stream.errors == 0 and stream.rows_out == len(rows) and report["in_order"],
+          f"the batch stream lost or reordered rows: {report}")
+    check(stream_generations == len(calls) > 0 and gen.captures > 0,
+          f"the batch stream generated nothing through its graphs: {report}")
+    check(all(s <= proc_cfg["max_new_tokens"] - 1 for s in stream_steps),
+          f"a generation ran past max_new_tokens: {report}")
+    check(differing == 0, f"batch graphs != eager: {report}")
+    check(not any(launches.values()), f"the batch path launched a kernel: {report}")
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"batch rows differ from the continuous server before a near-tie: {report}")
+    del proc, gen, calls
+    release_memory()
+    return report
+
+
+def run_batch_swap(cfg_raw: dict, layers: int = 4) -> dict:
+    """A ``BatchGenerateUnit`` swap and rollback at full width and
+    ``layers`` layers: a seed-1 checkpoint swapped in (the live addresses
+    and captures kept), the column then equal to a processor built on that
+    checkpoint; a ``swap_crash`` after the flip rolled back, the column the
+    pre-crash one."""
+    from arkflow_tpu_torch.components import Resource
+    from arkflow_tpu_torch.components.registry import build_component
+
+    proc_cfg = dict(cfg_raw["streams"][0]["pipeline"]["processors"][0])
+    proc_cfg["model_config"] = {**proc_cfg["model_config"], "layers": layers}
+    cfg = get_model("decoder_lm").make_config(**proc_cfg["model_config"])
+    batch = MessageBatch.new_binary(generated_rows(cfg_raw)[:16])
+
+    async def column(proc) -> list[bytes]:
+        return (await proc.process(batch))[0].column(proc_cfg["output_field"]).to_pylist()
+
+    os.makedirs(CHECKPOINT_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CHECKPOINT_ROOT) as d:
+        ck = os.path.join(d, "seed1")
+        save_ms = save_decoder_checkpoint(ck, cfg, 1)
+        ref_proc = build_component("processor", {**proc_cfg, "checkpoint": ck}, Resource())
+
+        async def reference():
+            await ref_proc.connect()
+            return await column(ref_proc)
+
+        want = asyncio.run(reference())
+        del ref_proc
+        release_memory()
+        proc = build_component("processor", {
+            **proc_cfg, "swap": {"canary": {"min_agreement": 0.0}}}, Resource())
+        ptrs = param_ptrs(proc.params)
+
+        async def go():
+            await proc.connect()
+            before = await column(proc)
+            captures = proc.generator.captures
+            rep = await proc.swapper.swap(ck)
+            after = await column(proc)
+            proc.swapper.inject_swap_fault("swap_crash")
+            crashed = None
+            try:
+                await proc.swapper.swap(ck)
+            except Exception as e:  # the rollback raises SwapError
+                crashed = type(e).__name__
+            again = await column(proc)
+            return before, after, again, rep, crashed, captures
+
+        before, after, again, rep, crashed, captures = asyncio.run(go())
+    report = {"layers": layers, "dim": cfg.dim, "vocab": cfg.vocab_size, "save_ms": save_ms,
+              "version": rep.get("version"), "stage_ms": rep.get("stage_ms"),
+              "swapped_equals_seed1": after == want, "changed": after != before,
+              "rolled_back": crashed, "after_rollback_equal": again == after,
+              "addresses_kept": param_ptrs(proc.params) == ptrs,
+              "captures_kept": proc.generator.captures == captures}
+    print("batch swap " + json.dumps(report), flush=True)
+    check(report["version"] == 1 and report["swapped_equals_seed1"] and report["changed"],
+          f"the batch swap did not serve the new weights: {report}")
+    check(crashed == "SwapError" and report["after_rollback_equal"],
+          f"the crashed batch swap did not roll back: {report}")
+    check(report["addresses_kept"] and report["captures_kept"],
+          f"the batch swap moved a live tensor or recaptured: {report}")
+    del proc
+    release_memory()
+    return report
 
 
 # -- the lifecycle phase ------------------------------------------------------
@@ -2283,10 +2651,6 @@ def gen_reference_run(cfg_raw: dict) -> dict:
     return out
 
 
-def first_near_tie(gaps: list[float]) -> int | None:
-    return next((j for j, g in enumerate(gaps) if g <= LABEL_MARGIN), None)
-
-
 def run_gen_lifecycle_stream(cfg_raw: dict, reference: list[list[int]]) -> dict:
     """The faulted lifecycle stream: a step after the fault processor's 2nd
     call hangs 3 s past its 1 s deadline, a step after its 5th runs out of
@@ -2319,15 +2683,9 @@ def run_gen_lifecycle_stream(cfg_raw: dict, reference: list[list[int]]) -> dict:
     steps = {k: server.device_steps[k] - sink.steps0[k] for k in server.device_steps}
     rows = gen_rows(cfg_raw)
     prompts = gen_prompts(cfg_raw, len(rows))
-    got = [[int(t) for t in g.split()] for g in sink.generated]
-    compared, tied, mismatched = 0, 0, []
-    for i, (a, b) in enumerate(zip(got, reference)):
-        tie = first_near_tie(gaps.get(tuple(prompts[i]), []))
-        k = len(b) if tie is None else tie
-        tied += tie is not None
-        compared += min(k, len(b))
-        if a[:k] != b[:k] or (tie is None and a != b):
-            mismatched.append(i)
+    streams = compare_to_first_tie(
+        row_ids(sink.generated),
+        [(b, gaps.get(tuple(prompts[i]), [])) for i, b in enumerate(reference)])
     rep = server.health_report()
     report = {
         "rows_expected": len(rows), "rows_out": stream.rows_out,
@@ -2339,8 +2697,7 @@ def run_gen_lifecycle_stream(cfg_raw: dict, reference: list[list[int]]) -> dict:
                           "prefill": server.prefill_steps},
         "pool_ptr_before": sink.pool_ptr0, "pool_ptr_after": server.k_pages.data_ptr(),
         "free_pages": len(server._free_pages), "num_pages": server.num_pages,
-        "tie_free_tokens_compared": compared, "rows_with_a_near_tie": tied,
-        "rows_mismatched_before_a_tie": mismatched, "tie_margin": LABEL_MARGIN,
+        **streams,
         "rebuild_recapture_ms": rep["last_rebuild_ms"],
         **{k: rep[k] for k in ("state", "deadline_misses", "rebuilds", "zombies", "ooms",
                                "pool_renewals", "captures", "tokens_per_sec")},
@@ -2361,7 +2718,8 @@ def run_gen_lifecycle_stream(cfg_raw: dict, reference: list[list[int]]) -> dict:
     check(k3 > 0 and k3 == server.cfg.layers * decode_chunk,
           f"K3 launches != layers x (decode + chunk steps): {report}")
     check(k3_variants.get("mma") == k3, f"a K3 launch missed the tensor-core body: {report}")
-    check(not mismatched, f"a row's ids differ from the fault-free run before a near-tie: "
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"a row's ids differ from the fault-free run before a near-tie: "
           f"{report}")
     results = mon.results
     check(results["mismatch"] == results["error"] == results["digest_mismatch"] == 0,
@@ -2562,19 +2920,23 @@ def run_gen_swap_integrity(cfg_raw: dict, ckpt_dir: str) -> dict:
 def run_gen_lifecycle(plain: dict) -> dict:
     """The generate lifecycle phase (see the module docstring): the
     fault-free lifecycle stream, the faulted one, the swap and integrity
-    checks, and the cost line beside ``plain`` (the graphed generate
-    stream's report, same rows, this run)."""
+    checks (at full width and ``GEN_SWAP_LAYERS`` layers), and the cost
+    line beside ``plain`` (the graphed generate stream's report, same rows,
+    this run)."""
     clean = gen_reference_run(gen_lifecycle_config(faults=False))
     release_memory()
     stream_rep = run_gen_lifecycle_stream(gen_lifecycle_config(), clean["tokens"])
     release_memory()
     os.makedirs(CHECKPOINT_ROOT, exist_ok=True)
+    idle = gen_lifecycle_config(
+        faults=False, idle=True,
+        swap={"canary": {"rows": 4, "min_agreement": 0.0}, "drain_timeout": "120s"},
+        integrity={"probe_interval": "3600s", "digest_every": 1,
+                   "golden": {"rows": 1, "seq": 8}})
+    inner = idle["streams"][0]["pipeline"]["processors"][0]["inner"]
+    inner["model_config"] = {**inner["model_config"], "layers": GEN_SWAP_LAYERS}
     with tempfile.TemporaryDirectory(dir=CHECKPOINT_ROOT) as ckpt_dir:
-        checks = run_gen_swap_integrity(gen_lifecycle_config(
-            faults=False, idle=True,
-            swap={"canary": {"rows": 4, "min_agreement": 0.0}, "drain_timeout": "120s"},
-            integrity={"probe_interval": "3600s", "digest_every": 1,
-                       "golden": {"rows": 1, "seq": 8}}), ckpt_dir)
+        checks = run_gen_swap_integrity(idle, ckpt_dir)
     release_memory()
     cost = {"plain_traffic_tokens_per_s": plain["traffic_tokens_per_s"],
             "plain_ttft_p50_ms": plain["ttft_p50_ms"], "plain_ttft_p99_ms": plain["ttft_p99_ms"],
@@ -2698,6 +3060,7 @@ def main() -> int:
     paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows")
     paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows, poisoned past the bound",
                poison=True)
+    k3_verify = k3_verify_cases(gen)
 
     with open(GENERATE_CONFIG) as f:
         gen_raw = json.load(f)
@@ -2718,6 +3081,28 @@ def main() -> int:
     del generated_eager
     release_memory()
     gen_life = run_gen_lifecycle(generated["report"])
+
+    with open(SERVING_CONFIG) as f:
+        serving_raw = json.load(f)
+    serving = run_serving_features(serving_raw)
+    ab["serving"] = {"graphed": ab_numbers(serving["report"]),
+                     "eager": ab_numbers(serving["eager"])}
+    graphs["serving"] = serving["graphs"]
+    sampling = run_sampling(gen_raw)
+    with open(BATCH_CONFIG) as f:
+        batch_raw = json.load(f)
+    batch_gen = run_batch_generate(batch_raw)
+    batch_swap = run_batch_swap(batch_raw)
+    print("generation features " + json.dumps({
+        "serving": {k: serving["report"][k] for k in (
+            "traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "verify_steps",
+            "decode_steps", "chunk_steps", "prefill_steps", "spec_drafted", "spec_accepted",
+            "prefix_hits", "prefix_pages_shared", "prefix_evictions", "k3_launches")},
+        "serving_eager_tokens_per_s": serving["eager"]["traffic_tokens_per_s"],
+        "sampling_tokens_per_s": sampling["stream"]["traffic_tokens_per_s"],
+        "batch_tokens_per_s": batch_gen["traffic_tokens_per_s"],
+        "batch_decode_steps_per_generation": batch_gen["decode_steps_per_generation"],
+        "batch_swap_ms": batch_swap["stage_ms"]}), flush=True)
     print("graphs " + json.dumps({path: {k: g[k] for k in ("captures", "keys_checked",
                                                          "differing_elements",
                                                          "reserved_before_captures",
@@ -2741,12 +3126,18 @@ def main() -> int:
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
-        "launches": generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"],
+        "launches": (generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"]
+                     + serving["report"]["k3_launches"]
+                     + sampling["stream"]["k3_launches"]),
         "ok": True,
         **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
         "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",
                                                      "bound_ms", "tile_err_ratio")}
                    for o in (256, 384)},
+        "verify": {name: {k: c[k] for k in ("kernel_device_ms", "library_device_ms",
+                                            "plain_device_ms", "bound_ms", "max_abs_err",
+                                            "tile_err_ratio")}
+                   for name, c in k3_verify.items()},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/flash_attention.cu",

@@ -1,7 +1,7 @@
 """The port's decoder LM against the JAX package's on the same weights
 (JAX-initialised, converted with ``params_from_jax``) and the same numpy
 inputs, at the JAX suites' TINY shape: ``rms_norm``, ``_rope``, ``forward``
-and ``apply``; plus the parts that stay unported raising."""
+and ``apply``; plus the parts that stay unported raising (MoE)."""
 
 import dataclasses
 
@@ -135,17 +135,26 @@ def test_unknown_config_key_raises():
 
 @pytest.mark.parametrize("name", ["prefill", "decode_step", "generate"])
 def test_contiguous_cache_paths_raise(name):
+    """The contiguous-cache paths are ported (``tests/test_torch_contiguous_decode.py``);
+    with MoE (``num_experts > 1``, the next slice) they raise."""
+    cfg = dec.DecoderConfig(**TINY, num_experts=4)
+    ids = torch.zeros(1, 2, dtype=torch.int32)
+    args = {"prefill": (ids, dec.init_kv_cache(cfg, 1, 4)),
+            "decode_step": (ids[:, :1], dec.init_kv_cache(cfg, 1, 4)),
+            "generate": (ids, torch.tensor([2]), 2)}[name]
     with pytest.raises(ConfigError, match="not yet ported"):
-        get_model("decoder_lm").extras[name]()
+        get_model("decoder_lm").extras[name]({}, cfg, *args)
 
 
 def test_sampling_raises_and_greedy_is_argmax():
+    """Greedy is the argmax whatever ``top_k``; sampling needs a key
+    (``tests/test_torch_sampling.py`` holds the draws)."""
     logits = torch.tensor([[0.1, 3.0, -1.0], [2.0, 1.0, 0.0]])
     assert dec.select_token(logits).tolist() == [1, 0]
-    with pytest.raises(ConfigError, match="not yet ported"):
+    assert dec.select_token(logits, top_k=5).tolist() == [1, 0]
+    with pytest.raises(ConfigError, match="needs a key"):
         dec.select_token(logits, temperature=0.7)
-    with pytest.raises(ConfigError, match="not yet ported"):
-        dec.select_token(logits, top_k=5)
+    assert dec.select_token(logits, dec.make_key(0), 0.7, top_k=1).tolist() == [1, 0]
 
 
 def test_decode_and_decode_column_match_jax():

@@ -5,7 +5,8 @@ prompts, tie-free under seed 3) over 2 slots, so they come in several
 waves, with the gather path, the paged path (Pallas interpret on the JAX
 side, K3's plain version here), chunked prefill and dispatch depth 2; then
 page starvation, a crash, close mid-flight, the parity gate that raises,
-and the options not yet ported."""
+and the refused options (``mesh``, and JAX's refusals of invalid
+combinations)."""
 
 import asyncio
 
@@ -195,13 +196,25 @@ def test_a_failed_parity_gate_raises_and_never_falls_back(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"temperature": 0.7}, {"top_k": 5}, {"speculative_tokens": 2},
-    {"prefix_cache_pages": 4}, {"mesh": object()},
+    {"temperature": 0.7, "speculative_tokens": 2},
+    {"temperature": 0.5, "top_k": 5, "dispatch_depth": 2},
+    {"speculative_tokens": 2, "dispatch_depth": 2},
+    {"prefix_cache_pages": -1}, {"mesh": object()},
 ])
 def test_unported_options_raise(weights, kw):
-    _, _, params, cfg = weights
-    with pytest.raises(ConfigError, match="not yet ported"):
+    """``mesh`` is not ported yet; sampling, speculation and the prefix
+    cache are, and their invalid combinations raise the JAX server's own
+    messages."""
+    jparams, jcfg, params, cfg = weights
+    if "mesh" in kw:
+        with pytest.raises(ConfigError, match="not yet ported"):
+            GenerationServer(params, cfg, slots=2, page_size=4, max_seq=40, **kw)
+        return
+    with pytest.raises(Exception) as want:
+        JaxGenerationServer(jparams, jcfg, slots=2, page_size=4, max_seq=40, **kw)
+    with pytest.raises(ConfigError) as got:
         GenerationServer(params, cfg, slots=2, page_size=4, max_seq=40, **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw,match", [

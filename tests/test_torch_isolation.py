@@ -1,8 +1,9 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
-paths (the padded, the packed and the generate stream, and the BERT and
-Llama lifecycle streams with their health servers) needs pyarrow, yaml or
-aiohttp at import time or at run time."""
+paths (the padded, the packed and the generate stream, the BERT and
+Llama lifecycle streams with their health servers, and the Llama serving
+and batch streams) needs pyarrow, yaml or aiohttp at import time or at run
+time."""
 
 import ast
 import os
@@ -118,6 +119,20 @@ gen_count = gen_cfg["streams"][0]["input"]["inner"]["count"]
 assert gen_stream.output.dropped_rows == gen_count and gen_stream.errors >= 2, gen_stream.errors
 gen_server = gen_stream.pipeline.processors[0].runner
 assert gen_server.core.deadline_misses == 1 and gen_server.health.state == "healthy"
+tiny_dec = {"vocab_size": 64, "dim": 16, "layers": 1, "heads": 2, "kv_heads": 1, "ffn": 32}
+for example in ("llama_serving_stream.json", "llama_batch_stream.json"):
+    ex_cfg = json.load(open("arkflow_tpu_torch/examples/" + example))
+    ex_cfg["streams"][0]["pipeline"]["processors"][0].update(model_config=tiny_dec, device="cpu")
+    ex_engine = Engine(EngineConfig.from_mapping(ex_cfg))
+    ex_stream = ex_engine.build()[0]
+    asyncio.run(ex_engine.run())
+    ex_count = ex_cfg["streams"][0]["input"]["count"]
+    assert ex_stream.output.dropped_rows == ex_count and ex_stream.errors == 0, example
+    ex_proc = ex_stream.pipeline.processors[0]
+    if ex_proc.server is not None:
+        assert ex_proc.server.prefix_hits > 0 and ex_proc.server.verify_steps > 0
+    else:
+        assert ex_proc.generator.generations >= 3
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

@@ -247,12 +247,21 @@ def test_generate_stream_matches_the_jax_generate_stream():
     assert stream.errors == 0 and stream.rows_out == 7
 
 
-@pytest.mark.parametrize("patch", [{"serving": "batch"}, {"tokenizer": "gpt2"},
-                                   {"speculative_tokens": 2}, {"prefix_cache_pages": 8},
+@pytest.mark.parametrize("patch", [{"serving": "batch", "tokenizer": "gpt2"},
+                                   {"tokenizer": "gpt2"},
+                                   {"serving": "batch", "mesh": {"dp": 2}},
+                                   {"serving": "batch", "kernel_interpret": True},
                                    {"mesh": {"tp": 2}}, {"kernel_interpret": True},
-                                   {"temperature": 0.8}, {"top_k": 4}, {"batch_buckets": [4]},
+                                   {"model_config": {**TINY_DECODER, "use_ring_attention": True}},
+                                   {"model_config": {**TINY_DECODER, "remat": True}},
+                                   {"serving": "batch", "batch_buckets": [4],
+                                    "model_config": {**TINY_DECODER, "num_experts": 2}},
                                    {"model_config": {**TINY_DECODER, "num_experts": 4}}])
 def test_gpu_generate_unported_keys_raise(tmp_path, patch):
+    """``tokenizer``, ``mesh``, ``kernel_interpret`` and the decoder's MoE,
+    ring attention and ``remat`` raise in both serving modes (sampling,
+    ``speculative_tokens``, ``prefix_cache_pages``, ``serving: batch``,
+    ``batch_buckets`` and ``max_batch`` are ported)."""
     stream = _generate_stream("gpu_generate", **patch)
     cfg = {"streams": [stream]}
     with pytest.raises(ConfigError, match="not yet ported"):
