@@ -1,7 +1,8 @@
 """Decoder-only LM (Llama-style): GQA + RoPE + RMSNorm + SwiGLU.
 
 Counterpart of ``arkflow_tpu/models/decoder.py`` on one device: ``init``,
-``_rope``, ``_mlp`` (dense SwiGLU), ``_attention_block``, ``forward`` /
+``_rope``, ``_mlp`` (dense SwiGLU, or the Switch MoE ``_moe_mlp`` with
+``num_experts > 1``), ``_attention_block``, ``forward`` /
 ``apply``, ``select_token`` (greedy, or temperature / top-k sampling) and
 the contiguous KV cache of batched generation (``init_kv_cache``,
 ``prefill``, ``decode_step``, ``generate``). Params keep the JAX tree's
@@ -32,20 +33,33 @@ the cache they were given, its K/V, cursor and lengths updated. The write
 cursor and the lengths stay device tensors, so one captured decode step
 serves every step of a generation.
 
+MoE (``num_experts > 1``) is JAX's Switch layer: top-1 routing, a
+per-expert capacity fixed by the call's shapes, overflow and masked tokens
+dropped to a zero output (``_moe_mlp``). It runs in every path: ``forward``
+unmasked, ``prefill`` masked by the prompt lengths, ``decode_step``
+unmasked (as JAX's: padding and finished rows of a batch take expert
+capacity), and the paged paths masked by their valid positions.
+
 Where the port departs from the JAX code without changing the function:
 ``prefill`` runs the final norm and the LM head on each row's last true
-position only (both are row-wise), as ``models/paged_decode.py`` does.
+position only (both are row-wise), as ``models/paged_decode.py`` does;
+``_moe_mlp`` scatters each kept token into its (expert, slot) row and
+gathers it back instead of building JAX's one-hot ``[T, E, C]`` dispatch
+tensor, which gives the same numbers (each dispatch and combine sum there
+has one non-zero term).
 
-Not ported yet (each raises "not yet ported"): MoE (``num_experts > 1``,
-in the config and in the cache paths), ring attention and ``remat`` (a
-training knob). ``loss_fn``, ``make_train_step``, ``param_specs`` and
-``pp_stage_fns`` wait for the training and multi-device slices.
+Not ported yet (each raises "not yet ported"): ring attention and
+``remat`` (a training knob). ``loss_fn``, ``make_train_step``,
+``param_specs`` and ``pp_stage_fns`` wait for the training and
+multi-device slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -89,8 +103,6 @@ def make_config(**overrides) -> DecoderConfig:
     if unknown:
         raise ConfigError(f"decoder_lm: unknown model_config keys {unknown}")
     cfg = DecoderConfig(**overrides)
-    if cfg.num_experts > 1:
-        raise not_ported("decoder_lm model_config.num_experts > 1 (MoE)")
     if cfg.use_ring_attention:
         raise not_ported("decoder_lm model_config.use_ring_attention")
     if cfg.remat:
@@ -108,17 +120,24 @@ def init(gen: torch.Generator, cfg: DecoderConfig, *, device=None,
     differ: another generator). Dense and embedding weights are held in
     ``dtype`` -- bfloat16 by default, bit for bit the cast the forward does
     at every call -- and norm scales in float32. Each tensor is drawn in
-    float32 and cast, one layer at a time, so the float32 draw of the whole
-    tree (32 GB at Llama-3-8B) never exists."""
+    float32 and cast, one layer (one expert) at a time, so the float32 draw
+    of the whole tree (32 GB at Llama-3-8B) never exists.
+
+    With ``num_experts > 1`` (JAX's MoE branch) a layer has no dense MLP
+    but ``router`` (a bias-free dense ``[dim, E]``, kept in float32: the
+    router's logits are float32) and ``experts.{w_gate, w_up, w_down}``
+    (``[E, dim, ffn]``, ``[E, dim, ffn]``, ``[E, ffn, dim]``, uniform in
+    +-1/sqrt(dim), in ``dtype``)."""
     device = torch.device(device) if device is not None else gen.device
-    if cfg.num_experts > 1:
-        raise not_ported("decoder_lm init with num_experts > 1 (MoE)")
     dh = cfg.dim // cfg.heads
+    e = cfg.num_experts
+    moe = e > 1
+
+    def uniform(shape: tuple, scale: float) -> torch.Tensor:
+        return torch.empty(*shape, device=device).uniform_(-scale, scale, generator=gen)
 
     def dense(in_dim: int, out_dim: int) -> dict:
-        scale = 1.0 / math.sqrt(in_dim)
-        w = torch.empty(in_dim, out_dim, device=device).uniform_(-scale, scale, generator=gen)
-        return {"w": w.to(dtype)}
+        return {"w": uniform((in_dim, out_dim), 1.0 / math.sqrt(in_dim)).to(dtype)}
 
     table = torch.randn(cfg.vocab_size, cfg.dim, device=device, generator=gen) * 0.02
     params = {
@@ -127,15 +146,26 @@ def init(gen: torch.Generator, cfg: DecoderConfig, *, device=None,
         "lm_head": dense(cfg.dim, cfg.vocab_size),
     }
     del table
+    mlp = {"w_gate": (cfg.dim, cfg.ffn), "w_up": (cfg.dim, cfg.ffn),
+           "w_down": (cfg.ffn, cfg.dim)}
     shapes = {"wq": (cfg.dim, cfg.heads * dh), "wk": (cfg.dim, cfg.kv_heads * dh),
               "wv": (cfg.dim, cfg.kv_heads * dh), "wo": (cfg.heads * dh, cfg.dim),
-              "w_gate": (cfg.dim, cfg.ffn), "w_up": (cfg.dim, cfg.ffn),
-              "w_down": (cfg.ffn, cfg.dim)}
+              **({} if moe else mlp)}
     layers = {name: {"w": torch.empty(cfg.layers, *shape, device=device, dtype=dtype)}
               for name, shape in shapes.items()}
+    if moe:
+        layers["router"] = {"w": torch.empty(cfg.layers, cfg.dim, e, device=device)}
+        layers["experts"] = {name: torch.empty(cfg.layers, e, *shape, device=device, dtype=dtype)
+                             for name, shape in mlp.items()}
+    scale = 1.0 / math.sqrt(cfg.dim)
     for i in range(cfg.layers):
         for name, (in_dim, out_dim) in shapes.items():
             layers[name]["w"][i] = dense(in_dim, out_dim)["w"]
+        if moe:
+            layers["router"]["w"][i] = uniform((cfg.dim, e), scale)
+            for name, shape in mlp.items():
+                for j in range(e):
+                    layers["experts"][name][i, j] = uniform(shape, scale).to(dtype)
     layers["attn_norm"] = {"scale": torch.ones(cfg.layers, cfg.dim, device=device)}
     layers["mlp_norm"] = {"scale": torch.ones(cfg.layers, cfg.dim, device=device)}
     params["layers"] = layers
@@ -176,8 +206,160 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
-def _mlp(lp: dict, y: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
-    """Dense SwiGLU (the MoE branch is not ported)."""
+def expert_capacity(cfg: DecoderConfig, tokens: int) -> int:
+    """Slots per expert for a call over ``tokens`` tokens, as JAX computes
+    it: ``max(1, ceil(tokens / E * capacity_factor))``, a Python int."""
+    return max(1, math.ceil(tokens / cfg.num_experts * cfg.capacity_factor))
+
+
+def route(lp: dict, yf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router of one MoE layer over [T, D] tokens: float32 logits
+    [T, E], their softmax, and the top expert of each token (the first of a
+    tie)."""
+    logits = cm.dense(lp["router"], yf, dtype=torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    return logits, probs, torch.argmax(probs, dim=-1)
+
+
+def switch_experts(ex: dict, yf: torch.Tensor, top: torch.Tensor, weight: torch.Tensor,
+                   capacity: int, token_mask: Optional[torch.Tensor] = None):
+    """Dispatch, the experts' SwiGLU and the weighted combine of a Switch
+    layer, given each token's expert ``top`` [T] and ``weight`` [T]:
+    (out [T, D] float32, routed [T, E] int64 one-hot of the tokens that
+    took a queue position).
+
+    Tokens queue into their expert in index order; a masked token
+    (``token_mask`` [T] false) takes no position, and a token past
+    ``capacity`` or masked gets a zero output. Each kept token is copied
+    into row (expert, slot) of an [E*C + 1, D] buffer (row E*C takes every
+    other token and is never read), the experts run as three ``bmm`` over
+    [E, C, .] in yf's dtype (silu in float32, then cast), and each kept
+    token reads its row back times its weight, in float32. JAX's one-hot
+    dispatch and combine einsums have one non-zero term per sum, so this
+    gives their numbers. Nothing reads the device from the host and no
+    shape depends on the routing, so a CUDA graph can capture it."""
+    e = ex["w_gate"].shape[0]
+    dtype = yf.dtype
+    onehot = top[:, None] == torch.arange(e, device=yf.device)  # [T, E]
+    if token_mask is not None:
+        onehot = onehot & token_mask.reshape(-1, 1).to(torch.bool)
+    routed = onehot.to(torch.int64)
+    # position in the expert's queue: the running count of its routed tokens
+    pos = (routed.cumsum(0) * routed).sum(-1) - 1  # [T]; -1 = not routed
+    keep = (pos >= 0) & (pos < capacity)
+    rows = torch.where(keep, top * capacity + pos, e * capacity)  # [T]
+    buf = yf.new_zeros(e * capacity + 1, yf.shape[1])
+    buf.index_copy_(0, rows, yf)
+    expert_in = buf[:e * capacity].view(e, capacity, yf.shape[1])
+    gate = torch.bmm(expert_in, ex["w_gate"].to(dtype))
+    up = torch.bmm(expert_in, ex["w_up"].to(dtype))
+    act = torch.nn.functional.silu(gate.float()).to(dtype) * up
+    expert_out = torch.bmm(act, ex["w_down"].to(dtype)).reshape(e * capacity, -1)
+    picked = expert_out.index_select(0, torch.where(keep, rows, 0)).float()
+    return torch.where(keep[:, None], picked * weight[:, None], 0.0), routed
+
+
+class RoutingTrace:
+    """MoE routing held across two runs of the same calls, such as the
+    parity gate's two attention paths: while ``recording``, each MoE call
+    keeps its top experts here; once ``replay()`` is called, each call
+    takes them back in call order in place of its own argmax, and the
+    routed decisions where its own choice differs are counted (``flips``).
+
+    Top-1 routing is discontinuous: two attention paths that round apart
+    move a router logit by ~1e-3, which flips a near-tied choice, and a
+    flipped expert moves that token's logits far more than rounding does.
+    With the routing held, two paths are compared on what they compute."""
+
+    def __init__(self):
+        self.replaying = False
+        self.tops: list[torch.Tensor] = []
+        self.at = 0
+        self._flips: list[torch.Tensor] = []
+        self._replayed: list[torch.Tensor] = []
+
+    def replay(self) -> "RoutingTrace":
+        self.replaying, self.at = True, 0
+        return self
+
+    def take(self, top: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        if not self.replaying:
+            self.tops.append(top)
+            return top
+        if self.at >= len(self.tops) or self.tops[self.at].shape != top.shape:
+            raise RuntimeError("routing replay: the calls differ from the recorded run's")
+        held = self.tops[self.at]
+        self.at += 1
+        self._flips.append(((held != top) & live).sum())
+        self._replayed.append(live.sum())
+        return held
+
+    def flips(self) -> int:
+        """Replayed decisions whose own argmax differed (reads the device)."""
+        return int(sum(int(f) for f in self._flips))
+
+    def replayed(self) -> int:
+        """Routed (unmasked) decisions replayed (reads the device)."""
+        return int(sum(int(n) for n in self._replayed))
+
+
+#: the routing trace MoE calls on this thread record into or replay from
+_routing = threading.local()
+
+
+@contextlib.contextmanager
+def holding_routing(trace: Optional[RoutingTrace]):
+    """MoE calls on this thread record into (or replay from) ``trace``."""
+    prev = getattr(_routing, "trace", None)
+    _routing.trace = trace
+    try:
+        yield trace
+    finally:
+        _routing.trace = prev
+
+
+def _moe_mlp(lp: dict, y: torch.Tensor, cfg: DecoderConfig,
+             token_mask: Optional[torch.Tensor] = None):
+    """Switch-style top-1 MoE SwiGLU with a per-expert capacity, as JAX's
+    ``_moe_mlp``: y [B, S, D] -> (out [B, S, D] in y's dtype, (lb, z)).
+
+    Router logits in float32; softmax, then the top expert (the first of a
+    tie) with its probability as the token's weight (``route``). Tokens
+    queue into their expert in b-major order over the flattened [B*S]
+    tokens; the capacity is fixed by the call's shapes
+    (``expert_capacity``), and a token past it gets a zero output.
+    ``token_mask`` ([B, S] bool) takes tokens out of routing: they hold no
+    queue position and get a zero output (``switch_experts``). Under
+    ``holding_routing`` the top experts are recorded or replayed.
+
+    ``(lb, z)``: the Switch aux stats, ``E * sum(frac * mean_prob)`` (frac
+    counts the routed, unmasked tokens over all B*S) and the mean squared
+    logsumexp of the router logits."""
+    b, s, d = y.shape
+    e = lp["experts"]["w_gate"].shape[0]
+    yf = y.reshape(b * s, d)
+    logits, probs, top = route(lp, yf)
+    trace = getattr(_routing, "trace", None)
+    if trace is not None:
+        live = (torch.ones_like(top, dtype=torch.bool) if token_mask is None
+                else token_mask.reshape(-1).to(torch.bool))
+        top = trace.take(top, live)
+    weight = probs.gather(1, top[:, None])[:, 0]
+    out, routed = switch_experts(lp["experts"], yf, top, weight,
+                                 expert_capacity(cfg, b * s), token_mask)
+    lb = e * (routed.float().mean(0) * probs.mean(0)).sum()
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    return out.reshape(b, s, d).to(y.dtype), (lb, z)
+
+
+def _mlp(lp: dict, y: torch.Tensor, cfg: DecoderConfig,
+         token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense SwiGLU, or the Switch MoE (aux stats dropped) with
+    ``num_experts > 1``: the shared MLP of the incremental-decode paths.
+    ``token_mask`` ([B, S]) reaches the MoE only; the dense MLP is
+    row-wise."""
+    if cfg.num_experts > 1:
+        return _moe_mlp(lp, y, cfg, token_mask=token_mask)[0]
     gate = torch.nn.functional.silu(cm.dense(lp["w_gate"], y).float()).to(y.dtype)
     return cm.dense(lp["w_down"], gate * cm.dense(lp["w_up"], y))
 
@@ -200,7 +382,8 @@ def _attention_block(lp: dict, x: torch.Tensor, cfg: DecoderConfig,
 
 
 def forward(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    """[B, S] ids -> [B, S, vocab] float32 logits (causal), on one device."""
+    """[B, S] ids -> [B, S, vocab] float32 logits (causal), on one device.
+    The MoE layers route every token (unmasked, as JAX's ``forward``)."""
     b, s = input_ids.shape
     dev = input_ids.device
     x = cm.embedding(params["embed"], input_ids)
@@ -313,11 +496,6 @@ def input_spec(cfg: DecoderConfig) -> dict:
 # -- the contiguous KV cache (batched generation) ------------------------------
 
 
-def _no_moe(cfg: DecoderConfig, name: str) -> None:
-    if cfg.num_experts > 1:
-        raise not_ported(f"decoder_lm {name} with num_experts > 1 (MoE)")
-
-
 def head(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head: [..., dim] -> [..., vocab] float32 logits."""
     return cm.dense(params["lm_head"], cm.rms_norm(params["norm_out"], x, cfg.norm_eps)).float()
@@ -357,7 +535,6 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor, cache: di
     the JAX function does. The cursor lands at T. Returns (next ids [B]
     int32 -- or the last true position's logits [B, vocab] with
     ``return_logits`` -- , cache), the cache updated in place."""
-    _no_moe(cfg, "prefill")
     b, t = input_ids.shape
     dev = input_ids.device
     dh = cfg.dim // cfg.heads
@@ -368,8 +545,8 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor, cache: di
     positions = torch.arange(t, device=dev)[None, :].expand(b, t)
     rope = rope_angles(positions, dh, cfg.rope_theta)
     causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None, None]
-    key_valid = (positions < lengths[:, None])[:, None, None, :]
-    mask = causal & key_valid
+    token_mask = positions < lengths[:, None]  # [B, T] real tokens (MoE routing)
+    mask = causal & token_mask[:, None, None, :]
     x = cm.embedding(params["embed"], input_ids)
     for i in range(num_layers(params)):
         lp = layer_params(params["layers"], i)
@@ -382,7 +559,8 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor, cache: di
         attn = cm.attention(q, k.repeat_interleave(group, dim=2),
                             v.repeat_interleave(group, dim=2), mask)
         x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
-        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
+                     token_mask=token_mask)
     logits = head(params, cfg, last_rows(x, lengths))
     cache["length"].fill_(t)
     cache["lengths"].copy_(lengths)
@@ -399,8 +577,9 @@ def decode_step(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor, cache
     at the shared cursor; RoPE positions are the per-row ``lengths``; a row
     attends its real prompt keys (``k < lengths``) and the generated block
     (``prompt_len <= k <= cursor``), from the bfloat16 cache. The cursor and
-    the lengths advance by one, in place."""
-    _no_moe(cfg, "decode_step")
+    the lengths advance by one, in place. The MoE MLP is unmasked, as in
+    JAX: every row, a batch's padding and finished rows too, takes expert
+    capacity."""
     b = token_ids.shape[0]
     dev = token_ids.device
     dh = cfg.dim // cfg.heads
@@ -513,7 +692,6 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     top-k sampling from ``rng_key`` (``make_key``; default key 0), one
     split per step. Returns (tokens [B, max_new_tokens] int32, zero-padded
     after EOS, counts [B] of real tokens per row)."""
-    _no_moe(cfg, "generate")
     b, t = input_ids.shape
     dev = input_ids.device
     keys = torch.from_numpy(generation_keys(make_key(0) if rng_key is None else rng_key,

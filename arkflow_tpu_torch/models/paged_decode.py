@@ -25,6 +25,11 @@ Where the port departs from the JAX code without changing the function:
 the final norm and the LM head run on the rows whose logits are returned
 (the last true position of each row) instead of on every position, since
 both are row-wise.
+
+MoE (``num_experts > 1``): the MLP of every path is ``decoder._mlp`` with
+JAX's token mask -- the prefill's and the chunk's valid positions and the
+decode step's active lanes -- so padding and idle lanes take no expert
+capacity. Each call's capacity comes from its own [B, S].
 """
 
 from __future__ import annotations
@@ -125,7 +130,8 @@ def paged_prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
         attn = cm.attention(q, k.repeat_interleave(group, dim=2),
                             v.repeat_interleave(group, dim=2), mask)
         x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
-        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
+                     token_mask=pos_valid)
     logits = head(params, cfg, last_rows(x, lengths))
     if return_logits:
         return logits, k_pages, v_pages
@@ -144,7 +150,8 @@ def paged_prefill_chunk(params: dict, cfg: DecoderConfig, input_ids: torch.Tenso
     must already map every page the chunk writes (and all earlier ones).
     Earlier chunks' K/V are read back from the pool, so attention is exact
     over positions 0..off+i for query i; padded queries keep that causal
-    bound too (their finite output is never read).
+    bound too, so their output stays finite (never read, and taken out of
+    MoE routing by ``pos_valid``).
 
     Returns (logits at the chunk's last true position [B, vocab] -- or, with
     ``return_all``, at every chunk position [B, C, vocab] -- , k_pages,
@@ -182,7 +189,8 @@ def paged_prefill_chunk(params: dict, cfg: DecoderConfig, input_ids: torch.Tenso
         else:
             attn = _attend_gather(q, kp, vp, page_table, mask, cfg)
         x = x + cm.dense(lp["wo"], attn.reshape(b, t, cfg.heads * dh))
-        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
+                     token_mask=pos_valid)
     if return_all:
         return head(params, cfg, x), k_pages, v_pages
     return head(params, cfg, last_rows(x, chunk_len.to(dev))), k_pages, v_pages
@@ -236,7 +244,9 @@ def paged_decode_step(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
         else:
             attn = _attend_gather(q, kp, vp, page_table, valid, cfg)
         x = x + cm.dense(lp["wo"], attn.reshape(s, 1, cfg.heads * dh))
-        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+        # inactive lanes take no expert capacity (MoE)
+        x = x + _mlp(lp, cm.rms_norm(lp["mlp_norm"], x, cfg.norm_eps), cfg,
+                     token_mask=active[:, None])
     logits = head(params, cfg, x[:, -1, :])
     if return_logits:
         return logits, k_pages, v_pages

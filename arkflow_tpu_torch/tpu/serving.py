@@ -29,6 +29,11 @@ gap and the top-k check run inside the graph. ``eager=True`` (a keyword
 only) runs every step op by op, for A/B comparisons; the init-time parity
 gate always runs eagerly, before any capture.
 
+An MoE model (``num_experts > 1``) serves through the same steps: each
+step key's graph fixes its expert capacity from its own [B, S] (decode
+``slots x 1``, verify ``slots x k``, a chunk or a prefill ``1 x width``),
+as each JAX jit does, and padding and idle lanes take none of it.
+
 The generation features of the JAX server:
 
 - **Sampling** (``temperature > 0``, ``top_k``): the server's key
@@ -127,8 +132,8 @@ import torch
 
 from arkflow_tpu_torch.errors import (ArkError, ConfigError, StepDeadlineExceeded, SwapError,
                                      not_ported)
-from arkflow_tpu_torch.models.decoder import (DecoderConfig, key_words, make_key,
-                                             select_token, split_key)
+from arkflow_tpu_torch.models.decoder import (DecoderConfig, RoutingTrace, holding_routing,
+                                             key_words, make_key, select_token, split_key)
 from arkflow_tpu_torch.models.paged_decode import (
     init_page_pool,
     paged_decode_step,
@@ -324,9 +329,10 @@ class GenerationServer:
             self.decode_kernel = "paged" if self.device.type == "cuda" else "gather"
 
         # dispatch depth 2: step N+1 dispatches from step N's device-resident
-        # tokens before N's are fetched. Greedy only, as in the JAX server:
-        # the host learns of an EOS one step late, so a finished lane rides
-        # one more step and its token is dropped at apply.
+        # tokens before N's are fetched. Greedy and dense only, as in the JAX
+        # server: the host learns of an EOS one step late, so a finished lane
+        # rides one more step and its token is dropped at apply (with MoE it
+        # would take expert capacity from the other lanes).
         self.dispatch_depth = int(dispatch_depth)
         if self.dispatch_depth < 1:
             raise ConfigError("dispatch_depth must be >= 1")
@@ -344,6 +350,11 @@ class GenerationServer:
                 raise ConfigError(
                     "dispatch_depth > 1 and speculative_tokens are mutually "
                     "exclusive (both restructure the decode loop)")
+            if cfg.num_experts > 0:
+                raise ConfigError(
+                    "dispatch_depth > 1 does not compose with MoE models: "
+                    "a finished-but-still-riding lane consumes shared "
+                    "expert capacity and changes other lanes' outputs")
         self._pipeline: Optional[_InFlightDecode] = None
         self.record_margins = bool(record_margins)
         #: one CUDA graph per step key (``eager``: none, for A/B runs)
@@ -696,8 +707,13 @@ class GenerationServer:
         and one 2-token chunk with both attention paths. Every argmax must
         agree with the gather path's wherever its top-2 gap exceeds
         ``TIE_MARGIN`` (at a large vocabulary random weights give near-ties
-        that two correct summation orders may break differently). Raises
-        ``KernelParityError`` on a mismatch; never falls back."""
+        that two correct summation orders may break differently). An MoE
+        model's paged steps replay the gather steps' expert routing
+        (``decoder.RoutingTrace``): a near-tied router choice that the two
+        paths' rounding flips would move the logits far past any margin;
+        the decisions that would have flipped are reported
+        (``routing_flips``). Raises ``KernelParityError`` on a mismatch;
+        never falls back."""
         cfg, page = self.cfg, self.page_size
         n0 = min(page + 1, self.max_seq)
         pages_per = -(-(n0 + 3) // page)
@@ -726,21 +742,33 @@ class GenerationServer:
             if not bool(torch.isfinite(got).all()):
                 report["mismatches"] += 1
 
+        moe = cfg.num_experts > 1
+        traces = []
+
+        def both(step) -> tuple[torch.Tensor, torch.Tensor]:
+            """``step`` on the gather path, then on the paged one with the
+            gather run's routing held (MoE)."""
+            trace = RoutingTrace() if moe else None
+            with holding_routing(trace):
+                ref = step("gather")
+            with holding_routing(trace and trace.replay()):
+                got = step("paged")
+            traces.append(trace)
+            return ref, got
+
         with torch.inference_mode():
             paged_prefill(self.params, cfg, dev(ids), lens, tab, kp, vp)
             tok, act = dev(ids[:, 0].copy()), dev(np.asarray([True, True]))
-            ref, *_ = paged_decode_step(self.params, cfg, tok, lens, act, tab, kp, vp,
-                                        return_logits=True)
-            got, *_ = paged_decode_step(self.params, cfg, tok, lens, act, tab, kp, vp,
-                                        return_logits=True, attention_kernel="paged")
-            compare(ref, got)
+            compare(*both(lambda kernel: paged_decode_step(
+                self.params, cfg, tok, lens, act, tab, kp, vp, return_logits=True,
+                attention_kernel=kernel)[0]))
             cids = dev(rng.randint(1, cfg.vocab_size, (2, 2)).astype(np.int32))
             clen = dev(np.asarray([2, 2], np.int32))
-            ref, *_ = paged_prefill_chunk(self.params, cfg, cids, lens, clen, tab, kp, vp,
-                                          return_all=True)
-            got, *_ = paged_prefill_chunk(self.params, cfg, cids, lens, clen, tab, kp, vp,
-                                          return_all=True, attention_kernel="paged")
-            compare(ref, got)
+            compare(*both(lambda kernel: paged_prefill_chunk(
+                self.params, cfg, cids, lens, clen, tab, kp, vp, return_all=True,
+                attention_kernel=kernel)[0]))
+        if moe:
+            report["routing_flips"] = sum(t.flips() for t in traces)
         if report["mismatches"]:
             raise KernelParityError(
                 f"the paged attention kernel disagrees with the gather path at init: {report}")

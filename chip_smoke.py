@@ -168,7 +168,19 @@ last line):
     launched; ``batch swap``: at full width and 4 layers, a seed-1 swap
     served bit for bit as a processor built on it, a ``swap_crash``
     rolled back;
-13. the ``graphs`` line (per path: captures, keys checked, differing
+13. the MoE phase (``llama_moe_stream.json``: the generate stream with a
+    Switch MoE at Llama-3-8B widths, 8 experts, 16 layers, depth 1; the
+    dense models freed first, the peak memory read from the phase's
+    start): the stream graphed through ``Engine`` with the generate
+    stream's checks (K3 = 16 x (decode + chunk steps), all ``mma``, the
+    parity gate passed with the routing held), its step times against the
+    bound of reading every expert, ``graphs moe``, a padded chunk's logits
+    finite through K3, greedy streams of a graphed and an eager server
+    equal bit for bit, K3 against the gather path with the expert routing
+    held (``decoder.RoutingTrace``) up to the first near-tie plus the
+    first decode step's yardstick rule, one ``serving: batch`` bucket
+    graphed against eager, the stream eager, and the ``moe`` line;
+14. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
@@ -193,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -202,6 +215,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from arkflow_tpu_torch.batch import MessageBatch  # noqa: E402
 from arkflow_tpu_torch.components import Output  # noqa: E402
 from arkflow_tpu_torch.config import EngineConfig  # noqa: E402
+from arkflow_tpu_torch.models import decoder as dec  # noqa: E402
 from arkflow_tpu_torch.models import get_model  # noqa: E402
 from arkflow_tpu_torch.models import paged_decode as pd  # noqa: E402
 from arkflow_tpu_torch.models.paged_decode import (  # noqa: E402
@@ -244,6 +258,7 @@ LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "bert_lifecycle_stream.json")
 GEN_LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "llama_lifecycle_stream.json")
 SERVING_CONFIG = os.path.join(EXAMPLES, "llama_serving_stream.json")
 BATCH_CONFIG = os.path.join(EXAMPLES, "llama_batch_stream.json")
+MOE_CONFIG = os.path.join(EXAMPLES, "llama_moe_stream.json")
 #: where the generate lifecycle phase writes its 16 GB checkpoint (in a
 #: temporary directory it removes; the directory is ignored by git)
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
@@ -254,6 +269,11 @@ CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chec
 GEN_SWAP_LAYERS = 8
 GEN_CHECK_PROMPTS = 16
 GEN_CHECK_NEW = 32
+#: the MoE phase: the generate stream's 12 distinct texts through the path
+#: comparisons, 48 new tokens each; batch mode's one bucket
+MOE_CHECK_PROMPTS = 12
+MOE_CHECK_NEW = 48
+MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
 #: rows of each stream of the lifecycle cost comparison: ~13 s of traffic,
 #: four digest passes of the lifecycle example or more
 COST_ROWS = 40960
@@ -1543,7 +1563,7 @@ def run_generate_slice(cfg_raw: dict, eager: bool = False, label: str = "generat
     return {"report": report, "server": server, "rows": sink.generated}
 
 
-def step_times(server: GenerationServer) -> dict:
+def step_times(server: GenerationServer, label: str = "generate") -> dict:
     """One lockstep decode step over every slot (ragged contexts of up to
     the server's max_seq) and one 128-token chunk at offset 256, each
     dispatched and fetched as the server does it, graphed (``server``) and
@@ -1554,7 +1574,7 @@ def step_times(server: GenerationServer) -> dict:
     for name, srv in (("graphed", server), ("eager", eager), ("graphed_again", server),
                       ("eager_again", eager)):
         out[name] = step_times_of(srv)
-    print("generate step_ms " + json.dumps(out), flush=True)
+    print(f"{label} step_ms " + json.dumps(out), flush=True)
     return out
 
 
@@ -2074,6 +2094,270 @@ def run_batch_generate(cfg_raw: dict) -> dict:
     del proc, gen, calls
     release_memory()
     return report
+
+
+# -- MoE: the Switch decoder at Llama-3-8B widths ---------------------------
+
+
+def held_everywhere(trace: dec.RoutingTrace, fn):
+    """``fn()`` with every thread's MoE calls recording into or replaying
+    from ``trace`` (``decoder.holding_routing`` holds one thread; a
+    server's steps run on executor threads). Nothing else runs meanwhile."""
+    saved = dec._routing
+    dec._routing = types.SimpleNamespace(trace=trace)
+    try:
+        return fn()
+    finally:
+        dec._routing = saved
+
+
+def compare_moe_paths(server: GenerationServer, prompts: list[list[int]], max_new: int) -> dict:
+    """K3 against the gather path on the MoE model, with the routing held
+    (``decoder.RoutingTrace``: top-1 routing is discontinuous, and a
+    near-tied router choice that the two paths' rounding flips moves a
+    token's logits far past any tie margin): the prompts through an eager
+    gather server (routing recorded) and an eager paged server (the same
+    routing replayed; same slots, pages and chunking, all submitted at
+    once, so both run the same steps in the same order), streams equal up
+    to each row's first step whose top-2 logit gap in the gather run is at
+    or below the tie margin; the replayed decisions that K3's own routing
+    would have flipped are reported. Then one decode step over the
+    prompts' prefilled pools with the gather path (routing recorded), with
+    K3 and with K3's plain version (replayed): K3's logits no further from
+    either yardstick than the two lie from each other, plus 1/64."""
+    trace = dec.RoutingTrace()
+    runs, seconds = {}, {}
+    for name, kernel in (("gather", "gather"), ("paged", "paged")):
+        twin = server_twin(server, eager=True, record_margins=True, decode_kernel=kernel,
+                           dispatch_depth=1)
+        t0 = time.perf_counter()
+        runs[name] = held_everywhere(trace, lambda: serve_prompts(twin, prompts, max_new))
+        seconds[name] = time.perf_counter() - t0
+        del twin
+        if name == "gather":
+            trace.replay()
+    check(trace.at == len(trace.tops),
+          f"held routing: {trace.at} calls replayed of {len(trace.tops)} recorded")
+    streams = compare_to_first_tie([t for t, _ in runs["paged"]], runs["gather"])
+    routing = {"moe_calls": len(trace.tops), "decisions": trace.replayed(),
+               "flips": trace.flips()}
+    del trace
+    release_memory()
+
+    params, cfg = server.params, server.cfg
+    b, page = len(prompts), server.page_size
+    p = server.pages_per_slot
+    device = server.device
+    kp, vp = init_page_pool(cfg, 1 + b * p, page, device)
+    table = (torch.randperm(b * p, generator=torch.Generator().manual_seed(5)) + 1).reshape(b, p)
+    lens = np.asarray([len(x) for x in prompts], np.int32)
+    ids = np.zeros((b, int(lens.max())), np.int32)
+    for i, x in enumerate(prompts):
+        ids[i, : len(x)] = x
+    dev = {"ids": torch.from_numpy(ids).to(device), "lens": torch.from_numpy(lens).to(device),
+           "table": table.to(device=device, dtype=torch.int32)}
+    step_trace = dec.RoutingTrace()
+    with torch.inference_mode():
+        nxt, _, _ = paged_prefill(params, cfg, dev["ids"], dev["lens"], dev["table"], kp, vp)
+        act = torch.ones(b, dtype=torch.bool, device=device)
+
+        def step(kernel: str) -> torch.Tensor:  # rewrites the same K/V each time
+            return paged_decode_step(params, cfg, nxt, dev["lens"], act, dev["table"], kp, vp,
+                                     return_logits=True, attention_kernel=kernel)[0]
+
+        with dec.holding_routing(step_trace):
+            logits = {"gather": step("gather")}
+        with dec.holding_routing(step_trace.replay()):
+            logits["paged"] = step("paged")
+        pd.paged_flash_attention = ra.paged_attention_reference
+        try:
+            with dec.holding_routing(step_trace.replay()):
+                logits["paged_plain"] = step("paged")
+        finally:
+            pd.paged_flash_attention = ra.paged_flash_attention
+
+    def err(a: str, b: str) -> float:
+        return (logits[a] - logits[b]).abs().max().item()
+
+    logit_err = {"paged_vs_plain": err("paged", "paged_plain"),
+                 "paged_vs_gather": err("paged", "gather"),
+                 "plain_vs_gather": err("paged_plain", "gather"),
+                 "max_abs_logit": logits["gather"].abs().max().item()}
+    del kp, vp, logits
+    release_memory()
+    report = {"prompts": b, "max_new_tokens": max_new,
+              "tokens": {n: sum(len(t) for t, _ in r) for n, r in runs.items()},
+              **streams, "routing": routing, "first_step_flips": step_trace.flips(),
+              "first_step_max_logit_abs_err": logit_err, "logit_tol": LOGIT_TOL,
+              "seconds": seconds}
+    print("moe paths " + json.dumps(report), flush=True)
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"MoE: paged and gather streams differ before a near-tie: {report}")
+    check(streams["tokens_compared"] >= b, f"MoE: the path comparison compared too little: "
+          f"{report}")
+    floor = logit_err["plain_vs_gather"] + LOGIT_TOL
+    check(logit_err["paged_vs_plain"] <= floor and logit_err["paged_vs_gather"] <= floor,
+          f"MoE first decode step logits: K3 further from a yardstick than the yardsticks "
+          f"are from each other: {report}")
+    return report
+
+
+def moe_graphed_vs_eager(server: GenerationServer, prompts: list[list[int]],
+                         max_new: int) -> dict:
+    """The prompts, all submitted at once, through a graphed twin of the
+    MoE server (each step key captured at its first step) and an eager
+    twin, both on K3: every token and every step's top-2 gap equal bit for
+    bit (the same steps in the same order, so the same expert capacities
+    and drops)."""
+    outs, seconds = {}, {}
+    for name, eager in (("graphed", False), ("eager", True)):
+        twin = server_twin(server, eager=eager, record_margins=True, dispatch_depth=1)
+        t0 = time.perf_counter()
+        outs[name] = serve_prompts(twin, prompts, max_new)
+        seconds[name] = time.perf_counter() - t0
+        del twin
+        release_memory()
+    tokens = {n: sum(len(t) for t, _ in o) for n, o in outs.items()}
+    report = {"prompts": len(prompts), "max_new_tokens": max_new, "tokens": tokens,
+              "tokens_equal": [t for t, _ in outs["graphed"]] == [t for t, _ in outs["eager"]],
+              "gaps_equal": [g for _, g in outs["graphed"]] == [g for _, g in outs["eager"]],
+              "seconds": seconds}
+    print("moe graphed_vs_eager " + json.dumps(report), flush=True)
+    check(report["tokens_equal"] and report["gaps_equal"],
+          f"MoE: graphed tokens or gaps differ from eager: {report}")
+    return report
+
+
+def moe_padded_chunk_finite(server: GenerationServer) -> dict:
+    """K3 on a chunk whose padded queries sit past its true length (JAX's
+    rule, ``paged_decode.py:203-207``): every logit of every position
+    finite, so a padded row cannot poison an expert's input."""
+    cfg, chunk = server.cfg, server.prefill_chunk
+    kp, vp = init_page_pool(cfg, 1 + chunk // server.page_size, server.page_size,
+                            server.device)
+    table = torch.arange(1, 1 + chunk // server.page_size, dtype=torch.int32,
+                         device=server.device)[None]
+    ids = torch.randint(3, cfg.vocab_size, (1, chunk), generator=torch.Generator().manual_seed(11),
+                        dtype=torch.int32).to(server.device)
+    off = torch.zeros(1, dtype=torch.int32, device=server.device)
+    n = torch.full((1,), chunk // 3, dtype=torch.int32, device=server.device)
+    with torch.inference_mode():
+        logits, _, _ = pd.paged_prefill_chunk(server.params, cfg, ids, off, n, table, kp, vp,
+                                              return_all=True, attention_kernel="paged")
+        report = {"chunk": chunk, "true_len": chunk // 3,
+                  "finite": bool(torch.isfinite(logits).all())}
+    del kp, vp, logits
+    print("moe padded chunk " + json.dumps(report), flush=True)
+    check(report["finite"], f"MoE: K3 gave a non-finite padded chunk row: {report}")
+    return report
+
+
+def moe_batch(server: GenerationServer, prompts: list[list[int]]) -> dict:
+    """``serving: batch`` on the MoE model: one bucket of
+    ``MOE_BATCH_ROWS`` prompts (padded to the longest) through a graphed
+    ``BatchGenerator`` and an eager one on the same weights, key 0:
+    tokens, counts and steps equal bit for bit; no kernel launched (the
+    contiguous cache's plain attention, as JAX's ``generate``)."""
+    from arkflow_tpu_torch.tpu.batch_generate import BatchGenerator
+
+    rows = prompts[:MOE_BATCH_ROWS]
+    t = max(len(x) for x in rows)
+    ids = np.zeros((len(rows), t), np.int32)
+    for i, x in enumerate(rows):
+        ids[i, : len(x)] = x
+    lens = np.asarray([len(x) for x in rows], np.int32)
+    out, seconds = {}, {}
+    reset_counts()
+    for name, eager in (("graphed", False), ("eager", True)):
+        gen = BatchGenerator(server.params, server.cfg, max_new_tokens=MOE_BATCH_NEW,
+                             eos_id=server.eos_id, eager=eager)
+        gen.generate(ids, lens, len(rows), dec.make_key(0))  # captures (graphed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = gen.generate(ids, lens, len(rows), dec.make_key(0))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        del gen
+    launches = {"k1": ra.launches.value, "k2": sa.launches.value,
+                "k3": ra.paged_flash_attention.launches.value}
+    (gt, gc_, gs), (et, ec, es) = out["graphed"], out["eager"]
+    report = {"rows": len(rows), "prompt_width": t, "max_new_tokens": MOE_BATCH_NEW,
+              "steps": [gs, es], "tokens": int(gc_.sum()),
+              "equal": bool(np.array_equal(gt, et) and np.array_equal(gc_, ec) and gs == es),
+              "ms_per_step": {n: seconds[n] * 1e3 / (out[n][2] + 1) for n in out},
+              "launches": launches}
+    print("moe batch " + json.dumps(report), flush=True)
+    check(report["equal"], f"MoE batch mode: graphed != eager: {report}")
+    check(report["tokens"] > 0 and not any(launches.values()),
+          f"MoE batch mode generated nothing or launched a kernel: {report}")
+    release_memory()
+    return report
+
+
+def moe_decode_bound_ms(cfg) -> float:
+    """Least time of one MoE decode step at ``cfg``: every weight a decode
+    step reads (the layers, whose ``bmm`` reads all E experts at any
+    capacity, and the LM head; the embedding reads one row a slot), once,
+    at the HBM rate."""
+    dh = cfg.dim // cfg.heads
+    attn = cfg.dim * (cfg.heads + 2 * cfg.kv_heads) * dh + cfg.heads * dh * cfg.dim
+    experts = 3 * cfg.num_experts * cfg.dim * cfg.ffn
+    nbytes = cfg.layers * 2 * (attn + experts) + cfg.layers * 4 * cfg.dim * cfg.num_experts \
+        + 2 * cfg.dim * cfg.vocab_size
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def run_moe(cfg_raw: dict) -> dict:
+    """The MoE phase: ``llama_moe_stream.json`` (Switch top-1, 8 experts,
+    Llama-3-8B widths, 16 layers) through ``Engine`` graphed (the stream
+    checks of ``run_generate_slice``: rows in order, K3 = layers x (decode
+    + chunk + verify steps), all ``mma``, the parity gate passed, no page
+    leaked), its step times, ``graphs moe``, a padded chunk through K3,
+    greedy streams graphed against eager, K3 against the gather path with
+    the routing held, one ``serving: batch`` bucket graphed against eager;
+    then the stream again on an eager twin (the A/B); and the ``moe`` line
+    with the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graphed = run_generate_slice(cfg_raw, label="moe")
+    server = graphed["server"]
+    check(server.cfg.num_experts == 8 and "experts" in server.params["layers"],
+          f"the MoE stream served no MoE model: {server.cfg}")
+    params_bytes = sum(t.numel() * t.element_size() for t in flatten(server.params).values())
+    bound = moe_decode_bound_ms(server.cfg)
+    steps = step_times(server, label="moe")
+    graphs = graph_check_server(server, path="moe")
+    finite = moe_padded_chunk_finite(server)
+    prompts = generate_prompts(cfg_raw, MOE_CHECK_PROMPTS)
+    exact = moe_graphed_vs_eager(server, prompts, MOE_CHECK_NEW)
+    paths = compare_moe_paths(server, prompts, MOE_CHECK_NEW)
+    batch = moe_batch(server, prompts)
+    peak_graphed = torch.cuda.max_memory_reserved()
+    del server, graphed["server"]
+    release_memory()
+    eager = run_generate_slice(cfg_raw, eager=True, label="moe eager")
+    del eager["server"]
+    release_memory()
+    report = graphed["report"]
+    moe = {"layers": report["layers"], "experts": 8, "params_gb": params_bytes / 1e9,
+           "traffic_tokens_per_s": report["traffic_tokens_per_s"],
+           "ttft_p50_ms": report["ttft_p50_ms"], "ttft_p99_ms": report["ttft_p99_ms"],
+           "eager_traffic_tokens_per_s": eager["report"]["traffic_tokens_per_s"],
+           "decode_step_ms": steps["graphed"]["decode_step_ms"],
+           "decode_step_eager_ms": steps["eager"]["decode_step_ms"],
+           "chunk_step_ms": steps["graphed"]["chunk_step_ms"],
+           "decode_step_bound_ms": bound,
+           "k3_launches": report["k3_launches"], "decode_steps": report["decode_steps"],
+           "chunk_steps": report["chunk_steps"],
+           "max_memory_reserved_gb": peak_graphed / 1e9,
+           "max_memory_reserved_gb_with_eager": torch.cuda.max_memory_reserved() / 1e9,
+           "graphed_vs_eager_tokens": exact["tokens"]["graphed"],
+           "paths_tokens_compared": paths["tokens_compared"],
+           "paths_routing": paths["routing"], "parity_gate": report["parity_gate"],
+           "batch_equal": batch["equal"],
+           "padded_chunk_finite": finite["finite"], "seconds": time.perf_counter() - t0}
+    print("moe " + json.dumps(moe), flush=True)
+    return {"report": report, "eager": eager["report"], "graphs": graphs, "moe": moe}
 
 
 def run_batch_swap(cfg_raw: dict, layers: int = 4) -> dict:
@@ -3093,6 +3377,14 @@ def main() -> int:
         batch_raw = json.load(f)
     batch_gen = run_batch_generate(batch_raw)
     batch_swap = run_batch_swap(batch_raw)
+    release_memory()
+    with open(MOE_CONFIG) as f:
+        moe_raw = json.load(f)
+    moe = run_moe(moe_raw)
+    ab["moe"] = {"graphed": ab_numbers(moe["report"]), "eager": ab_numbers(moe["eager"])}
+    graphs["moe"] = moe["graphs"]
+    graphs["moe"]["stream"] = {k: moe["report"].get(k) for k in (
+        "captures", "reserved_before_captures", "reserved_after_captures")}
     print("generation features " + json.dumps({
         "serving": {k: serving["report"][k] for k in (
             "traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "verify_steps",
@@ -3128,7 +3420,7 @@ def main() -> int:
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
         "launches": (generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"]
                      + serving["report"]["k3_launches"]
-                     + sampling["stream"]["k3_launches"]),
+                     + sampling["stream"]["k3_launches"] + moe["report"]["k3_launches"]),
         "ok": True,
         **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
         "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",

@@ -1,7 +1,8 @@
 """The port's decoder LM against the JAX package's on the same weights
 (JAX-initialised, converted with ``params_from_jax``) and the same numpy
 inputs, at the JAX suites' TINY shape: ``rms_norm``, ``_rope``, ``forward``
-and ``apply``; plus the parts that stay unported raising (MoE)."""
+and ``apply``; MoE's config and contiguous-cache paths (the rest of MoE is
+in ``tests/test_torch_moe.py``); the parts that stay unported raise."""
 
 import dataclasses
 
@@ -121,11 +122,21 @@ def test_llama3_8b_is_the_jax_shape():
     assert get_model("decoder_lm").extras["llama3_8b"]() == dec.llama3_8b()
 
 
-@pytest.mark.parametrize("overrides", [{"num_experts": 4}, {"use_ring_attention": True},
-                                       {"remat": True}])
+@pytest.mark.parametrize("overrides", [{"use_ring_attention": True}, {"remat": True}])
 def test_unported_config_raises(overrides):
     with pytest.raises(ConfigError, match="not yet ported"):
         get_model("decoder_lm").make_config(**TINY, **overrides)
+
+
+@pytest.mark.parametrize("overrides", [{"num_experts": 4}])
+def test_moe_config_is_ported(overrides):
+    """MoE builds with JAX's defaults (capacity 1.25, aux weights 0.01 and
+    1e-3) and draws JAX's tree (``tests/test_torch_moe.py`` holds it)."""
+    cfg = get_model("decoder_lm").make_config(**TINY, **overrides)
+    jcfg = jax_get_model("decoder_lm").make_config(**TINY, **overrides)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    layers = dec.init(torch.Generator().manual_seed(0), cfg)["layers"]
+    assert set(layers["experts"]) == {"w_gate", "w_up", "w_down"} and "w_up" not in layers
 
 
 def test_unknown_config_key_raises():
@@ -134,16 +145,33 @@ def test_unknown_config_key_raises():
 
 
 @pytest.mark.parametrize("name", ["prefill", "decode_step", "generate"])
-def test_contiguous_cache_paths_raise(name):
-    """The contiguous-cache paths are ported (``tests/test_torch_contiguous_decode.py``);
-    with MoE (``num_experts > 1``, the next slice) they raise."""
-    cfg = dec.DecoderConfig(**TINY, num_experts=4)
-    ids = torch.zeros(1, 2, dtype=torch.int32)
-    args = {"prefill": (ids, dec.init_kv_cache(cfg, 1, 4)),
-            "decode_step": (ids[:, :1], dec.init_kv_cache(cfg, 1, 4)),
-            "generate": (ids, torch.tensor([2]), 2)}[name]
-    with pytest.raises(ConfigError, match="not yet ported"):
-        get_model("decoder_lm").extras[name]({}, cfg, *args)
+def test_contiguous_cache_paths_run_moe(name):
+    """The contiguous-cache paths with MoE (``num_experts`` 4, JAX's
+    weights) give JAX's outputs: logits at 1/64 plus one bf16 step, tokens
+    and counts exactly (``tests/test_torch_moe.py`` holds the rest)."""
+    jfam = jax_get_model("decoder_lm")
+    jcfg = jfam.make_config(**TINY, num_experts=4)
+    jparams = jfam.init(jax.random.PRNGKey(0), jcfg)
+    cfg, params = dec.DecoderConfig(**TINY, num_experts=4), params_from_jax(
+        jax.device_get(jparams))
+    ids = np.asarray([[3, 17, 42], [9, 4, 0]], np.int32)
+    lens = np.asarray([3, 2], np.int32)
+    ex = jfam.extras
+    if name == "generate":
+        want = ex["generate"](jparams, jcfg, jnp.asarray(ids), jnp.asarray(lens), 4)
+        got = dec.generate(params, cfg, torch.from_numpy(ids), torch.from_numpy(lens), 4)
+        for g, w in zip(got, want):
+            assert g.tolist() == np.asarray(w).tolist()
+        return
+    jl, jc = ex["prefill"](jparams, jcfg, jnp.asarray(ids), ex["init_kv_cache"](jcfg, 2, 6),
+                           lengths=jnp.asarray(lens), return_logits=True)
+    tl, tc = dec.prefill(params, cfg, torch.from_numpy(ids), dec.init_kv_cache(cfg, 2, 6),
+                         lengths=torch.from_numpy(lens), return_logits=True)
+    if name == "decode_step":
+        tok = np.asarray(jl).argmax(-1).astype(np.int32)[:, None]
+        jl, _ = ex["decode_step"](jparams, jcfg, jnp.asarray(tok), jc, return_logits=True)
+        tl, _ = dec.decode_step(params, cfg, torch.from_numpy(tok), tc, return_logits=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL, rtol=2.0**-7)
 
 
 def test_sampling_raises_and_greedy_is_argmax():

@@ -389,9 +389,11 @@ def test_zombie_holding_the_step_lock_does_not_block_the_probe(host):
     """A key's first step that misses ``step_deadline_first`` inside the
     ``CompiledStep`` lock (a slow capture or kernel build, not chaos): the
     probe's rebuild and step end while the zombie still holds the old
-    lock."""
-    r = _runner(host, step_deadline_s=0.3, step_deadline_first_s=0.5)
-    slow_s, calls, forward = 4.0, [], r._forward
+    lock. The probe's own first step and the rebuild's recapture each have
+    the 2.5 s first-step budget, which a CPU shared with other test
+    processes does not reach; the zombie sleeps past both."""
+    r = _runner(host, step_deadline_s=2.0, step_deadline_first_s=2.5)
+    slow_s, calls, forward = 10.0, [], r._forward
 
     def slow_first(**kw):
         if not calls:
@@ -408,7 +410,7 @@ def test_zombie_holding_the_step_lock_does_not_block_the_probe(host):
     assert time.monotonic() - calls[0] < slow_s
     assert out["logits"].shape == (3, 2) and r.health.state == HEALTHY and r.rebuilds == 1
     assert r.core.zombies == 1 and r._compiled is not old and old._lock.locked()
-    end = time.monotonic() + 10
+    end = time.monotonic() + slow_s
     while r.core.zombies and time.monotonic() < end:
         time.sleep(0.02)
     assert r.core.zombies == 0 and not old._lock.locked()

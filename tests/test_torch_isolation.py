@@ -133,6 +133,14 @@ for example in ("llama_serving_stream.json", "llama_batch_stream.json"):
         assert ex_proc.server.prefix_hits > 0 and ex_proc.server.verify_steps > 0
     else:
         assert ex_proc.generator.generations >= 3
+moe_cfg = json.load(open("arkflow_tpu_torch/examples/llama_moe_stream.json"))
+moe_cfg["streams"][0]["input"]["count"] = 12
+moe_cfg["streams"][0]["pipeline"]["processors"][0].update(
+    model_config={**tiny_dec, "num_experts": 4}, device="cpu", max_new_tokens=4)
+moe_engine = Engine(EngineConfig.from_mapping(moe_cfg))
+moe_stream = moe_engine.build()[0]
+asyncio.run(moe_engine.run())
+assert moe_stream.output.dropped_rows == 12 and moe_stream.errors == 0
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

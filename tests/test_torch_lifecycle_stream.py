@@ -253,16 +253,28 @@ def test_lifecycle_example_validates_as_shipped():
     assert cli.main(["--config", str(EXAMPLE), "--validate"]) == 0
 
 
+#: the example's hang and step deadline on the CPU. The card's 1 s deadline
+#: is a hundred times its step; a CPU step at 64 x 256 shared with other
+#: test processes has taken up to 1.9 s, and a second miss then breaks the
+#: exact counts. 8 s sits four times above that, and the hang past it.
+CPU_DEADLINE, CPU_HANG = "8s", "10s"
+
+
 def test_lifecycle_example_at_tiny_width(tmp_path):
     """``bert_lifecycle_stream.json`` with the model at TINY_BERT width on
     the CPU: every row delivered, one miss and one rebuild, one OOM that
-    caps the 64-row bucket, HEALTHY at the end, integrity probes passing."""
+    caps the 64-row bucket, HEALTHY at the end, integrity probes passing.
+    Only the hung step may miss its deadline (``CPU_DEADLINE``)."""
     cfg = json.loads(EXAMPLE.read_text())
-    proc = cfg["streams"][0]["pipeline"]["processors"][0]["inner"]
+    fault = cfg["streams"][0]["pipeline"]["processors"][0]
+    proc = fault["inner"]
+    assert fault["faults"][0]["kind"] == "hang"
+    fault["faults"][0]["duration"] = CPU_HANG
     fam = get_model("bert_classifier")
     ck = str(tmp_path / "seed0")
     checkpoint.save(ck, init_host_params(fam, fam.make_config(**TINY_WIDE), 0))
-    proc.update(model_config=TINY_WIDE, device="cpu", checkpoint=ck)
+    proc.update(model_config=TINY_WIDE, device="cpu", checkpoint=ck,
+                step_deadline=CPU_DEADLINE)
     cfg["health_check"]["port"] = 0
     engine = Engine(EngineConfig.from_mapping(cfg))
     stream = engine.build()[0]

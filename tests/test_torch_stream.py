@@ -253,15 +253,12 @@ def test_generate_stream_matches_the_jax_generate_stream():
                                    {"serving": "batch", "kernel_interpret": True},
                                    {"mesh": {"tp": 2}}, {"kernel_interpret": True},
                                    {"model_config": {**TINY_DECODER, "use_ring_attention": True}},
-                                   {"model_config": {**TINY_DECODER, "remat": True}},
-                                   {"serving": "batch", "batch_buckets": [4],
-                                    "model_config": {**TINY_DECODER, "num_experts": 2}},
-                                   {"model_config": {**TINY_DECODER, "num_experts": 4}}])
+                                   {"model_config": {**TINY_DECODER, "remat": True}}])
 def test_gpu_generate_unported_keys_raise(tmp_path, patch):
-    """``tokenizer``, ``mesh``, ``kernel_interpret`` and the decoder's MoE,
-    ring attention and ``remat`` raise in both serving modes (sampling,
+    """``tokenizer``, ``mesh``, ``kernel_interpret`` and the decoder's ring
+    attention and ``remat`` raise in both serving modes (sampling,
     ``speculative_tokens``, ``prefix_cache_pages``, ``serving: batch``,
-    ``batch_buckets`` and ``max_batch`` are ported)."""
+    ``batch_buckets``, ``max_batch`` and MoE are ported)."""
     stream = _generate_stream("gpu_generate", **patch)
     cfg = {"streams": [stream]}
     with pytest.raises(ConfigError, match="not yet ported"):
@@ -271,6 +268,43 @@ def test_gpu_generate_unported_keys_raise(tmp_path, patch):
             raise ConfigError("; ".join(problems))
         build_stream(parsed.streams[0])
     assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
+
+
+@pytest.mark.parametrize("patch", [{"serving": "batch", "batch_buckets": [4],
+                                    "model_config": {**TINY_DECODER, "num_experts": 2}},
+                                   {"model_config": {**TINY_DECODER, "num_experts": 4}}])
+def test_gpu_generate_moe_validates_and_matches_the_jax_stream(tmp_path, patch):
+    """MoE in both serving modes (continuous at depth 1: depth 2 refuses
+    MoE, as in JAX): ``--validate`` passes, and on the JAX stream's weights
+    (copied into the live tree) the port's stream gives the JAX engine's
+    rows and generated ids."""
+    import torch
+
+    def copy_into(live, new):
+        for k, v in new.items():
+            copy_into(live[k], v) if isinstance(v, dict) else live[k].copy_(v)
+
+    patch = {**patch, "dispatch_depth": 1}
+    cfg = {"streams": [_generate_stream("gpu_generate", **patch)]}
+    assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 0
+    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(
+        _generate_stream("tpu_generate", **patch)))
+    jax_sink = jax_stream.output = JaxCollectOutput()
+    asyncio.run(jax_stream.run(asyncio.Event()))
+    host = params_from_jax(jax.device_get(jax_stream.pipeline.processors[0].params))
+
+    stream = build_stream(StreamConfig.from_mapping(_generate_stream("gpu_generate", **patch)))
+    proc = stream.pipeline.processors[0]
+    with torch.no_grad():
+        copy_into(proc.params, host)
+    sink = stream.output = Collect()
+    asyncio.run(stream.run(asyncio.Event()))
+    assert "experts" in proc.params["layers"] and stream.errors == 0
+    got_rows = [p for b in sink.batches for p in b.to_binary()]
+    assert got_rows == [p for b in jax_sink.batches for p in b.to_binary()]
+    want = [t for b in jax_sink.batches for t in b.column("generated").to_pylist()]
+    got = [t.decode() for b in sink.batches for t in b.column("generated").to_pylist()]
+    assert got == want and proc.tokens == sum(len(t.split()) for t in got) > 0
 
 
 def test_gpu_generate_without_a_card_raises_unless_asked_for_the_cpu(monkeypatch):
