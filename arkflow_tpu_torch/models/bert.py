@@ -105,20 +105,8 @@ def init(gen: torch.Generator, cfg: BertConfig) -> dict:
         }
         for _ in range(cfg.layers)
     ]
-    params["layers"] = stack_layers(layers)
+    params["layers"] = cm.stack_layers(layers)
     return params
-
-
-def stack_layers(layers: list[dict]) -> dict:
-    """Stack per-layer param dicts into one dict of [layers, ...] tensors."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
-    return torch.stack(layers)
-
-
-def _layer(stacked: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
 def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
@@ -173,7 +161,7 @@ def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
 
     n_layers = next(iter(params["layers"]["q"].values())).shape[0]
     for i in range(n_layers):
-        lp = _layer(params["layers"], i)
+        lp = cm.layer_params(params["layers"], i)
         q = cm.dense(lp["q"], x).reshape(b, s, h, dh)
         k = cm.dense(lp["k"], x).reshape(b, s, h, dh)
         v = cm.dense(lp["v"], x).reshape(b, s, h, dh)
@@ -222,6 +210,48 @@ def apply_packed(params: dict, cfg: BertConfig, *, input_ids: torch.Tensor,
     return _classify(params, x[example_row.long(), example_pos.long()])
 
 
+def from_hf_state_dict(state: dict, cfg: BertConfig) -> dict:
+    """A HuggingFace ``BertForSequenceClassification`` state dict (torch
+    tensors of any dtype, bfloat16 included, or numpy arrays) as this
+    model's float32 param tree: linear weights transposed from ``[out, in]``
+    to ``[in, out]``, the layers stacked."""
+
+    def t(name, transpose=False):
+        return cm.hf_tensor(state, name, transpose)
+
+    def lin(prefix):
+        return {"w": t(f"{prefix}.weight", transpose=True), "b": t(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    e = "bert.embeddings"
+    layers = []
+    for i in range(cfg.layers):
+        p = f"bert.encoder.layer.{i}"
+        layers.append({
+            "q": lin(f"{p}.attention.self.query"),
+            "k": lin(f"{p}.attention.self.key"),
+            "v": lin(f"{p}.attention.self.value"),
+            "attn_out": lin(f"{p}.attention.output.dense"),
+            "attn_ln": ln(f"{p}.attention.output.LayerNorm"),
+            "ffn_in": lin(f"{p}.intermediate.dense"),
+            "ffn_out": lin(f"{p}.output.dense"),
+            "ffn_ln": ln(f"{p}.output.LayerNorm"),
+        })
+    return {
+        "embed": {
+            "word": {"table": t(f"{e}.word_embeddings.weight")},
+            "position": {"table": t(f"{e}.position_embeddings.weight")},
+            "token_type": {"table": t(f"{e}.token_type_embeddings.weight")},
+            "ln": ln(f"{e}.LayerNorm"),
+        },
+        "layers": cm.stack_layers(layers),
+        "pooler": lin("bert.pooler.dense"),
+        "classifier": lin("classifier"),
+    }
+
+
 def input_spec(cfg: BertConfig) -> dict:
     return {"input_ids": ("int32", ("seq",)), "attention_mask": ("int32", ("seq",))}
 
@@ -245,6 +275,7 @@ register_model(
         init=init,
         apply=apply,
         input_spec=input_spec,
-        extras={"apply_packed": apply_packed, "packed_input_spec": packed_input_spec},
+        extras={"from_hf_state_dict": from_hf_state_dict, "apply_packed": apply_packed,
+                "packed_input_spec": packed_input_spec},
     )
 )

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from arkflow_tpu_torch.models.quantize import dense_w8a8
@@ -34,6 +35,20 @@ def dense(p: Params, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> to
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
+
+
+def stack_layers(layers: list) -> Params:
+    """Stack per-layer param dicts into one dict of [layers, ...] tensors
+    (the JAX trees' ``tree_map(jnp.stack, *layers)``)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s params out of a stacked tree (views, no copies)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
 def layer_norm_init(dim: int) -> Params:
@@ -63,7 +78,28 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int, scale: float = 0.
 
 
 def embedding(p: Params, ids: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return p["table"].to(dtype)[ids]
+    """Rows of the table at ``ids``, in ``dtype``. Ids index as JAX's
+    ``table[ids]`` does: a negative id counts from the end and an id past
+    either end clamps to it (``jnp.arange(10.)[jnp.array([3, 12])]`` is
+    ``[3, 9]``), so a tokenizer whose vocabulary outgrows the table neither
+    raises on the CPU nor trips a device-side assert on CUDA. The rows are
+    gathered, then cast: the same values as casting the table first."""
+    table = p["table"]
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    return table[ids].to(dtype)
+
+
+def hf_tensor(state: dict, name: str, transpose: bool = False) -> torch.Tensor:
+    """One HuggingFace state-dict entry (a torch tensor of any dtype,
+    bfloat16 included, or a numpy array) as a new float32 CPU tensor,
+    optionally transposed from torch's ``[out, in]`` to ``[in, out]``."""
+    v = state[name]
+    if isinstance(v, torch.Tensor):
+        t = v.detach().to("cpu", torch.float32, copy=not transpose)
+    else:
+        t = torch.from_numpy(np.array(v, dtype=np.float32))
+    return t.T.contiguous() if transpose else t
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Counterpart of ``arkflow_tpu/models/decoder.py`` on one device: ``init``,
 ``num_experts > 1``), ``_attention_block``, ``forward`` /
 ``apply``, ``select_token`` (greedy, or temperature / top-k sampling) and
 the contiguous KV cache of batched generation (``init_kv_cache``,
-``prefill``, ``decode_step``, ``generate``). Params keep the JAX tree's
+``prefill``, ``decode_step``, ``generate``), and ``from_hf_state_dict``
+(a HuggingFace Llama state dict as a float32 tree). Params keep the JAX tree's
 layout -- the same nested paths, dense ``w`` stored ``[in, out]``,
 per-layer params stacked on a leading axis -- and the layer scan is a
 Python loop over that axis. Defaults are a small test shape;
@@ -68,6 +69,7 @@ import torch
 
 from arkflow_tpu_torch.errors import ConfigError, not_ported
 from arkflow_tpu_torch.models import common as cm
+from arkflow_tpu_torch.models.common import layer_params
 from arkflow_tpu_torch.models.registry import ModelFamily, register_model
 
 
@@ -170,11 +172,6 @@ def init(gen: torch.Generator, cfg: DecoderConfig, *, device=None,
     layers["mlp_norm"] = {"scale": torch.ones(cfg.layers, cfg.dim, device=device)}
     params["layers"] = layers
     return params
-
-
-def layer_params(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s params out of the stacked tree (views, no copies)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
 def num_layers(params: dict) -> int:
@@ -401,6 +398,47 @@ def forward(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor) -> torch.
 def apply(params: dict, cfg: DecoderConfig, *, input_ids: torch.Tensor) -> dict:
     logits = forward(params, cfg, input_ids)
     return {"logits": logits, "next_token": select_token(logits[:, -1, :])}
+
+
+#: (param, HF name under ``model.layers.{i}.``, transposed) of a dense layer
+_HF_LAYER = (("attn_norm", "scale", "input_layernorm.weight", False),
+             ("wq", "w", "self_attn.q_proj.weight", True),
+             ("wk", "w", "self_attn.k_proj.weight", True),
+             ("wv", "w", "self_attn.v_proj.weight", True),
+             ("wo", "w", "self_attn.o_proj.weight", True),
+             ("mlp_norm", "scale", "post_attention_layernorm.weight", False),
+             ("w_gate", "w", "mlp.gate_proj.weight", True),
+             ("w_up", "w", "mlp.up_proj.weight", True),
+             ("w_down", "w", "mlp.down_proj.weight", True))
+
+
+def from_hf_state_dict(state: dict, cfg: DecoderConfig) -> dict:
+    """A HuggingFace ``LlamaForCausalLM`` state dict (torch tensors of any
+    dtype, bfloat16 included, or numpy arrays) as this model's float32 param
+    tree, as JAX's import makes it: linear weights transposed from ``[out,
+    in]`` to ``[in, out]``, and the embedding as the head where the dict has
+    no ``lm_head.weight`` (tied embeddings). Each stacked leaf is filled
+    layer by layer, so the float32 tree is never held twice."""
+    if cfg.num_experts > 1:
+        raise ValueError("from_hf_state_dict maps dense Llama checkpoints; MoE configs unsupported")
+
+    def t(name, transpose=False):
+        return cm.hf_tensor(state, name, transpose)
+
+    layers: dict = {}
+    for i in range(cfg.layers):
+        for param, leaf, hf_name, transpose in _HF_LAYER:
+            v = t(f"model.layers.{i}.{hf_name}", transpose)
+            if param not in layers:
+                layers[param] = {leaf: torch.empty(cfg.layers, *v.shape)}
+            layers[param][leaf][i] = v
+    lm_head = "lm_head.weight" if "lm_head.weight" in state else "model.embed_tokens.weight"
+    return {
+        "embed": {"table": t("model.embed_tokens.weight")},
+        "norm_out": {"scale": t("model.norm.weight")},
+        "lm_head": {"w": t(lm_head, transpose=True)},
+        "layers": layers,
+    }
 
 
 # -- sampling keys and the draw ------------------------------------------------
@@ -717,6 +755,7 @@ register_model(
         input_spec=input_spec,
         extras={
             "forward": forward,
+            "from_hf_state_dict": from_hf_state_dict,
             "llama3_8b": llama3_8b,
             "select_token": select_token,
             "init_kv_cache": init_kv_cache,

@@ -46,3 +46,7 @@ def get_model(name: str) -> ModelFamily:
     if fam is None:
         raise ConfigError(f"unknown model family {name!r} (available: {sorted(_REGISTRY)})")
     return fam
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)

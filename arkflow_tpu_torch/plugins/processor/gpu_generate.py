@@ -1,9 +1,12 @@
 """``gpu_generate`` processor: LLM generation over the stream on the GPU.
 
 Counterpart of ``arkflow_tpu/plugins/processor/tpu_generate.py``. The
-payload column is tokenized (``HashTokenizer``, ids truncated to
-``max_input``) and the generated ids, rendered as text, attach as a binary
-column. Two serving modes, as in JAX:
+payload column is tokenized (ids truncated to ``max_input``) with a
+HuggingFace fast tokenizer when ``tokenizer`` names one whose files are on
+this machine, with the hashing tokenizer otherwise, and the generated ids,
+decoded to text, attach as a binary column: the hashing tokenizer renders
+them as decimals in one vectorized pass (``decode_column``), a real one
+decodes row by row. Two serving modes, as in JAX:
 
 - ``serving: batch`` (the default): a batch is cut to the seq bucket of
   its longest true length, padded to its batch bucket (padding rows of
@@ -21,6 +24,7 @@ Config (the keys of ``tpu_generate`` the port carries, plus ``device``):
     model: decoder_lm
     model_config: {vocab_size: 128256, dim: 4096, ...}   # llama3_8b() widths
     text_field: __value__
+    tokenizer: meta-llama/Meta-Llama-3-8B  # optional, local files only
     max_input: 512
     max_new_tokens: 128
     eos_id: 2
@@ -68,8 +72,8 @@ mode, which has no resident runner, as in JAX), ``generator`` (batch),
 ``params`` (the live tree), ``host_params`` (a host copy of the known-good
 tree, kept when ``swap`` or ``integrity`` is configured), ``swapper`` and
 ``integrity``; ``connect`` captures the graphs and starts the integrity
-monitor, ``close`` stops it. ``tokenizer``, ``mesh`` and
-``kernel_interpret`` raise "not yet ported".
+monitor, ``close`` stops it. ``mesh`` and ``kernel_interpret`` raise "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ import torch
 
 from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
-from arkflow_tpu_torch.errors import ConfigError, ProcessError, not_ported
+from arkflow_tpu_torch.errors import ConfigError, ProcessError
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.decoder import make_key, split_key
 from arkflow_tpu_torch.tpu.batch_generate import BatchGenerator
@@ -94,9 +98,9 @@ from arkflow_tpu_torch.tpu.runner import resolve_device
 from arkflow_tpu_torch.tpu.serving import GenerationServer
 from arkflow_tpu_torch.tpu.serving_core import parse_core_config
 from arkflow_tpu_torch.tpu.swap import build_generate_swapper, parse_swap_config
-from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
+from arkflow_tpu_torch.tpu.tokenizer import build_tokenizer
 
-KEYS = ("model", "model_config", "text_field", "max_input", "max_new_tokens", "eos_id",
+KEYS = ("model", "model_config", "text_field", "tokenizer", "max_input", "max_new_tokens", "eos_id",
         "output_field", "seq_buckets", "batch_buckets", "max_batch", "serving", "slots",
         "page_size", "prefill_chunk", "speculative_tokens", "prefix_cache_pages",
         "decode_kernel", "kernel_parity_check", "dispatch_depth", "seed", "temperature",
@@ -106,7 +110,7 @@ KEYS = ("model", "model_config", "text_field", "max_input", "max_new_tokens", "e
 
 class GpuGenerateProcessor(Processor):
     def __init__(self, server: Optional[GenerationServer], *, family, cfg, params: dict,
-                 text_field: str, tokenizer: HashTokenizer, max_input: int,
+                 text_field: str, tokenizer, max_input: int,
                  max_new_tokens: int, output_field: str, buckets: BucketPolicy,
                  generator: Optional[BatchGenerator] = None, seed: int = 0,
                  host_params: Optional[dict] = None):
@@ -177,8 +181,18 @@ class GpuGenerateProcessor(Processor):
             np.cumsum(counts, out=offsets[1:])
             flat = np.fromiter((t for o in outs for t in o), np.int64, count=int(offsets[-1]))
         self.tokens += int(offsets[-1])
-        return [batch.with_column(self.output_field,
-                                  self.tokenizer.decode_column(flat, offsets))]
+        return [batch.with_column(self.output_field, self._detok_column(flat, offsets))]
+
+    def _detok_column(self, flat: np.ndarray, offsets: np.ndarray) -> BinaryColumn:
+        """Ragged ids (flat + offsets) -> a binary column of UTF-8 text: the
+        hashing tokenizer's vectorized ``decode_column``, or a real
+        tokenizer's ``decode`` row by row."""
+        decode_column = getattr(self.tokenizer, "decode_column", None)
+        if decode_column is not None:
+            return decode_column(flat, offsets)
+        return BinaryColumn.from_pylist(
+            [self.tokenizer.decode(flat[offsets[i]:offsets[i + 1]].tolist()).encode()
+             for i in range(len(offsets) - 1)])
 
     async def _process_batch(self, ids: np.ndarray,
                              lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -287,7 +301,8 @@ def _build(config: dict, resource: Resource) -> GpuGenerateProcessor:
     proc = GpuGenerateProcessor(
         server, family=family, cfg=cfg, params=params,
         text_field=config.get("text_field", DEFAULT_BINARY_VALUE_FIELD),
-        tokenizer=HashTokenizer(cfg.vocab_size), max_input=max_input,
+        tokenizer=build_tokenizer(config.get("tokenizer"), vocab_size=cfg.vocab_size),
+        max_input=max_input,
         max_new_tokens=max_new, output_field=str(config.get("output_field", "generated")),
         buckets=buckets, generator=generator, seed=seed,
         host_params=host if keep_host else None)

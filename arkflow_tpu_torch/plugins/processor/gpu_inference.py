@@ -1,20 +1,32 @@
 """``gpu_inference`` processor: streaming model inference on the GPU.
 
 Counterpart of ``arkflow_tpu/plugins/processor/tpu_inference.py`` on its
-single-device paths: tokenize the payload column, bucket and pad the batch
-(or pack it), run the model on the device, and attach the outputs as
-columns. Config (the keys of ``tpu_inference`` the port carries, plus
-``device``):
+single-device paths: extract the inputs the model family's ``input_spec``
+asks for, bucket and pad the batch (or pack it), run the model on the
+device, and attach the outputs as columns. Token models (``("seq",)``
+inputs) tokenize ``text_field`` with a HuggingFace fast tokenizer when
+``tokenizer`` names one whose files are on this machine, with the hashing
+tokenizer otherwise; tensor models (``vit_embedder``, ``lstm_ae``) read
+``tensor_field`` (``tpu/extract.py``: raw bytes of a binary column, images
+scaled by 1/255, or an N-D numeric column), padded over the batch
+dimension only. Config (the keys of ``tpu_inference`` the port carries,
+plus ``device``):
 
     type: gpu_inference
     model: bert_classifier
     model_config: {num_labels: 2}
     text_field: __value__          # payload column to tokenize
+    tokenizer: bert-base-uncased   # optional, local files only (hashing
+                                   # fallback otherwise)
+    tensor_field: window           # tensor models: the input column (default
+                                   # the input's own name)
     max_seq: 256
     batch_buckets: [16, 64]        # default pow2 grid up to max_batch
     seq_buckets: [64, 128, 256]    # default pow2 grid up to max_seq
     max_batch: 256
-    outputs: [label, score]        # default: all rank-1 outputs
+    outputs: [label, score]        # default: all rank-1 outputs; rank-2
+                                   # outputs (embeddings) attach as 2-D
+                                   # columns, the port's fixed-size lists
     warmup: true                   # capture every bucket's CUDA graph at
                                    # connect (one step per bucket)
     seed: 0                        # weights drawn from torch.Generator(seed)
@@ -54,8 +66,7 @@ columns. Config (the keys of ``tpu_inference`` the port carries, plus
 The processor exposes ``runner``, ``swapper`` and ``integrity`` (the
 engine's ``/health`` and ``POST /admin/swap`` and the fault plugin reach
 them); ``connect`` starts the integrity monitor and ``close`` stops it.
-Every other ``tpu_inference`` key (tokenizer, tensor_field, mesh,
-pp_microbatch_rows, pp_profile, pp_layer_costs, device_pool,
+Every other ``tpu_inference`` key (mesh, pp_microbatch_rows, pp_profile, pp_layer_costs, device_pool,
 response_cache, tuner) raises "not yet ported".
 """
 
@@ -68,16 +79,18 @@ import numpy as np
 
 from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
-from arkflow_tpu_torch.errors import ConfigError, ProcessError, not_ported
+from arkflow_tpu_torch.errors import ConfigError, ProcessError
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
 from arkflow_tpu_torch.tpu.integrity import build_integrity_monitor, parse_integrity_config
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
 from arkflow_tpu_torch.tpu.runner import ModelRunner, check_serving_dtype
 from arkflow_tpu_torch.tpu.serving_core import parse_core_config
 from arkflow_tpu_torch.tpu.swap import build_batch_swapper, parse_swap_config
-from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer
+from arkflow_tpu_torch.tpu.extract import extract_tensor
+from arkflow_tpu_torch.tpu.tokenizer import build_tokenizer
 
-KEYS = ("model", "model_config", "text_field", "max_seq", "batch_buckets",
+KEYS = ("model", "model_config", "text_field", "tokenizer", "tensor_field", "max_seq",
+        "batch_buckets",
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
         "max_in_flight", "dispatch_depth", "device", "packing", "example_scale",
         "checkpoint", "step_deadline", "step_deadline_first", "health", "swap",
@@ -87,7 +100,7 @@ KEYS = ("model", "model_config", "text_field", "max_seq", "batch_buckets",
 class GpuInferenceProcessor(Processor):
     def __init__(self, runner: ModelRunner, *, text_field: str, tokenizer, max_seq: int,
                  outputs: Optional[list[str]], warmup: bool = False, swapper=None,
-                 integrity=None):
+                 integrity=None, tensor_field: Optional[str] = None):
         self.runner = runner
         #: the hot-swap manager (tpu/swap.py): POST /admin/swap and the fault
         #: plugin's swap_corrupt/swap_crash reach it here
@@ -95,6 +108,7 @@ class GpuInferenceProcessor(Processor):
         #: the integrity monitor (tpu/integrity.py), None without the block
         self.integrity = integrity
         self.text_field = text_field
+        self.tensor_field = tensor_field
         self.tokenizer = tokenizer
         self.max_seq = max_seq
         self.outputs = outputs
@@ -110,11 +124,21 @@ class GpuInferenceProcessor(Processor):
         return self.tokenizer.encode_batch_view(col.values, col.offsets, self.max_seq)
 
     def _extract(self, batch: MessageBatch) -> dict[str, np.ndarray]:
-        """Tokenize, and cut the ids to the seq bucket of the longest row."""
-        ids, mask = self._tokenize(batch)
-        used = int(mask.sum(axis=1).max()) if mask.size else 1
-        sb = self.runner.buckets.seq_bucket(used)
-        return {"input_ids": ids[:, :sb], "attention_mask": mask[:, :sb]}
+        """Token models: tokenize, and cut the ids to the seq bucket of the
+        longest row. Tensor models: each input from ``tensor_field`` (or the
+        column of its own name)."""
+        spec = self.runner.spec
+        if "input_ids" in spec and any(t == ("seq",) for _, t in spec.values()):
+            ids, mask = self._tokenize(batch)
+            used = int(mask.sum(axis=1).max()) if mask.size else 1
+            sb = self.runner.buckets.seq_bucket(used)
+            inputs = {"input_ids": ids[:, :sb]}
+            if "attention_mask" in spec:
+                inputs["attention_mask"] = mask[:, :sb]
+            return inputs
+        return {name: extract_tensor(batch, self.tensor_field or name, name, dtype, trailing,
+                                     who="gpu_inference")
+                for name, (dtype, trailing) in spec.items()}
 
     def _pack(self, batch: MessageBatch) -> list[tuple[dict[str, np.ndarray], np.ndarray]]:
         """Tokenize, first-fit-pack every text into rows of the batch's seq
@@ -252,8 +276,6 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         checkpoint=config.get("checkpoint"),
         **parse_core_config(config),
     )
-    if "input_ids" not in runner.spec:
-        raise not_ported(f"gpu_inference for the tensor inputs of model {model!r}")
     swapper = build_batch_swapper(
         runner, model=str(model), serving_dtype=config.get("serving_dtype"),
         swap_cfg=parse_swap_config(config.get("swap"), who="gpu_inference"),
@@ -266,10 +288,12 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
     return GpuInferenceProcessor(
         runner,
         text_field=config.get("text_field", DEFAULT_BINARY_VALUE_FIELD),
-        tokenizer=HashTokenizer(getattr(runner.cfg, "vocab_size", 30522)),
+        tokenizer=build_tokenizer(config.get("tokenizer"),
+                                  vocab_size=getattr(runner.cfg, "vocab_size", 30522)),
         max_seq=max_seq,
         outputs=config.get("outputs"),
         warmup=bool(config.get("warmup", False)),
         swapper=swapper,
         integrity=integrity,
+        tensor_field=config.get("tensor_field"),
     )

@@ -4,6 +4,7 @@
     python -m arkflow_tpu_torch.tools.profile_step --int8 [--stream] [--config FILE]
     python -m arkflow_tpu_torch.tools.profile_step --packed [--stream] [--config FILE]
     python -m arkflow_tpu_torch.tools.profile_step --generate [--stream] [--config FILE]
+    python -m arkflow_tpu_torch.tools.profile_step --tensor [--config FILE]
 
 Builds the runner of the config's ``gpu_inference`` processor (default
 ``arkflow_tpu_torch/examples/bert_stream.json``: BERT-base, bf16) on CUDA and
@@ -62,6 +63,13 @@ each for the graphed steps (``mode``: one CUDA graph per step key, the
 default) and the eager ones (a twin server on the same weights and pools,
 ``eager=True``).
 
+``--tensor`` decomposes a tensor family's step instead (default config
+``arkflow_tpu_torch/examples/vit_stream.json``: ViT-B/16;
+``lstm_stream.json`` for the LSTM): for each batch bucket, on random
+bytes scaled as ``tensor_field`` scales them, ``forward_ms``, ``kernels``
+(the forward's device time by kernel name) and ``modes`` (the runner's
+step graphed and eager).
+
 ``--stream`` also runs the config's whole stream through ``Engine`` under
 the profiler, graphed and then eager (the processor's runner or server
 swapped for its twin), and prints its traffic rows/s beside the device's
@@ -104,6 +112,7 @@ DEFAULT_CONFIG = os.path.join(EXAMPLES, "bert_stream.json")
 PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
+TENSOR_CONFIG = os.path.join(EXAMPLES, "vit_stream.json")
 #: K3's kernels in csrc/paged_attention.cu: the bf16 split kernel and its
 #: combine, and the f32 FMA kernel
 K3_KERNELS = ("paged_split_kernel", "paged_combine_kernel", "paged_attention_kernel")
@@ -162,7 +171,7 @@ def step_modes(runner: ModelRunner, batches: list[dict], steps: int) -> dict:
             for inputs in batches:
                 bufs, n = r._prep(inputs)
                 r._to_device(bufs)
-                r._enqueue(bufs)
+                r._enqueue(r._compiled, bufs)
                 sets.append((bufs, n))
             return sets
 
@@ -411,6 +420,33 @@ def profile_generate(cfg: dict, args) -> None:
     profile_streams(cfg, args)
 
 
+def profile_tensor(cfg: dict, args) -> None:
+    """``--tensor``: each batch bucket of a tensor example's runner."""
+    proc = cfg["streams"][0]["pipeline"]["processors"][0]
+    buckets = BucketPolicy.from_config(proc, max_seq=proc.get("max_seq", 128))
+    runner = ModelRunner(proc["model"], proc.get("model_config"), buckets=buckets,
+                         seed=proc.get("seed", 0), device="cuda",
+                         serving_dtype=proc.get("serving_dtype"))
+    (name, (_, trailing)), = runner.spec.items()
+    rng = np.random.default_rng(0)
+    for b in buckets.batch_buckets:
+        x = rng.integers(0, 256, (b, *trailing), dtype=np.uint8) / np.float32(255.0)
+        dev = {name: torch.from_numpy(x).cuda()}
+
+        def forward():
+            with torch.inference_mode():
+                return runner.family.apply(runner.params, runner.cfg, **dev)
+
+        trace = (os.path.join(args.trace, f"profile_step_{proc['model']}_{b}.json")
+                 if args.trace else None)
+        if trace:
+            os.makedirs(args.trace, exist_ok=True)
+        print(json.dumps({"model": proc["model"], "bucket": b, "shape": list(x.shape),
+                          "forward_ms": cuda_ms(forward),
+                          "kernels": profile_forward(forward, args.steps, trace),
+                          "modes": step_modes(runner, [{name: x}], args.steps)}), flush=True)
+
+
 def profile_streams(cfg: dict, args) -> None:
     if not (args.stream or args.stream_threads):
         return
@@ -487,6 +523,8 @@ def main(argv=None) -> int:
                     help="decompose the int8 step (default config: the int8 stream)")
     ap.add_argument("--generate", action="store_true",
                     help="decompose the generation decode and chunk steps")
+    ap.add_argument("--tensor", action="store_true",
+                    help="decompose a tensor family's step (default config: the ViT stream)")
     ap.add_argument("--stream", action="store_true",
                     help="also run the config's stream under the profiler")
     ap.add_argument("--stream-threads", type=int, nargs="*", default=None,
@@ -497,7 +535,8 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     default = (GENERATE_CONFIG if args.generate else PACKED_CONFIG if args.packed
-               else INT8_CONFIG if args.int8 else DEFAULT_CONFIG)
+               else INT8_CONFIG if args.int8 else TENSOR_CONFIG if args.tensor
+               else DEFAULT_CONFIG)
     with open(args.config or default) as f:
         cfg = json.load(f)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
@@ -506,6 +545,9 @@ def main(argv=None) -> int:
         return 0
     if args.packed:
         profile_packed(cfg, args)
+        return 0
+    if args.tensor:
+        profile_tensor(cfg, args)
         return 0
     stream = cfg["streams"][0]
     proc = stream["pipeline"]["processors"][0]

@@ -1,10 +1,13 @@
-"""Per-row token estimates of a payload column: the token-budget coalescer's
-sizing signal.
+"""Columns to model inputs: per-row token estimates of a payload column
+(the token-budget coalescer's sizing signal) and the tensor inputs of the
+tensor families.
 
-Counterpart of ``arkflow_tpu/tpu/extract.py::payload_token_estimates``,
-reading the port's ``BinaryColumn`` (values + offsets, Arrow's binary
-layout) with numpy: one vectorized pass over the payload bytes, no per-row
-Python.
+Counterpart of ``arkflow_tpu/tpu/extract.py`` (``payload_token_estimates``,
+``extract_tensor``, ``_binary_matrix``), reading the port's columns with
+numpy: a ``BinaryColumn`` (values + offsets, Arrow's binary layout) in
+vectorized passes over its buffers, no per-row Python; an N-D numeric numpy
+column, the port's counterpart of Arrow's fixed-size lists. Ragged list
+columns come with the json codec and raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -13,7 +16,12 @@ from typing import Optional
 
 import numpy as np
 
-from arkflow_tpu_torch.batch import BinaryColumn
+from arkflow_tpu_torch.batch import BinaryColumn, MessageBatch
+from arkflow_tpu_torch.errors import ProcessError, not_ported
+
+#: ragged binary rows of at most this mean length (bytes) are copied by one
+#: flat gather; longer ones by a slice copy each
+_GATHER_MAX_MEAN_LEN = 128
 
 #: byte classes of the hash tokenizer's ``[a-z0-9]+|[^\sa-z0-9]`` split after
 #: ``.lower()``: WORD bytes extend a token, SINGLE bytes are one token each,
@@ -65,3 +73,83 @@ def payload_token_estimates(col: BinaryColumn, *, token_bytes: Optional[float] =
     if max_tokens is not None:
         est = np.minimum(est, int(max_tokens))
     return est
+
+
+def _binary_matrix(col: BinaryColumn, n: int, size: int) -> np.ndarray:
+    """Binary column -> ``[n, size]`` uint8, each row zero-padded or
+    truncated to ``size`` bytes, off the buffers:
+
+    - rows of one length (image payloads): the values buffer is the matrix,
+      one reshape view (one bulk copy when rows are shorter than ``size``);
+    - ragged short rows: one flat gather, O(total bytes);
+    - ragged long rows: a slice copy each.
+    """
+    values, offsets = col.values, col.offsets
+    if n == 0:
+        return np.zeros((0, size), np.uint8)
+    starts = offsets[:-1]
+    lens = offsets[1:] - starts
+    if lens.min() == lens.max():
+        # rows sit back to back in the values buffer: the [n, L] matrix is a
+        # reshape of it
+        length = int(lens[0])
+        base = int(offsets[0])
+        mat = values[base: base + n * length].reshape(n, length)
+        if length >= size:
+            return mat[:, :size]  # truncation: a strided view, still no copy
+        out = np.zeros((n, size), np.uint8)
+        out[:, :length] = mat
+        return out
+    lens = np.minimum(lens, size)  # truncation: only the first ``size`` bytes land
+    out = np.zeros((n, size), np.uint8)
+    total = int(lens.sum())
+    if not total:
+        return out
+    if total <= n * _GATHER_MAX_MEAN_LEN:
+        # row i's values[starts[i]: starts[i] + lens[i]] into out[i, :lens[i]],
+        # as one flat source/destination index pair
+        row_of = np.repeat(np.arange(n, dtype=np.int64), lens)
+        within = np.arange(total, dtype=np.int64) - np.repeat(
+            np.concatenate(([0], np.cumsum(lens[:-1]))), lens)
+        out.reshape(-1)[row_of * size + within] = values[np.repeat(starts, lens) + within]
+    else:
+        for i in range(n):
+            out[i, :lens[i]] = values[starts[i]: starts[i] + lens[i]]
+    return out
+
+
+def extract_tensor(batch: MessageBatch, field: str, name: str, dtype: str,
+                   want: tuple, *, who: str) -> np.ndarray:
+    """One column -> a ``[B, *want]`` array.
+
+    - binary columns: raw bytes, zero-padded or truncated to ``prod(want)``
+      per row and reshaped; float32 targets are scaled from uint8 by 1/255
+      (images);
+    - N-D numeric columns (fixed-size lists): reshaped to ``want`` per row;
+    - 1-D numeric columns: only when ``want`` is scalar-compatible.
+    """
+    if not batch.has_column(field):
+        raise ProcessError(f"{who}: column {field!r} not found for model input {name!r}")
+    col = batch.column(field)
+    n = batch.num_rows
+    want = tuple(int(d) for d in want)
+    if isinstance(col, BinaryColumn):
+        out = _binary_matrix(col, n, int(np.prod(want))).reshape(n, *want)
+        if dtype == "float32":
+            # uint8 divides straight to float32: the values of a cast, then
+            # the divide, without the intermediate copy
+            return out / np.float32(255.0)
+        return out.astype(dtype, copy=False)
+    if col.dtype == object:
+        raise not_ported(f"{who}: ragged list column {field!r} (the json codec)")
+    arr = col.astype(dtype, copy=False)
+    if arr.ndim > 1:
+        try:
+            return arr.reshape(n, *want)
+        except ValueError as e:
+            raise ProcessError(
+                f"{who}: column {field!r} does not reshape to {want} per row: {e}") from e
+    if want and int(np.prod(want)) != 1:
+        raise ProcessError(
+            f"{who}: column {field!r} is scalar per row but input {name!r} wants {want}")
+    return arr.reshape(n, *([1] * len(want)))

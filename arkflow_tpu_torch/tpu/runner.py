@@ -34,6 +34,14 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
 - ``serving_dtype="int8"`` quantizes the host tree (``models/quantize.py``)
   before the transfer, padded or packed; every dense layer then runs an
   int8 product and the attention stays on the float path.
+- Tensor families (``vit_embedder``, ``lstm_ae``: fixed-shape float inputs,
+  no ``"seq"`` dim) pad over the batch dimension only: one shape key, so
+  one CUDA graph, per batch bucket, and no seq grid. Their outputs come
+  back with their own trailing dims (an embedding ``[B, D]``). The token
+  models' assumptions (``input_ids`` sizing the packed grid, the mask
+  check) hold on the packed and token paths only. ``lstm_ae`` serves in
+  float32, so a runner on CUDA warns when float32 matmuls may run in TF32
+  (``torch.set_float32_matmul_precision`` other than ``"highest"``).
 
 The lifecycle (the JAX runner's self-healing, swap and integrity surfaces):
 
@@ -234,6 +242,10 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.family = get_model(model)
         self.cfg = self.family.make_config(**(model_config or {}))
+        if self.device.type == "cuda" and torch.get_float32_matmul_precision() != "highest":
+            logger.warning("[%s] float32 matmuls may run in TF32 (float32 matmul precision "
+                           "%r): float32 models leave their float32 floor", model,
+                           torch.get_float32_matmul_precision())
         raw_flash = getattr(self.cfg, "use_flash_attention", False)
         self.cfg = self._resolve_auto_flags(self.cfg, self.device, packed)
         #: flash explicitly requested in config (never mutated): only then

@@ -1,14 +1,17 @@
-"""Deterministic hashing tokenizer for streaming text models.
+"""Tokenization for streaming text models.
 
-Counterpart of ``arkflow_tpu/tpu/tokenizer.py::HashTokenizer`` on its
+Counterpart of ``arkflow_tpu/tpu/tokenizer.py``: ``HashTokenizer`` on its
 pure-Python path (the JAX package's reference implementation; its C++ tier
-gives identical ids). Hermetic: no vocabulary files.
+gives identical ids), hermetic, with no vocabulary files; ``HFTokenizer``, a
+HuggingFace fast tokenizer loaded from local files only; and
+``build_tokenizer``, which prefers the second and falls back to the first.
+``transformers`` is imported inside ``HFTokenizer`` only.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -94,3 +97,50 @@ class HashTokenizer:
         out = np.zeros(len(offsets), np.int64)
         np.cumsum(row_len, out=out[1:])
         return BinaryColumn(buf[keep], out)
+
+
+class HFTokenizer:
+    """A ``transformers`` fast tokenizer (local files only)."""
+
+    def __init__(self, name: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(name, local_files_only=True, use_fast=True)
+
+    def encode_batch(self, texts: Sequence[bytes], max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        decoded = [t.decode("utf-8", "replace") if isinstance(t, bytes) else t for t in texts]
+        enc = self._tok(decoded, padding="max_length", truncation=True, max_length=max_len,
+                        return_tensors="np", return_attention_mask=True)
+        return enc["input_ids"].astype(np.int32), enc["attention_mask"].astype(np.int32)
+
+    def encode_batch_view(self, values: np.ndarray, offsets: np.ndarray,
+                          max_len: int) -> tuple[np.ndarray, np.ndarray]:
+        """Rows as ``str`` off the payload view: only the window the rows
+        reference is decoded (a sliced batch shares a larger buffer), once
+        when it is pure ASCII -- byte offsets then index the decoded text --
+        and row by row otherwise."""
+        n = len(offsets) - 1
+        base = int(offsets[0]) if n else 0
+        buf = values[base: int(offsets[n]) if n else 0].tobytes()
+        text = buf.decode("utf-8", "replace")
+        if len(text) == len(buf):
+            rows = [text[offsets[i] - base: offsets[i + 1] - base] for i in range(n)]
+        else:
+            rows = [buf[offsets[i] - base: offsets[i + 1] - base].decode("utf-8", "replace")
+                    for i in range(n)]
+        return self.encode_batch(rows, max_len)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+
+def build_tokenizer(name: Optional[str], vocab_size: int = 30522):
+    """``HFTokenizer(name)`` when its files are on this machine; on any
+    failure (no files, no ``transformers``) ``HashTokenizer(vocab_size)``,
+    as the JAX package does."""
+    if name:
+        try:
+            return HFTokenizer(name)
+        except Exception:
+            pass
+    return HashTokenizer(vocab_size)

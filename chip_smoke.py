@@ -134,7 +134,7 @@ last line):
     and abandoned steps included), all ``mma``, and every row's ids equal
     to the fault-free run's up to its first near-tie (``generate lifecycle
     stream``); then on an idle stream with its health server, at full
-    width and ``GEN_SWAP_LAYERS`` (8) layers, a seed-1 checkpoint (5.6 GB,
+    width and ``GEN_SWAP_LAYERS`` (4) layers, a seed-1 checkpoint (3.9 GB,
     written to a temporary directory under ``checkpoints/`` and removed)
     swapped in through ``POST /admin/swap``
     while four clients keep requests in flight: none dropped, the streams
@@ -180,11 +180,34 @@ last line):
     held (``decoder.RoutingTrace``) up to the first near-tie plus the
     first decode step's yardstick rule, one ``serving: batch`` bucket
     graphed against eager, the stream eager, and the ``moe`` line;
-14. the ``graphs`` line (per path: captures, keys checked, differing
+14. model import and the tensor families. ``hf_import``: the padded
+    stream's tree (step 5), a Llama-3-8B-width tree of ``HF_LLAMA_LAYERS``
+    (8) layers drawn on the card and the ViT-B/16 tree exported into
+    HuggingFace names and layouts as bf16 state dicts (the inverse maps are
+    here, apart from the package's), imported by ``from_hf_state_dict``
+    into float32 trees, every leaf equal to the original's bits, then
+    served beside the original: BERT logits through ``ModelRunner`` (K1),
+    greedy streams of 8 generate-stream prompts x 32 new tokens through
+    ``GenerationServer`` (K3) and ViT embeddings, each bit for bit; the
+    decoder import refuses MoE. ``tokenizer`` (after step 5):
+    ``build_tokenizer("bert-base-uncased")`` as this machine resolves it
+    (no ``transformers`` or no local files: the hashing tokenizer), and the
+    padded stream with ``tokenizer:`` set giving the labels it gives
+    without. ``vit``: ``vit_stream.json`` at ViT-B/16 (224 x 224 x 3) with
+    2048 images of random bytes as the generate source's payloads, graphed
+    then eager: images/s, each bucket's step against its bound, peak
+    reserved memory; every image through the processor graphed and eager,
+    equal bit for bit, and a sample held to the CPU plain path at the bf16
+    floor. ``lstm``: ``lstm_stream.json`` (float32, TF32 off) with windows
+    from a seed, one an outlier: windows/s, each bucket's step graphed and
+    eager, graphed = eager, every score held to a CPU float32 run at
+    1e-5, the outlier scoring highest;
+15. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
-    ``duty_cycle()``); one ``{"kernels": [...]}`` line (times are device
+    ``duty_cycle()``); the ``phases`` line (command seconds of each
+    phase); one ``{"kernels": [...]}`` line (times are device
     times; ``eager_ms`` holds the eager calls' event times), then
     ``{"ok": true, "device": ...}``.
 
@@ -194,7 +217,9 @@ Needs one CUDA card and nvcc; imports nothing of JAX or ``arkflow_tpu``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -224,6 +249,7 @@ from arkflow_tpu_torch.models.paged_decode import (  # noqa: E402
     paged_prefill,
 )
 from arkflow_tpu_torch.models import quantize as q8  # noqa: E402
+from arkflow_tpu_torch.models import common as model_common  # noqa: E402
 from arkflow_tpu_torch.models.common import dense  # noqa: E402
 from arkflow_tpu_torch.ops import flash_attention, flash_attention_reference  # noqa: E402
 from arkflow_tpu_torch.ops import ragged_attention as ra  # noqa: E402
@@ -242,6 +268,7 @@ from arkflow_tpu_torch.tools.profile_step import (  # noqa: E402
 )
 from arkflow_tpu_torch.tpu import checkpoint  # noqa: E402
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy  # noqa: E402
+from arkflow_tpu_torch.tpu.compiled_step import tree_map  # noqa: E402
 from arkflow_tpu_torch.tpu.integrity import flatten, tree_digests  # noqa: E402
 from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
 from arkflow_tpu_torch.tpu.runner import ModelRunner, init_host_params, shape_key  # noqa: E402
@@ -259,14 +286,20 @@ GEN_LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "llama_lifecycle_stream.json")
 SERVING_CONFIG = os.path.join(EXAMPLES, "llama_serving_stream.json")
 BATCH_CONFIG = os.path.join(EXAMPLES, "llama_batch_stream.json")
 MOE_CONFIG = os.path.join(EXAMPLES, "llama_moe_stream.json")
+VIT_CONFIG = os.path.join(EXAMPLES, "vit_stream.json")
+LSTM_CONFIG = os.path.join(EXAMPLES, "lstm_stream.json")
 #: where the generate lifecycle phase writes its 16 GB checkpoint (in a
 #: temporary directory it removes; the directory is ignored by git)
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 #: prompts and new tokens of the generate lifecycle's swap and repair checks
 #: depth of the generate lifecycle's swap and integrity checks (full width):
 #: the checkpoint save, prepare, digest passes and repair scale with the
-#: tree, and the 32-layer (16 GB) swap ran green in earlier runs
-GEN_SWAP_LAYERS = 8
+#: tree; the 32-layer (16 GB) swap ran green in earlier runs, 8 layers until
+#: the import and tensor phases took the time
+GEN_SWAP_LAYERS = 4
+#: depth of the batch-mode swap (full width; 4 until the import and tensor
+#: phases took the time)
+BATCH_SWAP_LAYERS = 2
 GEN_CHECK_PROMPTS = 16
 GEN_CHECK_NEW = 32
 #: the MoE phase: the generate stream's 12 distinct texts through the path
@@ -274,9 +307,10 @@ GEN_CHECK_NEW = 32
 MOE_CHECK_PROMPTS = 12
 MOE_CHECK_NEW = 48
 MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
-#: rows of each stream of the lifecycle cost comparison: ~13 s of traffic,
-#: four digest passes of the lifecycle example or more
-COST_ROWS = 40960
+#: rows of each stream of the lifecycle cost comparison: ~8 s of traffic,
+#: three digest passes of the lifecycle example or more (40960 until the
+#: import and tensor phases took the time)
+COST_ROWS = 24576
 #: H100 SXM published peaks from NVIDIA's datasheet: HBM bytes/s, and
 #: dense flop/s by operand type (f32 runs outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -982,6 +1016,7 @@ def mode_report(runner, memory: dict) -> dict:
 
 def run_slice(cfg_raw: dict, eager: bool = False) -> dict:
     engine, stream, runner, memory = build_stream_runner(cfg_raw, eager)
+    sink = stream.output = ColumnSink(stream.output, ("label",))
     reset_counts()
     t0 = time.perf_counter()
     asyncio.run(engine.run())
@@ -993,7 +1028,7 @@ def run_slice(cfg_raw: dict, eager: bool = False) -> dict:
     count = cfg_raw["streams"][0]["input"]["count"]
     layers = runner.cfg.layers
     report = {"rows_expected": count, "rows_out": stream.rows_out,
-              "rows_dropped": stream.output.dropped_rows, "errors": stream.errors,
+              "rows_dropped": sink.inner.dropped_rows, "errors": stream.errors,
               "seconds": wall, "rows_per_s": stream.rows_out / wall,
               "traffic_seconds": stream.traffic_seconds,
               "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
@@ -1005,13 +1040,13 @@ def run_slice(cfg_raw: dict, eager: bool = False) -> dict:
     print("slice " + json.dumps(report), flush=True)
     check(k2_launches == 0, f"the padded stream launched K2: {report}")
     check(stream.errors == 0, f"stream reported errors: {report}")
-    check(stream.rows_out == count and stream.output.dropped_rows == count,
+    check(stream.rows_out == count and sink.inner.dropped_rows == count,
           f"not every row arrived: {report}")
     check(launches > 0 and launches == layers * runner.device_steps,
           f"K1 launches != layers x device steps: {report}")
     check(runner.flash_fallbacks == 0, f"the runner fell back from the kernel: {report}")
     check(k1_variants["mma"] == launches, f"a bf16 K1 launch missed the mma tile: {report}")
-    return {"report": report, "runner": runner}
+    return {"report": report, "runner": runner, "labels": np.concatenate(sink.columns["label"])}
 
 
 class OrderedSink(Output):
@@ -1027,6 +1062,28 @@ class OrderedSink(Output):
 
     async def write(self, batch: MessageBatch) -> None:
         self.payloads.extend(batch.to_binary())
+        await self.inner.write(batch)
+
+    async def close(self) -> None:
+        await self.inner.close()
+
+
+class ColumnSink(Output):
+    """Wraps the stream's own output: counts the rows it is handed and keeps
+    the named output columns, in order, then passes the batch on."""
+
+    def __init__(self, inner: Output, names: tuple):
+        self.inner = inner
+        self.rows = 0
+        self.columns: dict[str, list] = {n: [] for n in names}
+
+    async def connect(self) -> None:
+        await self.inner.connect()
+
+    async def write(self, batch: MessageBatch) -> None:
+        self.rows += batch.num_rows
+        for n, parts in self.columns.items():
+            parts.append(np.asarray(batch.column(n)))
         await self.inner.write(batch)
 
     async def close(self) -> None:
@@ -2323,7 +2380,7 @@ def run_moe(cfg_raw: dict) -> dict:
     server = graphed["server"]
     check(server.cfg.num_experts == 8 and "experts" in server.params["layers"],
           f"the MoE stream served no MoE model: {server.cfg}")
-    params_bytes = sum(t.numel() * t.element_size() for t in flatten(server.params).values())
+    params_bytes = tree_bytes(server.params)
     bound = moe_decode_bound_ms(server.cfg)
     steps = step_times(server, label="moe")
     graphs = graph_check_server(server, path="moe")
@@ -3234,6 +3291,609 @@ def run_gen_lifecycle(plain: dict) -> dict:
     return {"stream": stream_rep, **checks, "cost": cost}
 
 
+# -- model import, the tensor families and the tokenizer ----------------------
+
+#: the Llama-3-8B-width tree of ``hf_import``: 8 of 32 layers, because the
+#: float32 import of 32 layers (JAX's import makes a float32 tree) is 32 GB of
+#: host memory beside a 16 GB bf16 state dict
+HF_LLAMA_LAYERS = 8
+HF_PROMPTS = 8
+HF_NEW = 32
+VIT_IMAGES = 2048
+LSTM_WINDOWS = 4096
+#: rows of the ViT embeddings held to the CPU plain path
+VIT_CPU_ROWS = 8
+#: the bf16 floor of the ViT embeddings (a layer norm's output, of
+#: magnitude up to ~3): the card's rows may lie no further from a float32
+#: forward than the CPU plain path's bf16 rows do, plus this
+VIT_EMB_TOL = 1.0 / 64
+#: the LSTM's float32 floor (atol and rtol)
+LSTM_TOL = 1e-5
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and the same float32 bits."""
+    a, b = a.float(), b.float()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def hf_leaf(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """One leaf as a checkpoint holds it: bf16 on the host, a linear weight
+    in torch's ``[out, in]``."""
+    return (t.T if transpose else t).to(torch.bfloat16).contiguous().cpu()
+
+
+def bert_to_hf(p: dict) -> dict:
+    """A ``bert_classifier`` tree as a ``BertForSequenceClassification``
+    state dict (the inverse of ``bert.from_hf_state_dict``, written here
+    apart from it)."""
+    e = "bert.embeddings"
+    out = {f"{e}.word_embeddings.weight": hf_leaf(p["embed"]["word"]["table"]),
+           f"{e}.position_embeddings.weight": hf_leaf(p["embed"]["position"]["table"]),
+           f"{e}.token_type_embeddings.weight": hf_leaf(p["embed"]["token_type"]["table"]),
+           f"{e}.LayerNorm.weight": hf_leaf(p["embed"]["ln"]["scale"]),
+           f"{e}.LayerNorm.bias": hf_leaf(p["embed"]["ln"]["bias"]),
+           "bert.pooler.dense.weight": hf_leaf(p["pooler"]["w"], True),
+           "bert.pooler.dense.bias": hf_leaf(p["pooler"]["b"]),
+           "classifier.weight": hf_leaf(p["classifier"]["w"], True),
+           "classifier.bias": hf_leaf(p["classifier"]["b"])}
+    lin = {"q": "attention.self.query", "k": "attention.self.key",
+           "v": "attention.self.value", "attn_out": "attention.output.dense",
+           "ffn_in": "intermediate.dense", "ffn_out": "output.dense"}
+    lns = {"attn_ln": "attention.output.LayerNorm", "ffn_ln": "output.LayerNorm"}
+    lay = p["layers"]
+    for i in range(lay["q"]["w"].shape[0]):
+        pre = f"bert.encoder.layer.{i}"
+        for k, name in lin.items():
+            out[f"{pre}.{name}.weight"] = hf_leaf(lay[k]["w"][i], True)
+            out[f"{pre}.{name}.bias"] = hf_leaf(lay[k]["b"][i])
+        for k, name in lns.items():
+            out[f"{pre}.{name}.weight"] = hf_leaf(lay[k]["scale"][i])
+            out[f"{pre}.{name}.bias"] = hf_leaf(lay[k]["bias"][i])
+    return out
+
+
+def llama_to_hf(p: dict) -> dict:
+    """A dense ``decoder_lm`` tree as a ``LlamaForCausalLM`` state dict."""
+    out = {"model.embed_tokens.weight": hf_leaf(p["embed"]["table"]),
+           "model.norm.weight": hf_leaf(p["norm_out"]["scale"]),
+           "lm_head.weight": hf_leaf(p["lm_head"]["w"], True)}
+    lay = p["layers"]
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    for i in range(lay["wq"]["w"].shape[0]):
+        pre = f"model.layers.{i}"
+        out[f"{pre}.input_layernorm.weight"] = hf_leaf(lay["attn_norm"]["scale"][i])
+        out[f"{pre}.post_attention_layernorm.weight"] = hf_leaf(lay["mlp_norm"]["scale"][i])
+        for k, name in names.items():
+            out[f"{pre}.{name}.weight"] = hf_leaf(lay[k]["w"][i], True)
+    return out
+
+
+def vit_to_hf(p: dict) -> dict:
+    """A ``vit_embedder`` tree as a ``ViTForImageClassification`` state dict:
+    the dense patch embedding back to the conv projection ``[D, C, P, P]``
+    (row ``(i*P + j)*C + c`` of ``w`` is ``conv[:, c, i, j]``)."""
+    w = p["patch_embed"]["w"]
+    d = w.shape[1]
+    c = 3
+    pp = int(math.isqrt(w.shape[0] // c))
+    conv = w.reshape(pp, pp, c, d).permute(3, 2, 0, 1)
+    out = {"vit.embeddings.cls_token": hf_leaf(p["cls"]),
+           "vit.embeddings.position_embeddings": hf_leaf(p["pos"]),
+           "vit.embeddings.patch_embeddings.projection.weight": hf_leaf(conv),
+           "vit.embeddings.patch_embeddings.projection.bias": hf_leaf(p["patch_embed"]["b"]),
+           "vit.layernorm.weight": hf_leaf(p["ln_out"]["scale"]),
+           "vit.layernorm.bias": hf_leaf(p["ln_out"]["bias"])}
+    lin = {"q": "attention.attention.query", "k": "attention.attention.key",
+           "v": "attention.attention.value", "attn_out": "attention.output.dense",
+           "ffn_in": "intermediate.dense", "ffn_out": "output.dense"}
+    lay = p["layers"]
+    for i in range(lay["q"]["w"].shape[0]):
+        pre = f"vit.encoder.layer.{i}"
+        for k, name in lin.items():
+            out[f"{pre}.{name}.weight"] = hf_leaf(lay[k]["w"][i], True)
+            out[f"{pre}.{name}.bias"] = hf_leaf(lay[k]["b"][i])
+        for k, name in (("ln1", "layernorm_before"), ("ln2", "layernorm_after")):
+            out[f"{pre}.{name}.weight"] = hf_leaf(lay[k]["scale"][i])
+            out[f"{pre}.{name}.bias"] = hf_leaf(lay[k]["bias"][i])
+    return out
+
+
+def trees_bitwise(imported: dict, original: dict) -> dict:
+    """Every leaf of the imported float32 tree against the original's leaf
+    as float32 (the same bf16 values): paths, shapes and bits."""
+    a, b = flatten(imported), flatten(original)
+    differing = [k for k in b if k not in a or not bits_equal(a[k].to(b[k].device), b[k])]
+    return {"leaves": len(b), "paths_equal": sorted(a) == sorted(b),
+            "dtypes": sorted({str(t.dtype) for t in a.values()}), "differing": differing}
+
+
+def hf_import_bert(runner: ModelRunner, cfg_raw: dict) -> dict:
+    """The padded stream's tree (bf16) exported into HF names and layouts,
+    imported, checked against the tree, and served: logits of the imported
+    tree's runner equal to the stream's runner's, bit for bit, on the same
+    texts (K1 in every step)."""
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    fam = get_model("bert_classifier")
+    t0 = time.perf_counter()
+    state = bert_to_hf(runner.host_params)
+    imported = fam.extras["from_hf_state_dict"](state, runner.cfg)
+    import_s = time.perf_counter() - t0
+    tree = trees_bitwise(imported, runner.host_params)
+    twin = ModelRunner("bert_classifier", proc_cfg["model_config"], buckets=runner.buckets,
+                       device="cuda", serving_dtype=proc_cfg["serving_dtype"],
+                       host_params=imported)
+    proc = GpuInferenceProcessor(runner, text_field="__value__",
+                                 tokenizer=HashTokenizer(runner.cfg.vocab_size),
+                                 max_seq=proc_cfg["max_seq"], outputs=None)
+    batch = MessageBatch.new_binary(generated_rows(cfg_raw)[:256])
+    inputs = proc._extract(batch)
+    reset_counts()
+    a, b = runner.infer_sync(inputs), twin.infer_sync(inputs)
+    k1 = ra.launches.value
+    report = {"state_dict_entries": len(state), "import_s": import_s, **tree,
+              "rows": len(batch), "logits_equal": bool(np.array_equal(
+                  a["logits"].view(np.int32), b["logits"].view(np.int32))),
+              "k1_launches": k1}
+    print("hf_import bert " + json.dumps(report), flush=True)
+    check(tree["paths_equal"] and not tree["differing"] and tree["dtypes"] == ["torch.float32"],
+          f"the imported BERT tree differs from the exported one: {report}")
+    check(report["logits_equal"], f"the imported BERT tree served other logits: {report}")
+    check(k1 > 0, "the imported BERT tree's runner launched no K1")
+    del twin
+    torch.cuda.empty_cache()
+    return report
+
+
+def hf_import_llama(gen_raw: dict) -> dict:
+    """A Llama-3-8B-width tree at ``HF_LLAMA_LAYERS`` layers (bf16, drawn on
+    the card from seed 0) exported into HF names and layouts, imported into
+    a float32 tree (JAX's import), checked against the tree, put on the
+    card as imported, and served: greedy streams of ``HF_PROMPTS``
+    generate-stream prompts x ``HF_NEW`` new tokens from a server on each
+    tree, equal bit for bit (K3 in every layer of every step). The import
+    refuses an MoE config with JAX's ValueError."""
+    proc_cfg = gen_raw["streams"][0]["pipeline"]["processors"][0]
+    cfg = get_model("decoder_lm").make_config(**{**proc_cfg["model_config"],
+                                                 "layers": HF_LLAMA_LAYERS})
+    params = dec.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    t0 = time.perf_counter()
+    state = llama_to_hf(params)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported_host = dec.from_hf_state_dict(state, cfg)
+    import_s = time.perf_counter() - t0
+    state_bytes, imported_bytes = tree_bytes(state), tree_bytes(imported_host)
+    del state
+    imported = tree_to_device(imported_host, "cuda")
+    del imported_host
+    gc.collect()
+    tree = trees_bitwise(imported, params)
+    prompts = generate_prompts(gen_raw, HF_PROMPTS)
+
+    def serve(p) -> list[list[int]]:
+        server = GenerationServer(
+            p, cfg, slots=proc_cfg["slots"], page_size=proc_cfg["page_size"],
+            max_seq=proc_cfg["max_input"] + proc_cfg["max_new_tokens"],
+            eos_id=proc_cfg.get("eos_id", 2), prefill_chunk=proc_cfg["prefill_chunk"],
+            dispatch_depth=1, record_margins=True)
+        return [t for t, _ in serve_prompts(server, prompts, HF_NEW)]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    want = serve(params)
+    got = serve(imported)
+    serve_s = time.perf_counter() - t0
+    k3 = ra.paged_flash_attention.launches.value
+    moe_refused = None
+    try:
+        dec.from_hf_state_dict({}, dataclasses.replace(cfg, num_experts=8))
+    except ValueError as e:
+        moe_refused = str(e)
+    report = {"layers": cfg.layers, "dim": cfg.dim, "vocab": cfg.vocab_size,
+              "state_dict_gb": state_bytes / 1e9, "imported_float32_gb": imported_bytes / 1e9,
+              "export_s": export_s, "import_s": import_s, "serve_s": serve_s, **tree,
+              "prompts": len(prompts), "max_new_tokens": HF_NEW,
+              "tokens": sum(len(t) for t in got), "streams_equal": got == want,
+              "k3_launches": k3, "moe_refused": moe_refused}
+    print("hf_import llama " + json.dumps(report), flush=True)
+    check(tree["paths_equal"] and not tree["differing"] and tree["dtypes"] == ["torch.float32"],
+          f"the imported Llama tree differs from the exported one: {report}")
+    check(report["streams_equal"] and report["tokens"] > 0,
+          f"the imported Llama tree generated other tokens: {report}")
+    check(k3 > 0, "the imported Llama tree's servers launched no K3")
+    check(moe_refused is not None and "MoE configs unsupported" in moe_refused,
+          f"the decoder import did not refuse MoE: {report}")
+    del params, imported
+    release_memory()
+    return report
+
+
+def tree_to_device(tree: dict, device: str) -> dict:
+    """A nested dict of tensors moved to ``device`` leaf by leaf, emptying
+    ``tree`` as it goes (the float32 tree is never held twice on the host)."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = tree_to_device(v, device) if isinstance(v, dict) else v.to(device)
+    return out
+
+
+def run_tensor_stream(cfg_raw: dict, payloads: list[bytes], label: str, column: str,
+                      eager: bool = False) -> dict:
+    """A tensor example through ``Engine`` with its generate source's
+    payloads set to ``payloads`` (bytes no JSON config holds; each batch
+    takes its rows from the first, as the generate source does), its runner
+    swapped for the eager twin when ``eager``: every row delivered with a
+    finite ``column``, no attention kernel launched (neither family calls
+    one), one graph key per batch bucket."""
+    engine, stream, runner, memory = build_stream_runner(cfg_raw, eager)
+    stream.input.payloads = payloads
+    sink = stream.output = ColumnSink(stream.output, (column,))
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = cfg_raw["streams"][0]["input"]["count"]
+    out = np.concatenate(sink.columns[column])
+    launches = {"k1": ra.launches.value, "k2": sa.launches.value,
+                "k3": ra.paged_flash_attention.launches.value,
+                "k4": flash_attention.launches.value}
+    report = {"rows_expected": count, "rows_out": stream.rows_out, "errors": stream.errors,
+              "seconds": wall, "traffic_seconds": stream.traffic_seconds,
+              "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+              "device_steps": runner.device_steps, "output_shape": list(out.shape),
+              "output_finite": bool(np.isfinite(out).all()), "launches": launches,
+              "keys": sorted("x".join(map(str, shape)) for k in runner.dispatch_counts()
+                             for shape in dict(k).values()),
+              **mode_report(runner, memory)}
+    print(f"{label} slice " + json.dumps(report), flush=True)
+    check(stream.errors == 0 and stream.rows_out == count and sink.rows == count,
+          f"the {label} stream lost rows: {report}")
+    check(out.shape[0] == count and report["output_finite"],
+          f"the {label} stream's {column} column is not finite: {report}")
+    check(not any(launches.values()), f"the {label} stream launched a kernel: {report}")
+    check(len(runner.dispatch_counts()) <= len(runner.buckets.batch_buckets),
+          f"the {label} runner stepped more keys than batch buckets: {report}")
+    return {"report": report, "runner": runner, "proc": stream.pipeline.processors[0]}
+
+
+def through_processor(proc, payloads: list[bytes], rows: int, column: str) -> np.ndarray:
+    """``payloads`` through the processor in batches of ``rows``, in turn;
+    the ``column`` of every output, in order."""
+    async def go():
+        outs = []
+        for i in range(0, len(payloads), rows):
+            out = await proc.process(MessageBatch.new_binary(payloads[i: i + rows]))
+            outs.append(np.asarray(out[0].column(column)))
+        return np.concatenate(outs)
+
+    return asyncio.run(go())
+
+
+def bucket_step_times(runner: ModelRunner, name: str, bound) -> dict:
+    """Each batch bucket's forward on random inputs: the device's time (a
+    CUDA graph of 5 forwards replayed), one eager call's event time, and
+    the bound of the same work."""
+    out = {}
+    trailing = runner.spec[name][1]
+    with torch.inference_mode():
+        for b in runner.buckets.batch_buckets:
+            x = torch.rand(b, *trailing, device="cuda")
+            fwd = functools.partial(runner._forward, **{name: x})
+            dev = device_ms(fwd, calls=5, replays=3)
+            eager = time_ms(fwd, iters=5, warmup=2)
+            bound_ms, bound_by = bound(b)
+            out[str(b)] = {"device_ms": dev, "eager_ms": eager, "bound_ms": bound_ms,
+                           "bound_by": bound_by}
+    return out
+
+
+def tree_bytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten(params).values())
+
+
+def vit_flops(cfg, b: int) -> float:
+    """Flops of one ViT forward over ``b`` images (2 a multiply-add), read
+    from ``models/vit.py``'s shapes: the patch product, and in each layer
+    the q/k/v/out and FFN products and both attention products."""
+    n, d, f = cfg.num_patches, cfg.hidden, cfg.ffn
+    s = n + 1
+    per_layer = 2 * s * d * d * 4 + 2 * s * d * f * 2 + 2 * 2 * s * s * d
+    return b * (2 * n * cfg.patch * cfg.patch * cfg.channels * d + cfg.layers * per_layer)
+
+
+def lstm_flops(cfg, b: int) -> float:
+    """Flops of one LSTM-AE forward over ``b`` windows, from
+    ``models/lstm_ae.py``'s shapes: each step's [F+H, 4H] (encoder) or
+    [2H, 4H] (decoder) gate product, the latent products and the head."""
+    h = cfg.hidden
+    steps = cfg.window * (2 * (cfg.features + h) * 4 * h + 2 * (2 * h) * 4 * h
+                          + 2 * h * cfg.features)
+    return b * (steps + 2 * h * cfg.latent * 2)
+
+
+def bound_of(flops_fn, cfg, param_bytes: int, in_bytes_per_row: int, out_bytes_per_row: int,
+             dtype: torch.dtype):
+    """``b -> (bound_ms, bound_by)``: the larger of the bytes the forward
+    must move (params as stored, inputs and outputs once) over HBM and its
+    flops over the peak for ``dtype``."""
+    def bound(b: int):
+        by_bytes = (param_bytes + b * (in_bytes_per_row + out_bytes_per_row)) / HBM_BYTES_PER_S
+        by_ops = flops_fn(cfg, b) / PEAK_FLOPS[dtype]
+        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+    return bound
+
+
+def hf_import_vit(runner: ModelRunner, images: np.ndarray) -> dict:
+    """The ViT-B/16 stream's tree (float32), rounded to bf16 as a checkpoint
+    holds it, exported into HF names and layouts (the conv projection
+    ``[D, C, P, P]``), imported, checked against the rounded tree, and
+    served: embeddings of a runner on each tree equal bit for bit."""
+    fam = get_model("vit_embedder")
+    rounded = tree_map(lambda t: t.to(torch.bfloat16).float(), runner.host_params)
+    t0 = time.perf_counter()
+    state = vit_to_hf(rounded)
+    imported = fam.extras["from_hf_state_dict"](state, runner.cfg)
+    import_s = time.perf_counter() - t0
+    tree = trees_bitwise(imported, rounded)
+    conv = state["vit.embeddings.patch_embeddings.projection.weight"]
+    mc = dataclasses.asdict(runner.cfg)
+    a_run = ModelRunner("vit_embedder", mc, buckets=runner.buckets, device="cuda",
+                        host_params=rounded)
+    b_run = ModelRunner("vit_embedder", mc, buckets=runner.buckets, device="cuda",
+                        host_params=imported)
+    x = images[:32].reshape(32, *runner.spec["images"][1]) / np.float32(255.0)
+    a, b = a_run.infer_sync({"images": x}), b_run.infer_sync({"images": x})
+    report = {"state_dict_entries": len(state), "conv_shape": list(conv.shape),
+              "conv_dtype": str(conv.dtype), "import_s": import_s, **tree,
+              "rows": 32, "embeddings_equal": bool(np.array_equal(
+                  a["embedding"].view(np.int32), b["embedding"].view(np.int32)))}
+    print("hf_import vit " + json.dumps(report), flush=True)
+    check(tree["paths_equal"] and not tree["differing"] and tree["dtypes"] == ["torch.float32"],
+          f"the imported ViT tree differs from the exported one: {report}")
+    check(report["embeddings_equal"], f"the imported ViT tree served other embeddings: {report}")
+    del a_run, b_run
+    torch.cuda.empty_cache()
+    return report
+
+
+@contextlib.contextmanager
+def float32_dense():
+    """Every ``common.dense`` call that names no dtype in float32 instead of
+    bf16: a model's float32 forward, the yardstick of its bf16 paths."""
+    defaults = model_common.dense.__defaults__
+    model_common.dense.__defaults__ = (torch.float32,)
+    try:
+        yield
+    finally:
+        model_common.dense.__defaults__ = defaults
+
+
+def run_vit(cfg_raw: dict) -> dict:
+    """``vit_stream.json`` at ViT-B/16 (224 x 224 x 3, batch buckets 8/32):
+    ``VIT_IMAGES`` images of random bytes from a numpy seed as the generate
+    source's payloads, the stream graphed, then eager; each bucket's step
+    against its bound; then every image through the processor graphed and
+    eager (equal bit for bit), a sample held to the CPU plain path (both
+    bf16, rounding differently over 12 layers: the card's rows may lie no
+    further from a float32 forward on the card than the CPU's do, plus the
+    bf16 floor), and the ``hf_import vit`` check."""
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    fam = get_model("vit_embedder")
+    cfg = fam.make_config(**proc_cfg["model_config"])
+    size = cfg.image_size * cfg.image_size * cfg.channels
+    images = np.random.default_rng(7).integers(0, 256, (VIT_IMAGES, size), dtype=np.uint8)
+    payloads = [images[i].tobytes() for i in range(VIT_IMAGES)]
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    graphed = run_tensor_stream(cfg_raw, payloads, "vit", "embedding")
+    eager = run_tensor_stream(cfg_raw, payloads, "vit", "embedding", eager=True)
+    runner, proc = graphed["runner"], graphed["proc"]
+    params_bytes = tree_bytes(runner.params)
+    bound = bound_of(vit_flops, cfg, params_bytes, size * 4, cfg.hidden * 4, torch.bfloat16)
+    steps = bucket_step_times(runner, "images", bound)
+    rows = max(runner.buckets.batch_buckets)
+    t0 = time.perf_counter()
+    got = through_processor(proc, payloads, rows, "embedding")
+    graphed_s = time.perf_counter() - t0
+    proc.runner = eager["runner"]
+    t0 = time.perf_counter()
+    got_eager = through_processor(proc, payloads, rows, "embedding")
+    eager_s = time.perf_counter() - t0
+    proc.runner = runner
+    cpu = tree_map(lambda t: t.cpu(), runner.host_params)
+    x = torch.from_numpy(images[:VIT_CPU_ROWS].reshape(
+        VIT_CPU_ROWS, *runner.spec["images"][1]) / np.float32(255.0))
+    with torch.inference_mode():
+        plain = fam.apply(cpu, cfg, images=x)["embedding"].numpy()
+        with float32_dense():
+            ref = fam.apply(runner.params, cfg, images=x.cuda())["embedding"].cpu().numpy()
+    card = got[:VIT_CPU_ROWS]
+    err = {"card_vs_cpu": float(np.abs(card - plain).max()),
+           "card_vs_float32": float(np.abs(card - ref).max()),
+           "cpu_vs_float32": float(np.abs(plain - ref).max())}
+    report = {"images": VIT_IMAGES, "image_size": cfg.image_size, "hidden": cfg.hidden,
+              "layers": cfg.layers, "params_mb": params_bytes / 1e6,
+              "traffic_images_per_s": graphed["report"]["traffic_rows_per_s"],
+              "eager_traffic_images_per_s": eager["report"]["traffic_rows_per_s"],
+              "processor_images_per_s": {"graphed": VIT_IMAGES / graphed_s,
+                                         "eager": VIT_IMAGES / eager_s},
+              "step": steps, "flops_per_image": vit_flops(cfg, 1),
+              "graphed_equals_eager": bool(np.array_equal(got.view(np.int32),
+                                                          got_eager.view(np.int32))),
+              "distinct_embeddings": int(len(np.unique(got.round(3), axis=0))),
+              "cpu_rows": VIT_CPU_ROWS, "max_abs_err": err, "tol": VIT_EMB_TOL,
+              "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+              "reserved_before_bytes": base}
+    print("vit " + json.dumps(report), flush=True)
+    check(got.shape == (VIT_IMAGES, cfg.hidden) and np.isfinite(got).all(),
+          f"the ViT embeddings are not [{VIT_IMAGES}, {cfg.hidden}] and finite: {report}")
+    check(report["graphed_equals_eager"], f"graphed ViT embeddings differ from eager: {report}")
+    check(err["card_vs_float32"] <= err["cpu_vs_float32"] + VIT_EMB_TOL,
+          f"the ViT embeddings lie further from float32 than the CPU plain path's: {report}")
+    imported = hf_import_vit(runner, images)
+    del graphed, eager, runner, proc
+    release_memory()
+    return {"report": report, "hf_import": imported}
+
+
+def run_lstm(cfg_raw: dict) -> dict:
+    """``lstm_stream.json`` at the config's widths (features 8, hidden 64,
+    latent 16, window 32; float32, TF32 off): windows from a numpy seed
+    as 256-byte payloads, one an outlier, the stream graphed, then eager;
+    each bucket's step, graphed (one replay) and eager (launch-bound); then
+    every window through the processor graphed and eager (equal bit for
+    bit), every score held to a CPU float32 run at 1e-5, and the outlier
+    scoring highest."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the float32 LSTM would leave its floor")
+    proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    fam = get_model("lstm_ae")
+    cfg = fam.make_config(**proc_cfg["model_config"])
+    width = cfg.window * cfg.features
+    rng = np.random.default_rng(8)
+    windows = rng.integers(96, 160, (LSTM_WINDOWS, width), dtype=np.uint8)
+    outlier = 1234
+    windows[outlier] = np.where(np.arange(width) % 2 == 0, 255, 0)  # a saw-tooth at the rails
+    payloads = [windows[i].tobytes() for i in range(LSTM_WINDOWS)]
+    graphed = run_tensor_stream(cfg_raw, payloads, "lstm", "score")
+    eager = run_tensor_stream(cfg_raw, payloads, "lstm", "score", eager=True)
+    runner, proc = graphed["runner"], graphed["proc"]
+    params_bytes = tree_bytes(runner.params)
+    bound = bound_of(lstm_flops, cfg, params_bytes, width * 4, 4, torch.float32)
+    steps = bucket_step_times(runner, "values", bound)
+    rows = max(runner.buckets.batch_buckets)
+    got = through_processor(proc, payloads, rows, "score")
+    proc.runner = eager["runner"]
+    got_eager = through_processor(proc, payloads, rows, "score")
+    proc.runner = runner
+    values = windows.reshape(LSTM_WINDOWS, cfg.window, cfg.features) / np.float32(255.0)
+    with torch.inference_mode():
+        want = fam.apply(tree_map(lambda t: t.cpu(), runner.host_params), cfg,
+                         values=torch.from_numpy(values))["score"].numpy()
+    err = np.abs(got - want)
+    report = {"windows": LSTM_WINDOWS, **dataclasses.asdict(cfg),
+              "traffic_windows_per_s": graphed["report"]["traffic_rows_per_s"],
+              "eager_traffic_windows_per_s": eager["report"]["traffic_rows_per_s"],
+              "step": steps, "flops_per_window": lstm_flops(cfg, 1),
+              "graphed_equals_eager": bool(np.array_equal(got.view(np.int32),
+                                                          got_eager.view(np.int32))),
+              "cpu_max_abs_err": float(err.max()),
+              "cpu_within_tol": bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))),
+              "outlier": outlier, "argmax": int(np.argmax(got)),
+              "outlier_score": float(got[outlier]), "median_score": float(np.median(got)),
+              "tf32": torch.backends.cuda.matmul.allow_tf32}
+    print("lstm " + json.dumps(report), flush=True)
+    check(got.shape == (LSTM_WINDOWS,) and np.isfinite(got).all(), f"LSTM scores: {report}")
+    check(report["graphed_equals_eager"], f"graphed LSTM scores differ from eager: {report}")
+    check(report["cpu_within_tol"], f"LSTM scores are off the CPU float32 run: {report}")
+    check(report["argmax"] == outlier, f"the outlier window did not score highest: {report}")
+    del graphed, eager, runner, proc
+    release_memory()
+    return report
+
+
+def local_wordpiece(path: str, texts: list[str]) -> str | None:
+    """A WordPiece tokenizer over the words of ``texts``, saved into ``path``
+    with ``tokenizers`` and ``transformers`` (nothing downloaded); None, with
+    the reason printed, where this machine cannot build one."""
+    try:
+        from tokenizers import Tokenizer, decoders, models, normalizers, pre_tokenizers, processors
+        from transformers import PreTrainedTokenizerFast
+
+        words = sorted({w for t in texts for w in re.findall(r"[a-z]+|[^\sa-z]", t.lower())})
+        vocab = {t: i for i, t in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + words)}
+        tok = Tokenizer(models.WordPiece(vocab, unk_token="[UNK]"))
+        tok.normalizer = normalizers.BertNormalizer(lowercase=True)
+        tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+        tok.post_processor = processors.TemplateProcessing(
+            single="[CLS] $A [SEP]", special_tokens=[("[CLS]", 2), ("[SEP]", 3)])
+        tok.decoder = decoders.WordPiece()
+        PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]", pad_token="[PAD]",
+                                cls_token="[CLS]", sep_token="[SEP]").save_pretrained(path)
+        return path
+    except Exception as e:  # noqa: BLE001 - reported, not a failure
+        print(f"tokenizer local wordpiece unavailable: {type(e).__name__}: {e}", flush=True)
+        return None
+
+
+def run_tokenizer(cfg_raw: dict, runner: ModelRunner, plain_labels: np.ndarray) -> dict:
+    """``build_tokenizer("bert-base-uncased")`` as this machine resolves it
+    (local files only: without the files, or without ``transformers``, it
+    is the hashing tokenizer), then the padded stream with and without
+    ``tokenizer: bert-base-uncased`` on the stream's runner
+    (``plain_labels``: the stream's run without it): with the hashing
+    fallback the labels are the same. Where ``transformers`` and
+    ``tokenizers`` import, the stream runs a third time on a WordPiece
+    tokenizer built here from the payloads' words (``HFTokenizer`` on the
+    card: every row delivered with a label)."""
+    from arkflow_tpu_torch.tpu.tokenizer import build_tokenizer
+
+    tok = build_tokenizer("bert-base-uncased", runner.cfg.vocab_size)
+    try:
+        import transformers
+        have = transformers.__version__
+    except ImportError:
+        have = None
+    tmp = tempfile.TemporaryDirectory()
+    texts = [str(p) for p in cfg_raw["streams"][0]["input"]["payloads"]]
+    local = local_wordpiece(tmp.name, texts) if have else None
+    runs = [("with", {"tokenizer": "bert-base-uncased"})]
+    if local:
+        runs.append(("local", {"tokenizer": local}))
+    labels, k1, classes = {"without": plain_labels}, {}, {}
+    for name, extra in runs:
+        raw = json.loads(json.dumps(cfg_raw))
+        raw["streams"][0]["pipeline"]["processors"][0].update(extra)
+        engine = Engine(EngineConfig.from_mapping(raw))
+        stream = engine.build()[0]
+        proc = stream.pipeline.processors[0]
+        proc.runner = runner  # the padded stream's runner, its graphs captured
+        sink = stream.output = ColumnSink(stream.output, ("label",))
+        reset_counts()
+        asyncio.run(engine.run())
+        k1[name] = ra.launches.value
+        check(stream.errors == 0 and sink.rows == raw["streams"][0]["input"]["count"],
+              f"the padded stream {name} tokenizer lost rows")
+        labels[name] = np.concatenate(sink.columns["label"])
+        classes[name] = type(proc.tokenizer).__name__
+    tmp.cleanup()
+    report = {"build_tokenizer": type(tok).__name__, "stream_tokenizers": classes,
+              "transformers": have, "rows": int(len(labels["with"])),
+              "labels_equal": bool(np.array_equal(labels["with"], labels["without"])),
+              "k1_launches": k1}
+    if "local" in labels:
+        report["local_labels_differ"] = int((labels["local"] != labels["without"]).sum())
+    print("tokenizer " + json.dumps(report), flush=True)
+    if report["build_tokenizer"] == "HashTokenizer":
+        check(report["labels_equal"], f"the hashing fallback changed labels: {report}")
+    check(classes.get("local", "HFTokenizer") == "HFTokenizer",
+          f"the local WordPiece files did not load as HFTokenizer: {report}")
+    return report
+
+
+class Phases:
+    """Command time of each phase of ``main``, for the smoke's budget."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.last, 1)
+        self.last = now
+
+    def report(self) -> dict:
+        return {**self.seconds, "total": round(time.perf_counter() - self.start, 1)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3248,11 +3908,13 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}", flush=True)
+    phases = Phases()
 
     built = build_all(list(KERNEL_SOURCES), verbose=True)
     print("build " + json.dumps({k: round(v["seconds"], 3) for k, v in built.items()}), flush=True)
     for name, rep in built.items():
         print(f"ptxas {name} " + json.dumps(ptxas_summary(rep["output"])), flush=True)
+    phases.mark("build")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     edge_cases(gen)
@@ -3274,6 +3936,7 @@ def main() -> int:
     # K1 with every length S at K4's BERT shape: the same function
     kernel_case(gen, 64, 12, 256, 64, torch.bfloat16, causal=False,
                 lengths=torch.full((64,), 256))
+    phases.mark("kernel cases")
 
     with open(CONFIG) as f:
         cfg_raw = json.load(f)
@@ -3291,6 +3954,9 @@ def main() -> int:
                             runner.cfg.hidden // runner.cfg.heads, torch.bfloat16,
                             causal=False, lengths=main_len)
     compare_paths(runner, proc_cfg, rows=256, seed=1)
+    hf_bert = hf_import_bert(runner, cfg_raw)
+    tokenizer = run_tokenizer(cfg_raw, runner, result["labels"])
+    phases.mark("padded")
 
     with open(PACKED_CONFIG) as f:
         packed_raw = json.load(f)
@@ -3310,6 +3976,7 @@ def main() -> int:
                                      f"stream window {rows} rows"))
     k2_main = k2_cases[0]  # the largest window
     compare_packed_paths(prunner, runner, packed_proc, rows=320, seed=2)
+    phases.mark("packed")
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
 
@@ -3329,8 +3996,10 @@ def main() -> int:
     product_times(gen)
     del int8_run["runner"], bf16_run["runner"]
     torch.cuda.empty_cache()
+    phases.mark("int8")
     run_lifecycle()
     torch.cuda.empty_cache()
+    phases.mark("lifecycle")
 
     # K3 at the generate stream's shapes: decode over 16 slots with contexts
     # ragged over 1..639, then 128-token chunks
@@ -3345,6 +4014,7 @@ def main() -> int:
     paged_case(gen, 4, 128, [0, 128, 256, 384], "chunk, 4 rows, poisoned past the bound",
                poison=True)
     k3_verify = k3_verify_cases(gen)
+    phases.mark("K3 cases")
 
     with open(GENERATE_CONFIG) as f:
         gen_raw = json.load(f)
@@ -3364,7 +4034,9 @@ def main() -> int:
                       "eager": ab_numbers(generated_eager["report"])}
     del generated_eager
     release_memory()
+    phases.mark("generate")
     gen_life = run_gen_lifecycle(generated["report"])
+    phases.mark("generate lifecycle")
 
     with open(SERVING_CONFIG) as f:
         serving_raw = json.load(f)
@@ -3376,8 +4048,9 @@ def main() -> int:
     with open(BATCH_CONFIG) as f:
         batch_raw = json.load(f)
     batch_gen = run_batch_generate(batch_raw)
-    batch_swap = run_batch_swap(batch_raw)
+    batch_swap = run_batch_swap(batch_raw, layers=BATCH_SWAP_LAYERS)
     release_memory()
+    phases.mark("generation features")
     with open(MOE_CONFIG) as f:
         moe_raw = json.load(f)
     moe = run_moe(moe_raw)
@@ -3385,6 +4058,29 @@ def main() -> int:
     graphs["moe"] = moe["graphs"]
     graphs["moe"]["stream"] = {k: moe["report"].get(k) for k in (
         "captures", "reserved_before_captures", "reserved_after_captures")}
+    release_memory()
+    phases.mark("moe")
+    hf_llama = hf_import_llama(gen_raw)
+    phases.mark("hf_import llama")
+    with open(VIT_CONFIG) as f:
+        vit = run_vit(json.load(f))
+    phases.mark("vit")
+    with open(LSTM_CONFIG) as f:
+        lstm = run_lstm(json.load(f))
+    phases.mark("lstm")
+    print("hf_import " + json.dumps({
+        "bert": {k: hf_bert[k] for k in ("leaves", "import_s", "logits_equal", "k1_launches")},
+        "llama": {k: hf_llama[k] for k in ("layers", "leaves", "state_dict_gb",
+                                           "imported_float32_gb", "export_s", "import_s",
+                                           "streams_equal", "k3_launches")},
+        "vit": {k: vit["hf_import"][k] for k in ("leaves", "import_s", "embeddings_equal")},
+        "moe_refused": hf_llama["moe_refused"]}), flush=True)
+    print("tensor families " + json.dumps({
+        "vit": {k: vit["report"][k] for k in ("traffic_images_per_s",
+                                               "eager_traffic_images_per_s", "step",
+                                               "peak_reserved_bytes")},
+        "lstm": {k: lstm[k] for k in ("traffic_windows_per_s", "eager_traffic_windows_per_s",
+                                      "step")}}), flush=True)
     print("generation features " + json.dumps({
         "serving": {k: serving["report"][k] for k in (
             "traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "verify_steps",
@@ -3406,7 +4102,8 @@ def main() -> int:
         "name": "ragged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/ragged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:95",
-        "launches": result["report"]["k1_launches"], "ok": True,
+        "launches": (result["report"]["k1_launches"] + hf_bert["k1_launches"]
+                     + sum(tokenizer["k1_launches"].values())), "ok": True,
         **kernel_line(main_case), "redesigned": REDESIGN,
     }, {
         "name": "segment_flash_attention", "route": "cuda",
@@ -3420,7 +4117,8 @@ def main() -> int:
         "replaces": "arkflow_tpu/ops/ragged_attention.py:193",
         "launches": (generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"]
                      + serving["report"]["k3_launches"]
-                     + sampling["stream"]["k3_launches"] + moe["report"]["k3_launches"]),
+                     + sampling["stream"]["k3_launches"] + moe["report"]["k3_launches"]
+                     + hf_llama["k3_launches"]),
         "ok": True,
         **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
         "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",
@@ -3437,6 +4135,7 @@ def main() -> int:
         "launches": k4_path["k4_launches"], "ok": True,
         **kernel_line(k4_cases[0]), "redesigned": REDESIGN,
     }]
+    print("phases " + json.dumps(phases.report()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """The port stands alone: ``arkflow_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
 paths (the padded, the packed and the generate stream, the BERT and
-Llama lifecycle streams with their health servers, and the Llama serving
-and batch streams) needs pyarrow, yaml or aiohttp at import time or at run
-time."""
+Llama lifecycle streams with their health servers, the Llama serving,
+batch and MoE streams, and the ViT and LSTM tensor streams) needs pyarrow,
+yaml or aiohttp at import time or at run time. ``transformers`` is
+imported only inside ``HFTokenizer``."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "arkflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "arkflow_tpu")
-NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp")
+NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers")
 
 
 def _imports(tree: ast.AST, top_level_only: bool):
@@ -141,6 +142,17 @@ moe_engine = Engine(EngineConfig.from_mapping(moe_cfg))
 moe_stream = moe_engine.build()[0]
 asyncio.run(moe_engine.run())
 assert moe_stream.output.dropped_rows == 12 and moe_stream.errors == 0
+for example, mc in (("vit_stream.json", {"image_size": 32, "patch": 16, "hidden": 16,
+                                         "layers": 1, "heads": 2, "ffn": 32}),
+                    ("lstm_stream.json", {"features": 8, "hidden": 8, "latent": 4,
+                                          "window": 32})):
+    ex_cfg = json.load(open("arkflow_tpu_torch/examples/" + example))
+    ex_cfg["streams"][0]["input"]["count"] = 24
+    ex_cfg["streams"][0]["pipeline"]["processors"][0].update(model_config=mc, device="cpu")
+    ex_engine = Engine(EngineConfig.from_mapping(ex_cfg))
+    ex_stream = ex_engine.build()[0]
+    asyncio.run(ex_engine.run())
+    assert ex_stream.output.dropped_rows == 24 and ex_stream.errors == 0, example
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

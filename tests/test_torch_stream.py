@@ -169,7 +169,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("stream", {"error_output": {"type": "drop"}}),
     ("pipeline", {"ingest_shards": 2}),
     ("processor", {"response_cache": {"capacity": 8}}),
-    ("processor", {"tokenizer": "bert-base-uncased"}),
+    ("processor", {"device_pool": 2}),
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"tuner": {"interval": "30s"}}),
     ("input", {"codec": "json"}),
@@ -247,18 +247,19 @@ def test_generate_stream_matches_the_jax_generate_stream():
     assert stream.errors == 0 and stream.rows_out == 7
 
 
-@pytest.mark.parametrize("patch", [{"serving": "batch", "tokenizer": "gpt2"},
-                                   {"tokenizer": "gpt2"},
+@pytest.mark.parametrize("patch", [{"serving": "batch", "model_config": {**TINY_DECODER,
+                                                                         "remat": True}},
+                                   {"serving": "batch", "mesh": {"tp": 2}},
                                    {"serving": "batch", "mesh": {"dp": 2}},
                                    {"serving": "batch", "kernel_interpret": True},
                                    {"mesh": {"tp": 2}}, {"kernel_interpret": True},
                                    {"model_config": {**TINY_DECODER, "use_ring_attention": True}},
                                    {"model_config": {**TINY_DECODER, "remat": True}}])
 def test_gpu_generate_unported_keys_raise(tmp_path, patch):
-    """``tokenizer``, ``mesh``, ``kernel_interpret`` and the decoder's ring
-    attention and ``remat`` raise in both serving modes (sampling,
-    ``speculative_tokens``, ``prefix_cache_pages``, ``serving: batch``,
-    ``batch_buckets``, ``max_batch`` and MoE are ported)."""
+    """``mesh``, ``kernel_interpret`` and the decoder's ring attention and
+    ``remat`` raise in both serving modes (sampling, ``speculative_tokens``,
+    ``prefix_cache_pages``, ``serving: batch``, ``batch_buckets``,
+    ``max_batch``, MoE and ``tokenizer`` are ported)."""
     stream = _generate_stream("gpu_generate", **patch)
     cfg = {"streams": [stream]}
     with pytest.raises(ConfigError, match="not yet ported"):
