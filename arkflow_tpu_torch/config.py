@@ -67,6 +67,23 @@ def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
             "seq) shape after pack_tokens; set packing: true or drop token_budget)")
 
 
+def _validate_tuner(processors: list[dict]) -> None:
+    """Parse every ``gpu_inference`` processor's ``tuner`` block at parse
+    time (``--validate``), through ``type: fault`` wrappers' ``inner``
+    chains, as the JAX package's ``_validate_tuner`` does: a bad knob fails
+    before any stream is built. The port has no mesh, so JAX's pp refusal
+    has nothing to refuse."""
+    from arkflow_tpu_torch.tpu.tuner import parse_tuner_config
+
+    for p in processors:
+        while (isinstance(p, Mapping) and p.get("type") == "fault"
+               and isinstance(p.get("inner"), Mapping)):
+            p = p["inner"]
+        if isinstance(p, Mapping) and p.get("type") == "gpu_inference" \
+                and p.get("tuner") is not None:
+            parse_tuner_config(p["tuner"], who="gpu_inference")
+
+
 @dataclass
 class PipelineConfig:
     thread_num: int = 0  # 0 -> cpu count
@@ -115,6 +132,7 @@ class StreamConfig:
                 raise ConfigError(f"stream config missing required section {req!r}")
         pipeline = PipelineConfig.from_mapping(m.get("pipeline", {}))
         _validate_token_coalesce(m.get("buffer"), pipeline.processors)
+        _validate_tuner(pipeline.processors)
         return cls(input=dict(m["input"]), pipeline=pipeline, output=dict(m["output"]),
                    buffer=dict(m["buffer"]) if m.get("buffer") else None,
                    name=m.get("name"))

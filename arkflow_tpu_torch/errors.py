@@ -42,6 +42,13 @@ class SwapError(ArkError):
     weights served throughout."""
 
 
+class TunerError(ArkError):
+    """A runtime shape retune (``tpu/tuner.py``) failed its warm or was
+    rolled back at its probe: every flipped unit re-adopted the incumbent
+    bucket grid. Like ``SwapError``, it never implies an interruption of
+    traffic, and no coalescer was touched."""
+
+
 def not_ported(what: str) -> ConfigError:
     """The error every config key the port does not carry yet raises."""
     return ConfigError(f"{what} is not yet ported to arkflow_tpu_torch")

@@ -9,7 +9,10 @@ downstream. With ``coalesce`` the emissions are carved by
 ``MicroBatchCoalescer`` instead: exactly the top batch bucket (row mode) or
 a token-budget-filling row prefix (token mode, for packed serving), with the
 ``deadline`` bounding how long rows wait for a full emission. The coalescer
-registers with ``bucket_cap_bus()``, so a runner's OOM cap shrinks it.
+registers with ``bucket_cap_bus()``, so a runner's OOM cap shrinks it, and
+the buffer registers as the bus's shape listener: a shape tuner's commit
+(``tpu/tuner.py``) retargets its grid, token budget and deadline through
+``retarget_shapes``, directly when the stream bound the tuner to it.
 
     type: memory
     capacity: 64           # rows (flush threshold; backpressure bound x4)
@@ -22,8 +25,8 @@ registers with ``bucket_cap_bus()``, so a runner's OOM cap shrinks it.
       token_bytes: 4.0     # bytes-per-token estimate for subword tokenizers
       max_row_tokens: 256  # clamp per-row estimates to the truncation width
 
-Not yet ported (they raise): ``coalesce.dp``, tenant lanes (batches
-carrying ``__meta_ext_tenant``), shape retargeting and the overload hook.
+Not yet ported (they raise): ``coalesce.dp`` and tenant lanes (batches
+carrying ``__meta_ext_tenant``); the overload hook is absent.
 """
 
 from __future__ import annotations
@@ -61,13 +64,20 @@ class MemoryBuffer(Buffer):
         self.timeout_s = timeout_s
         self._coalescer: Optional[MicroBatchCoalescer] = None
         self._deadline_s: Optional[float] = None
+        #: the coalesce grid as configured or last retargeted (an OOM cap
+        #: shrinks the coalescer's own, not this): what ``expect`` matches
+        self._coalesce_buckets: Optional[tuple[int, ...]] = None
+        self._max_row_tokens = max_row_tokens
         bound = capacity * self.BACKPRESSURE_FACTOR
         if coalesce_buckets:
             self._coalescer = MicroBatchCoalescer(
                 coalesce_buckets, token_budget=token_budget, token_field=token_field,
                 token_bytes=token_bytes, max_row_tokens=max_row_tokens)
-            # a runner's device OOM caps this coalescer's grid too
+            self._coalesce_buckets = self._coalescer.buckets
+            # a runner's device OOM caps this coalescer's grid too, and a
+            # tuner's commit retargets the buffer
             bucket_cap_bus().register(self._coalescer)
+            bucket_cap_bus().register_listener(self)
             self._deadline_s = (coalesce_deadline_s if coalesce_deadline_s is not None
                                 else timeout_s)
             if self._deadline_s is None:
@@ -95,6 +105,32 @@ class MemoryBuffer(Buffer):
         self._first_write_at: Optional[float] = None
         self._cond = asyncio.Condition()
         self._closed = False
+
+    def retarget_shapes(self, batch_buckets, token_budget, deadline_s, *,
+                        expect=None) -> bool:
+        """A shape tuner's commit: adopt a new coalesce grid, budget and
+        deadline when the current grid is ``expect`` (the tuner's incumbent;
+        a mismatch is another stream's grid, or a misconfiguration the tuner
+        logs). Buckets above the backpressure bound are dropped, and the
+        budget is held to what the bound lets the buffer hold. Returns
+        whether it applied."""
+        c = self._coalescer
+        if c is None:
+            return False
+        if expect is not None and self._coalesce_buckets != tuple(sorted(expect)):
+            return False
+        bound = self.capacity * self.BACKPRESSURE_FACTOR
+        buckets = tuple(sorted(int(b) for b in batch_buckets if int(b) <= bound))
+        if not buckets:
+            return False
+        self._coalesce_buckets = buckets
+        if token_budget is not None and c.token_budget is not None \
+                and self._max_row_tokens is not None:
+            token_budget = min(token_budget, bound * self._max_row_tokens)
+        c.retarget(buckets, token_budget)
+        if deadline_s is not None:
+            self._deadline_s = deadline_s
+        return True
 
     async def write(self, batch: MessageBatch, ack: Ack) -> None:
         if batch.has_column(META_EXT_TENANT):

@@ -62,12 +62,20 @@ plus ``device``):
       digest_every: 3
       golden: {rows: 2, seed: 42}
       repair: true
+    tuner:                         # traffic-adaptive shapes (tpu/tuner.py):
+      interval: 30s                # observe true token lengths, propose
+      min_improvement: 0.02        # quantile-aligned seq edges, a token
+      target_fill: 0.97            # budget, a deadline and example_scale,
+      max_compiles: 64             # capture every new key while serving,
+                                   # then flip behind a probe that rolls
+                                   # back; POST /admin/tune forces a cycle
 
-The processor exposes ``runner``, ``swapper`` and ``integrity`` (the
-engine's ``/health`` and ``POST /admin/swap`` and the fault plugin reach
-them); ``connect`` starts the integrity monitor and ``close`` stops it.
-Every other ``tpu_inference`` key (mesh, pp_microbatch_rows, pp_profile, pp_layer_costs, device_pool,
-response_cache, tuner) raises "not yet ported".
+The processor exposes ``runner``, ``swapper``, ``integrity`` and ``tuner``
+(the engine's ``/health``, ``POST /admin/swap`` and ``POST /admin/tune``
+and the fault plugin reach them); ``connect`` starts the integrity
+monitor and the tuner's loop, ``close`` stops them. Every other
+``tpu_inference`` key (mesh, pp_microbatch_rows, pp_profile,
+pp_layer_costs, device_pool, response_cache) raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -88,20 +96,24 @@ from arkflow_tpu_torch.tpu.serving_core import parse_core_config
 from arkflow_tpu_torch.tpu.swap import build_batch_swapper, parse_swap_config
 from arkflow_tpu_torch.tpu.extract import extract_tensor
 from arkflow_tpu_torch.tpu.tokenizer import build_tokenizer
+from arkflow_tpu_torch.tpu.tuner import build_shape_tuner, parse_tuner_config
 
 KEYS = ("model", "model_config", "text_field", "tokenizer", "tensor_field", "max_seq",
         "batch_buckets",
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
         "max_in_flight", "dispatch_depth", "device", "packing", "example_scale",
         "checkpoint", "step_deadline", "step_deadline_first", "health", "swap",
-        "integrity")
+        "integrity", "tuner")
 
 
 class GpuInferenceProcessor(Processor):
     def __init__(self, runner: ModelRunner, *, text_field: str, tokenizer, max_seq: int,
                  outputs: Optional[list[str]], warmup: bool = False, swapper=None,
-                 integrity=None, tensor_field: Optional[str] = None):
+                 integrity=None, tensor_field: Optional[str] = None, tuner=None):
         self.runner = runner
+        #: the shape tuner (tpu/tuner.py), None without the block: it
+        #: observes every tokenized batch's true lengths
+        self.tuner = tuner
         #: the hot-swap manager (tpu/swap.py): POST /admin/swap and the fault
         #: plugin's swap_corrupt/swap_crash reach it here
         self.swapper = swapper
@@ -130,7 +142,10 @@ class GpuInferenceProcessor(Processor):
         spec = self.runner.spec
         if "input_ids" in spec and any(t == ("seq",) for _, t in spec.values()):
             ids, mask = self._tokenize(batch)
-            used = int(mask.sum(axis=1).max()) if mask.size else 1
+            lengths = mask.sum(axis=1)
+            if self.tuner is not None:
+                self.tuner.observe(lengths)
+            used = int(lengths.max()) if mask.size else 1
             sb = self.runner.buckets.seq_bucket(used)
             inputs = {"input_ids": ids[:, :sb]}
             if "attention_mask" in spec:
@@ -144,6 +159,8 @@ class GpuInferenceProcessor(Processor):
         """Tokenize, first-fit-pack every text into rows of the batch's seq
         bucket, and carve the layout into row windows on the grid."""
         ids, mask = self._tokenize(batch)
+        if self.tuner is not None:  # an executor thread: the sketch locks
+            self.tuner.observe(mask.sum(axis=1))
         return pack_windows(ids, mask, self.runner.buckets)
 
     # -- output attachment -------------------------------------------------
@@ -165,14 +182,18 @@ class GpuInferenceProcessor(Processor):
 
     async def connect(self) -> None:
         """Run one step per bucket before the input starts producing, then
-        start the integrity monitor."""
+        start the tuner's loop and the integrity monitor."""
         if not self._warmed:
             self._warmed = True
             await asyncio.get_running_loop().run_in_executor(None, self.runner.warmup)
+        if self.tuner is not None:
+            self.tuner.start()
         if self.integrity is not None:
             self.integrity.start()
 
     async def close(self) -> None:
+        if self.tuner is not None:
+            await self.tuner.stop()
         if self.integrity is not None:
             await self.integrity.stop()
 
@@ -285,6 +306,9 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         cfg=parse_integrity_config(config.get("integrity"), who="gpu_inference"))
     # probing quiesces across a swap, and a commit rebuilds the reference
     swapper.integrity = integrity
+    tuner = build_shape_tuner(
+        runner, model=str(model), packed=packing,
+        cfg=parse_tuner_config(config.get("tuner"), who="gpu_inference"))
     return GpuInferenceProcessor(
         runner,
         text_field=config.get("text_field", DEFAULT_BINARY_VALUE_FIELD),
@@ -296,4 +320,5 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         swapper=swapper,
         integrity=integrity,
         tensor_field=config.get("tensor_field"),
+        tuner=tuner,
     )

@@ -10,10 +10,11 @@ HTTP/1.1 on the standard library's ``asyncio.start_server`` (the card's
 machine has no aiohttp, and the port imports none):
 
 - ``GET <path>`` (default ``/health``): the status, the stream count and
-  per stream its runners' health reports, its hot-swap managers' and its
-  integrity monitors' reports, under the JAX package's keys (``runners``,
-  ``swap``, ``integrity``; a ``type: fault`` wrapper exposes its inner
-  processor's ``runner``, ``swapper`` and ``integrity``);
+  per stream its runners' health reports, its hot-swap managers',
+  integrity monitors' and shape tuners' reports, under the JAX package's
+  keys (``runners``, ``swap``, ``integrity``, ``tuner``; a ``type: fault``
+  wrapper exposes its inner processor's ``runner``, ``swapper`` and
+  ``integrity``, and tuners are found through ``_inner``);
 - ``GET /readiness``: 503 before the streams are built, and while every
   runner of some stream is DEAD or CORRUPT; 200 otherwise;
 - ``GET /liveness``: 200;
@@ -21,10 +22,14 @@ machine has no aiohttp, and the port imports none):
   every swappable processor of the targeted streams, in turn; 200 when
   every swap committed, 409 when one rolled back, 404 when there was none
   to run, 400 for a malformed body.
+- ``POST /admin/tune {"stream"?: name}``: one forced shape-tuner cycle
+  (``tpu/tuner.py``) on every tunable processor of the targeted streams;
+  200 when every cycle ran (committed, rejected or skipped), 409 when a
+  warm failed or a flip rolled back (the incumbent grid serving), 404 when
+  there was none to run, 400 for a malformed body.
 
-``/metrics``, ``/trace``, ``/admin/tune`` and ``/debug/profile`` answer 404
-with a "not yet ported" body: the port has no metrics registry, tracer or
-shape tuner yet.
+``/metrics``, ``/trace`` and ``/debug/profile`` answer 404 with a "not yet
+ported" body: the port has no metrics registry or tracer yet.
 """
 
 from __future__ import annotations
@@ -37,12 +42,12 @@ from typing import Optional
 
 from arkflow_tpu_torch.components.registry import ensure_plugins_loaded
 from arkflow_tpu_torch.config import EngineConfig
-from arkflow_tpu_torch.errors import SwapError
+from arkflow_tpu_torch.errors import SwapError, TunerError
 from arkflow_tpu_torch.runtime.stream import Stream, build_stream
 
 logger = logging.getLogger("arkflow_torch.engine")
 
-_NOT_PORTED_ROUTES = ("/metrics", "/trace", "/admin/tune", "/debug/profile")
+_NOT_PORTED_ROUTES = ("/metrics", "/trace", "/debug/profile")
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
             409: "Conflict", 503: "Service Unavailable"}
 #: request head and body bounds of the health server
@@ -127,8 +132,8 @@ class Engine:
                 if sw is not None and hasattr(sw, "swap")]
 
     def stream_health(self) -> dict:
-        """Per stream: its runners', swap managers' and integrity monitors'
-        reports."""
+        """Per stream: its runners', swap managers', integrity monitors' and
+        shape tuners' reports."""
         out: dict[str, dict] = {}
         for s in self.streams:
             info: dict = {}
@@ -138,7 +143,8 @@ class Engine:
             for key, objs in (("swap", self.stream_swappers(s)),
                               ("integrity", [m for m in (getattr(p, "integrity", None)
                                                          for p in self._processors(s))
-                                             if m is not None])):
+                                             if m is not None]),
+                              ("tuner", s.tuners())):
                 reps = []
                 for obj in objs:
                     try:
@@ -199,9 +205,11 @@ class Engine:
         hc = self.config.health_check
         if path in _NOT_PORTED_ROUTES:
             return 404, {"error": f"{path} is not yet ported to arkflow_tpu_torch"}
-        if path == "/admin/swap":
+        if path in ("/admin/swap", "/admin/tune"):
             if method != "POST":
                 return 405, {"error": "POST only"}
+            if path == "/admin/tune":
+                return await self._admin_tune(payload)
             return await self._admin_swap(payload)
         if method != "GET":
             return 405, {"error": "GET only"}
@@ -255,5 +263,37 @@ class Engine:
                 results.setdefault(s.name, []).append(rep)
         if not found:
             return 404, {"error": "no hot-swappable processors"
+                         + (f" in stream {target!r}" if target else "")}
+        return (200 if ok_all else 409), {"ok": ok_all, "results": results}
+
+    async def _admin_tune(self, payload: bytes) -> tuple[int, dict]:
+        """One forced tuner cycle per tunable processor of the targeted
+        streams, with the JAX engine's statuses and bodies. The hysteresis
+        margin still applies: a stable workload answers "rejected"."""
+        target = None
+        if payload:
+            try:
+                body = json.loads(payload)
+            except ValueError:
+                return 400, {"error": "body must be JSON"}
+            if body is not None and not isinstance(body, dict):
+                return 400, {"error": "body must be an object"}
+            target = (body or {}).get("stream")
+        results: dict[str, list] = {}
+        ok_all, found = True, False
+        for s in self.streams:
+            if target is not None and s.name != target:
+                continue
+            for tuner in s.tuners():
+                found = True
+                try:
+                    rep = {"ok": True, **(await tuner.run_cycle(force=True))}
+                except TunerError as e:
+                    ok_all, rep = False, {"ok": False, "error": str(e)}
+                except Exception as e:  # an unexpected fault must still answer
+                    ok_all, rep = False, {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                results.setdefault(s.name, []).append(rep)
+        if not found:
+            return 404, {"error": "no shape-tunable processors"
                          + (f" in stream {target!r}" if target else "")}
         return (200 if ok_all else 409), {"ok": ok_all, "results": results}

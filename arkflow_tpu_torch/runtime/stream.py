@@ -21,6 +21,9 @@ Counterpart of the core loop of ``arkflow_tpu/runtime/stream.py``:
   (there is no ``error_output`` in the port yet). The default of 1, as in
   the JAX package, never nacks. A failed write is logged and nacked.
 - Ordered close: input -> buffer -> pipeline -> output.
+- Each processor's shape tuner (``tpu/tuner.py``; found through ``type:
+  fault`` wrappers' ``_inner``) is bound to the stream's own buffer at
+  ``run``, so a committed flip retargets exactly this stream's coalescer.
 """
 
 from __future__ import annotations
@@ -83,8 +86,26 @@ class Stream:
         self._seq_emitted = 0
         self._drained = asyncio.Event()
 
+    def tuners(self) -> list:
+        """The shape tuner of every processor that has one, walking ``_inner``
+        chains as the JAX stream and engine do."""
+        found = []
+        for proc in getattr(self.pipeline, "processors", None) or []:
+            node, seen = proc, set()
+            while node is not None and id(node) not in seen:
+                seen.add(id(node))
+                tuner = getattr(node, "tuner", None)
+                if tuner is not None and hasattr(tuner, "run_cycle"):
+                    found.append(tuner)
+                    break
+                node = getattr(node, "_inner", None)
+        return found
+
     async def run(self, cancel: asyncio.Event) -> None:
         """Run until the input ends or ``cancel`` is set; drains before returning."""
+        if self.buffer is not None and hasattr(self.buffer, "retarget_shapes"):
+            for tuner in self.tuners():
+                tuner.bind_listener(self.buffer)
         try:
             # processors first: model warmup finishes before the input produces
             await self.pipeline.connect()

@@ -1,18 +1,22 @@
 """Shape bucketing: pad ragged batches onto a small grid of (batch, seq) shapes,
 and coalesce stream batches into emissions that fill that grid.
 
-Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without shape retargeting
-and suspect-solo isolation. The grid bounds padding waste (each dimension at
+Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without ``dp_scaled`` and
+suspect-solo isolation. The grid bounds padding waste (each dimension at
 most doubles), keeps the device's working set at a few known shapes (one
 CUDA graph each, ``tpu/compiled_step.py``), and keeps batches and outputs
 identical to the JAX package's for the same input. After a device OOM the
 runner caps its grid (``BucketPolicy.capped``) and announces the cap on the
 process-wide ``bucket_cap_bus()``, which shrinks every registered
-coalescer's target (``MicroBatchCoalescer.cap``).
+coalescer's target (``MicroBatchCoalescer.cap``). A shape tuner's commit
+(``tpu/tuner.py``) moves coalescers the other way: ``BucketCapBus.retarget``
+(or a stream-bound listener) hands them a new grid, token budget and
+deadline, clamped under any standing cap.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import weakref
 from collections import deque
@@ -25,6 +29,8 @@ from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, Me
 from arkflow_tpu_torch.components.base import Ack, VecAck, split_ack
 from arkflow_tpu_torch.errors import ConfigError
 from arkflow_tpu_torch.tpu.extract import payload_token_estimates
+
+logger = logging.getLogger("arkflow_torch.bucketing")
 
 
 def pow2_buckets(lo: int, hi: int) -> list[int]:
@@ -129,12 +135,17 @@ class BucketCapBus:
     runner and the memory buffer are built from different config sections,
     and when the device proves it cannot hold a bucket every registered
     coalescer stops carving emissions of it. A coalescer registered after a
-    cap gets the standing cap, and caps only shrink."""
+    cap gets the standing cap, and caps only shrink. Shape listeners (memory
+    buffers, which own the coalesce deadline) follow a tuner's ``retarget``
+    as well."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._coalescers: "weakref.WeakSet[MicroBatchCoalescer]" = weakref.WeakSet()
         self._cap: Optional[int] = None
+        #: objects with ``retarget_shapes(batch_buckets, token_budget,
+        #: deadline_s, expect=...)``
+        self._listeners: "weakref.WeakSet" = weakref.WeakSet()
 
     @property
     def cap(self) -> Optional[int]:
@@ -146,17 +157,68 @@ class BucketCapBus:
             if self._cap is not None:
                 coalescer.cap(self._cap)
 
+    def register_listener(self, listener) -> None:
+        """Register a buffer-level shape listener for later retargets. A
+        retarget is not replayed onto a late registration (a cap is a device
+        fact, a retarget one stream's preference): it starts on its
+        configured grid and follows the next commit."""
+        with self._lock:
+            self._listeners.add(listener)
+
     def announce(self, cap: int) -> None:
         with self._lock:
             self._cap = cap if self._cap is None else min(self._cap, cap)
             for c in list(self._coalescers):
                 c.cap(self._cap)
 
+    def _clamped(self, buckets: tuple[int, ...],
+                 token_budget: Optional[int]) -> tuple[tuple[int, ...], Optional[int]]:
+        """An OOM cap always wins over a retarget: the buckets above it are
+        dropped (the cap itself when none is left) and the budget scales as
+        ``MicroBatchCoalescer.cap`` scales it."""
+        if self._cap is None or not buckets:
+            return buckets, token_budget
+        fitting = tuple(b for b in buckets if b <= self._cap)
+        if not fitting:
+            fitting = (max(1, int(self._cap)),)
+        if token_budget is not None and fitting[-1] != buckets[-1]:
+            token_budget = max(1, int(token_budget * fitting[-1] / buckets[-1]))
+        return fitting, token_budget
+
+    def clamp(self, batch_buckets: Sequence[int], token_budget: Optional[int] = None
+              ) -> tuple[tuple[int, ...], Optional[int]]:
+        """The standing cap applied to a grid and budget: a stream-bound
+        commit, which bypasses the broadcast, clamps through here."""
+        with self._lock:
+            return self._clamped(tuple(int(b) for b in batch_buckets), token_budget)
+
+    def retarget(self, batch_buckets: Sequence[int], *, token_budget: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
+                 expect: Optional[Sequence[int]] = None) -> None:
+        """A tuner commit's broadcast: the coalescers whose current grid is
+        ``expect`` (None: all) adopt the clamped grid and budget, and the
+        listeners also the deadline. Scoped by ``expect`` because the bus
+        is process-wide: one stream's retune must leave another's grid
+        alone."""
+        bb = tuple(sorted(int(b) for b in batch_buckets))
+        exp = tuple(sorted(int(b) for b in expect)) if expect is not None else None
+        with self._lock:
+            cb, ct = self._clamped(bb, token_budget)
+            for c in list(self._coalescers):
+                if exp is None or c.buckets == exp:
+                    c.retarget(cb, ct)
+            for listener in list(self._listeners):
+                try:
+                    listener.retarget_shapes(cb, ct, deadline_s, expect=exp)
+                except Exception:
+                    logger.exception("bucket retarget listener failed")
+
     def reset(self) -> None:
         """Test hook: forget the cap and the registrations."""
         with self._lock:
             self._cap = None
             self._coalescers.clear()
+            self._listeners.clear()
 
 
 _CAP_BUS = BucketCapBus()
@@ -240,6 +302,21 @@ class MicroBatchCoalescer:
             self.token_budget = max(1, int(self.token_budget * fitting[-1] / self.target))
         self.buckets = fitting
         self.target = fitting[-1]
+
+    def retarget(self, batch_buckets: Sequence[int],
+                 token_budget: Optional[int] = None) -> None:
+        """Adopt a new target grid (a tuner commit, ``BucketCapBus.retarget``),
+        in either direction: the runner's grid flipped and every new shape
+        was captured first. Held rows drain at the new target. The budget
+        changes only in token mode (a mode change would change what an
+        emission is); None leaves it."""
+        buckets = tuple(sorted(int(b) for b in batch_buckets))
+        if not buckets or buckets[0] <= 0:
+            return
+        self.buckets = buckets
+        self.target = buckets[-1]
+        if token_budget is not None and self.token_budget is not None:
+            self.token_budget = max(1, int(token_budget))
 
     def _row_tokens(self, batch: MessageBatch) -> np.ndarray:
         """Per-row estimates off the payload column. A batch without a usable

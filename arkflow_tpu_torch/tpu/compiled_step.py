@@ -34,7 +34,13 @@ the callers take the lock, and every static output is copied out (or, for
 the generation server's device-resident next tokens, copied into the next
 step's static input) before the next replay is enqueued: no graph's
 intermediates can overwrite another graph's outputs that are still to be
-read.
+read. A capture between live replays (the shape tuner's warm, ``warm=True``;
+a key's first traffic step) keeps it so: it holds the lock, its eager call
+runs on the capture stream after everything enqueued before it and before
+everything enqueued after it, the capture itself runs nothing, and its
+static outputs, like every graph's, stay allocated for as long as the
+graph, so no other graph's intermediates ever take their blocks. The
+copy stream's prefetches allocate outside the pool.
 
 Launch counts: a kernel wrapper ticks its ``LaunchCounter`` when the step
 is captured, and the kernel does not run then. The capture's ticks are
@@ -122,6 +128,8 @@ class CompiledStep:
         #: shape keys built: on CUDA (not eager) each is a captured graph,
         #: on the CPU and with ``eager`` the key's static buffers alone
         self.captures = 0
+        #: of those, built by a ``warm`` step (the shape tuner's warm)
+        self.warm_captures = 0
         #: steps per key after its first (its capture), warmup included
         self.replays: dict[Any, int] = {}
 
@@ -151,13 +159,14 @@ class CompiledStep:
     def run(self, key, fn: StepFn, inputs: dict[str, torch.Tensor],
             out: Optional[dict[str, torch.Tensor]] = None,
             event: Optional[torch.cuda.Event] = None,
-            wait: Optional[torch.cuda.Event] = None) -> Step:
+            wait: Optional[torch.cuda.Event] = None, warm: bool = False) -> Step:
         """Enqueue one step of ``key``: ``inputs`` (host or device tensors
         of the key's shapes) into the static inputs, the graph's replay (at
         the key's first step its capture; on the CPU or eager ``fn``), the
         outputs into ``out`` (host buffers, made, pinned on CUDA, when
         None), then ``event`` (made when None) recorded. ``wait``: an event
-        the step's stream waits for first (a prefetch's copies). Nothing
+        the step's stream waits for first (a prefetch's copies). ``warm``: a
+        capture this step makes counts in ``warm_captures`` too. Nothing
         here waits for the device."""
         with self._lock:
             cuda = self.device.type == "cuda"
@@ -165,7 +174,9 @@ class CompiledStep:
                 torch.cuda.current_stream(self.device).wait_event(wait)
             entry = self._entries.get(key)
             if entry is None:
-                return self._first_step(key, fn, inputs, out, event)
+                step = self._first_step(key, fn, inputs, out, event)
+                self.warm_captures += int(warm)
+                return step
             for name, t in entry.inputs.items():
                 t.copy_(inputs[name], non_blocking=True)
             if entry.graph is not None:

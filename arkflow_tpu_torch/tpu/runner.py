@@ -12,6 +12,18 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   key of ``grid_shapes`` at ``warmup`` -- and replayed after, counted in
   ``captures`` and ``dispatch_counts()``. ``eager=True`` (a keyword only,
   like ``jax.disable_jit``) runs every step op by op, for A/B comparisons.
+- Padding, as the JAX runner counts it, on traffic steps only (not
+  warmup, warm captures or ``traffic=False`` probes): ``padded_rows``,
+  ``executed_rows``, and for token models ``true_tokens`` against
+  ``token_capacity`` (bucket rows x seq bucket), so ``1 - true_tokens /
+  token_capacity`` is the capacity-weighted padding waste the shape tuner's
+  claims rest on. ``health_report()`` gives them.
+- The retune surface of the shape tuner (``tpu/tuner.py``):
+  ``count_new_shapes(policy)`` (grid keys without a graph yet),
+  ``warm_shapes`` and ``warm_shapes_live`` (capture them; the live one
+  under the in-flight permit and the first-step deadline, while serving)
+  and ``retarget_buckets`` (the atomic flip). Warm captures are counted in
+  ``warm_captures``, apart from the on-path ``captures``.
 - The dispatch plane of the JAX runner: ``_pad_inputs`` pads into a
   recycled pinned staging set (``StagingPool``); the eager prefetch copies
   it to the device on a copy stream before the in-flight permit, bounded
@@ -313,20 +325,25 @@ class ModelRunner:
         #: one CUDA graph per padded shape key (``eager``: none, every step
         #: runs op by op, for A/B comparisons)
         self._compiled = CompiledStep(self.device, eager=eager)
-        #: captures of the ``CompiledStep``s that rebuilds replaced
+        #: captures, and warm captures, of the ``CompiledStep``s that
+        #: rebuilds replaced
         self._retired_captures = 0
+        self._retired_warm = 0
         self._duty = DutyCycle()
         self._dispatch_counts: dict[tuple, int] = {}
-        self._in_warmup = False
         #: model steps run on the device (warmup included)
         self.device_steps = 0
         #: of those, steps on packed layouts
         self.packed_steps = 0
-        #: packed traffic steps (warmup excluded): true tokens, and the
-        #: token slots (bucket rows x seq) they were padded to
-        self.packed_tokens = 0
-        self.packed_slots = 0
-        #: true rows inferred (warmup excluded)
+        #: traffic steps' padding (warmup, warm captures and probes
+        #: excluded): bucket rows beyond the true rows, bucket rows run,
+        #: and for token models true tokens and the token slots (bucket
+        #: rows x seq bucket) they were padded to
+        self.padded_rows = 0
+        self.executed_rows = 0
+        self.true_tokens = 0
+        self.token_capacity = 0
+        #: true rows inferred (traffic only)
         self.rows = 0
         #: times the runner switched from the kernel to the plain attention
         #: because a mask was not right-padded
@@ -344,10 +361,24 @@ class ModelRunner:
 
     @property
     def captures(self) -> int:
-        """Shape keys captured (the JAX runner's compile count), rebuilds'
-        recaptures included: a CUDA graph each on CUDA; on the CPU or
-        ``eager``, the key's static buffers."""
-        return self._retired_captures + self._compiled.captures
+        """Shape keys captured on the serving path (the JAX runner's compile
+        count): at warmup, at a key's first step and by rebuilds; a CUDA
+        graph each on CUDA, on the CPU or ``eager`` the key's static
+        buffers. The shape tuner's warm captures are not in it."""
+        return (self._retired_captures + self._compiled.captures
+                - self.warm_captures)
+
+    @property
+    def warm_captures(self) -> int:
+        """Shape keys captured by ``warm_shapes``/``warm_shapes_live`` (the
+        JAX runner's warm compiles)."""
+        return self._retired_warm + self._compiled.warm_captures
+
+    def graph_counts(self) -> dict:
+        """The tuner report's graph counts: keys held now, on-path and warm
+        captures."""
+        return {"keys": len(self._compiled), "captures": self.captures,
+                "warm_captures": self.warm_captures}
 
     @property
     def bucket_cap(self) -> int:
@@ -440,14 +471,15 @@ class ModelRunner:
                            pinned=self.device.type == "cuda")
         return bufs
 
-    def _pad_inputs(self, inputs: dict[str, np.ndarray]) -> tuple[HostSet, int]:
+    def _pad_inputs(self, inputs: dict[str, np.ndarray],
+                    traffic: bool = True) -> tuple[HostSet, int]:
         """Pad every input to its bucket, straight into a staging set
         (``HostSet.arrays``); returns (set, true count: rows, or examples
         when packed). Rows longer than the top seq bucket are truncated to
         it. Packed layouts pad P to a batch bucket (dead rows: segment 0)
         and E to an example bucket (pad examples point at row 0, position 0
         and are sliced off by the true count); a layout over the grid
-        raises."""
+        raises. A ``traffic`` step counts its padding."""
         if self.packed:
             p = inputs["input_ids"].shape[0]
             e = inputs["example_row"].shape[0]
@@ -463,15 +495,33 @@ class ModelRunner:
         bufs = self._staging_set(self._padded_shapes(inputs))
         for name, (dtype, _) in self.spec.items():
             _pad_into(bufs.arrays[name], np.asarray(inputs[name], dtype=dtype))
-        if self.packed and not self._in_warmup:
-            true_tokens = int(np.count_nonzero(np.asarray(inputs["segment_ids"]) > 0))
-            with self._lock:
-                self.packed_tokens += true_tokens
-                self.packed_slots += bufs.arrays["input_ids"].size
+        if traffic:
+            self._count_padding(inputs, bufs)
         return bufs, n
 
-    def _prep(self, inputs: dict[str, np.ndarray]) -> tuple[HostSet, int]:
-        bufs, n = self._pad_inputs(inputs)
+    def _count_padding(self, inputs: dict[str, np.ndarray], bufs: HostSet) -> None:
+        """A traffic step's padding, as the JAX runner's ``_pad_inputs``
+        counts it: packed, rows are packed rows and tokens the live segment
+        slots; padded, tokens are the (truncated) mask's ones."""
+        bucket = self._bucket_rows(bufs)
+        tokens = capacity = 0
+        if self.packed:
+            true_rows = inputs["input_ids"].shape[0]
+            tokens = int(np.count_nonzero(np.asarray(inputs["segment_ids"]) > 0))
+            capacity = bufs.arrays["input_ids"].size
+        else:
+            true_rows = next(iter(inputs.values())).shape[0]
+            mask = bufs.arrays.get("attention_mask")
+            if mask is not None:
+                tokens, capacity = int(mask.sum()), mask.size
+        with self._lock:
+            self.padded_rows += bucket - true_rows
+            self.executed_rows += bucket
+            self.true_tokens += tokens
+            self.token_capacity += capacity
+
+    def _prep(self, inputs: dict[str, np.ndarray], traffic: bool = True) -> tuple[HostSet, int]:
+        bufs, n = self._pad_inputs(inputs, traffic)
         try:
             self._check_mask(bufs.arrays)
         except BaseException:
@@ -552,31 +602,34 @@ class ModelRunner:
                 bufs.device[k].copy_(v, non_blocking=True)
             bufs.ready.record()
 
-    def _enqueue(self, compiled: CompiledStep, bufs: HostSet, traffic: bool = True) -> None:
+    def _enqueue(self, compiled: CompiledStep, bufs: HostSet, traffic: bool = True,
+                 warm: bool = False) -> None:
         """Dispatch one step on ``compiled`` without waiting for it: the
         prefetched inputs into the shape's static inputs, its graph's replay
-        (its capture at the shape's first step), the outputs into the set's
-        pinned output buffers, and the set's event after them."""
+        (its capture at the shape's first step, counted as a ``warm``
+        capture for the tuner's warm), the outputs into the set's pinned
+        output buffers, and the set's event after them."""
         with torch.inference_mode():
             bufs.take(compiled.run(bufs.key, self._forward, bufs.device,
-                                   out=bufs.out, event=bufs.event, wait=bufs.ready))
+                                   out=bufs.out, event=bufs.event, wait=bufs.ready,
+                                   warm=warm))
         with self._lock:
             self.device_steps += 1
             self.packed_steps += int(self.packed)
             if traffic:
                 self._dispatch_counts[bufs.key] = self._dispatch_counts.get(bufs.key, 0) + 1
 
-    def _fetch(self, bufs: HostSet, n: int) -> dict[str, np.ndarray]:
+    def _fetch(self, bufs: HostSet, n: int, traffic: bool = True) -> dict[str, np.ndarray]:
         """Wait for the set's copy-out; the first ``n`` rows of every output
         (garbled while a chaos ``sdc`` fault is armed)."""
         out = self.core.corrupt_outputs(bufs.outputs(n))
-        if not self._in_warmup:
+        if traffic:
             with self._lock:
                 self.rows += n
         return out
 
     def _step(self, compiled: CompiledStep, bufs: HostSet, n: int,
-              probe: bool = False) -> dict[str, np.ndarray]:
+              probe: bool = False, traffic: bool = True) -> dict[str, np.ndarray]:
         """One blocking step of a prefetched set: chaos (not on a ``probe``),
         dispatch, fetch. Runs on an executor or watchdog thread (or the
         caller's, for ``infer_sync``). ``compiled`` was read when the step
@@ -585,8 +638,8 @@ class ModelRunner:
         place."""
         if not probe:
             self.core.apply_chaos()
-        self._enqueue(compiled, bufs, traffic=not self._in_warmup)
-        return self._fetch(bufs, n)
+        self._enqueue(compiled, bufs, traffic=traffic)
+        return self._fetch(bufs, n, traffic)
 
     def dispatch_counts(self) -> dict[tuple, int]:
         """Traffic steps per padded shape key (warmup excluded)."""
@@ -629,8 +682,8 @@ class ModelRunner:
         raised, so the redelivered batch is packed on the capped grid."""
         return is_oom_error(e) and self._note_oom(bucket_rows) and not self.packed
 
-    def infer_sync(self, inputs: dict[str, np.ndarray], *,
-                   probe: bool = False) -> dict[str, np.ndarray]:
+    def infer_sync(self, inputs: dict[str, np.ndarray], *, probe: bool = False,
+                   traffic: bool = True) -> dict[str, np.ndarray]:
         """Blocking inference: pad -> device -> unpad. Batches larger than the
         biggest bucket are chunked and the outputs re-concatenated (packed
         layouts are never chunked: their row and example dims differ). With
@@ -638,30 +691,31 @@ class ModelRunner:
         caps the grid and retries the batch split onto it. ``probe``: a
         verification step (a golden probe, a swap's probe), which the
         one-shot chaos faults pass over, so that an armed fault lands on
-        traffic."""
+        traffic. ``traffic=False`` (warmup's steps, the tuner's probe) moves
+        no traffic count: rows, padding, dispatch counts, duty cycle."""
         probing = self.core.heal_gate_sync()
         try:
-            return self._infer_sync_admitted(inputs, probe)
+            return self._infer_sync_admitted(inputs, probe, traffic)
         except Exception as e:
             if probing:
                 self.core.end_failed_probe(e)
             raise
 
-    def _infer_sync_admitted(self, inputs: dict[str, np.ndarray],
-                             probe: bool) -> dict[str, np.ndarray]:
+    def _infer_sync_admitted(self, inputs: dict[str, np.ndarray], probe: bool,
+                             traffic: bool) -> dict[str, np.ndarray]:
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
         if n_total > mb and not self.packed:
             chunks = [self._infer_sync_admitted({k: v[i: i + mb] for k, v in inputs.items()},
-                                                probe)
+                                                probe, traffic)
                       for i in range(0, n_total, mb)]
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        bufs, n = self._prep(inputs)
+        bufs, n = self._prep(inputs, traffic)
         compiled = self._compiled
         deadline = self.core.deadline_for(bufs.key not in compiled)
         try:
             self._to_device(bufs)
-            step = partial(self._step, compiled, bufs, n, probe)
+            step = partial(self._step, compiled, bufs, n, probe, traffic)
             out = (step() if deadline is None else self.core.run_deadlined_sync(
                 step, deadline, on_zombie=partial(self._staging.release, bufs)))
         except StepDeadlineExceeded:
@@ -669,7 +723,7 @@ class ModelRunner:
         except Exception as e:
             self._staging.release(bufs)
             if self._after_failure(e, self._bucket_rows(bufs)):
-                return self._infer_sync_admitted(inputs, probe)
+                return self._infer_sync_admitted(inputs, probe, traffic)
             raise
         self._staging.release(bufs)
         self.health.mark_success()
@@ -686,32 +740,33 @@ class ModelRunner:
             self._depth_sem = asyncio.Semaphore(self.dispatch_depth)
             self._sem_loop = loop
 
-    async def infer(self, inputs: dict[str, np.ndarray], *,
-                    probe: bool = False) -> dict[str, np.ndarray]:
+    async def infer(self, inputs: dict[str, np.ndarray], *, probe: bool = False,
+                    traffic: bool = True) -> dict[str, np.ndarray]:
         """Pipelined inference: the heal gate, host prep off the loop, the
         prefetch before the in-flight permit, at most ``max_in_flight``
         steps dispatching at once (and at ``dispatch_depth`` > 1 at most that
         many dispatched and not yet fetched), each under its deadline.
-        ``probe`` as for ``infer_sync``."""
+        ``probe`` and ``traffic`` as for ``infer_sync``."""
         probing = await self.core.heal_gate()
         try:
-            return await self._infer_admitted(inputs, probe)
+            return await self._infer_admitted(inputs, probe, traffic)
         except Exception as e:
             if probing:
                 self.core.end_failed_probe(e)
             raise
 
-    async def _infer_admitted(self, inputs: dict[str, np.ndarray],
-                              probe: bool) -> dict[str, np.ndarray]:
+    async def _infer_admitted(self, inputs: dict[str, np.ndarray], probe: bool,
+                              traffic: bool) -> dict[str, np.ndarray]:
         loop = asyncio.get_running_loop()
         n_total = next(iter(inputs.values())).shape[0]
         mb = self.buckets.max_batch()
         if n_total > mb and not self.packed:
             chunks = await asyncio.gather(*[
-                self._infer_admitted({k: v[i: i + mb] for k, v in inputs.items()}, probe)
+                self._infer_admitted({k: v[i: i + mb] for k, v in inputs.items()}, probe,
+                                     traffic)
                 for i in range(0, n_total, mb)])
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        bufs, n = await loop.run_in_executor(None, self._prep, inputs)
+        bufs, n = await loop.run_in_executor(None, self._prep, inputs, traffic)
         self._ensure_sems()
         compiled = self._compiled
         first = bufs.key not in compiled
@@ -724,17 +779,18 @@ class ModelRunner:
                 # a key's first step captures inside the dispatch: it takes
                 # the watched path, whose deadline covers the capture
                 if self.dispatch_depth > 1 and not first:
-                    out = await self._step_split(loop, compiled, bufs, n, deadline, probe)
+                    out = await self._step_split(loop, compiled, bufs, n, deadline, probe,
+                                                 traffic)
                 else:
                     async with self._inflight_sem:
-                        self._duty.dispatch(time.perf_counter())
+                        self._duty_dispatch(traffic)
                         try:
-                            step = partial(self._step, compiled, bufs, n, probe)
+                            step = partial(self._step, compiled, bufs, n, probe, traffic)
                             out = await (loop.run_in_executor(None, step) if deadline is None
                                          else self.core.run_deadlined(step, deadline,
                                                                       on_zombie=release))
                         finally:
-                            self._duty.complete(time.perf_counter())
+                            self._duty_complete(traffic)
         except StepDeadlineExceeded:
             release = None  # the zombie holds the set until it ends
             raise
@@ -746,12 +802,21 @@ class ModelRunner:
             if release is not None:
                 release()
         if retry:
-            return await self._infer_admitted(inputs, probe)
+            return await self._infer_admitted(inputs, probe, traffic)
         self.health.mark_success()
         return out
 
+    def _duty_dispatch(self, traffic: bool) -> None:
+        if traffic:
+            self._duty.dispatch(time.perf_counter())
+
+    def _duty_complete(self, traffic: bool) -> None:
+        if traffic:
+            self._duty.complete(time.perf_counter())
+
     async def _step_split(self, loop, compiled: CompiledStep, bufs: HostSet, n: int,
-                          deadline: Optional[float], probe: bool) -> dict[str, np.ndarray]:
+                          deadline: Optional[float], probe: bool,
+                          traffic: bool) -> dict[str, np.ndarray]:
         """``dispatch_depth`` > 1: the in-flight permit covers the dispatch
         only; the depth permit, held from before the enqueue until the
         outputs are fetched, bounds the dispatched-not-fetched steps (the
@@ -760,18 +825,18 @@ class ModelRunner:
         budget runs from the step's own enqueue."""
         async with self._depth_sem:
             async with self._inflight_sem:
-                self._duty.dispatch(time.perf_counter())
+                self._duty_dispatch(traffic)
                 try:
-                    await loop.run_in_executor(None, self._enqueue, compiled, bufs)
+                    await loop.run_in_executor(None, self._enqueue, compiled, bufs, traffic)
                 except BaseException:
-                    self._duty.complete(time.perf_counter())
+                    self._duty_complete(traffic)
                     raise
                 dispatched_at = time.monotonic()
 
             def fetch():
                 if not probe:
                     self.core.apply_chaos()
-                return self._fetch(bufs, n)
+                return self._fetch(bufs, n, traffic)
 
             try:
                 if deadline is None:
@@ -780,7 +845,7 @@ class ModelRunner:
                     fetch, self.core.deadline_remaining(deadline, dispatched_at),
                     on_zombie=partial(self._staging.release, bufs))
             finally:
-                self._duty.complete(time.perf_counter())
+                self._duty_complete(traffic)
 
     def warmup(self) -> int:
         """One step at every shape of ``grid_shapes``, so every graph is
@@ -788,13 +853,9 @@ class ModelRunner:
         allocator growth -- land) before traffic does. Returns the number of
         steps."""
         shapes = self.grid_shapes(self.buckets)
-        self._in_warmup = True
-        try:
-            for shape in shapes:
-                self.infer_sync({name: np.zeros(s, dtype=self.spec[name][0])
-                                 for name, s in shape.items()})
-        finally:
-            self._in_warmup = False
+        for shape in shapes:
+            self.infer_sync({name: np.zeros(s, dtype=self.spec[name][0])
+                             for name, s in shape.items()}, traffic=False)
         logger.info("[%s] warmed %d bucket shapes (%d captured)", self.family.name,
                     len(shapes), self.captures)
         return len(shapes)
@@ -814,6 +875,7 @@ class ModelRunner:
             old = self._compiled
             self._compiled = CompiledStep(self.device, eager=old.eager)
             self._retired_captures += old.captures
+            self._retired_warm += old.warm_captures
         t0 = time.perf_counter()
         grid = {shape_key(s) for s in self.grid_shapes(self.buckets)}
         # not old.keys(): a zombie first step (capture, kernel build) may
@@ -832,19 +894,84 @@ class ModelRunner:
         logger.warning("[%s] rebuilt the compiled step after a deadline miss: %d keys "
                        "captured again", self.family.name, len(keys))
 
-    def _capture_keys(self, compiled: CompiledStep, keys: list) -> None:
+    def _capture_keys(self, compiled: CompiledStep, keys: list, warm: bool = False) -> None:
         """One step of zeros at each shape key on ``compiled`` (warmup's
-        inputs), which captures its graph; not traffic."""
+        inputs), which captures its graph; not traffic. ``warm``: the
+        tuner's warm captures, counted apart."""
         for key in keys:
             bufs = self._staging_set(dict(key))
             try:
                 for arr in bufs.arrays.values():
                     arr.fill(0)
                 self._to_device(bufs)
-                self._enqueue(compiled, bufs, traffic=False)
+                self._enqueue(compiled, bufs, traffic=False, warm=warm)
                 bufs.wait()
             finally:
                 self._staging.release(bufs)
+
+    # -- the shape tuner's retune surface (tpu/tuner.py) ----------------------
+
+    def _new_keys(self, policy: BucketPolicy) -> list:
+        """The shape keys of ``policy``'s grid without a graph yet."""
+        return [k for k in (shape_key(s) for s in self.grid_shapes(policy))
+                if k not in self._compiled]
+
+    def count_new_shapes(self, policy: BucketPolicy) -> int:
+        """How many keys ``policy`` would still have to capture: the tuner's
+        cost gate reads it before a flip."""
+        return len(self._new_keys(policy))
+
+    def _warm_key(self, compiled: CompiledStep, key: tuple) -> None:
+        """Capture one key as a warm capture. An OOM inside it leaves as
+        that OOM, after capping the grid below the key's row bucket and
+        announcing the cap, as a traffic step's OOM does."""
+        try:
+            self._capture_keys(compiled, [key], warm=True)
+        except Exception as e:
+            if is_oom_error(e):
+                self._note_oom(dict(key)["input_ids" if self.packed else next(iter(self.spec))][0])
+            raise
+
+    def warm_shapes(self, policy: BucketPolicy) -> int:
+        """Capture every key of ``policy`` without a graph, blocking and
+        without a deadline (tests, tools; the tuner's cycle runs
+        ``warm_shapes_live``). Returns the keys captured."""
+        keys = self._new_keys(policy)
+        for key in keys:
+            self._warm_key(self._compiled, key)
+        return len(keys)
+
+    async def warm_shapes_live(self, policy: BucketPolicy) -> int:
+        """``warm_shapes`` while serving: each capture holds an in-flight
+        permit (no more steps dispatch at once than at any other time) and
+        runs under the first-step deadline on a watchdog thread, so a
+        wedged capture is abandoned -- the runner goes UNHEALTHY and heals
+        through its rebuild, which recaptures the incumbent grid's keys
+        only -- instead of holding the tuner forever."""
+        self._ensure_sems()
+        loop = asyncio.get_running_loop()
+        count = 0
+        for key in self._new_keys(policy):
+            async with self._inflight_sem:
+                compiled = self._compiled
+                if key in compiled:  # a traffic step captured it meanwhile
+                    continue
+                warm = partial(self._warm_key, compiled, key)
+                deadline = self.core.deadline_for(True)
+                if deadline is None:
+                    await loop.run_in_executor(None, warm)
+                else:
+                    await self.core.run_deadlined(warm, deadline)
+            count += 1
+        return count
+
+    def retarget_buckets(self, policy: BucketPolicy) -> BucketPolicy:
+        """Flip the serving grid atomically; returns the prior policy (the
+        rollback token). Steps already padded keep their shapes: both grids'
+        graphs are held, so the transition captures nothing."""
+        with self._lock:
+            old, self.buckets = self.buckets, policy
+        return old
 
     # -- swap and integrity surfaces (tpu/swap.py, tpu/integrity.py) ---------
 
@@ -930,5 +1057,10 @@ class ModelRunner:
         """JSON-able snapshot for the engine's ``/health``."""
         rep = self.core.health_report()
         rep.update(model=self.family.name, bucket_cap=self.bucket_cap, ooms=self.ooms,
-                   captures=self.captures, last_rebuild_ms=self.last_rebuild_ms)
+                   captures=self.captures, warm_captures=self.warm_captures,
+                   last_rebuild_ms=self.last_rebuild_ms,
+                   padding={"padded_rows": self.padded_rows,
+                            "executed_rows": self.executed_rows,
+                            "true_tokens": self.true_tokens,
+                            "token_capacity": self.token_capacity})
         return rep

@@ -50,7 +50,24 @@ last line):
    for the padded stream (18 keys); then K2 at the stream's own layout, and
    the same texts through the packed K2 path, the packed pair-mask path and
    the padded K1 path, whose outputs must agree (every K1 and K2 launch of
-   the three BERT streams must be ``mma``);
+   the three BERT streams must be ``mma``); then the shape tuner
+   (``arkflow_tpu_torch/examples/bert_adaptive_stream.json``, the packed
+   BERT-base stream at max_seq 128 with the ``tuner`` block) over 16384
+   seeded texts, 8192 of 8-24 tokens then 8192 of 60-120, static (the block
+   removed) and tuned (cycles forced by ``POST /admin/tune`` on the health
+   port, a commit after the short half, then a ``probe_fail`` rollback
+   answering 409 and a commit in the long half, each cycle's warm captures
+   and flip running between live replays): every row in order in both,
+   K2 launches = layers x packed steps, 0 captures on the path after
+   warmup, the tuned labels equal to the static run's on tie-free rows and
+   the logits within 1/64; rows/s and the capacity-weighted padding waste
+   of both beside the planner's prediction, the warm captures' ms, the
+   graph counts and ``memory_reserved`` around each cycle; then K1 and K2
+   at two minted seq buckets off the tile's 16-row grid and one off its
+   64-key tile (from the run's proposals and the padded planner on the
+   same snapshots), beside the next pow2 bucket, held per element to
+   ``emulate_mma_tile`` (the ``tuner stream``, ``tuner cycles``, ``tuner
+   outputs`` and ``tuner`` lines);
 7. the int8 stream ``arkflow_tpu_torch/examples/int8_bert_stream.json``
    (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
    int8) -> drop) through ``Engine``, and the same config at bfloat16: every
@@ -134,7 +151,7 @@ last line):
     and abandoned steps included), all ``mma``, and every row's ids equal
     to the fault-free run's up to its first near-tie (``generate lifecycle
     stream``); then on an idle stream with its health server, at full
-    width and ``GEN_SWAP_LAYERS`` (4) layers, a seed-1 checkpoint (3.9 GB,
+    width and ``GEN_SWAP_LAYERS`` (2) layers, a seed-1 checkpoint (3.0 GB,
     written to a temporary directory under ``checkpoints/`` and removed)
     swapped in through ``POST /admin/swap``
     while four clients keep requests in flight: none dropped, the streams
@@ -149,8 +166,8 @@ last line):
     step 10 (same rows);
 12. the generation features: the serving stream
     ``llama_serving_stream.json`` (8 slots, chunk 128, speculative 3,
-    prefix cache 64 pages; 48 rows behind one 96-token instruction)
-    graphed: rows in order, the pages still held are the cache's alone,
+    prefix cache 64 pages; ``SERVING_ROWS`` (24) rows behind one 96-token
+    instruction) graphed: rows in order, the pages still held are the cache's alone,
     K3 = layers x (chunk + verify steps), all ``mma``, hits, reused pages,
     evictions, drafts and accepted drafts reported; its rows against a
     server with both features off, equal up to each row's first near-tie;
@@ -182,7 +199,7 @@ last line):
     graphed against eager, the stream eager, and the ``moe`` line;
 14. model import and the tensor families. ``hf_import``: the padded
     stream's tree (step 5), a Llama-3-8B-width tree of ``HF_LLAMA_LAYERS``
-    (8) layers drawn on the card and the ViT-B/16 tree exported into
+    (4) layers drawn on the card and the ViT-B/16 tree exported into
     HuggingFace names and layouts as bf16 state dicts (the inverse maps are
     here, apart from the package's), imported by ``from_hf_state_dict``
     into float32 trees, every leaf equal to the original's bits, then
@@ -238,8 +255,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from arkflow_tpu_torch.batch import MessageBatch  # noqa: E402
-from arkflow_tpu_torch.components import Output  # noqa: E402
+from arkflow_tpu_torch.components import Input, NoopAck, Output  # noqa: E402
 from arkflow_tpu_torch.config import EngineConfig  # noqa: E402
+from arkflow_tpu_torch.errors import EndOfInput  # noqa: E402
 from arkflow_tpu_torch.models import decoder as dec  # noqa: E402
 from arkflow_tpu_torch.models import get_model  # noqa: E402
 from arkflow_tpu_torch.models import paged_decode as pd  # noqa: E402
@@ -274,6 +292,13 @@ from arkflow_tpu_torch.tpu.packing import pack_tokens  # noqa: E402
 from arkflow_tpu_torch.tpu.runner import ModelRunner, init_host_params, shape_key  # noqa: E402
 from arkflow_tpu_torch.tpu.serving import GenerationServer  # noqa: E402
 from arkflow_tpu_torch.tpu.tokenizer import HashTokenizer  # noqa: E402
+from arkflow_tpu_torch.tpu.tuner import (  # noqa: E402
+    ShapeConfig,
+    SketchView,
+    TunerConfig,
+    plan_shapes,
+    predict_waste,
+)
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "arkflow_tpu_torch", "examples")
@@ -282,6 +307,7 @@ PACKED_CONFIG = os.path.join(EXAMPLES, "bert_packed_stream.json")
 GENERATE_CONFIG = os.path.join(EXAMPLES, "llama_generate_stream.json")
 INT8_CONFIG = os.path.join(EXAMPLES, "int8_bert_stream.json")
 LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "bert_lifecycle_stream.json")
+ADAPTIVE_CONFIG = os.path.join(EXAMPLES, "bert_adaptive_stream.json")
 GEN_LIFECYCLE_CONFIG = os.path.join(EXAMPLES, "llama_lifecycle_stream.json")
 SERVING_CONFIG = os.path.join(EXAMPLES, "llama_serving_stream.json")
 BATCH_CONFIG = os.path.join(EXAMPLES, "llama_batch_stream.json")
@@ -295,17 +321,22 @@ CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chec
 #: depth of the generate lifecycle's swap and integrity checks (full width):
 #: the checkpoint save, prepare, digest passes and repair scale with the
 #: tree; the 32-layer (16 GB) swap ran green in earlier runs, 8 layers until
-#: the import and tensor phases took the time
-GEN_SWAP_LAYERS = 4
+#: the import and tensor phases took the time, 4 until the tuner phase did
+GEN_SWAP_LAYERS = 2
 #: depth of the batch-mode swap (full width; 4 until the import and tensor
 #: phases took the time)
 BATCH_SWAP_LAYERS = 2
 GEN_CHECK_PROMPTS = 16
+#: rows of the serving stream and of the sampled generate stream (the
+#: examples' 48 until the tuner phase took the time; 24 serving rows still
+#: share the instruction's cached pages)
+SERVING_ROWS = 24
 GEN_CHECK_NEW = 32
 #: the MoE phase: the generate stream's 12 distinct texts through the path
-#: comparisons, 48 new tokens each; batch mode's one bucket
+#: comparisons, 32 new tokens each (48 until the tuner phase took the
+#: time); batch mode's one bucket
 MOE_CHECK_PROMPTS = 12
-MOE_CHECK_NEW = 48
+MOE_CHECK_NEW = 32
 MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
 #: rows of each stream of the lifecycle cost comparison: ~8 s of traffic,
 #: three digest passes of the lifecycle example or more (40960 until the
@@ -1129,8 +1160,8 @@ def run_packed_slice(cfg_raw: dict, eager: bool = False) -> dict:
               "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
               "device_steps": runner.device_steps, "packed_steps": runner.packed_steps,
               "traffic_packed_steps": runner.packed_steps - warmup_steps,
-              "packed_token_fill": runner.packed_tokens / max(1, runner.packed_slots),
-              "packed_tokens": runner.packed_tokens, "packed_slots": runner.packed_slots,
+              "packed_token_fill": runner.true_tokens / max(1, runner.token_capacity),
+              "packed_tokens": runner.true_tokens, "packed_slots": runner.token_capacity,
               "packed_flash": runner.cfg.packed_flash, "layers": layers,
               "k1_launches": k1, "k2_launches": k2, "k2_variants": k2_variants,
               **mode_report(runner, memory)}
@@ -1216,6 +1247,362 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
                "ms_per_step": statistics.median(t) / steps[name]}
         for name, t in times.items()}), flush=True)
     return report
+
+
+#: the tuner phase's stream: ``bert_adaptive_stream.json`` fed TUNER_ROWS
+#: seeded texts in order, the first half short, the second long (true token
+#: lengths, [CLS] and [SEP] included). The input holds at each gate (A, A2,
+#: B, B2, and its end) until it is released. A cycle is forced once every
+#: row before A (then B) was written out, so the sketch it reads is the same
+#: in every run; its snapshot releases A (B), and the rows up to A2 (B2)
+#: run through its warm captures, flip and probe; A2 (B2) opens when the
+#: grid it commits serves. At B a ``probe_fail`` cycle rolls back first.
+TUNER_ROWS = 16384
+TUNER_SHORT = (8, 24)
+TUNER_LONG = (60, 120)
+TUNER_BATCH = 64
+TUNER_GATES = (8192, 9216, 12288, 13312)
+
+
+def shifting_texts(seed: int) -> tuple[list[bytes], np.ndarray]:
+    """Distinct texts (a row id each) and their true token lengths."""
+    rng = np.random.default_rng(seed)
+    half = TUNER_ROWS // 2
+    lengths = np.concatenate([rng.integers(TUNER_SHORT[0], TUNER_SHORT[1] + 1, half),
+                              rng.integers(TUNER_LONG[0], TUNER_LONG[1] + 1, half)])
+    vocab = [f"w{i}" for i in range(5000)]
+    texts = [(" ".join(rng.choice(vocab, size=int(n) - 3)) + f" r{i}").encode()
+             for i, n in enumerate(lengths)]
+    return texts, lengths
+
+
+class GatedListInput(Input):
+    """The texts in order, ``batch`` rows a read; at each gate row it waits
+    for the gate's event."""
+
+    def __init__(self, texts: list[bytes], batch: int, gates: tuple[int, ...]):
+        self.texts, self.batch = texts, batch
+        self.gates = {g: asyncio.Event() for g in gates}
+        self.pos = 0
+
+    async def connect(self) -> None:
+        pass
+
+    async def read(self):
+        if self.pos in self.gates:
+            await self.gates[self.pos].wait()
+        if self.pos >= len(self.texts):
+            raise EndOfInput()
+        end = min([self.pos + self.batch, len(self.texts)]
+                  + [g for g in self.gates if g > self.pos])
+        batch = MessageBatch.new_binary(self.texts[self.pos:end])
+        self.pos = end
+        return batch, NoopAck()
+
+    async def close(self) -> None:
+        pass
+
+
+class RowSink(OrderedSink):
+    """Records every payload in order and the label and logits columns."""
+
+    def __init__(self, inner: Output):
+        super().__init__(inner)
+        self.labels: list[np.ndarray] = []
+        self.logits: list[np.ndarray] = []
+
+    async def write(self, batch: MessageBatch) -> None:
+        self.labels.append(np.asarray(batch.column("label")))
+        self.logits.append(np.asarray(batch.column("logits")))
+        await super().write(batch)
+
+
+async def forced_cycle(port: int, stream_name: str, tuner, runner: ModelRunner,
+                       gate, views: list) -> dict:
+    """``POST /admin/tune``; the ``gate`` (if any) opens once the cycle took
+    its sketch snapshot, so traffic runs through the warm, the flip and the
+    probe. The graph counts and ``memory_reserved`` before and after."""
+    snapshot = tuner.sketch.snapshot
+    taken = asyncio.Event()
+
+    def recorded():
+        view = snapshot()
+        views.append(view)
+        taken.set()
+        return view
+
+    before = {"reserved": torch.cuda.memory_reserved(), **runner.graph_counts(),
+              "seq_buckets": list(runner.buckets.seq_buckets)}
+    tuner.sketch.snapshot = recorded
+    post = asyncio.create_task(http(port, "POST", "/admin/tune", {}))
+    try:
+        await asyncio.wait_for(taken.wait(), 60)
+    finally:
+        tuner.sketch.snapshot = snapshot
+        if gate is not None:
+            gate.set()
+    status, body = await post
+    decision = tuner.report()["last_decision"]
+    return {"status": status, "action": decision["action"],
+            "error": body["results"][stream_name][0].get("error"),
+            "proposal": decision.get("proposal"), "warmed_shapes": decision.get("warmed_shapes"),
+            "before": before,
+            "after": {"reserved": torch.cuda.memory_reserved(), **runner.graph_counts(),
+                      "seq_buckets": list(runner.buckets.seq_buckets)}}
+
+
+def run_tuner_stream(cfg_raw: dict, texts: list[bytes], tune: bool) -> dict:
+    """The adaptive stream through ``Engine`` over ``texts``: with the tuner
+    (``tune``: a commit at the first gate, then at the second a
+    ``probe_fail`` rollback and a commit) or on the static grid (the tuner
+    block removed, the gates opened as the rows reach them)."""
+    raw = json.loads(json.dumps(cfg_raw))
+    raw["health_check"]["port"] = 0
+    stream_raw = raw["streams"][0]
+    proc_raw = stream_raw["pipeline"]["processors"][0]
+    proc_raw["outputs"] = ["label", "score", "logits"]
+    if tune:
+        proc_raw["tuner"]["interval"] = 0  # cycles only when forced
+    else:
+        del proc_raw["tuner"]
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    runner = stream.pipeline.processors[0].runner
+    memory: dict = {}
+    measure_warmup(runner, memory)
+    warmup = runner.warmup
+
+    def counted_warmup(*args):
+        n = warmup(*args)
+        memory["captures_at_warmup"] = runner.captures
+        return n
+
+    runner.warmup = counted_warmup
+    end = len(texts)
+    inp = stream.input = GatedListInput(texts, TUNER_BATCH, (*TUNER_GATES, end))
+    sink = stream.output = RowSink(stream.output)
+    tuner = stream.tuners()[0] if tune else None
+    warm_ms: list[float] = []
+    warm_key = runner._warm_key
+
+    def timed_warm(compiled, key):
+        t0 = time.perf_counter()
+        warm_key(compiled, key)
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+
+    runner._warm_key = timed_warm
+    cycles: list[dict] = []
+    views: list = []
+
+    async def drive():
+        task = asyncio.create_task(engine.run())
+
+        async def reach(rows: int) -> None:
+            while len(sink.payloads) < rows:
+                check(not task.done(), "the tuner stream ended before a gate")
+                await asyncio.sleep(0.005)
+
+        async def cycle(release, effective) -> None:
+            cycles.append({"effective_from": effective, **await forced_cycle(
+                engine.health_port, stream.name, tuner, runner, release, views)})
+
+        a, a2, b, b2 = TUNER_GATES
+        try:
+            if tune:
+                await reach(a)
+                await cycle(inp.gates[a], a2)
+                inp.gates[a2].set()
+                await reach(b)
+                tuner.inject_fault("probe_fail")
+                await cycle(inp.gates[b], None)
+                await cycle(None, b2)
+            for gate in TUNER_GATES:
+                await reach(gate)
+                inp.gates[gate].set()
+            # the rows after B2, on the grid the last commit left
+            t0, tokens, slots = time.perf_counter(), runner.true_tokens, runner.token_capacity
+            await reach(end)
+            memory["tail_rows_per_s"] = (end - b2) / (time.perf_counter() - t0)
+            memory["tail_waste"] = 1.0 - ((runner.true_tokens - tokens)
+                                          / (runner.token_capacity - slots))
+        finally:
+            for g in inp.gates.values():
+                g.set()
+            await task
+
+    reset_counts()
+    asyncio.run(drive())
+    torch.cuda.synchronize()
+    k1, k2 = ra.launches.value, sa.launches.value
+    report = {
+        "mode": "tuned" if tune else "static", "rows_expected": len(texts),
+        "rows_out": stream.rows_out, "rows_dropped": sink.inner.dropped_rows,
+        "errors": stream.errors, "in_order": sink.payloads == texts,
+        "traffic_seconds": stream.traffic_seconds,
+        "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+        "tail_rows_per_s": memory.pop("tail_rows_per_s"),
+        "tail_waste": memory.pop("tail_waste"),
+        "waste": 1.0 - runner.true_tokens / max(1, runner.token_capacity),
+        "true_tokens": runner.true_tokens, "token_capacity": runner.token_capacity,
+        "padded_rows": runner.padded_rows, "executed_rows": runner.executed_rows,
+        "captures": runner.captures,
+        "captures_after_warmup": runner.captures - memory.pop("captures_at_warmup"),
+        "warm_captures": runner.warm_captures,
+        "warm_capture_ms": warm_ms, "keys": len(runner._compiled),
+        "grid": {"seq_buckets": list(runner.buckets.seq_buckets),
+                 "example_scale": runner.buckets.example_scale,
+                 "token_budget": stream.buffer._coalescer.token_budget,
+                 "deadline_s": stream.buffer._deadline_s},
+        "packed_steps": runner.packed_steps, "layers": runner.cfg.layers,
+        "k1_launches": k1, "k2_launches": k2, "k2_variants": dict(sa.launches.variants),
+        "duty_cycle": runner.duty_cycle(), "reserved_end": torch.cuda.memory_reserved(),
+        **{k: v for k, v in memory.items() if k.startswith("reserved")},
+    }
+    print("tuner stream " + json.dumps(report), flush=True)
+    check(stream.errors == 0, f"the tuner stream reported errors: {report}")
+    check(stream.rows_out == len(texts) and sink.inner.dropped_rows == len(texts),
+          f"rows lost in the tuner stream: {report}")
+    check(report["in_order"], f"the tuner stream's rows arrived out of order: {report}")
+    check(k1 == 0 and k2 > 0 and k2 == runner.cfg.layers * runner.packed_steps,
+          f"K2 launches != layers x packed steps in the tuner stream: {report}")
+    check(report["k2_variants"]["mma"] == k2, f"a K2 launch missed the mma tile: {report}")
+    return {"report": report, "cycles": cycles, "views": views, "runner": runner,
+            "labels": np.concatenate(sink.labels), "logits": np.concatenate(sink.logits)}
+
+
+def predicted_run_waste(lengths: np.ndarray, segments: list) -> float:
+    """The planner's capacity-weighted waste of a run whose rows ``[start,
+    end)`` were served under each segment's shape."""
+    true = cap = 0.0
+    for start, end, shape in segments:
+        part = lengths[start:end]
+        _, fill = predict_waste(SketchView(part, 0.0, part.size), shape)
+        true += float(part.sum())
+        cap += float(part.sum()) / fill
+    return 1.0 - true / cap
+
+
+def minted_cases(gen, minted: set, heads: int, dh: int, known: dict) -> dict:
+    """K1 and K2 at two minted buckets off the tile's 16-row grid and one on
+    it but off the 64-key tile, beside the next pow2 bucket (taken from
+    ``known``, {S: {"K1": case, "K2": case}}, where this run has it): each
+    held to its plain version and per element to ``emulate_mma_tile``; the
+    device ms against the bound."""
+    odd = sorted(s for s in minted if s % 16)[:2]
+    mid = sorted(s for s in minted if s % 16 == 0 and s % 64)[-1:]
+    check(len(odd) == 2 and len(mid) == 1,
+          f"the tuner minted no two S % 16 != 0 buckets and one S % 64 != 0: {sorted(minted)}")
+    rng = np.random.default_rng(14)
+    out = {}
+    sizes = [*odd, *mid]
+    for s in sorted(set(sizes) | {1 << (s - 1).bit_length() for s in sizes}):
+        if s in known:
+            k1, k2 = known[s]["K1"], known[s]["K2"]
+        else:
+            k1 = kernel_case(gen, TUNER_BATCH, heads, s, dh, torch.bfloat16, causal=False)
+            k2 = segment_case(gen, segment_layouts(rng, TUNER_BATCH, s), heads, dh,
+                              torch.bfloat16, f"tuner S={s}")
+        out[s] = {name: {"device_ms": c["kernel_device_ms"], "bound_ms": c["bound_ms"],
+                         "over_bound": c["kernel_device_ms"] / c["bound_ms"],
+                         "max_abs_err": c["max_abs_err"], "tile_err_ratio": c["tile_err_ratio"],
+                         "plain_ms": c["plain_device_ms"], "library_ms": c["library_device_ms"]}
+                  for name, c in (("K1", k1), ("K2", k2))}
+        out[s]["minted"] = s in sizes
+    return out
+
+
+def run_tuner(gen, cfg_raw: dict, known: dict) -> dict:
+    """The tuner phase: the adaptive stream static, then tuned, over the same
+    seeded texts; their rows/s and padding waste beside the planner's; the
+    commits, the rollback, the warm captures and the memory; tie-free labels
+    equal and logits within 1/64; then K1 and K2 at the minted buckets
+    (``minted_cases``, beside ``known``'s pow2 cases)."""
+    texts, lengths = shifting_texts(seed=14)
+    tok_lengths = HashTokenizer().encode_batch(texts[:64], 128)[1].sum(axis=1)
+    check(np.array_equal(tok_lengths, lengths[:64]), "the shifting texts' lengths are off")
+    static = run_tuner_stream(cfg_raw, texts, tune=False)
+    del static["runner"]
+    torch.cuda.empty_cache()
+    tuned = run_tuner_stream(cfg_raw, texts, tune=True)
+    runner, cycles = tuned["runner"], tuned["cycles"]
+    print("tuner cycles " + json.dumps(cycles), flush=True)
+    commits = [c for c in cycles if c["action"] == "committed"]
+    rollbacks = [c for c in cycles if c["action"] == "rolled_back"]
+    check(len(commits) >= 1 and all(c["status"] == 200 for c in commits),
+          f"the tuner committed nothing: {cycles}")
+    check(len(rollbacks) == 1 and rollbacks[0]["status"] == 409
+          and rollbacks[0]["after"]["seq_buckets"] == rollbacks[0]["before"]["seq_buckets"],
+          f"the probe_fail cycle did not roll back with the grid serving: {cycles}")
+    check(tuned["report"]["captures_after_warmup"] == 0,
+          f"the tuned stream captured on the path: {tuned['report']}")
+
+    ref, got = static["logits"], tuned["logits"]
+    top2 = np.sort(ref, axis=1)
+    tie_free = (top2[:, -1] - top2[:, -2]) > LABEL_MARGIN
+    outputs = {"rows": len(texts), "tie_free_rows": int(tie_free.sum()),
+               "label_mismatches_tie_free": int((tuned["labels"][tie_free]
+                                                 != static["labels"][tie_free]).sum()),
+               "max_logit_abs_err": float(np.abs(got - ref).max()), "logit_tol": LOGIT_TOL}
+    print("tuner outputs " + json.dumps(outputs), flush=True)
+    check(outputs["label_mismatches_tie_free"] == 0 and outputs["max_logit_abs_err"] <= LOGIT_TOL,
+          f"the tuned stream's outputs left the static run's: {outputs}")
+
+    bb = tuple(runner.buckets.batch_buckets)
+    budget = cfg_raw["streams"][0]["buffer"]["coalesce"]["token_budget"]
+    proc = cfg_raw["streams"][0]["pipeline"]["processors"][0]
+    first = ShapeConfig(bb, tuple(proc["seq_buckets"]), proc.get("example_scale", 4), True,
+                        budget)
+    # each stretch of rows under the grid last committed before it
+    bounds = sorted({0, len(texts), *(c["effective_from"] for c in commits)})
+    segments, shape = [], first
+    for start, end in zip(bounds, bounds[1:]):
+        for c in commits:
+            if c["effective_from"] == start:
+                s = c["proposal"]["shape"]
+                shape = ShapeConfig(tuple(s["batch_buckets"]), tuple(s["seq_buckets"]),
+                                    s["example_scale"], True, s.get("token_budget"))
+        segments.append((start, end, shape))
+    # the buckets the planner minted: the run's proposals, and what it
+    # proposes for the padded path (K1) on the same snapshots
+    minted = {e for c in cycles if c["proposal"] for e in c["proposal"]["shape"]["seq_buckets"]}
+    padded_inc = ShapeConfig(bb, first.seq_buckets)
+    for view in tuned["views"]:
+        minted |= set(plan_shapes(view, padded_inc, TunerConfig()).shape.seq_buckets)
+    minted -= set(first.seq_buckets)
+    summary = {
+        "rows": len(texts), "short": TUNER_SHORT, "long": TUNER_LONG, "gates": TUNER_GATES,
+        "traffic_rows_per_s": {"static": static["report"]["traffic_rows_per_s"],
+                               "tuned": tuned["report"]["traffic_rows_per_s"]},
+        "tail_rows_per_s": {"static": static["report"]["tail_rows_per_s"],
+                            "tuned": tuned["report"]["tail_rows_per_s"]},
+        "waste": {"static": static["report"]["waste"], "tuned": tuned["report"]["waste"],
+                  "predicted_static": predicted_run_waste(lengths, [(0, len(texts), first)]),
+                  "predicted_tuned": predicted_run_waste(lengths, segments)},
+        "tail_waste": {"static": static["report"]["tail_waste"],
+                       "tuned": tuned["report"]["tail_waste"],
+                       "predicted_static": predicted_run_waste(
+                           lengths, [(TUNER_GATES[-1], len(texts), first)]),
+                       "predicted_tuned": predicted_run_waste(lengths, segments[-1:])},
+        "commits": len(commits), "rollbacks": len(rollbacks),
+        "grids": [list(seg[2].seq_buckets) for seg in segments], "minted": sorted(minted),
+        "warm_captures": tuned["report"]["warm_captures"],
+        "warm_capture_ms": {"n": len(tuned["report"]["warm_capture_ms"]),
+                            "median": statistics.median(tuned["report"]["warm_capture_ms"] or [0]),
+                            "max": max(tuned["report"]["warm_capture_ms"] or [0])},
+        "reserved": [{"action": c["action"], "before": c["before"]["reserved"],
+                      "after": c["after"]["reserved"], "keys_before": c["before"]["keys"],
+                      "keys_after": c["after"]["keys"]} for c in cycles],
+        "captures_after_warmup": {"static": static["report"]["captures_after_warmup"],
+                                  "tuned": tuned["report"]["captures_after_warmup"]},
+        "k2_launches": static["report"]["k2_launches"] + tuned["report"]["k2_launches"],
+        "outputs": outputs,
+    }
+    heads, dh = runner.cfg.heads, runner.cfg.hidden // runner.cfg.heads
+    del tuned["runner"], runner
+    torch.cuda.empty_cache()
+    summary["kernels"] = minted_cases(gen, minted, heads, dh, known)
+    print("tuner " + json.dumps(summary), flush=True)
+    return summary
 
 
 def run_int8_slice(cfg_raw: dict, eager: bool = False) -> dict:
@@ -1967,10 +2354,10 @@ def k3_verify_cases(gen) -> dict:
 
 def run_serving_features(cfg_raw: dict) -> dict:
     """``llama_serving_stream.json`` (8 slots, chunk 128, speculative 3,
-    prefix cache 64 pages, 48 rows behind one 96-token instruction) graphed,
-    its rows against a server with both features off (ids equal up to each
-    row's first near-tie), its step keys' graphs against eager (the verify
-    key included), then the stream eager."""
+    prefix cache 64 pages, ``SERVING_ROWS`` rows behind one 96-token
+    instruction) graphed, its rows against a server with both features off
+    (ids equal up to each row's first near-tie), its step keys' graphs
+    against eager (the verify key included), then the stream eager."""
     proc_cfg = cfg_raw["streams"][0]["pipeline"]["processors"][0]
     graphed = run_generate_slice(cfg_raw, label="serving")
     server, rep = graphed["server"], graphed["report"]
@@ -2017,6 +2404,7 @@ def run_sampling(gen_raw: dict) -> dict:
     cfg = json.loads(json.dumps(gen_raw))
     cfg["streams"][0]["pipeline"]["processors"][0].update(
         temperature=0.8, top_k=50, dispatch_depth=1)
+    cfg["streams"][0]["input"]["count"] = SERVING_ROWS
     run = run_generate_slice(cfg, label="sampling",
                              prepare=lambda srv: setattr(srv, "check_top_k", True))
     server = run["server"]
@@ -3296,7 +3684,9 @@ def run_gen_lifecycle(plain: dict) -> dict:
 #: the Llama-3-8B-width tree of ``hf_import``: 8 of 32 layers, because the
 #: float32 import of 32 layers (JAX's import makes a float32 tree) is 32 GB of
 #: host memory beside a 16 GB bf16 state dict
-HF_LLAMA_LAYERS = 8
+#: depth of the Llama-3-8B-width import tree (8 until the tuner phase took
+#: the time)
+HF_LLAMA_LAYERS = 4
 HF_PROMPTS = 8
 HF_NEW = 32
 VIT_IMAGES = 2048
@@ -3918,15 +4308,21 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     edge_cases(gen)
+    # the bf16 cases at S 128 are also the tuner phase's pow2 neighbour
+    pow2_cases: dict = {}
     for s in (128, 256, 512):
         for dtype in (torch.bfloat16, torch.float32):
-            kernel_case(gen, 64, 12, s, 64, dtype, causal=False)
+            case = kernel_case(gen, 64, 12, s, 64, dtype, causal=False)
+            if s == 128 and dtype == torch.bfloat16:
+                pow2_cases[s] = {"K1": case}
     kernel_case(gen, 64, 12, 256, 64, torch.bfloat16, causal=True)
     rng = np.random.default_rng(0)
     for s in (128, 256, 512):
         seg = segment_layouts(rng, 64, s)
         for dtype in (torch.bfloat16, torch.float32):
-            segment_case(gen, seg, 12, 64, dtype, f"layouts S={s}")
+            case = segment_case(gen, seg, 12, 64, dtype, f"layouts S={s}")
+            if s == 128 and dtype == torch.bfloat16:
+                pow2_cases[s]["K2"] = case
     # head dim 128: the tensor-core tile in dynamic shared memory
     segment_case(gen, segment_layouts(rng, 32, 256), 8, 128, torch.bfloat16,
                  "layouts S=256, D=128")
@@ -3979,6 +4375,10 @@ def main() -> int:
     phases.mark("packed")
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
+    with open(ADAPTIVE_CONFIG) as f:
+        tuner = run_tuner(gen, json.load(f), pow2_cases)
+    torch.cuda.empty_cache()
+    phases.mark("tuner")
 
     with open(INT8_CONFIG) as f:
         int8_raw = json.load(f)
@@ -4040,6 +4440,7 @@ def main() -> int:
 
     with open(SERVING_CONFIG) as f:
         serving_raw = json.load(f)
+    serving_raw["streams"][0]["input"]["count"] = SERVING_ROWS
     serving = run_serving_features(serving_raw)
     ab["serving"] = {"graphed": ab_numbers(serving["report"]),
                      "eager": ab_numbers(serving["eager"])}
@@ -4105,12 +4506,14 @@ def main() -> int:
         "launches": (result["report"]["k1_launches"] + hf_bert["k1_launches"]
                      + sum(tokenizer["k1_launches"].values())), "ok": True,
         **kernel_line(main_case), "redesigned": REDESIGN,
+        "tuner_buckets": {s: c["K1"] for s, c in tuner["kernels"].items()},
     }, {
         "name": "segment_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
-        "launches": packed["report"]["k2_launches"], "ok": True,
+        "launches": packed["report"]["k2_launches"] + tuner["k2_launches"], "ok": True,
         **kernel_line(k2_main), "redesigned": REDESIGN,
+        "tuner_buckets": {s: c["K2"] for s, c in tuner["kernels"].items()},
     }, {
         "name": "paged_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/paged_attention.cu",

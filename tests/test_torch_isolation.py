@@ -2,7 +2,8 @@
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
 paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
-batch and MoE streams, and the ViT and LSTM tensor streams) needs pyarrow,
+batch and MoE streams, the ViT and LSTM tensor streams, and the adaptive
+stream with a forced tuner cycle) needs pyarrow,
 yaml or aiohttp at import time or at run time. ``transformers`` is
 imported only inside ``HFTokenizer``."""
 
@@ -153,6 +154,17 @@ for example, mc in (("vit_stream.json", {"image_size": 32, "patch": 16, "hidden"
     ex_stream = ex_engine.build()[0]
     asyncio.run(ex_engine.run())
     assert ex_stream.output.dropped_rows == 24 and ex_stream.errors == 0, example
+ad_cfg = json.load(open("arkflow_tpu_torch/examples/bert_adaptive_stream.json"))
+ad_cfg["health_check"]["port"] = 0
+ad_cfg["streams"][0]["input"]["count"] = 64
+ad_cfg["streams"][0]["pipeline"]["processors"][0].update(
+    model_config={**tiny, "max_positions": 128}, device="cpu")
+ad_engine = Engine(EngineConfig.from_mapping(ad_cfg))
+ad_stream = ad_engine.build()[0]
+asyncio.run(ad_engine.run())
+assert ad_stream.output.dropped_rows == 64 and ad_stream.errors == 0, ad_stream.errors
+ad_cycle = asyncio.run(ad_stream.tuners()[0].run_cycle(force=True))
+assert ad_cycle["action"] in ("committed", "rejected"), ad_cycle
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

@@ -182,7 +182,7 @@ def test_health_server_routes_and_admin_swap(tmp_path):
             assert await _http(port, "GET", "/readiness") == (
                 200, {"status": "ready", "runners": {"s": ["healthy"]}})
             assert await _http(port, "GET", "/liveness") == (200, {"status": "alive"})
-            for route in ("/metrics", "/trace", "/admin/tune", "/debug/profile"):
+            for route in ("/metrics", "/trace", "/debug/profile"):
                 status, body = await _http(port, "GET", route)
                 assert status == 404 and "not yet ported" in body["error"]
             assert (await _http(port, "GET", "/nowhere"))[0] == 404

@@ -190,8 +190,8 @@ def test_packed_runner_matches_padded_and_jax_runners(packed_flash):
     assert got["label"].shape == (24,) and packed.packed_steps == packed.device_steps == 1
     assert packed.rows == 24
     rows = packed_in["input_ids"].shape[0]
-    assert packed.packed_tokens == int((packed_in["segment_ids"] > 0).sum())
-    assert packed.packed_slots == packed.buckets.batch_bucket(rows) * 32
+    assert packed.true_tokens == int((packed_in["segment_ids"] > 0).sum())
+    assert packed.token_capacity == packed.buckets.batch_bucket(rows) * 32
     want = _port_runner(False, host).infer_sync(padded_in)
     jax_packed = JaxModelRunner(
         "bert_classifier", {**TINY_BERT, "packed_flash": packed_flash,
@@ -228,7 +228,7 @@ def test_packed_warmup_steps_every_row_and_example_bucket_pair():
     pairs = sum(1 for eb in ebs for pb in BATCH if pb <= eb)
     assert runner.warmup() == pairs * len(SEQ)
     assert runner.packed_steps == pairs * len(SEQ) and runner.rows == 0
-    assert runner.packed_tokens == runner.packed_slots == 0  # warmup is not traffic
+    assert runner.true_tokens == runner.token_capacity == 0  # warmup is not traffic
 
 
 def test_packed_flash_follows_the_device_and_kill_switch(monkeypatch):

@@ -171,7 +171,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"device_pool": 2}),
     ("processor", {"mesh": {"tp": 2}}),
-    ("processor", {"tuner": {"interval": "30s"}}),
+    ("processor", {"pp_microbatch_rows": 4}),
     ("input", {"codec": "json"}),
     ("engine", {"health_check": {"enabled": True, "profiling_dir": "traces"}}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
