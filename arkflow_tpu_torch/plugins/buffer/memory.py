@@ -106,6 +106,12 @@ class MemoryBuffer(Buffer):
         self._cond = asyncio.Condition()
         self._closed = False
 
+    @property
+    def coalescer(self) -> Optional[MicroBatchCoalescer]:
+        """The coalescer ``retarget_shapes`` retargets (None without
+        ``coalesce``): the bus's broadcast passes it over."""
+        return self._coalescer
+
     def retarget_shapes(self, batch_buckets, token_budget, deadline_s, *,
                         expect=None) -> bool:
         """A shape tuner's commit: adopt a new coalesce grid, budget and

@@ -155,13 +155,14 @@ class GpuInferenceProcessor(Processor):
                                      who="gpu_inference")
                 for name, (dtype, trailing) in spec.items()}
 
-    def _pack(self, batch: MessageBatch) -> list[tuple[dict[str, np.ndarray], np.ndarray]]:
+    def _pack(self, batch: MessageBatch,
+              policy: BucketPolicy) -> list[tuple[dict[str, np.ndarray], np.ndarray]]:
         """Tokenize, first-fit-pack every text into rows of the batch's seq
-        bucket, and carve the layout into row windows on the grid."""
+        bucket, and carve the layout into row windows on ``policy``."""
         ids, mask = self._tokenize(batch)
         if self.tuner is not None:  # an executor thread: the sketch locks
             self.tuner.observe(mask.sum(axis=1))
-        return pack_windows(ids, mask, self.runner.buckets)
+        return pack_windows(ids, mask, policy)
 
     # -- output attachment -------------------------------------------------
 
@@ -213,9 +214,18 @@ class GpuInferenceProcessor(Processor):
         """Token-packed inference: tokenize, pack and carve on an executor
         thread, serve the windows concurrently (the runner's in-flight bound
         pipelines them), and scatter each window's per-example outputs back
-        into row order."""
-        windows = await asyncio.get_running_loop().run_in_executor(None, self._pack, batch)
-        outs = await asyncio.gather(*[self.runner.infer(inputs) for inputs, _ in windows])
+        into row order. The windows are padded on the grid they were carved
+        for, held until the last is served: a tuner flip in between (a
+        smaller ``example_scale``) would not fit them."""
+        loop = asyncio.get_running_loop()
+        policy = self.runner.hold_grid()
+        try:
+            windows = await loop.run_in_executor(None, self._pack, batch, policy)
+            outs = await asyncio.gather(*[self.runner.infer(inputs, policy=policy)
+                                          for inputs, _ in windows])
+        finally:
+            if self.runner.let_go(policy):
+                await loop.run_in_executor(None, self.runner.sweep)
         return scatter_windows(windows, outs, batch.num_rows)
 
 

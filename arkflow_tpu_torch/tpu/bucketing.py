@@ -197,15 +197,20 @@ class BucketCapBus:
                  expect: Optional[Sequence[int]] = None) -> None:
         """A tuner commit's broadcast: the coalescers whose current grid is
         ``expect`` (None: all) adopt the clamped grid and budget, and the
-        listeners also the deadline. Scoped by ``expect`` because the bus
+        listeners also the deadline. A listener's own coalescer (its
+        ``coalescer``) follows the listener alone, so it is retargeted once,
+        under the listener's bounds. Scoped by ``expect`` because the bus
         is process-wide: one stream's retune must leave another's grid
-        alone."""
+        alone. A stream binds its tuner to its own buffer, which a commit
+        then retargets directly: the broadcast serves tuners that no stream
+        bound."""
         bb = tuple(sorted(int(b) for b in batch_buckets))
         exp = tuple(sorted(int(b) for b in expect)) if expect is not None else None
         with self._lock:
             cb, ct = self._clamped(bb, token_budget)
+            owned = {id(getattr(listener, "coalescer", None)) for listener in self._listeners}
             for c in list(self._coalescers):
-                if exp is None or c.buckets == exp:
+                if id(c) not in owned and (exp is None or c.buckets == exp):
                     c.retarget(cb, ct)
             for listener in list(self._listeners):
                 try:

@@ -40,7 +40,10 @@ runs on the capture stream after everything enqueued before it and before
 everything enqueued after it, the capture itself runs nothing, and its
 static outputs, like every graph's, stay allocated for as long as the
 graph, so no other graph's intermediates ever take their blocks. The
-copy stream's prefetches allocate outside the pool.
+copy stream's prefetches allocate outside the pool. ``release`` drops a
+graph only after a device synchronisation, with no replay or copy-out of
+it outstanding, and the graph never replays again: its blocks go back to
+the pool's free list, where later captures take them.
 
 Launch counts: a kernel wrapper ticks its ``LaunchCounter`` when the step
 is captured, and the kernel does not run then. The capture's ticks are
@@ -155,6 +158,20 @@ class CompiledStep:
             self._entries.clear()
             self.replays.clear()
             self._pool = None
+
+    def release(self, keys) -> int:
+        """Drop the graphs and static buffers of ``keys`` (keys it does not
+        hold are passed over) once the steps in flight have finished with
+        them; a later step of such a key captures again. Returns the keys
+        dropped."""
+        with self._lock:
+            gone = [k for k in keys if k in self._entries]
+            if gone and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            for k in gone:
+                del self._entries[k]
+                del self.replays[k]
+            return len(gone)
 
     def run(self, key, fn: StepFn, inputs: dict[str, torch.Tensor],
             out: Optional[dict[str, torch.Tensor]] = None,

@@ -23,7 +23,12 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   ``warm_shapes`` and ``warm_shapes_live`` (capture them; the live one
   under the in-flight permit and the first-step deadline, while serving)
   and ``retarget_buckets`` (the atomic flip). Warm captures are counted in
-  ``warm_captures``, apart from the on-path ``captures``.
+  ``warm_captures``, apart from the on-path ``captures``. A step pads
+  against the grid it was given or found at its start, held
+  (``hold_grid``) until it ends: a packed window carved before a flip is
+  padded on the grid it was carved for. ``release_graphs`` drops the graphs
+  of keys in no grid that may still serve (the live one, the tuner's kept
+  rollback grid, the held ones), counted in ``released_graphs``.
 - The dispatch plane of the JAX runner: ``_pad_inputs`` pads into a
   recycled pinned staging set (``StagingPool``); the eager prefetch copies
   it to the device on a copy stream before the in-flight permit, bounded
@@ -92,7 +97,7 @@ import os
 import threading
 import time
 from functools import partial
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -329,6 +334,15 @@ class ModelRunner:
         #: rebuilds replaced
         self._retired_captures = 0
         self._retired_warm = 0
+        #: grids that steps in flight pad against (``hold_grid``): holders
+        self._held: dict[BucketPolicy, int] = {}
+        #: the grids ``release_graphs`` keeps besides the live one
+        self._kept: tuple[BucketPolicy, ...] = ()
+        #: keys of grids nothing serves that a held grid still needs:
+        #: dropped once its last holder lets go
+        self._stale: set = set()
+        #: graphs dropped by ``release_graphs``
+        self.released_graphs = 0
         self._duty = DutyCycle()
         self._dispatch_counts: dict[tuple, int] = {}
         #: model steps run on the device (warmup included)
@@ -376,9 +390,9 @@ class ModelRunner:
 
     def graph_counts(self) -> dict:
         """The tuner report's graph counts: keys held now, on-path and warm
-        captures."""
+        captures, and graphs released."""
         return {"keys": len(self._compiled), "captures": self.captures,
-                "warm_captures": self.warm_captures}
+                "warm_captures": self.warm_captures, "released": self.released_graphs}
 
     @property
     def bucket_cap(self) -> int:
@@ -445,20 +459,22 @@ class ModelRunner:
 
     # -- shape plumbing ----------------------------------------------------
 
-    def _padded_shapes(self, inputs: dict[str, np.ndarray]) -> dict[str, tuple]:
-        """Every input's bucket shape. Packed: the [P, S] row arrays take a
-        batch bucket, the [E] example arrays an example bucket."""
+    def _padded_shapes(self, inputs: dict[str, np.ndarray],
+                       policy: BucketPolicy) -> dict[str, tuple]:
+        """Every input's bucket shape on ``policy``. Packed: the [P, S] row
+        arrays take a batch bucket, the [E] example arrays an example
+        bucket."""
         if self.packed:
-            rows = self.buckets.batch_bucket(inputs["input_ids"].shape[0])
-            examples = self.buckets.example_bucket(inputs["example_row"].shape[0])
+            rows = policy.batch_bucket(inputs["input_ids"].shape[0])
+            examples = policy.example_bucket(inputs["example_row"].shape[0])
         else:
-            rows = examples = self.buckets.batch_bucket(next(iter(inputs.values())).shape[0])
+            rows = examples = policy.batch_bucket(next(iter(inputs.values())).shape[0])
         shapes = {}
         for name, (_, trailing) in self.spec.items():
             arr = inputs.get(name)
             if arr is None:
                 raise ConfigError(f"model {self.family.name!r} missing input {name!r}")
-            dims = tuple(self.buckets.seq_bucket(arr.shape[1]) if d == "seq" else d
+            dims = tuple(policy.seq_bucket(arr.shape[1]) if d == "seq" else d
                          for d in trailing)
             shapes[name] = (rows if "seq" in trailing else examples, *dims)
         return shapes
@@ -471,19 +487,21 @@ class ModelRunner:
                            pinned=self.device.type == "cuda")
         return bufs
 
-    def _pad_inputs(self, inputs: dict[str, np.ndarray],
-                    traffic: bool = True) -> tuple[HostSet, int]:
-        """Pad every input to its bucket, straight into a staging set
-        (``HostSet.arrays``); returns (set, true count: rows, or examples
-        when packed). Rows longer than the top seq bucket are truncated to
-        it. Packed layouts pad P to a batch bucket (dead rows: segment 0)
-        and E to an example bucket (pad examples point at row 0, position 0
-        and are sliced off by the true count); a layout over the grid
-        raises. A ``traffic`` step counts its padding."""
+    def _pad_inputs(self, inputs: dict[str, np.ndarray], traffic: bool = True,
+                    policy: Optional[BucketPolicy] = None) -> tuple[HostSet, int]:
+        """Pad every input to its bucket on ``policy`` (None: the live
+        grid), straight into a staging set (``HostSet.arrays``); returns
+        (set, true count: rows, or examples when packed). Rows longer than
+        the top seq bucket are truncated to it. Packed layouts pad P to a
+        batch bucket (dead rows: segment 0) and E to an example bucket (pad
+        examples point at row 0, position 0 and are sliced off by the true
+        count); a layout over the grid, or over an OOM cap set since it was
+        carved, raises. A ``traffic`` step counts its padding."""
+        policy = policy if policy is not None else self.buckets
         if self.packed:
             p = inputs["input_ids"].shape[0]
             e = inputs["example_row"].shape[0]
-            mb, me = self.buckets.max_batch(), self.buckets.max_examples()
+            mb, me = min(policy.max_batch(), self.bucket_cap), policy.max_examples()
             if p > mb or e > me:
                 raise ConfigError(
                     f"packed batch ({p} rows / {e} examples) exceeds the grid (max {mb} "
@@ -492,7 +510,7 @@ class ModelRunner:
             n = e
         else:
             n = next(iter(inputs.values())).shape[0]
-        bufs = self._staging_set(self._padded_shapes(inputs))
+        bufs = self._staging_set(self._padded_shapes(inputs, policy))
         for name, (dtype, _) in self.spec.items():
             _pad_into(bufs.arrays[name], np.asarray(inputs[name], dtype=dtype))
         if traffic:
@@ -520,8 +538,9 @@ class ModelRunner:
             self.true_tokens += tokens
             self.token_capacity += capacity
 
-    def _prep(self, inputs: dict[str, np.ndarray], traffic: bool = True) -> tuple[HostSet, int]:
-        bufs, n = self._pad_inputs(inputs, traffic)
+    def _prep(self, inputs: dict[str, np.ndarray], traffic: bool = True,
+              policy: Optional[BucketPolicy] = None) -> tuple[HostSet, int]:
+        bufs, n = self._pad_inputs(inputs, traffic, policy)
         try:
             self._check_mask(bufs.arrays)
         except BaseException:
@@ -683,7 +702,8 @@ class ModelRunner:
         return is_oom_error(e) and self._note_oom(bucket_rows) and not self.packed
 
     def infer_sync(self, inputs: dict[str, np.ndarray], *, probe: bool = False,
-                   traffic: bool = True) -> dict[str, np.ndarray]:
+                   traffic: bool = True,
+                   policy: Optional[BucketPolicy] = None) -> dict[str, np.ndarray]:
         """Blocking inference: pad -> device -> unpad. Batches larger than the
         biggest bucket are chunked and the outputs re-concatenated (packed
         layouts are never chunked: their row and example dims differ). With
@@ -692,25 +712,31 @@ class ModelRunner:
         verification step (a golden probe, a swap's probe), which the
         one-shot chaos faults pass over, so that an armed fault lands on
         traffic. ``traffic=False`` (warmup's steps, the tuner's probe) moves
-        no traffic count: rows, padding, dispatch counts, duty cycle."""
+        no traffic count: rows, padding, dispatch counts, duty cycle.
+        ``policy``: the grid to pad on (a packed window's, the grid it was
+        carved for), held for the step; None: the live grid."""
         probing = self.core.heal_gate_sync()
+        held = self.hold_grid(policy)
         try:
-            return self._infer_sync_admitted(inputs, probe, traffic)
+            return self._infer_sync_admitted(inputs, probe, traffic, held)
         except Exception as e:
             if probing:
                 self.core.end_failed_probe(e)
             raise
+        finally:
+            if self.let_go(held):
+                self.sweep()
 
     def _infer_sync_admitted(self, inputs: dict[str, np.ndarray], probe: bool,
-                             traffic: bool) -> dict[str, np.ndarray]:
+                             traffic: bool, policy: BucketPolicy) -> dict[str, np.ndarray]:
         n_total = next(iter(inputs.values())).shape[0]
-        mb = self.buckets.max_batch()
+        mb = policy.max_batch()
         if n_total > mb and not self.packed:
             chunks = [self._infer_sync_admitted({k: v[i: i + mb] for k, v in inputs.items()},
-                                                probe, traffic)
+                                                probe, traffic, policy)
                       for i in range(0, n_total, mb)]
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        bufs, n = self._prep(inputs, traffic)
+        bufs, n = self._prep(inputs, traffic, policy)
         compiled = self._compiled
         deadline = self.core.deadline_for(bufs.key not in compiled)
         try:
@@ -723,7 +749,8 @@ class ModelRunner:
         except Exception as e:
             self._staging.release(bufs)
             if self._after_failure(e, self._bucket_rows(bufs)):
-                return self._infer_sync_admitted(inputs, probe, traffic)
+                # split onto the capped grid, which is the live one
+                return self._infer_sync_admitted(inputs, probe, traffic, self.buckets)
             raise
         self._staging.release(bufs)
         self.health.mark_success()
@@ -741,32 +768,37 @@ class ModelRunner:
             self._sem_loop = loop
 
     async def infer(self, inputs: dict[str, np.ndarray], *, probe: bool = False,
-                    traffic: bool = True) -> dict[str, np.ndarray]:
+                    traffic: bool = True,
+                    policy: Optional[BucketPolicy] = None) -> dict[str, np.ndarray]:
         """Pipelined inference: the heal gate, host prep off the loop, the
         prefetch before the in-flight permit, at most ``max_in_flight``
         steps dispatching at once (and at ``dispatch_depth`` > 1 at most that
         many dispatched and not yet fetched), each under its deadline.
-        ``probe`` and ``traffic`` as for ``infer_sync``."""
+        ``probe``, ``traffic`` and ``policy`` as for ``infer_sync``."""
         probing = await self.core.heal_gate()
+        held = self.hold_grid(policy)
         try:
-            return await self._infer_admitted(inputs, probe, traffic)
+            return await self._infer_admitted(inputs, probe, traffic, held)
         except Exception as e:
             if probing:
                 self.core.end_failed_probe(e)
             raise
+        finally:
+            if self.let_go(held):
+                await asyncio.get_running_loop().run_in_executor(None, self.sweep)
 
     async def _infer_admitted(self, inputs: dict[str, np.ndarray], probe: bool,
-                              traffic: bool) -> dict[str, np.ndarray]:
+                              traffic: bool, policy: BucketPolicy) -> dict[str, np.ndarray]:
         loop = asyncio.get_running_loop()
         n_total = next(iter(inputs.values())).shape[0]
-        mb = self.buckets.max_batch()
+        mb = policy.max_batch()
         if n_total > mb and not self.packed:
             chunks = await asyncio.gather(*[
                 self._infer_admitted({k: v[i: i + mb] for k, v in inputs.items()}, probe,
-                                     traffic)
+                                     traffic, policy)
                 for i in range(0, n_total, mb)])
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        bufs, n = await loop.run_in_executor(None, self._prep, inputs, traffic)
+        bufs, n = await loop.run_in_executor(None, self._prep, inputs, traffic, policy)
         self._ensure_sems()
         compiled = self._compiled
         first = bufs.key not in compiled
@@ -801,8 +833,8 @@ class ModelRunner:
         finally:
             if release is not None:
                 release()
-        if retry:
-            return await self._infer_admitted(inputs, probe, traffic)
+        if retry:  # split onto the capped grid, which is the live one
+            return await self._infer_admitted(inputs, probe, traffic, self.buckets)
         self.health.mark_success()
         return out
 
@@ -932,10 +964,18 @@ class ModelRunner:
                 self._note_oom(dict(key)["input_ids" if self.packed else next(iter(self.spec))][0])
             raise
 
+    def _claim(self, policy: BucketPolicy) -> None:
+        """A grid about to be warmed: its keys leave the stale set, so a
+        pending release does not drop what the warm relies on."""
+        keys = {shape_key(s) for s in self.grid_shapes(policy)}
+        with self._lock:
+            self._stale -= keys
+
     def warm_shapes(self, policy: BucketPolicy) -> int:
         """Capture every key of ``policy`` without a graph, blocking and
         without a deadline (tests, tools; the tuner's cycle runs
         ``warm_shapes_live``). Returns the keys captured."""
+        self._claim(policy)
         keys = self._new_keys(policy)
         for key in keys:
             self._warm_key(self._compiled, key)
@@ -949,6 +989,7 @@ class ModelRunner:
         through its rebuild, which recaptures the incumbent grid's keys
         only -- instead of holding the tuner forever."""
         self._ensure_sems()
+        self._claim(policy)
         loop = asyncio.get_running_loop()
         count = 0
         for key in self._new_keys(policy):
@@ -972,6 +1013,57 @@ class ModelRunner:
         with self._lock:
             old, self.buckets = self.buckets, policy
         return old
+
+    def hold_grid(self, policy: Optional[BucketPolicy] = None) -> BucketPolicy:
+        """Hold ``policy`` (None: the live grid) for a step, or a carve whose
+        windows are padded on it, until ``let_go``: ``release_graphs`` keeps
+        a held grid's graphs. Returns the grid held."""
+        with self._lock:
+            policy = policy if policy is not None else self.buckets
+            self._held[policy] = self._held.get(policy, 0) + 1
+        return policy
+
+    def let_go(self, policy: BucketPolicy) -> bool:
+        """End one hold of ``hold_grid``. True when it was the grid's last
+        and a release is pending: the caller then runs ``sweep`` (off the
+        event loop: it waits for the device)."""
+        with self._lock:
+            self._held[policy] -= 1
+            if self._held[policy]:
+                return False
+            del self._held[policy]
+            return bool(self._stale)
+
+    def release_graphs(self, keep: Optional[Sequence[BucketPolicy]] = None) -> int:
+        """Drop the graphs of every key in no grid that may still serve: the
+        live grid, ``keep`` (None: the grids the last call kept; the tuner
+        keeps the rollback grid of its last commit) and the grids held by
+        steps in flight, whose keys go once their last holder lets go.
+        Returns the graphs dropped now."""
+        with self._lock:
+            if keep is not None:
+                self._kept = tuple(keep)
+            grids = {self.buckets, *self._kept}
+        live = {shape_key(s) for g in grids for s in self.grid_shapes(g)}
+        stale = set(self._compiled.keys()) - live
+        with self._lock:
+            self._stale = stale
+        return self.sweep()
+
+    def sweep(self) -> int:
+        """Drop the stale keys that no live, kept or held grid needs."""
+        with self._lock:
+            grids = {self.buckets, *self._kept, *self._held}
+            stale = set(self._stale)
+        drop = stale - {shape_key(s) for g in grids for s in self.grid_shapes(g)}
+        if not drop:
+            return 0
+        with self._lock:
+            self._stale -= drop
+        n = self._compiled.release(drop)
+        with self._lock:
+            self.released_graphs += n
+        return n
 
     # -- swap and integrity surfaces (tpu/swap.py, tpu/integrity.py) ---------
 
@@ -1058,7 +1150,7 @@ class ModelRunner:
         rep = self.core.health_report()
         rep.update(model=self.family.name, bucket_cap=self.bucket_cap, ooms=self.ooms,
                    captures=self.captures, warm_captures=self.warm_captures,
-                   last_rebuild_ms=self.last_rebuild_ms,
+                   released_graphs=self.released_graphs, last_rebuild_ms=self.last_rebuild_ms,
                    padding={"padded_rows": self.padded_rows,
                             "executed_rows": self.executed_rows,
                             "true_tokens": self.true_tokens,

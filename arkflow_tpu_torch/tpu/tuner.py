@@ -667,6 +667,7 @@ class ShapeTuner:
         try:
             warmed = await self.runner.warm_shapes_live(policy)
         except Exception as e:
+            await self._release_graphs(None)
             self._last_error = str(e)
             self._decide({"action": "warm_failed", "error": str(e),
                           "proposal": proposal.report()})
@@ -685,6 +686,7 @@ class ShapeTuner:
                     member.retarget_buckets(old_policy)
                 except Exception:
                     logger.exception("tuner rollback retarget failed")
+            await self._release_graphs(None)
             self.rollbacks += 1
             self._last_error = str(e)
             self._decide({"action": "rolled_back", "error": str(e),
@@ -712,6 +714,7 @@ class ShapeTuner:
                                deadline_s=shape.deadline_s,
                                expect=self._incumbent.batch_buckets)
         self._incumbent = shape
+        await self._release_graphs(flipped)
         self.epoch += 1
         self.commits += 1
         self.predicted_waste = proposal.predicted_waste
@@ -726,6 +729,21 @@ class ShapeTuner:
         return self._decide({"action": "committed", "epoch": self.epoch,
                              "warmed_shapes": warmed, "new_shapes": n_new,
                              "proposal": proposal.report()})
+
+    async def _release_graphs(self, flipped) -> None:
+        """Each member drops the graphs no grid that may serve needs: after
+        a commit (``flipped``) it keeps its rollback grid, after a failed
+        warm or a rollback (None) the grid it kept before, so a candidate's
+        warm captures go. Off the event loop: a release waits for the
+        device."""
+        loop = asyncio.get_running_loop()
+        members = ([(m, (old,)) for m, old in flipped] if flipped is not None
+                   else [(m, None) for _label, m in self.runner.swap_units()])
+        for member, keep in members:
+            try:
+                await loop.run_in_executor(None, member.release_graphs, keep)
+            except Exception:
+                logger.exception("tuner graph release failed")
 
     @staticmethod
     def _grids_equal(a: ShapeConfig, b: ShapeConfig) -> bool:

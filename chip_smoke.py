@@ -1449,6 +1449,12 @@ def run_tuner_stream(cfg_raw: dict, texts: list[bytes], tune: bool) -> dict:
         "captures_after_warmup": runner.captures - memory.pop("captures_at_warmup"),
         "warm_captures": runner.warm_captures,
         "warm_capture_ms": warm_ms, "keys": len(runner._compiled),
+        "released": runner.released_graphs,
+        # graphs of no grid that may still serve (the live one, the kept
+        # rollback grid), left once every step has drained
+        "stale_keys_at_end": len(set(runner._compiled.keys()) - {
+            shape_key(s) for g in (runner.buckets, *runner._kept)
+            for s in runner.grid_shapes(g)}),
         "grid": {"seq_buckets": list(runner.buckets.seq_buckets),
                  "example_scale": runner.buckets.example_scale,
                  "token_budget": stream.buffer._coalescer.token_budget,
@@ -1466,6 +1472,7 @@ def run_tuner_stream(cfg_raw: dict, texts: list[bytes], tune: bool) -> dict:
     check(k1 == 0 and k2 > 0 and k2 == runner.cfg.layers * runner.packed_steps,
           f"K2 launches != layers x packed steps in the tuner stream: {report}")
     check(report["k2_variants"]["mma"] == k2, f"a K2 launch missed the mma tile: {report}")
+    check(report["stale_keys_at_end"] == 0, f"graphs no grid serves were kept: {report}")
     return {"report": report, "cycles": cycles, "views": views, "runner": runner,
             "labels": np.concatenate(sink.labels), "logits": np.concatenate(sink.logits)}
 
@@ -1591,7 +1598,12 @@ def run_tuner(gen, cfg_raw: dict, known: dict) -> dict:
                             "max": max(tuned["report"]["warm_capture_ms"] or [0])},
         "reserved": [{"action": c["action"], "before": c["before"]["reserved"],
                       "after": c["after"]["reserved"], "keys_before": c["before"]["keys"],
-                      "keys_after": c["after"]["keys"]} for c in cycles],
+                      "keys_after": c["after"]["keys"],
+                      "released_before": c["before"]["released"],
+                      "released_after": c["after"]["released"]} for c in cycles],
+        "released_at_end": tuned["report"]["released"],
+        "reserved_end": {"static": static["report"]["reserved_end"],
+                         "tuned": tuned["report"]["reserved_end"]},
         "captures_after_warmup": {"static": static["report"]["captures_after_warmup"],
                                   "tuned": tuned["report"]["captures_after_warmup"]},
         "k2_launches": static["report"]["k2_launches"] + tuned["report"]["k2_launches"],

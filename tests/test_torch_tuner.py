@@ -237,6 +237,29 @@ def test_bus_retarget_scoping_and_cap_match_jax():
     assert states[0][2][0] == ((4, 8), 450) and states[0][4] == ((2, 4, 8), 800)
 
 
+def test_broadcast_retargets_a_listeners_coalescer_once(monkeypatch):
+    """A buffer's coalescer follows a broadcast through its buffer alone,
+    under the buffer's backpressure bound; a bare coalescer follows the
+    bus."""
+    buf = build_component("buffer", {"type": "memory", "capacity": 4, "timeout": "50ms",
+                                     "coalesce": {"batch_buckets": [4, 8], "deadline": "20ms"}},
+                          Resource())
+    bare = MicroBatchCoalescer([4, 8])
+    bucket_cap_bus().register(bare)
+    calls = []
+    real = MicroBatchCoalescer.retarget
+
+    def counted(self, buckets, token_budget=None):
+        calls.append((self is buf.coalescer, tuple(buckets)))
+        return real(self, buckets, token_budget)
+
+    monkeypatch.setattr(MicroBatchCoalescer, "retarget", counted)
+    bucket_cap_bus().retarget((4, 8, 32), deadline_s=0.01, expect=(4, 8))
+    assert sorted(calls) == [(False, (4, 8, 32)), (True, (4, 8))]
+    assert buf.coalescer.buckets == (4, 8) and bare.buckets == (4, 8, 32)
+    assert buf._deadline_s == 0.01
+
+
 @pytest.mark.parametrize("retarget", [
     ((4, 8, 16), 150, 0.005, (99,)),        # another stream's grid: nothing moves
     ((4, 16), 150, 0.003, (8, 32)),
@@ -402,7 +425,8 @@ def test_forced_cycle_commits_the_jax_grid_and_captures_nothing_on_path(packed):
         _assert_close(port.infer_sync(inputs), jaxr.infer_sync(inputs))
     assert port.captures == captures
     assert tuners[0].report()["graphs"] == {"keys": len(port._compiled), "captures": captures,
-                                            "warm_captures": port.warm_captures}
+                                            "warm_captures": port.warm_captures,
+                                            "released": 0}
 
 
 def test_warm_shapes_captures_a_grid_apart_from_the_path():
@@ -514,6 +538,106 @@ def test_oom_in_a_warm_caps_the_grid_and_the_next_cycle_adopts_it(monkeypatch):
     rep = asyncio.run(go())
     assert port.ooms == 1 and port.buckets.batch_buckets == (4,) and coal.buckets == (4,)
     assert rep["action"] == "committed" and rep["proposal"]["shape"]["batch_buckets"] == [4]
+
+
+def _grid_keys(runner, *policies) -> set:
+    return {shape_key(s) for p in policies for s in runner.grid_shapes(p)}
+
+
+def test_release_keeps_the_live_kept_and_held_grids():
+    """A release drops the graphs of keys in no grid that may still serve:
+    the live one, the kept rollback grid and the grids steps in flight
+    hold, whose keys go when their last holder lets go."""
+    port, _ = _runners(False, _host_params())
+    port.warmup()
+    a, b, c = port.buckets, BucketPolicy(BATCH, (16, 64)), BucketPolicy(BATCH, (24, 64))
+    port.warm_shapes(b)
+    port.retarget_buckets(b)
+    assert port.release_graphs(keep=(a,)) == 0  # a commit keeps its rollback grid
+    held = port.hold_grid(a)  # a window carved on A, not yet padded
+    port.warm_shapes(c)
+    port.retarget_buckets(c)
+    assert port.release_graphs(keep=(b,)) == 0  # A-only keys wait for the holder
+    assert set(port._compiled.keys()) == _grid_keys(port, a, b, c)
+    assert port.let_go(held) and port.sweep() == 2
+    assert set(port._compiled.keys()) == _grid_keys(port, b, c)
+    assert port.graph_counts()["released"] == port.released_graphs == 2
+    # a rollback (no new keep) drops the candidate's warm captures
+    d = BucketPolicy(BATCH, (40, 64))
+    port.warm_shapes(d)
+    assert port.retarget_buckets(d) == c
+    port.retarget_buckets(c)
+    assert port.release_graphs() == 2 and set(port._compiled.keys()) == _grid_keys(port, b, c)
+    # a step on a released key captures it again on the path
+    captures = port.captures
+    port.infer_sync(_batch_inputs(np.random.default_rng(1), np.full(4, 20), False, a),
+                    policy=a)
+    assert port.captures == captures + 1 and port.buckets == c and not port._held
+
+
+def test_commit_and_rollback_release_what_no_grid_serves():
+    """The tuner's cycle releases after each outcome: a commit keeps its
+    rollback grid, a rolled-back candidate's warm captures go."""
+    port, _ = _runners(False, _host_params())
+    port.warmup()
+    static = port.buckets
+    tuner = _clocked(pt, port, False, window=64)
+    _serve(port, tuner, [np.full(8, 12)] * 12, False)
+
+    async def go():
+        first = await tuner.run_cycle(force=True)
+        for ls in [np.full(8, 44)] * 12:
+            tuner.observe(ls)
+        tuner.inject_fault("probe_fail")
+        with pytest.raises(TunerError, match="rolled back"):
+            await tuner.run_cycle(force=True)
+        return first
+
+    first = asyncio.run(go())
+    assert first["action"] == "committed" and tuner.rollbacks == 1
+    committed = port.buckets
+    assert set(port._compiled.keys()) == _grid_keys(port, static, committed)
+    warmed_in_rollback = port.warm_captures - first["warmed_shapes"]
+    assert warmed_in_rollback > 0 and port.released_graphs == warmed_in_rollback
+    assert tuner.report()["graphs"]["released"] == warmed_in_rollback
+
+
+def test_packed_windows_keep_the_grid_they_were_carved_for(monkeypatch):
+    """A flip that lowers ``example_scale`` (8 -> 2) between a batch's
+    carve and its windows' padding: the windows are padded on the grid they
+    were carved for (the flipped grid cannot hold them), and every row comes
+    back equal to the run without the flip."""
+    proc = build_component("processor", {
+        "type": "gpu_inference", "model": "bert_classifier",
+        "model_config": TINY_BERT, "max_seq": 32, "batch_buckets": [4, 8],
+        "seq_buckets": [16, 32], "example_scale": 8, "device": "cpu", "packing": True,
+        "outputs": ["label", "logits"]}, Resource())
+    runner = proc.runner
+    carved_on = runner.buckets
+    flipped = dataclasses.replace(carved_on, example_scale=2)
+    assert flipped.max_examples() < carved_on.max_examples()
+    batch = MessageBatch.new_binary([b"w%d" % i for i in range(160)])
+    want = asyncio.run(proc.process(batch))[0]
+    windows = proc._pack(batch, carved_on)
+    fat = max(windows, key=lambda w: w[0]["example_row"].shape[0])[0]
+    assert fat["example_row"].shape[0] > flipped.max_examples()
+    real = proc._pack
+
+    def pack_then_flip(b, policy):
+        out = real(b, policy)
+        runner.retarget_buckets(flipped)
+        return out
+
+    monkeypatch.setattr(proc, "_pack", pack_then_flip)
+    got = asyncio.run(proc.process(batch))[0]
+    assert runner.buckets == flipped and not runner._held
+    np.testing.assert_array_equal(got.column("label"), want.column("label"))
+    np.testing.assert_array_equal(got.column("logits"), want.column("logits"))
+    with pytest.raises(ConfigError, match="exceeds the grid"):
+        runner.infer_sync(fat)  # the flipped grid's own windows are carved smaller
+    monkeypatch.undo()
+    after = asyncio.run(proc.process(batch))[0]
+    np.testing.assert_allclose(after.column("logits"), want.column("logits"), atol=LOGIT_ATOL)
 
 
 def test_bound_listener_keeps_the_commit_to_its_own_stream():
