@@ -11,14 +11,21 @@ objects. Mutation returns a new batch that shares the unchanged columns.
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 
 from arkflow_tpu_torch.errors import ArkError
 
 DEFAULT_BINARY_VALUE_FIELD = "__value__"
+
 META_SOURCE = "__meta_source"
+META_PARTITION = "__meta_partition"
+META_OFFSET = "__meta_offset"
+META_KEY = "__meta_key"
+META_TIMESTAMP = "__meta_timestamp"
+META_INGEST_TIME = "__meta_ingest_time"
+META_EXT_PREFIX = "__meta_ext_"
 
 
 class BinaryColumn:
@@ -151,6 +158,33 @@ class MessageBatch:
     def with_source(self, source: str) -> "MessageBatch":
         return self.with_column(META_SOURCE, np.full(self._rows, source))
 
+    def with_ext_metadata(self, kv: dict[str, str]) -> "MessageBatch":
+        """Constant free-form metadata columns ``__meta_ext_<k>``, one string
+        per row."""
+        out = self
+        for k, v in kv.items():
+            out = out.with_column(META_EXT_PREFIX + k, np.full(self._rows, str(v)))
+        return out
+
+    def with_ext_metadata_per_row(self, key: str,
+                                  values: Sequence[Optional[str]]) -> "MessageBatch":
+        """Per-row free-form metadata; a ``None`` row has no value."""
+        vals = list(values)
+        col = (np.array(vals, dtype=object) if any(v is None for v in vals)
+               else np.array([str(v) for v in vals]))
+        return self.with_column(META_EXT_PREFIX + key, col)
+
+    def get_meta(self, name: str) -> Any:
+        """First-row value of a metadata column as a Python object, or None
+        when the column is absent or the batch empty."""
+        if not self.has_column(name) or self._rows == 0:
+            return None
+        col = self._cols[name]
+        if isinstance(col, BinaryColumn):
+            return col.slice(0, 1).to_pylist()[0]
+        value = col[0]
+        return value.item() if isinstance(value, np.generic) else value
+
     # -- chunking / merge --------------------------------------------------
 
     def slice(self, offset: int, length: int | None = None) -> "MessageBatch":
@@ -184,13 +218,18 @@ class MessageBatch:
 
 
 def batch_fingerprint(batch: MessageBatch) -> bytes:
-    """Stable identity of a batch across redeliveries, for the stream's
-    delivery-attempt budget: a digest of every column's name, type and
-    bytes. Content-only sources emitting byte-identical batches share one
+    """Stable identity of a batch across redeliveries: a digest of every
+    column's name, type and bytes, leaving out per-delivery noise (the
+    ingest time, and the ext metadata the error path itself stamps). The
+    one definition shared by the stream's delivery-attempt budget and the
+    coalescer's poison-suspect table, whose convergence needs identical
+    keys. Content-only sources emitting byte-identical batches share one
     key, an approximation the JAX package accepts too, since an entry
     clears on success."""
     h = hashlib.blake2b(digest_size=16)
     for name in batch.column_names:
+        if name == META_INGEST_TIME or name.startswith(META_EXT_PREFIX):
+            continue
         col = batch.column(name)
         h.update(name.encode() + b"\0")
         if isinstance(col, BinaryColumn):

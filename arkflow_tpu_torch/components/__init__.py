@@ -1,6 +1,7 @@
 from arkflow_tpu_torch.components.base import (  # noqa: F401
     Ack,
     Buffer,
+    FnAck,
     Input,
     NoopAck,
     Output,

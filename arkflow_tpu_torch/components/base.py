@@ -14,20 +14,28 @@ processors and acks):
 Acks implement at-least-once delivery: an ``Ack`` fires only after the
 batches produced from its read were written downstream. ``VecAck`` composes
 the acks of the sources merged into one emission; ``split_ack`` shares one
-source's ack across the emissions its rows were carved into.
+source's ack across the emissions its rows were carved into. An ack is
+``redeliverable`` when its ``nack`` makes the source deliver the batch
+again in this session: only then does the stream nack a failed batch below
+``max_delivery_attempts`` (a composite is redeliverable when every part is).
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Awaitable, Callable, Optional, Sequence
 
 from arkflow_tpu_torch.batch import MessageBatch
 
 
 class Ack(abc.ABC):
     """Acknowledgement handle delivered alongside every read batch."""
+
+    #: True only when ``nack()`` makes the source deliver the batch again in
+    #: this session, so the stream can count its attempts; otherwise a
+    #: failed batch is quarantined (or dropped) at once instead of nacked
+    redeliverable = False
 
     @abc.abstractmethod
     async def ack(self) -> None:
@@ -51,13 +59,32 @@ class VecAck(Ack):
     def __init__(self, acks: Sequence[Ack] = ()):
         self.acks: list[Ack] = list(acks)
 
+    def push(self, ack: Ack) -> None:
+        self.acks.append(ack)
+
+    @property
+    def redeliverable(self) -> bool:  # type: ignore[override]
+        return bool(self.acks) and all(
+            getattr(a, "redeliverable", False) for a in self.acks)
+
     async def ack(self) -> None:
+        # stops at the first child that raises, as the JAX package's does
         for a in self.acks:
             await a.ack()
 
     async def nack(self) -> None:
         for a in self.acks:
             await a.nack()
+
+
+class FnAck(Ack):
+    """Ack from a coroutine function."""
+
+    def __init__(self, fn: Callable[[], Awaitable[None]]):
+        self._fn = fn
+
+    async def ack(self) -> None:
+        await self._fn()
 
 
 class _SplitState:
@@ -75,6 +102,10 @@ class _PartAck(Ack):
     def __init__(self, state: _SplitState):
         self._state = state
         self._done = False
+
+    @property
+    def redeliverable(self) -> bool:  # type: ignore[override]
+        return bool(getattr(self._state.ack, "redeliverable", False))
 
     async def _resolve(self, nack: bool) -> None:
         if self._done:  # idempotent: a retried ack must not double-count

@@ -4,8 +4,12 @@ Counterpart of ``arkflow_tpu/config.py`` for the keys the port carries.
 JSON and TOML parse with the standard library; YAML only when the ``yaml``
 module imports (otherwise a ``ConfigError`` names the missing module).
 Component configs stay raw ``{"type": ..., **payload}`` mappings for the
-builder registry, which checks their keys. Every key the JAX package reads
-and the port does not carry yet raises ``ConfigError(... not yet ported ...)``.
+builder registry, which checks their keys. The delivery keys the stream
+consumes are taken out of them first, as the JAX package takes them:
+``input.reconnect`` (the reconnect schedule after a ``Disconnection``) and
+``retry`` / ``circuit_breaker`` on ``output`` and ``error_output``. Every
+key the JAX package reads and the port does not carry yet raises
+``ConfigError(... not yet ported ...)``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ _ENGINE_KEYS = ("streams", "logging", "health_check", "description")
 #: ``health_check`` keys the port carries (``profiling_dir``, the JAX
 #: package's ``/debug/profile`` capture, is not ported)
 _HEALTH_KEYS = ("enabled", "host", "port", "path")
-_STREAM_KEYS = ("input", "buffer", "pipeline", "output", "name")
+_STREAM_KEYS = ("input", "buffer", "pipeline", "output", "error_output", "name")
+#: stream keys of the JAX package that the port does not carry yet
+_UNPORTED_STREAM_KEYS = ("temporary", "restart")
 _PIPELINE_KEYS = ("thread_num", "processors", "max_delivery_attempts")
 
 
@@ -32,6 +38,14 @@ def _check_keys(m: Mapping[str, Any], allowed: tuple[str, ...], where: str) -> N
     for key in m:
         if key not in allowed:
             raise not_ported(f"{where}.{key}")
+
+
+def _unwrap_fault(p: Any) -> Any:
+    """A processor config seen through ``type: fault`` wrappers' ``inner``."""
+    while isinstance(p, Mapping) and p.get("type") == "fault" \
+            and isinstance(p.get("inner"), Mapping):
+        p = p["inner"]
+    return p
 
 
 def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
@@ -42,7 +56,7 @@ def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
     their row counts straight back). The component builders cannot see across
     sections, so this runs at parse time."""
     packing_vals = []
-    for p in processors:
+    for p in map(_unwrap_fault, processors):
         if not isinstance(p, Mapping) or p.get("type") != "gpu_inference":
             continue
         packing = p.get("packing", False)
@@ -75,10 +89,7 @@ def _validate_tuner(processors: list[dict]) -> None:
     has nothing to refuse."""
     from arkflow_tpu_torch.tpu.tuner import parse_tuner_config
 
-    for p in processors:
-        while (isinstance(p, Mapping) and p.get("type") == "fault"
-               and isinstance(p.get("inner"), Mapping)):
-            p = p["inner"]
+    for p in map(_unwrap_fault, processors):
         if isinstance(p, Mapping) and p.get("type") == "gpu_inference" \
                 and p.get("tuner") is not None:
             parse_tuner_config(p["tuner"], who="gpu_inference")
@@ -114,18 +125,52 @@ class PipelineConfig:
         return self.thread_num if self.thread_num > 0 else (os.cpu_count() or 1)
 
 
+def _sink_delivery(cfg: dict, where: str) -> tuple[Any, Any]:
+    """Take ``retry`` and ``circuit_breaker`` out of an output config and
+    parse them as the JAX package does (an empty ``retry`` keeps the
+    defaults, a missing or false ``circuit_breaker`` disables it)."""
+    from arkflow_tpu_torch.utils.circuit_breaker import CircuitBreakerConfig
+    from arkflow_tpu_torch.utils.retry import RetryConfig
+
+    if not isinstance(cfg.get("retry", {}) or {}, Mapping):
+        raise ConfigError(f"{where}.retry must be a mapping")
+    retry = cfg.pop("retry", None)
+    breaker = CircuitBreakerConfig.from_config(cfg.pop("circuit_breaker", None))
+    return (RetryConfig.from_config(retry) if retry else None), breaker
+
+
 @dataclass
 class StreamConfig:
     input: dict
     pipeline: PipelineConfig
     output: dict
+    #: where a batch goes once its delivery attempts are spent, tagged with
+    #: ``__meta_ext_error`` and ``__meta_ext_delivery_attempts``; None acks
+    #: and counts it in ``Stream.dropped_batches``
+    error_output: Optional[dict] = None
     buffer: Optional[dict] = None
     name: Optional[str] = None
+    #: retry schedule of ``output.write`` (``output.retry``); None: the
+    #: ``RetryConfig`` defaults
+    output_retry: Optional[Any] = None
+    #: circuit breaker over ``output.write`` (``output.circuit_breaker``);
+    #: None: no breaker
+    output_circuit_breaker: Optional[Any] = None
+    error_output_retry: Optional[Any] = None
+    error_output_circuit_breaker: Optional[Any] = None
+    #: the reconnect schedule after an input ``Disconnection``
+    #: (``input.reconnect``); None: 100 ms doubling to the stream's cap
+    input_reconnect: Optional[Any] = None
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "StreamConfig":
+        from arkflow_tpu_torch.utils.retry import RetryConfig
+
         if not isinstance(m, Mapping):
             raise ConfigError("stream config must be a mapping")
+        for key in _UNPORTED_STREAM_KEYS:
+            if key in m:
+                raise not_ported(f"stream.{key}")
         _check_keys(m, _STREAM_KEYS, "stream")
         for req in ("input", "output"):
             if req not in m:
@@ -133,9 +178,23 @@ class StreamConfig:
         pipeline = PipelineConfig.from_mapping(m.get("pipeline", {}))
         _validate_token_coalesce(m.get("buffer"), pipeline.processors)
         _validate_tuner(pipeline.processors)
-        return cls(input=dict(m["input"]), pipeline=pipeline, output=dict(m["output"]),
+        input_cfg = dict(m["input"])
+        reconnect = input_cfg.pop("reconnect", None)
+        if reconnect is not None and not isinstance(reconnect, Mapping):
+            raise ConfigError("input.reconnect must be a mapping")
+        output_cfg = dict(m["output"])
+        out_retry, out_breaker = _sink_delivery(output_cfg, "output")
+        err_cfg = dict(m["error_output"]) if m.get("error_output") else None
+        err_retry = err_breaker = None
+        if err_cfg is not None:
+            err_retry, err_breaker = _sink_delivery(err_cfg, "error_output")
+        return cls(input=input_cfg, pipeline=pipeline, output=output_cfg,
+                   error_output=err_cfg,
                    buffer=dict(m["buffer"]) if m.get("buffer") else None,
-                   name=m.get("name"))
+                   name=m.get("name"),
+                   output_retry=out_retry, output_circuit_breaker=out_breaker,
+                   error_output_retry=err_retry, error_output_circuit_breaker=err_breaker,
+                   input_reconnect=RetryConfig.from_config(reconnect) if reconnect else None)
 
 
 @dataclass
@@ -212,6 +271,7 @@ class EngineConfig:
         problems: list[str] = []
         for i, s in enumerate(self.streams):
             for family, c in (("input", s.input), ("output", s.output),
+                              *((("output", s.error_output),) if s.error_output else ()),
                               *((("buffer", s.buffer),) if s.buffer else ()),
                               *(("processor", p) for p in s.pipeline.processors)):
                 try:

@@ -1,7 +1,9 @@
 """Error taxonomy of the port (the subset the slice raises).
 
-Mirrors ``arkflow_tpu/errors.py``. ``EndOfInput`` is control flow, not a
-failure: a finite source is exhausted and the stream drains and shuts down.
+Mirrors ``arkflow_tpu/errors.py``. Two errors are control flow, not
+failures: ``EndOfInput`` (a finite source is exhausted; the stream drains
+and shuts down) and ``Disconnection`` (a transient transport loss; the
+stream reconnects the input on a capped exponential schedule).
 """
 
 from __future__ import annotations
@@ -15,6 +17,18 @@ class ConfigError(ArkError):
     """Invalid or missing configuration, or a key the port does not carry."""
 
 
+class ConnectError(ArkError):
+    """Failed to establish a connection to an external system."""
+
+
+class ReadError(ArkError):
+    """Failed to read from an input."""
+
+
+class WriteError(ArkError):
+    """Failed to write to an output."""
+
+
 class ProcessError(ArkError):
     """A processor failed on a batch."""
 
@@ -23,6 +37,13 @@ class EndOfInput(ArkError):
     """Control flow: the input is exhausted; shut the stream down gracefully."""
 
     def __init__(self, msg: str = "end of input"):
+        super().__init__(msg)
+
+
+class Disconnection(ArkError):
+    """Control flow: transient disconnect; the runtime retries the connection."""
+
+    def __init__(self, msg: str = "disconnected"):
         super().__init__(msg)
 
 

@@ -12,7 +12,9 @@ a token-budget-filling row prefix (token mode, for packed serving), with the
 registers with ``bucket_cap_bus()``, so a runner's OOM cap shrinks it, and
 the buffer registers as the bus's shape listener: a shape tuner's commit
 (``tpu/tuner.py``) retargets its grid, token budget and deadline through
-``retarget_shapes``, directly when the stream bound the tuner to it.
+``retarget_shapes``, directly when the stream bound the tuner to it. The
+coalescer's suspects (the sources of a nacked emission, redelivered) leave
+alone and ahead of the held rows, on a deadline flush and on close too.
 
     type: memory
     capacity: 64           # rows (flush threshold; backpressure bound x4)

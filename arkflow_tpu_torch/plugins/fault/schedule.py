@@ -1,21 +1,22 @@
 """Deterministic fault schedules.
 
 Counterpart of ``arkflow_tpu/plugins/fault/schedule.py``. A schedule is a
-list of fault specs consulted once per operation (read or process call) of
-the wrapper that owns it. Triggers:
+list of fault specs consulted once per operation (read, write or process
+call) of the wrapper that owns it. Triggers:
 
 - ``at: N``       fire at the Nth operation (1-based), ``times`` consecutive
                   operations (default 1)
 - ``every: N``    fire on every Nth operation
 - ``rate: 0.05``  seeded random firing probability per operation
 - ``match: "s"``  fire when the batch payload contains the substring
-                  (processor faults only)
+                  (output and processor faults only)
 
 ``times`` bounds the firings (0 = unlimited; 1 by default for ``at``,
-unlimited otherwise). The firing state lives in the spec's own config dict
-(``_state``), so a one-shot fault fires once even if the component is built
-again from the same config. A kind the JAX package knows and the port does
-not carry yet raises "not yet ported".
+unlimited otherwise). ``burst`` (input only) multiplies offered load: each
+firing read is delivered ``factor`` times (default 4). The firing state
+lives in the spec's own config dict (``_state``), so a one-shot fault fires
+once even if the component is built again from the same config. A kind the
+JAX package knows and the port does not carry yet raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class FaultSpec:
     rate: float = 0.0
     times: int = 1  # 0 = unlimited
     duration_s: float = 0.0
+    factor: int = 4  # burst only: offered-load multiplier per firing read
     match: Optional[bytes] = None
     message: str = ""
     #: firing state, shared with the config dict
@@ -69,7 +71,9 @@ def parse_faults(cfg_list: Any, allowed_kinds: frozenset[str], family: str,
         rate = float(raw.get("rate", 0.0))
         match = raw.get("match")
         if match is not None and family == "input":
-            raise ConfigError("fault input: 'match' is only supported on processor faults")
+            # input faults are decided before the read: a match could never fire
+            raise ConfigError(
+                "fault input: 'match' is only supported on output/processor faults")
         if at is None and every is None and rate == 0.0 and match is None:
             raise ConfigError(f"fault {family}: {kind} needs a trigger (at / every / rate / match)")
         if at is not None and (not isinstance(at, int) or at < 1):
@@ -84,8 +88,11 @@ def parse_faults(cfg_list: Any, allowed_kinds: frozenset[str], family: str,
         duration = raw.get("duration")
         if kind == "hang" and duration is None:
             duration = "30s"  # long enough to trip any sane watchdog
+        factor = raw.get("factor", 4)
+        if kind == "burst" and (not isinstance(factor, int) or factor < 2):
+            raise ConfigError(f"fault {family}: burst 'factor' must be an int >= 2")
         specs.append(FaultSpec(
-            kind=kind, at=at, every=every, rate=rate, times=times,
+            kind=kind, at=at, every=every, rate=rate, times=times, factor=factor,
             duration_s=parse_duration(duration) if duration is not None else 0.0,
             match=match.encode() if isinstance(match, str) else match,
             message=str(raw.get("message", f"chaos: injected {kind}")),
@@ -101,10 +108,14 @@ class FaultSchedule:
         self.seed = seed
         self._rng = random.Random(seed)
 
-    def due(self, op: int, payload: Optional[bytes] = None) -> list[FaultSpec]:
-        """Specs firing at 1-based operation ``op``; consumes their budgets."""
+    def due(self, op: int, payload: Optional[bytes] = None,
+            kinds: Optional[frozenset[str]] = None) -> list[FaultSpec]:
+        """Specs (of ``kinds``, None: all) firing at 1-based operation
+        ``op``; consumes their budgets."""
         out: list[FaultSpec] = []
         for spec in self.specs:
+            if kinds is not None and spec.kind not in kinds:
+                continue
             if spec.at is not None:
                 trig = op >= spec.at
             elif spec.every is not None:

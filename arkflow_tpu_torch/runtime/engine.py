@@ -1,9 +1,11 @@
 """Engine: builds and runs every stream of a config, with its health server.
 
 Counterpart of ``arkflow_tpu/runtime/engine.py`` without restart policies:
-build every stream, run them concurrently, and let SIGINT/SIGTERM flip a
-cancellation event that drains them. A crashed stream is logged without
-taking the engine down.
+build every stream (its ``error_output`` with it; ``--validate`` checks
+that output's type and keys too), run them concurrently, and let
+SIGINT/SIGTERM flip a cancellation event that drains them. A crashed
+stream is logged and ends without taking the engine down, as a JAX stream
+with no ``restart`` key does.
 
 With ``health_check: {enabled: true, host, port, path}`` the engine serves
 HTTP/1.1 on the standard library's ``asyncio.start_server`` (the card's

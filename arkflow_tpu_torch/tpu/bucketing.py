@@ -1,8 +1,8 @@
 """Shape bucketing: pad ragged batches onto a small grid of (batch, seq) shapes,
 and coalesce stream batches into emissions that fill that grid.
 
-Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without ``dp_scaled`` and
-suspect-solo isolation. The grid bounds padding waste (each dimension at
+Counterpart of ``arkflow_tpu/tpu/bucketing.py`` without ``dp_scaled``. The
+grid bounds padding waste (each dimension at
 most doubles), keeps the device's working set at a few known shapes (one
 CUDA graph each, ``tpu/compiled_step.py``), and keeps batches and outputs
 identical to the JAX package's for the same input. After a device OOM the
@@ -25,7 +25,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
+from arkflow_tpu_torch.batch import (
+    DEFAULT_BINARY_VALUE_FIELD,
+    BinaryColumn,
+    MessageBatch,
+    batch_fingerprint,
+)
 from arkflow_tpu_torch.components.base import Ack, VecAck, split_ack
 from arkflow_tpu_torch.errors import ConfigError
 from arkflow_tpu_torch.tpu.extract import payload_token_estimates
@@ -249,7 +254,22 @@ class MicroBatchCoalescer:
     Every emission carries a ``VecAck`` over its source acks (or their split
     shares): an acked emission acks exactly the sources whose rows it held,
     a nacked one nacks them.
+
+    Poison isolation: the stream counts delivery attempts per emission
+    fingerprint, so a poison source whose redeliveries kept regrouping with
+    fresh traffic would mint a new fingerprint every round and be nacked
+    forever. The coalescer therefore watches its sources' acks
+    (``_SuspectObserverAck``): the sources of a nacked emission turn
+    suspect, and a suspect re-arriving is emitted alone and first (the
+    ``_solo`` queue), with the fingerprint the stream's budget counts, so
+    quarantine fires. A suspect's final ack (delivered or quarantined)
+    clears it. Hashing happens only on failure paths and on adds and acks
+    whose row count matches a current suspect's.
     """
+
+    #: bound on the suspect table; entries clear on ack, so this only
+    #: matters with thousands of concurrently failing source batches
+    MAX_SUSPECTS = 1024
 
     def __init__(self, batch_buckets: Sequence[int], *,
                  token_budget: Optional[int] = None,
@@ -276,6 +296,15 @@ class MicroBatchCoalescer:
         self._max_row_tokens = max_row_tokens
         #: held entries: (batch, ack, per-row token estimates or None)
         self._held: deque[tuple[MessageBatch, Ack, Optional[np.ndarray]]] = deque()
+        #: suspect (previously nacked) batches, emitted alone and first
+        self._solo: deque[tuple[MessageBatch, Ack, Optional[np.ndarray]]] = deque()
+        #: fingerprint -> row count of each current suspect source batch
+        self._suspects: dict[bytes, int] = {}
+        #: row counts of the current suspects: an add or ack whose row count
+        #: is not here skips the hash
+        self._suspect_rows: set[int] = set()
+        #: suspect batches emitted alone so far
+        self.solo_emissions = 0
         self._rows = 0
         self._tokens = 0
 
@@ -290,8 +319,14 @@ class MicroBatchCoalescer:
 
     @property
     def pending(self) -> int:
-        """Held entries, zero-row batches whose acks still wait included."""
-        return len(self._held)
+        """Held entries (suspects' solo entries and zero-row batches whose
+        acks still wait included)."""
+        return len(self._held) + len(self._solo)
+
+    @property
+    def suspects(self) -> int:
+        """Source batches currently suspect."""
+        return len(self._suspects)
 
     def cap(self, max_bucket: int) -> None:
         """Shrink the target grid after a device OOM (``BucketCapBus``):
@@ -333,9 +368,29 @@ class MicroBatchCoalescer:
                                            max_tokens=self._max_row_tokens)
         return np.full(batch.num_rows, self._max_row_tokens or 1, dtype=np.int64)
 
+    # -- suspect tracking --------------------------------------------------
+
+    def _mark_suspect(self, batch: MessageBatch) -> None:
+        key = batch_fingerprint(batch)
+        if key not in self._suspects and len(self._suspects) >= self.MAX_SUSPECTS:
+            self._suspects.pop(next(iter(self._suspects)))
+        self._suspects[key] = batch.num_rows
+        self._suspect_rows.add(batch.num_rows)
+
+    def _clear_suspect(self, batch: MessageBatch) -> None:
+        if batch.num_rows not in self._suspect_rows:
+            return  # prefilter: a healthy ack never hashes
+        if self._suspects.pop(batch_fingerprint(batch), None) is not None:
+            self._suspect_rows = set(self._suspects.values())
+
     def add(self, batch: MessageBatch, ack: Ack) -> None:
+        ack = _SuspectObserverAck(self, batch, ack)
         lens = self._row_tokens(batch) if self.token_budget is not None else None
-        self._held.append((batch, ack, lens))
+        if (batch.num_rows in self._suspect_rows
+                and batch_fingerprint(batch) in self._suspects):
+            self._solo.append((batch, ack, lens))
+        else:
+            self._held.append((batch, ack, lens))
         self._rows += batch.num_rows
         if lens is not None:
             self._tokens += int(lens.sum())
@@ -409,10 +464,23 @@ class MicroBatchCoalescer:
         self._tokens -= took_tokens
         return MessageBatch.concat(parts), VecAck(acks)
 
+    def _pop_solo(self) -> Optional[tuple[MessageBatch, Ack]]:
+        if not self._solo:
+            return None
+        batch, ack, lens = self._solo.popleft()
+        self.solo_emissions += 1
+        self._rows -= batch.num_rows
+        if lens is not None:
+            self._tokens -= int(lens.sum())
+        return batch, ack
+
     def pop_exact(self) -> Optional[tuple[MessageBatch, Ack]]:
-        """Next full emission: exactly ``target`` rows (row mode) or a
-        ``token_budget``-filling row prefix (token mode); None until held
-        rows reach it."""
+        """Next emission: a suspect batch alone, else exactly ``target``
+        rows (row mode) or a ``token_budget``-filling row prefix (token
+        mode); None until held rows reach it."""
+        emission = self._pop_solo()
+        if emission is not None:
+            return emission
         if self.token_budget is not None:
             if self._tokens < self.token_budget:
                 return None
@@ -422,6 +490,8 @@ class MicroBatchCoalescer:
         return self._carve(self.target)
 
     def _take_all(self) -> tuple[MessageBatch, Ack]:
+        """Every held (non-suspect) entry as one emission; called with the
+        solo queue drained."""
         parts = [b for b, _, _ in self._held]
         acks = VecAck([a for _, a, _ in self._held])
         self._held.clear()
@@ -434,7 +504,8 @@ class MicroBatchCoalescer:
         LARGEST bucket the held rows fill exactly (40 rows against [8, 16,
         32] emit 32, then 8), and the sub-minimum remainder as one batch.
         Token mode: full-budget emissions first, then the whole remainder as
-        one batch (the packer right-sizes its row count to a smaller bucket)."""
+        one batch (the packer right-sizes its row count to a smaller bucket).
+        Suspects drain through ``pop_exact`` first."""
         emission = self.pop_exact()
         if emission is not None:
             return emission
@@ -445,3 +516,30 @@ class MicroBatchCoalescer:
             if fitting:
                 return self._carve(fitting[-1])
         return self._take_all()
+
+
+class _SuspectObserverAck:
+    """A source's ack as the coalescer holds it: a nack marks the source
+    suspect (its redelivery emits alone), a final ack (delivered or
+    quarantined) clears it."""
+
+    __slots__ = ("_coalescer", "_batch", "_inner")
+
+    def __init__(self, coalescer: MicroBatchCoalescer, batch: MessageBatch, inner: Ack):
+        self._coalescer = coalescer
+        self._batch = batch
+        self._inner = inner
+
+    @property
+    def redeliverable(self) -> bool:
+        return bool(getattr(self._inner, "redeliverable", False))
+
+    async def ack(self) -> None:
+        self._coalescer._clear_suspect(self._batch)
+        await self._inner.ack()
+
+    async def nack(self) -> None:
+        # mark before the inner nack: the source may requeue at once, and
+        # the redelivered write must already see the suspicion
+        self._coalescer._mark_suspect(self._batch)
+        await self._inner.nack()

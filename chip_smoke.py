@@ -68,6 +68,27 @@ last line):
    same snapshots), beside the next pow2 bucket, held per element to
    ``emulate_mma_tile`` (the ``tuner stream``, ``tuner cycles``, ``tuner
    outputs`` and ``tuner`` lines);
+   the delivery phase, run between the packed stream and the tuner
+   (``arkflow_tpu_torch/examples/bert_delivery_stream.json``:
+   the packed stream behind a redelivering ``fault`` input over a
+   ``memory`` source of one text a message, with one disconnect whose
+   first reconnect probe fails, a processor fault failing every batch
+   holding ``poison``, an output whose writes 5-7 fail under its retry and
+   circuit breaker, ``max_delivery_attempts`` 3 and an ``error_output``)
+   over ``DELIVERY_TEXTS`` (4096) seeded texts, ``DELIVERY_POISON`` (4) of
+   them poisoned, graphed, beside a fault-free run of the same texts
+   without the markers or faults: every clean row delivered exactly once,
+   each poison row quarantined alone with ``delivery_attempts`` 3, no
+   quarantine drop, 3 output retries, one breaker trip and the breaker
+   closed, one reconnect after one failed probe, no delivery outstanding
+   and no suspect left at EOF, labels equal to the fault-free run's on
+   tie-free rows and logits within 1/64, K2 = layers x packed steps (all
+   ``mma``, no K1) and 0 captures after warmup in both runs; the cost of a
+   poison record (solo emissions, their steps and token fill, rows/s of
+   both runs); then ``chaos_stream.json`` through the CLI (each healthy
+   row printed once, the poison row once) and through ``Engine`` with JAX's
+   example's counts (the ``delivery``, ``delivery cost`` and ``chaos
+   example`` lines);
 7. the int8 stream ``arkflow_tpu_torch/examples/int8_bert_stream.json``
    (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
    int8) -> drop) through ``Engine``, and the same config at bfloat16: every
@@ -186,10 +207,11 @@ last line):
     served bit for bit as a processor built on it, a ``swap_crash``
     rolled back;
 13. the MoE phase (``llama_moe_stream.json``: the generate stream with a
-    Switch MoE at Llama-3-8B widths, 8 experts, 16 layers, depth 1; the
-    dense models freed first, the peak memory read from the phase's
-    start): the stream graphed through ``Engine`` with the generate
-    stream's checks (K3 = 16 x (decode + chunk steps), all ``mma``, the
+    Switch MoE at Llama-3-8B widths, 8 experts, depth 1, its 16 layers cut
+    to ``MOE_LAYERS`` (8); the dense models freed first, the peak memory
+    read from the phase's start): the stream graphed through ``Engine``
+    with the generate stream's checks (K3 = 8 x (decode + chunk steps),
+    all ``mma``, the
     parity gate passed with the routing held), its step times against the
     bound of reading every expert, ``graphs moe``, a padded chunk's logits
     finite through K3, greedy streams of a graphed and an eager server
@@ -314,6 +336,8 @@ BATCH_CONFIG = os.path.join(EXAMPLES, "llama_batch_stream.json")
 MOE_CONFIG = os.path.join(EXAMPLES, "llama_moe_stream.json")
 VIT_CONFIG = os.path.join(EXAMPLES, "vit_stream.json")
 LSTM_CONFIG = os.path.join(EXAMPLES, "lstm_stream.json")
+DELIVERY_CONFIG = os.path.join(EXAMPLES, "bert_delivery_stream.json")
+CHAOS_CONFIG = os.path.join(EXAMPLES, "chaos_stream.json")
 #: where the generate lifecycle phase writes its 16 GB checkpoint (in a
 #: temporary directory it removes; the directory is ignored by git)
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
@@ -335,6 +359,9 @@ GEN_CHECK_NEW = 32
 #: the MoE phase: the generate stream's 12 distinct texts through the path
 #: comparisons, 32 new tokens each (48 until the tuner phase took the
 #: time); batch mode's one bucket
+#: the MoE phase's depth (the example's 16 layers, cut to pay for the
+#: delivery phase)
+MOE_LAYERS = 8
 MOE_CHECK_PROMPTS = 12
 MOE_CHECK_NEW = 32
 MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
@@ -1247,6 +1274,252 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
                "ms_per_step": statistics.median(t) / steps[name]}
         for name, t in times.items()}), flush=True)
     return report
+
+
+#: the delivery phase: ``bert_delivery_stream.json`` fed DELIVERY_TEXTS
+#: seeded texts of 40-120 words, one a message; DELIVERY_POISON of them, one
+#: in each quarter of the stream at a seeded position, carry the word
+#: ``poison``, on which the stream's processor fault fails every batch
+DELIVERY_TEXTS = 4096
+DELIVERY_POISON = 4
+DELIVERY_ATTEMPTS = 3
+
+
+def delivery_texts(seed: int) -> tuple[list[str], list[int]]:
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(5000)]
+    texts = [f"msg{i} " + " ".join(rng.choice(vocab, size=int(n)))
+             for i, n in enumerate(rng.integers(40, 120, size=DELIVERY_TEXTS))]
+    quarter = DELIVERY_TEXTS // DELIVERY_POISON
+    poison_at = [q * quarter + int(rng.integers(quarter // 8, quarter - quarter // 8))
+                 for q in range(DELIVERY_POISON)]
+    return texts, poison_at
+
+
+def delivery_config(cfg_raw: dict, texts: list[str], faults: bool) -> dict:
+    """The delivery stream over ``texts`` with logits among its outputs;
+    without ``faults``, every fault wrapper and the error_output removed
+    (the fault-free run of the same texts)."""
+    raw = json.loads(json.dumps(cfg_raw))
+    s = raw["streams"][0]
+    proc = s["pipeline"]["processors"][0]["inner"]
+    proc["outputs"] = ["label", "score", "logits"]
+    if faults:
+        s["input"]["inner"]["messages"] = texts
+    else:
+        s["input"] = {"type": "memory", "messages": texts}
+        s["pipeline"]["processors"] = [proc]
+        s["output"] = s["output"]["inner"]
+        del s["error_output"]
+    return raw
+
+
+class TaggedSink(Output):
+    """Wraps an output: keeps every batch it is handed (payloads, the named
+    columns and the quarantine tags), then passes it on."""
+
+    def __init__(self, inner: Output, names: tuple = ()):
+        self.inner = inner
+        self.names = names
+        self.rows: list[tuple] = []
+        self.batches: list[tuple] = []
+
+    async def connect(self) -> None:
+        await self.inner.connect()
+
+    async def write(self, batch: MessageBatch) -> None:
+        cols = [np.asarray(batch.column(n)) for n in self.names]
+        for i, p in enumerate(batch.to_binary()):
+            self.rows.append((p, *(c[i] for c in cols)))
+        self.batches.append((batch.num_rows, batch.get_meta("__meta_ext_error"),
+                             batch.get_meta("__meta_ext_delivery_attempts")))
+        await self.inner.write(batch)
+
+    async def close(self) -> None:
+        await self.inner.close()
+
+
+def run_delivery_stream(raw: dict, label: str) -> dict:
+    """One delivery run through ``Engine``, graphed: the counts zeroed just
+    before it and read just after; the captures at warmup and at the end;
+    each traffic step's examples and token fill."""
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]
+    runner = getattr(proc, "_inner", proc).runner
+    memory: dict = {}
+    measure_warmup(runner, memory)
+    warm = runner.warmup
+
+    def warmup(*args):
+        n = warm(*args)
+        memory["captures_at_warmup"] = runner.captures
+        return n
+
+    runner.warmup = warmup
+    steps: list[tuple[int, int, int]] = []
+    count_padding = runner._count_padding
+
+    def counted(inputs, bufs):
+        count_padding(inputs, bufs)
+        steps.append((int(inputs["example_row"].shape[0]),
+                      int(np.count_nonzero(np.asarray(inputs["segment_ids"]) > 0)),
+                      int(bufs.arrays["input_ids"].size)))
+
+    runner._count_padding = counted
+    names = ("label", "logits")
+    if stream.error_output is not None:
+        stream.output._inner = sink = TaggedSink(stream.output._inner, names)
+        stream.error_output = quarantine = TaggedSink(stream.error_output)
+    else:
+        stream.output = sink = TaggedSink(stream.output, names)
+        quarantine = None
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    single = [s for s in steps if s[0] == 1]
+    report = {
+        "label": label, "rows_out": stream.rows_out, "seconds": seconds,
+        "traffic_seconds": stream.traffic_seconds,
+        "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+        "packed_steps": runner.packed_steps, "traffic_steps": len(steps),
+        "k1_launches": ra.launches.value, "k2_launches": sa.launches.value,
+        "k2_variants": dict(sa.launches.variants), "layers": runner.cfg.layers,
+        "captures_after_warmup": runner.captures - memory.get("captures_at_warmup", 0),
+        "single_text_steps": len(single),
+        "single_text_token_fill": (sum(s[1] for s in single) / max(1, sum(s[2] for s in single))),
+        "token_fill": runner.true_tokens / max(1, runner.token_capacity),
+        "duty_cycle": runner.duty_cycle(), **memory}
+    return {"report": report, "stream": stream, "sink": sink, "quarantine": quarantine}
+
+
+def run_chaos_example() -> dict:
+    """``chaos_stream.json`` through the CLI (the printed rows), and through
+    ``Engine`` with its outputs kept (the counts): each healthy row once,
+    the poison row quarantined after 3 attempts, 3 write retries, one trip."""
+    cli = subprocess.run([sys.executable, "-m", "arkflow_tpu_torch", "--config", CHAOS_CONFIG],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    printed = sorted(line for line in cli.stdout.splitlines() if line.startswith("{"))
+    with open(CHAOS_CONFIG) as f:
+        raw = json.load(f)
+    raw["health_check"]["enabled"] = False
+    raw["streams"][0]["output"]["inner"] = raw["streams"][0]["error_output"] = {"type": "drop"}
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    stream.output._inner = sink = TaggedSink(stream.output._inner)
+    stream.error_output = quarantine = TaggedSink(stream.error_output)
+    asyncio.run(engine.run())
+    breaker = stream._out_breaker
+    report = {"cli_rc": cli.returncode, "cli_printed": printed,
+              "delivered": len(sink.rows), "quarantined": quarantine.batches,
+              "output_retries": stream.output_retries, "errors": stream.errors,
+              "breaker": breaker.history, "trips": breaker.trips,
+              "reconnect_probes": stream.input._reconnects}
+    print("chaos example " + json.dumps(report), flush=True)
+    want = sorted(json.dumps({"id": i, "kind": "poison" if i == 3 else "ok"})
+                  for i in range(1, 7))
+    check(cli.returncode == 0 and printed == want,
+          f"the chaos example's CLI run printed other rows: {report} {cli.stderr[-2000:]}")
+    check(report["delivered"] == 5 and len(sink.rows) == len({r[0] for r in sink.rows}),
+          f"the chaos example delivered other rows: {report}")
+    check(quarantine.batches == [(1, "chaos: injected error", "3")],
+          f"the chaos example's poison row was not quarantined after 3 attempts: {report}")
+    check(stream.output_retries == 3 and breaker.trips == 1 and breaker.state == "closed"
+          and stream.errors == 3 and stream.input._reconnects == 1,
+          f"the chaos example's counts differ from the JAX example's: {report}")
+    return report
+
+
+def run_delivery(cfg_raw: dict) -> dict:
+    """The delivery phase: the delivery stream over DELIVERY_TEXTS texts, 4
+    poisoned, beside a fault-free run of the same texts without the
+    markers; then the chaos example."""
+    t_phase = time.perf_counter()
+    texts, poison_at = delivery_texts(seed=15)
+    faulty = list(texts)
+    for i in poison_at:
+        faulty[i] = texts[i].replace(" ", " poison ", 1)
+    clean_run = run_delivery_stream(delivery_config(cfg_raw, texts, faults=False), "fault-free")
+    fault_run = run_delivery_stream(delivery_config(cfg_raw, faulty, faults=True), "delivery")
+    stream, sink, quarantine = fault_run["stream"], fault_run["sink"], fault_run["quarantine"]
+    rep, clean_rep = fault_run["report"], clean_run["report"]
+    inp = stream.input
+    breaker = stream._out_breaker
+    coalescer = stream.buffer.coalescer
+    poison = sorted(faulty[i].encode() for i in poison_at)
+    clean = sorted(t.encode() for i, t in enumerate(texts) if i not in poison_at)
+    delivered = sorted(r[0] for r in sink.rows)
+    quarantined = sorted(p for p in (r[0] for r in quarantine.rows))
+    want = {r[0]: (int(r[1]), np.asarray(r[2], np.float32)) for r in clean_run["sink"].rows}
+    got = {r[0]: (int(r[1]), np.asarray(r[2], np.float32)) for r in sink.rows}
+    tie_free = mismatches = 0
+    max_err = 0.0
+    for p, (label, logits) in got.items():
+        ref_label, ref_logits = want[p]
+        max_err = max(max_err, float(np.abs(logits - ref_logits).max()))
+        top2 = np.sort(ref_logits)
+        if top2[-1] - top2[-2] > LABEL_MARGIN:
+            tie_free += 1
+            mismatches += int(label != ref_label)
+    report = {
+        **rep, "texts": len(texts), "poison_at": poison_at,
+        "clean_delivered_once": delivered == clean,
+        "quarantined_batches": stream.quarantined_batches, "quarantine": quarantine.batches,
+        "quarantined_are_the_poison": quarantined == poison,
+        "errors": stream.errors, "write_errors": stream.write_errors,
+        "quarantine_drops": stream.quarantine_drops, "output_retries": stream.output_retries,
+        "ack_failures": stream.ack_failures,
+        "breaker_trips": breaker.trips, "breaker_state": breaker.state,
+        "breaker_history": breaker.history,
+        "reconnects": stream.reconnects, "reconnect_failures": stream.reconnect_failures,
+        "outstanding_at_eof": inp._outstanding, "redeliveries": inp.redeliveries,
+        "solo_emissions": coalescer.solo_emissions, "suspects_at_end": coalescer.suspects,
+        "tie_free_rows": tie_free, "label_mismatches_tie_free": mismatches,
+        "max_logit_abs_err": max_err, "logit_tol": LOGIT_TOL,
+        "fault_free": {k: clean_rep[k] for k in (
+            "rows_out", "traffic_rows_per_s", "packed_steps", "traffic_steps", "k2_launches",
+            "captures_after_warmup", "single_text_steps", "token_fill", "duty_cycle")}}
+    print("delivery " + json.dumps(report), flush=True)
+    check(report["clean_delivered_once"] and stream.rows_out == len(clean),
+          f"not every clean row was delivered exactly once: {report}")
+    check(report["quarantined_are_the_poison"]
+          and quarantine.batches == [(1, "chaos: injected error", str(DELIVERY_ATTEMPTS))]
+          * DELIVERY_POISON and stream.quarantined_batches == DELIVERY_POISON,
+          f"the poison rows were not each quarantined alone after "
+          f"{DELIVERY_ATTEMPTS} attempts: {report}")
+    check(stream.quarantine_drops == 0 and stream.output_retries == 3
+          and stream.write_errors == 0 and breaker.trips == 1 and breaker.state == "closed",
+          f"the output's retries or breaker differ: {report}")
+    check(stream.reconnects == 1 and stream.reconnect_failures == 1,
+          f"the input did not reconnect once after one failed probe: {report}")
+    check(inp._outstanding == 0 and coalescer.suspects == 0,
+          f"deliveries or suspects left over at EOF: {report}")
+    check(tie_free >= len(got) // 2 and mismatches == 0 and max_err <= LOGIT_TOL,
+          f"delivered outputs differ from the fault-free run's: {report}")
+    for r in (rep, clean_rep):
+        check(r["k2_launches"] > 0 and r["k2_launches"] == r["layers"] * r["packed_steps"]
+              and r["k2_variants"].get("mma") == r["k2_launches"] and r["k1_launches"] == 0,
+              f"K2 launches != layers x packed steps, or a non-mma or K1 launch: {r}")
+        check(r["captures_after_warmup"] == 0, f"a graph was captured on the path: {r}")
+    check(clean_rep["rows_out"] == len(texts) and clean_run["stream"].errors == 0,
+          f"the fault-free run lost rows: {clean_rep}")
+    chaos = run_chaos_example()
+    cost = {"solo_emissions": coalescer.solo_emissions,
+            "single_text_steps": rep["single_text_steps"],
+            "single_text_token_fill": rep["single_text_token_fill"],
+            "traffic_steps": rep["traffic_steps"],
+            "fault_free_traffic_steps": clean_rep["traffic_steps"],
+            "traffic_rows_per_s": rep["traffic_rows_per_s"],
+            "fault_free_traffic_rows_per_s": clean_rep["traffic_rows_per_s"],
+            "token_fill": rep["token_fill"], "fault_free_token_fill": clean_rep["token_fill"],
+            "k2_launches": rep["k2_launches"] + clean_rep["k2_launches"],
+            "seconds": rep["seconds"], "fault_free_seconds": clean_rep["seconds"],
+            "phase_seconds": time.perf_counter() - t_phase}
+    print("delivery cost " + json.dumps(cost), flush=True)
+    return {"report": report, "cost": cost, "chaos": chaos}
 
 
 #: the tuner phase's stream: ``bert_adaptive_stream.json`` fed TUNER_ROWS
@@ -2766,7 +3039,7 @@ def moe_decode_bound_ms(cfg) -> float:
 
 def run_moe(cfg_raw: dict) -> dict:
     """The MoE phase: ``llama_moe_stream.json`` (Switch top-1, 8 experts,
-    Llama-3-8B widths, 16 layers) through ``Engine`` graphed (the stream
+    Llama-3-8B widths, ``MOE_LAYERS`` layers) through ``Engine`` graphed (the stream
     checks of ``run_generate_slice``: rows in order, K3 = layers x (decode
     + chunk + verify steps), all ``mma``, the parity gate passed, no page
     leaked), its step times, ``graphs moe``, a padded chunk through K3,
@@ -4387,6 +4660,10 @@ def main() -> int:
     phases.mark("packed")
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
+    with open(DELIVERY_CONFIG) as f:
+        delivery = run_delivery(json.load(f))
+    torch.cuda.empty_cache()
+    phases.mark("delivery")
     with open(ADAPTIVE_CONFIG) as f:
         tuner = run_tuner(gen, json.load(f), pow2_cases)
     torch.cuda.empty_cache()
@@ -4466,6 +4743,7 @@ def main() -> int:
     phases.mark("generation features")
     with open(MOE_CONFIG) as f:
         moe_raw = json.load(f)
+    moe_raw["streams"][0]["pipeline"]["processors"][0]["model_config"]["layers"] = MOE_LAYERS
     moe = run_moe(moe_raw)
     ab["moe"] = {"graphed": ab_numbers(moe["report"]), "eager": ab_numbers(moe["eager"])}
     graphs["moe"] = moe["graphs"]
@@ -4523,7 +4801,8 @@ def main() -> int:
         "name": "segment_flash_attention", "route": "cuda",
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
-        "launches": packed["report"]["k2_launches"] + tuner["k2_launches"], "ok": True,
+        "launches": (packed["report"]["k2_launches"] + tuner["k2_launches"]
+                     + delivery["cost"]["k2_launches"]), "ok": True,
         **kernel_line(k2_main), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K2"] for s, c in tuner["kernels"].items()},
     }, {

@@ -2,8 +2,8 @@
 neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
 paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
-batch and MoE streams, the ViT and LSTM tensor streams, and the adaptive
-stream with a forced tuner cycle) needs pyarrow,
+batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
+stream with a forced tuner cycle, and the chaos and BERT delivery streams) needs pyarrow,
 yaml or aiohttp at import time or at run time. ``transformers`` is
 imported only inside ``HFTokenizer``."""
 
@@ -165,6 +165,23 @@ asyncio.run(ad_engine.run())
 assert ad_stream.output.dropped_rows == 64 and ad_stream.errors == 0, ad_stream.errors
 ad_cycle = asyncio.run(ad_stream.tuners()[0].run_cycle(force=True))
 assert ad_cycle["action"] in ("committed", "rejected"), ad_cycle
+chaos_cfg = json.load(open("arkflow_tpu_torch/examples/chaos_stream.json"))
+chaos_cfg["streams"][0]["output"]["inner"] = {"type": "drop"}
+chaos_cfg["streams"][0]["error_output"] = {"type": "drop"}
+chaos_engine = Engine(EngineConfig.from_mapping(chaos_cfg))
+chaos_stream = chaos_engine.build()[0]
+asyncio.run(chaos_engine.run())
+assert chaos_stream.rows_out == 5 and chaos_stream.quarantined_batches == 1, chaos_stream.errors
+assert chaos_stream.output_retries == 3 and chaos_stream._out_breaker.trips == 1
+dl_cfg = json.load(open("arkflow_tpu_torch/examples/bert_delivery_stream.json"))
+dl_cfg["streams"][0]["pipeline"]["processors"][0]["inner"].update(
+    model_config={**tiny, "max_positions": 256}, device="cpu", warmup=False)
+dl_engine = Engine(EngineConfig.from_mapping(dl_cfg))
+dl_stream = dl_engine.build()[0]
+asyncio.run(dl_engine.run())
+dl_texts = dl_cfg["streams"][0]["input"]["inner"]["messages"]
+assert dl_stream.rows_out == len(dl_texts) - 1 and dl_stream.quarantined_batches == 1
+assert dl_stream.reconnects == 1 and dl_stream.input._outstanding == 0
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

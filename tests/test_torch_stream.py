@@ -166,7 +166,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("where,patch", [
     ("stream", {"temporary": [{"name": "t", "type": "memory"}]}),
-    ("stream", {"error_output": {"type": "drop"}}),
+    ("stream", {"restart": {"max_retries": 1}}),
     ("pipeline", {"ingest_shards": 2}),
     ("processor", {"response_cache": {"capacity": 8}}),
     ("processor", {"device_pool": 2}),
