@@ -9,7 +9,8 @@ processors and acks):
 - ``Processor`` batch -> list of batches. An empty list drops the batch
                 (and acks it); more than one entry fans out.
 - ``Buffer``    write-side accumulator between input and pipeline
-                (micro-batchers).
+                (micro-batchers and windows).
+- ``Codec``     payload bytes <-> typed columns (``Decoder`` + ``Encoder``).
 
 Acks implement at-least-once delivery: an ``Ack`` fires only after the
 batches produced from its read were written downstream. ``VecAck`` composes
@@ -196,3 +197,18 @@ class Buffer(abc.ABC):
 
     async def close(self) -> None:
         return None
+
+
+class Decoder(abc.ABC):
+    @abc.abstractmethod
+    def decode(self, payload: bytes) -> MessageBatch: ...
+
+
+class Encoder(abc.ABC):
+    @abc.abstractmethod
+    def encode(self, batch: MessageBatch) -> list[bytes]:
+        """One payload per logical message (often one per row)."""
+
+
+class Codec(Encoder, Decoder, abc.ABC):
+    """Bidirectional codec."""

@@ -28,6 +28,7 @@ _REGISTRIES: dict[str, dict[str, tuple[Builder, frozenset, Optional[Check]]]] = 
     "output": {},
     "processor": {},
     "buffer": {},
+    "codec": {},
 }
 
 
@@ -61,6 +62,11 @@ def register_processor(type_name: str, keys: Iterable[str] = (),
 def register_buffer(type_name: str, keys: Iterable[str] = (),
                     check: Optional[Check] = None):
     return _register("buffer", type_name, keys, check)
+
+
+def register_codec(type_name: str, keys: Iterable[str] = (),
+                   check: Optional[Check] = None):
+    return _register("codec", type_name, keys, check)
 
 
 def registered_types(family: str) -> list[str]:

@@ -33,6 +33,10 @@ class ProcessError(ArkError):
     """A processor failed on a batch."""
 
 
+class CodecError(ArkError):
+    """Encode/decode failure."""
+
+
 class EndOfInput(ArkError):
     """Control flow: the input is exhausted; shut the stream down gracefully."""
 

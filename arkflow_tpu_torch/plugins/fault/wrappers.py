@@ -117,7 +117,7 @@ def _batch_bytes(batch: MessageBatch) -> bytes:
     try:
         return b"\n".join(batch.to_binary())
     except ArkError:
-        return repr({n: batch.column(n) for n in batch.column_names}).encode()
+        return repr(batch.to_pydict()).encode()
 
 
 class _TrackingAck(Ack):

@@ -1,7 +1,7 @@
 """Synthetic generator input: the slice's source.
 
-Counterpart of ``arkflow_tpu/plugins/input/generate.py`` without codecs or
-tenant stamping. Config:
+Counterpart of ``arkflow_tpu/plugins/input/generate.py`` without tenant
+stamping (``tenants`` raises "not yet ported"). Config:
 
     type: generate
     payload: 'hello world'            # one payload for every row, or
@@ -9,6 +9,10 @@ tenant stamping. Config:
     interval: 10ms                    # optional; 0 = as fast as pulled
     batch_size: 64
     count: 2048                       # optional total-row cap, then EOF
+    codec: json                       # optional; raw __value__ bytes otherwise
+
+With a codec, the rows of the template are decoded once, when it is built,
+and every batch is a slice of the decoded template.
 """
 
 from __future__ import annotations
@@ -20,12 +24,13 @@ from typing import Optional
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.components import Ack, Input, NoopAck, Resource, register_input
 from arkflow_tpu_torch.errors import ConfigError, EndOfInput
+from arkflow_tpu_torch.plugins.codec.helper import build_codec, check_codec, decode_payloads
 from arkflow_tpu_torch.utils.duration import parse_duration
 
 
 class GenerateInput(Input):
     def __init__(self, payloads: list[bytes], interval_s: float, batch_size: int,
-                 count: Optional[int]):
+                 count: Optional[int], codec=None):
         if batch_size <= 0:
             raise ConfigError("generate.batch_size must be positive")
         if not payloads:
@@ -34,6 +39,7 @@ class GenerateInput(Input):
         self.interval_s = interval_s
         self.batch_size = batch_size
         self.count = count
+        self.codec = codec
         self._emitted = 0
         self._template: Optional[MessageBatch] = None
 
@@ -52,14 +58,15 @@ class GenerateInput(Input):
         # across the rows of the template
         if self._template is None or self._template.num_rows < n:
             size = max(n, self.batch_size)
-            self._template = MessageBatch.new_binary(
-                [self.payloads[i % len(self.payloads)] for i in range(size)])
+            self._template = decode_payloads(
+                [self.payloads[i % len(self.payloads)] for i in range(size)], self.codec)
         batch = self._template if n == self._template.num_rows else self._template.slice(0, n)
         self._emitted += n
         return batch.with_source("generate"), NoopAck()
 
 
-@register_input("generate", keys=("payload", "payloads", "interval", "batch_size", "count"))
+@register_input("generate", keys=("payload", "payloads", "interval", "batch_size", "count",
+                                  "codec"), check=check_codec)
 def _build(config: dict, resource: Resource) -> GenerateInput:
     mix = config.get("payloads")
     if mix is not None:
@@ -79,4 +86,5 @@ def _build(config: dict, resource: Resource) -> GenerateInput:
         interval_s=parse_duration(config.get("interval", 0)),
         batch_size=int(config.get("batch_size", 1)),
         count=int(config["count"]) if config.get("count") is not None else None,
+        codec=build_codec(config.get("codec"), resource),
     )

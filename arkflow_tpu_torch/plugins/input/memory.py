@@ -1,17 +1,18 @@
-"""Static in-config message list, one binary row a message; EOF when
-drained.
+"""Static in-config message list, one message a read; EOF when drained.
 
-Counterpart of ``arkflow_tpu/plugins/input/memory.py`` without codecs:
+Counterpart of ``arkflow_tpu/plugins/input/memory.py``:
 
     type: memory
     messages: ['first text', 'second text']   # a mapping or list entry is
                                               # sent as its JSON text
+    codec: json                               # optional
 
-Each read returns one message as a one-row batch in the ``__value__``
-column, stamped ``__meta_source: memory``. ``connect`` rewinds to the first
-message (a ``fault`` wrapper connects its inner input once, so its
-reconnect probes do not rewind). ``codec``, ``tenant`` and
-``pause_on_overload`` raise "not yet ported".
+Each read returns one message, stamped ``__meta_source: memory``: decoded
+by the codec when one is set (each message on its own), else as a one-row
+batch in the ``__value__`` column. ``connect`` rewinds to the first message
+(a ``fault`` wrapper connects its inner input once, so its reconnect probes
+do not rewind). ``tenant`` and ``pause_on_overload`` raise "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ from collections import deque
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.components import Ack, Input, NoopAck, Resource, register_input
 from arkflow_tpu_torch.errors import ConfigError, EndOfInput
+from arkflow_tpu_torch.plugins.codec.helper import build_codec, check_codec, decode_payloads
 
 
 class MemoryInput(Input):
-    def __init__(self, messages: list[bytes]):
+    def __init__(self, messages: list[bytes], codec=None):
         self._initial = list(messages)
+        self.codec = codec
         self._queue: deque[bytes] = deque()
 
     async def connect(self) -> None:
@@ -35,7 +38,7 @@ class MemoryInput(Input):
     async def read(self) -> tuple[MessageBatch, Ack]:
         if not self._queue:
             raise EndOfInput()
-        batch = MessageBatch.new_binary([self._queue.popleft()])
+        batch = decode_payloads([self._queue.popleft()], self.codec)
         return batch.with_source("memory"), NoopAck()
 
 
@@ -53,8 +56,10 @@ def _check(config: dict) -> None:
         raise ConfigError("memory input requires 'messages'")
     if not isinstance(msgs, (list, tuple)):
         raise ConfigError("memory input 'messages' must be a list")
+    check_codec(config)
 
 
-@register_input("memory", keys=("messages",), check=_check)
+@register_input("memory", keys=("messages", "codec"), check=_check)
 def _build(config: dict, resource: Resource) -> MemoryInput:
-    return MemoryInput([_encode(m) for m in config["messages"]])
+    return MemoryInput([_encode(m) for m in config["messages"]],
+                       codec=build_codec(config.get("codec"), resource))

@@ -86,7 +86,7 @@ import torch
 
 from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
-from arkflow_tpu_torch.errors import ConfigError, ProcessError
+from arkflow_tpu_torch.errors import ArkError, ConfigError, ProcessError
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.decoder import make_key, split_key
 from arkflow_tpu_torch.tpu.batch_generate import BatchGenerator
@@ -164,10 +164,11 @@ class GpuGenerateProcessor(Processor):
     async def process(self, batch: MessageBatch) -> list[MessageBatch]:
         if batch.num_rows == 0:
             return []
-        col = batch.column(self.text_field)
-        if not isinstance(col, BinaryColumn):
-            raise ProcessError(f"gpu_generate: column {self.text_field!r} is not a binary column")
-        ids, mask = self.tokenizer.encode_batch_view(col.values, col.offsets, self.max_input)
+        try:  # a binary or string column; a null row is empty text
+            values, offsets = batch.payload_view(self.text_field)
+        except ArkError as e:
+            raise ProcessError(f"gpu_generate: {e}") from e
+        ids, mask = self.tokenizer.encode_batch_view(values, offsets, self.max_input)
         lengths = mask.sum(axis=1).astype(np.int32)
         if self.server is None:
             flat, offsets = await self._process_batch(ids, lengths)

@@ -85,9 +85,9 @@ from typing import Optional
 
 import numpy as np
 
-from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, BinaryColumn, MessageBatch
+from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, MessageBatch
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
-from arkflow_tpu_torch.errors import ConfigError, ProcessError
+from arkflow_tpu_torch.errors import ArkError, ConfigError, ProcessError
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
 from arkflow_tpu_torch.tpu.integrity import build_integrity_monitor, parse_integrity_config
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
@@ -129,11 +129,13 @@ class GpuInferenceProcessor(Processor):
     # -- input extraction --------------------------------------------------
 
     def _tokenize(self, batch: MessageBatch) -> tuple[np.ndarray, np.ndarray]:
-        """Tokenize the payload column off its buffer view."""
-        col = batch.column(self.text_field)
-        if not isinstance(col, BinaryColumn):
-            raise ProcessError(f"gpu_inference: column {self.text_field!r} is not a binary column")
-        return self.tokenizer.encode_batch_view(col.values, col.offsets, self.max_seq)
+        """Tokenize the text column (binary or string; a null row is empty
+        text) off its buffer view."""
+        try:
+            values, offsets = batch.payload_view(self.text_field)
+        except ArkError as e:
+            raise ProcessError(f"gpu_inference: {e}") from e
+        return self.tokenizer.encode_batch_view(values, offsets, self.max_seq)
 
     def _extract(self, batch: MessageBatch) -> dict[str, np.ndarray]:
         """Token models: tokenize, and cut the ids to the seq bucket of the

@@ -27,8 +27,8 @@ import numpy as np
 
 from arkflow_tpu_torch.batch import (
     DEFAULT_BINARY_VALUE_FIELD,
-    BinaryColumn,
     MessageBatch,
+    VarlenColumn,
     batch_fingerprint,
 )
 from arkflow_tpu_torch.components.base import Ack, VecAck, split_ack
@@ -359,11 +359,11 @@ class MicroBatchCoalescer:
             self.token_budget = max(1, int(token_budget))
 
     def _row_tokens(self, batch: MessageBatch) -> np.ndarray:
-        """Per-row estimates off the payload column. A batch without a usable
-        payload column counts each row as ``max_row_tokens`` (or 1), so
+        """Per-row estimates off the payload column (binary or string). A
+        batch without a usable payload column counts each row as ``max_row_tokens`` (or 1), so
         malformed traffic still flows instead of wedging the budget."""
         col = batch.column(self._token_field) if batch.has_column(self._token_field) else None
-        if isinstance(col, BinaryColumn):
+        if isinstance(col, VarlenColumn):
             return payload_token_estimates(col, token_bytes=self._token_bytes,
                                            max_tokens=self._max_row_tokens)
         return np.full(batch.num_rows, self._max_row_tokens or 1, dtype=np.int64)

@@ -4,10 +4,10 @@ tensor families.
 
 Counterpart of ``arkflow_tpu/tpu/extract.py`` (``payload_token_estimates``,
 ``extract_tensor``, ``_binary_matrix``), reading the port's columns with
-numpy: a ``BinaryColumn`` (values + offsets, Arrow's binary layout) in
-vectorized passes over its buffers, no per-row Python; an N-D numeric numpy
-column, the port's counterpart of Arrow's fixed-size lists. Ragged list
-columns come with the json codec and raise "not yet ported".
+numpy: a binary or string column (values + offsets, Arrow's binary layout)
+in vectorized passes over its buffers, no per-row Python; an N-D numeric
+numpy column, the port's counterpart of Arrow's fixed-size lists; a list
+column (the json codec's ``[[...], ...]`` values) flattened fully.
 """
 
 from __future__ import annotations
@@ -16,8 +16,14 @@ from typing import Optional
 
 import numpy as np
 
-from arkflow_tpu_torch.batch import BinaryColumn, MessageBatch
-from arkflow_tpu_torch.errors import ProcessError, not_ported
+from arkflow_tpu_torch.batch import (
+    BinaryColumn,
+    MessageBatch,
+    ObjectColumn,
+    VarlenColumn,
+    column_to_pylist,
+)
+from arkflow_tpu_torch.errors import ProcessError
 
 #: ragged binary rows of at most this mean length (bytes) are copied by one
 #: flat gather; longer ones by a slice copy each
@@ -35,9 +41,9 @@ _TOK_SPACE[[ord(c) for c in " \t\n\r\x0b\x0c"]] = True
 _TOK_SINGLE = ~(_TOK_WORD | _TOK_SPACE)
 
 
-def payload_token_estimates(col: BinaryColumn, *, token_bytes: Optional[float] = None,
+def payload_token_estimates(col: VarlenColumn, *, token_bytes: Optional[float] = None,
                             max_tokens: Optional[int] = None) -> np.ndarray:
-    """Per-row token-count estimates ([n] int64).
+    """Per-row token-count estimates ([n] int64) of a binary or string column.
 
     Default mode equals the hash tokenizer's count exactly: word runs plus
     standalone punctuation bytes, plus 2 specials ([CLS]/[SEP]).
@@ -126,7 +132,9 @@ def extract_tensor(batch: MessageBatch, field: str, name: str, dtype: str,
       per row and reshaped; float32 targets are scaled from uint8 by 1/255
       (images);
     - N-D numeric columns (fixed-size lists): reshaped to ``want`` per row;
-    - 1-D numeric columns: only when ``want`` is scalar-compatible.
+    - (nested) list columns: flattened fully, as Arrow's ``flatten`` does
+      (a null list adds nothing, a null value is NaN), and reshaped;
+    - 1-D columns: only when ``want`` is scalar-compatible.
     """
     if not batch.has_column(field):
         raise ProcessError(f"{who}: column {field!r} not found for model input {name!r}")
@@ -140,8 +148,16 @@ def extract_tensor(batch: MessageBatch, field: str, name: str, dtype: str,
             # the divide, without the intermediate copy
             return out / np.float32(255.0)
         return out.astype(dtype, copy=False)
-    if col.dtype == object:
-        raise not_ported(f"{who}: ragged list column {field!r} (the json codec)")
+    if isinstance(col, ObjectColumn) and isinstance(col.type, tuple) \
+            and col.type[0] in ("list", "fixed_size_list"):
+        arr = _flatten_lists(col).astype(dtype, copy=False)
+        try:
+            return arr.reshape(n, *want)
+        except ValueError as e:
+            raise ProcessError(
+                f"{who}: column {field!r} does not reshape to {want} per row: {e}") from e
+    if not isinstance(col, np.ndarray):
+        col = np.array([np.nan if v is None else v for v in column_to_pylist(col)])
     arr = col.astype(dtype, copy=False)
     if arr.ndim > 1:
         try:
@@ -153,3 +169,39 @@ def extract_tensor(batch: MessageBatch, field: str, name: str, dtype: str,
         raise ProcessError(
             f"{who}: column {field!r} is scalar per row but input {name!r} wants {want}")
     return arr.reshape(n, *([1] * len(want)))
+
+
+def _list_depth(t) -> tuple[int, object]:
+    """How many list levels a type nests, and its leaf type."""
+    depth = 0
+    while isinstance(t, tuple) and t[0] in ("list", "fixed_size_list"):
+        t, depth = t[1], depth + 1
+    return depth, t
+
+
+def _flatten_lists(col: ObjectColumn) -> np.ndarray:
+    """Every leaf value of a (nested) list column in row order, as numpy:
+    rows of one shape in one conversion, others through a walk."""
+    depth, leaf = _list_depth(col.type)
+    dtype = {"bool": np.bool_, "int64": np.int64, "int32": np.int32}.get(leaf, np.float64)
+    if all(row is not None for row in col.values):
+        try:
+            return np.array(col.values, dtype=dtype).reshape(-1)
+        except (ValueError, TypeError):  # ragged, or holding nulls
+            pass
+    flat: list = []
+
+    def walk(v: list, level: int) -> None:
+        if level == 1:
+            flat.extend(v)
+            return
+        for x in v:
+            if x is not None:
+                walk(x, level - 1)
+
+    for row in col.values:
+        if row is not None:
+            walk(row, depth)
+    if any(x is None for x in flat):
+        return np.array([np.nan if x is None else x for x in flat], np.float64)
+    return np.array(flat, dtype=dtype)

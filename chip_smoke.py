@@ -88,7 +88,25 @@ last line):
    both runs); then ``chaos_stream.json`` through the CLI (each healthy
    row printed once, the poison row once) and through ``Engine`` with JAX's
    example's counts (the ``delivery``, ``delivery cost`` and ``chaos
-   example`` lines);
+   example`` lines); the json phase, run right after the packed stream on
+   the padded and packed streams' runners: ``bert_json_stream.json``
+   (generate of ``{"id", "text"}`` JSON rows -> memory buffer with
+   token-budget coalescing -> json_to_arrow -> gpu_inference(packing,
+   ``text_field: text``) -> arrow_to_json(id, label, score)) over
+   ``JSON_PACKED_ROWS`` (4096) rows, K2 = layers x packed steps, all
+   ``mma``; ``bert_window_json_stream.json`` (a memory input with the json
+   codec, ``JSON_WINDOW_ROWS`` (2048) messages -> tumbling_window 20ms ->
+   gpu_inference padded -> arrow_to_json), K1 = layers x steps, all
+   ``mma``, the windows' sizes; in both every payload an object of exactly
+   id, label and score, every row once and in order, each label and score
+   that of the same text through the padded runner (scores within 1/64,
+   labels on tie-free rows); after the LSTM phase, its stream fed JSON
+   ``window`` lists through a memory input with the json codec
+   (``LSTM_JSON_WINDOWS``, 1024) and arrow_to_json(score) on its graphed
+   runner, every score the raw-bytes run's at the float32 floor; rows/s
+   of each beside the raw stream's (the ``json stream``, ``json rows``,
+   ``json lstm`` and ``json`` lines; the protobuf codec is not driven:
+   the card's machine has no protoc);
 7. the int8 stream ``arkflow_tpu_torch/examples/int8_bert_stream.json``
    (generate -> memory buffer -> gpu_inference(BERT-base, serving_dtype
    int8) -> drop) through ``Engine``, and the same config at bfloat16: every
@@ -187,7 +205,7 @@ last line):
     step 10 (same rows);
 12. the generation features: the serving stream
     ``llama_serving_stream.json`` (8 slots, chunk 128, speculative 3,
-    prefix cache 64 pages; ``SERVING_ROWS`` (24) rows behind one 96-token
+    prefix cache 64 pages; ``SERVING_ROWS`` (16) rows behind one 96-token
     instruction) graphed: rows in order, the pages still held are the cache's alone,
     K3 = layers x (chunk + verify steps), all ``mma``, hits, reused pages,
     evictions, drafts and accepted drafts reported; its rows against a
@@ -208,9 +226,9 @@ last line):
     rolled back;
 13. the MoE phase (``llama_moe_stream.json``: the generate stream with a
     Switch MoE at Llama-3-8B widths, 8 experts, depth 1, its 16 layers cut
-    to ``MOE_LAYERS`` (8); the dense models freed first, the peak memory
+    to ``MOE_LAYERS`` (4); the dense models freed first, the peak memory
     read from the phase's start): the stream graphed through ``Engine``
-    with the generate stream's checks (K3 = 8 x (decode + chunk steps),
+    with the generate stream's checks (K3 = 4 x (decode + chunk steps),
     all ``mma``, the
     parity gate passed with the routing held), its step times against the
     bound of reading every expert, ``graphs moe``, a padded chunk's logits
@@ -338,6 +356,8 @@ VIT_CONFIG = os.path.join(EXAMPLES, "vit_stream.json")
 LSTM_CONFIG = os.path.join(EXAMPLES, "lstm_stream.json")
 DELIVERY_CONFIG = os.path.join(EXAMPLES, "bert_delivery_stream.json")
 CHAOS_CONFIG = os.path.join(EXAMPLES, "chaos_stream.json")
+JSON_CONFIG = os.path.join(EXAMPLES, "bert_json_stream.json")
+WINDOW_JSON_CONFIG = os.path.join(EXAMPLES, "bert_window_json_stream.json")
 #: where the generate lifecycle phase writes its 16 GB checkpoint (in a
 #: temporary directory it removes; the directory is ignored by git)
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
@@ -352,16 +372,17 @@ GEN_SWAP_LAYERS = 2
 BATCH_SWAP_LAYERS = 2
 GEN_CHECK_PROMPTS = 16
 #: rows of the serving stream and of the sampled generate stream (the
-#: examples' 48 until the tuner phase took the time; 24 serving rows still
-#: share the instruction's cached pages)
-SERVING_ROWS = 24
+#: examples' 48 until the tuner phase took the time, 24 until the json
+#: phase did; 16 serving rows, two waves of its 8 slots, still share the
+#: instruction's cached pages)
+SERVING_ROWS = 16
 GEN_CHECK_NEW = 32
 #: the MoE phase: the generate stream's 12 distinct texts through the path
 #: comparisons, 32 new tokens each (48 until the tuner phase took the
 #: time); batch mode's one bucket
-#: the MoE phase's depth (the example's 16 layers, cut to pay for the
-#: delivery phase)
-MOE_LAYERS = 8
+#: the MoE phase's depth (the example's 16 layers, cut to 8 to pay for the
+#: delivery phase, to 4 for the json phase)
+MOE_LAYERS = 4
 MOE_CHECK_PROMPTS = 12
 MOE_CHECK_NEW = 32
 MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
@@ -1280,6 +1301,188 @@ def compare_packed_paths(packed: ModelRunner, padded: ModelRunner, proc_cfg: dic
 #: seeded texts of 40-120 words, one a message; DELIVERY_POISON of them, one
 #: in each quarter of the stream at a seeded position, carry the word
 #: ``poison``, on which the stream's processor fault fails every batch
+#: rows of the packed JSON stream, messages of the windowed one, windows of
+#: the LSTM JSON stream (the first of the LSTM phase's)
+JSON_PACKED_ROWS = 4096
+JSON_WINDOW_ROWS = 2048
+LSTM_JSON_WINDOWS = 1024
+JSON_KEYS = ["id", "label", "score"]
+#: a two-class score above sigmoid(LABEL_MARGIN) has a top-2 logit gap above it
+TIE_FREE_SCORE = 1.0 / (1.0 + math.exp(-LABEL_MARGIN))
+
+
+def run_json_stream(cfg_raw: dict, runner, label: str) -> dict:
+    """A JSON example through ``Engine`` with its ``gpu_inference`` runner
+    replaced by ``runner`` (warm already: the processor's warmup is off),
+    its output wrapped to keep every payload in order and its buffer's
+    emissions counted; the launch counts are zeroed just before the run and
+    read just after."""
+    raw = json.loads(json.dumps(cfg_raw))
+    for proc in raw["streams"][0]["pipeline"]["processors"]:
+        if proc["type"] == "gpu_inference":
+            proc["warmup"] = False
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    proc = next(p for p in stream.pipeline.processors if hasattr(p, "runner"))
+    proc.runner = runner
+    sink = stream.output = OrderedSink(stream.output)
+    emitted: list[int] = []
+    inner_read = stream.buffer.read
+
+    async def read():
+        item = await inner_read()
+        if item is not None:
+            emitted.append(item[0].num_rows)
+        return item
+
+    stream.buffer.read = read
+    before = {"device_steps": runner.device_steps, "packed_steps": runner.packed_steps,
+              "captures": runner.captures}
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [json.loads(p) for p in sink.payloads]
+    check(bool(emitted), f"the {label} JSON stream's buffer emitted nothing")
+    report = {"rows_out": stream.rows_out, "errors": stream.errors, "seconds": wall,
+              "traffic_seconds": stream.traffic_seconds,
+              "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+              "emissions": len(emitted),
+              "emission_rows": {"min": min(emitted), "median": statistics.median(emitted),
+                                "max": max(emitted)},
+              "device_steps": runner.device_steps - before["device_steps"],
+              "packed_steps": runner.packed_steps - before["packed_steps"],
+              "captures_on_path": runner.captures - before["captures"],
+              "layers": runner.cfg.layers,
+              "k1_launches": ra.launches.value, "k1_variants": dict(ra.launches.variants),
+              "k2_launches": sa.launches.value, "k2_variants": dict(sa.launches.variants)}
+    print(f"json stream {label} " + json.dumps(report), flush=True)
+    check(stream.errors == 0, f"the {label} JSON stream reported errors: {report}")
+    return {"report": report, "rows": rows}
+
+
+def check_json_rows(rows: list[dict], ids: list[int], ref: dict, label: str) -> dict:
+    """Every output payload a JSON object of exactly ``JSON_KEYS``, the ids
+    in order and each once, and every label and score that of the same text
+    through the padded runner (``ref``, by text index ``id % len``): scores
+    within 1/64, labels equal where the reference's top-2 gap clears
+    ``LABEL_MARGIN``."""
+    n = len(ref["score"])
+    keys_ok = all(isinstance(r, dict) and list(r) == JSON_KEYS for r in rows)
+    got_ids = [r.get("id") for r in rows]
+    want_score = ref["score"][[i % n for i in ids]]
+    want_label = ref["label"][[i % n for i in ids]]
+    score = np.array([r["score"] for r in rows], np.float64) if keys_ok else np.zeros(0)
+    tie_free = want_score > TIE_FREE_SCORE
+    report = {"rows": len(rows), "keys_exact": keys_ok, "ids_in_order_once": got_ids == ids,
+              "tie_free_rows": int(tie_free.sum()),
+              "max_score_abs_err": float(np.abs(score - want_score).max()) if keys_ok else None,
+              "label_mismatches_tie_free": int(sum(
+                  r["label"] != int(w) for r, w, t in zip(rows, want_label, tie_free) if t))
+              if keys_ok else None}
+    print(f"json rows {label} " + json.dumps(report), flush=True)
+    check(keys_ok, f"{label}: an output payload is not an object of {JSON_KEYS}: {report}")
+    check(report["ids_in_order_once"], f"{label}: rows lost, repeated or reordered: {report}")
+    check(report["max_score_abs_err"] <= LOGIT_TOL, f"{label}: scores off the padded run: {report}")
+    check(report["label_mismatches_tie_free"] == 0,
+          f"{label}: tie-free labels differ from the padded run: {report}")
+    return report
+
+
+def run_json(runner: ModelRunner, prunner: ModelRunner, ab: dict) -> dict:
+    """The packed JSON stream (``bert_json_stream.json``: generate of JSON
+    rows -> memory buffer -> json_to_arrow -> gpu_inference packed, K2 ->
+    arrow_to_json) on the packed stream's runner, and the windowed one
+    (``bert_window_json_stream.json``: memory input with the json codec ->
+    tumbling_window -> gpu_inference padded, K1 -> arrow_to_json) on the
+    padded stream's runner; each row's label and score held to the same
+    text through the padded runner, rows/s beside the raw stream's."""
+    with open(JSON_CONFIG) as f:
+        packed_raw = json.load(f)
+    packed_in = packed_raw["streams"][0]["input"]
+    packed_in["count"] = JSON_PACKED_ROWS
+    texts = [p["text"] for p in packed_in["payloads"]]
+    proc_cfg = next(p for p in packed_raw["streams"][0]["pipeline"]["processors"]
+                    if p["type"] == "gpu_inference")
+    ids, mask = HashTokenizer(runner.cfg.vocab_size).encode_batch(
+        [t.encode() for t in texts], proc_cfg["max_seq"])
+    ref = runner.infer_sync({"input_ids": ids, "attention_mask": mask})
+
+    packed = run_json_stream(packed_raw, prunner, "packed")
+    rep = packed["report"]
+    check(rep["k2_launches"] > 0 and rep["k2_launches"] == rep["layers"] * rep["packed_steps"],
+          f"packed JSON stream: K2 launches != layers x packed steps: {rep}")
+    check(rep["k1_launches"] == 0, f"the packed JSON stream launched K1: {rep}")
+    check(rep["k2_variants"].get("mma") == rep["k2_launches"],
+          f"a packed JSON stream K2 launch missed the mma tile: {rep}")
+    batch = packed_in["batch_size"]
+    want_ids = [i % len(texts) for n in range(0, JSON_PACKED_ROWS, batch)
+                for i in range(min(batch, JSON_PACKED_ROWS - n))]
+    packed_rows = check_json_rows(packed["rows"], want_ids, ref, "packed")
+
+    with open(WINDOW_JSON_CONFIG) as f:
+        window_raw = json.load(f)
+    window_raw["streams"][0]["input"]["messages"] = [
+        {"id": i, "text": texts[i % len(texts)]} for i in range(JSON_WINDOW_ROWS)]
+    window = run_json_stream(window_raw, runner, "window")
+    rep = window["report"]
+    check(rep["k1_launches"] > 0 and rep["k1_launches"] == rep["layers"] * rep["device_steps"],
+          f"windowed JSON stream: K1 launches != layers x device steps: {rep}")
+    check(rep["k2_launches"] == 0, f"the windowed JSON stream launched K2: {rep}")
+    check(rep["k1_variants"].get("mma") == rep["k1_launches"],
+          f"a windowed JSON stream K1 launch missed the mma tile: {rep}")
+    window_rows = check_json_rows(window["rows"], list(range(JSON_WINDOW_ROWS)), ref, "window")
+    return {"packed": {**packed["report"], **packed_rows},
+            "window": {**window["report"], **window_rows},
+            "rows_per_s": {
+                "packed_json": packed["report"]["traffic_rows_per_s"],
+                "packed_raw": ab["packed"]["graphed"]["traffic_rows_per_s"],
+                "window_json": window["report"]["traffic_rows_per_s"],
+                "padded_raw": ab["padded"]["graphed"]["traffic_rows_per_s"]}}
+
+
+def run_lstm_json(cfg_raw: dict, lstm: dict) -> dict:
+    """``lstm_stream.json`` with its windows as the JAX config has them: a
+    memory input with the json codec, one ``{"window": [256 floats]}``
+    message a window (the LSTM phase's first ``LSTM_JSON_WINDOWS``, the same
+    float32 values its bytes scale to), ``tensor_field: window`` and
+    ``arrow_to_json(score)``, on the LSTM phase's graphed runner; every
+    score held to the raw-bytes run's at the float32 floor."""
+    raw = json.loads(json.dumps(cfg_raw))
+    stream_cfg = raw["streams"][0]
+    values = lstm["values"][:LSTM_JSON_WINDOWS]
+    stream_cfg["input"] = {"type": "memory", "codec": "json",
+                           "messages": [{"window": v.reshape(-1).tolist()} for v in values]}
+    stream_cfg["pipeline"]["processors"][0].update(tensor_field="window", warmup=False)
+    stream_cfg["pipeline"]["processors"].append({"type": "arrow_to_json", "fields": ["score"]})
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    proc = stream.pipeline.processors[0]
+    proc.runner = lstm["runner"]
+    sink = stream.output = OrderedSink(stream.output)
+    reset_counts()
+    asyncio.run(engine.run())
+    torch.cuda.synchronize()
+    rows = [json.loads(p) for p in sink.payloads]
+    keys_ok = all(list(r) == ["score"] for r in rows)
+    got = np.array([r["score"] for r in rows], np.float32) if keys_ok else np.zeros(0)
+    want = lstm["scores"][:LSTM_JSON_WINDOWS]
+    err = np.abs(got - want) if got.shape == want.shape else np.array([np.inf])
+    report = {"windows": len(rows), "keys_exact": keys_ok, "errors": stream.errors,
+              "traffic_windows_per_s": stream.rows_out / stream.traffic_seconds,
+              "raw_traffic_windows_per_s": lstm["report"]["traffic_windows_per_s"],
+              "max_abs_err_vs_raw": float(err.max()),
+              "within_f32_floor": bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))),
+              "launches": {"k1": ra.launches.value, "k2": sa.launches.value}}
+    print("json lstm " + json.dumps(report), flush=True)
+    check(stream.errors == 0 and keys_ok and len(rows) == LSTM_JSON_WINDOWS,
+          f"the LSTM JSON stream lost or misshaped rows: {report}")
+    check(report["within_f32_floor"], f"LSTM JSON scores off the raw-bytes run: {report}")
+    return report
+
+
+
 DELIVERY_TEXTS = 4096
 DELIVERY_POISON = 4
 DELIVERY_ATTEMPTS = 3
@@ -4469,9 +4672,9 @@ def run_lstm(cfg_raw: dict) -> dict:
     check(report["graphed_equals_eager"], f"graphed LSTM scores differ from eager: {report}")
     check(report["cpu_within_tol"], f"LSTM scores are off the CPU float32 run: {report}")
     check(report["argmax"] == outlier, f"the outlier window did not score highest: {report}")
-    del graphed, eager, runner, proc
-    release_memory()
-    return report
+    # the graphed runner, the windows' float32 values and their scores stay
+    # for the json phase's LSTM stream
+    return {"report": report, "runner": runner, "values": values, "scores": got}
 
 
 def local_wordpiece(path: str, texts: list[str]) -> str | None:
@@ -4658,6 +4861,8 @@ def main() -> int:
     k2_main = k2_cases[0]  # the largest window
     compare_packed_paths(prunner, runner, packed_proc, rows=320, seed=2)
     phases.mark("packed")
+    json_phase = run_json(runner, prunner, ab)
+    phases.mark("json")
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
     with open(DELIVERY_CONFIG) as f:
@@ -4757,8 +4962,27 @@ def main() -> int:
         vit = run_vit(json.load(f))
     phases.mark("vit")
     with open(LSTM_CONFIG) as f:
-        lstm = run_lstm(json.load(f))
+        lstm_raw = json.load(f)
+    lstm_run = run_lstm(lstm_raw)
+    lstm = lstm_run["report"]
     phases.mark("lstm")
+    json_phase["lstm"] = run_lstm_json(lstm_raw, lstm_run)
+    del lstm_run
+    release_memory()
+    phases.mark("json lstm")
+    print("json " + json.dumps({
+        "rows_per_s": {**json_phase["rows_per_s"],
+                       "lstm_json": json_phase["lstm"]["traffic_windows_per_s"],
+                       "lstm_raw": json_phase["lstm"]["raw_traffic_windows_per_s"]},
+        "packed": {k: json_phase["packed"][k] for k in (
+            "rows", "emissions", "k2_launches", "captures_on_path", "max_score_abs_err",
+            "tie_free_rows")},
+        "window": {k: json_phase["window"][k] for k in (
+            "rows", "emissions", "emission_rows", "k1_launches", "captures_on_path",
+            "max_score_abs_err", "tie_free_rows")},
+        "lstm": {k: json_phase["lstm"][k] for k in ("windows", "max_abs_err_vs_raw")},
+        "protobuf": "not driven: the card's machine has neither protoc nor google.protobuf"}),
+        flush=True)
     print("hf_import " + json.dumps({
         "bert": {k: hf_bert[k] for k in ("leaves", "import_s", "logits_equal", "k1_launches")},
         "llama": {k: hf_llama[k] for k in ("layers", "leaves", "state_dict_gb",
@@ -4794,7 +5018,8 @@ def main() -> int:
         "source": "arkflow_tpu_torch/csrc/ragged_attention.cu",
         "replaces": "arkflow_tpu/ops/ragged_attention.py:95",
         "launches": (result["report"]["k1_launches"] + hf_bert["k1_launches"]
-                     + sum(tokenizer["k1_launches"].values())), "ok": True,
+                     + sum(tokenizer["k1_launches"].values())
+                     + json_phase["window"]["k1_launches"]), "ok": True,
         **kernel_line(main_case), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K1"] for s, c in tuner["kernels"].items()},
     }, {
@@ -4802,7 +5027,8 @@ def main() -> int:
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
         "launches": (packed["report"]["k2_launches"] + tuner["k2_launches"]
-                     + delivery["cost"]["k2_launches"]), "ok": True,
+                     + delivery["cost"]["k2_launches"] + json_phase["packed"]["k2_launches"]),
+        "ok": True,
         **kernel_line(k2_main), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K2"] for s, c in tuner["kernels"].items()},
     }, {

@@ -138,7 +138,7 @@ def test_net_kinds_are_not_ported(kind):
 @pytest.mark.parametrize("patch", [
     {"temporary": [{"name": "t", "type": "memory"}]},
     {"restart": {"max_retries": 2}},
-    {"input": {"type": "memory", "messages": ["a"], "codec": "json"}},
+    {"buffer": {"type": "tumbling_window", "interval": "1s", "query": "SELECT * FROM flow"}},
     {"input": {"type": "memory", "messages": ["a"], "tenant": "t1"}},
     {"input": {"type": "memory", "messages": ["a"], "pause_on_overload": True}},
 ])

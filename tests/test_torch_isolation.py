@@ -3,9 +3,11 @@ neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
 paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
 batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
-stream with a forced tuner cycle, and the chaos and BERT delivery streams) needs pyarrow,
-yaml or aiohttp at import time or at run time. ``transformers`` is
-imported only inside ``HFTokenizer``."""
+stream with a forced tuner cycle, the chaos and BERT delivery streams, and
+the packed and windowed JSON BERT streams) needs pyarrow, yaml, aiohttp or
+google.protobuf at import time or at run time. ``transformers`` is imported
+only inside ``HFTokenizer``, ``google.protobuf`` only inside the protobuf
+codec."""
 
 import ast
 import os
@@ -18,7 +20,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "arkflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "arkflow_tpu")
-NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers")
+NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers", "google")
 
 
 def _imports(tree: ast.AST, top_level_only: bool):
@@ -42,7 +44,7 @@ def test_no_jax_or_reference_imports(path):
 
 _CHILD = r"""
 import sys
-for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp"):
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "google.protobuf"):
     sys.modules[name] = None  # any import of these now fails
 import asyncio
 from arkflow_tpu_torch.components import ensure_plugins_loaded
@@ -182,6 +184,28 @@ asyncio.run(dl_engine.run())
 dl_texts = dl_cfg["streams"][0]["input"]["inner"]["messages"]
 assert dl_stream.rows_out == len(dl_texts) - 1 and dl_stream.quarantined_batches == 1
 assert dl_stream.reconnects == 1 and dl_stream.input._outstanding == 0
+for example in ("bert_json_stream.json", "bert_window_json_stream.json"):
+    js_cfg = json.load(open("arkflow_tpu_torch/examples/" + example))
+    js = js_cfg["streams"][0]
+    js["pipeline"]["processors"][-2].update(
+        model_config={**tiny, "max_positions": 256}, device="cpu", warmup=False)
+    if js["input"]["type"] == "generate":
+        js["input"]["count"] = 40
+    assert EngineConfig.from_mapping(js_cfg).validate_components() == [], example
+    js_engine = Engine(EngineConfig.from_mapping(js_cfg))
+    js_stream = js_engine.build()[0]
+    js_rows = []
+    js_write = js_stream.output.write
+
+    async def js_capture(batch, _write=js_write):
+        js_rows.extend(json.loads(p) for p in batch.to_binary())
+        await _write(batch)
+
+    js_stream.output.write = js_capture
+    asyncio.run(js_engine.run())
+    js_n = js["input"].get("count") or len(js["input"].get("messages", []))
+    assert len(js_rows) == js_n and js_stream.errors == 0, example
+    assert all(list(r) == ["id", "label", "score"] for r in js_rows), example
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked

@@ -172,7 +172,7 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"device_pool": 2}),
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"pp_microbatch_rows": 4}),
-    ("input", {"codec": "json"}),
+    ("input", {"tenants": 2}),
     ("engine", {"health_check": {"enabled": True, "profiling_dir": "traces"}}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
                            "coalesce": {"batch_buckets": [8], "deadline": "5ms", "dp": 2}}}),

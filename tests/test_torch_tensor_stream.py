@@ -157,10 +157,21 @@ def test_extract_errors_are_jax_errors():
 
 
 def test_ragged_list_columns_are_not_yet_ported():
-    col = np.empty(2, dtype=object)
-    col[:] = [[1.0, 2.0], [3.0]]
-    with pytest.raises(ConfigError, match="not yet ported"):
-        extract_tensor(MessageBatch({"w": col}), "w", "x", "float32", (2,), who="t")
+    """Kept by name from when a ragged list column raised "not yet ported":
+    the json codec's list columns now take JAX's path, flattened fully and
+    reshaped per row. A ragged column whose values do not fill ``want``
+    raises JAX's reshape error; one whose values do reshapes as JAX's."""
+    short = {"w": [[1.0, 2.0], [3.0]]}
+    with pytest.raises(JaxProcessError, match="does not reshape"):
+        jax_extract_tensor(JaxBatch.from_pydict(short), "w", "x", "float32", (2,), who="t")
+    with pytest.raises(ProcessError, match="does not reshape"):
+        extract_tensor(MessageBatch.from_pydict(short), "w", "x", "float32", (2,), who="t")
+    ragged = {"w": [[1.0, 2.0, 3.0], [4.0], None, [5.0, 6.0, 7.0, 8.0]]}
+    want = jax_extract_tensor(JaxBatch.from_pydict(ragged), "w", "x", "float32", (2,), who="t")
+    with pytest.raises(ProcessError, match="does not reshape"):
+        extract_tensor(MessageBatch.from_pydict(ragged), "w", "x", "float32", (3,), who="t")
+    got = extract_tensor(MessageBatch.from_pydict(ragged), "w", "x", "float32", (2,), who="t")
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 # -- the tensor families through gpu_inference -------------------------------
