@@ -33,6 +33,7 @@ Columns come in three kinds:
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Any, Iterable, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -581,6 +582,22 @@ class MessageBatch:
 
     def with_source(self, source: str) -> "MessageBatch":
         return self.with_column(META_SOURCE, np.full(self._rows, source))
+
+    def with_partition(self, partition: int) -> "MessageBatch":
+        return self.with_column(META_PARTITION, np.full(self._rows, partition, np.int64))
+
+    def with_offset(self, offset: int) -> "MessageBatch":
+        return self.with_column(META_OFFSET, np.full(self._rows, offset, np.int64))
+
+    def with_timestamp(self, ts_millis: int) -> "MessageBatch":
+        """Broker-assigned event timestamp, epoch millis."""
+        return self.with_column(META_TIMESTAMP, np.full(self._rows, ts_millis, np.int64))
+
+    def with_ingest_time(self, ts_millis: Optional[int] = None) -> "MessageBatch":
+        """Engine ingest wall-clock, epoch millis (defaults to now)."""
+        if ts_millis is None:
+            ts_millis = int(time.time() * 1000)
+        return self.with_column(META_INGEST_TIME, np.full(self._rows, ts_millis, np.int64))
 
     def with_ext_metadata(self, kv: dict[str, str]) -> "MessageBatch":
         """Constant free-form metadata columns ``__meta_ext_<k>``, one string

@@ -1,2 +1,5 @@
 import arkflow_tpu_torch.plugins.output.drop  # noqa: F401
+import arkflow_tpu_torch.plugins.output.kafka  # noqa: F401
+import arkflow_tpu_torch.plugins.output.nats  # noqa: F401
+import arkflow_tpu_torch.plugins.output.redis  # noqa: F401
 import arkflow_tpu_torch.plugins.output.stdout  # noqa: F401

@@ -8,8 +8,12 @@ stream is logged and ends without taking the engine down, as a JAX stream
 with no ``restart`` key does.
 
 With ``health_check: {enabled: true, host, port, path}`` the engine serves
-HTTP/1.1 on the standard library's ``asyncio.start_server`` (the card's
-machine has no aiohttp, and the port imports none):
+HTTP/1.1 on the standard library's ``asyncio.start_server`` through the
+port's request reader (``utils/http1.py``; the card's machine has no
+aiohttp, and the port imports none). A connection stays open for the next
+request when the request sends ``Connection: keep-alive``, and closes after
+the response otherwise; a malformed request or a body past 1 MiB answers
+400:
 
 - ``GET <path>`` (default ``/health``): the status, the stream count and
   per stream its runners' health reports, its hot-swap managers',
@@ -46,14 +50,12 @@ from arkflow_tpu_torch.components.registry import ensure_plugins_loaded
 from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.errors import SwapError, TunerError
 from arkflow_tpu_torch.runtime.stream import Stream, build_stream
+from arkflow_tpu_torch.utils.http1 import HttpError, HttpServer, Request, Response
 
 logger = logging.getLogger("arkflow_torch.engine")
 
 _NOT_PORTED_ROUTES = ("/metrics", "/trace", "/debug/profile")
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-            409: "Conflict", 503: "Service Unavailable"}
-#: request head and body bounds of the health server
-_MAX_HEAD = 16384
+#: request body bound of the health server
 _MAX_BODY = 1 << 20
 
 
@@ -63,7 +65,7 @@ class Engine:
         self.cancel = asyncio.Event()
         self.streams: list[Stream] = []
         self._ready = False
-        self._server: Optional[asyncio.AbstractServer] = None
+        self._server: Optional[HttpServer] = None
         #: the health server's bound port (``health_check.port: 0`` picks a
         #: free one), None while it is not serving
         self.health_port: Optional[int] = None
@@ -165,43 +167,24 @@ class Engine:
         hc = self.config.health_check
         if not hc.enabled or self._server is not None:
             return
-        self._server = await asyncio.start_server(self._serve, hc.host, hc.port)
-        self.health_port = self._server.sockets[0].getsockname()[1]
+        self._server = HttpServer(self._handle, max_body=_MAX_BODY, persistent_default=False)
+        self.health_port = await self._server.start(hc.host, hc.port)
         logger.info("health server on %s:%d", hc.host, self.health_port)
 
     async def stop_health_server(self) -> None:
         if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
+            await self._server.close()
             self._server = self.health_port = None
 
-    async def _serve(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+    async def _handle(self, req: Request) -> Response:
         try:
-            try:
-                head = await reader.readuntil(b"\r\n\r\n")
-            except (asyncio.IncompleteReadError, asyncio.LimitOverrunError):
-                return
-            lines = head.decode("latin-1").split("\r\n")
-            parts = lines[0].split()
-            headers = {k.strip().lower(): v.strip() for k, _, v in
-                       (line.partition(":") for line in lines[1:] if line)}
-            length = int(headers.get("content-length", "0") or 0)
-            if len(parts) < 2 or len(head) > _MAX_HEAD or not 0 <= length <= _MAX_BODY:
-                status, body = 400, {"error": "malformed request"}
-            else:
-                payload = await reader.readexactly(length) if length else b""
-                status, body = await self._route(parts[0].upper(), parts[1].split("?")[0],
-                                                 payload)
-            data = json.dumps(body).encode()
-            writer.write(f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-                         "Content-Type: application/json\r\n"
-                         f"Content-Length: {len(data)}\r\nConnection: close\r\n\r\n"
-                         .encode() + data)
-            await writer.drain()
-        except Exception:  # one bad connection must not take the server down
-            logger.exception("health server request failed")
-        finally:
-            writer.close()
+            payload = await req.read()
+        except (HttpError, asyncio.IncompleteReadError, asyncio.LimitOverrunError):
+            status, body, close = 400, {"error": "malformed request"}, True
+        else:
+            status, body = await self._route(req.method, req.path, payload)
+            close = False
+        return Response(status, json.dumps(body).encode(), "application/json", close=close)
 
     async def _route(self, method: str, path: str, payload: bytes) -> tuple[int, dict]:
         hc = self.config.health_check

@@ -1,0 +1,284 @@
+"""Drive the four broker examples end to end against ``fake_brokers``.
+
+Each driver takes an engine config of one of the examples
+(``examples/kafka_bert_kafka.json``, ``mqtt_lstm_anomaly.json``,
+``http_vit_redis.json``, ``cdc_llm_nats.json``), points its input and output
+at fakes started on 127.0.0.1 in the same process, feeds the input, runs the
+stream through ``Engine`` until its output holds every expected row, stops
+it (``Engine.shutdown``: the stream drains and acks before it closes) and
+returns what the output received with the stream's counters:
+
+    report = asyncio.run(kafka_to_kafka(raw, texts, codecs=["gzip", "snappy"]))
+    report["values"], report["committed"], report["log_end"], report["rows_per_s"]
+
+``prepare(stream)``, when given, runs after the build and before the run
+(the smoke swaps a warm runner in there). A stream that ends early, or an
+output that does not complete within ``timeout_s``, raises; so does a fake
+that fails to bind. Nothing here imports JAX or a broker library.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http.client
+import json
+import time
+from typing import Awaitable, Callable, Optional
+
+from arkflow_tpu_torch.config import EngineConfig
+from arkflow_tpu_torch.connect.kafka_client import KafkaClient
+from arkflow_tpu_torch.connect.mqtt_client import MqttClient
+from arkflow_tpu_torch.connect.nats_client import NatsClient
+from arkflow_tpu_torch.runtime.engine import Engine
+from arkflow_tpu_torch.tools.fake_brokers import (FakeKafkaBroker, FakeMqttBroker,
+                                                  FakeNatsServer, FakeRedisServer)
+
+Prepare = Optional[Callable[[object], None]]
+
+#: records of one produce request when seeding a topic
+PRODUCE_CHUNK = 256
+
+
+class StreamFailed(RuntimeError):
+    """A broker stream ended early, or its output did not complete."""
+
+
+def _copy(raw: dict) -> dict:
+    return json.loads(json.dumps(raw))
+
+
+def _build(raw: dict, prepare: Prepare):
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    if prepare is not None:
+        prepare(stream)
+    return engine, stream
+
+
+async def run_until(engine: Engine, done: Callable[[], bool],
+                    feed: Optional[Callable[[], Awaitable[None]]] = None,
+                    timeout_s: float = 120.0) -> float:
+    """Run ``engine`` until ``done()``, with ``feed`` running beside it; the
+    wall seconds from the start to ``done()``. A stream error (a failed
+    batch, write or read) ends the run at once."""
+    t0 = time.perf_counter()
+    task = asyncio.create_task(engine.run())
+    feeder = asyncio.create_task(feed()) if feed is not None else None
+    try:
+        while not done():
+            if task.done():
+                task.result()
+                raise StreamFailed("the stream ended before its output was complete")
+            errors = {s.name: s.errors for s in engine.streams if s.errors}
+            if errors:
+                raise StreamFailed(f"the stream reported errors: {errors}")
+            if feeder is not None and feeder.done():
+                feeder.result()  # a feeding error ends the run here
+            if time.perf_counter() - t0 > timeout_s:
+                raise StreamFailed(f"the stream's output did not complete in {timeout_s} s")
+            await asyncio.sleep(0.005)
+        wall = time.perf_counter() - t0
+        if feeder is not None:
+            await asyncio.wait_for(feeder, timeout_s)
+    finally:
+        if feeder is not None and not feeder.done():
+            feeder.cancel()
+        engine.shutdown()
+        await asyncio.wait_for(task, timeout_s)
+    return wall
+
+
+def _stream_report(stream, wall: float) -> dict:
+    traffic = stream.traffic_seconds or wall
+    return {"rows_out": stream.rows_out, "errors": stream.errors, "wall_s": wall,
+            "traffic_seconds": traffic, "rows_per_s": stream.rows_out / traffic}
+
+
+async def _seed_kafka(broker: FakeKafkaBroker, topic: str, partitions: int,
+                      values: list[bytes], codecs: list) -> None:
+    """Value ``i`` to partition ``i % partitions``, each partition in
+    produce requests of ``PRODUCE_CHUNK`` records compressed with
+    ``codecs[p % len(codecs)]``."""
+    client = KafkaClient(f"127.0.0.1:{broker.port}")
+    await client.connect()
+    await client.refresh_metadata([topic])
+    try:
+        for p in range(partitions):
+            part = values[p::partitions]
+            for i in range(0, len(part), PRODUCE_CHUNK):
+                await client.produce(topic, p, [(None, v) for v in part[i:i + PRODUCE_CHUNK]],
+                                     compression=codecs[p % len(codecs)] if codecs else None)
+    finally:
+        await client.close()
+
+
+async def kafka_to_kafka(raw: dict, values: list[bytes], partitions: int = 4,
+                         codecs: Optional[list] = None, prepare: Prepare = None,
+                         timeout_s: float = 120.0) -> dict:
+    """``kafka_bert_kafka.json``: ``values`` produced into the input topic
+    before the run; the stream stops once the output topic holds one record
+    a value and the group's committed offsets reach each partition's log
+    end."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    in_topic, out_topic, group = s["input"]["topic"], s["output"]["topic"], s["input"]["group"]
+    broker = FakeKafkaBroker({in_topic: partitions, out_topic: partitions})
+    await broker.start()
+    try:
+        s["input"]["brokers"] = s["output"]["brokers"] = f"127.0.0.1:{broker.port}"
+        await _seed_kafka(broker, in_topic, partitions, values, codecs or [])
+        engine, stream = _build(raw, prepare)
+        ends = [broker.log_end(in_topic, p) for p in range(partitions)]
+        generation: dict = {}
+
+        def done() -> bool:
+            if "before" not in generation and broker.generation(group):
+                generation["before"] = broker.generation(group)
+            out = sum(broker.log_end(out_topic, p) for p in range(partitions))
+            return out >= len(values) and all(
+                broker.group_offsets.get((group, in_topic, p)) == ends[p]
+                for p in range(partitions))
+
+        wall = await run_until(engine, done, timeout_s=timeout_s)
+        records = [r for p in range(partitions) for r in broker.records(out_topic, p)]
+        return {**_stream_report(stream, wall),
+                "values": [r.value for r in records], "keys": [r.key for r in records],
+                "partitions_out": [p for p in range(partitions)
+                                   for _ in broker.records(out_topic, p)],
+                "committed": [broker.group_offsets.get((group, in_topic, p))
+                              for p in range(partitions)],
+                "log_end": ends, "generation_before": generation.get("before"),
+                "generation_after": broker.generation(group),
+                "input_codecs": sorted({c for p in range(partitions)
+                                        for c in broker.codecs_seen.get((in_topic, p), ())}),
+                "output_codecs": sorted({c for p in range(partitions)
+                                         for c in broker.codecs_seen.get((out_topic, p), ())})}
+    finally:
+        await broker.stop()
+
+
+async def mqtt_to_stdout(raw: dict, payloads: list[bytes], qos: int = 1,
+                         window: int = 256, prepare: Prepare = None,
+                         timeout_s: float = 120.0) -> dict:
+    """``mqtt_lstm_anomaly.json``: ``payloads`` published on
+    ``sensors/dev<i % 8>`` at ``qos`` once the input subscribed, at most
+    ``window`` ahead of the stdout lines (the input's queue drops past
+    1000, as the JAX input's does); the lines the stdout output writes."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    broker = FakeMqttBroker()
+    await broker.start()
+    try:
+        s["input"].update(host="127.0.0.1", port=broker.port)
+        engine, stream = _build(raw, prepare)
+        lines: list[bytes] = []
+        stream.output._write = lines.append
+
+        async def feed() -> None:
+            while not broker.subs:
+                await asyncio.sleep(0.005)
+            pub = MqttClient("127.0.0.1", broker.port, client_id="arkflow-smoke-pub")
+            await pub.connect()
+            try:
+                for i, p in enumerate(payloads):
+                    while i - len(lines) >= window:
+                        await asyncio.sleep(0.001)
+                    await pub.publish(f"sensors/dev{i % 8}", p, qos=qos)
+            finally:
+                await pub.close()
+
+        wall = await run_until(engine, lambda: len(lines) >= len(payloads), feed, timeout_s)
+        return {**_stream_report(stream, wall), "lines": list(lines),
+                "published": broker.published}
+    finally:
+        await broker.stop()
+
+
+def _post_all(port: int, path: str, bodies: list[bytes]) -> list[int]:
+    """POST each body in turn on one keep-alive ``http.client`` connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    statuses = []
+    try:
+        for body in bodies:
+            conn.request("POST", path, body=body,
+                         headers={"Content-Type": "application/octet-stream"})
+            resp = conn.getresponse()
+            resp.read()
+            statuses.append(resp.status)
+    finally:
+        conn.close()
+    return statuses
+
+
+async def http_to_redis(raw: dict, bodies: list[bytes], extra: int = 0,
+                        prepare: Prepare = None, timeout_s: float = 120.0) -> dict:
+    """``http_vit_redis.json``: every body POSTed, then ``extra`` more
+    copies of the first, on one keep-alive connection of a stdlib client;
+    the statuses, the list at the ``rpush`` target and the connections the
+    server accepted."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    srv = FakeRedisServer()
+    await srv.start()
+    try:
+        s["input"].update(host="127.0.0.1", port=0)
+        s["output"]["url"] = f"redis://127.0.0.1:{srv.port}"
+        target = s["output"]["target"].encode()
+        engine, stream = _build(raw, prepare)
+        inp = stream.input
+        statuses: list = []
+        server: list = []
+
+        async def feed() -> None:
+            while inp._server is None:
+                await asyncio.sleep(0.005)
+            server.append(inp._server)
+            statuses.extend(await asyncio.to_thread(
+                _post_all, inp.port, s["input"].get("path", "/"), bodies + bodies[:1] * extra))
+
+        n_ok = len(bodies)
+        wall = await run_until(engine, lambda: len(srv.lists.get(target, [])) >= n_ok
+                               and len(statuses) == len(bodies) + extra, feed, timeout_s)
+        return {**_stream_report(stream, wall), "statuses": statuses,
+                "values": list(srv.lists.get(target, [])),
+                "connections": server[0].connections}
+    finally:
+        await srv.stop()
+
+
+async def kafka_to_nats(raw: dict, values: list[bytes], prepare: Prepare = None,
+                        timeout_s: float = 120.0) -> dict:
+    """``cdc_llm_nats.json``: ``values`` produced into a one-partition input
+    topic (one fetch, one batch, in order); the stream stops once every
+    payload is on the subject and the group committed the log end; the
+    payloads in arrival order."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    in_topic, group = s["input"]["topic"], s["input"]["group"]
+    broker, nats = FakeKafkaBroker({in_topic: 1}), FakeNatsServer()
+    await broker.start()
+    await nats.start()
+    sub = NatsClient(f"nats://127.0.0.1:{nats.port}")
+    try:
+        s["input"]["brokers"] = f"127.0.0.1:{broker.port}"
+        s["output"]["url"] = f"nats://127.0.0.1:{nats.port}"
+        await _seed_kafka(broker, in_topic, 1, values, [])
+        await sub.connect()
+        got: list[bytes] = []
+        await sub.subscribe(s["output"]["subject"], lambda m: got.append(m.payload))
+        engine, stream = _build(raw, prepare)
+        end = broker.log_end(in_topic, 0)
+
+        def done() -> bool:
+            return (len(got) >= len(values)
+                    and broker.group_offsets.get((group, in_topic, 0)) == end)
+
+        wall = await run_until(engine, done, timeout_s=timeout_s)
+        await asyncio.sleep(0.05)  # a duplicate publish would land by now
+        return {**_stream_report(stream, wall), "payloads": list(got),
+                "committed": broker.group_offsets.get((group, in_topic, 0)),
+                "log_end": end, "generation_after": broker.generation(group)}
+    finally:
+        await sub.close()
+        await broker.stop()
+        await nats.stop()

@@ -226,7 +226,7 @@ last line):
     rolled back;
 13. the MoE phase (``llama_moe_stream.json``: the generate stream with a
     Switch MoE at Llama-3-8B widths, 8 experts, depth 1, its 16 layers cut
-    to ``MOE_LAYERS`` (4); the dense models freed first, the peak memory
+    to ``MOE_LAYERS`` (2); the dense models freed first, the peak memory
     read from the phase's start): the stream graphed through ``Engine``
     with the generate stream's checks (K3 = 4 x (decode + chunk steps),
     all ``mma``, the
@@ -239,7 +239,7 @@ last line):
     graphed against eager, the stream eager, and the ``moe`` line;
 14. model import and the tensor families. ``hf_import``: the padded
     stream's tree (step 5), a Llama-3-8B-width tree of ``HF_LLAMA_LAYERS``
-    (4) layers drawn on the card and the ViT-B/16 tree exported into
+    (2) layers drawn on the card and the ViT-B/16 tree exported into
     HuggingFace names and layouts as bf16 state dicts (the inverse maps are
     here, apart from the package's), imported by ``from_hf_state_dict``
     into float32 trees, every leaf equal to the original's bits, then
@@ -259,7 +259,28 @@ last line):
     from a seed, one an outlier: windows/s, each bucket's step graphed and
     eager, graphed = eager, every score held to a CPU float32 run at
     1e-5, the outlier scoring highest;
-15. the ``graphs`` line (per path: captures, keys checked, differing
+15. the brokers phase: the four broker examples through ``Engine`` against
+    ``tools/fake_brokers.py`` (driven by ``tools/broker_streams.py``), each
+    on a runner its phase keeps warm, its seconds carved out of that phase
+    into ``phases.brokers``. After the json phase, ``kafka_bert_kafka.json``
+    on the padded runner: ``BROKER_TEXTS`` (4096) texts produced into 4
+    partitions (gzip, snappy, lz4, none) before the run; every id once in
+    the output topic, the group's committed offsets at each log end, its
+    generation unchanged, every label and score held to the padded runner
+    (``check_json_rows``), K1 = layers x steps, all ``mma``, 0 captures,
+    the host ``crc32c`` timed over the stream's produces. After the batch
+    generate stream, ``cdc_llm_nats.json`` on that stream's processor: its
+    first ``CDC_PROMPTS`` (16) rows, every summary once on the subject and
+    held to the continuous server's streams up to the first near-tie. After
+    the ViT phase, ``http_vit_redis.json``: ``HTTP_IMAGES`` (256) images
+    POSTed on one keep-alive connection, each 200, one more 429, the Redis
+    list equal bit for bit to the processor on the stream's own batches.
+    After the LSTM phase, ``mqtt_lstm_anomaly.json``: ``MQTT_WINDOWS``
+    (1024) JSON windows at QoS 1, every score equal bit for bit to the
+    raw-bytes run's. The ``brokers kafka|cdc|http|mqtt`` lines and the
+    ``brokers`` line: each stream's rows/s beside its raw stream's, the
+    host CRC's cost;
+16. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
     TTFT p50/p99 and traffic ms per decode step, and the runner's
@@ -297,6 +318,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from arkflow_tpu_torch.batch import MessageBatch  # noqa: E402
 from arkflow_tpu_torch.components import Input, NoopAck, Output  # noqa: E402
 from arkflow_tpu_torch.config import EngineConfig  # noqa: E402
+from arkflow_tpu_torch.connect import kafka_client  # noqa: E402
 from arkflow_tpu_torch.errors import EndOfInput  # noqa: E402
 from arkflow_tpu_torch.models import decoder as dec  # noqa: E402
 from arkflow_tpu_torch.models import get_model  # noqa: E402
@@ -319,6 +341,7 @@ from arkflow_tpu_torch.plugins.processor.gpu_inference import (  # noqa: E402
     scatter_windows,
 )
 from arkflow_tpu_torch.runtime.engine import Engine  # noqa: E402
+from arkflow_tpu_torch.tools import broker_streams  # noqa: E402
 from arkflow_tpu_torch.tools.profile_step import (  # noqa: E402
     eager_twin,
     first_emission,
@@ -376,13 +399,16 @@ GEN_CHECK_PROMPTS = 16
 #: phase did; 16 serving rows, two waves of its 8 slots, still share the
 #: instruction's cached pages)
 SERVING_ROWS = 16
+#: rows of the batch-mode stream (the example's 48, three generations of
+#: the same 16 prompts, until the brokers phase took the time)
+BATCH_ROWS = 32
 GEN_CHECK_NEW = 32
 #: the MoE phase: the generate stream's 12 distinct texts through the path
 #: comparisons, 32 new tokens each (48 until the tuner phase took the
 #: time); batch mode's one bucket
 #: the MoE phase's depth (the example's 16 layers, cut to 8 to pay for the
-#: delivery phase, to 4 for the json phase)
-MOE_LAYERS = 4
+#: delivery phase, to 4 for the json phase, to 2 for the brokers phase)
+MOE_LAYERS = 2
 MOE_CHECK_PROMPTS = 12
 MOE_CHECK_NEW = 32
 MOE_BATCH_ROWS, MOE_BATCH_NEW = 4, 32
@@ -1481,6 +1507,317 @@ def run_lstm_json(cfg_raw: dict, lstm: dict) -> dict:
     check(report["within_f32_floor"], f"LSTM JSON scores off the raw-bytes run: {report}")
     return report
 
+
+
+# -- brokers: the four BASELINE streams end to end against fake brokers ------
+
+#: texts the Kafka -> BERT-base -> Kafka stream reads (4 partitions, gzip,
+#: snappy, lz4 and none), MQTT windows of the LSTM stream (QoS 1), images
+#: POSTed to the ViT stream, CDC prompts of the Llama-3-8B stream
+BROKER_TEXTS = 4096
+BROKER_CODECS = ["gzip", "snappy", "lz4", None]
+MQTT_WINDOWS = 1024
+HTTP_IMAGES = 256
+CDC_PROMPTS = 16
+KAFKA_BERT_CONFIG = os.path.join(EXAMPLES, "kafka_bert_kafka.json")
+MQTT_LSTM_CONFIG = os.path.join(EXAMPLES, "mqtt_lstm_anomaly.json")
+HTTP_VIT_CONFIG = os.path.join(EXAMPLES, "http_vit_redis.json")
+CDC_NATS_CONFIG = os.path.join(EXAMPLES, "cdc_llm_nats.json")
+
+
+def broker_config(path: str) -> dict:
+    with open(path) as f:
+        raw = json.load(f)
+    raw["health_check"] = {"enabled": False}
+    return raw
+
+
+class CrcClock:
+    """Times every ``crc32c`` the Kafka client runs while installed
+    (``install`` / ``uninstall``): the host's cost of the record batches
+    the stream produces."""
+
+    def __init__(self):
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self._inner = kafka_client.crc32c
+
+    def __call__(self, data: bytes, crc: int = 0) -> int:
+        t0 = time.perf_counter()
+        out = self._inner(data, crc)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.bytes += len(data)
+        return out
+
+    def install(self) -> None:
+        kafka_client.crc32c = self
+
+    def uninstall(self) -> None:
+        kafka_client.crc32c = self._inner
+
+    def report(self) -> dict:
+        return {"batches": self.calls, "bytes": self.bytes, "seconds": self.seconds,
+                "ms_per_batch": self.seconds * 1e3 / max(1, self.calls),
+                "mb_per_s": self.bytes / 1e6 / self.seconds if self.seconds else None}
+
+
+def broker_texts(n: int, seed: int) -> list[str]:
+    """``msg<i>`` and 8-100 seeded words: distinct texts, each naming its id."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(5000)]
+    return [f"msg{i} " + " ".join(rng.choice(vocab, size=int(k)))
+            for i, k in enumerate(rng.integers(8, 100, size=n))]
+
+
+def count_emissions(stream, emitted: list) -> None:
+    """Record the rows of every emission of the stream's buffer, in order."""
+    inner_read = stream.buffer.read
+
+    async def read():
+        item = await inner_read()
+        if item is not None:
+            emitted.append(item[0].num_rows)
+        return item
+
+    stream.buffer.read = read
+
+
+def swap_in(stream, index: int, runner, counted: dict) -> None:
+    """The stream's processor ``index`` on ``runner``; the launch counts
+    zeroed and the runner's step and capture counts read just before the
+    run."""
+    stream.pipeline.processors[index].runner = runner
+    counted.update(device_steps=runner.device_steps, captures=runner.captures)
+    reset_counts()
+
+
+def run_kafka_bert(runner: ModelRunner, ab: dict) -> dict:
+    """``kafka_bert_kafka.json`` on the padded BERT-base runner: BROKER_TEXTS
+    texts produced before the run into 4 partitions (gzip, snappy, lz4,
+    none); every id once in the output topic, the group's committed offsets
+    at each log end and its generation unchanged, every label and score that
+    of the same text through the padded runner (``check_json_rows``' rules),
+    K1 = layers x device steps, all ``mma``, no capture on the path."""
+    raw = broker_config(KAFKA_BERT_CONFIG)
+    raw["streams"][0]["pipeline"]["processors"][0]["warmup"] = False
+    texts = broker_texts(BROKER_TEXTS, seed=21)
+    counted: dict = {}
+    state: dict = {}
+    crc = CrcClock()
+
+    def prepare(stream) -> None:
+        proc = stream.pipeline.processors[0]
+        ids, mask = proc.tokenizer.encode_batch([t.encode() for t in texts], proc.max_seq)
+        state["ref"] = runner.infer_sync({"input_ids": ids, "attention_mask": mask})
+        torch.cuda.synchronize()
+        swap_in(stream, 0, runner, counted)
+        crc.install()  # the stream's own produces, not the seeding's
+
+    try:
+        rep = asyncio.run(broker_streams.kafka_to_kafka(
+            raw, [t.encode() for t in texts], partitions=4, codecs=BROKER_CODECS,
+            prepare=prepare))
+    finally:
+        crc.uninstall()
+    torch.cuda.synchronize()
+    launches = {"k1": ra.launches.value, "k1_variants": dict(ra.launches.variants),
+                "k2": sa.launches.value, "k3": ra.paged_flash_attention.launches.value}
+    steps = runner.device_steps - counted["device_steps"]
+    rows = [json.loads(v) for v in rep["values"]]
+    keys_ok = all(list(r) == ["__value__", "label", "score"] for r in rows)
+    got_ids = sorted(int(r["__value__"].split()[0][3:]) for r in rows) if keys_ok else []
+    by_id = sorted(rows, key=lambda r: int(r["__value__"].split()[0][3:])) if keys_ok else []
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "committed", "log_end", "generation_before",
+                                  "generation_after", "input_codecs", "output_codecs")}
+    report.update(records_out=len(rows), each_id_once=got_ids == list(range(BROKER_TEXTS)),
+                  raw_rows_per_s=ab["padded"]["graphed"]["traffic_rows_per_s"],
+                  device_steps=steps, captures_on_path=runner.captures - counted["captures"],
+                  layers=runner.cfg.layers, launches=launches, host_crc=crc.report(),
+                  output_bytes=sum(len(v) for v in rep["values"]))
+    print("brokers kafka " + json.dumps(report), flush=True)
+    check(keys_ok, f"kafka -> bert -> kafka: an output row is not __value__/label/score: "
+                   f"{rows[:2]}")
+    check(report["each_id_once"], f"kafka -> bert -> kafka: ids lost or repeated: {report}")
+    check(rep["committed"] == rep["log_end"], f"kafka: commits short of the log end: {report}")
+    check(rep["generation_before"] == rep["generation_after"] == 1,
+          f"kafka: the consumer group rebalanced during the run: {report}")
+    check(rep["errors"] == 0, f"kafka -> bert -> kafka reported errors: {report}")
+    check(rep["input_codecs"] == [0, 1, 2, 3], f"kafka: the input codecs were not all driven: "
+                                               f"{report}")
+    check(launches["k1"] > 0 and launches["k1"] == runner.cfg.layers * steps,
+          f"kafka -> bert -> kafka: K1 launches != layers x device steps: {report}")
+    check(launches["k1_variants"].get("mma") == launches["k1"],
+          f"kafka -> bert -> kafka: a K1 launch missed the mma tile: {report}")
+    check(report["captures_on_path"] == 0, f"kafka -> bert -> kafka captured on the path: "
+                                           f"{report}")
+    check(launches["k2"] == launches["k3"] == 0, f"kafka -> bert launched K2 or K3: {report}")
+    labels = check_json_rows([{"id": int(r["__value__"].split()[0][3:]), "label": r["label"],
+                               "score": r["score"]} for r in by_id],
+                             list(range(BROKER_TEXTS)), state["ref"], "kafka")
+    return {**report, **{f"rows_{k}": v for k, v in labels.items()}}
+
+
+def run_mqtt_lstm(lstm: dict) -> dict:
+    """``mqtt_lstm_anomaly.json`` on the LSTM phase's graphed runner:
+    MQTT_WINDOWS ``{"window": [...]}`` messages (the LSTM phase's windows'
+    float32 values) published at QoS 1; every stdout line's score equal
+    bit for bit to the runner's on the same windows in the stream's own
+    batches (a batch bucket is a GEMM shape, and float32 GEMMs of two
+    shapes may round apart), and to the raw-bytes run's (its batches of
+    64) at the float32 floor."""
+    raw = broker_config(MQTT_LSTM_CONFIG)
+    values = lstm["values"][:MQTT_WINDOWS]
+    payloads = [json.dumps({"window": v.reshape(-1).tolist()}).encode() for v in values]
+    runner = lstm["runner"]
+    counted: dict = {}
+    emitted: list[int] = []
+
+    def prepare(stream) -> None:
+        count_emissions(stream, emitted)
+        swap_in(stream, 0, runner, counted)
+
+    rep = asyncio.run(broker_streams.mqtt_to_stdout(raw, payloads, qos=1, prepare=prepare))
+    torch.cuda.synchronize()
+    lines = [json.loads(x) for x in rep["lines"]]
+    keys_ok = all(list(r) == ["window", "score"] for r in lines)
+    got = np.array([r["score"] for r in lines], np.float32) if keys_ok else np.zeros(0)
+    ref, at = [], 0
+    for n in emitted:  # the stream's own batches, through the same runner
+        ref.append(np.asarray(runner.infer_sync({"values": values[at:at + n]})["score"]))
+        at += n
+    ref = np.concatenate(ref).astype(np.float32) if ref else np.zeros(0, np.float32)
+    want = lstm["scores"][:MQTT_WINDOWS]
+    err = np.abs(got - want) if got.shape == want.shape else np.array([np.inf])
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "published")}
+    report.update(lines=len(lines), keys_exact=keys_ok,
+                  raw_rows_per_s=lstm["report"]["traffic_windows_per_s"],
+                  emissions=len(emitted),
+                  emission_rows={"min": min(emitted), "max": max(emitted)} if emitted else None,
+                  equal_bitwise_same_batches=bool(got.shape == ref.shape and np.array_equal(
+                      got.view(np.int32), ref.view(np.int32))),
+                  equal_bitwise_raw_run=bool(got.shape == want.shape and np.array_equal(
+                      got.view(np.int32), want.view(np.int32))),
+                  max_abs_err_vs_raw_run=float(err.max()),
+                  windows_in_order=keys_ok and all(
+                      np.array_equal(np.float32(r["window"]), v.reshape(-1))
+                      for r, v in zip(lines, values)),
+                  captures_on_path=runner.captures - counted["captures"])
+    print("brokers mqtt " + json.dumps(report), flush=True)
+    check(keys_ok and len(lines) == MQTT_WINDOWS and rep["errors"] == 0,
+          f"mqtt -> lstm -> stdout lost or misshaped rows: {report}")
+    check(report["windows_in_order"], f"mqtt -> lstm: windows out of order: {report}")
+    check(report["equal_bitwise_same_batches"],
+          f"mqtt -> lstm scores != the runner's on the same batches: {report}")
+    check(bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))),
+          f"mqtt -> lstm scores off the raw-bytes run's float32 floor: {report}")
+    check(report["captures_on_path"] == 0, f"mqtt -> lstm captured on the path: {report}")
+    return report
+
+
+def run_http_vit(proc, payloads: list[bytes], embeddings: np.ndarray,
+                 raw_rows_per_s: float) -> dict:
+    """``http_vit_redis.json`` on the ViT phase's graphed processor:
+    HTTP_IMAGES images POSTed on one keep-alive connection of a stdlib
+    client, then one past the rate limit (capacity HTTP_IMAGES, refill
+    0.01/s in place of the example's 200 at 100/s, which would bound the
+    stream at 100 images/s); each image answers 200 and the extra 429, the
+    list holds every embedding once, in order, equal bit for bit to the same
+    images through the processor in the stream's own batches, and within
+    ``VIT_EMB_TOL`` of the ViT phase's (its batches of 32)."""
+    raw = broker_config(HTTP_VIT_CONFIG)
+    raw["streams"][0]["input"]["rate_limit"] = {"capacity": HTTP_IMAGES, "per_second": 0.01}
+    runner = proc.runner
+    counted: dict = {}
+    emitted: list[int] = []
+
+    def prepare(stream) -> None:
+        count_emissions(stream, emitted)
+        swap_in(stream, 0, runner, counted)
+
+    bodies = payloads[:HTTP_IMAGES]
+    rep = asyncio.run(broker_streams.http_to_redis(raw, bodies, extra=1, prepare=prepare))
+    torch.cuda.synchronize()
+    steps = runner.device_steps - counted["device_steps"]
+    got = np.array([json.loads(v)["embedding"] for v in rep["values"]], np.float32)
+    ref, at = [], 0
+    for n in emitted:  # the stream's own batches, through the same processor
+        ref.append(through_processor(proc, bodies[at:at + n], n, "embedding"))
+        at += n
+    ref = np.concatenate(ref) if ref else np.zeros((0, got.shape[-1]), np.float32)
+    phase = embeddings[:HTTP_IMAGES]
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "connections")}
+    report.update(statuses={str(s): rep["statuses"].count(s) for s in set(rep["statuses"])},
+                  last_status=rep["statuses"][-1], list_len=len(rep["values"]),
+                  raw_rows_per_s=raw_rows_per_s, emissions=len(emitted),
+                  emission_rows={"min": min(emitted), "max": max(emitted)} if emitted else None,
+                  device_steps=steps,
+                  equal_bitwise_same_batches=bool(got.shape == ref.shape and np.array_equal(
+                      got.view(np.int32), ref.view(np.int32))),
+                  max_abs_err_vs_phase=float(np.abs(got - phase).max())
+                  if got.shape == phase.shape else None,
+                  captures_on_path=runner.captures - counted["captures"])
+    print("brokers http " + json.dumps(report), flush=True)
+    check(rep["statuses"] == [200] * HTTP_IMAGES + [429],
+          f"http -> vit: a POST did not answer 200, or the extra not 429: {report}")
+    check(rep["connections"] == 1, f"http -> vit: the client did not keep its connection: "
+                                   f"{report}")
+    check(len(rep["values"]) == HTTP_IMAGES and rep["errors"] == 0,
+          f"http -> vit -> redis lost or repeated embeddings: {report}")
+    check(report["equal_bitwise_same_batches"],
+          f"http -> vit embeddings != the processor's on the same batches: {report}")
+    check(report["max_abs_err_vs_phase"] is not None
+          and report["max_abs_err_vs_phase"] <= VIT_EMB_TOL * float(np.abs(phase).max()),
+          f"http -> vit embeddings off the ViT phase's: {report}")
+    check(report["captures_on_path"] == 0, f"http -> vit captured on the path: {report}")
+    return report
+
+
+def run_cdc_nats(proc, rows: list[bytes], generated: list[bytes], ref: list,
+                 limits: list, raw_rows_per_s: float) -> dict:
+    """``cdc_llm_nats.json`` on the batch stream's ``serving: batch``
+    Llama-3-8B processor (its graphs captured by that stream): the batch
+    stream's first CDC_PROMPTS rows produced into a one-partition topic
+    (one fetch, one buffer emission of 16: the batch stream's first batch),
+    every ``summary`` on the subject once, equal to the batch stream's
+    tokens for the same prompt up to the first near-tie of the continuous
+    server's reference (``compare_to_first_tie``, padded rows to token 2)."""
+    raw = broker_config(CDC_NATS_CONFIG)
+    # built small and swapped for the warm processor before it connects
+    raw["streams"][0]["pipeline"]["processors"][0]["model_config"] = {
+        "vocab_size": 256, "dim": 64, "layers": 1, "heads": 4, "kv_heads": 2, "ffn": 128}
+    gen = proc.generator
+    counted = {"captures": gen.captures, "generations": gen.generations}
+
+    def prepare(stream) -> None:
+        stream.pipeline.processors[0] = proc
+        reset_counts()
+
+    rep = asyncio.run(broker_streams.kafka_to_nats(raw, rows[:CDC_PROMPTS], prepare=prepare))
+    torch.cuda.synchronize()
+    summaries = [json.loads(p) for p in rep["payloads"]]
+    keys_ok = all(list(s) == ["summary"] for s in summaries)
+    got = [[int(t) for t in s["summary"].split()] for s in summaries] if keys_ok else []
+    streams = compare_to_first_tie(got, ref[:CDC_PROMPTS], limits=limits[:CDC_PROMPTS])
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "committed", "log_end", "generation_after")}
+    report.update(summaries=len(summaries), raw_rows_per_s=raw_rows_per_s,
+                  equal_to_batch_stream=got == row_ids(generated[:CDC_PROMPTS]),
+                  generations=gen.generations - counted["generations"],
+                  captures_on_path=gen.captures - counted["captures"],
+                  launches={"k1": ra.launches.value, "k2": sa.launches.value,
+                            "k3": ra.paged_flash_attention.launches.value},
+                  vs_continuous=streams)
+    print("brokers cdc " + json.dumps(report), flush=True)
+    check(keys_ok and len(summaries) == CDC_PROMPTS and rep["errors"] == 0,
+          f"kafka cdc -> llama -> nats lost, repeated or misshaped summaries: {report}")
+    check(rep["committed"] == rep["log_end"], f"cdc: commits short of the log end: {report}")
+    check(not streams["rows_mismatched_before_a_tie"],
+          f"cdc summaries differ from the reference before a near-tie: {report}")
+    check(report["captures_on_path"] == 0, f"cdc -> llama captured on the path: {report}")
+    return report
 
 
 DELIVERY_TEXTS = 4096
@@ -3024,9 +3361,12 @@ def run_batch_generate(cfg_raw: dict) -> dict:
     check(not any(launches.values()), f"the batch path launched a kernel: {report}")
     check(not streams["rows_mismatched_before_a_tie"],
           f"batch rows differ from the continuous server before a near-tie: {report}")
-    del proc, gen, calls
-    release_memory()
-    return report
+    gen.generate = inner
+    del gen, calls
+    # the warm processor, the rows, their tokens and the reference stay for
+    # the Kafka CDC -> Llama-3-8B -> NATS stream
+    return {"report": report, "proc": proc, "rows": rows, "generated": sink.generated,
+            "ref": ref, "limits": [2 if p else None for p in padded]}
 
 
 # -- MoE: the Switch decoder at Llama-3-8B widths ---------------------------
@@ -4173,8 +4513,8 @@ def run_gen_lifecycle(plain: dict) -> dict:
 #: float32 import of 32 layers (JAX's import makes a float32 tree) is 32 GB of
 #: host memory beside a 16 GB bf16 state dict
 #: depth of the Llama-3-8B-width import tree (8 until the tuner phase took
-#: the time)
-HF_LLAMA_LAYERS = 4
+#: the time, 4 until the brokers phase did)
+HF_LLAMA_LAYERS = 2
 HF_PROMPTS = 8
 HF_NEW = 32
 VIT_IMAGES = 2048
@@ -4615,9 +4955,12 @@ def run_vit(cfg_raw: dict) -> dict:
     check(err["card_vs_float32"] <= err["cpu_vs_float32"] + VIT_EMB_TOL,
           f"the ViT embeddings lie further from float32 than the CPU plain path's: {report}")
     imported = hf_import_vit(runner, images)
-    del graphed, eager, runner, proc
+    del graphed, eager, runner
     release_memory()
-    return {"report": report, "hf_import": imported}
+    # the graphed processor, the images and their embeddings stay for the
+    # HTTP -> ViT -> Redis stream
+    return {"report": report, "hf_import": imported, "proc": proc, "payloads": payloads,
+            "embeddings": got}
 
 
 def run_lstm(cfg_raw: dict) -> dict:
@@ -4762,11 +5105,23 @@ class Phases:
     def __init__(self):
         self.start = self.last = time.perf_counter()
         self.seconds: dict[str, float] = {}
+        self.carved = 0.0
 
     def mark(self, name: str) -> None:
         now = time.perf_counter()
-        self.seconds[name] = round(now - self.last, 1)
-        self.last = now
+        self.seconds[name] = round(now - self.last - self.carved, 1)
+        self.last, self.carved = now, 0.0
+
+    def carve(self, name: str, fn, *args):
+        """``fn(*args)``, its seconds added to ``name`` and taken out of the
+        phase it runs inside (the broker streams run on runners that their
+        phases keep warm)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took = time.perf_counter() - t0
+        self.seconds[name] = round(self.seconds.get(name, 0.0) + took, 1)
+        self.carved += took
+        return out
 
     def report(self) -> dict:
         return {**self.seconds, "total": round(time.perf_counter() - self.start, 1)}
@@ -4863,6 +5218,7 @@ def main() -> int:
     phases.mark("packed")
     json_phase = run_json(runner, prunner, ab)
     phases.mark("json")
+    brokers = {"kafka": phases.carve("brokers", run_kafka_bert, runner, ab)}
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
     with open(DELIVERY_CONFIG) as f:
@@ -4942,7 +5298,15 @@ def main() -> int:
     sampling = run_sampling(gen_raw)
     with open(BATCH_CONFIG) as f:
         batch_raw = json.load(f)
-    batch_gen = run_batch_generate(batch_raw)
+    batch_raw["streams"][0]["input"]["count"] = BATCH_ROWS
+    batch_run = run_batch_generate(batch_raw)
+    batch_gen = batch_run["report"]
+    brokers["cdc"] = phases.carve(
+        "brokers", run_cdc_nats, batch_run["proc"], batch_run["rows"], batch_run["generated"],
+        batch_run["ref"], batch_run["limits"],
+        batch_gen["rows_out"] / batch_gen["traffic_seconds"])
+    del batch_run
+    release_memory()
     batch_swap = run_batch_swap(batch_raw, layers=BATCH_SWAP_LAYERS)
     release_memory()
     phases.mark("generation features")
@@ -4960,6 +5324,10 @@ def main() -> int:
     phases.mark("hf_import llama")
     with open(VIT_CONFIG) as f:
         vit = run_vit(json.load(f))
+    brokers["http"] = phases.carve("brokers", run_http_vit, vit.pop("proc"),
+                                   vit.pop("payloads"), vit.pop("embeddings"),
+                                   vit["report"]["traffic_images_per_s"])
+    release_memory()
     phases.mark("vit")
     with open(LSTM_CONFIG) as f:
         lstm_raw = json.load(f)
@@ -4967,6 +5335,7 @@ def main() -> int:
     lstm = lstm_run["report"]
     phases.mark("lstm")
     json_phase["lstm"] = run_lstm_json(lstm_raw, lstm_run)
+    brokers["mqtt"] = phases.carve("brokers", run_mqtt_lstm, lstm_run)
     del lstm_run
     release_memory()
     phases.mark("json lstm")
@@ -5006,6 +5375,16 @@ def main() -> int:
         "batch_tokens_per_s": batch_gen["traffic_tokens_per_s"],
         "batch_decode_steps_per_generation": batch_gen["decode_steps_per_generation"],
         "batch_swap_ms": batch_swap["stage_ms"]}), flush=True)
+    print("brokers " + json.dumps({
+        "rows_per_s": {name: {"broker": brokers[name]["rows_per_s"],
+                              "raw": brokers[name]["raw_rows_per_s"],
+                              "share": brokers[name]["rows_per_s"]
+                              / brokers[name]["raw_rows_per_s"]}
+                       for name in ("kafka", "mqtt", "http", "cdc")},
+        "kafka_k1_launches": brokers["kafka"]["launches"]["k1"],
+        "kafka_device_steps": brokers["kafka"]["device_steps"],
+        "kafka_host_crc": brokers["kafka"]["host_crc"],
+        "seconds": phases.seconds.get("brokers")}), flush=True)
     print("graphs " + json.dumps({path: {k: g[k] for k in ("captures", "keys_checked",
                                                          "differing_elements",
                                                          "reserved_before_captures",
@@ -5019,7 +5398,8 @@ def main() -> int:
         "replaces": "arkflow_tpu/ops/ragged_attention.py:95",
         "launches": (result["report"]["k1_launches"] + hf_bert["k1_launches"]
                      + sum(tokenizer["k1_launches"].values())
-                     + json_phase["window"]["k1_launches"]), "ok": True,
+                     + json_phase["window"]["k1_launches"]
+                     + brokers["kafka"]["launches"]["k1"]), "ok": True,
         **kernel_line(main_case), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K1"] for s, c in tuner["kernels"].items()},
     }, {

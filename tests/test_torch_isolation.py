@@ -3,11 +3,12 @@ neither JAX nor anything of ``arkflow_tpu``, and no module on the slices'
 paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
 batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
-stream with a forced tuner cycle, the chaos and BERT delivery streams, and
-the packed and windowed JSON BERT streams) needs pyarrow, yaml, aiohttp or
+stream with a forced tuner cycle, the chaos and BERT delivery streams, the
+packed and windowed JSON BERT streams, and the four broker examples against
+the port's fake brokers) needs pyarrow, yaml, aiohttp, zstandard or
 google.protobuf at import time or at run time. ``transformers`` is imported
 only inside ``HFTokenizer``, ``google.protobuf`` only inside the protobuf
-codec."""
+codec, ``zstandard`` only inside the zstd codec."""
 
 import ast
 import os
@@ -20,7 +21,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "arkflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "arkflow_tpu")
-NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers", "google")
+NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers", "google", "zstandard")
 
 
 def _imports(tree: ast.AST, top_level_only: bool):
@@ -211,6 +212,79 @@ leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
 assert not leaked, leaked
 print("PORT_OK")
 """
+
+
+_BROKER_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "google.protobuf",
+             "zstandard", "transformers"):
+    sys.modules[name] = None  # any import of these now fails
+import asyncio
+import json
+
+import numpy as np
+
+from arkflow_tpu_torch.tools import broker_streams as bs
+
+
+def example(name, **proc):
+    raw = json.load(open("arkflow_tpu_torch/examples/" + name))
+    raw["health_check"] = {"enabled": False}
+    raw["streams"][0]["pipeline"]["processors"][0].update(device="cpu", **proc)
+    return raw
+
+
+tiny = {"vocab_size": 128, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32,
+        "max_positions": 64}
+texts = [f"msg{i} " + "w " * (i % 9) for i in range(24)]
+rep = asyncio.run(bs.kafka_to_kafka(
+    example("kafka_bert_kafka.json", model_config=tiny, max_seq=32, batch_buckets=[4, 8],
+            seq_buckets=[16, 32], warmup=False),
+    [t.encode() for t in texts], partitions=4, codecs=["gzip", "snappy", "lz4", None]))
+rows = [json.loads(v) for v in rep["values"]]
+assert sorted(r["__value__"] for r in rows) == sorted(texts), rows
+assert all(list(r) == ["__value__", "label", "score"] for r in rows)
+assert rep["committed"] == rep["log_end"] == [6] * 4 and rep["errors"] == 0, rep
+assert rep["generation_before"] == rep["generation_after"] == 1, rep
+assert rep["input_codecs"] == [0, 1, 2, 3], rep
+lstm = {"features": 2, "hidden": 8, "latent": 4, "window": 8}
+windows = np.random.default_rng(0).random((20, 16)).round(3)
+rep = asyncio.run(bs.mqtt_to_stdout(
+    example("mqtt_lstm_anomaly.json", model_config=lstm, batch_buckets=[4, 8]),
+    [json.dumps({"window": w.tolist()}).encode() for w in windows], qos=1, window=8))
+lines = [json.loads(x) for x in rep["lines"]]
+assert [r["window"] for r in lines] == windows.tolist() and rep["errors"] == 0
+vit = {"image_size": 32, "patch": 16, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32}
+raw = example("http_vit_redis.json", model_config=vit, batch_buckets=[4, 8])
+raw["streams"][0]["input"]["rate_limit"] = {"capacity": 12, "per_second": 0.01}
+images = np.random.default_rng(1).integers(0, 256, (12, 32 * 32 * 3), dtype=np.uint8)
+rep = asyncio.run(bs.http_to_redis(raw, [im.tobytes() for im in images], extra=1))
+assert rep["statuses"] == [200] * 12 + [429] and rep["connections"] == 1, rep["statuses"]
+assert [len(json.loads(v)["embedding"]) for v in rep["values"]] == [16] * 12
+dec = {"vocab_size": 64, "dim": 16, "layers": 1, "heads": 2, "kv_heads": 1, "ffn": 32}
+rep = asyncio.run(bs.kafka_to_nats(
+    example("cdc_llm_nats.json", model_config=dec, max_input=16, max_new_tokens=3,
+            seq_buckets=[16]), [f"row {i} changed".encode() for i in range(6)]))
+assert [list(json.loads(p)) for p in rep["payloads"]] == [["summary"]] * 6, rep["payloads"]
+assert rep["committed"] == rep["log_end"] == 6 and rep["errors"] == 0
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu", "transformers")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("BROKERS_OK")
+"""
+
+
+def test_broker_examples_run_with_jax_and_reference_blocked():
+    """The four broker examples at a tiny width on the CPU through
+    ``tools/broker_streams.py`` and ``tools/fake_brokers.py``, with JAX, the
+    JAX package, pyarrow, yaml, aiohttp, protobuf, zstandard and
+    transformers blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _BROKER_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BROKERS_OK" in proc.stdout
 
 
 def test_port_imports_and_streams_with_jax_and_reference_blocked():
