@@ -589,6 +589,10 @@ class MessageBatch:
     def with_offset(self, offset: int) -> "MessageBatch":
         return self.with_column(META_OFFSET, np.full(self._rows, offset, np.int64))
 
+    def with_key(self, key: Optional[bytes]) -> "MessageBatch":
+        """The message key ``__meta_key`` (binary, null for None) on every row."""
+        return self.with_column(META_KEY, BinaryColumn.from_pylist([key] * self._rows))
+
     def with_timestamp(self, ts_millis: int) -> "MessageBatch":
         """Broker-assigned event timestamp, epoch millis."""
         return self.with_column(META_TIMESTAMP, np.full(self._rows, ts_millis, np.int64))

@@ -24,7 +24,7 @@ again in this session: only then does the stream nack a failed batch below
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Awaitable, Callable, Optional, Sequence
 
 from arkflow_tpu_torch.batch import MessageBatch
@@ -144,11 +144,23 @@ def split_ack(ack: Ack, parts: int) -> list[Ack]:
 
 @dataclass
 class Resource:
-    """Shared build-time context passed to every builder (the slice's
-    components need none of it yet)."""
+    """Shared build-time context passed to every builder.
+
+    - ``input_names``: child names registered by fan-in inputs
+      (``multiple_inputs``), for the windowed SQL join's tables (its
+      reader, like JAX's ``temporaries``, waits for the SQL engine).
+    """
+
+    input_names: list[str] = field(default_factory=list)
 
 
 class Input(abc.ABC):
+    #: True for pull-based sources that keep their backlog on the broker
+    #: (kafka, redis list, nats JetStream, websocket), as in the JAX
+    #: package: the overload controller would pause their reads. The port
+    #: has no overload controller yet, so nothing reads the flag.
+    pause_on_overload = False
+
     @abc.abstractmethod
     async def connect(self) -> None: ...
 

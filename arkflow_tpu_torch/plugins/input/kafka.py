@@ -104,6 +104,9 @@ SESSION_TIMEOUT_MS = 10000
 
 
 class KafkaInput(Input):
+    #: pull-based: the backlog stays on the broker (see ``Input``)
+    pause_on_overload = True
+
     def __init__(self, brokers: str, topics: list[str], group: str,
                  partitions: Optional[list[int]], start: str, batch_size: int, codec=None,
                  client_kwargs: Optional[dict] = None,

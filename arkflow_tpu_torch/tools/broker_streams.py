@@ -1,12 +1,15 @@
-"""Drive the four broker examples end to end against ``fake_brokers``.
+"""Drive the broker examples end to end against ``fake_brokers``.
 
 Each driver takes an engine config of one of the examples
 (``examples/kafka_bert_kafka.json``, ``mqtt_lstm_anomaly.json``,
-``http_vit_redis.json``, ``cdc_llm_nats.json``), points its input and output
-at fakes started on 127.0.0.1 in the same process, feeds the input, runs the
-stream through ``Engine`` until its output holds every expected row, stops
-it (``Engine.shutdown``: the stream drains and acks before it closes) and
-returns what the output received with the stream's counters:
+``http_vit_redis.json``, ``cdc_llm_nats.json``, ``nats_bert_mqtt.json``,
+``redis_lstm_influx.json``, ``ws_redis_bert_http.json``,
+``modbus_influx.json``), points its input and output at fakes started on
+127.0.0.1 in the same process, feeds the input, runs the stream through
+``Engine`` until its output holds every expected row (a count: the push
+inputs never end), stops it (``Engine.shutdown``: the stream drains and
+acks before it closes) and returns what the output received with the
+stream's counters:
 
     report = asyncio.run(kafka_to_kafka(raw, texts, codecs=["gzip", "snappy"]))
     report["values"], report["committed"], report["log_end"], report["rows_per_s"]
@@ -29,9 +32,12 @@ from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.connect.kafka_client import KafkaClient
 from arkflow_tpu_torch.connect.mqtt_client import MqttClient
 from arkflow_tpu_torch.connect.nats_client import NatsClient
+from arkflow_tpu_torch.connect.redis_client import RedisClient
 from arkflow_tpu_torch.runtime.engine import Engine
-from arkflow_tpu_torch.tools.fake_brokers import (FakeKafkaBroker, FakeMqttBroker,
-                                                  FakeNatsServer, FakeRedisServer)
+from arkflow_tpu_torch.tools.fake_brokers import (FakeKafkaBroker, FakeModbusServer,
+                                                  FakeMqttBroker, FakeNatsServer,
+                                                  FakeRedisServer, FakeWebsocketServer,
+                                                  HttpSink)
 
 Prepare = Optional[Callable[[object], None]]
 
@@ -282,3 +288,153 @@ async def kafka_to_nats(raw: dict, values: list[bytes], prepare: Prepare = None,
         await sub.close()
         await broker.stop()
         await nats.stop()
+
+
+async def nats_to_mqtt(raw: dict, values: list[bytes], prepare: Prepare = None,
+                       timeout_s: float = 120.0) -> dict:
+    """``nats_bert_mqtt.json``: ``values`` stored in the JetStream stream
+    before the run, on the input's filter subject; the stream stops once an
+    MQTT subscriber (QoS 1) holds one payload a value and the consumer's ack
+    floor reaches the stream's last sequence; the payloads in arrival order
+    and the consumer's counts."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    inp = s["input"]
+    name, durable, subject = inp["stream"], inp["durable"], inp.get("subject") or "events"
+    nats, broker = FakeNatsServer(streams={name: [subject]}), FakeMqttBroker()
+    await nats.start()
+    await broker.start()
+    sub = MqttClient("127.0.0.1", broker.port, client_id="arkflow-smoke-sub")
+    try:
+        inp["url"] = f"nats://127.0.0.1:{nats.port}"
+        s["output"].update(host="127.0.0.1", port=broker.port)
+        for v in values:
+            nats.js_publish(subject, v)
+        got: list[bytes] = []
+        sub.on_message(lambda m: got.append(m.payload))
+        await sub.connect()
+        await sub.subscribe(s["output"]["topic"], qos=1)
+        engine, stream = _build(raw, prepare)
+        last = nats.last_seq(name)
+
+        def done() -> bool:
+            c = nats.consumers.get((name, durable))
+            return len(got) >= len(values) and c is not None and c.ack_floor == last
+
+        wall = await run_until(engine, done, timeout_s=timeout_s)
+        await asyncio.sleep(0.05)  # a duplicate publish would land by now
+        c = nats.consumers[(name, durable)]
+        return {**_stream_report(stream, wall), "payloads": list(got),
+                "ack_floor": c.ack_floor, "last_seq": last, "redelivered": c.redelivered,
+                "naks": c.naks, "ack_pending": len(c.pending),
+                "published": broker.published}
+    finally:
+        await sub.close()
+        await nats.stop()
+        await broker.stop()
+
+
+def sink_lines(sink: HttpSink) -> list[bytes]:
+    """The lines of the request bodies a sink answered with a 2xx."""
+    return [line for (_, _, _, body), status in zip(sink.requests, sink.answered)
+            if 200 <= status < 300 for line in body.split(b"\n") if line]
+
+
+async def redis_to_influx(raw: dict, values: list[bytes], statuses: Optional[list] = None,
+                          prepare: Prepare = None, timeout_s: float = 120.0) -> dict:
+    """``redis_lstm_influx.json``: the first half of ``values`` pushed onto
+    the input's first key, the rest onto its last (BLPOP drains its keys in
+    order, so the stream reads ``values`` in order); an InfluxDB sink
+    answering ``statuses`` first, then 204; the stream stops once the sink
+    took one line a value. The lines, the statuses answered and the
+    sink's connections."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    srv, sink = FakeRedisServer(), HttpSink(statuses=statuses, status=204)
+    await srv.start()
+    await sink.start()
+    try:
+        keys = s["input"]["keys"]
+        s["input"]["url"] = f"redis://127.0.0.1:{srv.port}"
+        s["output"]["url"] = f"http://127.0.0.1:{sink.port}"
+        half = len(values) // 2
+        for i, v in enumerate(values):
+            srv.push((keys[0] if i < half else keys[-1]).encode(), v)
+        engine, stream = _build(raw, prepare)
+        wall = await run_until(engine, lambda: len(sink_lines(sink)) >= len(values),
+                               timeout_s=timeout_s)
+        return {**_stream_report(stream, wall), "lines": sink_lines(sink),
+                "answered": list(sink.answered), "bodies": [r[3] for r in sink.requests],
+                "targets": sorted({r[1] for r in sink.requests}),
+                "authorization": sorted({r[2].get("authorization", "") for r in sink.requests}),
+                "connections": sink.connections, "left_in_lists": sum(
+                    len(srv.lists.get(k.encode(), [])) for k in keys)}
+    finally:
+        await srv.stop()
+        await sink.stop()
+
+
+async def ws_redis_to_http(raw: dict, ws_values: list[str], redis_values: list[bytes],
+                           prepare: Prepare = None, timeout_s: float = 120.0) -> dict:
+    """``ws_redis_bert_http.json``: a websocket server sending
+    ``ws_values`` (text) on connect and ``redis_values`` published on the
+    subscribe child's first channel once it subscribed; the stream stops once
+    the HTTP sink took one row a value. The rows (each a line of a request
+    body) and every request's headers."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    ws, srv, sink = FakeWebsocketServer(ws_values), FakeRedisServer(), HttpSink()
+    for fake in (ws, srv, sink):
+        await fake.start()
+    pub = RedisClient(f"redis://127.0.0.1:{srv.port}")
+    try:
+        channel = None
+        for child in s["input"]["inputs"]:
+            if child["type"] == "websocket":
+                child["url"] = f"ws://127.0.0.1:{ws.port}/feed"
+            elif child["type"] == "redis":
+                child["url"] = f"redis://127.0.0.1:{srv.port}"
+                channel = child["channels"][0]
+        s["output"]["url"] = f"http://127.0.0.1:{sink.port}/classified"
+        engine, stream = _build(raw, prepare)
+        total = len(ws_values) + len(redis_values)
+
+        async def feed() -> None:
+            while not srv.subscribers:
+                await asyncio.sleep(0.005)
+            await pub.connect()
+            for v in redis_values:
+                await pub.publish(channel, v)
+
+        wall = await run_until(engine, lambda: len(sink_lines(sink)) >= total, feed, timeout_s)
+        return {**_stream_report(stream, wall), "rows": sink_lines(sink),
+                "headers": [r[2] for r in sink.requests], "answered": list(sink.answered),
+                "requests": len(sink.requests), "connections": sink.connections,
+                "ws_handshakes": ws.handshakes, "redis_published": srv.published}
+    finally:
+        await pub.close()
+        for fake in (ws, srv, sink):
+            await fake.stop()
+
+
+async def modbus_to_influx(raw: dict, polls: int, prepare: Prepare = None,
+                           timeout_s: float = 120.0) -> dict:
+    """``modbus_influx.json``: a Modbus server whose values change with
+    every request; the stream stops once the InfluxDB sink took ``polls``
+    lines. The lines and every request the server served, in order."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    srv, sink = FakeModbusServer(), HttpSink(status=204)
+    await srv.start()
+    await sink.start()
+    try:
+        s["input"].update(host="127.0.0.1", port=srv.port)
+        s["output"]["url"] = f"http://127.0.0.1:{sink.port}"
+        engine, stream = _build(raw, prepare)
+        wall = await run_until(engine, lambda: len(sink_lines(sink)) >= polls,
+                               timeout_s=timeout_s)
+        return {**_stream_report(stream, wall), "lines": sink_lines(sink),
+                "served": list(srv.served), "answered": list(sink.answered)}
+    finally:
+        await srv.stop()
+        await sink.stop()

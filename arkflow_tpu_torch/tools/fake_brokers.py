@@ -16,9 +16,23 @@ memory for a checker to read:
 - ``FakeMqttBroker``: MQTT 3.1.1 CONNECT, SUBSCRIBE, PUBLISH at QoS 0/1
   (a QoS 2 subscription is granted QoS 1), PINGREQ, DISCONNECT, with
   ``+``/``#`` topic filters.
-- ``FakeRedisServer``: RESP2 AUTH, SELECT, LPUSH, RPUSH.
+- ``FakeRedisServer``: RESP2 AUTH, SELECT, LPUSH, RPUSH, BLPOP (blocking
+  up to its timeout), SUBSCRIBE, PSUBSCRIBE (glob patterns) and PUBLISH.
 - ``FakeNatsServer``: INFO, CONNECT, PING, SUB, UNSUB, PUB with ``*`` and
-  ``>`` wildcards.
+  ``>`` wildcards, HMSG status replies, and the JetStream pull subset the
+  port's ``JetStream`` speaks: streams capturing subjects (a publish with a
+  reply is answered with a PubAck), stream and consumer info, durable
+  consumer creation, ``MSG.NEXT`` pulls that wait up to their ``expires``,
+  and ack subjects (``+ACK``; ``-NAK`` or the ack wait redelivers), with
+  each consumer's ack floor and redelivery count for a checker.
+- ``FakeWebsocketServer``: the RFC 6455 server handshake, then the scripted
+  messages (fragmented into continuation frames of a given size, a ping
+  before every n-th), pongs and close frames recorded.
+- ``FakeModbusServer``: Modbus TCP reads of coils, discrete inputs, holding
+  and input registers whose values change with every request; every
+  request's values recorded.
+- ``HttpSink``: an HTTP/1.1 server on ``utils/http1.HttpServer`` that
+  records every request and answers a scripted status sequence.
 
     kafka = FakeKafkaBroker({"text-events": 4})
     await kafka.start()            # kafka.port
@@ -29,10 +43,17 @@ memory for a checker to read:
 from __future__ import annotations
 
 import asyncio
+import fnmatch
+import json
 import struct
-from typing import Optional
+import time
+from typing import Optional, Union
 
 from arkflow_tpu_torch.connect.kafka_client import Reader, Writer, decode_record_set
+from arkflow_tpu_torch.connect.ws_client import (OP_BINARY, OP_CLOSE, OP_CONT, OP_PING,
+                                                 OP_PONG, OP_TEXT, accept_key, close_payload,
+                                                 encode_frame, read_frame)
+from arkflow_tpu_torch.utils.http1 import HttpServer, Request, Response
 
 
 class _Server:
@@ -464,12 +485,31 @@ class FakeMqttBroker(_Server):
 # -- Redis ---------------------------------------------------------------------
 
 
+def _bulk(v: Optional[bytes]) -> bytes:
+    if v is None:
+        return b"$-1\r\n"
+    return b"$%d\r\n%s\r\n" % (len(v), v)
+
+
 class FakeRedisServer(_Server):
-    """RESP2 fake with lists."""
+    """RESP2 fake with lists, blocking pops and pub/sub."""
 
     def __init__(self):
         super().__init__()
         self.lists: dict[bytes, list] = {}
+        #: (writer, channel or pattern, is a pattern)
+        self.subscribers: list = []
+        self.published = 0
+        self._pushed: Optional[asyncio.Event] = None
+
+    def _notify(self) -> None:
+        if self._pushed is not None:
+            self._pushed.set()
+
+    def push(self, key: bytes, value: bytes) -> None:
+        """RPUSH from the checker's side."""
+        self.lists.setdefault(key, []).append(value)
+        self._notify()
 
     async def _read_command(self, reader) -> Optional[list]:
         line = await reader.readline()
@@ -483,50 +523,274 @@ class FakeRedisServer(_Server):
             args.append((await reader.readexactly(int(hl[1:-2]) + 2))[:-2])
         return args
 
-    async def _client(self, reader, writer) -> None:
+    async def _blpop(self, keys: list, timeout_s: float) -> Optional[tuple[bytes, bytes]]:
+        deadline = time.monotonic() + (timeout_s if timeout_s > 0 else 1e9)
         while True:
-            args = await self._read_command(reader)
-            if args is None:
-                return
-            cmd = args[0].upper()
-            if cmd in (b"AUTH", b"SELECT"):
-                writer.write(b"+OK\r\n")
-            elif cmd in (b"LPUSH", b"RPUSH"):
-                lst = self.lists.setdefault(args[1], [])
-                if cmd == b"LPUSH":
-                    lst.insert(0, args[2])
+            for k in keys:
+                if self.lists.get(k):
+                    return k, self.lists[k].pop(0)
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return None
+            if self._pushed is None:
+                self._pushed = asyncio.Event()
+            self._pushed.clear()
+            try:
+                await asyncio.wait_for(self._pushed.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+
+    async def _client(self, reader, writer) -> None:
+        try:
+            while True:
+                args = await self._read_command(reader)
+                if args is None:
+                    return
+                cmd = args[0].upper()
+                if cmd in (b"AUTH", b"SELECT"):
+                    writer.write(b"+OK\r\n")
+                elif cmd in (b"LPUSH", b"RPUSH"):
+                    lst = self.lists.setdefault(args[1], [])
+                    for v in args[2:]:
+                        if cmd == b"LPUSH":
+                            lst.insert(0, v)
+                        else:
+                            lst.append(v)
+                    writer.write(b":%d\r\n" % len(lst))
+                    self._notify()
+                elif cmd == b"BLPOP":
+                    popped = await self._blpop(args[1:-1], float(args[-1]))
+                    writer.write(b"*-1\r\n" if popped is None
+                                 else b"*2\r\n" + _bulk(popped[0]) + _bulk(popped[1]))
+                elif cmd in (b"SUBSCRIBE", b"PSUBSCRIBE"):
+                    kind = b"subscribe" if cmd == b"SUBSCRIBE" else b"psubscribe"
+                    for ch in args[1:]:
+                        self.subscribers.append((writer, ch, cmd == b"PSUBSCRIBE"))
+                        n = sum(1 for w, _, _ in self.subscribers if w is writer)
+                        writer.write(b"*3\r\n" + _bulk(kind) + _bulk(ch) + b":%d\r\n" % n)
+                elif cmd == b"PUBLISH":
+                    ch, payload = args[1], args[2]
+                    self.published += 1
+                    n = 0
+                    for w, sub, pattern in self.subscribers:
+                        if pattern and fnmatch.fnmatchcase(ch.decode(), sub.decode()):
+                            w.write(b"*4\r\n" + _bulk(b"pmessage") + _bulk(sub) + _bulk(ch)
+                                    + _bulk(payload))
+                        elif not pattern and sub == ch:
+                            w.write(b"*3\r\n" + _bulk(b"message") + _bulk(ch) + _bulk(payload))
+                        else:
+                            continue
+                        n += 1
+                    writer.write(b":%d\r\n" % n)
                 else:
-                    lst.append(args[2])
-                writer.write(b":%d\r\n" % len(lst))
-            else:
-                writer.write(b"-ERR unknown command\r\n")
-            await writer.drain()
+                    writer.write(b"-ERR unknown command\r\n")
+                await writer.drain()
+        finally:
+            self.subscribers = [s for s in self.subscribers if s[0] is not writer]
 
 
 # -- NATS ----------------------------------------------------------------------
 
 
-class FakeNatsServer(_Server):
-    """NATS core fake: subject routing with ``*`` and ``>`` wildcards."""
+def _nats_match(sub: str, subject: str) -> bool:
+    if sub == subject:
+        return True
+    sp, tp = sub.split("."), subject.split(".")
+    for i, s in enumerate(sp):
+        if s == ">":
+            return len(tp) > i
+        if i >= len(tp) or (s != "*" and s != tp[i]):
+            return False
+    return len(sp) == len(tp)
 
-    def __init__(self):
+
+class _Consumer:
+    """A durable pull consumer's state."""
+
+    def __init__(self, stream: str, name: str, config: dict):
+        self.stream = stream
+        self.name = name
+        self.config = config
+        self.acked: set[int] = set()
+        #: seq -> monotonic time of its last delivery, for the unacked
+        self.pending: dict[int, float] = {}
+        self.deliveries: dict[int, int] = {}
+        #: messages delivered again (a nak, or past the ack wait)
+        self.redelivered = 0
+        self.naks = 0
+        self.next_seq = 1
+        self.ack_floor = 0
+        self.pulls: list = []  # waiting MSG.NEXT requests: [inbox, left, deadline, sent]
+
+    def advance_floor(self) -> None:
+        while self.ack_floor + 1 in self.acked:
+            self.ack_floor += 1
+
+
+class FakeNatsServer(_Server):
+    """NATS core fake with ``*`` and ``>`` wildcards, plus JetStream pull
+    consumers over the streams given (see the module docstring):
+
+        nats = FakeNatsServer(streams={"EVENTS": ["events.>"]})
+        nats.js_publish("events.sensors", b"...")   # or a PUB with a reply
+        nats.consumers[("EVENTS", "arkflow")].ack_floor
+    """
+
+    #: seconds a delivered message may wait for its ack before it is due again
+    ACK_WAIT_S = 30.0
+
+    def __init__(self, streams: Optional[dict[str, list[str]]] = None):
         super().__init__()
         self.subs: list = []  # (writer, subject, sid)
+        #: stream -> the subjects it captures
+        self.streams: dict[str, list[str]] = dict(streams or {})
+        #: stream -> [(subject, payload)], sequence i + 1
+        self.js_messages: dict[str, list] = {name: [] for name in self.streams}
+        self.consumers: dict[tuple[str, str], _Consumer] = {}
+        self._pump: Optional[asyncio.Task] = None
 
-    @staticmethod
-    def _match(sub: str, subject: str) -> bool:
-        if sub == subject:
-            return True
-        sp, tp = sub.split("."), subject.split(".")
-        for i, s in enumerate(sp):
-            if s == ">":
-                return len(tp) > i
-            if i >= len(tp) or (s != "*" and s != tp[i]):
-                return False
-        return len(sp) == len(tp)
+    def last_seq(self, stream: str) -> int:
+        return len(self.js_messages[stream])
+
+    def js_publish(self, subject: str, payload: bytes) -> Optional[tuple[str, int]]:
+        """Store ``payload`` in the stream capturing ``subject``: (stream,
+        seq), or None when no stream captures it."""
+        for name, subjects in self.streams.items():
+            if any(_nats_match(s, subject) for s in subjects):
+                self.js_messages[name].append((subject, payload))
+                return name, len(self.js_messages[name])
+        return None
+
+    async def _route(self, subject: str, payload: bytes, reply: Optional[str] = None) -> None:
+        r = f" {reply}" if reply else ""
+        for w, sub, sid in list(self.subs):
+            if _nats_match(sub, subject):
+                w.write(f"MSG {subject} {sid}{r} {len(payload)}\r\n".encode() + payload + b"\r\n")
+                await w.drain()
+
+    async def _reply(self, reply: Optional[str], body: dict) -> None:
+        if reply:
+            await self._route(reply, json.dumps(body).encode())
+
+    # -- JetStream ---------------------------------------------------------------
+
+    def _next_for(self, c: _Consumer) -> Optional[int]:
+        now = time.monotonic()
+        for seq, at in sorted(c.pending.items()):
+            if at == 0.0 or now - at >= self.ACK_WAIT_S:  # nak'd, or past the ack wait
+                c.redelivered += 1
+                return seq
+        if c.next_seq <= len(self.js_messages[c.stream]):
+            c.next_seq += 1
+            return c.next_seq - 1
+        return None
+
+    def _to_inbox(self, inbox: str, line: str, data: bytes) -> None:
+        for w, sub, sid in list(self.subs):
+            if sub == inbox:
+                w.write(line.format(sid=sid).encode() + data + b"\r\n")
+
+    def _serve_pulls(self, c: _Consumer) -> None:
+        """Deliver what the consumer's waiting pulls can take, and end the
+        expired ones with a 408 (synchronous: no two servings interleave)."""
+        now = time.monotonic()
+        for pull in list(c.pulls):
+            inbox, left, deadline, sent = pull
+            while left > 0:
+                seq = self._next_for(c)
+                if seq is None:
+                    break
+                c.pending[seq] = time.monotonic()
+                c.deliveries[seq] = c.deliveries.get(seq, 0) + 1
+                subject, payload = self.js_messages[c.stream][seq - 1]
+                ack = (f"$JS.ACK.{c.stream}.{c.name}.{c.deliveries[seq]}.{seq}.{seq}."
+                       f"{time.time_ns()}.0")
+                self._to_inbox(inbox, f"MSG {subject} {{sid}} {ack} {len(payload)}\r\n",
+                               payload)
+                left -= 1
+                sent += 1
+            pull[1], pull[3] = left, sent
+            if left == 0:
+                c.pulls.remove(pull)
+            elif now >= deadline:
+                c.pulls.remove(pull)
+                hdr = b"NATS/1.0 408 Request Timeout\r\n\r\n"
+                self._to_inbox(inbox, f"HMSG {inbox} {{sid}} {len(hdr)} {len(hdr)}\r\n", hdr)
+
+    async def _pump_loop(self) -> None:
+        """Serve waiting pulls as messages arrive, redeliveries fall due and
+        pulls expire."""
+        while True:
+            for c in list(self.consumers.values()):
+                if c.pulls:
+                    self._serve_pulls(c)
+            await asyncio.sleep(0.002)
+
+    async def _jetstream(self, api: str, reply: Optional[str], payload: bytes) -> None:
+        parts = api.split(".")
+        if api.startswith("STREAM.INFO."):
+            name = parts[2]
+            if name not in self.streams:
+                await self._reply(reply, {"error": {"code": 404,
+                                                    "description": "stream not found"}})
+                return
+            n = self.last_seq(name)
+            await self._reply(reply, {"config": {"name": name, "subjects": self.streams[name]},
+                                      "state": {"messages": n, "first_seq": 1 if n else 0,
+                                                "last_seq": n}})
+        elif api.startswith("CONSUMER.INFO."):
+            c = self.consumers.get((parts[2], parts[3]))
+            if c is None:
+                await self._reply(reply, {"error": {"code": 404,
+                                                    "description": "consumer not found"}})
+                return
+            await self._reply(reply, {"stream_name": c.stream, "name": c.name,
+                                      "config": c.config,
+                                      "ack_floor": {"stream_seq": c.ack_floor},
+                                      "num_ack_pending": len(c.pending),
+                                      "num_redelivered": c.redelivered})
+        elif api.startswith("CONSUMER.DURABLE.CREATE."):
+            stream, durable = parts[3], parts[4]
+            if stream not in self.streams:
+                await self._reply(reply, {"error": {"code": 404,
+                                                    "description": "stream not found"}})
+                return
+            req = json.loads(payload.decode() or "{}")
+            self.consumers.setdefault((stream, durable),
+                                      _Consumer(stream, durable, req.get("config", {})))
+            await self._reply(reply, {"stream_name": stream, "name": durable})
+        elif api.startswith("CONSUMER.MSG.NEXT."):
+            c = self.consumers.get((parts[3], parts[4]))
+            if c is None or not reply:
+                return
+            req = json.loads(payload.decode() or "{}")
+            expires = req.get("expires", 0) / 1e9 or 30.0
+            c.pulls.append([reply, int(req.get("batch", 1)), time.monotonic() + expires, 0])
+            self._serve_pulls(c)
+            if self._pump is None or self._pump.done():
+                self._pump = asyncio.get_running_loop().create_task(self._pump_loop())
+        else:
+            await self._reply(reply, {"error": {"code": 400, "description": f"unknown {api}"}})
+
+    def _ack(self, subject: str, payload: bytes) -> None:
+        # $JS.ACK.<stream>.<durable>.<delivered>.<stream seq>.<consumer seq>.<ts>.<pending>
+        parts = subject.split(".")
+        c = self.consumers.get((parts[2], parts[3]))
+        if c is None:
+            return
+        seq = int(parts[5])
+        if payload.startswith(b"-NAK"):
+            if seq in c.pending:
+                c.naks += 1
+                c.pending[seq] = 0.0  # due at once
+        elif payload in (b"", b"+ACK"):
+            c.pending.pop(seq, None)
+            c.acked.add(seq)
+            c.advance_floor()
 
     async def _client(self, reader, writer) -> None:
-        writer.write(b'INFO {"server_id":"fake","max_payload":1048576,"headers":true}\r\n')
+        writer.write(b'INFO {"server_id":"fake","max_payload":1048576,"headers":true,'
+                     b'"jetstream":true}\r\n')
         await writer.drain()
         try:
             while True:
@@ -547,12 +811,190 @@ class FakeNatsServer(_Server):
                     reply = parts[2].decode() if len(parts) == 4 else None
                     payload = await reader.readexactly(int(parts[-1]))
                     await reader.readexactly(2)
-                    r = f" {reply}" if reply else ""
-                    for w, sub, sid in self.subs:
-                        if self._match(sub, subject):
-                            w.write(f"MSG {subject} {sid}{r} {len(payload)}\r\n".encode()
-                                    + payload + b"\r\n")
-                            await w.drain()
+                    if subject.startswith("$JS.ACK."):
+                        self._ack(subject, payload)
+                    elif subject.startswith("$JS.API."):
+                        await self._jetstream(subject[len("$JS.API."):], reply, payload)
+                    else:
+                        stored = self.js_publish(subject, payload)
+                        if stored is not None and reply:
+                            await self._reply(reply, {"stream": stored[0], "seq": stored[1]})
+                            reply = None
+                        await self._route(subject, payload, reply)
                 await writer.drain()
         finally:
             self.subs = [s for s in self.subs if s[0] is not writer]
+
+    async def stop(self) -> None:
+        if self._pump is not None:
+            self._pump.cancel()
+            try:
+                await self._pump
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._pump = None
+        await super().stop()
+
+
+# -- websocket -----------------------------------------------------------------
+
+
+class FakeWebsocketServer(_Server):
+    """RFC 6455 server fake: on each connection, after the handshake, sends
+    ``messages`` in order (``str`` as text, ``bytes`` as binary), each in
+    frames of at most ``fragment`` bytes (0: one frame), a ping before every
+    ``ping_every``-th (0: none), then a close frame with ``close_code`` when
+    one is given, else holds the connection open. Reads the client's frames:
+    pongs and close codes are recorded."""
+
+    def __init__(self, messages: list[Union[str, bytes]], fragment: int = 0,
+                 ping_every: int = 0, close_code: Optional[int] = None):
+        super().__init__()
+        self.messages = list(messages)
+        self.fragment = fragment
+        self.ping_every = ping_every
+        self.close_code = close_code
+        self.pongs: list[bytes] = []
+        self.close_codes: list[int] = []
+        self.handshakes = 0
+        #: the time the last scripted message was written
+        self.sent_at: Optional[float] = None
+
+    def _frames(self, message: Union[str, bytes]) -> bytes:
+        opcode = OP_TEXT if isinstance(message, str) else OP_BINARY
+        data = message.encode() if isinstance(message, str) else message
+        if not self.fragment or len(data) <= self.fragment:
+            return encode_frame(opcode, data)
+        chunks = [data[i:i + self.fragment] for i in range(0, len(data), self.fragment)]
+        return b"".join(encode_frame(opcode if i == 0 else OP_CONT, c,
+                                     fin=i == len(chunks) - 1)
+                        for i, c in enumerate(chunks))
+
+    async def _client(self, reader, writer) -> None:
+        head = await reader.readuntil(b"\r\n\r\n")
+        hdrs = {k.strip().lower(): v.strip() for k, sep, v in
+                (r.partition(":") for r in head.decode("latin-1").split("\r\n")[1:] if r) if sep}
+        key = hdrs.get("sec-websocket-key")
+        if hdrs.get("upgrade", "").lower() != "websocket" or not key:
+            writer.write(b"HTTP/1.1 400 Bad Request\r\nContent-Length: 0\r\n\r\n")
+            await writer.drain()
+            return
+        writer.write(("HTTP/1.1 101 Switching Protocols\r\nUpgrade: websocket\r\n"
+                      f"Connection: Upgrade\r\nSec-WebSocket-Accept: {accept_key(key)}"
+                      "\r\n\r\n").encode())
+        self.handshakes += 1
+        listener = asyncio.create_task(self._listen(reader, writer))
+        try:
+            for i, m in enumerate(self.messages):
+                if self.ping_every and i % self.ping_every == 0:
+                    writer.write(encode_frame(OP_PING, b"p%d" % i))
+                writer.write(self._frames(m))
+                await writer.drain()
+            self.sent_at = time.perf_counter()
+            if self.close_code is not None:
+                writer.write(encode_frame(OP_CLOSE, close_payload(self.close_code)))
+                await writer.drain()
+            await listener
+        finally:
+            listener.cancel()
+
+    async def _listen(self, reader, writer) -> None:
+        while True:
+            fin, opcode, payload, masked = await read_frame(reader, 1 << 30)
+            if not masked:
+                raise ConnectionError("fake websocket: an unmasked client frame")
+            if opcode == OP_PONG:
+                self.pongs.append(payload)
+            elif opcode == OP_CLOSE:
+                self.close_codes.append(struct.unpack(">H", payload[:2])[0]
+                                        if len(payload) >= 2 else 1005)
+                if self.close_code is None:  # the client closed first: echo it
+                    writer.write(encode_frame(OP_CLOSE, payload[:2]))
+                    await writer.drain()
+                return
+
+
+# -- Modbus --------------------------------------------------------------------
+
+
+class FakeModbusServer(_Server):
+    """Modbus TCP fake: function codes 1-4. Request ``n`` (from 0) reads
+    register ``address + i`` as ``(SEED + 37 * n + 11 * (address + i)) %
+    65536`` and bit ``address + i`` as that value's lowest bit; ``served``
+    records ``(function, address, count, values)`` of every request."""
+
+    SEED = 1000
+
+    def __init__(self):
+        super().__init__()
+        self.requests = 0
+        self.served: list[tuple[int, int, int, list]] = []
+
+    def _values(self, func: int, addr: int, count: int) -> list:
+        n = self.requests
+        regs = [(self.SEED + 37 * n + 11 * (addr + i)) % 65536 for i in range(count)]
+        return [bool(r & 1) for r in regs] if func in (1, 2) else regs
+
+    async def _client(self, reader, writer) -> None:
+        while True:
+            header = await reader.readexactly(7)
+            tid, _proto, length, unit = struct.unpack(">HHHB", header)
+            func, addr, count = struct.unpack(">BHH", await reader.readexactly(length - 1))
+            if func in (1, 2, 3, 4):
+                vals = self._values(func, addr, count)
+                self.requests += 1
+                self.served.append((func, addr, count, vals))
+                if func in (1, 2):
+                    bits = bytearray((count + 7) // 8)
+                    for i, v in enumerate(vals):
+                        if v:
+                            bits[i // 8] |= 1 << (i % 8)
+                    body = struct.pack(">BB", func, len(bits)) + bytes(bits)
+                else:
+                    body = struct.pack(">BB", func, 2 * count) + struct.pack(f">{count}H", *vals)
+            else:
+                body = struct.pack(">BB", func | 0x80, 1)  # illegal function
+            writer.write(struct.pack(">HHHB", tid, 0, len(body) + 1, unit) + body)
+            await writer.drain()
+
+
+# -- HTTP sink -----------------------------------------------------------------
+
+
+class HttpSink:
+    """An HTTP/1.1 server that records every request as ``(method, target,
+    headers, body)`` and answers with ``statuses`` in turn, then ``status``
+    (a 2xx with an empty body; any other status with the text ``fail``).
+
+        sink = HttpSink(statuses=[500], status=204)
+        await sink.start()      # sink.port
+    """
+
+    def __init__(self, statuses: Optional[list[int]] = None, status: int = 200):
+        self.statuses = list(statuses or [])
+        self.status = status
+        self.requests: list[tuple[str, str, dict, bytes]] = []
+        #: the status each request was answered with
+        self.answered: list[int] = []
+        self._server = HttpServer(self._handle)
+        self.port: Optional[int] = None
+
+    @property
+    def connections(self) -> int:
+        return self._server.connections
+
+    async def _handle(self, req: Request) -> Response:
+        body = await req.read()
+        self.requests.append((req.method, req.target, dict(req.headers), body))
+        status = self.statuses.pop(0) if self.statuses else self.status
+        self.answered.append(status)
+        if 200 <= status < 300:
+            return Response(status, b"", content_type=None)
+        return Response.text(status, "fail")
+
+    async def start(self) -> int:
+        self.port = await self._server.start("127.0.0.1", 0)
+        return self.port
+
+    async def stop(self) -> None:
+        await self._server.close()

@@ -1,9 +1,12 @@
-"""A small HTTP/1.1 server on ``asyncio`` streams (standard library only).
+"""A small HTTP/1.1 server and client on ``asyncio`` streams (standard
+library only).
 
-Shared by the engine's health server (``runtime/engine.py``) and the HTTP
-input (``plugins/input/http.py``); the card's machine has no aiohttp, and
-the port imports none. ``serve_connection`` reads requests off one
-connection in turn and writes each handler's response:
+The server is shared by the engine's health server (``runtime/engine.py``)
+and the HTTP input (``plugins/input/http.py``), the client (``HttpClient``,
+the port's stand-in for ``aiohttp.ClientSession``) by the HTTP and InfluxDB
+outputs; the card's machine has no aiohttp, and the port imports none.
+``serve_connection`` reads requests off one connection in turn and writes
+each handler's response:
 
 - the head is read up to ``MAX_HEAD`` bytes; a body is framed by
   ``Content-Length`` or ``Transfer-Encoding: chunked`` and read only when
@@ -18,14 +21,22 @@ connection in turn and writes each handler's response:
   next request; a body that could not be drained (an overrun, a malformed
   chunk) closes the connection;
 - a malformed head answers 400 and closes.
+
+``HttpClient`` sends requests over ``http://`` or ``https://`` (stdlib
+``ssl``) on one keep-alive connection per origin, reads a response body
+framed by ``Content-Length``, ``Transfer-Encoding: chunked`` or the end of
+the connection, and bounds each request (connect, send and the whole
+response) by a total timeout, past which it raises ``HttpTimeout``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import ssl as _ssl
 from dataclasses import dataclass, field
 from typing import Awaitable, Callable, Optional
+from urllib.parse import urlsplit
 
 logger = logging.getLogger("arkflow_torch.http")
 
@@ -279,3 +290,191 @@ class HttpServer:
         except asyncio.TimeoutError:
             pass
         self._server = self.port = None
+
+
+# -- client --------------------------------------------------------------------
+
+
+class HttpClientError(Exception):
+    """A request that got no complete response: connect, send or read
+    failed, or the response was malformed."""
+
+
+class HttpTimeout(HttpClientError, TimeoutError):
+    """A request that ran past its total timeout."""
+
+
+@dataclass
+class ClientResponse:
+    status: int
+    #: header names lower-cased; a repeated header keeps its last value
+    headers: dict[str, str]
+    body: bytes
+
+    def text(self) -> str:
+        """The body decoded by the ``Content-Type`` charset (UTF-8 when it
+        names none)."""
+        charset = "utf-8"
+        for part in self.headers.get("content-type", "").split(";")[1:]:
+            k, _, v = part.strip().partition("=")
+            if k.lower() == "charset" and v:
+                charset = v.strip('"')
+        try:
+            return self.body.decode(charset, "replace")
+        except LookupError:
+            return self.body.decode("utf-8", "replace")
+
+
+class HttpClient:
+    """Requests on one keep-alive connection per origin, one at a time
+    (see the module docstring). ``headers`` go on every request, under the
+    request's own."""
+
+    #: the longest response body read; a longer one fails the request
+    MAX_BODY = 64 << 20
+
+    def __init__(self, headers: Optional[dict] = None, timeout_s: float = 30.0):
+        self.headers = dict(headers or {})
+        self.timeout_s = timeout_s
+        #: connections opened (a keep-alive client opens one per origin)
+        self.connections = 0
+        #: origin -> (reader, writer) of its open connection
+        self._conns: dict[tuple[str, str, int], tuple] = {}
+        self._lock = asyncio.Lock()
+
+    async def request(self, method: str, url: str, body: bytes = b"",
+                      headers: Optional[dict] = None) -> ClientResponse:
+        """Send one request and read its whole response. Raises
+        ``HttpTimeout`` past the total timeout, ``HttpClientError`` when no
+        complete response came."""
+        parts = urlsplit(url)
+        scheme = parts.scheme.lower()
+        if scheme not in ("http", "https") or not parts.hostname:
+            raise HttpClientError(f"unsupported URL {url!r}")
+        port = parts.port or (443 if scheme == "https" else 80)
+        origin = (scheme, parts.hostname, port)
+        target = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+        host = parts.hostname if parts.port is None else f"{parts.hostname}:{parts.port}"
+        merged = {"Host": host, "Accept": "*/*", "User-Agent": "arkflow-tpu-torch",
+                  **self.headers, **(headers or {})}
+        lower = {k.lower() for k in merged}
+        if body or method.upper() in ("POST", "PUT", "PATCH"):
+            if "content-type" not in lower:
+                merged["Content-Type"] = "application/octet-stream"
+            merged["Content-Length"] = str(len(body))
+        head = "\r\n".join([f"{method.upper()} {target} HTTP/1.1",
+                             *(f"{k}: {v}" for k, v in merged.items())])
+        data = (head + "\r\n\r\n").encode("latin-1") + body
+        async with self._lock:
+            try:
+                return await asyncio.wait_for(
+                    self._exchange(origin, data, method.upper() == "HEAD"), self.timeout_s)
+            except asyncio.TimeoutError:
+                self._drop(origin)
+                raise HttpTimeout(f"{method.upper()} {url} timed out after "
+                                  f"{self.timeout_s} s") from None
+
+    async def _open(self, origin: tuple[str, str, int]) -> tuple:
+        scheme, host, port = origin
+        ctx = _ssl.create_default_context() if scheme == "https" else None
+        try:
+            reader, writer = await asyncio.open_connection(
+                host, port, ssl=ctx, server_hostname=host if ctx else None)
+        except (OSError, _ssl.SSLError) as e:
+            raise HttpClientError(f"cannot connect to {host}:{port}: {e}") from e
+        self.connections += 1
+        self._conns[origin] = (reader, writer)
+        return reader, writer
+
+    def _drop(self, origin: tuple[str, str, int]) -> None:
+        conn = self._conns.pop(origin, None)
+        if conn is not None:
+            conn[1].close()
+
+    async def _exchange(self, origin: tuple[str, str, int], data: bytes,
+                        head_only: bool) -> ClientResponse:
+        conn = self._conns.get(origin)
+        reused = conn is not None
+        reader, writer = conn if conn is not None else await self._open(origin)
+        try:
+            writer.write(data)
+            await writer.drain()
+            resp, keep = await self._read_response(reader, head_only)
+        except (ConnectionError, asyncio.IncompleteReadError, HttpClientError) as e:
+            self._drop(origin)
+            stale = reused and (isinstance(e, ConnectionError) or (
+                isinstance(e, asyncio.IncompleteReadError) and not e.partial))
+            if not stale:
+                if isinstance(e, HttpClientError):
+                    raise
+                raise HttpClientError(f"connection to {origin[1]}:{origin[2]} lost: "
+                                      f"{e!r}") from e
+            # the server closed an idle keep-alive connection: once more on a new one
+            return await self._exchange(origin, data, head_only)
+        if not keep:
+            self._drop(origin)
+        return resp
+
+    async def _read_response(self, reader: asyncio.StreamReader,
+                             head_only: bool) -> tuple[ClientResponse, bool]:
+        try:
+            head = await reader.readuntil(b"\r\n\r\n")
+        except asyncio.LimitOverrunError:
+            raise HttpClientError("response head too large") from None
+        lines = head.decode("latin-1").split("\r\n")
+        status_line = lines[0].split(None, 2)
+        if len(status_line) < 2 or not status_line[0].startswith("HTTP/1."):
+            raise HttpClientError(f"malformed status line {lines[0][:80]!r}")
+        try:
+            status = int(status_line[1])
+        except ValueError:
+            raise HttpClientError(f"malformed status line {lines[0][:80]!r}") from None
+        headers = {k.strip().lower(): v.strip() for k, sep, v in
+                   (line.partition(":") for line in lines[1:] if line) if sep}
+        tokens = {t.strip().lower() for t in headers.get("connection", "").split(",")}
+        keep = "close" not in tokens and (status_line[0] == "HTTP/1.1"
+                                          or "keep-alive" in tokens)
+        if head_only or status in (204, 304) or 100 <= status < 200:
+            return ClientResponse(status, headers, b""), keep
+        if "chunked" in headers.get("transfer-encoding", "").lower():
+            body = await self._read_chunked(reader)
+        elif "content-length" in headers:
+            raw = headers["content-length"]
+            if not raw.isdigit():
+                raise HttpClientError(f"bad Content-Length {raw!r}")
+            if int(raw) > self.MAX_BODY:
+                raise HttpClientError(f"response body of {raw} bytes past {self.MAX_BODY}")
+            body = await reader.readexactly(int(raw))
+        else:  # the body runs to the end of the connection
+            body = await reader.read(self.MAX_BODY + 1)
+            while len(body) <= self.MAX_BODY:
+                more = await reader.read(self.MAX_BODY + 1 - len(body))
+                if not more:
+                    break
+                body += more
+            if len(body) > self.MAX_BODY:
+                raise HttpClientError(f"response body past {self.MAX_BODY} bytes")
+            keep = False
+        return ClientResponse(status, headers, body), keep
+
+    async def _read_chunked(self, reader: asyncio.StreamReader) -> bytes:
+        out = bytearray()
+        while True:
+            line = await reader.readuntil(b"\r\n")
+            try:
+                size = int(line[:-2].split(b";", 1)[0].strip(), 16)
+            except ValueError:
+                raise HttpClientError(f"bad chunk size {line[:40]!r}") from None
+            if size == 0:
+                while (await reader.readuntil(b"\r\n")) != b"\r\n":
+                    pass  # trailers are read and dropped
+                return bytes(out)
+            if len(out) + size > self.MAX_BODY:
+                raise HttpClientError(f"response body past {self.MAX_BODY} bytes")
+            out += await reader.readexactly(size)
+            if await reader.readexactly(2) != b"\r\n":
+                raise HttpClientError("bad chunk terminator")
+
+    async def close(self) -> None:
+        for origin in list(self._conns):
+            self._drop(origin)

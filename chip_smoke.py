@@ -75,7 +75,7 @@ last line):
    first reconnect probe fails, a processor fault failing every batch
    holding ``poison``, an output whose writes 5-7 fail under its retry and
    circuit breaker, ``max_delivery_attempts`` 3 and an ``error_output``)
-   over ``DELIVERY_TEXTS`` (4096) seeded texts, ``DELIVERY_POISON`` (4) of
+   over ``DELIVERY_TEXTS`` (4096) seeded texts, ``DELIVERY_POISON`` (2) of
    them poisoned, graphed, beside a fault-free run of the same texts
    without the markers or faults: every clean row delivered exactly once,
    each poison row quarantined alone with ``delivery_attempts`` 3, no
@@ -259,7 +259,7 @@ last line):
     from a seed, one an outlier: windows/s, each bucket's step graphed and
     eager, graphed = eager, every score held to a CPU float32 run at
     1e-5, the outlier scoring highest;
-15. the brokers phase: the four broker examples through ``Engine`` against
+15. the brokers phase: the eight broker examples through ``Engine`` against
     ``tools/fake_brokers.py`` (driven by ``tools/broker_streams.py``), each
     on a runner its phase keeps warm, its seconds carved out of that phase
     into ``phases.brokers``. After the json phase, ``kafka_bert_kafka.json``
@@ -277,9 +277,24 @@ last line):
     list equal bit for bit to the processor on the stream's own batches.
     After the LSTM phase, ``mqtt_lstm_anomaly.json``: ``MQTT_WINDOWS``
     (1024) JSON windows at QoS 1, every score equal bit for bit to the
-    raw-bytes run's. The ``brokers kafka|cdc|http|mqtt`` lines and the
-    ``brokers`` line: each stream's rows/s beside its raw stream's, the
-    host CRC's cost;
+    raw-bytes run's. The other directions, after the Kafka stream:
+    ``nats_bert_mqtt.json`` on the packed runner (``NATS_TEXTS`` (4096)
+    JetStream rows pulled 64 at a time; every id once at a QoS 1 MQTT
+    subscriber, the consumer's ack floor at the last sequence with no
+    redelivery, labels and scores bit for bit the packed runner's on the
+    stream's own emissions and held to the padded runner, K2 all ``mma``, 0
+    captures), ``ws_redis_bert_http.json`` on the padded runner (a
+    websocket and a Redis subscribe child, ``FANIN_TEXTS`` (512) texts each,
+    each message its own batch; every id once at the HTTP sink, the bearer
+    on every request, labels and scores bit for bit the runner's at the same
+    shape, K1 all ``mma``) and ``modbus_influx.json`` (``MODBUS_POLLS``
+    (64) polls at 10 ms, host only; every line ``encode_lines`` of the
+    values served); after the LSTM's MQTT stream, ``redis_lstm_influx.json``
+    (``REDIS_WINDOWS`` (2048) windows on two list keys, the sink's first
+    write answered 500: exactly one retry, scores bit for bit the runner's
+    on the stream's own batches). The ``brokers kafka|nats|fanin|modbus|
+    cdc|http|mqtt|redis`` lines and the ``brokers`` line: each stream's
+    rows/s beside its raw stream's, the host CRC's cost;
 16. the ``graphs`` line (per path: captures, keys checked, differing
     elements, ``memory_reserved`` before and after the captures) and the
     ``ab`` line (per stream, graphed and eager: traffic rows/s, or tokens/s,
@@ -335,6 +350,7 @@ from arkflow_tpu_torch.ops import flash_attention, flash_attention_reference  # 
 from arkflow_tpu_torch.ops import ragged_attention as ra  # noqa: E402
 from arkflow_tpu_torch.ops import segment_attention as sa  # noqa: E402
 from arkflow_tpu_torch.ops.build import KERNEL_SOURCES, build_all  # noqa: E402
+from arkflow_tpu_torch.plugins.output.influxdb import encode_lines  # noqa: E402
 from arkflow_tpu_torch.plugins.processor.gpu_inference import (  # noqa: E402
     GpuInferenceProcessor,
     pack_windows,
@@ -1820,8 +1836,280 @@ def run_cdc_nats(proc, rows: list[bytes], generated: list[bytes], ref: list,
     return report
 
 
+#: the other directions of the brokers: JetStream texts into the packed
+#: runner, Redis list windows into the LSTM, the websocket + Redis
+#: subscribe fan-in's texts into the padded runner, Modbus polls
+NATS_TEXTS = 4096
+REDIS_WINDOWS = 2048
+FANIN_TEXTS = 512
+MODBUS_POLLS = 64
+NATS_BERT_CONFIG = os.path.join(EXAMPLES, "nats_bert_mqtt.json")
+REDIS_LSTM_CONFIG = os.path.join(EXAMPLES, "redis_lstm_influx.json")
+FANIN_BERT_CONFIG = os.path.join(EXAMPLES, "ws_redis_bert_http.json")
+MODBUS_INFLUX_CONFIG = os.path.join(EXAMPLES, "modbus_influx.json")
+
+
+def built_small(raw: dict) -> None:
+    """The example's BERT-base ``gpu_inference`` built at one layer and
+    without warmup: its runner is swapped for a warm full-depth one before
+    the run, and the tokenizer (BERT-base's vocabulary) is the same."""
+    for proc in raw["streams"][0]["pipeline"]["processors"]:
+        if proc["type"] == "gpu_inference" and proc["model"] == "bert_classifier":
+            proc.update(warmup=False, model_config={"layers": 1})
+
+
+def scores_by_id(rows: list[dict]) -> dict[int, tuple[int, float]]:
+    return {r["id"]: (r["label"], r["score"]) for r in rows}
+
+
+def run_nats_bert(prunner: ModelRunner, runner: ModelRunner, ab: dict) -> dict:
+    """``nats_bert_mqtt.json`` on the packed BERT-base runner: NATS_TEXTS
+    ``{"id", "text"}`` rows of 8-100 words stored in the JetStream stream
+    before the run, pulled 64 at a time; every id once at an MQTT
+    subscriber (QoS 1), in order; the consumer's ack floor at the stream's
+    last sequence with no redelivery; every label and score equal bit for
+    bit to the same emissions through the processor on the packed runner
+    again, labels the padded runner's on tie-free rows and scores within
+    1/64 of it; K2 = layers x packed steps, all ``mma``, K1 0, 0 captures."""
+    raw = broker_config(NATS_BERT_CONFIG)
+    built_small(raw)
+    texts = broker_texts(NATS_TEXTS, seed=22)
+    values = [json.dumps({"id": i, "text": t}).encode() for i, t in enumerate(texts)]
+    counted: dict = {}
+    state: dict = {"emitted": []}
+
+    def prepare(stream) -> None:
+        proc = stream.pipeline.processors[0]
+        state["proc"] = proc
+        ids, mask = proc.tokenizer.encode_batch([t.encode() for t in texts], proc.max_seq)
+        state["ref"] = runner.infer_sync({"input_ids": ids, "attention_mask": mask})
+        inner_read = stream.buffer.read
+
+        async def read():
+            item = await inner_read()
+            if item is not None:
+                state["emitted"].append(item[0])
+            return item
+
+        stream.buffer.read = read
+        counted["packed_steps"] = prunner.packed_steps
+        torch.cuda.synchronize()
+        swap_in(stream, 0, prunner, counted)
+
+    rep = asyncio.run(broker_streams.nats_to_mqtt(raw, values, prepare=prepare))
+    torch.cuda.synchronize()
+    launches = {"k1": ra.launches.value, "k2": sa.launches.value,
+                "k2_variants": dict(sa.launches.variants)}
+    steps = prunner.packed_steps - counted["packed_steps"]
+    captures = prunner.captures - counted["captures"]
+    rows = [json.loads(p) for p in rep["payloads"]]
+    keys_ok = all(list(r) == JSON_KEYS for r in rows)
+    async def emissions_again() -> dict:
+        out = {}
+        for batch in state["emitted"]:  # the stream's own emissions, through the same processor
+            for b in await state["proc"].process(batch):
+                cols = b.to_pydict()
+                out.update(zip(cols["id"], zip(cols["label"], cols["score"])))
+        return out
+
+    again = asyncio.run(emissions_again())
+    got = scores_by_id(rows) if keys_ok else {}
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "ack_floor", "last_seq", "redelivered",
+                                  "naks", "ack_pending", "published")}
+    report.update(payloads=len(rows), raw_rows_per_s=ab["packed"]["graphed"]["traffic_rows_per_s"],
+                  in_order=keys_ok and [r["id"] for r in rows] == list(range(NATS_TEXTS)),
+                  emissions=len(state["emitted"]), packed_steps=steps, layers=prunner.cfg.layers,
+                  captures_on_path=captures, launches=launches,
+                  equal_bitwise_same_emissions=bool(got) and got == again)
+    print("brokers nats " + json.dumps(report), flush=True)
+    check(keys_ok and sorted(got) == list(range(NATS_TEXTS)) and len(rows) == NATS_TEXTS,
+          f"nats -> bert -> mqtt lost, repeated or misshaped rows: {report}")
+    check(rep["ack_floor"] == rep["last_seq"] == NATS_TEXTS and rep["redelivered"] == 0
+          and rep["ack_pending"] == 0, f"nats: the consumer's acks fell short: {report}")
+    check(rep["errors"] == 0, f"nats -> bert -> mqtt reported errors: {report}")
+    check(report["equal_bitwise_same_emissions"],
+          f"nats -> bert: labels or scores != the packed runner's on the same emissions: {report}")
+    check(launches["k2"] > 0 and launches["k2"] == prunner.cfg.layers * steps,
+          f"nats -> bert: K2 launches != layers x packed steps: {report}")
+    check(launches["k2_variants"].get("mma") == launches["k2"],
+          f"nats -> bert: a K2 launch missed the mma tile: {report}")
+    check(launches["k1"] == 0, f"nats -> bert launched K1: {report}")
+    check(captures == 0, f"nats -> bert captured on the path: {report}")
+    by_id = sorted(rows, key=lambda r: r["id"])
+    labels = check_json_rows(by_id, list(range(NATS_TEXTS)), state["ref"], "nats")
+    return {**report, **{f"rows_{k}": v for k, v in labels.items()}}
+
+
+def run_fanin_bert(runner: ModelRunner, ab: dict) -> dict:
+    """``ws_redis_bert_http.json`` on the padded BERT-base runner:
+    ``multiple_inputs`` of a websocket feed (FANIN_TEXTS texts, ids from 0)
+    and a Redis pub/sub channel (FANIN_TEXTS more, ids from FANIN_TEXTS),
+    each message its own batch (no buffer: the children's metadata
+    differ); every id once at the HTTP sink, each child's range whole, the
+    bearer header on every request, every label and score equal bit for bit
+    to the runner's on the same texts at the same shape (batch bucket 16,
+    the text's own seq bucket); K1 = layers x steps, all ``mma``."""
+    raw = broker_config(FANIN_BERT_CONFIG)
+    built_small(raw)
+    texts = broker_texts(2 * FANIN_TEXTS, seed=23)
+    rows_in = [{"id": i, "text": t} for i, t in enumerate(texts)]
+    counted: dict = {}
+    state: dict = {}
+
+    def prepare(stream) -> None:
+        proc = stream.pipeline.processors[0]
+        ids, mask = proc.tokenizer.encode_batch([t.encode() for t in texts], proc.max_seq)
+        lengths = mask.sum(axis=1)
+        label, score = np.zeros(len(texts), np.int64), np.zeros(len(texts), np.float32)
+        rows = runner.buckets.batch_bucket(1)
+        by_bucket: dict = {}
+        for i, n in enumerate(lengths):
+            by_bucket.setdefault(runner.buckets.seq_bucket(int(n)), []).append(i)
+        for idx in by_bucket.values():  # one shape key a call, as each 1-row batch runs
+            for at in range(0, len(idx), rows):
+                part = idx[at:at + rows]
+                out = runner.infer_sync({"input_ids": ids[part], "attention_mask": mask[part]})
+                label[part], score[part] = np.asarray(out["label"]), np.asarray(out["score"])
+        state["label"], state["score"] = label, score
+        torch.cuda.synchronize()
+        swap_in(stream, 0, runner, counted)
+
+    rep = asyncio.run(broker_streams.ws_redis_to_http(
+        raw, [json.dumps(r) for r in rows_in[:FANIN_TEXTS]],
+        [json.dumps(r).encode() for r in rows_in[FANIN_TEXTS:]], prepare=prepare))
+    torch.cuda.synchronize()
+    launches = {"k1": ra.launches.value, "k1_variants": dict(ra.launches.variants),
+                "k2": sa.launches.value}
+    steps = runner.device_steps - counted["device_steps"]
+    rows = [json.loads(r) for r in rep["rows"]]
+    keys_ok = all(list(r) == JSON_KEYS for r in rows)
+    got = scores_by_id(rows) if keys_ok else {}
+    want = {i: (int(state["label"][i]), float(state["score"][i])) for i in range(len(texts))}
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "requests", "connections", "ws_handshakes",
+                                  "redis_published")}
+    report.update(rows=len(rows), raw_rows_per_s=ab["padded"]["graphed"]["traffic_rows_per_s"],
+                  ws_ids_whole=sorted(i for i in got if i < FANIN_TEXTS) == list(
+                      range(FANIN_TEXTS)),
+                  redis_ids_whole=sorted(i for i in got if i >= FANIN_TEXTS) == list(
+                      range(FANIN_TEXTS, 2 * FANIN_TEXTS)),
+                  bearer_on_every_request=all(h.get("authorization") == "Bearer dev-token"
+                                              for h in rep["headers"]),
+                  statuses=sorted(set(rep["answered"])), device_steps=steps,
+                  layers=runner.cfg.layers, launches=launches,
+                  captures_on_path=runner.captures - counted["captures"],
+                  equal_bitwise_runner=got == want,
+                  max_score_abs_err=max((abs(got[i][1] - want[i][1]) for i in got), default=None))
+    print("brokers fanin " + json.dumps(report), flush=True)
+    check(keys_ok and len(rows) == 2 * FANIN_TEXTS and report["ws_ids_whole"]
+          and report["redis_ids_whole"], f"ws + redis -> bert -> http lost, repeated or "
+                                         f"misshaped rows: {report}")
+    check(report["bearer_on_every_request"] and report["statuses"] == [200],
+          f"ws + redis -> http: a request without the bearer, or not answered 200: {report}")
+    check(rep["errors"] == 0, f"ws + redis -> bert -> http reported errors: {report}")
+    check(report["equal_bitwise_runner"],
+          f"ws + redis -> bert: labels or scores != the padded runner's: {report}")
+    check(launches["k1"] > 0 and launches["k1"] == runner.cfg.layers * steps,
+          f"ws + redis -> bert: K1 launches != layers x device steps: {report}")
+    check(launches["k1_variants"].get("mma") == launches["k1"],
+          f"ws + redis -> bert: a K1 launch missed the mma tile: {report}")
+    check(launches["k2"] == 0 and report["captures_on_path"] == 0,
+          f"ws + redis -> bert launched K2 or captured on the path: {report}")
+    return report
+
+
+def run_modbus_influx() -> dict:
+    """``modbus_influx.json`` polled every 10 ms (the example's 1 s) into an
+    InfluxDB sink (flush every 50 ms), MODBUS_POLLS polls; every line equal
+    to ``encode_lines`` of the values the fake served for its poll. Host
+    only: a point holds at most 125 registers, no LSTM window."""
+    raw = broker_config(MODBUS_INFLUX_CONFIG)
+    s = raw["streams"][0]
+    s["input"]["interval"] = "10ms"
+    s["output"]["flush_interval"] = "50ms"
+    points, out_cfg = s["input"]["points"], s["output"]
+    rep = asyncio.run(broker_streams.modbus_to_influx(raw, MODBUS_POLLS))
+    served = rep["served"]
+    want = [encode_lines(MessageBatch.from_pydict(
+        {p["name"]: [served[len(points) * i + j][3][0]] for j, p in enumerate(points)}),
+        out_cfg["measurement"], out_cfg.get("tags", {}), out_cfg["fields"], None)[0]
+        for i in range(len(rep["lines"]))]
+    got = [line.decode() for line in rep["lines"]]
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s")}
+    report.update(lines=len(got), requests_served=len(served),
+                  statuses=sorted(set(rep["answered"])), lines_equal=got == want,
+                  first_line=got[0] if got else None)
+    print("brokers modbus " + json.dumps(report), flush=True)
+    check(len(got) >= MODBUS_POLLS and report["lines_equal"] and rep["errors"] == 0,
+          f"modbus -> influxdb lines != encode_lines of the served values: {report}")
+    return report
+
+
+def run_redis_lstm(lstm: dict) -> dict:
+    """``redis_lstm_influx.json`` on the LSTM phase's graphed runner:
+    REDIS_WINDOWS ``{"id", "window"}`` messages (the LSTM phase's windows'
+    float32 values) on two list keys, an InfluxDB sink that answers the
+    first write 500; one line a window, exactly one retry (the same body
+    again), every score equal bit for bit to the runner on the same windows
+    in the stream's own batches, and to the raw-bytes run's at the float32
+    floor."""
+    raw = broker_config(REDIS_LSTM_CONFIG)
+    values = lstm["values"][:REDIS_WINDOWS]
+    payloads = [json.dumps({"id": i, "window": v.reshape(-1).tolist()}).encode()
+                for i, v in enumerate(values)]
+    runner = lstm["runner"]
+    counted: dict = {}
+    emitted: list[int] = []
+
+    def prepare(stream) -> None:
+        count_emissions(stream, emitted)
+        swap_in(stream, 0, runner, counted)
+
+    rep = asyncio.run(broker_streams.redis_to_influx(raw, payloads, statuses=[500],
+                                                      prepare=prepare))
+    torch.cuda.synchronize()
+    parsed = [line.split(b" ") for line in rep["lines"]]
+    ids = [int(p[0].split(b"id=")[1]) for p in parsed]
+    got = np.array([float(p[1].split(b"score=")[1]) for p in parsed], np.float32)
+    ref, at = [], 0
+    for n in emitted:  # the stream's own batches, through the same runner
+        ref.append(np.asarray(runner.infer_sync({"values": values[at:at + n]})["score"]))
+        at += n
+    ref = np.concatenate(ref).astype(np.float32) if ref else np.zeros(0, np.float32)
+    want = lstm["scores"][:REDIS_WINDOWS]
+    err = np.abs(got - want) if got.shape == want.shape else np.array([np.inf])
+    answered = rep["answered"]
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "connections", "left_in_lists")}
+    report.update(lines=len(got), raw_rows_per_s=lstm["report"]["traffic_windows_per_s"],
+                  requests=len(answered), retries=answered.count(500),
+                  retry_resent_body=len(rep["bodies"]) > 1
+                  and rep["bodies"][0] == rep["bodies"][1],
+                  ids_in_order=ids == list(range(REDIS_WINDOWS)),
+                  emissions=len(emitted),
+                  emission_rows={"min": min(emitted), "max": max(emitted)} if emitted else None,
+                  equal_bitwise_same_batches=bool(got.shape == ref.shape and np.array_equal(
+                      got.view(np.int32), ref.view(np.int32))),
+                  max_abs_err_vs_raw_run=float(err.max()),
+                  captures_on_path=runner.captures - counted["captures"])
+    print("brokers redis " + json.dumps(report), flush=True)
+    check(len(got) == REDIS_WINDOWS and report["ids_in_order"] and rep["errors"] == 0,
+          f"redis -> lstm -> influxdb lost, repeated or reordered lines: {report}")
+    check(report["retries"] == 1 and answered[0] == 500 and report["retry_resent_body"],
+          f"redis -> influxdb: not exactly one retry of the failed write: {report}")
+    check(report["equal_bitwise_same_batches"],
+          f"redis -> lstm scores != the runner's on the same batches: {report}")
+    check(bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))),
+          f"redis -> lstm scores off the raw-bytes run's float32 floor: {report}")
+    check(report["captures_on_path"] == 0, f"redis -> lstm captured on the path: {report}")
+    return report
+
+
 DELIVERY_TEXTS = 4096
-DELIVERY_POISON = 4
+#: poisoned texts (4 until the brokers' other directions took the time)
+DELIVERY_POISON = 2
 DELIVERY_ATTEMPTS = 3
 
 
@@ -1974,8 +2262,8 @@ def run_chaos_example() -> dict:
 
 
 def run_delivery(cfg_raw: dict) -> dict:
-    """The delivery phase: the delivery stream over DELIVERY_TEXTS texts, 4
-    poisoned, beside a fault-free run of the same texts without the
+    """The delivery phase: the delivery stream over DELIVERY_TEXTS texts,
+    DELIVERY_POISON poisoned, beside a fault-free run of the same texts without the
     markers; then the chaos example."""
     t_phase = time.perf_counter()
     texts, poison_at = delivery_texts(seed=15)
@@ -5219,6 +5507,9 @@ def main() -> int:
     json_phase = run_json(runner, prunner, ab)
     phases.mark("json")
     brokers = {"kafka": phases.carve("brokers", run_kafka_bert, runner, ab)}
+    brokers["nats"] = phases.carve("brokers", run_nats_bert, prunner, runner, ab)
+    brokers["fanin"] = phases.carve("brokers", run_fanin_bert, runner, ab)
+    brokers["modbus"] = phases.carve("brokers", run_modbus_influx)
     del runner, prunner, result["runner"], packed["runner"]
     torch.cuda.empty_cache()
     with open(DELIVERY_CONFIG) as f:
@@ -5336,6 +5627,7 @@ def main() -> int:
     phases.mark("lstm")
     json_phase["lstm"] = run_lstm_json(lstm_raw, lstm_run)
     brokers["mqtt"] = phases.carve("brokers", run_mqtt_lstm, lstm_run)
+    brokers["redis"] = phases.carve("brokers", run_redis_lstm, lstm_run)
     del lstm_run
     release_memory()
     phases.mark("json lstm")
@@ -5380,8 +5672,12 @@ def main() -> int:
                               "raw": brokers[name]["raw_rows_per_s"],
                               "share": brokers[name]["rows_per_s"]
                               / brokers[name]["raw_rows_per_s"]}
-                       for name in ("kafka", "mqtt", "http", "cdc")},
+                       for name in ("kafka", "mqtt", "http", "cdc", "nats", "redis",
+                                    "fanin")},
+        "modbus_rows_per_s": brokers["modbus"]["rows_per_s"],
         "kafka_k1_launches": brokers["kafka"]["launches"]["k1"],
+        "nats_k2_launches": brokers["nats"]["launches"]["k2"],
+        "fanin_k1_launches": brokers["fanin"]["launches"]["k1"],
         "kafka_device_steps": brokers["kafka"]["device_steps"],
         "kafka_host_crc": brokers["kafka"]["host_crc"],
         "seconds": phases.seconds.get("brokers")}), flush=True)
@@ -5399,7 +5695,8 @@ def main() -> int:
         "launches": (result["report"]["k1_launches"] + hf_bert["k1_launches"]
                      + sum(tokenizer["k1_launches"].values())
                      + json_phase["window"]["k1_launches"]
-                     + brokers["kafka"]["launches"]["k1"]), "ok": True,
+                     + brokers["kafka"]["launches"]["k1"]
+                     + brokers["fanin"]["launches"]["k1"]), "ok": True,
         **kernel_line(main_case), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K1"] for s, c in tuner["kernels"].items()},
     }, {
@@ -5407,7 +5704,8 @@ def main() -> int:
         "source": "arkflow_tpu_torch/csrc/segment_attention.cu",
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
         "launches": (packed["report"]["k2_launches"] + tuner["k2_launches"]
-                     + delivery["cost"]["k2_launches"] + json_phase["packed"]["k2_launches"]),
+                     + delivery["cost"]["k2_launches"] + json_phase["packed"]["k2_launches"]
+                     + brokers["nats"]["launches"]["k2"]),
         "ok": True,
         **kernel_line(k2_main), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K2"] for s, c in tuner["kernels"].items()},

@@ -4,9 +4,9 @@ paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
 batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
 stream with a forced tuner cycle, the chaos and BERT delivery streams, the
-packed and windowed JSON BERT streams, and the four broker examples against
-the port's fake brokers) needs pyarrow, yaml, aiohttp, zstandard or
-google.protobuf at import time or at run time. ``transformers`` is imported
+packed and windowed JSON BERT streams, and the eight broker examples against
+the port's fake brokers) needs pyarrow, yaml, aiohttp, websockets, zstandard
+or google.protobuf at import time or at run time. ``transformers`` is imported
 only inside ``HFTokenizer``, ``google.protobuf`` only inside the protobuf
 codec, ``zstandard`` only inside the zstd codec."""
 
@@ -21,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "arkflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "arkflow_tpu")
-NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "transformers", "google", "zstandard")
+NOT_AT_MODULE_LEVEL = ("pyarrow", "yaml", "aiohttp", "websockets", "transformers", "google",
+                       "zstandard")
 
 
 def _imports(tree: ast.AST, top_level_only: bool):
@@ -45,7 +46,8 @@ def test_no_jax_or_reference_imports(path):
 
 _CHILD = r"""
 import sys
-for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "google.protobuf"):
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "websockets",
+             "google.protobuf"):
     sys.modules[name] = None  # any import of these now fails
 import asyncio
 from arkflow_tpu_torch.components import ensure_plugins_loaded
@@ -216,8 +218,8 @@ print("PORT_OK")
 
 _BROKER_CHILD = r"""
 import sys
-for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "google.protobuf",
-             "zstandard", "transformers"):
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "websockets",
+             "google.protobuf", "zstandard", "transformers"):
     sys.modules[name] = None  # any import of these now fails
 import asyncio
 import json
@@ -267,6 +269,31 @@ rep = asyncio.run(bs.kafka_to_nats(
             seq_buckets=[16]), [f"row {i} changed".encode() for i in range(6)]))
 assert [list(json.loads(p)) for p in rep["payloads"]] == [["summary"]] * 6, rep["payloads"]
 assert rep["committed"] == rep["log_end"] == 6 and rep["errors"] == 0
+rows = [{"id": i, "text": f"msg{i} " + "w " * (i % 9)} for i in range(16)]
+raw = example("nats_bert_mqtt.json", model_config=tiny, max_seq=32, batch_buckets=[4, 8],
+              seq_buckets=[32], warmup=False)
+raw["streams"][0]["input"]["batch_size"] = 8
+raw["streams"][0]["buffer"].update(capacity=8)
+raw["streams"][0]["buffer"]["coalesce"].update(batch_buckets=[8], token_budget=256,
+                                              max_row_tokens=32)
+rep = asyncio.run(bs.nats_to_mqtt(raw, [json.dumps(r).encode() for r in rows]))
+assert [json.loads(p)["id"] for p in rep["payloads"]] == list(range(16)), rep["payloads"]
+assert rep["ack_floor"] == rep["last_seq"] == 16 and rep["errors"] == 0
+rep = asyncio.run(bs.redis_to_influx(
+    example("redis_lstm_influx.json", model_config=lstm, batch_buckets=[4, 8]),
+    [json.dumps({"id": i, "window": w.tolist()}).encode() for i, w in enumerate(windows)],
+    statuses=[500]))
+assert len(rep["lines"]) == 20 and rep["answered"][:2] == [500, 204], rep["answered"]
+rep = asyncio.run(bs.ws_redis_to_http(
+    example("ws_redis_bert_http.json", model_config=tiny, max_seq=32, batch_buckets=[4, 8],
+            seq_buckets=[16, 32], warmup=False),
+    [json.dumps(r) for r in rows[:8]], [json.dumps(r).encode() for r in rows[8:]]))
+assert sorted(json.loads(r)["id"] for r in rep["rows"]) == list(range(16)), rep["rows"]
+raw = json.load(open("arkflow_tpu_torch/examples/modbus_influx.json"))
+raw["streams"][0]["input"]["interval"] = "5ms"
+raw["streams"][0]["output"]["flush_interval"] = "50ms"
+rep = asyncio.run(bs.modbus_to_influx(raw, 4))
+assert len(rep["lines"]) >= 4 and rep["errors"] == 0, rep
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu", "transformers")
           and sys.modules[m] is not None]
 assert not leaked, leaked
@@ -275,9 +302,9 @@ print("BROKERS_OK")
 
 
 def test_broker_examples_run_with_jax_and_reference_blocked():
-    """The four broker examples at a tiny width on the CPU through
+    """The eight broker examples at a tiny width on the CPU through
     ``tools/broker_streams.py`` and ``tools/fake_brokers.py``, with JAX, the
-    JAX package, pyarrow, yaml, aiohttp, protobuf, zstandard and
+    JAX package, pyarrow, yaml, aiohttp, websockets, protobuf, zstandard and
     transformers blocked."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)

@@ -149,7 +149,9 @@ message Tagged {
     jout, pout = jc.decode_many(jpay), pc.decode_many(ppay)
     same_columns(jout, pout)
     assert [dict(m) for m in pout.column("labels").to_pylist()] == [{"x": 1, "y": 2}, {}]
-    assert pc.encode(pout) == jpay
+    # a decoded map's order follows the string hash (PYTHONHASHSEED), so the
+    # re-encoded bytes are held to JAX's re-encode of its own decode
+    assert pc.encode(pout) == jc.encode(jout)
 
 
 @pytest.mark.parametrize("missing", ["google.protobuf", "protoc"])
