@@ -50,6 +50,12 @@ META_KEY = "__meta_key"
 META_TIMESTAMP = "__meta_timestamp"
 META_INGEST_TIME = "__meta_ingest_time"
 META_EXT_PREFIX = "__meta_ext_"
+#: per-batch tracing (``obs/trace.py``): the trace context -- trace id,
+#: parent span id, head-sampling decision -- as a compact JSON string. An
+#: ext column, so it survives redelivery, splits, coalescer merges and
+#: quarantine, and ``batch_fingerprint`` leaves it out: tracing never
+#: changes a batch's delivery-attempt key
+META_EXT_TRACE = META_EXT_PREFIX + "trace"
 
 #: the fixed (non-ext) metadata columns, in canonical order
 META_COLUMNS = (META_SOURCE, META_PARTITION, META_OFFSET, META_KEY, META_TIMESTAMP,
@@ -618,6 +624,37 @@ class MessageBatch:
         col = (np.array(vals, dtype=object) if any(v is None for v in vals)
                else np.array([str(v) for v in vals]))
         return self.with_column(META_EXT_PREFIX + key, col)
+
+    def with_trace(self, ctx) -> "MessageBatch":
+        """Stamp (or replace) the batch's trace context
+        (``obs.trace.TraceContext``) on every row: one trace a batch."""
+        return self.with_column(META_EXT_TRACE, np.full(self._rows, ctx.to_json()))
+
+    def trace_context(self):
+        """The batch's trace context from row 0, or None when untraced or
+        malformed (a merged emission is stamped anew with its own trace;
+        its rows' source contexts feed the parent links instead)."""
+        from arkflow_tpu_torch.obs.trace import TraceContext
+
+        return TraceContext.from_json(self.get_meta(META_EXT_TRACE))
+
+    def source_trace_contexts(self) -> list:
+        """The distinct trace contexts over the rows, in first-seen row
+        order: a merged emission carries one per source batch."""
+        from arkflow_tpu_torch.obs.trace import TraceContext
+
+        if not self.has_column(META_EXT_TRACE) or self._rows == 0:
+            return []
+        seen: dict[str, Any] = {}
+        for v in dict.fromkeys(column_to_pylist(self._cols[META_EXT_TRACE])):
+            ctx = TraceContext.from_json(v)
+            if ctx is not None and ctx.trace_id not in seen:
+                seen[ctx.trace_id] = ctx
+        return list(seen.values())
+
+    def source_trace_ids(self) -> list[str]:
+        """The distinct trace ids (see ``source_trace_contexts``)."""
+        return [c.trace_id for c in self.source_trace_contexts()]
 
     def get_meta(self, name: str) -> Any:
         """First-row value of a metadata column as a Python object, or None

@@ -24,10 +24,8 @@ from typing import Any, Mapping, Optional
 from arkflow_tpu_torch.errors import ConfigError, not_ported
 
 #: ``description`` is free text for the reader; the engine ignores it
-_ENGINE_KEYS = ("streams", "logging", "health_check", "description")
-#: ``health_check`` keys the port carries (``profiling_dir``, the JAX
-#: package's ``/debug/profile`` capture, is not ported)
-_HEALTH_KEYS = ("enabled", "host", "port", "path")
+_ENGINE_KEYS = ("streams", "logging", "health_check", "tracing", "description")
+_HEALTH_KEYS = ("enabled", "host", "port", "path", "profiling_dir")
 _STREAM_KEYS = ("input", "buffer", "pipeline", "output", "error_output", "name")
 #: stream keys of the JAX package that the port does not carry yet
 _UNPORTED_STREAM_KEYS = ("temporary", "restart")
@@ -224,6 +222,9 @@ class HealthCheckConfig:
     host: str = "0.0.0.0"
     port: int = 8080
     path: str = "/health"
+    #: directory for ``POST /debug/profile`` captures; the route exists
+    #: only when it is set (a capture adds device overhead and writes disk)
+    profiling_dir: Optional[str] = None
 
     @classmethod
     def from_mapping(cls, m: Any) -> "HealthCheckConfig":
@@ -240,6 +241,7 @@ class HealthCheckConfig:
         c.path = str(m.get("path", c.path))
         if not c.path.startswith("/"):
             raise ConfigError(f"health_check.path must start with '/', got {c.path!r}")
+        c.profiling_dir = m.get("profiling_dir")
         return c
 
 
@@ -248,9 +250,15 @@ class EngineConfig:
     streams: list[StreamConfig]
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     health_check: HealthCheckConfig = field(default_factory=HealthCheckConfig)
+    #: the ``tracing`` block (``obs/trace.py`` ``TracingConfig``): head
+    #: sampling and the bounds of the trace store; the engine applies it to
+    #: the process-global tracer at start
+    tracing: Optional[Any] = None
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "EngineConfig":
+        from arkflow_tpu_torch.obs.trace import TracingConfig
+
         if not isinstance(m, Mapping):
             raise ConfigError("engine config must be a mapping")
         _check_keys(m, _ENGINE_KEYS, "engine")
@@ -260,7 +268,8 @@ class EngineConfig:
             raise ConfigError("engine config requires a non-empty 'streams' list")
         return cls(streams=[StreamConfig.from_mapping(s) for s in raw_streams],
                    logging=LoggingConfig.from_mapping(m.get("logging", {}) or {}),
-                   health_check=health)
+                   health_check=health,
+                   tracing=TracingConfig.from_mapping(m.get("tracing")))
 
     def validate_components(self) -> list[str]:
         """Check every component's type tag and keys against the registries.

@@ -1,0 +1,538 @@
+"""Per-batch tracing: stage spans from ingest to the last write.
+
+Counterpart of ``arkflow_tpu/obs/trace.py``, kept as the port's own copy.
+Aggregate histograms say how slow the p99 is; a trace says where one batch
+spent its time. The trace context rides the batch as the
+``__meta_ext_trace`` metadata column, so it survives redelivery, splits,
+coalescer merges and quarantine, and it is left out of
+``batch_fingerprint``.
+
+- ``TraceContext``: (trace_id, parent span_id, sampled), a compact JSON
+  string on the wire and in the column. The stream stamps it once at read;
+  a redelivery keeps its id, so every delivery attempt lands in one trace.
+- ``Tracer``: records finished ``Span``s into a bounded open table and
+  feeds every span's duration to ``arkflow_stage_seconds{stage=...}``,
+  sampled or not. ``finish`` commits a trace to the bounded done-ring when
+  it was head-sampled or its status is one of ``FORCE_STATUSES``.
+- The done-ring serves the engine's ``GET /trace``: the slowest recent
+  traces and a per-stage breakdown (p50/p99 and each stage's share of the
+  summed end-to-end time).
+- ``adopt_spans`` / ``export_open`` graft and hand over spans between
+  tracers (the cluster plane's stitching uses them).
+
+Nested instrumentation (the runner's device steps, the processor's infeed
+prep) records through a ``contextvars`` scope: the stream activates the
+batch's trace around ``pipeline.process``, and code below it calls
+``record_stage`` / ``stage_span``. Tasks inherit the scope (``asyncio.
+gather`` of packed windows); executor threads do not, so the runner
+records its stages on the loop side, around the awaited executor calls.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import threading
+import time
+from collections import OrderedDict, deque
+from contextlib import contextmanager
+from contextvars import ContextVar
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
+
+from arkflow_tpu_torch.errors import ConfigError
+from arkflow_tpu_torch.obs.metrics import global_registry
+
+#: statuses that force-commit a trace regardless of the head-sampling
+#: decision: these are exactly the requests an operator needs to see
+#: ``fleet`` = an autoscaling-controller decision (runtime/fleet.py): rare,
+#: operator-relevant, and meaningless to head-sample — always committed
+FORCE_STATUSES = ("shed", "deadline", "error", "fleet")
+
+
+def _new_id(nbytes: int = 8) -> str:
+    import os
+
+    return os.urandom(nbytes).hex()
+
+
+@dataclass(frozen=True)
+class TraceContext:
+    """The context that rides the batch: trace identity + current parent
+    span + the head-sampling decision (made once, at the root tier)."""
+
+    trace_id: str
+    span_id: str = ""  # parent for spans recorded under this context
+    sampled: bool = True
+
+    def to_dict(self) -> dict:
+        return {"t": self.trace_id, "p": self.span_id,
+                "s": 1 if self.sampled else 0}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, raw: Any) -> Optional["TraceContext"]:
+        """Tolerant parse: a malformed column value must never fail the hot
+        path — the batch simply continues untraced."""
+        if not raw:
+            return None
+        try:
+            d = json.loads(raw) if isinstance(raw, (str, bytes)) else raw
+            tid = d.get("t")
+            if not tid or not isinstance(tid, str):
+                return None
+            return cls(trace_id=tid, span_id=str(d.get("p") or ""),
+                       sampled=bool(d.get("s", 1)))
+        except (ValueError, AttributeError, TypeError):
+            return None
+
+    def with_parent(self, span_id: str) -> "TraceContext":
+        return TraceContext(self.trace_id, span_id, self.sampled)
+
+
+@dataclass
+class Span:
+    stage: str
+    dur_s: float
+    span_id: str
+    parent_id: str = ""
+    start_ms: float = 0.0  # wall clock, display/ordering only
+    tier: str = ""
+    attrs: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        out = {"stage": self.stage, "dur_ms": round(self.dur_s * 1000.0, 3),
+               "span_id": self.span_id, "parent_id": self.parent_id,
+               "start_ms": round(self.start_ms, 1), "tier": self.tier}
+        if self.attrs:
+            out["attrs"] = self.attrs
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> Optional["Span"]:
+        try:
+            return cls(stage=str(d["stage"]),
+                       dur_s=float(d.get("dur_ms", 0.0)) / 1000.0,
+                       span_id=str(d.get("span_id") or _new_id()),
+                       parent_id=str(d.get("parent_id") or ""),
+                       start_ms=float(d.get("start_ms", 0.0)),
+                       tier=str(d.get("tier") or ""),
+                       attrs=dict(d.get("attrs") or {}))
+        except (KeyError, TypeError, ValueError):
+            return None
+
+
+@dataclass
+class TracingConfig:
+    """The ``tracing:`` config block (engine top level; cluster workers
+    accept the same block in their worker config)."""
+
+    enabled: bool = True
+    #: head-sampling probability for NON-pathological traces; sheds,
+    #: deadline overruns and errors always commit (forced sampling)
+    sample_rate: float = 1.0
+    #: bounded ring of committed (finished) traces served by /trace
+    max_traces: int = 256
+    #: bound on concurrently-open (unfinished) traces
+    max_open: int = 4096
+    #: spans kept per trace; extras are dropped and counted
+    max_spans_per_trace: int = 64
+    #: default trace count for the /trace endpoint
+    slow_n: int = 16
+
+    @classmethod
+    def from_mapping(cls, m: Any) -> "TracingConfig":
+        import os
+
+        # ARKFLOW_TRACE=0 stays effective when the config doesn't say
+        # otherwise: an absent `enabled:` key defers to the env kill switch
+        # (the engine re-applies this config over the global tracer, so a
+        # hardcoded True default would silently defeat the switch)
+        env_enabled = os.environ.get("ARKFLOW_TRACE", "1") != "0"
+        if m is None:
+            return cls(enabled=env_enabled)
+        if not isinstance(m, Mapping):
+            raise ConfigError(f"'tracing' must be a mapping, got {m!r}")
+        c = cls()
+        enabled = m.get("enabled", env_enabled)
+        if not isinstance(enabled, bool):
+            raise ConfigError(f"tracing.enabled must be a bool, got {enabled!r}")
+        c.enabled = enabled
+        rate = m.get("sample_rate", 1.0)
+        if isinstance(rate, bool) or not isinstance(rate, (int, float)) \
+                or not 0.0 <= float(rate) <= 1.0:
+            raise ConfigError(
+                f"tracing.sample_rate must be a number in [0, 1], got {rate!r}")
+        c.sample_rate = float(rate)
+        for key, default, minimum in (("max_traces", 256, 1),
+                                      ("max_open", 4096, 1),
+                                      ("max_spans_per_trace", 64, 1),
+                                      ("slow_n", 16, 1)):
+            v = m.get(key, default)
+            if isinstance(v, bool) or not isinstance(v, int) or v < minimum:
+                raise ConfigError(
+                    f"tracing.{key} must be an int >= {minimum}, got {v!r}")
+            setattr(c, key, v)
+        return c
+
+
+class _OpenTrace:
+    __slots__ = ("spans", "dropped", "started_wall")
+
+    def __init__(self) -> None:
+        self.spans: list[Span] = []
+        self.dropped = 0
+        self.started_wall = time.time()
+
+
+class Tracer:
+    """Span recorder + bounded trace store for ONE process tier.
+
+    Thread-safe: spans arrive from the event loop, runner executor threads
+    and (in tests) plain threads; every mutation of the open table / done
+    ring holds the lock. Per-span cost is one lock, one list append and one
+    histogram observe — per BATCH, not per row."""
+
+    def __init__(self, tier: str = "ingest",
+                 config: Optional[TracingConfig] = None):
+        self.tier = tier
+        self.cfg = config or TracingConfig()
+        self._lock = threading.Lock()
+        self._open: "OrderedDict[str, _OpenTrace]" = OrderedDict()
+        self._done: deque[dict] = deque(maxlen=self.cfg.max_traces)
+        self._rng = random.Random()
+        self._commit_seq = 0
+        self.spans_recorded = 0
+        self.spans_dropped = 0
+        self.traces_started = 0
+        self.traces_forced = 0
+        self.open_evicted = 0
+
+    # -- configuration -----------------------------------------------------
+
+    def configure(self, cfg: TracingConfig, tier: Optional[str] = None) -> None:
+        """Apply a parsed ``tracing:`` block (engine/worker startup). The
+        done-ring is rebuilt at the new bound, keeping the newest traces."""
+        with self._lock:
+            self.cfg = cfg
+            if tier is not None:
+                self.tier = tier
+            self._done = deque(self._done, maxlen=cfg.max_traces)
+
+    @property
+    def enabled(self) -> bool:
+        return self.cfg.enabled
+
+    # -- trace lifecycle ---------------------------------------------------
+
+    def begin(self, parent: Optional[TraceContext] = None) -> Optional[TraceContext]:
+        """Root a new trace (head-sampling decided here) or adopt an
+        existing context (redelivery / downstream tier: the root's decision
+        sticks). Returns None when tracing is disabled."""
+        if not self.cfg.enabled:
+            return None
+        if parent is not None:
+            return parent
+        sampled = (self.cfg.sample_rate >= 1.0
+                   or self._rng.random() < self.cfg.sample_rate)
+        with self._lock:
+            self.traces_started += 1
+        return TraceContext(trace_id=_new_id(), sampled=sampled)
+
+    def record(self, ctx: Optional[TraceContext], stage: str, dur_s: float,
+               *, parent_id: Optional[str] = None, attrs: Optional[dict] = None,
+               start_wall: Optional[float] = None,
+               span_id: Optional[str] = None) -> str:
+        """Record one completed span; returns its span id (so callers can
+        parent later spans under it). ``span_id`` lets a caller pre-allocate
+        the id (cross-tier hops name their parent BEFORE the child tier
+        runs). No-op (empty id) when untraced."""
+        if ctx is None or not self.cfg.enabled:
+            return ""
+        dur = max(0.0, float(dur_s))
+        # callers record AFTER the measured interval: the default start is
+        # now minus the duration, so /trace timelines order correctly
+        span = Span(stage=stage, dur_s=dur,
+                    span_id=span_id or _new_id(),
+                    parent_id=(parent_id if parent_id
+                               is not None else ctx.span_id),
+                    start_ms=(start_wall if start_wall is not None
+                              else time.time() - dur) * 1000.0,
+                    tier=self.tier, attrs=dict(attrs or {}))
+        self._observe_stage(stage, span.dur_s)
+        self._append(ctx.trace_id, span)
+        return span.span_id
+
+    @staticmethod
+    def _observe_stage(stage: str, dur_s: float) -> None:
+        global_registry().histogram(
+            "arkflow_stage_seconds",
+            "per-batch stage latency from the trace layer",
+            {"stage": stage}).observe(dur_s)
+
+    def _append(self, trace_id: str, span: Span) -> None:
+        with self._lock:
+            ot = self._open.get(trace_id)
+            if ot is None:
+                while len(self._open) >= self.cfg.max_open:
+                    self._open.popitem(last=False)
+                    self.open_evicted += 1
+                ot = self._open[trace_id] = _OpenTrace()
+            if len(ot.spans) >= self.cfg.max_spans_per_trace:
+                ot.dropped += 1
+                self.spans_dropped += 1
+                return
+            ot.spans.append(span)
+            self.spans_recorded += 1
+
+    def adopt_spans(self, ctx: Optional[TraceContext],
+                    spans: list[Mapping]) -> None:
+        """Graft spans exported by another tier (the worker's trace frame)
+        into this trace. Their durations already fed the WORKER's stage
+        histograms; here they only join the tree, so aggregate metrics
+        never double-count a stage across tiers."""
+        if ctx is None or not self.cfg.enabled:
+            return
+        for d in spans:
+            span = Span.from_dict(d)
+            if span is not None:
+                self._append(ctx.trace_id, span)
+
+    def export_open(self, ctx: Optional[TraceContext]) -> list[dict]:
+        """Pop and return this trace's open spans as JSON-able dicts — the
+        worker-side end of cross-tier stitching (the trace is owned and
+        finished by the caller's tier)."""
+        if ctx is None:
+            return []
+        with self._lock:
+            ot = self._open.pop(ctx.trace_id, None)
+        return [s.to_dict() for s in ot.spans] if ot else []
+
+    def finish(self, ctx: Optional[TraceContext], status: str = "ok", *,
+               e2e_s: Optional[float] = None,
+               attrs: Optional[dict] = None) -> bool:
+        """Close a trace: commit it to the done-ring when head-sampled or
+        when the status forces sampling (shed/deadline/error). Returns
+        whether the trace was committed."""
+        if ctx is None or not self.cfg.enabled:
+            return False
+        with self._lock:
+            ot = self._open.pop(ctx.trace_id, None)
+            forced = status in FORCE_STATUSES
+            if not (ctx.sampled or forced):
+                return False
+            spans = ot.spans if ot else []
+            self._commit_seq += 1
+            # e2e fallback sums ROOT spans only: nested children (device
+            # step inside process, flight legs inside the hop) overlap
+            # their parents and would double-count the trace's latency
+            root_ms = sum(s.dur_s for s in spans if not s.parent_id) * 1000.0
+            rec = {
+                "trace_id": ctx.trace_id,
+                "status": status,
+                "forced": forced and not ctx.sampled,
+                "seq": self._commit_seq,
+                "e2e_ms": (round(e2e_s * 1000.0, 3) if e2e_s is not None
+                           else round(root_ms, 3)),
+                "spans": [s.to_dict() for s in spans],
+                "dropped_spans": ot.dropped if ot else 0,
+            }
+            if attrs:
+                rec["attrs"] = dict(attrs)
+            if forced and not ctx.sampled:
+                self.traces_forced += 1
+            self._done.append(rec)
+            return True
+
+    # -- introspection (the /trace payload) --------------------------------
+
+    def commit_seq(self) -> int:
+        """Watermark for delta views (bench phases read the breakdown of
+        only the traces committed after their start)."""
+        with self._lock:
+            return self._commit_seq
+
+    def slowest(self, n: Optional[int] = None,
+                min_seq: int = 0) -> list[dict]:
+        with self._lock:
+            recs = [r for r in self._done if r["seq"] > min_seq]
+        recs.sort(key=lambda r: r["e2e_ms"], reverse=True)
+        return recs[: (n if n is not None else self.cfg.slow_n)]
+
+    def stage_breakdown(self, min_seq: int = 0) -> dict:
+        """Per-stage p50/p99 + share of end-to-end time over the committed
+        traces (newer than ``min_seq``).
+
+        ``share_of_e2e`` counts only a stage's TOP-LEVEL spans (no parent)
+        against the summed trace e2e, so the shares of disjoint top-level
+        stages sum to <= 1.0 — a nested span (``device_step`` inside
+        ``process``, flight legs inside a hop) overlaps its parent and
+        would push the sum past 1.0. Stages whose
+        spans are ALL nested report ``nested: true`` plus ``nested_under``
+        (their most common parent stage) and a 0.0 top-level share; their
+        p50/p99/total still cover every span, so the within-parent cost
+        stays visible."""
+        with self._lock:
+            recs = [r for r in self._done if r["seq"] > min_seq]
+        # span_id -> stage, per trace, so nested stages can name the parent
+        # stage they report under (ids are process-unique: one shared map)
+        span_stage: dict[str, str] = {}
+        for r in recs:
+            for s in r["spans"]:
+                sid = s.get("span_id")
+                if sid:
+                    span_stage[sid] = s["stage"]
+        stages: dict[str, list[float]] = {}
+        top: dict[str, float] = {}  # stage -> summed top-level duration
+        parents: dict[str, dict[str, int]] = {}  # stage -> parent stage counts
+        total_e2e_ms = 0.0
+        for r in recs:
+            total_e2e_ms += r["e2e_ms"]
+            for s in r["spans"]:
+                stage = s["stage"]
+                stages.setdefault(stage, []).append(s["dur_ms"])
+                pid = s.get("parent_id") or ""
+                if not pid:
+                    top[stage] = top.get(stage, 0.0) + s["dur_ms"]
+                else:
+                    pstage = span_stage.get(pid)
+                    if pstage is not None:
+                        counts = parents.setdefault(stage, {})
+                        counts[pstage] = counts.get(pstage, 0) + 1
+        out: dict[str, dict] = {}
+        for stage, durs in sorted(stages.items()):
+            durs.sort()
+            entry = {
+                "count": len(durs),
+                "p50_ms": round(durs[len(durs) // 2], 3),
+                "p99_ms": round(durs[min(len(durs) - 1,
+                                         int(0.99 * len(durs)))], 3),
+                "total_ms": round(sum(durs), 3),
+                "share_of_e2e": (round(top.get(stage, 0.0) / total_e2e_ms, 4)
+                                 if total_e2e_ms > 0 else 0.0),
+            }
+            if stage not in top:  # every span nested: mark it as such
+                entry["nested"] = True
+                pcounts = parents.get(stage)
+                if pcounts:
+                    entry["nested_under"] = max(pcounts, key=pcounts.get)
+            out[stage] = entry
+        return {"traces": len(recs), "stages": out}
+
+    def summary(self) -> dict:
+        """One-line liveness summary for /health: is tracing on, how much
+        is retained, and how often forced sampling fired."""
+        with self._lock:
+            return {
+                "enabled": self.cfg.enabled,
+                "sample_rate": self.cfg.sample_rate,
+                "tier": self.tier,
+                "traces_retained": len(self._done),
+                "traces_open": len(self._open),
+                "spans_recorded": self.spans_recorded,
+                "forced_samples": self.traces_forced,
+            }
+
+    def clear(self) -> None:
+        """Test/bench hook: drop all trace state (config survives)."""
+        with self._lock:
+            self._open.clear()
+            self._done.clear()
+            self.spans_recorded = self.spans_dropped = 0
+            self.traces_started = self.traces_forced = self.open_evicted = 0
+            self._commit_seq = 0
+
+
+# ---------------------------------------------------------------------------
+# process-global tracer + contextvar scope for nested instrumentation
+# ---------------------------------------------------------------------------
+
+def _default_config() -> TracingConfig:
+    """ARKFLOW_TRACE=0 is the operator kill switch (A/B overhead runs, or
+    paranoia); the engine's `tracing:` config block overrides it."""
+    import os
+
+    return TracingConfig(enabled=os.environ.get("ARKFLOW_TRACE", "1") != "0")
+
+
+_GLOBAL = Tracer(config=_default_config())
+
+
+def global_tracer() -> Tracer:
+    return _GLOBAL
+
+
+class _Scope:
+    __slots__ = ("tracer", "ctx")
+
+    def __init__(self, tracer: Tracer, ctx: TraceContext):
+        self.tracer = tracer
+        self.ctx = ctx
+
+
+_ACTIVE: ContextVar[Optional[_Scope]] = ContextVar("arkflow_trace_scope",
+                                                   default=None)
+
+
+@contextmanager
+def activate(tracer: Tracer, ctx: Optional[TraceContext],
+             parent_id: Optional[str] = None):
+    """Make (tracer, ctx) the ambient trace scope for nested
+    ``record_stage``/``stage_span`` calls — the stream wraps
+    ``pipeline.process`` with this so runners/processors need no context
+    plumbing. Contextvars flow into child tasks (``asyncio.gather``), so
+    packed fan-out windows inherit the scope; plain executor threads do
+    not, which keeps off-loop helpers no-ops by construction."""
+    if ctx is None or not tracer.enabled:
+        yield
+        return
+    scoped = ctx if parent_id is None else ctx.with_parent(parent_id)
+    token = _ACTIVE.set(_Scope(tracer, scoped))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def current_scope() -> Optional[_Scope]:
+    return _ACTIVE.get()
+
+
+def record_stage(stage: str, dur_s: float, *,
+                 attrs: Optional[dict] = None) -> str:
+    """Record a span under the ambient scope (no-op when untraced)."""
+    scope = _ACTIVE.get()
+    if scope is None:
+        return ""
+    return scope.tracer.record(scope.ctx, stage, dur_s, attrs=attrs)
+
+
+@contextmanager
+def stage_span(stage: str, attrs: Optional[dict] = None):
+    """Time a block as a span under the ambient scope; children recorded
+    inside the block parent under it. Exceptions mark the span
+    ``error=true`` and propagate."""
+    scope = _ACTIVE.get()
+    if scope is None:
+        yield
+        return
+    span_id = _new_id()
+    token = _ACTIVE.set(_Scope(scope.tracer, scope.ctx.with_parent(span_id)))
+    t0 = time.perf_counter()
+    wall = time.time()
+    err = False
+    try:
+        yield
+    except BaseException:
+        err = True
+        raise
+    finally:
+        _ACTIVE.reset(token)
+        a = dict(attrs or {})
+        if err:
+            a["error"] = True
+        scope.tracer.record(scope.ctx, stage, time.perf_counter() - t0,
+                            parent_id=scope.ctx.span_id, attrs=a,
+                            start_wall=wall, span_id=span_id)

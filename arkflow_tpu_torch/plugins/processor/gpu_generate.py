@@ -89,6 +89,7 @@ from arkflow_tpu_torch.components import Processor, Resource, register_processor
 from arkflow_tpu_torch.errors import ArkError, ConfigError, ProcessError
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.decoder import make_key, split_key
+from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.tpu.batch_generate import BatchGenerator
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
 from arkflow_tpu_torch.tpu.compiled_step import tree_map
@@ -138,8 +139,11 @@ class GpuGenerateProcessor(Processor):
         self.buckets = buckets
         #: the batch mode's sampling key (JAX ``_rng``: ``PRNGKey(seed + 1)``)
         self._key = make_key(seed + 1)
-        #: tokens generated by this processor
+        #: tokens generated by this processor (and the JAX processor's
+        #: ``arkflow_generated_tokens_total``)
         self.tokens = 0
+        self.m_tokens = global_registry().counter(
+            "arkflow_generated_tokens_total", "tokens generated", {"model": family.name})
 
     async def connect(self) -> None:
         """Capture the graphs before the input starts producing (continuous:
@@ -182,6 +186,7 @@ class GpuGenerateProcessor(Processor):
             np.cumsum(counts, out=offsets[1:])
             flat = np.fromiter((t for o in outs for t in o), np.int64, count=int(offsets[-1]))
         self.tokens += int(offsets[-1])
+        self.m_tokens.inc(int(offsets[-1]))
         return [batch.with_column(self.output_field, self._detok_column(flat, offsets))]
 
     def _detok_column(self, flat: np.ndarray, offsets: np.ndarray) -> BinaryColumn:

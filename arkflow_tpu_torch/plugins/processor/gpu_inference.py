@@ -81,6 +81,7 @@ pp_layer_costs, device_pool, response_cache) raises "not yet ported".
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import Optional
 
 import numpy as np
@@ -88,6 +89,8 @@ import numpy as np
 from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, MessageBatch
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
 from arkflow_tpu_torch.errors import ArkError, ConfigError, ProcessError
+from arkflow_tpu_torch.obs import global_registry
+from arkflow_tpu_torch.obs.trace import record_stage
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
 from arkflow_tpu_torch.tpu.integrity import build_integrity_monitor, parse_integrity_config
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
@@ -125,6 +128,12 @@ class GpuInferenceProcessor(Processor):
         self.max_seq = max_seq
         self.outputs = outputs
         self._warmed = not warmup
+        #: host extraction and tokenization per batch, the other half of the
+        #: host infeed prep (the runner's histogram covers pad and stage)
+        self.m_extract = global_registry().histogram(
+            "arkflow_tpu_extract_seconds",
+            "host-side Arrow->tensor extraction + tokenization per batch",
+            {"model": runner.family.name})
 
     # -- input extraction --------------------------------------------------
 
@@ -208,9 +217,20 @@ class GpuInferenceProcessor(Processor):
         if self.runner.packed:
             outputs = await self._infer_packed(batch)
         else:
-            inputs = await asyncio.get_running_loop().run_in_executor(None, self._extract, batch)
+            t0 = time.perf_counter()
+            inputs = await asyncio.get_running_loop().run_in_executor(
+                None, self._timed, self._extract, batch)
+            # the same stage name as the runner's pad and stage: the trace
+            # breakdown shows one infeed cost, the two sites summed
+            record_stage("infeed_prep", time.perf_counter() - t0)
             outputs = await self.runner.infer(inputs)
         return [self._attach(batch, outputs)]
+
+    def _timed(self, fn, *args):
+        """``fn(*args)`` observed on ``arkflow_tpu_extract_seconds`` (on the
+        executor thread that runs it)."""
+        with self.m_extract.time():
+            return fn(*args)
 
     async def _infer_packed(self, batch: MessageBatch) -> dict[str, np.ndarray]:
         """Token-packed inference: tokenize, pack and carve on an executor
@@ -222,7 +242,9 @@ class GpuInferenceProcessor(Processor):
         loop = asyncio.get_running_loop()
         policy = self.runner.hold_grid()
         try:
-            windows = await loop.run_in_executor(None, self._pack, batch, policy)
+            t0 = time.perf_counter()
+            windows = await loop.run_in_executor(None, self._timed, self._pack, batch, policy)
+            record_stage("infeed_prep", time.perf_counter() - t0)
             outs = await asyncio.gather(*[self.runner.infer(inputs, policy=policy)
                                           for inputs, _ in windows])
         finally:

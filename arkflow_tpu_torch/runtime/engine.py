@@ -15,8 +15,9 @@ request when the request sends ``Connection: keep-alive``, and closes after
 the response otherwise; a malformed request or a body past 1 MiB answers
 400:
 
-- ``GET <path>`` (default ``/health``): the status, the stream count and
-  per stream its runners' health reports, its hot-swap managers',
+- ``GET <path>`` (default ``/health``): the status, the stream count, the
+  tracer's one-line ``tracing`` summary and per stream its runners' health
+  reports, its hot-swap managers',
   integrity monitors' and shape tuners' reports, under the JAX package's
   keys (``runners``, ``swap``, ``integrity``, ``tuner``; a ``type: fault``
   wrapper exposes its inner processor's ``runner``, ``swapper`` and
@@ -32,10 +33,23 @@ the response otherwise; a malformed request or a body past 1 MiB answers
   (``tpu/tuner.py``) on every tunable processor of the targeted streams;
   200 when every cycle ran (committed, rejected or skipped), 409 when a
   warm failed or a flip rolled back (the incumbent grid serving), 404 when
-  there was none to run, 400 for a malformed body.
+  there was none to run, 400 for a malformed body;
+- ``GET /metrics``: the process-global registry's Prometheus exposition
+  (``obs/metrics.py``), ``text/plain; charset=utf-8``;
+- ``GET /trace?n=&min_seq=``: the tracer's summary, its per-stage
+  breakdown and the ``n`` slowest retained traces (``obs/trace.py``) newer
+  than commit ``min_seq``; 400 when either is not an int;
+- ``POST /debug/profile?seconds=`` (only with ``health_check.profiling_dir``):
+  a ``torch.profiler`` capture (CPU, and CUDA when a card is present) of
+  ``seconds`` clamped to 0.1-60, written as a Chrome trace to
+  ``<profiling_dir>/trace-<unix seconds>/trace.json``; answers ``{"trace_dir",
+  "seconds"}``, 400 for a seconds value that is not a finite number, 409
+  while a capture runs, 500 ``profile failed: ...`` when the capture or
+  its export fails. The profiler is always stopped; it starts and stops on
+  the loop's thread, and the export runs on an executor thread.
 
-``/metrics``, ``/trace`` and ``/debug/profile`` answer 404 with a "not yet
-ported" body: the port has no metrics registry or tracer yet.
+The engine applies its ``tracing`` block to the process-global tracer when
+it starts, before any stream runs.
 """
 
 from __future__ import annotations
@@ -43,18 +57,23 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
+import os
 import signal
-from typing import Optional
+import time
+from typing import Any, Optional
+from urllib.parse import parse_qs
 
 from arkflow_tpu_torch.components.registry import ensure_plugins_loaded
 from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.errors import SwapError, TunerError
+from arkflow_tpu_torch.obs import global_registry
+from arkflow_tpu_torch.obs.trace import global_tracer
 from arkflow_tpu_torch.runtime.stream import Stream, build_stream
 from arkflow_tpu_torch.utils.http1 import HttpError, HttpServer, Request, Response
 
 logger = logging.getLogger("arkflow_torch.engine")
 
-_NOT_PORTED_ROUTES = ("/metrics", "/trace", "/debug/profile")
 #: request body bound of the health server
 _MAX_BODY = 1 << 20
 
@@ -69,6 +88,8 @@ class Engine:
         #: the health server's bound port (``health_check.port: 0`` picks a
         #: free one), None while it is not serving
         self.health_port: Optional[int] = None
+        #: one ``/debug/profile`` capture at a time
+        self._profile_lock = asyncio.Lock()
 
     def _install_signal_handlers(self) -> None:
         loop = asyncio.get_running_loop()
@@ -86,6 +107,9 @@ class Engine:
         return self.streams
 
     async def run(self) -> None:
+        if self.config.tracing is not None:
+            # the streams hold the global tracer: configure it in place
+            global_tracer().configure(self.config.tracing)
         if not self.streams:
             self.build()
         await self.start_health_server()
@@ -182,14 +206,22 @@ class Engine:
         except (HttpError, asyncio.IncompleteReadError, asyncio.LimitOverrunError):
             status, body, close = 400, {"error": "malformed request"}, True
         else:
-            status, body = await self._route(req.method, req.path, payload)
+            status, body = await self._route(req.method, req.target, payload)
             close = False
+        if isinstance(body, str):  # the exposition, and the profile route's errors
+            return Response(status, body.encode(), "text/plain; charset=utf-8", close=close)
         return Response(status, json.dumps(body).encode(), "application/json", close=close)
 
-    async def _route(self, method: str, path: str, payload: bytes) -> tuple[int, dict]:
+    async def _route(self, method: str, target: str, payload: bytes) -> tuple[int, Any]:
         hc = self.config.health_check
-        if path in _NOT_PORTED_ROUTES:
-            return 404, {"error": f"{path} is not yet ported to arkflow_tpu_torch"}
+        path, _, raw_query = target.partition("?")
+        query = {k: v[0] for k, v in parse_qs(raw_query, keep_blank_values=True).items()}
+        if path == "/debug/profile":  # a route only with a profiling_dir
+            if not hc.profiling_dir:
+                return 404, {"error": f"no route {path}"}
+            if method != "POST":
+                return 405, {"error": "POST only"}
+            return await self._profile(query)
         if path in ("/admin/swap", "/admin/tune"):
             if method != "POST":
                 return 405, {"error": "POST only"}
@@ -200,12 +232,53 @@ class Engine:
             return 405, {"error": "GET only"}
         if path == hc.path:
             return 200, {"status": "ok" if not self.cancel.is_set() else "shutting_down",
-                         "streams": len(self.streams), "stream_health": self.stream_health()}
+                         "streams": len(self.streams),
+                         "tracing": global_tracer().summary(),
+                         "stream_health": self.stream_health()}
         if path == "/readiness":
             return self._readiness()
         if path == "/liveness":
             return 200, {"status": "alive"}
+        if path == "/metrics":
+            return 200, global_registry().exposition()
+        if path == "/trace":
+            return self._trace(query)
         return 404, {"error": f"no route {path}"}
+
+    @staticmethod
+    def _trace(query: dict) -> tuple[int, dict]:
+        """The slowest ``n`` retained traces (default the tracer's
+        ``slow_n``) and the per-stage breakdown over the traces committed
+        after ``min_seq``, with the tracer's summary."""
+        tracer = global_tracer()
+        try:
+            n = int(query.get("n", 0)) or None
+            min_seq = int(query.get("min_seq", 0))
+        except ValueError:
+            return 400, {"error": "n/min_seq must be ints"}
+        return 200, {"summary": tracer.summary(),
+                     "stage_breakdown": tracer.stage_breakdown(min_seq),
+                     "slowest": tracer.slowest(n, min_seq)}
+
+    async def _profile(self, query: dict) -> tuple[int, Any]:
+        """One ``torch.profiler`` capture of ``seconds`` under the
+        configured ``profiling_dir``."""
+        try:
+            seconds = float(query.get("seconds", "5"))
+        except ValueError:
+            return 400, "seconds must be a number"
+        if not math.isfinite(seconds):  # min and max do not clamp NaN
+            return 400, "seconds must be finite"
+        seconds = min(max(seconds, 0.1), 60.0)
+        if self._profile_lock.locked():
+            return 409, "a capture is already running"
+        out_dir = f"{self.config.health_check.profiling_dir.rstrip('/')}/trace-{int(time.time())}"
+        async with self._profile_lock:
+            try:
+                await capture_profile(out_dir, seconds)
+            except Exception as e:
+                return 500, f"profile failed: {e}"
+        return 200, {"trace_dir": out_dir, "seconds": seconds}
 
     def _readiness(self) -> tuple[int, dict]:
         if not self._ready:
@@ -282,3 +355,46 @@ class Engine:
             return 404, {"error": "no shape-tunable processors"
                          + (f" in stream {target!r}" if target else "")}
         return (200 if ok_all else 409), {"ok": ok_all, "results": results}
+
+
+#: the file a ``/debug/profile`` capture writes inside its ``trace_dir``
+PROFILE_FILE = "trace.json"
+
+
+async def capture_profile(out_dir: str, seconds: float) -> str:
+    """Profile the process for ``seconds`` with ``torch.profiler`` (CPU
+    activity, and CUDA when a card is present) and write the Chrome trace
+    to ``<out_dir>/trace.json``; returns its path. The profiler starts and
+    stops on the event loop's thread (Kineto binds its client to the thread
+    that set it up; its CUDA side records every kernel and copy of the
+    process, whichever thread launched it); the export, which serialises
+    every event, runs on an executor thread. The profiler is stopped
+    whatever happens, and a capture that wrote no trace raises.
+
+    CUPTI is not torn down after the capture (``TEARDOWN_CUPTI`` is left as
+    the process has it): a teardown while other threads replay CUDA graphs
+    can hang the process. The cost is CUPTI's callbacks staying installed,
+    so every later eager kernel launch of the process takes a little longer
+    (see ``PERF.md``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    path = os.path.join(out_dir, PROFILE_FILE)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        await asyncio.sleep(seconds)
+    finally:
+        prof.stop()  # never leave the profiler on
+
+    def export() -> None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+
+    await asyncio.get_running_loop().run_in_executor(None, export)
+    if not os.path.isfile(path) or os.path.getsize(path) == 0:
+        raise RuntimeError(f"no trace written to {path}")
+    return path

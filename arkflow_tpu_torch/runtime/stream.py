@@ -1,7 +1,7 @@
 """Stream runtime: input -> [buffer] -> N processor workers -> ordered output.
 
-Counterpart of ``arkflow_tpu/runtime/stream.py`` without overload admission
-and tracing:
+Counterpart of ``arkflow_tpu/runtime/stream.py`` without overload
+admission:
 
 - Bounded queues of ``thread_num * 4`` between stages.
 - Workers stamp a sequence number at dequeue; the output task restores
@@ -33,11 +33,28 @@ and tracing:
   redeliver, the batch is quarantined when there is an ``error_output``;
   otherwise it is nacked. A batch's attempts clear only after every write
   of it succeeded.
-- The counters are plain attributes named after the JAX package's metrics:
-  ``errors`` (``arkflow_process_errors_total``), ``write_errors``,
-  ``output_retries``, ``quarantined_batches``, ``quarantine_drops``,
-  ``ack_failures``; ``reconnects`` and ``reconnect_failures`` count the
-  input's reconnect probes that healed and that failed.
+- Metrics (``obs/metrics.py``, labelled ``stream: <name>``, the JAX
+  stream's names): rows and batches in and out, process and write errors,
+  ``arkflow_process_seconds``, ``arkflow_e2e_seconds`` (per batch: read to
+  its last write, from the ``__meta_ingest_time`` the stream stamps at
+  read), read, queue-wait and write latency, backpressure seconds, output
+  retries, quarantines, quarantine drops, ack failures, pending batches,
+  and each breaker's ``arkflow_circuit_state`` / ``arkflow_circuit_trips_total``
+  (``output: main|error``). The plain attributes stay beside them:
+  ``errors``, ``write_errors``, ``output_retries``, ``quarantined_batches``,
+  ``quarantine_drops``, ``ack_failures``; ``reconnects`` and
+  ``reconnect_failures`` count the input's reconnect probes that healed and
+  that failed.
+- Traces (``obs/trace.py``, the process-global tracer): a batch read roots
+  a trace (or re-enters its own: a context on the batch, or the trace of a
+  failed delivery with the same fingerprint) and records ``input_decode``;
+  a buffer emission records ``buffer_wait``, or for a merged emission a new
+  trace with ``coalesce_wait`` linking its sources, which finish
+  ``coalesced``; a worker records ``queue_wait`` and runs the pipeline in
+  the ``process`` span with the trace's scope active, so the processor's
+  and runner's stages nest under it; the output records ``output_write``
+  and finishes the trace ``ok`` with its end-to-end seconds, or ``error``
+  on a failed delivery (forced into the store).
 - Ordered close: input -> buffer -> pipeline -> error_output -> output.
 - Each processor's shape tuner (``tpu/tuner.py``; found through ``type:
   fault`` wrappers' ``_inner``) is bound to the stream's own buffer at
@@ -52,11 +69,13 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
-from arkflow_tpu_torch.batch import MessageBatch, batch_fingerprint
+from arkflow_tpu_torch.batch import META_INGEST_TIME, MessageBatch, batch_fingerprint
 from arkflow_tpu_torch.components.base import Ack, Buffer, Input, Output, Resource
 from arkflow_tpu_torch.components.registry import build_component
 from arkflow_tpu_torch.config import StreamConfig
 from arkflow_tpu_torch.errors import ArkError, Disconnection, EndOfInput
+from arkflow_tpu_torch.obs import global_registry
+from arkflow_tpu_torch.obs.trace import TraceContext, activate, global_tracer, stage_span
 from arkflow_tpu_torch.runtime.pipeline import Pipeline
 from arkflow_tpu_torch.utils.circuit_breaker import CircuitBreaker, CircuitBreakerConfig
 from arkflow_tpu_torch.utils.retry import RetryConfig, retry_with_backoff
@@ -75,6 +94,10 @@ MAX_TRACKED_ATTEMPTS = 8192
 class _WorkItem:
     batch: MessageBatch
     ack: Ack
+    #: loop-clock time it entered the worker queue
+    enqueued_at: float = 0.0
+    #: the batch's ``TraceContext``, parsed once; None: untraced
+    trace: Optional[TraceContext] = None
 
 
 class _Done:
@@ -107,9 +130,48 @@ class Stream:
         self.error_output_retry = error_output_retry or self.output_retry
         #: None: the default schedule, read at each disconnect
         self.reconnect_retry = reconnect_retry
-        self._out_breaker = CircuitBreaker(output_breaker) if output_breaker else None
-        self._err_breaker = (CircuitBreaker(error_output_breaker)
+        reg = global_registry()
+        labels = {"stream": name}
+        self.m_rows_in = reg.counter("arkflow_rows_in_total", "rows read from input", labels)
+        self.m_rows_out = reg.counter("arkflow_rows_out_total", "rows written to output", labels)
+        self.m_batches_in = reg.counter("arkflow_batches_in_total", "batches read from input",
+                                        labels)
+        self.m_batches_out = reg.counter("arkflow_batches_out_total", "batches written", labels)
+        self.m_errors = reg.counter("arkflow_process_errors_total", "processor errors", labels)
+        self.m_write_errors = reg.counter("arkflow_write_errors_total", "output write errors",
+                                          labels)
+        self.m_proc_latency = reg.histogram("arkflow_process_seconds", "pipeline latency", labels)
+        self.m_e2e_latency = reg.histogram("arkflow_e2e_seconds", "read-to-written latency",
+                                           labels)
+        self.m_pending = reg.gauge("arkflow_pending_batches", "in-flight batches", labels)
+        self.m_read_latency = reg.histogram(
+            "arkflow_input_read_seconds", "time blocked in input.read()", labels)
+        self.m_queue_wait = reg.histogram(
+            "arkflow_queue_wait_seconds", "work-item wait between input and worker", labels)
+        self.m_write_latency = reg.histogram(
+            "arkflow_output_write_seconds", "output.write() latency per batch", labels)
+        self.m_backpressure_s = reg.counter(
+            "arkflow_backpressure_seconds_total",
+            "worker seconds stalled on the reorder window", labels)
+        self.m_out_retries = reg.counter(
+            "arkflow_output_retries_total", "output write retry attempts", labels)
+        self.m_quarantined = reg.counter(
+            "arkflow_quarantined_batches_total",
+            "batches quarantined to error_output after exhausting delivery attempts", labels)
+        self.m_quarantine_drops = reg.counter(
+            "arkflow_quarantine_drops_total",
+            "batches dropped because the error_output write itself kept failing", labels)
+        self.m_ack_failures = reg.counter(
+            "arkflow_ack_failures_total", "ack callbacks that raised", labels)
+        self._out_breaker = (CircuitBreaker(output_breaker,
+                                            **self._breaker_metrics(reg, labels, "main"))
+                             if output_breaker else None)
+        self._err_breaker = (CircuitBreaker(error_output_breaker,
+                                            **self._breaker_metrics(reg, labels, "error"))
                              if error_output_breaker else None)
+        #: the process-global tracer; the engine applies the ``tracing``
+        #: block to it before the streams run
+        self.tracer = global_tracer()
         self.rows_out = 0
         #: processing errors (failed deliveries of a batch through the chain)
         self.errors = 0
@@ -130,11 +192,24 @@ class Stream:
         self.dropped_batches = 0
         #: delivery attempts per failing batch fingerprint; cleared on success
         self._attempts: dict[bytes, int] = {}
+        #: trace identity of failing batches, keyed like ``_attempts``: a
+        #: redelivery without the trace column re-enters the same trace
+        self._trace_ids: dict[bytes, tuple[str, bool]] = {}
         #: seconds from the first read to the last write (warmup excluded)
         self.traffic_seconds = 0.0
         self._seq_assigned = 0
         self._seq_emitted = 0
         self._drained = asyncio.Event()
+
+    @staticmethod
+    def _breaker_metrics(reg, labels: dict, output: str) -> dict:
+        return {"gauge": reg.gauge(
+                    "arkflow_circuit_state",
+                    "output circuit breaker state (0 closed, 1 open, 2 half-open)",
+                    {**labels, "output": output}),
+                "trip_counter": reg.counter(
+                    "arkflow_circuit_trips_total", "circuit breaker open transitions",
+                    {**labels, "output": output})}
 
     def tuners(self) -> list:
         """The shape tuner of every processor that has one, walking ``_inner``
@@ -203,11 +278,16 @@ class Stream:
 
     async def _do_input(self, input_q: asyncio.Queue, cancel: asyncio.Event) -> None:
         cancel_wait = asyncio.ensure_future(cancel.wait())
+        loop = asyncio.get_running_loop()
         try:
             while not cancel.is_set():
+                t_read = loop.time()
                 read_f = asyncio.ensure_future(self.input.read())
                 done, _ = await asyncio.wait({read_f, cancel_wait},
                                              return_when=asyncio.FIRST_COMPLETED)
+                read_dt = loop.time() - t_read
+                if read_f in done:  # a cancel while idle is no read latency
+                    self.m_read_latency.observe(read_dt)
                 if read_f not in done:
                     read_f.cancel()
                     await asyncio.gather(read_f, return_exceptions=True)
@@ -224,10 +304,31 @@ class Stream:
                     logger.error("[%s] input read error: %s", self.name, e)
                     await asyncio.sleep(0.1)
                     continue
+                ctx = None
+                if self.tracer.enabled:
+                    # a context on the batch, or the trace of a failed
+                    # delivery of the same batch, is a redelivery: its spans
+                    # join that trace. A first delivery roots a new one.
+                    ctx = batch.trace_context()
+                    redelivered = ctx is not None
+                    if ctx is None:
+                        ctx = self._redelivered_trace(batch)
+                        redelivered = ctx is not None
+                        if ctx is None:
+                            ctx = self.tracer.begin()
+                        batch = batch.with_trace(ctx)
+                    self.tracer.record(
+                        ctx, "input_decode", read_dt,
+                        attrs=({"redelivered": True} if redelivered else None))
+                # the stream's own ingest stamp, over an input's: e2e runs
+                # from here
+                item = _WorkItem(batch.with_ingest_time(), ack, loop.time(), trace=ctx)
+                self.m_batches_in.inc()
+                self.m_rows_in.inc(batch.num_rows)
                 if self.buffer is not None:
-                    await self.buffer.write(batch, ack)
+                    await self.buffer.write(item.batch, item.ack)
                 else:
-                    await input_q.put(_WorkItem(batch, ack))
+                    await input_q.put(item)
         finally:
             cancel_wait.cancel()
             if self.buffer is not None:
@@ -258,34 +359,82 @@ class Stream:
 
     async def _do_buffer(self, input_q: asyncio.Queue) -> None:
         """Move the buffer's emissions into the worker queue."""
+        loop_time = asyncio.get_running_loop().time
         while True:
             item = await self.buffer.read()
             if item is None:
                 for _ in range(self.thread_num):
                     await input_q.put(_DONE)
                 return
-            await input_q.put(_WorkItem(*item))
+            batch, ack = item
+            ctx = None
+            if self.tracer.enabled:
+                batch, ctx = self._trace_emission(batch)
+            await input_q.put(_WorkItem(batch, ack, loop_time(), trace=ctx))
+
+    def _trace_emission(self, batch: MessageBatch):
+        """A buffer emission's trace. A merged emission (rows of several
+        source traces) starts a new trace whose ``coalesce_wait`` span links
+        every source, and each source finishes ``coalesced`` pointing at it;
+        an emission of one trace keeps it and records ``buffer_wait``. The
+        wait is the buffer's own ``last_emission_wait_s`` when it keeps one,
+        else the age of row 0's ingest stamp."""
+        wait_s = getattr(self.buffer, "last_emission_wait_s", None)
+        if wait_s is None:
+            ingest = batch.get_meta(META_INGEST_TIME)
+            wait_s = (max(0.0, time.time() - float(ingest) / 1000.0)
+                      if ingest is not None else 0.0)
+        contexts = batch.source_trace_contexts()
+        if len(contexts) <= 1:
+            ctx = contexts[0] if contexts else self.tracer.begin()
+            self.tracer.record(ctx, "buffer_wait", wait_s)
+            return batch, ctx
+        sources = [c.trace_id for c in contexts]
+        ctx = self.tracer.begin()
+        self.tracer.record(ctx, "coalesce_wait", wait_s, attrs={"links": sources})
+        for src in contexts:
+            self.tracer.finish(src, "coalesced", attrs={"merged_into": ctx.trace_id})
+        return batch.with_trace(ctx), ctx
 
     async def _do_processor(self, input_q: asyncio.Queue, output_q: asyncio.Queue) -> None:
+        loop_time = asyncio.get_running_loop().time
+        tracer = self.tracer
         while True:
             # backpressure: wait (bounded) while the reorder window is full
-            while (self._seq_assigned - self._seq_emitted) > MAX_PENDING:
-                self._drained.clear()
-                try:
-                    await asyncio.wait_for(self._drained.wait(), 1.0)
-                except asyncio.TimeoutError:
-                    pass
+            if (self._seq_assigned - self._seq_emitted) > MAX_PENDING:
+                t_bp = loop_time()
+                while (self._seq_assigned - self._seq_emitted) > MAX_PENDING:
+                    self._drained.clear()
+                    try:
+                        await asyncio.wait_for(self._drained.wait(), 1.0)
+                    except asyncio.TimeoutError:
+                        pass
+                self.m_backpressure_s.inc(loop_time() - t_bp)
             item = await input_q.get()
             if isinstance(item, _Done):
                 await output_q.put(_DONE)
                 return
+            wait = loop_time() - item.enqueued_at
+            self.m_queue_wait.observe(wait)
+            trace = item.trace
+            if trace is not None:
+                tracer.record(trace, "queue_wait", wait)
             seq = self._seq_assigned
             self._seq_assigned += 1
+            self.m_pending.set(self._seq_assigned - self._seq_emitted)
+            t0 = loop_time()
             try:
-                results = await self.pipeline.process(item.batch)
+                if trace is not None:
+                    # the processor's and runner's stages nest under process
+                    with activate(tracer, trace):
+                        with stage_span("process"):
+                            results = await self.pipeline.process(item.batch)
+                else:
+                    results = await self.pipeline.process(item.batch)
                 err = None
             except Exception as e:  # processor failure -> error path
                 results, err = [], e
+            self.m_proc_latency.observe(loop_time() - t0)
             await output_q.put((seq, item, results, err))
 
     async def _do_output(self, output_q: asyncio.Queue) -> None:
@@ -321,6 +470,7 @@ class Stream:
             await ack.ack()
         except Exception as e:
             self.ack_failures += 1
+            self.m_ack_failures.inc()
             logger.warning("[%s] ack failed (duplicate delivery possible): %s", self.name, e)
 
     async def _safe_nack(self, ack: Ack) -> None:
@@ -331,6 +481,7 @@ class Stream:
 
     def _count_retry(self) -> None:
         self.output_retries += 1
+        self.m_out_retries.inc()
 
     async def _write_guarded(self, output: Output, breaker: Optional[CircuitBreaker],
                              retry_cfg: RetryConfig, batch: MessageBatch, what: str) -> None:
@@ -364,6 +515,7 @@ class Stream:
             return True
         except Exception:
             self.quarantine_drops += 1
+            self.m_quarantine_drops.inc()
             logger.exception(fail_log, *fail_args)
             return False
 
@@ -376,6 +528,7 @@ class Stream:
                 "[%s] error_output write kept failing; DROPPING batch after %d "
                 "delivery attempt(s) (reason: %s)", self.name, attempts, reason):
             self.quarantined_batches += 1
+            self.m_quarantined.inc()
         self._clear_attempts(item.batch)
         await self._safe_ack(item.ack)
 
@@ -383,7 +536,12 @@ class Stream:
                     err: Optional[Exception]) -> None:
         if err is not None:
             self.errors += 1
-            attempts = self._bump_attempts(item.batch)
+            self.m_errors.inc()
+            attempts = self._bump_attempts(item.batch, trace=item.trace)
+            # every failed attempt commits its trace (forced); the
+            # redelivery re-enters the same trace id at read
+            self.tracer.finish(item.trace, "error",
+                               attrs={"error": str(err)[:200], "attempt": attempts})
             if attempts < self.max_delivery_attempts and getattr(
                     item.ack, "redeliverable", False):
                 logger.warning("[%s] processing failed (delivery %d/%d); nacked for "
@@ -402,16 +560,29 @@ class Stream:
             await self._safe_ack(item.ack)
             return
         if not results:  # the chain dropped the batch: ack it
+            self.tracer.finish(item.trace, "ok", attrs={"results": 0})
             await self._safe_ack(item.ack)
             return
+        loop = asyncio.get_running_loop()
         try:
+            t_write0 = loop.time()
             for b in results:
+                t_w = loop.time()
                 await self._write_guarded(self.output, self._out_breaker,
                                           self.output_retry, b, f"[{self.name}] output write")
+                self.m_write_latency.observe(loop.time() - t_w)
+                self.m_batches_out.inc()
+                self.m_rows_out.inc(b.num_rows)
                 self.rows_out += b.num_rows
+            self.tracer.record(item.trace, "output_write", loop.time() - t_write0,
+                               attrs=({"batches": len(results)} if len(results) > 1 else None))
         except Exception as e:
             self.write_errors += 1
-            attempts = self._bump_attempts(item.batch)
+            self.m_write_errors.inc()
+            attempts = self._bump_attempts(item.batch, trace=item.trace)
+            self.tracer.finish(item.trace, "error",
+                               attrs={"error": f"output write failed: {e}"[:200],
+                                      "attempt": attempts})
             if self.error_output is not None and (
                     attempts >= self.max_delivery_attempts
                     or not getattr(item.ack, "redeliverable", False)):
@@ -424,21 +595,42 @@ class Stream:
                 await self._safe_nack(item.ack)
             return
         self._clear_attempts(item.batch)
+        ingest = item.batch.get_meta(META_INGEST_TIME)
+        e2e = None
+        if ingest is not None:  # per batch, not per row, as in JAX
+            e2e = max(0.0, time.time() - ingest / 1000.0)
+            self.m_e2e_latency.observe(e2e)
+        self.tracer.finish(item.trace, "ok", e2e_s=e2e)
         await self._safe_ack(item.ack)
 
-    def _bump_attempts(self, batch: MessageBatch) -> int:
+    def _bump_attempts(self, batch: MessageBatch,
+                       trace: Optional[TraceContext] = None) -> int:
         key = batch_fingerprint(batch)
         n = self._attempts.get(key, 0) + 1
         if key not in self._attempts and len(self._attempts) >= MAX_TRACKED_ATTEMPTS:
-            self._attempts.pop(next(iter(self._attempts)))
+            evicted = next(iter(self._attempts))
+            self._attempts.pop(evicted)
+            self._trace_ids.pop(evicted, None)
         self._attempts[key] = n
+        if trace is not None:
+            self._trace_ids[key] = (trace.trace_id, trace.sampled)
         return n
 
     def _clear_attempts(self, batch: MessageBatch) -> None:
         """Forget a batch's failed attempts; hashes only while some are
         tracked, so the healthy path never pays for it."""
         if self._attempts:
-            self._attempts.pop(batch_fingerprint(batch), None)
+            key = batch_fingerprint(batch)
+            self._attempts.pop(key, None)
+            self._trace_ids.pop(key, None)
+
+    def _redelivered_trace(self, batch: MessageBatch) -> Optional[TraceContext]:
+        """The trace of a failed delivery of this batch, or None; hashes
+        only while failures are tracked."""
+        if not self._trace_ids:
+            return None
+        hit = self._trace_ids.get(batch_fingerprint(batch))
+        return None if hit is None else TraceContext(trace_id=hit[0], sampled=hit[1])
 
 
 def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:

@@ -15,7 +15,10 @@ stream's counters:
     report["values"], report["committed"], report["log_end"], report["rows_per_s"]
 
 ``prepare(stream)``, when given, runs after the build and before the run
-(the smoke swaps a warm runner in there). A stream that ends early, or an
+(the smoke swaps a warm runner in there). ``kafka_to_kafka`` also takes
+``feed(engine)``, a coroutine run beside the stream (the smoke's ``obs``
+part scrapes the engine's health server there); the engine stops only
+after it returned. A stream that ends early, or an
 output that does not complete within ``timeout_s``, raises; so does a fake
 that fails to bind. Nothing here imports JAX or a broker library.
 """
@@ -120,7 +123,8 @@ async def _seed_kafka(broker: FakeKafkaBroker, topic: str, partitions: int,
 
 async def kafka_to_kafka(raw: dict, values: list[bytes], partitions: int = 4,
                          codecs: Optional[list] = None, prepare: Prepare = None,
-                         timeout_s: float = 120.0) -> dict:
+                         timeout_s: float = 120.0,
+                         feed: Optional[Callable[[Engine], Awaitable[None]]] = None) -> dict:
     """``kafka_bert_kafka.json``: ``values`` produced into the input topic
     before the run; the stream stops once the output topic holds one record
     a value and the group's committed offsets reach each partition's log
@@ -145,7 +149,8 @@ async def kafka_to_kafka(raw: dict, values: list[bytes], partitions: int = 4,
                 broker.group_offsets.get((group, in_topic, p)) == ends[p]
                 for p in range(partitions))
 
-        wall = await run_until(engine, done, timeout_s=timeout_s)
+        wall = await run_until(engine, done, (lambda: feed(engine)) if feed else None,
+                               timeout_s=timeout_s)
         records = [r for p in range(partitions) for r in broker.records(out_topic, p)]
         return {**_stream_report(stream, wall),
                 "values": [r.value for r in records], "keys": [r.key for r in records],

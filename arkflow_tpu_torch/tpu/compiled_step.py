@@ -374,29 +374,47 @@ class DutyCycle:
     dispatch that finds it empty to the completion that empties it, idle
     between (``arkflow_tpu/tpu/runner.py`` ``_track_dispatch``,
     ``_track_complete``, ``duty_cycle``). A step counts as busy from its
-    dispatch, so an eager step's own host dispatch is busy time too."""
+    dispatch, so an eager step's own host dispatch is busy time too. The
+    optional metrics are the JAX runner's ``arkflow_tpu_device_busy_seconds_total``,
+    ``arkflow_tpu_infeed_stall_seconds_total``,
+    ``arkflow_tpu_device_idle_gap_seconds`` and ``arkflow_tpu_steps_inflight``."""
 
-    def __init__(self):
+    def __init__(self, *, busy=None, stall=None, idle_gap=None, inflight=None):
         self._lock = threading.Lock()
         self.inflight = 0
         self.busy_s = 0.0
         self.stall_s = 0.0
         self._busy_start = 0.0
         self._last_idle_start: Optional[float] = None
+        #: optional metrics fed beside the sums: busy and stall counters
+        #: (seconds), the idle-gap histogram, the in-flight gauge
+        self._m_busy, self._m_stall = busy, stall
+        self._m_idle_gap, self._m_inflight = idle_gap, inflight
 
     def dispatch(self, now: float) -> None:
         with self._lock:
             if self.inflight == 0:
                 if self._last_idle_start is not None:
-                    self.stall_s += now - self._last_idle_start
+                    gap = now - self._last_idle_start
+                    self.stall_s += gap
+                    if self._m_stall is not None:
+                        self._m_stall.inc(gap)
+                    if self._m_idle_gap is not None:
+                        self._m_idle_gap.observe(gap)
                 self._busy_start = now
             self.inflight += 1
+            if self._m_inflight is not None:
+                self._m_inflight.set(self.inflight)
 
     def complete(self, now: float) -> None:
         with self._lock:
             self.inflight -= 1
+            if self._m_inflight is not None:
+                self._m_inflight.set(self.inflight)
             if self.inflight == 0:
                 self.busy_s += now - self._busy_start
+                if self._m_busy is not None:
+                    self._m_busy.inc(now - self._busy_start)
                 self._last_idle_start = now
 
     def share(self) -> float:

@@ -22,8 +22,9 @@ Step outcomes drive the transitions (``mark_success``, ``mark_unhealthy``,
 ``mark_degraded``). A recovery probe is a real traffic batch: when it is
 due, one caller claims it (``join_or_begin_probe``) and every other caller
 waits, and that batch's own step deadline bounds the damage if the device
-is still hung. The JAX package also exports the state on a metrics gauge;
-the port has no metrics registry yet, so ``report()`` is the surface.
+is still hung. The state is exported on the ``arkflow_tpu_runner_health``
+gauge (``GAUGE_VALUE``) when the owner passes one, as in the JAX package,
+and on ``report()``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ DEGRADED = "degraded"
 UNHEALTHY = "unhealthy"
 DEAD = "dead"
 CORRUPT = "corrupt"
+
+#: gauge encoding for ``arkflow_tpu_runner_health``
+GAUGE_VALUE = {HEALTHY: 0, DEGRADED: 1, UNHEALTHY: 2, DEAD: 3, CORRUPT: 4}
 
 
 @dataclass(frozen=True)
@@ -87,12 +91,15 @@ class RunnerHealth:
     event loop alike). ``clock`` is injectable for deterministic tests."""
 
     def __init__(self, config: Optional[HealthConfig] = None, *, name: str = "runner",
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic, gauge=None):
         self.cfg = config or HealthConfig()
+        self._gauge = gauge
         self.name = name
         self._clock = clock
         self._lock = threading.Lock()
         self._state = HEALTHY
+        if gauge is not None:
+            gauge.set(GAUGE_VALUE[HEALTHY])
         self._consecutive_failures = 0
         self._next_probe_at = 0.0
         self._probing = False
@@ -100,6 +107,11 @@ class RunnerHealth:
         #: the runner's own gate: exactly one joiner may consume the claim
         self._probe_handoff = False
         self._last_reason = ""
+
+    def _set(self, state: str) -> None:
+        self._state = state
+        if self._gauge is not None:
+            self._gauge.set(GAUGE_VALUE[state])
 
     # -- inspection --------------------------------------------------------
 
@@ -193,7 +205,7 @@ class RunnerHealth:
             if self._state != HEALTHY:
                 logger.info("[%s] runner recovered -> HEALTHY", self.name)
                 self._last_reason = ""
-                self._state = HEALTHY
+                self._set(HEALTHY)
 
     def mark_degraded(self, reason: str) -> None:
         """Serving continues at reduced capability (the batch grid capped)."""
@@ -201,7 +213,7 @@ class RunnerHealth:
             if self._state == HEALTHY:
                 logger.warning("[%s] runner DEGRADED: %s", self.name, reason)
                 self._last_reason = reason
-                self._state = DEGRADED
+                self._set(DEGRADED)
 
     def mark_unhealthy(self, reason: str) -> None:
         """An incident (deadline miss, failed step): stop serving, schedule
@@ -216,7 +228,7 @@ class RunnerHealth:
             if self.cfg.dead_after and self._consecutive_failures >= self.cfg.dead_after:
                 logger.error("[%s] runner DEAD after %d consecutive incidents (last: %s)",
                              self.name, self._consecutive_failures, reason)
-                self._state = DEAD
+                self._set(DEAD)
                 return
             backoff = min(self.cfg.probe_backoff_s
                           * (2.0 ** min(self._consecutive_failures - 1, 32)),
@@ -224,7 +236,7 @@ class RunnerHealth:
             self._next_probe_at = self._clock() + backoff
             logger.warning("[%s] runner UNHEALTHY (%s); probe in %.2fs (incident %d)",
                            self.name, reason, backoff, self._consecutive_failures)
-            self._state = UNHEALTHY
+            self._set(UNHEALTHY)
 
     def mark_corrupt(self, reason: str) -> None:
         """Quarantine for a proven integrity failure; only ``mark_repaired``
@@ -236,7 +248,7 @@ class RunnerHealth:
             self._probe_handoff = False
             self._last_reason = reason
             logger.error("[%s] runner CORRUPT, quarantined: %s", self.name, reason)
-            self._state = CORRUPT
+            self._set(CORRUPT)
 
     def mark_repaired(self) -> bool:
         """Exit quarantine after a verified repair. False (no change) from
@@ -249,5 +261,5 @@ class RunnerHealth:
             self._consecutive_failures = 0
             self._last_reason = ""
             logger.info("[%s] runner repaired -> HEALTHY", self.name)
-            self._state = HEALTHY
+            self._set(HEALTHY)
             return True

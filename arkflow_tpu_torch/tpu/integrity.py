@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from arkflow_tpu_torch.errors import ConfigError, RunnerDead
+from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.tpu.compiled_step import tree_map
 from arkflow_tpu_torch.tpu.health import CORRUPT, DEAD
 from arkflow_tpu_torch.utils.duration import parse_duration
@@ -496,6 +497,20 @@ class IntegrityMonitor:
         self.probes = self.mismatches = self.quarantines = self.repairs = 0
         #: probes by result
         self.results = dict.fromkeys(PROBE_RESULTS, 0)
+        # the JAX monitor's metrics, fed beside the counters above
+        reg = global_registry()
+        labels = {"model": name}
+        self.m_probe = {
+            r: reg.counter("arkflow_integrity_probe_total",
+                           "integrity probes by result (golden signature + digests)",
+                           {**labels, "result": r})
+            for r in PROBE_RESULTS}
+        self.m_quarantine = reg.counter(
+            "arkflow_integrity_quarantine_total",
+            "members quarantined (CORRUPT) for proven integrity failures", labels)
+        self.m_repair = reg.counter(
+            "arkflow_integrity_repair_total",
+            "quarantined members repaired, re-verified, and re-admitted", labels)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -574,6 +589,7 @@ class IntegrityMonitor:
 
     def _count(self, m, result: str) -> None:
         self.results[result] += 1
+        self.m_probe[result].inc()
         m.last_result = result
 
     async def _probe_member(self, m, with_digests: bool, summary: dict) -> None:
@@ -612,6 +628,7 @@ class IntegrityMonitor:
         m.last_probe_at = time.monotonic()
         if ok:
             self.results["ok"] += 1
+            self.m_probe["ok"].inc()
             if m.last_result != "digest_mismatch":
                 m.last_result = "ok"
             summary["ok"] += 1
@@ -629,6 +646,7 @@ class IntegrityMonitor:
         """Mark a member CORRUPT and fire the quarantine hooks."""
         m.health.mark_corrupt(reason)
         self.quarantines += 1
+        self.m_quarantine.inc()
         for hook in self._quarantine_hooks:
             try:
                 hook()
@@ -659,6 +677,7 @@ class IntegrityMonitor:
             return 0
         m.last_result = "ok"
         self.repairs += 1
+        self.m_repair.inc()
         logger.info("[%s] %s: repaired, re-verified, re-admitted", self.name, m.label)
         return 1
 

@@ -40,6 +40,22 @@ batch -> pad to a (batch, seq) bucket -> model on the device -> unpad.
   ``torch.inference_mode`` is entered inside the executor thread (it is
   thread-local); outputs come back to the host through the set's pinned
   output buffers and one event.
+- Metrics (``obs/metrics.py``, labelled ``model`` and, packed, ``packed:
+  1``, the JAX runner's names): ``arkflow_tpu_infer_seconds``, rows, pad
+  rows, fill ratio, padding waste, exec rows, tokens and token capacity
+  (traffic steps only, beside the plain counters below), compiles (the
+  on-path ``captures``) and warm compiles (``warm_captures``), steps in
+  flight, device busy seconds, infeed stall seconds and the idle-gap
+  histogram (from ``duty_cycle``'s tracker), infeed prep seconds, prefetch
+  active, OOMs and the bucket cap. The JAX runner's donation and pp-bubble
+  gauges have no counterpart (no donation, no pp plane).
+- Trace stages (``obs/trace.py``, under the stream's ``process`` span):
+  ``infeed_prep`` (pad and stage), ``device_dispatch_wait`` (the wait for
+  an in-flight permit, above 0.5 ms) and ``device_step_first`` /
+  ``device_step`` (attr ``bucket_rows``): the host clock from the
+  dispatch, or at ``dispatch_depth`` 2 from this step's own enqueue, to
+  the fetch that ends it. They are recorded on the event loop, around the
+  awaited executor calls: an executor thread has no trace scope.
 - The ragged kernel needs right-padded masks. A mask that is not a
   contiguous prefix of ones raises when flash was forced in config, and
   otherwise switches the runner to the plain attention for good, counted in
@@ -105,6 +121,8 @@ import torch
 from arkflow_tpu_torch.errors import ConfigError, StepDeadlineExceeded
 from arkflow_tpu_torch.models import get_model
 from arkflow_tpu_torch.models.quantize import quantize_for_serving
+from arkflow_tpu_torch.obs import global_registry
+from arkflow_tpu_torch.obs.trace import record_stage
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy, bucket_cap_bus
 from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet, tree_map
 from arkflow_tpu_torch.tpu.health import HealthConfig
@@ -343,7 +361,13 @@ class ModelRunner:
         self._stale: set = set()
         #: graphs dropped by ``release_graphs``
         self.released_graphs = 0
-        self._duty = DutyCycle()
+        reg = global_registry()
+        labels = {"model": model, **({"packed": "1"} if packed else {})}
+        self._register_metrics(reg, labels)
+        self._duty = DutyCycle(busy=self.m_busy_s, stall=self.m_stall_s,
+                               idle_gap=self.m_idle_gap, inflight=self.m_inflight)
+        #: captures and warm captures already counted on the metrics
+        self._m_captures_seen = self._m_warm_seen = 0
         self._dispatch_counts: dict[tuple, int] = {}
         #: model steps run on the device (warmup included)
         self.device_steps = 0
@@ -368,10 +392,82 @@ class ModelRunner:
         #: recaptures), None before the first
         self.last_rebuild_ms: Optional[float] = None
         self.core = ServingRunnerCore(
-            name=model, step_deadline_s=step_deadline_s,
+            name=model, labels=labels, step_deadline_s=step_deadline_s,
             step_deadline_first_s=step_deadline_first_s, health_config=health_config,
             rebuild_fn=self._rebuild_after_incident)
         self.health = self.core.health
+        self.m_prefetch_on.set(1 if self._copy_stream is not None else 0)
+        self.m_bucket_cap.set(self.bucket_cap)
+
+    def _register_metrics(self, reg, labels: dict) -> None:
+        """The JAX runner's metric families, under its names and help."""
+        self.m_infer = reg.histogram("arkflow_tpu_infer_seconds", "device step latency", labels)
+        self.m_rows = reg.counter("arkflow_tpu_rows_total", "rows inferred", labels)
+        self.m_pad = reg.counter("arkflow_tpu_pad_rows_total", "padding rows (waste)", labels)
+        self.m_fill = reg.histogram(
+            "arkflow_tpu_batch_fill_ratio", "true rows / bucket rows", labels,
+            buckets=[0.125, 0.25, 0.5, 0.75, 0.9, 1.0])
+        self.m_compiles = reg.counter("arkflow_tpu_compiles_total", "bucket compiles", labels)
+        self.m_warm_compiles = reg.counter(
+            "arkflow_tpu_warm_compiles_total",
+            "bucket executables compiled OFF the serving path (shape-tuner "
+            "warm/probe; compiles_total stays flat across a tuned flip)", labels)
+        self.m_exec_rows = reg.counter(
+            "arkflow_tpu_exec_rows_total",
+            "bucket rows dispatched to the device, padding included (the "
+            "honest FLOPs denominator; rows_total counts true examples)", labels)
+        self.m_tokens = reg.counter(
+            "arkflow_tpu_tokens_total",
+            "true (non-padding) tokens dispatched — packed runners and "
+            "unpacked token models (attention-mask sum) alike; the "
+            "numerator of effective tokens/sec", labels)
+        self.m_token_capacity = reg.counter(
+            "arkflow_tpu_token_capacity_total",
+            "token slots dispatched (bucket rows x padded seq): "
+            "1 - tokens_total/capacity is the capacity-weighted padding "
+            "waste INCLUDING seq padding — the honest aggregate; the "
+            "per-step waste histogram over-weights small tail windows and "
+            "reads row fill only for unpacked runners", labels)
+        self.m_inflight = reg.gauge(
+            "arkflow_tpu_steps_inflight", "device steps dispatched, not yet complete", labels)
+        self.m_busy_s = reg.counter(
+            "arkflow_tpu_device_busy_seconds_total",
+            "wall seconds with >=1 step in flight (duty-cycle numerator)", labels)
+        self.m_stall_s = reg.counter(
+            "arkflow_tpu_infeed_stall_seconds_total",
+            "wall seconds the device sat idle between steps (host-bound)", labels)
+        self.m_idle_gap = reg.histogram(
+            "arkflow_tpu_device_idle_gap_seconds",
+            "gap between step N completing and step N+1 launching "
+            "(device idle between consecutive steps)", labels)
+        self.m_prep = reg.histogram(
+            "arkflow_tpu_infeed_prep_seconds",
+            "host-side infeed prep (pad/stage/validate) per step", labels)
+        self.m_waste = reg.histogram(
+            "arkflow_padding_waste_frac",
+            "padding fraction of each dispatched bucket (pad rows / bucket rows; "
+            "token padding frac for packed runners)", labels,
+            buckets=[0.0, 0.125, 0.25, 0.5, 0.75, 0.9, 1.0])
+        self.m_prefetch_on = reg.gauge(
+            "arkflow_tpu_prefetch_active",
+            "1 when eager host->device prefetch is enabled for this runner", labels)
+        self.m_oom = reg.counter(
+            "arkflow_tpu_oom_total",
+            "device RESOURCE_EXHAUSTED / OOM failures observed in steps", labels)
+        self.m_bucket_cap = reg.gauge(
+            "arkflow_tpu_bucket_cap",
+            "largest batch bucket currently served (shrinks after device OOM)", labels)
+
+    def _sync_capture_metrics(self) -> None:
+        """Carry new captures and warm captures onto their counters; the
+        caller holds ``_lock``."""
+        caps, warm = self.captures, self.warm_captures
+        if caps > self._m_captures_seen:
+            self.m_compiles.inc(caps - self._m_captures_seen)
+            self._m_captures_seen = caps
+        if warm > self._m_warm_seen:
+            self.m_warm_compiles.inc(warm - self._m_warm_seen)
+            self._m_warm_seen = warm
 
     @property
     def captures(self) -> int:
@@ -537,16 +633,33 @@ class ModelRunner:
             self.executed_rows += bucket
             self.true_tokens += tokens
             self.token_capacity += capacity
+        # packed: the step's token fill; padded: its row fill (JAX's forms)
+        if self.packed:
+            fill = tokens / capacity if capacity else 0.0
+            waste = 1.0 - fill
+        else:
+            fill, waste = true_rows / bucket, (bucket - true_rows) / bucket
+        self.m_pad.inc(bucket - true_rows)
+        self.m_fill.observe(fill)
+        self.m_waste.observe(waste)
+        self.m_exec_rows.inc(bucket)
+        self.m_tokens.inc(tokens)
+        self.m_token_capacity.inc(capacity)
 
     def _prep(self, inputs: dict[str, np.ndarray], traffic: bool = True,
               policy: Optional[BucketPolicy] = None) -> tuple[HostSet, int]:
-        bufs, n = self._pad_inputs(inputs, traffic, policy)
+        t0 = time.perf_counter()
         try:
-            self._check_mask(bufs.arrays)
-        except BaseException:
-            self._staging.release(bufs)
-            raise
-        return bufs, n
+            bufs, n = self._pad_inputs(inputs, traffic, policy)
+            try:
+                self._check_mask(bufs.arrays)
+            except BaseException:
+                self._staging.release(bufs)
+                raise
+            return bufs, n
+        finally:
+            if traffic:
+                self.m_prep.observe(time.perf_counter() - t0)
 
     def _check_mask(self, padded: dict[str, np.ndarray]) -> None:
         if not getattr(self.cfg, "use_flash_attention", False) or "attention_mask" not in padded:
@@ -637,6 +750,7 @@ class ModelRunner:
             self.packed_steps += int(self.packed)
             if traffic:
                 self._dispatch_counts[bufs.key] = self._dispatch_counts.get(bufs.key, 0) + 1
+            self._sync_capture_metrics()
 
     def _fetch(self, bufs: HostSet, n: int, traffic: bool = True) -> dict[str, np.ndarray]:
         """Wait for the set's copy-out; the first ``n`` rows of every output
@@ -645,6 +759,7 @@ class ModelRunner:
         if traffic:
             with self._lock:
                 self.rows += n
+            self.m_rows.inc(n)
         return out
 
     def _step(self, compiled: CompiledStep, bufs: HostSet, n: int,
@@ -684,6 +799,8 @@ class ModelRunner:
             capped = self.buckets.capped(bucket_rows)
             if capped is not None and capped.max_batch() < self.buckets.max_batch():
                 self.buckets = capped
+        self.m_oom.inc()
+        self.m_bucket_cap.set(self.bucket_cap)
         if capped is None:
             self.health.mark_unhealthy(f"device OOM at the smallest bucket ({bucket_rows} rows)")
             return False
@@ -742,8 +859,11 @@ class ModelRunner:
         try:
             self._to_device(bufs)
             step = partial(self._step, compiled, bufs, n, probe, traffic)
+            t0 = time.perf_counter()
             out = (step() if deadline is None else self.core.run_deadlined_sync(
                 step, deadline, on_zombie=partial(self._staging.release, bufs)))
+            if traffic:
+                self.m_infer.observe(time.perf_counter() - t0)
         except StepDeadlineExceeded:
             raise  # the zombie holds the set until it ends
         except Exception as e:
@@ -798,7 +918,9 @@ class ModelRunner:
                                      traffic, policy)
                 for i in range(0, n_total, mb)])
             return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        t_prep0 = time.perf_counter()
         bufs, n = await loop.run_in_executor(None, self._prep, inputs, traffic, policy)
+        record_stage("infeed_prep", time.perf_counter() - t_prep0)
         self._ensure_sems()
         compiled = self._compiled
         first = bufs.key not in compiled
@@ -808,13 +930,15 @@ class ModelRunner:
         try:
             async with self._prefetch_sem:
                 await loop.run_in_executor(None, self._to_device, bufs)
+                t_sem = time.perf_counter()
                 # a key's first step captures inside the dispatch: it takes
                 # the watched path, whose deadline covers the capture
                 if self.dispatch_depth > 1 and not first:
                     out = await self._step_split(loop, compiled, bufs, n, deadline, probe,
-                                                 traffic)
+                                                 traffic, t_sem)
                 else:
                     async with self._inflight_sem:
+                        t0 = self._note_dispatch(t_sem)
                         self._duty_dispatch(traffic)
                         try:
                             step = partial(self._step, compiled, bufs, n, probe, traffic)
@@ -823,6 +947,7 @@ class ModelRunner:
                                                                       on_zombie=release))
                         finally:
                             self._duty_complete(traffic)
+                        self._note_step(t0, first, bufs, traffic)
         except StepDeadlineExceeded:
             release = None  # the zombie holds the set until it ends
             raise
@@ -838,6 +963,25 @@ class ModelRunner:
         self.health.mark_success()
         return out
 
+    @staticmethod
+    def _note_dispatch(t_sem: float) -> float:
+        """The step holds its in-flight permit: a wait for it above 0.5 ms
+        is device queueing, its own stage. Returns the dispatch time."""
+        t0 = time.perf_counter()
+        if t0 - t_sem > 0.0005:
+            record_stage("device_dispatch_wait", t0 - t_sem)
+        return t0
+
+    def _note_step(self, t0: float, first: bool, bufs: HostSet, traffic: bool) -> None:
+        """A step ended: its host-clock time from dispatch to fetch, as the
+        latency histogram (traffic only) and the ``device_step`` stage (a
+        key's first step, which captures, as ``device_step_first``)."""
+        dt = time.perf_counter() - t0
+        if traffic:
+            self.m_infer.observe(dt)
+        record_stage("device_step_first" if first else "device_step", dt,
+                     attrs={"bucket_rows": self._bucket_rows(bufs)})
+
     def _duty_dispatch(self, traffic: bool) -> None:
         if traffic:
             self._duty.dispatch(time.perf_counter())
@@ -848,7 +992,7 @@ class ModelRunner:
 
     async def _step_split(self, loop, compiled: CompiledStep, bufs: HostSet, n: int,
                           deadline: Optional[float], probe: bool,
-                          traffic: bool) -> dict[str, np.ndarray]:
+                          traffic: bool, t_sem: float) -> dict[str, np.ndarray]:
         """``dispatch_depth`` > 1: the in-flight permit covers the dispatch
         only; the depth permit, held from before the enqueue until the
         outputs are fetched, bounds the dispatched-not-fetched steps (the
@@ -857,6 +1001,7 @@ class ModelRunner:
         budget runs from the step's own enqueue."""
         async with self._depth_sem:
             async with self._inflight_sem:
+                t0 = self._note_dispatch(t_sem)
                 self._duty_dispatch(traffic)
                 try:
                     await loop.run_in_executor(None, self._enqueue, compiled, bufs, traffic)
@@ -872,12 +1017,15 @@ class ModelRunner:
 
             try:
                 if deadline is None:
-                    return await loop.run_in_executor(None, fetch)
-                return await self.core.run_deadlined(
-                    fetch, self.core.deadline_remaining(deadline, dispatched_at),
-                    on_zombie=partial(self._staging.release, bufs))
+                    out = await loop.run_in_executor(None, fetch)
+                else:
+                    out = await self.core.run_deadlined(
+                        fetch, self.core.deadline_remaining(deadline, dispatched_at),
+                        on_zombie=partial(self._staging.release, bufs))
             finally:
                 self._duty_complete(traffic)
+        self._note_step(t0, False, bufs, traffic)
+        return out
 
     def warmup(self) -> int:
         """One step at every shape of ``grid_shapes``, so every graph is
@@ -908,6 +1056,7 @@ class ModelRunner:
             self._compiled = CompiledStep(self.device, eager=old.eager)
             self._retired_captures += old.captures
             self._retired_warm += old.warm_captures
+            self._sync_capture_metrics()
         t0 = time.perf_counter()
         grid = {shape_key(s) for s in self.grid_shapes(self.buckets)}
         # not old.keys(): a zombie first step (capture, kernel build) may
@@ -1012,6 +1161,7 @@ class ModelRunner:
         graphs are held, so the transition captures nothing."""
         with self._lock:
             old, self.buckets = self.buckets, policy
+        self.m_bucket_cap.set(policy.max_batch())
         return old
 
     def hold_grid(self, policy: Optional[BucketPolicy] = None) -> BucketPolicy:

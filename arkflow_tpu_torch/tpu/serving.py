@@ -113,8 +113,12 @@ The lifecycle (the JAX server's self-healing, swap and integrity surfaces):
 
 Not ported yet: ``mesh`` (tensor-parallel pools; raises "not yet ported")
 and the disaggregation entry points (``prefill_export``,
-``generate_from_pages``). Plain integer counters take the place of the
-registry metrics.
+``generate_from_pages``). The plain counters (``decode_steps``,
+``tokens``, ``ttft_samples``, ...) are kept beside the JAX server's
+registry metrics (``arkflow_gen_*``, unlabelled as JAX's are, the TTFT
+histogram, dispatch depth and paged-kernel flag by ``model``, and the
+idle-gap histogram by ``model`` and ``path: generate``), which are fed at
+the same sites.
 """
 
 from __future__ import annotations
@@ -140,6 +144,7 @@ from arkflow_tpu_torch.models.paged_decode import (
     paged_prefill,
     paged_prefill_chunk,
 )
+from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.tpu.compiled_step import CompiledStep, DutyCycle, HostSet
 from arkflow_tpu_torch.tpu.health import HEALTHY, HealthConfig
 from arkflow_tpu_torch.tpu.serving_core import ServingRunnerCore, is_oom_error
@@ -364,11 +369,13 @@ class GenerationServer:
         #: every step key captured so far: a rebuild captures them again
         self._warm_keys: list[tuple] = []
         self._retired_captures = 0
-        self._duty = DutyCycle()
+        self._register_metrics(name)
+        self._duty = DutyCycle(idle_gap=self.m_idle_gap)
 
         #: the self-healing core: health, deadlines, chaos and rebuilds
         self.core = ServingRunnerCore(
-            name=f"{name}[generate]", step_deadline_s=step_deadline_s,
+            name=f"{name}[generate]", labels={"model": name, "path": "generate"},
+            step_deadline_s=step_deadline_s,
             step_deadline_first_s=step_deadline_first_s, health_config=health_config,
             rebuild_fn=self._rebuild_after_incident)
         self.health = self.core.health
@@ -412,6 +419,62 @@ class GenerationServer:
         self.parity_report: Optional[dict] = None
         if self.decode_kernel == "paged" and kernel_parity_check:
             self.parity_report = self.kernel_parity_check()
+
+    def _register_metrics(self, name: str) -> None:
+        """The JAX server's metric families, under its names and help."""
+        reg = global_registry()
+        self.m_steps = reg.counter("arkflow_gen_decode_steps_total", "lockstep decode steps")
+        self.m_tokens = reg.counter("arkflow_gen_tokens_total", "tokens generated")
+        self.m_spec_drafted = reg.counter(
+            "arkflow_gen_spec_drafted_total", "draft tokens offered for verification")
+        self.m_spec_accepted = reg.counter(
+            "arkflow_gen_spec_accepted_total", "draft tokens accepted")
+        self.m_active = reg.gauge("arkflow_gen_active_slots", "busy decode slots")
+        self.m_waiting = reg.gauge("arkflow_gen_waiting_requests", "admission queue depth")
+        self.m_truncated = reg.counter(
+            "arkflow_gen_truncated_total",
+            "requests cut short by page-pool exhaustion (pool undersized)")
+        self.m_prefix_hits = reg.counter(
+            "arkflow_gen_prefix_cache_hits_total", "admissions that reused cached prefix pages")
+        self.m_prefix_pages = reg.counter(
+            "arkflow_gen_prefix_pages_shared_total", "pages aliased from the prefix cache")
+        self.m_slots_busy = reg.gauge(
+            "arkflow_gen_slots_busy", "decode slots occupied (admitting + decoding)")
+        self.m_pool_occupancy = reg.gauge(
+            "arkflow_gen_page_pool_occupancy",
+            "fraction of KV pages in use (scratch page excluded)")
+        self.m_prefix_evictions = reg.counter(
+            "arkflow_gen_prefix_cache_evictions_total",
+            "prefix-cache entries evicted (LRU capacity or page pressure)")
+        self.m_tps = reg.gauge(
+            "arkflow_gen_tokens_per_sec",
+            "windowed generation throughput (tokens/s over the serve loop)")
+        self.m_idle_gap = reg.histogram(
+            "arkflow_tpu_device_idle_gap_seconds",
+            "gap between step N completing and step N+1 launching "
+            "(device idle between consecutive steps)",
+            {"model": name, "path": "generate"})
+        self.m_depth = reg.gauge(
+            "arkflow_gen_dispatch_depth",
+            "configured decode dispatch depth (2 = pipelined)", {"model": name})
+        self.m_depth.set(self.dispatch_depth)
+        self.m_kernel_paged = reg.gauge(
+            "arkflow_gen_decode_kernel_paged",
+            "1 when the paged flash-attention kernel serves decode/chunk "
+            "(0 = dense gather reference)", {"model": name})
+        self.m_kernel_paged.set(1 if self.decode_kernel == "paged" else 0)
+        self.m_ttft = reg.histogram(
+            "arkflow_gen_ttft_seconds",
+            "submit-to-first-decoded-token latency per request", {"model": name})
+
+    def _update_gauges(self, busy: int) -> None:
+        """The slot, queue and page-pool gauges, once a serve-loop pass."""
+        self.m_active.set(busy)
+        self.m_slots_busy.set(busy)
+        self.m_waiting.set(len(self._pending))
+        total = self.num_pages - 1
+        if total:
+            self.m_pool_occupancy.set((total - len(self._free_pages)) / total)
 
     # -- device plumbing ---------------------------------------------------
 
@@ -945,6 +1008,7 @@ class GenerationServer:
                        asyncio.get_running_loop().create_future(),
                        submitted_at=time.monotonic())
         self._pending.append(req)
+        self.m_waiting.set(len(self._pending))
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.create_task(self._serve_loop())
         tokens = await req.future
@@ -1005,6 +1069,7 @@ class GenerationServer:
         if not self._prefix_cache:
             return False
         self.prefix_evictions += 1
+        self.m_prefix_evictions.inc()
         key, pages = self._prefix_cache.popitem(last=False)
         self._prefix_lengths[len(key)] -= 1
         if self._prefix_lengths[len(key)] == 0:
@@ -1128,6 +1193,8 @@ class GenerationServer:
         if shared_len > 0:
             self.prefix_hits += 1
             self.prefix_pages_shared += shared_len // self.page_size
+            self.m_prefix_hits.inc()
+            self.m_prefix_pages.inc(shared_len // self.page_size)
         if shared_len > 0 or (self.prefill_chunk and n > self.prefill_chunk):
             # cooperative admission: the serve loop interleaves prefill
             # chunks with decode; the slot joins decode once fully prefilled
@@ -1149,7 +1216,9 @@ class GenerationServer:
         if req.ttft_stamped:
             return
         req.ttft_stamped = True
-        self.ttft_samples.append(time.monotonic() - req.submitted_at)
+        dt = time.monotonic() - req.submitted_at
+        self.ttft_samples.append(dt)
+        self.m_ttft.observe(dt)
 
     def _handle_token(self, slot: int, token: int, margin: Optional[float] = None) -> None:
         """Record one generated token; completes the request on EOS/limit."""
@@ -1164,6 +1233,7 @@ class GenerationServer:
             return
         req.tokens.append(token)
         self.tokens += 1
+        self.m_tokens.inc()
         if len(req.tokens) >= req.max_new_tokens:
             self._finish(slot)
 
@@ -1249,6 +1319,7 @@ class GenerationServer:
                 "-- size num_pages for the workload", longest, int(self._lengths[longest]),
                 len(req.tokens) if req else 0, req.max_new_tokens if req else 0)
             self.truncations += 1
+            self.m_truncated.inc()
             self._finish(longest)
             act[longest] = False
 
@@ -1261,6 +1332,7 @@ class GenerationServer:
                               if s in self._prefill_pos and self._slot_req[s]]
                 active = [s for s in range(self.slots)
                           if self._slot_req[s] and s not in self._prefill_pos]
+                self._update_gauges(len(active) + len(prefilling))
                 if not active and not prefilling:
                     # a pipelined successor can outlive its lanes: apply it
                     # before idling or exiting
@@ -1297,6 +1369,7 @@ class GenerationServer:
         t0, tok0 = self._rate_window
         if now - t0 >= 0.25:
             self.tokens_per_sec = (self.tokens - tok0) / (now - t0)
+            self.m_tps.set(self.tokens_per_sec)
             self._rate_window = (now, self.tokens)
 
     def _fail_all(self, err: Exception) -> None:
@@ -1370,6 +1443,7 @@ class GenerationServer:
             self._decode_key(),
             lambda bound: self._decode(cur, lens, act, table, bound, key=key).wait())
         self.decode_steps += 1
+        self.m_steps.inc()
         self._apply(nxt, margin, act, None)
 
     def _apply(self, nxt: np.ndarray, margin: Optional[np.ndarray], act: np.ndarray,
@@ -1478,6 +1552,7 @@ class GenerationServer:
             self._duty.complete(time.perf_counter())
         core.health.mark_success()
         self.decode_steps += 1
+        self.m_steps.inc()
         self._apply(nxt, margin, rec.act, rec.reqs)
 
     # -- speculative decode ------------------------------------------------
@@ -1530,6 +1605,7 @@ class GenerationServer:
         outs, margins = await self._run_device_step(
             self._verify_key(), lambda bound: self._verify(ids, lens, clen, table, bound).wait())
         self.verify_steps += 1
+        self.m_steps.inc()
         for s in range(self.slots):
             if not act[s] or self._slot_req[s] is None or clen[s] == 0:
                 continue
@@ -1539,6 +1615,8 @@ class GenerationServer:
                 accepted += 1
             self.spec_drafted += c - 1
             self.spec_accepted += accepted
+            self.m_spec_drafted.inc(c - 1)
+            self.m_spec_accepted.inc(accepted)
             self._lengths[s] += accepted + 1
             self._cur_tokens[s] = int(outs[s, accepted])
             for j in range(accepted + 1):

@@ -28,8 +28,10 @@ Differences from the JAX core:
   so the async gate runs it on an executor thread, never on the loop;
 - ``is_oom_error`` knows ``torch.cuda.OutOfMemoryError`` by type, and
   cuBLAS's ``CUBLAS_STATUS_ALLOC_FAILED``, besides the message words;
-- the counters are plain integers (``deadline_misses``, ``rebuilds``): the
-  port has no metrics registry yet;
+- the plain counters ``deadline_misses`` and ``rebuilds`` are kept beside
+  the JAX core's metrics (``arkflow_tpu_step_deadline_misses``,
+  ``arkflow_tpu_runner_rebuilds_total``, and the health gauge
+  ``arkflow_tpu_runner_health``), which carry the owner's ``labels``;
 - ``on_tpu_backend`` has no counterpart: the port's auto paths ask the
   runner's ``torch.device`` instead.
 """
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from arkflow_tpu_torch.errors import ConfigError, RunnerDead, StepDeadlineExceeded
+from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.tpu.health import CORRUPT, DEAD, UNHEALTHY, HealthConfig, RunnerHealth
 from arkflow_tpu_torch.utils.duration import parse_duration
 
@@ -124,7 +127,8 @@ class ServingRunnerCore:
     watchdog executors are borrowed under a lock and the rebuild flag is
     double-checked."""
 
-    def __init__(self, *, name: str, step_deadline_s: Optional[float] = None,
+    def __init__(self, *, name: str, labels: Optional[dict] = None,
+                 step_deadline_s: Optional[float] = None,
                  step_deadline_first_s: Optional[float] = None,
                  health_config: Optional[HealthConfig] = None,
                  rebuild_fn: Optional[Callable[[], None]] = None):
@@ -143,7 +147,18 @@ class ServingRunnerCore:
             else (step_deadline_s * FIRST_COMPILE_DEADLINE_SCALE
                   if step_deadline_s is not None else None))
         self.rebuild_fn = rebuild_fn
-        self.health = RunnerHealth(health_config, name=name)
+        reg = global_registry()
+        self.health = RunnerHealth(
+            health_config, name=name,
+            gauge=reg.gauge("arkflow_tpu_runner_health",
+                            "runner health state (0 healthy, 1 degraded, 2 unhealthy, 3 dead)",
+                            labels))
+        self.m_deadline_miss = reg.counter(
+            "arkflow_tpu_step_deadline_misses",
+            "device steps abandoned after exceeding step_deadline", labels)
+        self.m_rebuilds = reg.counter(
+            "arkflow_tpu_runner_rebuilds_total",
+            "jitted-step rebuilds after a deadline miss", labels)
         #: steps abandoned after exceeding their deadline
         self.deadline_misses = 0
         #: rebuilds after a deadline miss
@@ -236,6 +251,7 @@ class ServingRunnerCore:
         with self._count_lock:
             self.deadline_misses += 1
             self.zombies += 1
+        self.m_deadline_miss.inc()
         self.schedule_rebuild()
         self.health.mark_unhealthy(f"step exceeded its {deadline:.3g}s deadline")
 
@@ -309,6 +325,7 @@ class ServingRunnerCore:
                 raise
         with self._count_lock:
             self.rebuilds += 1
+        self.m_rebuilds.inc()
 
     # -- admission gates ---------------------------------------------------
 

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from arkflow_tpu_torch.errors import ConfigError, SwapError
+from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.tpu.compiled_step import tree_map
 from arkflow_tpu_torch.utils.duration import parse_duration
 
@@ -333,6 +334,21 @@ class ModelSwapManager:
         #: golden reference
         self.integrity = None
         self.started = self.completed = self.rolled_back = 0
+        # the JAX manager's metrics, fed beside the counters above
+        reg = global_registry()
+        labels = {"model": name}
+        self.m_version = reg.gauge(
+            "arkflow_model_version",
+            "model-version epoch (increments on each committed hot-swap)", labels)
+        self.m_version.set(0)
+        self.m_started = reg.counter(
+            "arkflow_swap_started_total", "hot-swap attempts started", labels)
+        self.m_completed = reg.counter(
+            "arkflow_swap_completed_total", "hot-swaps committed", labels)
+        self.m_rolled_back = reg.counter(
+            "arkflow_swap_rolled_back_total",
+            "hot-swaps rolled back (canary/restore/probe failure) with the "
+            "prior version serving throughout", labels)
         #: milliseconds of the last swap's stages (prepare, canary, flip, probe)
         self.stage_ms: dict[str, float] = {}
 
@@ -390,6 +406,7 @@ class ModelSwapManager:
 
     def _fail(self, stage: str, err: Exception) -> SwapError:
         self.rolled_back += 1
+        self.m_rolled_back.inc()
         msg = f"swap rolled back at {stage}: {err}"
         self._last_error = msg
         logger.warning("[%s] %s (version %d still serving)", self.name, msg, self.version)
@@ -403,6 +420,7 @@ class ModelSwapManager:
         async with self._lock:
             loop = asyncio.get_running_loop()
             self.started += 1
+            self.m_started.inc()
             self.stage_ms = {}
             self._state = "restoring"
             if self.integrity is not None:
@@ -461,6 +479,8 @@ class ModelSwapManager:
                 self.version += 1
                 self.checkpoint = checkpoint
                 self.completed += 1
+                self.m_version.set(self.version)
+                self.m_completed.inc()
                 self._last_error = None
                 self._run_flush_hooks()
                 logger.info("[%s] hot swap committed: version %d <- %s", self.name,

@@ -31,9 +31,9 @@ mix; the tuner re-cuts them to the mix the stream actually carries:
    adopt the new grid, budget and deadline, clamped under any OOM cap; then
    the commit hooks run.
 
-Differences from the JAX tuner: counters are plain integers (the port has
-no metrics registry; ``report()`` and ``/health`` are the surface), and the
-report gives the runner's graph counts (``graphs``) in place of the XLA
+Differences from the JAX tuner: the plain counters (``report()``,
+``/health``) are kept beside the JAX tuner's ``arkflow_tuner_*`` metrics,
+and the report gives the runner's graph counts (``graphs``) in place of the XLA
 cache's. ``attach_overload_controller`` is kept as a hook that nothing
 calls yet (the overload controller is not ported), and there is no
 response-cache epoch hook (no response cache either).
@@ -52,6 +52,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 import numpy as np
 
 from arkflow_tpu_torch.errors import ConfigError, TunerError
+from arkflow_tpu_torch.obs import global_registry
 
 logger = logging.getLogger("arkflow_torch.tuner")
 
@@ -543,6 +544,28 @@ class ShapeTuner:
         self.commits = 0
         self.rollbacks = 0
         self.rejected = 0
+        # the JAX tuner's metrics, fed beside the counters above
+        reg = global_registry()
+        labels = {"model": model}
+        self.m_epoch = reg.gauge(
+            "arkflow_tuner_epoch",
+            "shape-config epoch (increments on each committed retune)", labels)
+        self.m_epoch.set(0)
+        self.m_predicted_waste = reg.gauge(
+            "arkflow_tuner_predicted_waste",
+            "planner-predicted capacity-weighted padding waste of the "
+            "CURRENTLY-SERVING shape config against the live sketch", labels)
+        self.m_proposals = reg.counter(
+            "arkflow_tuner_proposals_total", "tuner proposals planned", labels)
+        self.m_commits = reg.counter(
+            "arkflow_tuner_commits_total", "tuner proposals committed", labels)
+        self.m_rollbacks = reg.counter(
+            "arkflow_tuner_rollbacks_total",
+            "tuner flips rolled back (probe failure) with the incumbent "
+            "grid serving throughout", labels)
+        self.m_rejected = reg.counter(
+            "arkflow_tuner_rejected_total",
+            "tuner proposals rejected by hysteresis/compile gates", labels)
 
     # -- wiring ------------------------------------------------------------
 
@@ -623,6 +646,7 @@ class ShapeTuner:
 
     def _reject(self, reason: str, proposal: Proposal) -> dict:
         self.rejected += 1
+        self.m_rejected.inc()
         return self._decide({"action": "rejected", "reason": reason,
                              "proposal": proposal.report()})
 
@@ -649,6 +673,8 @@ class ShapeTuner:
                                               self.cfg)
         self.proposals += 1
         self.predicted_waste = proposal.incumbent_waste
+        self.m_proposals.inc()
+        self.m_predicted_waste.set(proposal.incumbent_waste)
 
         if self._grids_equal(proposal.shape, self._incumbent):
             return self._reject("proposal equals incumbent", proposal)
@@ -688,6 +714,7 @@ class ShapeTuner:
                     logger.exception("tuner rollback retarget failed")
             await self._release_graphs(None)
             self.rollbacks += 1
+            self.m_rollbacks.inc()
             self._last_error = str(e)
             self._decide({"action": "rolled_back", "error": str(e),
                           "proposal": proposal.report()})
@@ -718,6 +745,9 @@ class ShapeTuner:
         self.epoch += 1
         self.commits += 1
         self.predicted_waste = proposal.predicted_waste
+        self.m_epoch.set(self.epoch)
+        self.m_commits.inc()
+        self.m_predicted_waste.set(proposal.predicted_waste)
         self._last_error = None
         for hook in self._commit_hooks:
             try:

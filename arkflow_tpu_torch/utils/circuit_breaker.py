@@ -6,8 +6,9 @@ After ``failure_threshold`` consecutive failures it opens and callers wait
 out ``reset_timeout``; the first caller after the cooldown is the half-open
 probe, whose outcome closes the breaker or opens it for another cooldown.
 A breaker never drops work: ``acquire()`` delays callers, it does not fail
-them. The JAX package's gauge and trip counter are the plain attributes
-``state`` and ``trips`` here (the port has no metrics registry yet).
+them. The optional ``gauge`` and ``trip_counter`` are the JAX package's
+metric hooks (``arkflow_circuit_state``, ``arkflow_circuit_trips_total``);
+the plain attributes ``state`` and ``trips`` are kept beside them.
 """
 
 from __future__ import annotations
@@ -53,10 +54,13 @@ class CircuitBreakerConfig:
 
 class CircuitBreaker:
     """Wrap write attempts in ``await acquire()`` and ``record_success()`` /
-    ``record_failure()``."""
+    ``record_failure()``. ``gauge`` and ``trip_counter``: optional metrics
+    fed beside ``state`` and ``trips``."""
 
-    def __init__(self, config: CircuitBreakerConfig):
+    def __init__(self, config: CircuitBreakerConfig, gauge=None, trip_counter=None):
         self.config = config
+        self.gauge = gauge
+        self.trip_counter = trip_counter
         self._state = CLOSED
         self._consecutive_failures = 0
         self._opened_at = 0.0
@@ -65,6 +69,8 @@ class CircuitBreaker:
         self.trips = 0
         #: transition log (bounded), for tests and debugging
         self.history: list[str] = [_STATE_NAMES[CLOSED]]
+        if self.gauge is not None:
+            self.gauge.set(CLOSED)
 
     @property
     def state(self) -> str:
@@ -78,11 +84,15 @@ class CircuitBreaker:
         self._state = state
         if len(self.history) < 1024:
             self.history.append(_STATE_NAMES[state])
+        if self.gauge is not None:
+            self.gauge.set(state)
 
     def _trip(self) -> None:
         self._opened_at = time.monotonic()
         self._set_state(OPEN)
         self.trips += 1
+        if self.trip_counter is not None:
+            self.trip_counter.inc()
 
     async def acquire(self) -> None:
         """Wait until the breaker permits a write attempt. Returns holding

@@ -323,7 +323,7 @@ def test_health_server_keeps_alive_when_asked():
                         b"GET /readiness HTTP/1.1\r\nConnection: keep-alive\r\n\r\n",
                         b"POST /admin/swap HTTP/1.1\r\nConnection: keep-alive\r\n"
                         b"Content-Length: 5\r\n\r\n{nope",
-                        b"GET /metrics HTTP/1.1\r\n\r\n"):
+                        b"GET /trace HTTP/1.1\r\n\r\n"):
                 writer.write(req)
                 await writer.drain()
                 status, hdrs, payload = await read_response(reader)
@@ -333,7 +333,8 @@ def test_health_server_keeps_alive_when_asked():
             writer.close()
             await engine.stop_health_server()
         assert [a[:2] for a in answers] == [(200, "keep-alive"), (503, "keep-alive"),
-                                            (400, "keep-alive"), (404, "close")]
+                                            (400, "keep-alive"), (200, "close")]
+        assert set(answers[3][2]) == {"summary", "stage_breakdown", "slowest"}
         assert answers[0][2] == {"status": "alive"}
 
     run(go())

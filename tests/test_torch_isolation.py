@@ -321,3 +321,36 @@ def test_port_imports_and_streams_with_jax_and_reference_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "PORT_OK" in proc.stdout
+
+
+_OBS_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "torch", "numpy", "pyarrow", "yaml", "aiohttp"):
+    sys.modules[name] = None  # the observability plane needs none of these
+from arkflow_tpu_torch.obs import MetricsRegistry, Tracer, TracingConfig, activate, stage_span
+from arkflow_tpu_torch.obs import global_registry, global_tracer, record_stage
+
+t = Tracer(config=TracingConfig())
+ctx = t.begin()
+with activate(t, ctx):
+    with stage_span("process"):
+        record_stage("device_step", 0.001)
+assert t.finish(ctx, "ok", e2e_s=0.01)
+assert t.stage_breakdown()["stages"]["device_step"]["nested_under"] == "process"
+assert "arkflow_stage_seconds_count" in global_registry().exposition()
+assert global_tracer().enabled in (True, False)
+print("OBS_OK")
+"""
+
+
+def test_obs_plane_is_scanned_and_stands_alone():
+    """``arkflow_tpu_torch/obs`` is among the scanned port files, and it
+    imports and runs with JAX, the JAX package, torch and numpy blocked."""
+    obs = {p.name for p in PORT_FILES if p.parent.name == "obs"}
+    assert obs == {"__init__.py", "metrics.py", "trace.py"}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _OBS_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OBS_OK" in proc.stdout

@@ -182,9 +182,20 @@ def test_health_server_routes_and_admin_swap(tmp_path):
             assert await _http(port, "GET", "/readiness") == (
                 200, {"status": "ready", "runners": {"s": ["healthy"]}})
             assert await _http(port, "GET", "/liveness") == (200, {"status": "alive"})
-            for route in ("/metrics", "/trace", "/debug/profile"):
-                status, body = await _http(port, "GET", route)
-                assert status == 404 and "not yet ported" in body["error"]
+            # the observability routes (no profiling_dir: no profile route)
+            assert "tracing" in body and body["tracing"]["tier"] == "ingest"
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"GET /metrics HTTP/1.1\r\nHost: x\r\n\r\n")
+            await writer.drain()
+            head, _, text = (await asyncio.wait_for(reader.read(), 30)).partition(b"\r\n\r\n")
+            writer.close()
+            assert head.split()[1] == b"200" and b"text/plain; charset=utf-8" in head
+            assert b'arkflow_tpu_runner_health{model="bert_classifier"}' in text
+            status, body = await _http(port, "GET", "/trace")
+            assert status == 200 and set(body) == {"summary", "stage_breakdown", "slowest"}
+            assert (await _http(port, "GET", "/trace?n=x"))[0] == 400
+            status, body = await _http(port, "POST", "/debug/profile")
+            assert status == 404 and body == {"error": "no route /debug/profile"}
             assert (await _http(port, "GET", "/nowhere"))[0] == 404
             assert (await _http(port, "POST", "/admin/swap", raw=b"{nope"))[0] == 400
             assert (await _http(port, "POST", "/admin/swap", {"stream": "s"}))[0] == 400

@@ -173,7 +173,12 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"pp_microbatch_rows": 4}),
     ("input", {"tenants": 2}),
-    ("engine", {"health_check": {"enabled": True, "profiling_dir": "traces"}}),
+    # the engine's own keys are all ported (``tracing``, ``profiling_dir``:
+    # test_tracing_and_profiling_dir_are_accepted); an unported key inside
+    # its streams list still refuses the whole engine config
+    ("engine", {"streams": [{"input": {"type": "generate", "payload": "x", "count": 1},
+                             "pipeline": {"processors": [], "deadline_ms": 50},
+                             "output": {"type": "drop"}}]}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
                            "coalesce": {"batch_buckets": [8], "deadline": "5ms", "dp": 2}}}),
 ])
@@ -190,6 +195,23 @@ def test_unported_keys_raise(tmp_path, where, patch):
             raise ConfigError("; ".join(problems))
         build_stream(parsed.streams[0])
     assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 2
+
+
+def test_tracing_and_profiling_dir_are_accepted(tmp_path, monkeypatch):
+    """The engine's ``tracing`` block and ``health_check.profiling_dir`` parse
+    as the JAX package's do, at ``--validate`` too."""
+    from arkflow_tpu_torch.obs.trace import TracingConfig
+
+    monkeypatch.delenv("ARKFLOW_TRACE", raising=False)
+    cfg = {"streams": [_stream(count=4)], "tracing": {"sample_rate": 0.25, "slow_n": 4},
+           "health_check": {"enabled": True, "profiling_dir": str(tmp_path / "prof")}}
+    parsed = EngineConfig.from_mapping(cfg)
+    assert parsed.tracing == TracingConfig(sample_rate=0.25, slow_n=4)
+    assert parsed.health_check.profiling_dir == str(tmp_path / "prof")
+    assert EngineConfig.from_mapping({"streams": [_stream(count=4)]}).tracing == TracingConfig()
+    assert cli.main(["--config", _write(tmp_path, cfg), "--validate"]) == 0
+    with pytest.raises(ConfigError, match="tracing.sample_rate must be a number in"):
+        EngineConfig.from_mapping({**cfg, "tracing": {"sample_rate": 2}})
 
 
 TINY_DECODER = dict(vocab_size=128, dim=64, layers=2, heads=4, kv_heads=2, ffn=96, max_seq=64)
