@@ -50,6 +50,17 @@ META_KEY = "__meta_key"
 META_TIMESTAMP = "__meta_timestamp"
 META_INGEST_TIME = "__meta_ingest_time"
 META_EXT_PREFIX = "__meta_ext_"
+#: overload control (``runtime/overload.py``): an absolute wall-clock
+#: deadline in epoch millis, stamped by whoever owns the request's latency
+#: budget, and an integer priority band. Ext columns, so they survive
+#: redelivery (``__meta_ingest_time`` is stamped anew at every read)
+META_EXT_DEADLINE_MS = META_EXT_PREFIX + "deadline_ms"
+META_EXT_PRIORITY = META_EXT_PREFIX + "priority"
+#: multi-tenancy (``runtime/overload.py``): the tenant a batch is accounted
+#: against -- weighted admission shares, quotas, tenant-labelled metrics
+#: and the memory buffer's lanes key on it. Stamped by the input (an HTTP
+#: header or the auth subject, a Kafka record header, or static config)
+META_EXT_TENANT = META_EXT_PREFIX + "tenant"
 #: per-batch tracing (``obs/trace.py``): the trace context -- trace id,
 #: parent span id, head-sampling decision -- as a compact JSON string. An
 #: ext column, so it survives redelivery, splits, coalescer merges and
@@ -624,6 +635,67 @@ class MessageBatch:
         col = (np.array(vals, dtype=object) if any(v is None for v in vals)
                else np.array([str(v) for v in vals]))
         return self.with_column(META_EXT_PREFIX + key, col)
+
+    # -- overload metadata (runtime/overload.py) ---------------------------
+
+    def with_deadline_ms(self, deadline_unix_ms: float) -> "MessageBatch":
+        """Stamp an absolute delivery deadline (epoch millis). It survives
+        redelivery: the remaining budget shrinks with every retry, unlike a
+        TTL measured from the ingest stamp."""
+        return self.with_ext_metadata({META_EXT_DEADLINE_MS[len(META_EXT_PREFIX):]:
+                                       str(int(deadline_unix_ms))})
+
+    def with_priority(self, priority: int) -> "MessageBatch":
+        """Stamp the admission priority band (bands at or above the
+        controller's ``protect_priority`` are never queue-shed)."""
+        return self.with_ext_metadata({META_EXT_PRIORITY[len(META_EXT_PREFIX):]:
+                                       str(int(priority))})
+
+    def with_tenant(self, tenant: str) -> "MessageBatch":
+        """Stamp the tenant this batch is accounted against."""
+        return self.with_ext_metadata({META_EXT_TENANT[len(META_EXT_PREFIX):]: str(tenant)})
+
+    def tenant(self, default: Optional[str] = None) -> Optional[str]:
+        """The ``__meta_ext_tenant`` of row 0, or ``default`` when untagged."""
+        raw = self.get_meta(META_EXT_TENANT)
+        return default if raw is None else str(raw)
+
+    def deadline_unix_ms(self) -> Optional[float]:
+        """The absolute deadline from ``__meta_ext_deadline_ms``, or None."""
+        raw = self.get_meta(META_EXT_DEADLINE_MS)
+        if raw is None:
+            return None
+        try:
+            return float(raw)
+        except (TypeError, ValueError):
+            return None
+
+    def remaining_deadline_ms(self, default_ttl_ms: Optional[float] = None,
+                              now_ms: Optional[float] = None) -> Optional[float]:
+        """Remaining latency budget in ms (negative: already stale). The
+        absolute deadline wins; else ``default_ttl_ms`` counts from
+        ``__meta_ingest_time``; None when the batch has no deadline."""
+        if now_ms is None:
+            now_ms = time.time() * 1000.0
+        absolute = self.deadline_unix_ms()
+        if absolute is not None:
+            return absolute - now_ms
+        if default_ttl_ms is not None:
+            ingest = self.get_meta(META_INGEST_TIME)
+            if ingest is not None:
+                return default_ttl_ms - (now_ms - float(ingest))
+            return default_ttl_ms
+        return None
+
+    def priority_band(self, default: int = 0) -> int:
+        """The admission band from ``__meta_ext_priority``, else ``default``."""
+        raw = self.get_meta(META_EXT_PRIORITY)
+        if raw is None:
+            return default
+        try:
+            return int(float(raw))
+        except (TypeError, ValueError):
+            return default
 
     def with_trace(self, ctx) -> "MessageBatch":
         """Stamp (or replace) the batch's trace context

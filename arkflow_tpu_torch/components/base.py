@@ -157,8 +157,8 @@ class Resource:
 class Input(abc.ABC):
     #: True for pull-based sources that keep their backlog on the broker
     #: (kafka, redis list, nats JetStream, websocket), as in the JAX
-    #: package: the overload controller would pause their reads. The port
-    #: has no overload controller yet, so nothing reads the flag.
+    #: package: the stream pauses their reads while its overload controller
+    #: sheds with a full window (``runtime/overload.input_pauses_on_overload``).
     pause_on_overload = False
 
     @abc.abstractmethod

@@ -7,8 +7,13 @@ Component configs stay raw ``{"type": ..., **payload}`` mappings for the
 builder registry, which checks their keys. The delivery keys the stream
 consumes are taken out of them first, as the JAX package takes them:
 ``input.reconnect`` (the reconnect schedule after a ``Disconnection``) and
-``retry`` / ``circuit_breaker`` on ``output`` and ``error_output``. Every
-key the JAX package reads and the port does not carry yet raises
+``retry`` / ``circuit_breaker`` on ``output`` and ``error_output``. The
+control plane parses as JAX's does: the pipeline's ``queue_size``,
+``deadline_ms``, ``priority`` and ``overload`` (``runtime/overload.py``),
+the stream's ``restart`` policy, and ``gpu_inference.response_cache``
+(``runtime/respcache.py``) through ``type: fault`` wrappers. Every key the
+JAX package reads and the port does not carry yet (the pipeline's
+``process_pool`` and ``ingest_shards``, the stream's ``temporary``) raises
 ``ConfigError(... not yet ported ...)``.
 """
 
@@ -26,10 +31,12 @@ from arkflow_tpu_torch.errors import ConfigError, not_ported
 #: ``description`` is free text for the reader; the engine ignores it
 _ENGINE_KEYS = ("streams", "logging", "health_check", "tracing", "description")
 _HEALTH_KEYS = ("enabled", "host", "port", "path", "profiling_dir")
-_STREAM_KEYS = ("input", "buffer", "pipeline", "output", "error_output", "name")
+_STREAM_KEYS = ("input", "buffer", "pipeline", "output", "error_output", "name",
+                "restart")
 #: stream keys of the JAX package that the port does not carry yet
-_UNPORTED_STREAM_KEYS = ("temporary", "restart")
-_PIPELINE_KEYS = ("thread_num", "processors", "max_delivery_attempts")
+_UNPORTED_STREAM_KEYS = ("temporary",)
+_PIPELINE_KEYS = ("thread_num", "processors", "max_delivery_attempts", "queue_size",
+                  "deadline_ms", "priority", "overload")
 
 
 def _check_keys(m: Mapping[str, Any], allowed: tuple[str, ...], where: str) -> None:
@@ -79,6 +86,42 @@ def _validate_token_coalesce(buffer_cfg: Any, processors: list[dict]) -> None:
             "seq) shape after pack_tokens; set packing: true or drop token_budget)")
 
 
+def _validate_response_cache(processors: list[dict]) -> None:
+    """Parse every ``gpu_inference`` processor's ``response_cache`` at parse
+    time (``--validate``), through ``type: fault`` wrappers, without
+    minting a cache or its metric series."""
+    from arkflow_tpu_torch.runtime.respcache import parse_response_cache_config
+
+    for p in map(_unwrap_fault, processors):
+        if isinstance(p, Mapping) and p.get("type") == "gpu_inference" \
+                and p.get("response_cache") is not None:
+            parse_response_cache_config(p["response_cache"])
+
+
+def _restart_config(m: Any) -> Optional[dict]:
+    """The stream's ``restart`` policy, as the JAX package parses it:
+    ``{max_retries: 3, backoff: 5s, reset_after: 5m}`` by default; None or
+    false keeps a crashed stream ended."""
+    if m is None or m is False:
+        return None  # `restart: {}` means "defaults", not "disabled"
+    if not isinstance(m, Mapping):
+        raise ConfigError("stream 'restart' must be a mapping")
+    from arkflow_tpu_torch.utils.duration import parse_duration
+
+    try:
+        out = {
+            "max_retries": int(m.get("max_retries", 3)),
+            "backoff_s": parse_duration(str(m.get("backoff", "5s"))),
+            # a run at least this long restores the whole retry budget
+            "reset_after_s": parse_duration(str(m.get("reset_after", "5m"))),
+        }
+    except (TypeError, ValueError) as e:
+        raise ConfigError(f"stream 'restart' values invalid: {e}") from e
+    if out["max_retries"] < 0 or out["backoff_s"] < 0 or out["reset_after_s"] < 0:
+        raise ConfigError("stream restart values must be non-negative")
+    return out
+
+
 def _validate_tuner(processors: list[dict]) -> None:
     """Parse every ``gpu_inference`` processor's ``tuner`` block at parse
     time (``--validate``), through ``type: fault`` wrappers' ``inner``
@@ -100,9 +143,21 @@ class PipelineConfig:
     #: deliveries of a failing batch before it is given up on (acked and
     #: counted); below it a batch from a redelivering source is nacked
     max_delivery_attempts: int = 1
+    #: worker-queue depth; 0 keeps ``thread_num * 4``
+    queue_size: int = 0
+    #: per-batch latency budget in ms from the ingest stamp (an absolute
+    #: ``__meta_ext_deadline_ms`` overrides it); turns admission on
+    deadline_ms: Optional[float] = None
+    #: default admission band of a batch without ``__meta_ext_priority``
+    priority: int = 0
+    #: the parsed ``overload`` block (``OverloadConfig``), None when
+    #: overload control is off
+    overload: Optional[Any] = None
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "PipelineConfig":
+        from arkflow_tpu_torch.runtime.overload import OverloadConfig
+
         if not isinstance(m, Mapping):
             raise ConfigError("pipeline config must be a mapping")
         _check_keys(m, _PIPELINE_KEYS, "pipeline")
@@ -116,11 +171,32 @@ class PipelineConfig:
         if isinstance(attempts, bool) or not isinstance(attempts, int) or attempts < 1:
             raise ConfigError(
                 f"pipeline.max_delivery_attempts must be an int >= 1, got {attempts!r}")
+        qsize = m.get("queue_size", 0)
+        if not isinstance(qsize, int) or isinstance(qsize, bool) or qsize < 0:
+            raise ConfigError(
+                f"pipeline.queue_size must be a non-negative int, got {qsize!r}")
+        deadline = m.get("deadline_ms")
+        if deadline is not None:
+            if isinstance(deadline, bool) or not isinstance(deadline, (int, float)) \
+                    or deadline <= 0:
+                raise ConfigError(
+                    f"pipeline.deadline_ms must be a positive number, got {deadline!r}")
+            deadline = float(deadline)
+        priority = m.get("priority", 0)
+        if not isinstance(priority, int) or isinstance(priority, bool):
+            raise ConfigError(f"pipeline.priority must be an int, got {priority!r}")
+        overload = OverloadConfig.from_config(
+            m.get("overload"), deadline_ms=deadline, priority=priority)
         return cls(thread_num=threads, processors=[dict(p) for p in procs],
-                   max_delivery_attempts=attempts)
+                   max_delivery_attempts=attempts, queue_size=qsize,
+                   deadline_ms=deadline, priority=priority, overload=overload)
 
     def effective_threads(self) -> int:
         return self.thread_num if self.thread_num > 0 else (os.cpu_count() or 1)
+
+    def effective_queue_size(self) -> int:
+        """The worker-queue depth: ``queue_size``, or ``thread_num * 4``."""
+        return self.queue_size if self.queue_size > 0 else self.effective_threads() * 4
 
 
 def _sink_delivery(cfg: dict, where: str) -> tuple[Any, Any]:
@@ -159,6 +235,10 @@ class StreamConfig:
     #: the reconnect schedule after an input ``Disconnection``
     #: (``input.reconnect``); None: 100 ms doubling to the stream's cap
     input_reconnect: Optional[Any] = None
+    #: the crash policy ``{max_retries, backoff_s, reset_after_s}``: the
+    #: engine rebuilds a crashed stream from this config and runs it again;
+    #: None: a crashed stream ends
+    restart: Optional[dict] = None
 
     @classmethod
     def from_mapping(cls, m: Mapping[str, Any]) -> "StreamConfig":
@@ -175,6 +255,7 @@ class StreamConfig:
                 raise ConfigError(f"stream config missing required section {req!r}")
         pipeline = PipelineConfig.from_mapping(m.get("pipeline", {}))
         _validate_token_coalesce(m.get("buffer"), pipeline.processors)
+        _validate_response_cache(pipeline.processors)
         _validate_tuner(pipeline.processors)
         input_cfg = dict(m["input"])
         reconnect = input_cfg.pop("reconnect", None)
@@ -192,7 +273,8 @@ class StreamConfig:
                    name=m.get("name"),
                    output_retry=out_retry, output_circuit_breaker=out_breaker,
                    error_output_retry=err_retry, error_output_circuit_breaker=err_breaker,
-                   input_reconnect=RetryConfig.from_config(reconnect) if reconnect else None)
+                   input_reconnect=RetryConfig.from_config(reconnect) if reconnect else None,
+                   restart=_restart_config(m.get("restart")))
 
 
 @dataclass

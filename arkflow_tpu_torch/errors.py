@@ -51,6 +51,18 @@ class Disconnection(ArkError):
         super().__init__(msg)
 
 
+class Overloaded(ArkError):
+    """The engine is shedding load: admission rejected the batch or request
+    before the worker queue (the deadline cannot be met, the queue window is
+    full, the priority band is browned out, or a tenant is over its quota).
+    Carries the drain estimate, so a transport can tell its client when to
+    retry (HTTP 429 ``Retry-After``)."""
+
+    def __init__(self, msg: str = "overloaded", retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
 class StepDeadlineExceeded(ArkError):
     """A device step missed its ``step_deadline``: the runner treats the
     device as hung (UNHEALTHY), abandons the step, and the stream nacks the

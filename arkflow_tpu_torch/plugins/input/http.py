@@ -10,7 +10,12 @@ are the JAX input's, in its order:
 - 404 on another path, 405 on another method (``OPTIONS`` too, without
   ``cors``), as aiohttp's router gives them;
 - 401 when auth is on and the credentials fail;
-- 429 ``rate limited`` with ``Retry-After`` past the bucket;
+- 429 with ``Retry-After`` (delta-seconds, at least 1) from
+  ``_check_admission``, in this order: ``overloaded`` while the stream's
+  overload controller sheds with a full window (the drain estimate), then
+  ``tenant quota exceeded`` while the request's tenant bucket is short (its
+  own ``time_until``, checked without spending: the batch pays at stream
+  admission), then ``rate limited`` past the rate limiter's bucket;
 - 413 past the body limit;
 - 503 ``queue full`` past ``QUEUE_BOUND``;
 - 200 ``ok``; 204 for ``OPTIONS`` with ``cors``.
@@ -25,12 +30,11 @@ Config:
     auth: {type: basic, username: u, password: "${HTTP_PW}"}
     rate_limit: {capacity: 100, per_second: 50}
     cors: true
-
-Tenants are not ported: the port stamps no ``__meta_ext_tenant``, where the
-JAX input stamps the ``X-Arkflow-Tenant`` header's value (or, with basic
-auth on, the username). ``tenant_header`` other than ``false`` raises "not
-yet ported", and so does the stream's ``overload`` key that carries the
-per-tenant quotas.
+    tenant_header: X-Tenant-Id  # the header whose value is stamped into
+                                # __meta_ext_tenant (default
+                                # X-Arkflow-Tenant); without it and with auth
+                                # on, the auth subject (the basic-auth
+                                # username); `false` turns both off
 """
 
 from __future__ import annotations
@@ -41,19 +45,21 @@ from typing import Optional
 
 from arkflow_tpu_torch.batch import MessageBatch
 from arkflow_tpu_torch.components import Ack, Input, NoopAck, Resource, register_input
-from arkflow_tpu_torch.errors import ConfigError, EndOfInput, not_ported
+from arkflow_tpu_torch.errors import ConfigError, EndOfInput, Overloaded
 from arkflow_tpu_torch.plugins.codec.helper import build_codec, check_codec, decode_payloads
 from arkflow_tpu_torch.utils.auth import AuthConfig, Authenticator
 from arkflow_tpu_torch.utils.http1 import HttpServer, Request, Response
 from arkflow_tpu_torch.utils.rate_limiter import TokenBucket
 
 QUEUE_BOUND = 1000  # the reference's flume bound
+DEFAULT_TENANT_HEADER = "X-Arkflow-Tenant"
 
 
 class HttpInput(Input):
     def __init__(self, host: str, port: int, path: str, codec=None,
                  auth: Optional[Authenticator] = None,
-                 limiter: Optional[TokenBucket] = None, cors: bool = False):
+                 limiter: Optional[TokenBucket] = None, cors: bool = False,
+                 tenant_header: Optional[str] = DEFAULT_TENANT_HEADER):
         self.host = host
         self.port = port
         self.path = path
@@ -61,9 +67,17 @@ class HttpInput(Input):
         self.auth = auth
         self.limiter = limiter
         self.cors = cors
+        #: the header stamped into ``__meta_ext_tenant`` (None: no tenants)
+        self.tenant_header = tenant_header
         self._queue: Optional[asyncio.Queue] = None
         self._server: Optional[HttpServer] = None
         self._closed = False
+        #: the stream's overload controller: a push server cannot pause its
+        #: clients, so it sheds at the socket with 429
+        self._overload = None
+
+    def attach_overload_controller(self, controller) -> None:
+        self._overload = controller
 
     async def connect(self) -> None:
         self._queue = asyncio.Queue(maxsize=QUEUE_BOUND)
@@ -87,6 +101,33 @@ class HttpInput(Input):
             seconds = 3600.0
         return {"Retry-After": str(max(1, math.ceil(seconds)))}
 
+    def _tenant_of(self, req: Request) -> Optional[str]:
+        """The request's tenant: the configured header, else the auth
+        subject when auth is on, else None. ``tenant_header: false`` turns
+        off both."""
+        if self.tenant_header is None:
+            return None
+        t = req.headers.get(self.tenant_header.lower())
+        if t:
+            return t
+        if self.auth is not None:
+            return self.auth.subject()
+        return None
+
+    def _check_admission(self, tenant: Optional[str] = None) -> None:
+        """Raise ``Overloaded`` when the request must be answered 429: the
+        engine's overload first (so the rejection spends none of the
+        client's rate-limit tokens), then the tenant's quota for one row,
+        checked without spending, then the rate limiter."""
+        if self._overload is not None:
+            if self._overload.should_reject():
+                raise Overloaded("overloaded", retry_after_s=self._overload.retry_after_s())
+            wait = self._overload.quota_retry_after_s(tenant)
+            if wait > 0:
+                raise Overloaded("tenant quota exceeded", retry_after_s=wait)
+        if self.limiter is not None and not self.limiter.try_acquire():
+            raise Overloaded("rate limited", retry_after_s=self.limiter.time_until(1.0))
+
     async def _handle(self, req: Request) -> Response:
         if req.path != self.path:
             return Response.text(404, "404: Not Found")
@@ -99,12 +140,14 @@ class HttpInput(Input):
         if self.auth is not None and not self.auth.check(req.headers.get("authorization"),
                                                          req.remote or "?"):
             return Response(401, content_type=None, headers=cors)
-        if self.limiter is not None and not self.limiter.try_acquire():
-            return Response.text(429, "rate limited",
-                                 {**cors, **self._retry_after(self.limiter.time_until(1.0))})
+        tenant = self._tenant_of(req)
+        try:
+            self._check_admission(tenant)
+        except Overloaded as e:
+            return Response.text(429, str(e), {**cors, **self._retry_after(e.retry_after_s)})
         body = await req.read()  # 413 past the body limit
         try:
-            self._queue.put_nowait(body)
+            self._queue.put_nowait((body, tenant))
         except asyncio.QueueFull:
             return Response.text(503, "queue full", cors)
         return Response.text(200, "ok", cors)
@@ -112,11 +155,14 @@ class HttpInput(Input):
     async def read(self) -> tuple[MessageBatch, Ack]:
         if self._closed:
             raise EndOfInput()
-        payload = await self._queue.get()
-        if payload is None:
+        item = await self._queue.get()
+        if item is None:
             raise EndOfInput()
-        batch = decode_payloads([payload], self.codec)
-        return batch.with_source("http").with_ingest_time(), NoopAck()
+        payload, tenant = item
+        batch = decode_payloads([payload], self.codec).with_source("http").with_ingest_time()
+        if tenant is not None:
+            batch = batch.with_tenant(tenant)
+        return batch, NoopAck()
 
     async def close(self) -> None:
         self._closed = True
@@ -133,16 +179,21 @@ class HttpInput(Input):
 def _check(config: dict) -> None:
     if config.get("port") is None:
         raise ConfigError("http input requires 'port'")
-    tenant_header = config.get("tenant_header")
-    if tenant_header is not None and tenant_header is not False:
-        if not isinstance(tenant_header, str) or not tenant_header:
-            raise ConfigError(
-                f"http input tenant_header must be a header name or false, "
-                f"got {tenant_header!r}")
-        raise not_ported("http input key 'tenant_header' (multi-tenancy)")
+    _tenant_header(config)
     AuthConfig.from_config(config.get("auth"))
     _limiter(config)
     check_codec(config)
+
+
+def _tenant_header(config: dict) -> Optional[str]:
+    tenant_header = config.get("tenant_header", DEFAULT_TENANT_HEADER)
+    if tenant_header is False or tenant_header is None:
+        return None  # the opt-out
+    if not isinstance(tenant_header, str) or not tenant_header:
+        raise ConfigError(
+            f"http input tenant_header must be a header name or false, "
+            f"got {tenant_header!r}")
+    return tenant_header
 
 
 def _limiter(config: dict) -> Optional[TokenBucket]:
@@ -164,4 +215,5 @@ def _build(config: dict, resource: Resource) -> HttpInput:
         auth=Authenticator(auth_cfg) if auth_cfg.kind != "none" else None,
         limiter=_limiter(config),
         cors=bool(config.get("cors", False)),
+        tenant_header=_tenant_header(config),
     )

@@ -32,10 +32,13 @@ Config:
     codec: json               # optional; raw __value__ otherwise
     tls: {ca_file: ...}       # optional
     sasl: {mechanism: PLAIN, username: u, password: "${PW}"}   # optional
+    tenant: team-a            # multi-tenancy: a static tenant id stamped into
+                              # __meta_ext_tenant for every batch, or
+    tenant_header: x-tenant   # read from the fetch's first record's headers
+                              # (the header wins over `tenant`)
 
-``tenant`` and ``tenant_header`` (multi-tenancy) raise "not yet ported":
-the port stamps no ``__meta_ext_tenant``. The JAX input's cooperative
-overload pause has no counterpart (the port has no overload controller).
+The input is pull-based (``pause_on_overload``): the stream pauses its
+reads while the overload controller sheds with a full window.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from arkflow_tpu_torch.connect.kafka_client import (
     cooperative_sticky_assign,
     range_assign,
 )
-from arkflow_tpu_torch.errors import ConfigError, EndOfInput, not_ported
+from arkflow_tpu_torch.errors import ConfigError, EndOfInput
 from arkflow_tpu_torch.plugins.codec.helper import build_codec, check_codec, decode_payloads
 
 logger = logging.getLogger("arkflow_torch.kafka")
@@ -110,7 +113,8 @@ class KafkaInput(Input):
     def __init__(self, brokers: str, topics: list[str], group: str,
                  partitions: Optional[list[int]], start: str, batch_size: int, codec=None,
                  client_kwargs: Optional[dict] = None,
-                 assignors: tuple[str, ...] = ("cooperative-sticky", "range")):
+                 assignors: tuple[str, ...] = ("cooperative-sticky", "range"),
+                 tenant: Optional[str] = None, tenant_header: Optional[str] = None):
         if start not in ("earliest", "latest"):
             raise ConfigError("kafka input 'start' must be earliest|latest")
         _check_assignors(assignors)
@@ -129,6 +133,10 @@ class KafkaInput(Input):
         self.batch_size = batch_size
         self.codec = codec
         self.client_kwargs = client_kwargs or {}
+        #: static tenant id of every batch, and the record header that
+        #: carries a per-message one (the header wins)
+        self.tenant = tenant
+        self.tenant_header = tenant_header.encode() if tenant_header else None
         self._client: Optional[KafkaClient] = None
         #: next offset to fetch per (topic, partition)
         self._offsets: dict[tuple[str, int], int] = {}
@@ -341,6 +349,17 @@ class KafkaInput(Input):
             .with_ext_metadata({"topic": topic})
             .with_ingest_time()
         )
+        tenant = self.tenant
+        if self.tenant_header is not None:
+            raw = (records[0].headers or {}).get(self.tenant_header)
+            if raw:
+                try:
+                    tenant = raw.decode("utf-8")
+                except UnicodeDecodeError:
+                    logger.warning("kafka tenant header %r not utf-8; using %r",
+                                   self.tenant_header, tenant)
+        if tenant is not None:
+            out = out.with_tenant(tenant)
         if per_row is not None and base.num_rows == len(records):
             out = out.with_column(META_OFFSET, np.array([r.offset for r in records], np.int64))
             out = out.with_column(META_KEY, BinaryColumn.from_pylist([r.key for r in records]))
@@ -397,10 +416,6 @@ def _check(config: dict) -> None:
     for req in ("brokers", "group"):
         if not config.get(req):
             raise ConfigError(f"kafka input requires {req!r}")
-    if config.get("tenant"):
-        raise not_ported("kafka input key 'tenant' (multi-tenancy)")
-    if config.get("tenant_header"):
-        raise not_ported("kafka input key 'tenant_header' (multi-tenancy)")
     start = str(config.get("start", "earliest"))
     if start not in ("earliest", "latest"):
         raise ConfigError("kafka input 'start' must be earliest|latest")
@@ -427,4 +442,6 @@ def _build(config: dict, resource: Resource) -> KafkaInput:
         codec=build_codec(config.get("codec"), resource),
         client_kwargs=client_kwargs_from_config(config),
         assignors=_assignors(config),
+        tenant=str(config["tenant"]) if config.get("tenant") else None,
+        tenant_header=str(config["tenant_header"]) if config.get("tenant_header") else None,
     )

@@ -69,13 +69,19 @@ plus ``device``):
       max_compiles: 64             # capture every new key while serving,
                                    # then flip behind a probe that rolls
                                    # back; POST /admin/tune forces a cycle
+    response_cache:                # exact-match dedup in front of the device
+      capacity: 1024               # (runtime/respcache.py): LRU + TTL on
+      ttl: 30s                     # batch_fingerprint, concurrent duplicates
+                                   # collapsed onto one step
 
-The processor exposes ``runner``, ``swapper``, ``integrity`` and ``tuner``
-(the engine's ``/health``, ``POST /admin/swap`` and ``POST /admin/tune``
-and the fault plugin reach them); ``connect`` starts the integrity
-monitor and the tuner's loop, ``close`` stops them. Every other
-``tpu_inference`` key (mesh, pp_microbatch_rows, pp_profile,
-pp_layer_costs, device_pool, response_cache) raises "not yet ported".
+The processor exposes ``runner``, ``swapper``, ``integrity``, ``tuner`` and
+``cache`` (the engine's ``/health``, ``POST /admin/swap`` and ``POST
+/admin/tune`` and the fault plugin reach them); ``connect`` starts the
+integrity monitor and the tuner's loop, ``close`` stops them. A committed
+swap, a committed tuner flip and an integrity quarantine each bump the
+cache's epoch, so a later duplicate recomputes on the weights and grid
+that serve. Every other ``tpu_inference`` key (mesh, pp_microbatch_rows,
+pp_profile, pp_layer_costs, device_pool) raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -86,11 +92,12 @@ from typing import Optional
 
 import numpy as np
 
-from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, MessageBatch
+from arkflow_tpu_torch.batch import DEFAULT_BINARY_VALUE_FIELD, MessageBatch, batch_fingerprint
 from arkflow_tpu_torch.components import Processor, Resource, register_processor
 from arkflow_tpu_torch.errors import ArkError, ConfigError, ProcessError
 from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.obs.trace import record_stage
+from arkflow_tpu_torch.runtime.respcache import build_response_cache, parse_response_cache_config
 from arkflow_tpu_torch.tpu.bucketing import BucketPolicy
 from arkflow_tpu_torch.tpu.integrity import build_integrity_monitor, parse_integrity_config
 from arkflow_tpu_torch.tpu.packing import carve_row_windows, pack_tokens
@@ -106,14 +113,18 @@ KEYS = ("model", "model_config", "text_field", "tokenizer", "tensor_field", "max
         "seq_buckets", "max_batch", "outputs", "warmup", "seed", "serving_dtype",
         "max_in_flight", "dispatch_depth", "device", "packing", "example_scale",
         "checkpoint", "step_deadline", "step_deadline_first", "health", "swap",
-        "integrity", "tuner")
+        "integrity", "tuner", "response_cache")
 
 
 class GpuInferenceProcessor(Processor):
     def __init__(self, runner: ModelRunner, *, text_field: str, tokenizer, max_seq: int,
                  outputs: Optional[list[str]], warmup: bool = False, swapper=None,
-                 integrity=None, tensor_field: Optional[str] = None, tuner=None):
+                 integrity=None, tensor_field: Optional[str] = None, tuner=None,
+                 response_cache=None):
         self.runner = runner
+        #: the exact-match response cache (runtime/respcache.py), None
+        #: without the block: every batch pays a device step
+        self.cache = response_cache
         #: the shape tuner (tpu/tuner.py), None without the block: it
         #: observes every tokenized batch's true lengths
         self.tuner = tuner
@@ -134,6 +145,15 @@ class GpuInferenceProcessor(Processor):
             "arkflow_tpu_extract_seconds",
             "host-side Arrow->tensor extraction + tokenization per batch",
             {"model": runner.family.name})
+
+    def attach_overload_controller(self, controller) -> None:
+        """The stream's hook (``runtime/overload.attach_overload``): the
+        cache's tenant-hit labels cap as the controller's do, and the tuner
+        reports the controller's signals."""
+        if self.cache is not None:
+            self.cache.set_tenant_policy(controller.cfg.tenants)
+        if self.tuner is not None:
+            self.tuner.attach_overload_controller(controller)
 
     # -- input extraction --------------------------------------------------
 
@@ -209,22 +229,37 @@ class GpuInferenceProcessor(Processor):
         if self.integrity is not None:
             await self.integrity.stop()
 
+    def release(self) -> None:
+        """Free the runner's device state (``ModelRunner.release``): the
+        engine's restart loop calls it on a crashed stream."""
+        self.runner.release()
+
     async def process(self, batch: MessageBatch) -> list[MessageBatch]:
         if batch.num_rows == 0:
             return []
         if not self._warmed:  # direct use without a stream (tests, tools)
             await self.connect()
-        if self.runner.packed:
-            outputs = await self._infer_packed(batch)
+        if self.cache is not None:
+            # redeliveries and byte-identical retries share the fingerprint
+            # (the ingest stamp and ext metadata are left out of it)
+            outputs = await self.cache.get_or_compute(
+                batch_fingerprint(batch), lambda: self._infer(batch), tenant=batch.tenant())
         else:
-            t0 = time.perf_counter()
-            inputs = await asyncio.get_running_loop().run_in_executor(
-                None, self._timed, self._extract, batch)
-            # the same stage name as the runner's pad and stage: the trace
-            # breakdown shows one infeed cost, the two sites summed
-            record_stage("infeed_prep", time.perf_counter() - t0)
-            outputs = await self.runner.infer(inputs)
+            outputs = await self._infer(batch)
         return [self._attach(batch, outputs)]
+
+    async def _infer(self, batch: MessageBatch) -> dict[str, np.ndarray]:
+        """One inference without the cache: extract, then the device
+        step(s)."""
+        if self.runner.packed:
+            return await self._infer_packed(batch)
+        t0 = time.perf_counter()
+        inputs = await asyncio.get_running_loop().run_in_executor(
+            None, self._timed, self._extract, batch)
+        # the same stage name as the runner's pad and stage: the trace
+        # breakdown shows one infeed cost, the two sites summed
+        record_stage("infeed_prep", time.perf_counter() - t0)
+        return await self.runner.infer(inputs)
 
     def _timed(self, fn, *args):
         """``fn(*args)`` observed on ``arkflow_tpu_extract_seconds`` (on the
@@ -304,6 +339,8 @@ def _check(config: dict) -> None:
             raise ConfigError(f"{key[:-2]} must be positive, got {core[key]}")
     parse_swap_config(config.get("swap"), who="gpu_inference")
     parse_integrity_config(config.get("integrity"), who="gpu_inference")
+    if config.get("response_cache") is not None:
+        parse_response_cache_config(config["response_cache"])
 
 
 @register_processor("gpu_inference", keys=KEYS, check=_check)
@@ -331,6 +368,7 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         checkpoint=config.get("checkpoint"),
         **parse_core_config(config),
     )
+    cache = build_response_cache(config.get("response_cache"), name=str(model))
     swapper = build_batch_swapper(
         runner, model=str(model), serving_dtype=config.get("serving_dtype"),
         swap_cfg=parse_swap_config(config.get("swap"), who="gpu_inference"),
@@ -342,7 +380,13 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
     swapper.integrity = integrity
     tuner = build_shape_tuner(
         runner, model=str(model), packed=packing,
-        cfg=parse_tuner_config(config.get("tuner"), who="gpu_inference"))
+        cfg=parse_tuner_config(config.get("tuner"), who="gpu_inference"), cache=cache)
+    if cache is not None:
+        # answers computed by the old weights, or by a quarantined runner,
+        # must not serve a later duplicate
+        swapper.add_commit_hook(cache.bump_epoch)
+        if integrity is not None:
+            integrity.add_quarantine_hook(cache.bump_epoch)
     return GpuInferenceProcessor(
         runner,
         text_field=config.get("text_field", DEFAULT_BINARY_VALUE_FIELD),
@@ -355,4 +399,5 @@ def _build(config: dict, resource: Resource) -> GpuInferenceProcessor:
         integrity=integrity,
         tensor_field=config.get("tensor_field"),
         tuner=tuner,
+        response_cache=cache,
     )

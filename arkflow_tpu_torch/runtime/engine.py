@@ -1,11 +1,18 @@
 """Engine: builds and runs every stream of a config, with its health server.
 
-Counterpart of ``arkflow_tpu/runtime/engine.py`` without restart policies:
-build every stream (its ``error_output`` with it; ``--validate`` checks
-that output's type and keys too), run them concurrently, and let
-SIGINT/SIGTERM flip a cancellation event that drains them. A crashed
-stream is logged and ends without taking the engine down, as a JAX stream
-with no ``restart`` key does.
+Counterpart of ``arkflow_tpu/runtime/engine.py``: build every stream (its
+``error_output`` with it; ``--validate`` checks that output's type and keys
+too), run them concurrently, and let SIGINT/SIGTERM flip a cancellation
+event that drains them. A crashed stream is logged without taking the
+engine down. With a ``restart`` policy (``{max_retries, backoff,
+reset_after}``) the engine supervises it as JAX's does: after a crash it
+waits ``backoff`` (cancel-aware), builds a fresh stream from the config
+(a failed build is retried, each attempt spending budget) and runs it in
+the crashed one's place in ``streams``; a run of at least ``reset_after``
+restores the whole budget. Before the rebuild the crashed stream's
+processors free their device state (``Stream.release``), so a restart
+keeps one model on the card. A fault's one-shot state lives in its config
+dict and so carries over to the rebuilt stream.
 
 With ``health_check: {enabled: true, host, port, path}`` the engine serves
 HTTP/1.1 on the standard library's ``asyncio.start_server`` through the
@@ -16,12 +23,14 @@ the response otherwise; a malformed request or a body past 1 MiB answers
 400:
 
 - ``GET <path>`` (default ``/health``): the status, the stream count, the
-  tracer's one-line ``tracing`` summary and per stream its runners' health
-  reports, its hot-swap managers',
-  integrity monitors' and shape tuners' reports, under the JAX package's
-  keys (``runners``, ``swap``, ``integrity``, ``tuner``; a ``type: fault``
-  wrapper exposes its inner processor's ``runner``, ``swapper`` and
-  ``integrity``, and tuners are found through ``_inner``);
+  tracer's one-line ``tracing`` summary and per stream its ``restarts`` and
+  ``restart_budget_remaining`` (None without a policy), its overload
+  controller's report (``overload``), its response caches' reports
+  (``response_caches``), its runners' health reports, its hot-swap
+  managers', integrity monitors' and shape tuners' reports, under the JAX
+  package's keys (``runners``, ``swap``, ``integrity``, ``tuner``; a ``type:
+  fault`` wrapper exposes its inner processor's ``runner``, ``swapper`` and
+  ``integrity``, and tuners and caches are found through ``_inner``);
 - ``GET /readiness``: 503 before the streams are built, and while every
   runner of some stream is DEAD or CORRUPT; 200 otherwise;
 - ``GET /liveness``: 200;
@@ -69,7 +78,7 @@ from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.errors import SwapError, TunerError
 from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.obs.trace import global_tracer
-from arkflow_tpu_torch.runtime.stream import Stream, build_stream
+from arkflow_tpu_torch.runtime.stream import Stream, build_stream, processor_parts
 from arkflow_tpu_torch.utils.http1 import HttpError, HttpServer, Request, Response
 
 logger = logging.getLogger("arkflow_torch.engine")
@@ -90,6 +99,13 @@ class Engine:
         self.health_port: Optional[int] = None
         #: one ``/debug/profile`` capture at a time
         self._profile_lock = asyncio.Lock()
+        #: the config and name of each stream of ``streams``, in order: a
+        #: restart builds the stream again from them
+        self._built: list[tuple[Any, str]] = []
+        #: per stream name: ``restarts`` and ``restart_budget_remaining``
+        self._restart_stats: dict[str, dict] = {}
+        #: milliseconds of each restart's rebuild, per stream name
+        self.rebuild_ms: dict[str, list[float]] = {}
 
     def _install_signal_handlers(self) -> None:
         loop = asyncio.get_running_loop()
@@ -102,8 +118,8 @@ class Engine:
     def build(self) -> list[Stream]:
         """Build every stream of the config (``run`` does it when not done)."""
         ensure_plugins_loaded()
-        self.streams = [build_stream(s, name=s.name or f"stream-{i}")
-                        for i, s in enumerate(self.config.streams)]
+        self._built = [(s, s.name or f"stream-{i}") for i, s in enumerate(self.config.streams)]
+        self.streams = [build_stream(cfg, name=name) for cfg, name in self._built]
         return self.streams
 
     async def run(self) -> None:
@@ -115,22 +131,81 @@ class Engine:
         await self.start_health_server()
         self._install_signal_handlers()
 
-        async def run_one(stream: Stream) -> None:
-            try:
-                await stream.run(self.cancel)
-                logger.info("[%s] finished", stream.name)
-            except Exception:
-                logger.exception("[%s] stream crashed", stream.name)
-
+        # streams set by hand, not built from the config, run without a policy
+        built = (self._built if len(self._built) == len(self.streams)
+                 else [(None, s.name) for s in self.streams])
         self._ready = True
         try:
-            await asyncio.gather(*(run_one(s) for s in self.streams))
+            await asyncio.gather(*(self._supervise(stream, cfg, name)
+                                   for stream, (cfg, name) in zip(list(self.streams), built)))
         finally:
             self._ready = False
             await self.stop_health_server()
 
     def shutdown(self) -> None:
         self.cancel.set()
+
+    async def _backoff(self, seconds: float) -> bool:
+        """Sleep ``seconds`` unless cancelled; True to go on."""
+        cancel_wait = asyncio.ensure_future(self.cancel.wait())
+        try:
+            await asyncio.wait({cancel_wait}, timeout=seconds)
+        finally:
+            cancel_wait.cancel()
+        return not self.cancel.is_set()
+
+    async def _supervise(self, stream: Stream, cfg, name: str) -> None:
+        """Run one stream; after a crash, restart it by its policy."""
+        policy = cfg.restart if cfg is not None else None
+        if policy:
+            # a policy built without ``_restart_config`` may miss keys
+            policy = {"max_retries": policy.get("max_retries", 3),
+                      "backoff_s": policy.get("backoff_s", 5.0),
+                      "reset_after_s": policy.get("reset_after_s", 300.0)}
+        retries = 0
+        stats = {"restarts": 0,
+                 "restart_budget_remaining": policy["max_retries"] if policy else None}
+        self._restart_stats[name] = stats
+        while True:
+            run_started = time.monotonic()
+            try:
+                await stream.run(self.cancel)
+                logger.info("[%s] finished", stream.name)
+                return
+            except Exception:
+                logger.exception("[%s] stream crashed", stream.name)
+            if not policy or self.cancel.is_set():
+                return
+            if time.monotonic() - run_started >= policy["reset_after_s"]:
+                retries = 0  # a long healthy run earns the budget back
+            stream.release()
+            # each attempt spends budget and must yield a fresh instance:
+            # the crashed one's components are closed
+            while True:
+                stats["restart_budget_remaining"] = max(0, policy["max_retries"] - retries)
+                if retries >= policy["max_retries"]:
+                    logger.error("[%s] restart budget exhausted (%d)", name,
+                                 policy["max_retries"])
+                    return
+                retries += 1
+                stats["restarts"] += 1
+                stats["restart_budget_remaining"] = max(0, policy["max_retries"] - retries)
+                logger.warning("[%s] restarting (%d/%d) in %.1fs", name, retries,
+                               policy["max_retries"], policy["backoff_s"])
+                if not await self._backoff(policy["backoff_s"]):
+                    return
+                t0 = time.perf_counter()
+                try:
+                    stream = build_stream(cfg, name=name)
+                    break
+                except Exception:
+                    logger.exception("[%s] rebuild failed", name)
+            self.rebuild_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1000.0)
+            # introspection and shutdown see the live instance
+            for i, old in enumerate(self.streams):
+                if old.name == name:
+                    self.streams[i] = stream
+                    break
 
     # -- introspection --------------------------------------------------------
 
@@ -160,11 +235,27 @@ class Engine:
                 if sw is not None and hasattr(sw, "swap")]
 
     def stream_health(self) -> dict:
-        """Per stream: its runners', swap managers', integrity monitors' and
-        shape tuners' reports."""
+        """Per stream: its restart accounting, its overload controller's and
+        response caches' reports, and its runners', swap managers',
+        integrity monitors' and shape tuners' reports."""
         out: dict[str, dict] = {}
         for s in self.streams:
-            info: dict = {}
+            info = dict(self._restart_stats.get(
+                s.name, {"restarts": 0, "restart_budget_remaining": None}))
+            ctrl = getattr(s, "overload", None)
+            if ctrl is not None:
+                try:
+                    info["overload"] = ctrl.report()
+                except Exception:  # introspection must not break /health
+                    logger.exception("overload report failed for stream %s", s.name)
+            caches = []
+            for cache in processor_parts(s.pipeline, "cache", "report"):
+                try:
+                    caches.append(cache.report())
+                except Exception:
+                    logger.exception("cache report failed for stream %s", s.name)
+            if caches:
+                info["response_caches"] = caches
             runners = self.stream_runner_reports(s)
             if runners:
                 info["runners"] = runners
@@ -172,7 +263,7 @@ class Engine:
                               ("integrity", [m for m in (getattr(p, "integrity", None)
                                                          for p in self._processors(s))
                                              if m is not None]),
-                              ("tuner", s.tuners())):
+                              ("tuner", processor_parts(s.pipeline, "tuner", "run_cycle"))):
                 reps = []
                 for obj in objs:
                     try:

@@ -1,0 +1,1041 @@
+"""Overload control: deadline-aware admission, AIMD queue windows, shedding,
+tenant shares and quotas.
+
+Counterpart of ``arkflow_tpu/runtime/overload.py``, whole: the same config
+keys, defaults and ``ConfigError`` messages, the same metric names, labels
+and help texts, and the same decisions on the same observations. Once
+offered load exceeds device throughput, a stream that admits every batch
+turns a burst into unbounded queue wait; finishing a stale request is worse
+than shedding it up front. The per-stream :class:`OverloadController` owns
+four cooperating mechanisms:
+
+1. **Deadline-aware admission**: each batch carries a remaining budget
+   (``pipeline.deadline_ms`` measured from ``__meta_ingest_time``, or an
+   absolute ``__meta_ext_deadline_ms``). A batch whose budget cannot cover
+   the predicted queue wait plus step time is shed before the worker queue:
+   routed to ``error_output`` tagged ``overloaded``, or nacked, never
+   dropped silently.
+2. **Adaptive admission window (AIMD)**: the window shrinks
+   multiplicatively while the queue wait's p50 is over the budget and grows
+   back additively on recovery; batches past it are shed (``queue``).
+3. **Strict-priority bands**: ``pipeline.priority`` or a per-batch
+   ``__meta_ext_priority`` band. Bands at or above ``protect_priority`` are
+   never queue-shed; persistent overload at the minimum window raises the
+   admit floor one band at a time (``priority``) and relaxes on recovery.
+4. **Tenants** (``overload.tenants``): the window divides by tenant weight
+   over the backlogged tenants, per-tenant token buckets (rows/s, estimated
+   tokens/s) shed ``quota``, and the worker queue becomes a weighted
+   deficit-round-robin :class:`FairQueue`. Tenant labels are capped: past
+   ``max_tracked`` ids the long tail shares ``__other__``.
+
+Pull inputs (``pause_on_overload``) pause their reads while the controller
+sheds with a full window; the HTTP input answers 429 with ``Retry-After``
+from the drain estimate or the tenant's bucket. Metrics:
+``arkflow_overload_state`` (0 admit, 1 throttle, 2 shed),
+``arkflow_overload_window``, ``arkflow_shed_total{reason}``,
+``arkflow_overload_paused_seconds_total``, and the tenant-labelled
+``arkflow_tenant_admitted_total``, ``arkflow_tenant_shed_total`` and
+``arkflow_tenant_e2e_seconds``; the engine's ``/health`` embeds
+:meth:`OverloadController.report` per stream. ``shard_local`` and
+``admit_quota`` are the sharded-ingest split's halves, kept whole for it.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
+
+from arkflow_tpu_torch.errors import ConfigError
+from arkflow_tpu_torch.obs import global_registry
+
+#: ``arkflow_overload_state`` gauge values
+STATE_ADMIT = 0  #: window at max, queue wait within budget
+STATE_THROTTLE = 1  #: window shrunk, recovering additively
+STATE_SHED = 2  #: queue wait over budget; admission actively shedding
+
+_STATE_NAMES = {STATE_ADMIT: "admit", STATE_THROTTLE: "throttle", STATE_SHED: "shed"}
+
+SHED_REASONS = ("deadline", "queue", "priority", "quota", "retry_budget")
+
+#: label every tenant past the cardinality cap collapses into — one shared
+#: state/metric series for the long tail, so a tenant-id enumeration attack
+#: cannot balloon the metric registry
+OVERFLOW_TENANT = "__other__"
+#: label (and accounting identity) for batches with no tenant column
+DEFAULT_TENANT = "default"
+#: default bound on distinct tracked tenant ids — the ONE definition the
+#: controller (``tenants.max_tracked`` overrides it), the response cache's
+#: tenant-hit labels, and the memory buffer's coalescer lanes all share
+MAX_TENANT_LABELS = 64
+
+
+def cap_tenant_label(tenant: Optional[str], tracked, *, reserved=(),
+                     cap: int = MAX_TENANT_LABELS) -> str:
+    """Raw tenant id -> bounded accounting label: the ONE capping rule the
+    controller, the response cache's tenant-hit counters, and the memory
+    buffer's coalescer lanes all share. Untagged/empty ids map to
+    DEFAULT_TENANT; ids already ``tracked`` (or explicitly ``reserved``,
+    e.g. configured tenants) keep their own slot; past ``cap`` distinct
+    tracked ids the long tail collapses into OVERFLOW_TENANT."""
+    label = tenant if tenant else DEFAULT_TENANT
+    if label in tracked or label in reserved:
+        return label
+    if len(tracked) >= cap:
+        return OVERFLOW_TENANT
+    return label
+
+
+@dataclass(frozen=True)
+class TenantQuota:
+    """Per-tenant rate contract. ``None`` = unmetered on that axis.
+    Bucket capacity is ``rate * burst_s`` (min 1 token), so a tenant may
+    burst one ``burst_s`` worth of its rate before the refill gates it."""
+
+    rows_per_sec: Optional[float] = None
+    #: estimated tokens/s — per-row estimates come from the payload's
+    #: offsets (``extract.payload_token_estimates``, the coalescer's
+    #: estimator), so metering matches what the packed device path will pay
+    tokens_per_sec: Optional[float] = None
+
+    @classmethod
+    def from_config(cls, m: Any, where: str) -> Optional["TenantQuota"]:
+        if m is None:
+            return None
+        if not isinstance(m, Mapping):
+            raise ConfigError(f"{where} must be a mapping")
+
+        def _rate(key: str) -> Optional[float]:
+            v = m.get(key)
+            if v is None:
+                return None
+            if isinstance(v, bool) or not isinstance(v, (int, float)) or v <= 0:
+                raise ConfigError(f"{where}.{key} must be a positive number, got {v!r}")
+            return float(v)
+
+        rows = _rate("rows_per_sec")
+        tokens = _rate("tokens_per_sec")
+        if rows is None and tokens is None:
+            return None
+        return cls(rows_per_sec=rows, tokens_per_sec=tokens)
+
+
+@dataclass
+class TenantPolicy:
+    """``overload.tenants``: weighted-fair shares + quotas keyed on the
+    ``__meta_ext_tenant`` column.
+
+    ::
+
+        overload:
+          tenants:
+            default_weight: 1
+            burst: 2s              # quota bucket capacity = rate x burst
+            max_tracked: 64        # label-cardinality cap (then __other__)
+            default_quota: {rows_per_sec: 200}
+            per_tenant:
+              premium: {weight: 8, rows_per_sec: 2000, tokens_per_sec: 50000}
+              batch:   {weight: 1}
+    """
+
+    default_weight: float = 1.0
+    burst_s: float = 1.0
+    #: distinct tenant ids tracked with their own state/labels; the rest
+    #: collapse into OVERFLOW_TENANT (explicitly-configured tenants always
+    #: keep their own slot)
+    max_tracked: int = MAX_TENANT_LABELS
+    #: floor on any tenant's admission share (batches) so a low-weight
+    #: tenant is never starved to zero while others are backlogged
+    min_share: int = 1
+    #: payload column the tokens/s estimator reads (default ``__value__``)
+    #: — MUST match the inference stage's ``text_field`` or token-heavy
+    #: rows meter as 1 token each (same knob as the coalescer's
+    #: ``token_field``)
+    token_field: Optional[str] = None
+    #: bytes-per-token divisor for subword (HF/BPE) tokenizers; default:
+    #: exact word/punct counting matching the hash tokenizer
+    token_bytes: Optional[float] = None
+    default_quota: Optional[TenantQuota] = None
+    #: tenant id -> (weight, quota); parsed from ``per_tenant``
+    weights: dict[str, float] = field(default_factory=dict)
+    quotas: dict[str, TenantQuota] = field(default_factory=dict)
+
+    @classmethod
+    def from_config(cls, m: Any) -> Optional["TenantPolicy"]:
+        from arkflow_tpu_torch.utils.duration import parse_duration
+
+        if m is None or m is False:
+            return None
+        if m is True:
+            m = {}
+        if not isinstance(m, Mapping):
+            raise ConfigError("overload.tenants must be a mapping or boolean")
+
+        def _num(key: str, default: float, *, minimum: float) -> float:
+            v = m.get(key, default)
+            if isinstance(v, bool) or not isinstance(v, (int, float)) or v < minimum:
+                raise ConfigError(
+                    f"overload.tenants.{key} must be a number >= {minimum}, got {v!r}")
+            return float(v)
+
+        max_tracked = m.get("max_tracked", MAX_TENANT_LABELS)
+        if isinstance(max_tracked, bool) or not isinstance(max_tracked, int) \
+                or max_tracked < 1:
+            raise ConfigError(
+                f"overload.tenants.max_tracked must be an int >= 1, got {max_tracked!r}")
+        min_share = m.get("min_share", 1)
+        if isinstance(min_share, bool) or not isinstance(min_share, int) or min_share < 1:
+            raise ConfigError(
+                f"overload.tenants.min_share must be an int >= 1, got {min_share!r}")
+        token_field = m.get("token_field")
+        if token_field is not None and (not isinstance(token_field, str)
+                                        or not token_field):
+            raise ConfigError(
+                f"overload.tenants.token_field must be a column name, "
+                f"got {token_field!r}")
+        token_bytes = m.get("token_bytes")
+        if token_bytes is not None:
+            if isinstance(token_bytes, bool) \
+                    or not isinstance(token_bytes, (int, float)) or token_bytes <= 0:
+                raise ConfigError(
+                    f"overload.tenants.token_bytes must be a positive number, "
+                    f"got {token_bytes!r}")
+            token_bytes = float(token_bytes)
+        policy = cls(
+            default_weight=_num("default_weight", 1.0, minimum=0.01),
+            burst_s=(parse_duration(m["burst"]) if m.get("burst") is not None else 1.0),
+            max_tracked=max_tracked,
+            min_share=min_share,
+            token_field=token_field,
+            token_bytes=token_bytes,
+            default_quota=TenantQuota.from_config(
+                m.get("default_quota"), "overload.tenants.default_quota"),
+        )
+        if policy.burst_s <= 0:
+            raise ConfigError("overload.tenants.burst must be > 0")
+        per = m.get("per_tenant") or {}
+        if not isinstance(per, Mapping):
+            raise ConfigError("overload.tenants.per_tenant must be a mapping")
+        for name, spec in per.items():
+            if not isinstance(spec, Mapping):
+                raise ConfigError(
+                    f"overload.tenants.per_tenant.{name} must be a mapping")
+            w = spec.get("weight", policy.default_weight)
+            if isinstance(w, bool) or not isinstance(w, (int, float)) or w < 0.01:
+                raise ConfigError(
+                    f"overload.tenants.per_tenant.{name}.weight must be a "
+                    f"number >= 0.01, got {w!r}")
+            policy.weights[str(name)] = float(w)
+            quota = TenantQuota.from_config(
+                spec, f"overload.tenants.per_tenant.{name}")
+            if quota is not None:
+                policy.quotas[str(name)] = quota
+        return policy
+
+    def weight_of(self, tenant: str) -> float:
+        return self.weights.get(tenant, self.default_weight)
+
+    def quota_of(self, tenant: str) -> Optional[TenantQuota]:
+        return self.quotas.get(tenant, self.default_quota)
+
+    def meters_tokens(self) -> bool:
+        """Whether ANY tenant has a tokens/s quota — the stream only pays
+        the per-batch token-estimate pass when one does."""
+        return any(q.tokens_per_sec is not None
+                   for q in (*self.quotas.values(),
+                             *((self.default_quota,) if self.default_quota else ())))
+
+    def without_quotas(self) -> "TenantPolicy":
+        """This policy with every quota stripped (weights/fairness kept).
+
+        The sharded-ingest plane hands each shard process this view: tenant
+        TokenBuckets are granted exactly ONCE, in the parent's shared quota
+        plane, while the WDRR fairness lanes and weighted admission shares
+        still operate per shard — N shards each holding the full quota
+        would over-grant every tenant's contract N times."""
+        import dataclasses
+
+        return dataclasses.replace(self, default_quota=None, quotas={})
+
+
+class _TenantState:
+    """Per-tenant admission accounting inside one controller."""
+
+    __slots__ = ("label", "weight", "queued", "rows_bucket", "tokens_bucket",
+                 "m_admitted", "m_shed", "m_e2e", "_labels")
+
+    def __init__(self, label: str, weight: float, quota: Optional[TenantQuota],
+                 burst_s: float, stream: str):
+        from arkflow_tpu_torch.utils.rate_limiter import TokenBucket
+
+        self.label = label
+        self.weight = weight
+        self.queued = 0
+        self.rows_bucket = self.tokens_bucket = None
+        if quota is not None and quota.rows_per_sec is not None:
+            self.rows_bucket = TokenBucket(
+                max(1.0, quota.rows_per_sec * burst_s), quota.rows_per_sec)
+        if quota is not None and quota.tokens_per_sec is not None:
+            self.tokens_bucket = TokenBucket(
+                max(1.0, quota.tokens_per_sec * burst_s), quota.tokens_per_sec)
+        reg = global_registry()
+        self._labels = {"stream": stream, "tenant": label}
+        self.m_admitted = reg.counter(
+            "arkflow_tenant_admitted_total",
+            "batches admitted to the worker queue, by tenant", self._labels)
+        #: reason -> counter, created lazily on first shed of that reason
+        self.m_shed: dict[str, Any] = {}
+        self.m_e2e = reg.histogram(
+            "arkflow_tenant_e2e_seconds",
+            "read-to-written latency of delivered batches, by tenant",
+            self._labels)
+
+    def count_shed(self, reason: str) -> None:
+        c = self.m_shed.get(reason)
+        if c is None:
+            c = self.m_shed[reason] = global_registry().counter(
+                "arkflow_tenant_shed_total",
+                "batches shed before the worker queue, by tenant",
+                {**self._labels, "reason": reason})
+        c.inc()
+
+    def report(self) -> dict:
+        out = {"weight": self.weight, "queued": self.queued,
+               "admitted": int(self.m_admitted.value),
+               "shed": {r: int(c.value) for r, c in self.m_shed.items()}}
+        if self.rows_bucket is not None:
+            out["rows_per_sec"] = self.rows_bucket.refill_per_sec
+        if self.tokens_bucket is not None:
+            out["tokens_per_sec"] = self.tokens_bucket.refill_per_sec
+        return out
+
+
+@dataclass
+class OverloadConfig:
+    """Knobs for the per-stream overload controller (``pipeline.overload``).
+
+    ``enabled`` defaults to True whenever ``pipeline.deadline_ms`` is set —
+    configuring a deadline without admission control would only measure the
+    overload, not prevent it. ``max_window`` is filled by the stream from
+    the effective worker-queue size when left at 0.
+    """
+
+    enabled: bool = False
+    #: per-batch TTL measured from ingest time; None = only absolute
+    #: ``__meta_ext_deadline_ms`` columns are deadline-enforced
+    deadline_ms: Optional[float] = None
+    #: default priority band for batches without a priority column
+    priority: int = 0
+    #: bands >= this are never queue-shed (strict-priority protection)
+    protect_priority: int = 1
+    max_window: int = 0  # 0 -> stream fills with its queue size
+    min_window: int = 1
+    #: fraction of the deadline budget the p50 queue wait may consume before
+    #: the AIMD controller starts shrinking the window
+    headroom: float = 0.5
+    #: absolute queue-wait target (seconds) when no deadline is configured
+    target_wait_s: float = 0.1
+    decrease: float = 0.5  # multiplicative window shrink factor
+    increase: float = 1.0  # additive window re-growth per healthy interval
+    interval_s: float = 0.1  # min spacing between AIMD adjustments
+    #: consecutive over-budget intervals at min_window before the admit
+    #: floor escalates one priority band (brownout); 0 disables escalation
+    escalate_after: int = 3
+    #: multi-tenant fairness/quotas (``overload.tenants``); None = the
+    #: single-tenant behavior (no per-tenant shares, no quota metering)
+    tenants: Optional[TenantPolicy] = None
+
+    @classmethod
+    def from_config(cls, m: Any, *, deadline_ms: Optional[float] = None,
+                    priority: int = 0) -> Optional["OverloadConfig"]:
+        """Parse ``pipeline.overload`` (+ the flat ``deadline_ms``/``priority``
+        keys the issue names). Returns None when overload control is fully
+        disabled — no mapping, no deadline, and no explicit enable."""
+        from arkflow_tpu_torch.utils.duration import parse_duration
+
+        if m is None:
+            m = {}
+        elif isinstance(m, bool):
+            # `overload: false` is an explicit opt-out that beats the
+            # deadline_ms auto-enable (the deadline still tags batches)
+            m = {"enabled": m}
+        elif not isinstance(m, Mapping):
+            raise ConfigError("pipeline.overload must be a mapping or boolean")
+
+        # same validation discipline as config.py: a wrong type raises
+        # ConfigError naming the key, and bools never pass as numbers
+        def _int(key: str, default: int) -> int:
+            v = m.get(key, default)
+            if isinstance(v, bool) or not isinstance(v, int):
+                raise ConfigError(f"overload.{key} must be an int, got {v!r}")
+            return v
+
+        def _num(key: str, default: float) -> float:
+            v = m.get(key, default)
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ConfigError(f"overload.{key} must be a number, got {v!r}")
+            return float(v)
+
+        enabled = bool(m.get("enabled", True)) if (m or deadline_ms is not None) else False
+        cfg = cls(
+            enabled=enabled,
+            deadline_ms=deadline_ms,
+            priority=priority,
+            protect_priority=_int("protect_priority", 1),
+            max_window=_int("max_window", 0),
+            min_window=_int("min_window", 1),
+            headroom=_num("headroom", 0.5),
+            target_wait_s=(parse_duration(m["target_wait"])
+                           if m.get("target_wait") is not None else 0.1),
+            decrease=_num("decrease", 0.5),
+            increase=_num("increase", 1.0),
+            # None-checked, not truthiness: `interval: 0` legitimately means
+            # adjust on every dequeue (and `target_wait: 0` must reach
+            # validate() to be rejected, not silently swapped for 0.1)
+            interval_s=(parse_duration(m["interval"])
+                        if m.get("interval") is not None else 0.1),
+            escalate_after=_int("escalate_after", 3),
+            tenants=TenantPolicy.from_config(m.get("tenants")),
+        )
+        cfg.validate()
+        return cfg if (cfg.enabled or m) else None
+
+    def validate(self) -> None:
+        if self.deadline_ms is not None and self.deadline_ms <= 0:
+            raise ConfigError("pipeline.deadline_ms must be > 0")
+        if self.min_window < 1:
+            raise ConfigError("overload.min_window must be >= 1")
+        if self.max_window < 0:
+            raise ConfigError("overload.max_window must be >= 0")
+        if not (0.0 < self.headroom <= 1.0):
+            raise ConfigError("overload.headroom must be in (0, 1]")
+        if not (0.0 < self.decrease < 1.0):
+            raise ConfigError("overload.decrease must be in (0, 1)")
+        if self.increase <= 0:
+            raise ConfigError("overload.increase must be > 0")
+        if self.target_wait_s <= 0:
+            raise ConfigError("overload.target_wait must be > 0")
+        if self.interval_s < 0:
+            raise ConfigError("overload.interval must be >= 0")
+        if self.escalate_after < 0:
+            raise ConfigError("overload.escalate_after must be >= 0")
+        if self.enabled and self.priority >= self.protect_priority:
+            # with the default band protected, admit() never queue-sheds and
+            # the brownout floor caps below it — the AIMD window silently
+            # becomes a no-op and overload reproduces the latency cliff the
+            # controller exists to prevent; refuse rather than no-op
+            raise ConfigError(
+                f"overload.protect_priority ({self.protect_priority}) must be "
+                f"> pipeline.priority ({self.priority}): protecting the "
+                "default band disables queue shedding entirely")
+
+    def shard_local(self) -> "OverloadConfig":
+        """The view of this config an ingest SHARD process runs: identical
+        AIMD window / deadline / priority / fairness knobs, tenant quotas
+        stripped (``TenantPolicy.without_quotas``). The parent keeps the
+        original config and grants quota tokens exactly once in its shared
+        quota plane (:meth:`OverloadController.admit_quota`); per-shard
+        windows stay independent — each shard adapts to its own backlog."""
+        import dataclasses
+
+        return dataclasses.replace(
+            self, tenants=(self.tenants.without_quotas()
+                           if self.tenants is not None else None))
+
+
+class OverloadController:
+    """Per-stream admission controller: AIMD window + deadline + priority.
+
+    The stream feeds it observations from the hot loop (queue waits at
+    dequeue, pipeline latency after process) and consults :meth:`admit`
+    once per batch *before* the worker queue. asyncio runs the stages on
+    one thread, so plain arithmetic is race-free (same argument as
+    obs/metrics.py).
+    """
+
+    #: samples kept for the queue-wait p50 (small: sorting 64 floats per
+    #: adjustment interval is noise next to a single batch slice)
+    SAMPLES = 64
+
+    def __init__(self, cfg: OverloadConfig, name: str = "stream",
+                 workers: int = 1, max_window: Optional[int] = None):
+        self.cfg = cfg
+        self.name = name
+        self.workers = max(1, workers)
+        # resolve the window bounds onto SELF — cfg is caller-owned (e.g.
+        # PipelineConfig.overload, shared across engine restarts) and must
+        # keep reading back exactly what the user wrote
+        resolved = cfg.max_window
+        if resolved <= 0:
+            resolved = max_window if max_window is not None else 0
+        if resolved <= 0:
+            resolved = self.workers * 4
+        self.max_window = resolved
+        self.min_window = min(cfg.min_window, resolved)
+
+        reg = global_registry()
+        labels = {"stream": name}
+        self.m_state = reg.gauge(
+            "arkflow_overload_state",
+            "overload controller state (0 admit, 1 throttle, 2 shed)", labels)
+        self.m_window = reg.gauge(
+            "arkflow_overload_window", "effective admission window (batches)", labels)
+        self.m_shed = {
+            r: reg.counter("arkflow_shed_total", "batches shed before the worker queue",
+                           {**labels, "reason": r})
+            for r in SHED_REASONS
+        }
+        self.m_paused_s = reg.counter(
+            "arkflow_overload_paused_seconds_total",
+            "seconds pull-based inputs spent paused by the controller", labels)
+
+        self.window: float = float(self.max_window)
+        self.queued = 0  # batches currently in the worker queue
+        self.state = STATE_ADMIT
+        self._waits: deque[float] = deque(maxlen=self.SAMPLES)
+        self._wait_p50 = 0.0  # cached: recomputed once per adjustment interval
+        self._step_ewma: Optional[float] = None
+        self._last_adjust = 0.0
+        self._last_activity = 0.0  # monotonic time of the last enqueue/dequeue
+        # (sheds deliberately do NOT count: _idle_recover must fire while
+        # a brownout floor is rejecting every batch at admission)
+        self._over_intervals = 0  # consecutive over-budget adjustments at min window
+        #: admit floor: batches with priority < floor are shed (None = admit all)
+        self.admit_floor: Optional[int] = None
+        self._capacity_waiters: list = []
+        #: tenant label -> _TenantState (lazily populated; bounded by the
+        #: policy's max_tracked + configured tenants + the overflow bucket)
+        self.tenants: dict[str, _TenantState] = {}
+        self.m_window.set(self.window)
+        self.m_state.set(self.state)
+
+    # -- tenants -----------------------------------------------------------
+
+    def tenant_label(self, tenant: Optional[str]) -> str:
+        """Metric/accounting label for a raw tenant id: untagged batches
+        share DEFAULT_TENANT; ids past the cardinality cap collapse into
+        OVERFLOW_TENANT (explicitly-configured tenants always keep their
+        own slot — the cap protects against unbounded *unknown* ids)."""
+        policy = self.cfg.tenants
+        if policy is None:
+            return DEFAULT_TENANT
+        return cap_tenant_label(tenant, self.tenants,
+                                reserved=policy.weights,
+                                cap=policy.max_tracked)
+
+    def tenant_state(self, tenant: Optional[str]) -> Optional[_TenantState]:
+        """State for a (pre- or post-label) tenant id; None when tenant
+        accounting is off."""
+        policy = self.cfg.tenants
+        if policy is None:
+            return None
+        label = self.tenant_label(tenant)
+        ts = self.tenants.get(label)
+        if ts is None:
+            # the overflow bucket meters at default weight/quota (both
+            # fall through weight_of/quota_of for the "__other__" key):
+            # the long tail shares one contract rather than each id
+            # minting a fresh burst allowance
+            ts = self.tenants[label] = _TenantState(
+                label, policy.weight_of(label), policy.quota_of(label),
+                policy.burst_s, self.name)
+        return ts
+
+    def tenant_weight(self, label: str) -> float:
+        """Weight for the WDRR queue (label is already capped)."""
+        ts = self.tenants.get(label)
+        if ts is not None:
+            return ts.weight
+        policy = self.cfg.tenants
+        return policy.weight_of(label) if policy is not None else 1.0
+
+    def meters_tokens(self) -> bool:
+        return self.cfg.tenants is not None and self.cfg.tenants.meters_tokens()
+
+    def _fair_share(self, ts: _TenantState) -> int:
+        """This tenant's slice of the admission window: window x weight /
+        total weight of BACKLOGGED tenants (plus the candidate). A lone
+        tenant gets the whole window; contention divides it by weight."""
+        total_w = ts.weight if ts.queued == 0 else 0.0
+        for s in self.tenants.values():
+            if s.queued > 0:
+                total_w += s.weight
+        share = int(self.window * ts.weight / max(total_w, ts.weight))
+        return max(self.cfg.tenants.min_share, share)
+
+    def quota_retry_after_s(self, tenant: Optional[str], rows: float = 1.0,
+                            tokens: float = 0.0) -> float:
+        """Seconds until the tenant's quota can cover (rows, tokens); 0.0 =
+        within quota right now. Does NOT consume — push transports (HTTP)
+        use this for 429 + ``Retry-After`` at the socket, and the batch
+        consumes at admission."""
+        ts = self.tenant_state(tenant)
+        if ts is None:
+            return 0.0
+        wait = 0.0
+        if ts.rows_bucket is not None:
+            # same capacity-clamped gate as admit(): an over-burst ask is
+            # admittable once the bucket fills, so the estimate is finite
+            wait = max(wait, ts.rows_bucket.time_until(
+                min(rows, ts.rows_bucket.capacity)))
+        if ts.tokens_bucket is not None:
+            # a tokens-ONLY quota must still gate the socket: callers that
+            # can't estimate tokens pre-decode (HTTP) ask for at least one,
+            # so a bucket deep in debt answers 429 instead of accepting
+            # work that admission will immediately quota-shed
+            ask = max(tokens, 1.0)
+            wait = max(wait, ts.tokens_bucket.time_until(
+                min(ask, ts.tokens_bucket.capacity)))
+        return wait
+
+    def observe_tenant_latency(self, tenant: Optional[str], seconds: float) -> None:
+        """Delivered-batch e2e latency, tenant-labeled (the soak's per-tenant
+        p99 SLO assertion reads this histogram)."""
+        ts = self.tenant_state(tenant)
+        if ts is not None:
+            ts.m_e2e.observe(seconds)
+
+    # -- observations (hot loop) ------------------------------------------
+
+    def on_enqueue(self, tenant: Optional[str] = None) -> None:
+        self.queued += 1
+        ts = self.tenant_state(tenant)
+        if ts is not None:
+            ts.queued += 1
+            ts.m_admitted.inc()
+        self._last_activity = time.monotonic()
+
+    def on_dequeue(self, wait_s: float, now: Optional[float] = None,
+                   tenant: Optional[str] = None) -> None:
+        """A worker picked a batch up after ``wait_s`` in the queue."""
+        if now is None:
+            now = time.monotonic()
+        self.queued = max(0, self.queued - 1)
+        ts = self.tenant_state(tenant)
+        if ts is not None:
+            ts.queued = max(0, ts.queued - 1)
+        self._waits.append(wait_s)
+        self._last_activity = time.monotonic()
+        self._maybe_adjust(now)
+        if self.queued < self.window:
+            self._wake_capacity_waiters()
+
+    def observe_step(self, dt_s: float) -> None:
+        """Pipeline latency of one batch (the service-time estimate)."""
+        if self._step_ewma is None:
+            self._step_ewma = dt_s
+        else:
+            self._step_ewma += 0.2 * (dt_s - self._step_ewma)
+
+    # -- estimates ---------------------------------------------------------
+
+    def queue_wait_p50_s(self) -> float:
+        """Cached p50 — recomputed once per adjustment interval
+        (_maybe_adjust), NOT per admitted batch; between adjustments the
+        Little's-law depth model carries the responsiveness."""
+        return self._wait_p50
+
+    def _compute_wait_p50(self) -> float:
+        if not self._waits:
+            return 0.0
+        s = sorted(self._waits)
+        return s[len(s) // 2]
+
+    def step_s(self) -> float:
+        return self._step_ewma or 0.0
+
+    def predicted_wait_s(self) -> float:
+        """Expected queue wait for a batch admitted NOW: the larger of the
+        recent p50 (what batches actually waited) and the Little's-law
+        estimate from current depth (reacts to a building queue before any
+        slow dequeue has been observed)."""
+        model = self.queued * self.step_s() / self.workers
+        return max(self.queue_wait_p50_s(), model)
+
+    def estimated_drain_s(self) -> float:
+        """Time for the current queue to drain at the observed service rate
+        — what a 429's ``Retry-After`` promises a well-behaved client."""
+        step = self.step_s() or self.cfg.target_wait_s
+        return max(0.05, min(60.0, self.queued * step / self.workers))
+
+    def _budget_s(self) -> float:
+        if self.cfg.deadline_ms is not None:
+            return self.cfg.deadline_ms / 1000.0 * self.cfg.headroom
+        return self.cfg.target_wait_s
+
+    # -- AIMD --------------------------------------------------------------
+
+    def _maybe_adjust(self, now: float) -> None:
+        if now - self._last_adjust < self.cfg.interval_s:
+            return
+        self._last_adjust = now
+        wait = self._wait_p50 = self._compute_wait_p50()
+        budget = self._budget_s()
+        if wait > budget:
+            at_min = self.window <= self.min_window
+            self.window = max(float(self.min_window),
+                              self.window * self.cfg.decrease)
+            self.state = STATE_SHED
+            if at_min and self.cfg.escalate_after:
+                # persistent overload the window alone can't absorb:
+                # brown out one priority band at a time (strict bands —
+                # never past protect_priority, which queue-shedding already
+                # exempts and deadline-shedding intentionally does not)
+                self._over_intervals += 1
+                if self._over_intervals >= self.cfg.escalate_after:
+                    self._over_intervals = 0
+                    floor = (self.admit_floor if self.admit_floor is not None
+                             else self.cfg.priority)
+                    self.admit_floor = min(floor + 1, self.cfg.protect_priority)
+        else:
+            self._over_intervals = 0
+            if wait <= budget * 0.5:
+                if self.admit_floor is not None:
+                    # relax the brownout before re-growing the window: the
+                    # shed band gets readmitted at the smallest safe rate
+                    floor = self.admit_floor - 1
+                    self.admit_floor = None if floor <= self.cfg.priority else floor
+                else:
+                    self.window = min(float(self.max_window),
+                                      self.window + self.cfg.increase)
+            self.state = (STATE_ADMIT if self.window >= self.max_window
+                          and self.admit_floor is None else STATE_THROTTLE)
+        self.m_window.set(self.window)
+        self.m_state.set(self.state)
+        if self.queued < self.window:
+            self._wake_capacity_waiters()
+
+    def _idle_recover(self) -> None:
+        """Adjustments are driven by dequeues, so a drained stream would
+        otherwise report SHED forever. When the queue has been empty with no
+        enqueue/dequeue for a few intervals, the burst's wait samples
+        predict nothing about a batch entering an empty queue: drop them
+        and let the state reflect the present. Crucially this also steps a
+        brownout ``admit_floor`` down one band per idle period — admission
+        sheds are NOT activity, so a floor that sheds 100% of traffic at
+        admission (queue permanently empty, no dequeues to drive
+        ``_maybe_adjust``) relaxes here instead of sticking forever; if the
+        readmitted band re-overloads, escalation re-engages. Consulted
+        lazily from admit()/should_pause()/report()."""
+        if self.queued != 0 or self.state != STATE_SHED:
+            return
+        now = time.monotonic()
+        if now - self._last_activity < max(3 * self.cfg.interval_s, 0.5):
+            return
+        self._waits.clear()
+        self._wait_p50 = 0.0
+        self._over_intervals = 0
+        if self.admit_floor is not None:
+            floor = self.admit_floor - 1
+            self.admit_floor = None if floor <= self.cfg.priority else floor
+        # refreshing the idle clock paces successive relax steps: the next
+        # band readmits only after another full idle period
+        self._last_activity = now
+        self.state = (STATE_ADMIT if self.window >= self.max_window
+                      and self.admit_floor is None else STATE_THROTTLE)
+        self.m_state.set(self.state)
+
+    # -- admission ---------------------------------------------------------
+
+    def admit(self, priority: int, remaining_ms: Optional[float],
+              tenant: Optional[str] = None, rows: float = 1.0,
+              tokens: float = 0.0) -> Optional[str]:
+        """Admission verdict for one batch: None to admit, else the shed
+        reason (already counted in ``arkflow_shed_total``).
+
+        Order matters: a stale batch is shed on deadline even in a
+        protected band (finishing it is strictly worse than dropping —
+        the caller already gave up); quota sheds apply regardless of
+        priority (the quota is the tenant's *contract*, not a congestion
+        response); the brownout floor and the queue window/fair-share
+        only apply below ``protect_priority``.
+        """
+        if not self.cfg.enabled:
+            return None
+        self._idle_recover()
+        ts = self.tenant_state(tenant)
+        if remaining_ms is not None:
+            need_ms = (self.predicted_wait_s() + self.step_s()) * 1000.0
+            if remaining_ms <= need_ms:
+                return self._shed("deadline", ts)
+        if self.admit_floor is not None and priority < self.admit_floor:
+            return self._shed("priority", ts)
+        if priority < self.cfg.protect_priority:
+            if self.queued >= int(self.window):
+                return self._shed("queue", ts)
+            if ts is not None and ts.queued >= self._fair_share(ts):
+                # over its weighted share of the window while others are
+                # backlogged: this tenant queues behind its OWN backlog
+                # (nack -> broker redelivery) instead of everyone else's
+                return self._shed("queue", ts)
+        if ts is not None:
+            # quota LAST, so a batch shed on queue/priority (which will be
+            # redelivered and re-offered) never burns quota tokens it
+            # didn't use — a tenant at its fair-share ceiling must still
+            # achieve its contracted rate once capacity frees up. Both
+            # axes checked before either consumes, so a tokens-only
+            # rejection doesn't silently burn the row allowance either.
+            # The admission GATE clamps at bucket capacity — a batch larger
+            # than the burst allowance (big broker fetch, tiny quota) waits
+            # for a full bucket instead of time_until() returning inf and
+            # the batch nack-looping forever as an unadmittable poison
+            # pill — but the CHARGE is the real cost, taken as debt
+            # (negative balance): the refill must pay the whole batch off
+            # before the tenant admits again, so batching can't ride the
+            # clamp past the contracted rate.
+            reason = self._check_quota(ts, rows, tokens)
+            if reason is not None:
+                return reason
+        return None
+
+    def _check_quota(self, ts: _TenantState, rows: float,
+                     tokens: float) -> Optional[str]:
+        """The quota gate + charge, shared by :meth:`admit` and the sharded
+        plane's :meth:`admit_quota`: both axes gated (capacity-clamped)
+        before either drains, then the REAL cost is charged as debt."""
+        if ts.rows_bucket is not None and ts.rows_bucket.time_until(
+                min(rows, ts.rows_bucket.capacity)) > 0:
+            return self._shed("quota", ts)
+        if (tokens > 0 and ts.tokens_bucket is not None
+                and ts.tokens_bucket.time_until(
+                    min(tokens, ts.tokens_bucket.capacity)) > 0):
+            return self._shed("quota", ts)
+        if rows > 0 and ts.rows_bucket is not None:
+            ts.rows_bucket.drain(rows)
+        if tokens > 0 and ts.tokens_bucket is not None:
+            ts.tokens_bucket.drain(tokens)
+        return None
+
+    def admit_quota(self, tenant: Optional[str] = None, rows: float = 1.0,
+                    tokens: float = 0.0) -> Optional[str]:
+        """Quota-ONLY admission: the parent side of the sharded-ingest
+        split. The parent process owns every tenant's TokenBuckets (the
+        shared quota plane — granted exactly once, never N-times across N
+        shards) and consults this before routing a batch to its shard;
+        window/deadline/priority/fair-share admission then runs INSIDE the
+        owning shard against its local backlog, quota-stripped
+        (:meth:`OverloadConfig.shard_local`). Returns None to admit, else
+        ``"quota"`` (already counted in ``arkflow_shed_total``)."""
+        if not self.cfg.enabled:
+            return None
+        ts = self.tenant_state(tenant)
+        if ts is None:
+            return None
+        return self._check_quota(ts, rows, tokens)
+
+    def expire(self, tenant: Optional[str] = None) -> str:
+        """Count a batch that went stale WHILE queued (the worker's
+        dequeue-side deadline check). Admission bounds the *predicted* wait;
+        this bounds the actual one — together they guarantee every processed
+        batch still had budget when its step started, which is what makes
+        the soak's delivered-p99 <= 2x deadline bound provable."""
+        return self._shed("deadline", self.tenant_state(tenant))
+
+    def _shed(self, reason: str, ts: Optional[_TenantState] = None) -> str:
+        self.m_shed[reason].inc()
+        if ts is not None:
+            ts.count_shed(reason)
+        self.state = STATE_SHED
+        self.m_state.set(self.state)
+        return reason
+
+    # -- cooperative backpressure -----------------------------------------
+
+    def should_pause(self) -> bool:
+        """Pull-based sources consult this before fetching: True while the
+        controller is shedding AND the queue is at/over the window —
+        pausing consumption beats fetch-then-nack (the broker keeps the
+        backlog; nothing churns through the requeue path)."""
+        self._idle_recover()
+        return (self.cfg.enabled and self.state == STATE_SHED
+                and self.queued >= int(self.window))
+
+    def should_reject(self) -> bool:
+        """Push-based servers (HTTP) consult this per request: they cannot
+        pause remote clients, so they reject with 429 + Retry-After."""
+        return self.should_pause()
+
+    def retry_after_s(self) -> float:
+        return self.estimated_drain_s()
+
+    async def wait_capacity(self, timeout: float = 0.25) -> None:
+        """Bounded wait for the queue to drain below the window (pause
+        loop); wakes early the moment a dequeue frees capacity."""
+        import asyncio
+
+        ev = asyncio.Event()
+        self._capacity_waiters.append(ev)
+        try:
+            await asyncio.wait_for(ev.wait(), timeout)
+        except asyncio.TimeoutError:
+            pass
+        finally:
+            try:
+                self._capacity_waiters.remove(ev)
+            except ValueError:
+                pass
+
+    def _wake_capacity_waiters(self) -> None:
+        for ev in self._capacity_waiters:
+            ev.set()
+
+    # -- introspection -----------------------------------------------------
+
+    def signals(self) -> dict:
+        """The compact observation bundle the shape tuner samples (a strict
+        subset of :meth:`report`, cheap enough for every cycle): the step
+        EWMA the deadline math rides on, the live AIMD window, and the
+        queue-wait p50 the window adapts against."""
+        return {
+            "step_ewma_ms": round(self.step_s() * 1000.0, 3),
+            "window": int(self.window),
+            "max_window": self.max_window,
+            "queued": self.queued,
+            "queue_wait_p50_ms": round(self.queue_wait_p50_s() * 1000.0, 3),
+        }
+
+    def report(self) -> dict:
+        """Controller snapshot for the engine's ``/health`` payload."""
+        self._idle_recover()
+        out = {
+            "state": _STATE_NAMES.get(self.state, str(self.state)),
+            "window": int(self.window),
+            "max_window": self.max_window,
+            "queued": self.queued,
+            "admit_floor": self.admit_floor,
+            "deadline_ms": self.cfg.deadline_ms,
+            "queue_wait_p50_ms": round(self.queue_wait_p50_s() * 1000.0, 3),
+            "step_ewma_ms": round(self.step_s() * 1000.0, 3),
+            "estimated_drain_s": round(self.estimated_drain_s(), 3),
+            "shed": {r: c.value for r, c in self.m_shed.items()},
+            "paused_s": round(self.m_paused_s.value, 3),
+        }
+        if self.tenants:
+            out["tenants"] = {label: ts.report()
+                              for label, ts in sorted(self.tenants.items())}
+        return out
+
+
+class FairQueue:
+    """Weighted deficit-round-robin stage queue keyed by work-item tenant.
+
+    Drop-in for the ``asyncio.Queue`` between input/buffer and the workers
+    (coroutine ``put``/``get``): items carrying a ``tenant`` attribute land
+    in that tenant's FIFO lane; ``get`` serves lanes by deficit round robin
+    with quantum = tenant weight (``OverloadController.tenant_weight``), so
+    a premium tenant drains proportionally faster and a backlogged tenant's
+    admitted batches cannot delay anyone else's dequeues. Items WITHOUT a
+    tenant attribute (the stream's ``_Done`` sentinels) ride a control lane
+    served only when every tenant lane is empty — exactly the FIFO ordering
+    guarantee the drain path relies on. ``maxsize`` bounds tenant items
+    (puts block, like the queue it replaces); control items are exempt so
+    shutdown can never deadlock on a full queue.
+
+    Single-event-loop discipline like the rest of the stream runtime: one
+    ``asyncio.Condition`` guards all state; no thread-safety is claimed.
+    """
+
+    def __init__(self, controller: "OverloadController", maxsize: int):
+        import asyncio
+
+        self._ctrl = controller
+        self._maxsize = max(1, maxsize)
+        self._lanes: dict[str, deque] = {}
+        self._ring: deque[str] = deque()  # backlogged lanes, service order
+        self._deficit: dict[str, float] = {}
+        self._control: deque = deque()
+        self._size = 0
+        self._cond = asyncio.Condition()
+
+    def qsize(self) -> int:
+        return self._size + len(self._control)
+
+    async def put(self, item: Any) -> None:
+        tenant = getattr(item, "tenant", None)
+        async with self._cond:
+            if tenant is None:
+                self._control.append(item)
+                self._cond.notify_all()
+                return
+            while self._size >= self._maxsize:
+                await self._cond.wait()
+            lane = self._lanes.get(tenant)
+            if lane is None:
+                lane = self._lanes[tenant] = deque()
+            if not lane:
+                self._ring.append(tenant)
+                self._deficit.setdefault(tenant, 0.0)
+            lane.append(item)
+            self._size += 1
+            self._cond.notify_all()
+
+    async def get(self) -> Any:
+        async with self._cond:
+            while True:
+                item = self._pop_locked()
+                if item is not None:
+                    self._cond.notify_all()  # wake writers blocked on maxsize
+                    return item
+                await self._cond.wait()
+
+    def _pop_locked(self) -> Any:
+        while self._ring:
+            t = self._ring[0]
+            lane = self._lanes.get(t)
+            if not lane:
+                self._ring.popleft()
+                self._deficit[t] = 0.0
+                continue
+            if self._deficit[t] < 1.0:
+                # one quantum per visit; a sub-1.0 weight accumulates over
+                # rotations (every full ring pass adds >= 0.01, so the scan
+                # is bounded), a weight-8 tenant serves 8 items per visit
+                self._deficit[t] += max(0.01, self._ctrl.tenant_weight(t))
+                if self._deficit[t] < 1.0:
+                    self._ring.rotate(-1)
+                    continue
+            self._deficit[t] -= 1.0
+            item = lane.popleft()
+            self._size -= 1
+            if not lane:
+                self._ring.popleft()
+                self._deficit[t] = 0.0
+            elif self._deficit[t] < 1.0:
+                self._ring.rotate(-1)
+            return item
+        if self._control:
+            return self._control.popleft()
+        return None
+
+
+def attach_overload(component: Any, controller: Optional[OverloadController]) -> None:
+    """Hand the controller to an input that can use it (HTTP's 429 path,
+    websocket's control frames), walking fault/decorator wrappers via their
+    ``_inner`` chain so chaos wrapping doesn't hide the real source."""
+    if controller is None:
+        return
+    seen = set()
+    node = component
+    while node is not None and id(node) not in seen:
+        seen.add(id(node))
+        hook = getattr(node, "attach_overload_controller", None)
+        if hook is not None:
+            hook(controller)
+        node = getattr(node, "_inner", None)
+
+
+def input_pauses_on_overload(component: Any) -> bool:
+    """Whether the (possibly wrapper-nested) input opts into cooperative
+    pause — pull-based brokers do; push servers and the unit-test memory
+    source (unless opted in) do not."""
+    seen = set()
+    node = component
+    while node is not None and id(node) not in seen:
+        seen.add(id(node))
+        flag = getattr(node, "pause_on_overload", None)
+        if flag is not None and not callable(flag):
+            if flag:
+                return True
+        node = getattr(node, "_inner", None)
+    return False

@@ -1,9 +1,9 @@
 """Stream runtime: input -> [buffer] -> N processor workers -> ordered output.
 
-Counterpart of ``arkflow_tpu/runtime/stream.py`` without overload
-admission:
+Counterpart of ``arkflow_tpu/runtime/stream.py``:
 
-- Bounded queues of ``thread_num * 4`` between stages.
+- Bounded queues of ``pipeline.queue_size`` (default ``thread_num * 4``)
+  between stages.
 - Workers stamp a sequence number at dequeue; the output task restores
   the input order with a reorder map before writing.
 - Backpressure: workers pause while more than ``MAX_PENDING`` batches wait
@@ -55,6 +55,28 @@ admission:
   and runner's stages nest under it; the output records ``output_write``
   and finishes the trace ``ok`` with its end-to-end seconds, or ``error``
   on a failed delivery (forced into the store).
+- Overload admission (``runtime/overload.py``), when ``pipeline.overload``
+  is on (``deadline_ms`` turns it on): every batch passes the controller's
+  ``admit`` before the worker queue, at the input's enqueue and at the
+  buffer task's. A shed batch goes to ``error_output`` tagged
+  ``__meta_ext_error: overloaded`` and ``__meta_ext_shed_reason`` and is
+  acked; without ``error_output`` a redeliverable one is nacked (the
+  respin paced by the controller's capacity wait) and any other acked. Its
+  trace finishes ``shed`` (``deadline`` for a deadline shed). At dequeue the
+  worker counts the wait into the AIMD window, sheds a batch whose budget
+  ran out in the queue (``deadline``), and times the pipeline into the
+  controller's step estimate. The remaining budget reads the batch's
+  wall-clock ingest stamp; queue waits and step times are the loop's clock.
+  A pull input that opts in (``pause_on_overload``) pauses its reads while
+  the controller sheds with a full window; the controller is handed to the
+  input, the buffer and each processor (``attach_overload``: the HTTP
+  input's 429s, the buffer's tenant lanes, the response cache's labels).
+  With ``overload.tenants`` the worker queue is a weighted
+  deficit-round-robin ``FairQueue``, whose control lane (the ``_Done``
+  sentinels) is served only after every tenant lane is empty; traces then
+  name the wait ``fair_queue_wait``. A processing error carrying
+  ``shed_reason`` takes the shed path and counts that reason. Delivered
+  batches observe ``arkflow_tenant_e2e_seconds`` by tenant.
 - Ordered close: input -> buffer -> pipeline -> error_output -> output.
 - Each processor's shape tuner (``tpu/tuner.py``; found through ``type:
   fault`` wrappers' ``_inner``) is bound to the stream's own buffer at
@@ -69,13 +91,16 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
-from arkflow_tpu_torch.batch import META_INGEST_TIME, MessageBatch, batch_fingerprint
+from arkflow_tpu_torch.batch import (DEFAULT_BINARY_VALUE_FIELD, META_INGEST_TIME, MessageBatch,
+                                     VarlenColumn, batch_fingerprint)
 from arkflow_tpu_torch.components.base import Ack, Buffer, Input, Output, Resource
 from arkflow_tpu_torch.components.registry import build_component
 from arkflow_tpu_torch.config import StreamConfig
 from arkflow_tpu_torch.errors import ArkError, Disconnection, EndOfInput
 from arkflow_tpu_torch.obs import global_registry
 from arkflow_tpu_torch.obs.trace import TraceContext, activate, global_tracer, stage_span
+from arkflow_tpu_torch.runtime.overload import (FairQueue, OverloadConfig, OverloadController,
+                                                attach_overload, input_pauses_on_overload)
 from arkflow_tpu_torch.runtime.pipeline import Pipeline
 from arkflow_tpu_torch.utils.circuit_breaker import CircuitBreaker, CircuitBreakerConfig
 from arkflow_tpu_torch.utils.retry import RetryConfig, retry_with_backoff
@@ -98,6 +123,27 @@ class _WorkItem:
     enqueued_at: float = 0.0
     #: the batch's ``TraceContext``, parsed once; None: untraced
     trace: Optional[TraceContext] = None
+    #: the capped tenant label, set at admission when tenants are
+    #: accounted; None puts a ``FairQueue`` item on the control lane, so
+    #: admission stamps it before the put
+    tenant: Optional[str] = None
+
+
+def processor_parts(pipeline, attr: str, has: str) -> list:
+    """Per processor of ``pipeline``, the first ``attr`` along its
+    ``_inner`` chain (a ``type: fault`` wrapper's inner processor, as the
+    JAX stream and engine walk them) that has ``has``."""
+    found = []
+    for proc in getattr(pipeline, "processors", None) or []:
+        node, seen = proc, set()
+        while node is not None and id(node) not in seen:
+            seen.add(id(node))
+            part = getattr(node, attr, None)
+            if part is not None and hasattr(part, has):
+                found.append(part)
+                break
+            node = getattr(node, "_inner", None)
+    return found
 
 
 class _Done:
@@ -116,7 +162,8 @@ class Stream:
                  output_breaker: Optional[CircuitBreakerConfig] = None,
                  error_output_retry: Optional[RetryConfig] = None,
                  error_output_breaker: Optional[CircuitBreakerConfig] = None,
-                 reconnect_retry: Optional[RetryConfig] = None):
+                 reconnect_retry: Optional[RetryConfig] = None,
+                 queue_size: int = 0, overload: Optional[OverloadConfig] = None):
         self.input = input_
         self.buffer = buffer
         self.pipeline = pipeline
@@ -124,7 +171,14 @@ class Stream:
         self.error_output = error_output
         self.thread_num = max(1, thread_num)
         self.name = name
-        self.queue_size = self.thread_num * 4
+        self.queue_size = queue_size if queue_size > 0 else self.thread_num * 4
+        #: the overload controller; None admits everything
+        self.overload: Optional[OverloadController] = (
+            OverloadController(overload, name=name, workers=self.thread_num,
+                               max_window=self.queue_size)
+            if overload is not None and overload.enabled else None)
+        #: resolved at ``run`` from the input's wrapper chain
+        self._pause_source = False
         self.max_delivery_attempts = max(1, max_delivery_attempts)
         self.output_retry = output_retry or RetryConfig()
         self.error_output_retry = error_output_retry or self.output_retry
@@ -212,19 +266,15 @@ class Stream:
                     {**labels, "output": output})}
 
     def tuners(self) -> list:
-        """The shape tuner of every processor that has one, walking ``_inner``
-        chains as the JAX stream and engine do."""
-        found = []
-        for proc in getattr(self.pipeline, "processors", None) or []:
-            node, seen = proc, set()
-            while node is not None and id(node) not in seen:
-                seen.add(id(node))
-                tuner = getattr(node, "tuner", None)
-                if tuner is not None and hasattr(tuner, "run_cycle"):
-                    found.append(tuner)
-                    break
-                node = getattr(node, "_inner", None)
-        return found
+        """The shape tuner of every processor that has one."""
+        return processor_parts(self.pipeline, "tuner", "run_cycle")
+
+    def release(self) -> None:
+        """Free what the processors hold on the device (each processor's
+        ``release``): the engine calls it on a crashed stream before it
+        builds the stream again."""
+        for release in processor_parts(self.pipeline, "release", "__call__"):
+            release()
 
     async def run(self, cancel: asyncio.Event) -> None:
         """Run until the input ends or ``cancel`` is set; drains before returning."""
@@ -238,8 +288,20 @@ class Stream:
             await self.output.connect()
             if self.error_output is not None:
                 await self.error_output.connect()
+            # the HTTP input's 429s, the buffer's lane cap and the cache's
+            # tenant labels all follow the controller
+            attach_overload(self.input, self.overload)
+            attach_overload(self.buffer, self.overload)
+            for proc in getattr(self.pipeline, "processors", None) or []:
+                attach_overload(proc, self.overload)
+            self._pause_source = (self.overload is not None
+                                  and input_pauses_on_overload(self.input))
             t0 = time.perf_counter()
-            input_q: asyncio.Queue = asyncio.Queue(maxsize=self.queue_size)
+            if self.overload is not None and self.overload.cfg.tenants is not None:
+                # tenants: the worker queue serves them by weight
+                input_q = FairQueue(self.overload, self.queue_size)
+            else:
+                input_q = asyncio.Queue(maxsize=self.queue_size)
             output_q: asyncio.Queue = asyncio.Queue(maxsize=self.queue_size)
             tasks = [asyncio.create_task(self._do_input(input_q, cancel),
                                          name=f"{self.name}-input")]
@@ -281,6 +343,14 @@ class Stream:
         loop = asyncio.get_running_loop()
         try:
             while not cancel.is_set():
+                if self._pause_source and self.overload.should_pause():
+                    # a pull source keeps its backlog on the broker
+                    t_pause = loop.time()
+                    while self.overload.should_pause() and not cancel.is_set():
+                        await self.overload.wait_capacity(0.25)
+                    self.overload.m_paused_s.inc(loop.time() - t_pause)
+                    if cancel.is_set():
+                        break
                 t_read = loop.time()
                 read_f = asyncio.ensure_future(self.input.read())
                 done, _ = await asyncio.wait({read_f, cancel_wait},
@@ -326,8 +396,9 @@ class Stream:
                 self.m_batches_in.inc()
                 self.m_rows_in.inc(batch.num_rows)
                 if self.buffer is not None:
+                    # admission happens at the buffer task's enqueue
                     await self.buffer.write(item.batch, item.ack)
-                else:
+                elif await self._admit_or_shed(item):
                     await input_q.put(item)
         finally:
             cancel_wait.cancel()
@@ -370,7 +441,9 @@ class Stream:
             ctx = None
             if self.tracer.enabled:
                 batch, ctx = self._trace_emission(batch)
-            await input_q.put(_WorkItem(batch, ack, loop_time(), trace=ctx))
+            work = _WorkItem(batch, ack, loop_time(), trace=ctx)
+            if await self._admit_or_shed(work):
+                await input_q.put(work)
 
     def _trace_emission(self, batch: MessageBatch):
         """A buffer emission's trace. A merged emission (rows of several
@@ -396,9 +469,12 @@ class Stream:
             self.tracer.finish(src, "coalesced", attrs={"merged_into": ctx.trace_id})
         return batch.with_trace(ctx), ctx
 
-    async def _do_processor(self, input_q: asyncio.Queue, output_q: asyncio.Queue) -> None:
+    async def _do_processor(self, input_q, output_q: asyncio.Queue) -> None:
         loop_time = asyncio.get_running_loop().time
         tracer = self.tracer
+        overload = self.overload
+        # the same measurement, named apart when the queue schedules tenants
+        queue_stage = "fair_queue_wait" if isinstance(input_q, FairQueue) else "queue_wait"
         while True:
             # backpressure: wait (bounded) while the reorder window is full
             if (self._seq_assigned - self._seq_emitted) > MAX_PENDING:
@@ -414,11 +490,20 @@ class Stream:
             if isinstance(item, _Done):
                 await output_q.put(_DONE)
                 return
-            wait = loop_time() - item.enqueued_at
+            now = loop_time()
+            wait = now - item.enqueued_at
             self.m_queue_wait.observe(wait)
             trace = item.trace
             if trace is not None:
-                tracer.record(trace, "queue_wait", wait)
+                tracer.record(trace, queue_stage, wait)
+            if overload is not None:
+                overload.on_dequeue(wait, now, tenant=item.tenant)
+                remaining = item.batch.remaining_deadline_ms(overload.cfg.deadline_ms)
+                if remaining is not None and remaining <= 0:
+                    # stale in the queue: shedding beats finishing it, and
+                    # this check bounds delivered latency
+                    await self._shed_item(item, overload.expire(item.tenant))
+                    continue
             seq = self._seq_assigned
             self._seq_assigned += 1
             self.m_pending.set(self._seq_assigned - self._seq_emitted)
@@ -434,7 +519,10 @@ class Stream:
                 err = None
             except Exception as e:  # processor failure -> error path
                 results, err = [], e
-            self.m_proc_latency.observe(loop_time() - t0)
+            dt = loop_time() - t0
+            self.m_proc_latency.observe(dt)
+            if overload is not None:
+                overload.observe_step(dt)
             await output_q.put((seq, item, results, err))
 
     async def _do_output(self, output_q: asyncio.Queue) -> None:
@@ -460,6 +548,81 @@ class Stream:
                 if (self._seq_assigned - self._seq_emitted) <= MAX_PENDING:
                     self._drained.set()
                 await self._emit(item, results, err)
+
+    # -- overload admission (runtime/overload.py) ------------------------------
+
+    async def _admit_or_shed(self, item: _WorkItem) -> bool:
+        """The admission gate before the worker queue: True to enqueue,
+        False when the controller shed the batch (already routed, nacked or
+        acked)."""
+        ctrl = self.overload
+        if ctrl is None:
+            return True
+        remaining = item.batch.remaining_deadline_ms(ctrl.cfg.deadline_ms)
+        tokens = 0.0
+        if ctrl.cfg.tenants is not None:
+            # the capped label, once: every later touch reuses it
+            item.tenant = ctrl.tenant_label(item.batch.tenant())
+            if ctrl.meters_tokens():
+                tokens = self._estimate_tokens(item.batch, ctrl.cfg.tenants)
+        reason = ctrl.admit(item.batch.priority_band(ctrl.cfg.priority), remaining,
+                            tenant=item.tenant, rows=float(item.batch.num_rows),
+                            tokens=tokens)
+        if reason is None:
+            ctrl.on_enqueue(item.tenant)
+            return True
+        await self._shed_item(item, reason)
+        return False
+
+    @staticmethod
+    def _estimate_tokens(batch: MessageBatch, policy) -> float:
+        """The batch's estimated tokens for a tokens/s quota: the coalescer's
+        estimator over the policy's ``token_field`` (a binary or a string
+        column) with its ``token_bytes``. A batch without such a column
+        meters one token a row."""
+        from arkflow_tpu_torch.tpu.extract import payload_token_estimates
+
+        try:
+            col = batch.column(policy.token_field or DEFAULT_BINARY_VALUE_FIELD)
+            if not isinstance(col, VarlenColumn):
+                raise TypeError(f"not a binary or string column: {type(col).__name__}")
+            return float(payload_token_estimates(col, token_bytes=policy.token_bytes).sum())
+        except Exception:
+            return float(batch.num_rows)
+
+    async def _shed_item(self, item: _WorkItem, reason: str) -> None:
+        """Dispose of a shed batch without silent loss: to ``error_output``
+        tagged ``overloaded`` (and acked), else nacked when its source
+        redelivers, else acked and logged. An absolute deadline that has
+        passed only gets staler on redelivery, so it is acked, not nacked."""
+        # shed traces are forced into the store
+        self.tracer.finish(item.trace, "deadline" if reason == "deadline" else "shed",
+                           attrs={"reason": reason})
+        if self.error_output is not None:
+            await self._error_route_or_drop(
+                item.batch, {"error": "overloaded", "shed_reason": reason},
+                f"[{self.name}] shed write",
+                "[%s] error_output rejected a shed batch (%s); dropping WITH ack",
+                self.name, reason)
+            # terminal: a later identical payload starts a fresh budget
+            self._clear_attempts(item.batch)
+            await self._safe_ack(item.ack)
+            return
+        expired_abs = (item.batch.deadline_unix_ms() is not None
+                       and (item.batch.remaining_deadline_ms() or 0.0) <= 0)
+        if getattr(item.ack, "redeliverable", False) and not expired_abs:
+            await self._safe_nack(item.ack)
+            # an in-process source redelivers at once: pace the respin
+            if self.overload is not None:
+                await self.overload.wait_capacity(0.05)
+            else:
+                await asyncio.sleep(0.05)
+            return
+        logger.warning("[%s] shed batch (%s) with no error_output and %s; dropping WITH ack",
+                       self.name, reason,
+                       "an expired absolute deadline" if expired_abs else "no redelivery")
+        self._clear_attempts(item.batch)
+        await self._safe_ack(item.ack)
 
     # -- the delivery path ---------------------------------------------------
 
@@ -535,6 +698,17 @@ class Stream:
     async def _emit(self, item: _WorkItem, results: list[MessageBatch],
                     err: Optional[Exception]) -> None:
         if err is not None:
+            reason = getattr(err, "shed_reason", None)
+            if reason is not None:
+                # a shed raised inside the chain: not a processing failure,
+                # so it burns no delivery attempt and keeps the identity
+                # offered == delivered + shed
+                if self.overload is not None:
+                    c = self.overload.m_shed.get(reason)
+                    if c is not None:
+                        c.inc()
+                await self._shed_item(item, reason)
+                return
             self.errors += 1
             self.m_errors.inc()
             attempts = self._bump_attempts(item.batch, trace=item.trace)
@@ -600,6 +774,8 @@ class Stream:
         if ingest is not None:  # per batch, not per row, as in JAX
             e2e = max(0.0, time.time() - ingest / 1000.0)
             self.m_e2e_latency.observe(e2e)
+            if self.overload is not None and item.tenant is not None:
+                self.overload.observe_tenant_latency(item.tenant, e2e)
         self.tracer.finish(item.trace, "ok", e2e_s=e2e)
         await self._safe_ack(item.ack)
 
@@ -651,4 +827,6 @@ def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
                   output_retry=cfg.output_retry, output_breaker=cfg.output_circuit_breaker,
                   error_output_retry=cfg.error_output_retry,
                   error_output_breaker=cfg.error_output_circuit_breaker,
-                  reconnect_retry=cfg.input_reconnect)
+                  reconnect_retry=cfg.input_reconnect,
+                  queue_size=cfg.pipeline.effective_queue_size(),
+                  overload=cfg.pipeline.overload)

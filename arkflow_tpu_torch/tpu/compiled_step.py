@@ -17,11 +17,15 @@ static buffers.
 
 Capture, at the first step of a key:
 
-- one eager call of ``fn`` on the capture's own stream. It is that step's
-  real work, and its outputs are the step's outputs; it also loads the
-  kernel libraries, makes the tile's per-device shared-memory grant
-  (``csrc/mma_tile.cuh``) and creates the cuBLAS handle and workspace of
-  that stream before the capture needs them;
+- one eager call of ``fn`` on the capture stream, which every
+  ``CompiledStep`` of the device shares (captures of different objects take
+  turns on it). It is that step's real work, and its outputs are the
+  step's outputs; it also loads the kernel libraries, makes the tile's
+  per-device shared-memory grant (``csrc/mma_tile.cuh``) and creates the
+  cuBLAS handle and workspace of that stream before the capture needs
+  them. cuBLAS keeps a workspace per (handle, stream) for the life of the
+  process, so the shared stream keeps them bounded by the threads that
+  capture, not by the runners ever built;
 - then ``torch.cuda.graph(..., capture_error_mode="thread_local")``: other
   executor threads may pin memory or wait on events meanwhile, which the
   default global mode would count against the capture. Automatic garbage
@@ -92,6 +96,23 @@ from arkflow_tpu_torch.ops.ragged_attention import CapturedLaunches, capturing
 
 StepFn = Callable[..., dict]
 
+#: one capture stream per device, shared by every ``CompiledStep``: cuBLAS
+#: keeps a workspace per (handle, stream) for the life of the process, so a
+#: stream per step object would hold one more workspace (32 MiB on Hopper)
+#: for every runner ever built, and a runner rebuilt after a crash would
+#: leak it. Captures of different step objects serialise on the lock, as a
+#: stream can hold one capture at a time.
+_CAPTURE: dict = {}
+_CAPTURE_GUARD = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.Lock]:
+    with _CAPTURE_GUARD:
+        entry = _CAPTURE.get(device)
+        if entry is None:
+            entry = _CAPTURE[device] = (torch.cuda.Stream(device), threading.Lock())
+        return entry
+
 
 @dataclass
 class _Entry:
@@ -127,7 +148,6 @@ class CompiledStep:
         self._lock = threading.Lock()
         self._entries: dict[Any, _Entry] = {}
         self._pool = None
-        self._stream: Optional[torch.cuda.Stream] = None
         #: shape keys built: on CUDA (not eager) each is a captured graph,
         #: on the CPU and with ``eager`` the key's static buffers alone
         self.captures = 0
@@ -214,41 +234,48 @@ class CompiledStep:
                 t.copy_(inputs[name], non_blocking=True)
             step = self._copy_out(fn(**static), out, event)
         else:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            side, main = self._stream, torch.cuda.current_stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for name, t in static.items():
-                    t.copy_(inputs[name], non_blocking=True)
-                step = self._copy_out(fn(**static), out, event)
-            main.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # no automatic collection inside the capture: it could free
-            # another object's graph here (``cudaGraphExecDestroy``), which
-            # a capturing stream refuses, and the capture would be lost
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with capturing() as launched:
-                    with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                          capture_error_mode="thread_local"):
-                        entry.outputs = fn(**static)
-            except BaseException as e:
-                del graph
-                if not any(x.graph is not None for x in self._entries.values()):
-                    self._pool = None
-                torch.cuda.empty_cache()
-                raise _first_oom(e) from e
-            finally:
-                if collecting:
-                    gc.enable()
-            entry.graph, entry.launches = graph, launched
+            side, capture_lock = _capture_stream(self.device)
+            with capture_lock:
+                step = self._capture(fn, inputs, static, entry, out, event, side)
         self._entries[key] = entry
         self.replays[key] = 0
         self.captures += 1
+        return step
+
+    def _capture(self, fn: StepFn, inputs, static, entry, out, event,
+                 side: torch.cuda.Stream) -> Step:
+        """The key's eager first step on the capture stream, then its
+        capture into ``entry``."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for name, t in static.items():
+                t.copy_(inputs[name], non_blocking=True)
+            step = self._copy_out(fn(**static), out, event)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # no automatic collection inside the capture: it could free
+        # another object's graph here (``cudaGraphExecDestroy``), which
+        # a capturing stream refuses, and the capture would be lost
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with capturing() as launched:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    entry.outputs = fn(**static)
+        except BaseException as e:
+            del graph
+            if not any(x.graph is not None for x in self._entries.values()):
+                self._pool = None
+            torch.cuda.empty_cache()
+            raise _first_oom(e) from e
+        finally:
+            if collecting:
+                gc.enable()
+        entry.graph, entry.launches = graph, launched
         return step
 
     def copy_params_(self, live: dict, new: dict, *, retain: bool = False) -> Optional[dict]:

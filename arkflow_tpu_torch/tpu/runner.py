@@ -1215,6 +1215,16 @@ class ModelRunner:
             self.released_graphs += n
         return n
 
+    def release(self) -> None:
+        """Free the runner's device state for good: every graph with its
+        pool and static buffers, the staging sets and the weights. The
+        engine releases a crashed stream's runners before it builds the
+        stream again, so a restart does not keep a second model on the card;
+        the runner serves nothing after."""
+        self._compiled.clear()
+        self._staging = StagingPool(max_per_key=self._staging._max, min_required=1)
+        self.params = {}
+
     # -- swap and integrity surfaces (tpu/swap.py, tpu/integrity.py) ---------
 
     def place_params(self, host_params: dict) -> dict:

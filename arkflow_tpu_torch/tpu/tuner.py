@@ -34,9 +34,10 @@ mix; the tuner re-cuts them to the mix the stream actually carries:
 Differences from the JAX tuner: the plain counters (``report()``,
 ``/health``) are kept beside the JAX tuner's ``arkflow_tuner_*`` metrics,
 and the report gives the runner's graph counts (``graphs``) in place of the XLA
-cache's. ``attach_overload_controller`` is kept as a hook that nothing
-calls yet (the overload controller is not ported), and there is no
-response-cache epoch hook (no response cache either).
+cache's. The stream attaches its overload controller
+(``attach_overload_controller``: its ``signals()`` join the report), and
+``build_shape_tuner(cache=...)`` registers the response cache's epoch bump
+as a commit hook, so a duplicate after a flip recomputes.
 """
 
 from __future__ import annotations
@@ -577,8 +578,8 @@ class ShapeTuner:
             token_budget=b.token_budget(b.seq_buckets[-1]) if self.packed else None)
 
     def attach_overload_controller(self, controller) -> None:
-        """Stream hook: the controller's ``signals()`` join the report. The
-        port has no overload controller yet, so nothing calls it."""
+        """Stream hook: the controller's ``signals()`` (step EWMA, AIMD
+        window, queue-wait p50) join the report."""
         self._controller = controller
 
     def bind_listener(self, listener) -> None:
@@ -589,7 +590,7 @@ class ShapeTuner:
 
     def add_commit_hook(self, hook: Callable[[], None]) -> None:
         """Run after every committed flip (never on a rejection or a
-        rollback)."""
+        rollback): the response cache's epoch bump registers here."""
         self._commit_hooks.append(hook)
 
     def inject_fault(self, kind: str) -> None:
@@ -870,9 +871,12 @@ def _summarize_dispatches(counts: Mapping[tuple, int]) -> dict[str, int]:
 
 
 def build_shape_tuner(runner, *, model: str, cfg: Optional[TunerConfig],
-                      packed: bool) -> Optional[ShapeTuner]:
+                      packed: bool, cache=None) -> Optional[ShapeTuner]:
     """The processor builder's entry: None when the block is absent or
-    disabled."""
+    disabled. A response ``cache`` bumps its epoch on every commit."""
     if cfg is None or not cfg.enabled:
         return None
-    return ShapeTuner(runner, model=model, cfg=cfg, packed=packed)
+    tuner = ShapeTuner(runner, model=model, cfg=cfg, packed=packed)
+    if cache is not None:
+        tuner.add_commit_hook(cache.bump_epoch)
+    return tuner

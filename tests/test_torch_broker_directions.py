@@ -793,9 +793,24 @@ def test_multiple_inputs_refusals_match_jax(cfg):
 
 
 def test_multiple_inputs_child_key_not_ported():
-    with pytest.raises(ConfigError, match="'tenant' is not yet ported"):
+    """A child's ``tenant`` (once refused here) now stamps its batches as
+    JAX's memory child does; an unknown child key is still refused."""
+    cfg = {"type": "multiple_inputs", "inputs": [
+        {"type": "memory", "messages": ["a"], "tenant": "t"}]}
+    check_component("input", cfg)
+
+    async def go(inp):
+        await inp.connect()
+        batch, _ = await inp.read()
+        await inp.close()
+        return batch.to_pydict()
+
+    j, p = both("input", cfg)
+    assert run(go(p)) == run(go(j))
+    assert run(go(p))["__meta_ext_tenant"] == ["t"]
+    with pytest.raises(ConfigError, match="'tenants' is not yet ported"):
         check_component("input", {"type": "multiple_inputs", "inputs": [
-            {"type": "memory", "messages": ["a"], "tenant": "t"}]})
+            {"type": "memory", "messages": ["a"], "tenants": 2}]})
 
 
 # -- overload flags, the JAX configs ----------------------------------------------------------

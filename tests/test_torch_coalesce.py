@@ -298,7 +298,16 @@ def test_unported_buffer_features_raise():
         check_component("buffer", cfg)
     with pytest.raises(ConfigError, match="not yet ported"):
         check_component("buffer", {"type": "memory", "capacity": 8, "retarget": True})
+    # tenant lanes, once refused here, are ported: a tagged batch goes out
+    # in its own lane (tests/test_torch_fairness.py holds them to JAX's)
     batch = MessageBatch.new_binary([b"a"]).with_column("__meta_ext_tenant",
                                                         np.array(["t1"]))
-    with pytest.raises(ConfigError, match="not yet ported"):
-        asyncio.run(MemoryBuffer(capacity=8, timeout_s=0.1).write(batch, RecAck([], 0)))
+
+    async def lanes():
+        buf = MemoryBuffer(capacity=8, timeout_s=0.01)
+        await buf.write(batch, RecAck([], 0))
+        await buf.write(MessageBatch.new_binary([b"b"]), RecAck([], 1))
+        await buf.close()
+        return [(await buf.read())[0].tenant() for _ in range(2)], await buf.read()
+
+    assert asyncio.run(lanes()) == (["t1", None], None)

@@ -274,20 +274,20 @@ def test_http_keep_alive_and_chunked_on_one_connection():
 
 
 def test_tenant_header_is_the_known_difference():
-    """JAX stamps ``__meta_ext_tenant`` from ``X-Arkflow-Tenant``; the port
-    stamps no tenant (ROADMAP Queue C). Everything else matches."""
+    """Once the one known difference, now none: both inputs stamp
+    ``__meta_ext_tenant`` from ``X-Arkflow-Tenant`` (the default header)
+    and leave a request without it untagged; the batches match."""
     cfg = {"type": "http", "host": "127.0.0.1", "port": 0, "path": "/"}
     calls = [("POST", "/", b"a", {"X-Arkflow-Tenant": "team-a"}, False),
              ("POST", "/", b"b", {}, False)]
     res = run(_both_http(cfg, calls))
-    assert res["port"][0] == res["jax"][0]
-    (j1, j2), (p1, p2) = res["jax"][1], res["port"][1]
-    assert j1.pop("__meta_ext_tenant") == ["team-a"] and "__meta_ext_tenant" not in p1
-    assert (p1, p2) == (j1, j2)
+    assert res["port"] == res["jax"]
+    p1, p2 = res["port"][1]
+    assert p1["__meta_ext_tenant"] == ["team-a"] and "__meta_ext_tenant" not in p2
 
 
 @pytest.mark.parametrize("cfg,match", [
-    ({"tenant_header": "X-Tenant-Id"}, "'tenant_header'.*not yet ported"),
+    ({"tenant_header": 7}, "tenant_header must be a header name or false"),
     ({"tenant_header": ""}, "tenant_header must be a header name or false"),
     ({"port": None}, "requires 'port'"),
     ({"auth": {"type": "digest"}}, "unknown auth type"),
@@ -302,11 +302,22 @@ def test_http_config_refusals(cfg, match):
 
 
 def test_http_quota_keys_refused_with_the_stream():
+    """The per-tenant quotas of an HTTP stream live in ``pipeline.overload``:
+    they parse to JAX's ``OverloadConfig``, and the http input's
+    ``tenant_header`` builds as JAX's does."""
+    from arkflow_tpu.config import StreamConfig as JaxStreamConfig
+
+    raw = {"input": {"type": "http", "port": 0, "tenant_header": "X-Tenant-Id"},
+           "pipeline": {"processors": [], "overload": {
+               "tenants": {"per_tenant": {"team-a": {"rows_per_sec": 10}}}}},
+           "output": {"type": "drop"}}
+    port, jax_ = StreamConfig.from_mapping(raw), JaxStreamConfig.from_mapping(raw)
+    assert repr(port.pipeline.overload) == repr(jax_.pipeline.overload)
+    assert port.pipeline.overload.tenants.quota_of("team-a").rows_per_sec == 10.0
+    j, p = both("input", raw["input"])
+    assert p.tenant_header == j.tenant_header == "X-Tenant-Id"
     with pytest.raises(ConfigError, match="stream.overload is not yet ported"):
-        StreamConfig.from_mapping({
-            "input": {"type": "http", "port": 0},
-            "overload": {"tenants": {"team-a": {"rows_per_sec": 10}}},
-            "output": {"type": "drop"}})
+        StreamConfig.from_mapping({**raw, "overload": {}})
 
 
 def test_health_server_keeps_alive_when_asked():

@@ -137,10 +137,10 @@ def test_net_kinds_are_not_ported(kind):
 
 @pytest.mark.parametrize("patch", [
     {"temporary": [{"name": "t", "type": "memory"}]},
-    {"restart": {"max_retries": 2}},
+    {"pipeline": {"processors": [], "process_pool": 2}},
     {"buffer": {"type": "tumbling_window", "interval": "1s", "query": "SELECT * FROM flow"}},
-    {"input": {"type": "memory", "messages": ["a"], "tenant": "t1"}},
-    {"input": {"type": "memory", "messages": ["a"], "pause_on_overload": True}},
+    {"input": {"type": "memory", "messages": ["a"], "tenants": 2}},
+    {"pipeline": {"processors": [], "ingest_shards": 2}},
 ])
 def test_unported_stream_keys_still_raise(patch):
     from arkflow_tpu_torch.config import StreamConfig

@@ -354,3 +354,102 @@ def test_obs_plane_is_scanned_and_stands_alone():
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OBS_OK" in proc.stdout
+
+
+_CONTROL_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "torch", "numpy", "pyarrow", "yaml", "aiohttp"):
+    sys.modules[name] = None  # the controller and the cache need none of these
+from arkflow_tpu_torch.runtime.overload import FairQueue, OverloadConfig, OverloadController
+from arkflow_tpu_torch.runtime.respcache import build_response_cache
+
+ctrl = OverloadController(OverloadConfig.from_config({"tenants": {}}, deadline_ms=100.0))
+assert ctrl.admit(0, 50.0, tenant="t") is None
+assert build_response_cache(True, name="m") is not None
+for name in ("torch", "numpy"):
+    del sys.modules[name]
+import asyncio
+import json
+
+from arkflow_tpu_torch.components import ensure_plugins_loaded
+from arkflow_tpu_torch.config import EngineConfig
+from arkflow_tpu_torch.runtime.engine import Engine
+
+ensure_plugins_loaded()
+raw = json.load(open("arkflow_tpu_torch/examples/overload_stream.json"))
+raw["health_check"]["port"] = 0
+s = raw["streams"][0]
+s["input"]["inner"].update(count=80, interval="1ms")
+s["pipeline"]["processors"][0]["faults"][0]["duration"] = "3ms"
+s["output"] = s["error_output"] = {"type": "drop"}
+eng = Engine(EngineConfig.from_mapping(raw))
+st = eng.build()[0]
+asyncio.run(eng.run())
+shed = sum(c.value for c in st.overload.m_shed.values())
+assert st.m_batches_in.value == st.m_batches_out.value + shed == 160, (st.m_batches_in.value, shed)
+tiny = {"vocab_size": 128, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32,
+        "max_positions": 64}
+raw = json.load(open("arkflow_tpu_torch/examples/multitenant_bert_stream.json"))
+raw["health_check"]["port"] = 0
+s = raw["streams"][0]
+s["input"]["port"] = 0
+s["pipeline"]["processors"][0].update(model_config=tiny, device="cpu")
+s["output"] = s["error_output"] = {"type": "drop"}
+eng = Engine(EngineConfig.from_mapping(raw))
+st = eng.build()[0]
+
+
+async def post(port, tenant, body):
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    w.write(("POST /infer HTTP/1.1\r\nHost: x\r\nX-Tenant-Id: %s\r\nContent-Length: %d\r\n\r\n"
+             % (tenant, len(body))).encode() + body)
+    await w.drain()
+    status = int((await r.readline()).split()[1])
+    w.close()
+    return status
+
+
+async def drive():
+    task = asyncio.ensure_future(eng.run())
+    while not st.input.port:
+        await asyncio.sleep(0.05)
+    statuses = [await post(st.input.port, t, b"text %d" % i)
+                for i, t in enumerate(["premium", "free", "other"] * 4)]
+    await asyncio.sleep(0.5)
+    eng.shutdown()
+    await asyncio.wait_for(task, 60)
+    return statuses
+
+
+assert asyncio.run(drive()) == [200] * 12
+assert st.output.dropped_rows + st.error_output.dropped_rows == 12  # delivered or shed
+assert set(st.overload.report()["tenants"]) == {"premium", "free", "other"}
+crash = {"kind": "crash", "at": 2}
+eng = Engine(EngineConfig.from_mapping({"streams": [{
+    "name": "restart", "restart": {"max_retries": 2, "backoff": "10ms"},
+    "input": {"type": "fault", "faults": [crash], "inner": {"type": "memory", "messages": ["a"] * 3}},
+    "pipeline": {"thread_num": 1, "processors": []}, "output": {"type": "drop"}}]}))
+asyncio.run(eng.run())
+assert eng.stream_health()["restart"]["restarts"] == 1 and crash["_state"]["fired"] == 1
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("CONTROL_OK")
+"""
+
+
+def test_control_plane_runs_with_jax_and_reference_blocked():
+    """``runtime/overload.py`` and ``runtime/respcache.py`` import and decide
+    with JAX, the JAX package, torch, numpy, pyarrow, yaml and aiohttp
+    blocked; then ``overload_stream.json`` (its burst at a few hundred rows),
+    ``multitenant_bert_stream.json`` (HTTP with ``tenant_header`` at a tiny
+    width on the CPU) and a restarting stream run with JAX and the JAX
+    package blocked."""
+    assert {"overload.py", "respcache.py"} <= {p.name for p in PORT_FILES
+                                                 if p.parent.name == "runtime"}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CONTROL_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CONTROL_OK" in proc.stdout

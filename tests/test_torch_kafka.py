@@ -455,15 +455,37 @@ def test_range_assignor_forces_eager():
     assert inp.assignors == ("range",)
 
 
+@pytest.mark.parametrize("cfg,records,want", [
+    ({"tenant": "team-a"}, [(b"v", None)], ["team-a"]),
+    ({"tenant": "static-team", "tenant_header": "x-tenant"},
+     [(b"v", {b"x-tenant": b"acme"}), (b"w", {b"x-tenant": b"other"})], ["acme", "acme"]),
+], ids=["tenant", "tenant_header"])
+def test_kafka_tenant_keys_stamp_as_jax(cfg, records, want):
+    """``tenant`` stamps every batch, ``tenant_header`` the fetch's first
+    record's header (it wins over ``tenant``; a record without it falls back
+    to ``tenant``), as JAX's input does: the batches are equal."""
+    full = {"type": "kafka", "brokers": "b:1", "topic": "t", "group": "g", **cfg}
+    jinp, pinp = jax_build("input", full, JaxResource()), build_component("input", full,
+                                                                         Resource())
+    got = {}
+    for name, inp, mod in (("jax", jinp, jk), ("port", pinp, pk)):
+        recs = [mod.KafkaRecord(i, 1000 + i, None, v, h) for i, (v, h) in enumerate(records)]
+        batches = [inp._records_to_batch(recs, "t", 0),
+                   inp._records_to_batch([mod.KafkaRecord(9, 9, None, b"z")], "t", 0)]
+        got[name] = [{k: v for k, v in b.to_pydict().items() if k != "__meta_ingest_time"}
+                     for b in batches]
+    assert got["port"] == got["jax"]
+    assert got["port"][0]["__meta_ext_tenant"] == want
+    assert got["port"][1]["__meta_ext_tenant"] == [cfg["tenant"]]
+
+
 @pytest.mark.parametrize("family,cfg,match", [
-    ("input", {"tenant": "team-a"}, "'tenant'.*not yet ported"),
-    ("input", {"tenant_header": "x-tenant"}, "'tenant_header'.*not yet ported"),
     ("input", {"pause_on_overload": True}, "'pause_on_overload' is not yet ported"),
     ("output", {"key": {"expr": "json_get_str(__value__, 'label')"}},
      "key: the SQL expression form .* not yet ported"),
     ("output", {"topic": {"expr": "concat('t-', city)"}},
      "topic: the SQL expression form .* not yet ported"),
-], ids=["tenant", "tenant_header", "unknown_key", "key_expr", "topic_expr"])
+], ids=["unknown_key", "key_expr", "topic_expr"])
 def test_unported_kafka_keys_raise_at_validate_and_build(family, cfg, match):
     base = {"type": "kafka", "brokers": "b:1", "topic": "t",
             **({"group": "g"} if family == "input" else {})}

@@ -166,18 +166,18 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("where,patch", [
     ("stream", {"temporary": [{"name": "t", "type": "memory"}]}),
-    ("stream", {"restart": {"max_retries": 1}}),
+    ("stream", {"pipeline": {"processors": [], "process_pool": 2}}),
     ("pipeline", {"ingest_shards": 2}),
-    ("processor", {"response_cache": {"capacity": 8}}),
+    ("processor", {"pp_layer_costs": [1.0, 1.0]}),
     ("processor", {"device_pool": 2}),
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"pp_microbatch_rows": 4}),
-    ("input", {"tenants": 2}),
+    ("input", {"context": "x"}),
     # the engine's own keys are all ported (``tracing``, ``profiling_dir``:
     # test_tracing_and_profiling_dir_are_accepted); an unported key inside
     # its streams list still refuses the whole engine config
     ("engine", {"streams": [{"input": {"type": "generate", "payload": "x", "count": 1},
-                             "pipeline": {"processors": [], "deadline_ms": 50},
+                             "pipeline": {"processors": [], "ingest_shards": 2},
                              "output": {"type": "drop"}}]}),
     ("stream", {"buffer": {"type": "memory", "capacity": 8,
                            "coalesce": {"batch_buckets": [8], "deadline": "5ms", "dp": 2}}}),
