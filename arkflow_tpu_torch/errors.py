@@ -86,6 +86,10 @@ class TunerError(ArkError):
     traffic, and no coalescer was touched."""
 
 
+class UnsupportedSql(ArkError):
+    """Raised by the native SQL planner when a query needs the fallback engine."""
+
+
 def not_ported(what: str) -> ConfigError:
     """The error every config key the port does not carry yet raises."""
     return ConfigError(f"{what} is not yet ported to arkflow_tpu_torch")

@@ -3,7 +3,10 @@
 Counterpart of ``arkflow_tpu/plugins/input/generate.py``. Config:
 
     type: generate
-    payload: 'hello world'            # one payload for every row, or
+    payload: 'hello world'            # one payload for every row
+                                      # (``context``, the reference's name,
+                                      # is read where ``payload`` is absent),
+                                      # or
     payloads: ['short', 'longer ...'] # a mix rotated across rows
     interval: 10ms                    # optional; 0 = as fast as pulled
     batch_size: 64
@@ -83,8 +86,8 @@ class GenerateInput(Input):
         return batch.with_source("generate"), NoopAck()
 
 
-@register_input("generate", keys=("payload", "payloads", "interval", "batch_size", "count",
-                                  "codec", "tenants"), check=check_codec)
+@register_input("generate", keys=("payload", "context", "payloads", "interval", "batch_size",
+                                  "count", "codec", "tenants"), check=check_codec)
 def _build(config: dict, resource: Resource) -> GenerateInput:
     mix = config.get("payloads")
     if mix is not None:
@@ -93,7 +96,7 @@ def _build(config: dict, resource: Resource) -> GenerateInput:
         payloads = [(json.dumps(p) if isinstance(p, (dict, list)) else str(p)).encode()
                     for p in mix]
     else:
-        payload = config.get("payload")
+        payload = config.get("payload", config.get("context"))
         if payload is None:
             raise ConfigError("generate input requires 'payload' or 'payloads'")
         if isinstance(payload, (dict, list)):

@@ -25,7 +25,7 @@ Config:
     flush_interval: 1s
     retries: 3
 
-The ``{expr: ...}`` form of ``measurement`` raises "not yet ported".
+An ``{expr: ...}`` measurement is evaluated on the batch, its first row.
 """
 
 from __future__ import annotations

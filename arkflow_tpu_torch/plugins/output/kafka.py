@@ -9,16 +9,16 @@ Config:
 
     type: kafka
     brokers: "localhost:9092"
-    topic: results              # literal or {value: ...}
-    key: {value: "k"}           # optional, one key for every row
+    topic: results              # literal, {value: ...} or {expr: ...} (per row)
+    key: {expr: "json_get_str(__value__, 'label')"}  # optional; per row
     acks: -1                    # -1 all | 1 leader
     retries: 3
     compression: gzip           # none | gzip | snappy | lz4 | zstd
     partitioner: murmur2        # murmur2 | crc32c
     codec: json
 
-The ``{expr: ...}`` form of ``topic`` and ``key`` raises "not yet ported"
-(the port has no SQL evaluator yet, ``utils/expr.py``).
+An ``{expr: ...}`` topic or key is a SQL expression evaluated on each
+batch (``utils/expr.py``), one value a row.
 """
 
 from __future__ import annotations
@@ -83,9 +83,18 @@ class KafkaOutput(Output):
             raise WriteError("kafka output not connected")
         data = batch.strip_metadata()
         payloads = encode_batch(data, self.codec)
-        topics = [str(self.topic.eval_scalar(batch))] * len(payloads)
-        key = None if self.key is None else self.key.eval_scalar(batch)
-        keys = [None if key is None else str(key).encode()] * len(payloads)
+        topics = [str(t) for t in self.topic.eval_per_row(batch)]
+        keys: list[Optional[bytes]]
+        if self.key is not None:
+            raw_keys = self.key.eval_per_row(batch)
+            keys = [None if k is None else str(k).encode() for k in raw_keys]
+        else:
+            keys = [None] * len(payloads)
+        if len(topics) != len(payloads):
+            # a whole-batch codec: every payload takes the first row's topic
+            topics = [topics[0] if topics else str(self.topic.eval_scalar(batch))] * len(payloads)
+        if len(keys) != len(payloads):
+            keys = [keys[0] if keys else None] * len(payloads)
 
         # group records by (topic, partition) to produce in few requests
         grouped: dict[tuple[str, int], list] = {}

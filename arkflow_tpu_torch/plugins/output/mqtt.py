@@ -19,7 +19,7 @@ Config:
     password: "${MQTT_PW}"      # optional
     codec: json
 
-The ``{expr: ...}`` form of ``topic`` raises "not yet ported".
+An ``{expr: ...}`` topic is evaluated on the batch, its first row.
 """
 
 from __future__ import annotations

@@ -7,11 +7,11 @@ Config:
 
     type: nats
     url: nats://127.0.0.1:4222
-    subject: results            # literal or {value: ...}
+    subject: results            # literal, {value: ...} or {expr: ...} (per row)
     jetstream: false            # true: await the server's PubAck per message
     codec: json
 
-The ``{expr: ...}`` form of ``subject`` raises "not yet ported".
+An ``{expr: ...}`` subject is evaluated on each batch, one subject a row.
 """
 
 from __future__ import annotations
@@ -56,10 +56,14 @@ class NatsOutput(Output):
     async def write(self, batch: MessageBatch) -> None:
         if self._client is None:
             raise WriteError("nats output not connected")
-        subj = str(self.subject.eval_scalar(batch))
+        subjects = self.subject.eval_per_row(batch)
+        payloads = encode_batch(batch.strip_metadata(), self.codec)
+        if len(subjects) != len(payloads):
+            # a whole-batch codec: every payload takes the first row's subject
+            subjects = [subjects[0] if subjects else self.subject.eval_scalar(batch)] * len(payloads)
         try:
-            for p in encode_batch(batch.strip_metadata(), self.codec):
-                await self._publish(subj, p)
+            for subj, p in zip(subjects, payloads):
+                await self._publish(str(subj), p)
         except Exception as e:
             raise WriteError(f"nats publish failed: {e}") from e
 

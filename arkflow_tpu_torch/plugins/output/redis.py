@@ -11,7 +11,7 @@ Config:
     target: results             # channel/key; literal or {value: ...}
     codec: json
 
-The ``{expr: ...}`` form of ``target`` raises "not yet ported".
+An ``{expr: ...}`` target is evaluated on the batch, its first row.
 """
 
 from __future__ import annotations

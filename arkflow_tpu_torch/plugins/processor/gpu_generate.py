@@ -230,6 +230,16 @@ class GpuGenerateProcessor(Processor):
         if self.server is not None:
             await self.server.close()
 
+    def release(self) -> None:
+        """Free the server's or the generator's device state
+        (``GenerationServer.release``, ``BatchGenerator.release``) and drop
+        this processor's hold on the tree: the engine's restart loop calls
+        it on a crashed stream."""
+        (self.server or self.generator).release()
+        self.params = {}
+        self.host_params = None
+        self.swapper = None
+
 
 def _check(config: dict) -> None:
     serving = config.get("serving", "batch")

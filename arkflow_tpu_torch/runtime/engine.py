@@ -178,7 +178,12 @@ class Engine:
                 return
             if time.monotonic() - run_started >= policy["reset_after_s"]:
                 retries = 0  # a long healthy run earns the budget back
-            stream.release()
+            try:
+                stream.release()
+            except Exception:
+                # a failed release must not end supervision: the rebuild
+                # still runs, as after any crash
+                logger.exception("[%s] release of the crashed stream failed", name)
             # each attempt spends budget and must yield a fresh instance:
             # the crashed one's components are closed
             while True:

@@ -168,13 +168,32 @@ async def kafka_to_kafka(raw: dict, values: list[bytes], partitions: int = 4,
         await broker.stop()
 
 
+def count_filtered(stream) -> list[int]:
+    """A one-item counter of the rows the stream's processors drop (a
+    ``remap`` or ``sql`` filter): each processor's ``process`` is wrapped to
+    add its input rows less its output rows."""
+    dropped = [0]
+    for proc in stream.pipeline.processors:
+        inner = proc.process
+
+        async def process(batch, inner=inner):
+            outs = await inner(batch)
+            dropped[0] += batch.num_rows - sum(b.num_rows for b in outs)
+            return outs
+
+        proc.process = process
+    return dropped
+
+
 async def mqtt_to_stdout(raw: dict, payloads: list[bytes], qos: int = 1,
                          window: int = 256, prepare: Prepare = None,
                          timeout_s: float = 120.0) -> dict:
     """``mqtt_lstm_anomaly.json``: ``payloads`` published on
     ``sensors/dev<i % 8>`` at ``qos`` once the input subscribed, at most
-    ``window`` ahead of the stdout lines (the input's queue drops past
-    1000, as the JAX input's does); the lines the stdout output writes."""
+    ``window`` ahead of the rows done (the input's queue drops past 1000, as
+    the JAX input's does); the run ends once every row is a stdout line or
+    was dropped by the ``remap`` filter. Returns the lines and the rows
+    ``filtered``."""
     raw = _copy(raw)
     s = raw["streams"][0]
     broker = FakeMqttBroker()
@@ -184,6 +203,10 @@ async def mqtt_to_stdout(raw: dict, payloads: list[bytes], qos: int = 1,
         engine, stream = _build(raw, prepare)
         lines: list[bytes] = []
         stream.output._write = lines.append
+        dropped = count_filtered(stream)
+
+        def rows_done() -> int:
+            return len(lines) + dropped[0]
 
         async def feed() -> None:
             while not broker.subs:
@@ -192,14 +215,14 @@ async def mqtt_to_stdout(raw: dict, payloads: list[bytes], qos: int = 1,
             await pub.connect()
             try:
                 for i, p in enumerate(payloads):
-                    while i - len(lines) >= window:
+                    while i - rows_done() >= window:
                         await asyncio.sleep(0.001)
                     await pub.publish(f"sensors/dev{i % 8}", p, qos=qos)
             finally:
                 await pub.close()
 
-        wall = await run_until(engine, lambda: len(lines) >= len(payloads), feed, timeout_s)
-        return {**_stream_report(stream, wall), "lines": list(lines),
+        wall = await run_until(engine, lambda: rows_done() >= len(payloads), feed, timeout_s)
+        return {**_stream_report(stream, wall), "lines": list(lines), "filtered": dropped[0],
                 "published": broker.published}
     finally:
         await broker.stop()

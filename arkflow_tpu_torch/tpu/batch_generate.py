@@ -175,6 +175,16 @@ class BatchGenerator:
                            dec.make_key(0), min(1, self.max_new_tokens - 1))
         return len(shapes)
 
+    def release(self) -> None:
+        """Free the generator's device state for good: every graph with its
+        pool and static buffers, the KV caches and states of every shape,
+        and the weights (a crashed stream's, before the engine builds the
+        stream again). The generator serves nothing after."""
+        with self._lock:
+            self._compiled.clear()
+            self._spaces.clear()
+            self.params = {}
+
     def adopt(self, placed: dict, retain: bool = True) -> Optional[dict]:
         """Copy the tree ``placed`` into the live tensors the graphs read
         (``CompiledStep.copy_params_``), between generations; returns the

@@ -1019,6 +1019,21 @@ class GenerationServer:
         if self._loop_task is not None:
             await self._loop_task
 
+    def release(self) -> None:
+        """Free the server's device state for good: every graph with its
+        pool and static buffers, the pinned host sets, the KV pools and the
+        weights. The engine releases a crashed stream's server (after its
+        close) before it builds the stream again, so a restart does not
+        keep a second model and pool set on the card; the server serves
+        nothing after."""
+        self._closed = True
+        self._compiled.clear()
+        self._host = _HostSets()
+        self._pipeline = None
+        self._clear_pages()
+        self.k_pages = self.v_pages = None
+        self.params = {}
+
     def ttft_ms(self, q: float) -> Optional[float]:
         """The q-quantile (nearest rank) of the TTFT samples, in ms."""
         if not self.ttft_samples:

@@ -88,7 +88,12 @@ last line):
    both runs); then ``chaos_stream.json`` through the CLI (each healthy
    row printed once, the poison row once) and through ``Engine`` with JAX's
    example's counts (the ``delivery``, ``delivery cost`` and ``chaos
-   example`` lines); the json phase, run right after the packed stream on
+   example`` lines); the host-only ``sql`` phase (after the json phase):
+   BASELINE config 1 (``generate_example.json``: generate -> json_to_arrow
+   -> sql -> arrow_to_json) as written, then over ``SQL_MIX_ROWS`` (4096)
+   seeded readings; exactly the rows with ``value > 10``, in order, with
+   ``fahrenheit`` as float64 computes it, no kernel launched (``sql stream``
+   and ``sql`` lines); the json phase, run right after the packed stream on
    the padded and packed streams' runners: ``bert_json_stream.json``
    (generate of ``{"id", "text"}`` JSON rows -> memory buffer with
    token-budget coalescing -> json_to_arrow -> gpu_inference(packing,
@@ -264,12 +269,14 @@ last line):
     ``tools/fake_brokers.py`` (driven by ``tools/broker_streams.py``), each
     on a runner its phase keeps warm, its seconds carved out of that phase
     into ``phases.brokers``. After the json phase, ``kafka_bert_kafka.json``
-    on the padded runner: ``BROKER_TEXTS`` (4096) texts produced into 4
+    on the padded runner: ``BROKER_TEXTS`` (3072) texts produced into 4
     partitions (gzip, snappy, lz4, none) before the run; every id once in
     the output topic, the group's committed offsets at each log end, its
     generation unchanged, every label and score held to the padded runner
-    (``check_json_rows``), K1 = layers x steps, all ``mma``, 0 captures,
-    the host ``crc32c`` timed over the stream's produces. After the batch
+    (``check_json_rows``), each record keyed by its label (config 2's
+    ``{expr: ...}`` key) on the partition that key hashes to, K1 = layers x
+    steps, all ``mma``, 0 captures, the host ``crc32c`` timed over the
+    stream's produces. After the batch
     generate stream, ``cdc_llm_nats.json`` on that stream's processor: its
     first ``CDC_PROMPTS`` (16) rows, every summary once on the subject and
     held to the continuous server's streams up to the first near-tie. After
@@ -277,8 +284,10 @@ last line):
     POSTed on one keep-alive connection, each 200, one more 429, the Redis
     list equal bit for bit to the processor on the stream's own batches.
     After the LSTM phase, ``mqtt_lstm_anomaly.json``: ``MQTT_WINDOWS``
-    (1024) JSON windows at QoS 1, every score equal bit for bit to the
-    raw-bytes run's. The other directions, after the Kafka stream:
+    (1024) JSON windows at QoS 1, every 8th scaled by 30; the example's
+    ``remap`` keeps exactly the rows scoring above 0.5, each score equal bit
+    for bit to the runner's on the stream's own batches and each alert
+    Arrow's text of ``round(score, 3)``. The other directions, after the Kafka stream:
     ``nats_bert_mqtt.json`` on the packed runner (``NATS_TEXTS`` (2048)
     JetStream rows pulled 64 at a time; every id once at a QoS 1 MQTT
     subscriber, the consumer's ack floor at the last sequence with no
@@ -330,6 +339,12 @@ last line):
     stream's outputs = the crash-free run's bit for bit, K1 = 12 x steps of
     both runners, the crashed runner released, ``memory_reserved`` after
     the engine within one runner's footprint of before; the rebuild's ms.
+    ``overload generate restart``: the same for ``gpu_generate``
+    (``llama_generate_stream.json``'s processor at ``GEN_RESTART_LAYERS``
+    (2) layers of Llama-3-8B widths, 4 slots, ``GEN_RESTART_PROMPTS`` (8)
+    prompts): every prompt delivered, the rebuilt texts = the crash-free
+    run's, the crashed server's weights, KV pools, graphs and host sets
+    released, K3 launched, ``memory_reserved`` back within one server.
     The ``overload`` line sums them;
 17. the ``obs`` part, after every other phase, on the Kafka stream's
     padded runner (kept for it), texts and fake broker (``run_obs``,
@@ -347,9 +362,9 @@ last line):
     busy share (``arkflow_tpu_device_busy_seconds_total`` over the traffic
     seconds); what the profile held (device events, kernels by name, graph
     launches). Exact: the exposition parses line by line, every histogram
-    cumulative with ``_count`` its ``+Inf`` bucket; rows in and out 4096 on
+    cumulative with ``_count`` its ``+Inf`` bucket; rows in and out 3072 on
     the stream's label; batches out = the e2e count; ``arkflow_tpu_rows_total``
-    4096; the infer count = the steps, K1 = 12 x steps all ``mma``; no
+    3072; the infer count = the steps, K1 = 12 x steps all ``mma``; no
     process or write error; every traced batch's stages (``queue_wait``,
     ``process``, ``infeed_prep``, a device step, ``output_write``, and
     ``input_decode`` in it or in the sources its ``coalesce_wait`` links);
@@ -1597,12 +1612,80 @@ def run_lstm_json(cfg_raw: dict, lstm: dict) -> dict:
 #: texts the Kafka -> BERT-base -> Kafka stream reads (4 partitions, gzip,
 #: snappy, lz4 and none), MQTT windows of the LSTM stream (QoS 1), images
 #: POSTed to the ViT stream, CDC prompts of the Llama-3-8B stream
-BROKER_TEXTS = 4096
+#: BASELINE config 1 (``examples/generate_example.yaml``) on the port
+SQL_CONFIG = os.path.join(EXAMPLES, "generate_example.json")
+#: rows of the seeded reading mix the same query runs over
+SQL_MIX_ROWS = 4096
+
+
+def run_sql_stream(raw: dict, label: str, payloads: list[bytes] | None = None) -> dict:
+    """A config-1 stream through ``Engine`` (host only: no kernel runs), its
+    output's payloads kept in order; the launch counts read around it. With
+    ``payloads`` its input reads those, 64 a read, in place of its own."""
+    engine = Engine(EngineConfig.from_mapping(raw))
+    stream = engine.build()[0]
+    if payloads is not None:
+        stream.input = GatedListInput(payloads, 64, ())
+    sink = stream.output = OrderedSink(stream.output)
+    reset_counts()
+    t0 = time.perf_counter()
+    asyncio.run(engine.run())
+    wall = time.perf_counter() - t0
+    report = {"rows_out": stream.rows_out, "errors": stream.errors, "seconds": wall,
+              "traffic_seconds": stream.traffic_seconds,
+              "traffic_rows_per_s": stream.rows_out / stream.traffic_seconds,
+              "kernel_launches": (ra.launches.value + sa.launches.value
+                                  + ra.paged_flash_attention.launches.value)}
+    print(f"sql stream {label} " + json.dumps(report), flush=True)
+    check(stream.errors == 0 and report["kernel_launches"] == 0,
+          f"the {label} SQL stream reported errors or launched a kernel: {report}")
+    return {"report": report, "rows": [json.loads(x) for x in sink.payloads]}
+
+
+def run_sql() -> dict:
+    """The ``sql`` phase, host only: BASELINE config 1
+    (``generate_example.json``: the sensor payload, 320 rows, 64 a batch,
+    ``json_to_arrow -> sql -> arrow_to_json``) as the YAML writes it, its
+    stdout swapped for a recording ``drop``; then the same stream over
+    SQL_MIX_ROWS seeded readings, 64 a read (values -20..60, each row's
+    station its index). Exact: every row with ``value > 10`` comes out once, in order,
+    with ``fahrenheit = value * 1.8 + 32`` as float64 computes it, and no
+    other row."""
+    with open(SQL_CONFIG) as f:
+        raw = json.load(f)
+    raw["health_check"] = {"enabled": False}
+    raw["streams"][0]["output"] = {"type": "drop"}
+    written = run_sql_stream(raw, "config1")
+    rng = np.random.default_rng(51)
+    values = [float(v) for v in np.round(rng.uniform(-20.0, 60.0, SQL_MIX_ROWS), 3)]
+    mixed = run_sql_stream(raw, "mix", [
+        json.dumps({"sensor": "temperature", "value": v, "station": f"st-{i}"}).encode()
+        for i, v in enumerate(values)])
+    want_written = [{"sensor": "temperature", "fahrenheit": 42.5 * 1.8 + 32,
+                     "station": "eu-1"}] * 320
+    want_mix = [{"sensor": "temperature", "fahrenheit": v * 1.8 + 32, "station": f"st-{i}"}
+                for i, v in enumerate(values) if v > 10]
+    report = {"config1": {**written["report"], "rows_equal": written["rows"] == want_written},
+              "mix": {**mixed["report"], "rows_in": SQL_MIX_ROWS, "rows_expected": len(want_mix),
+                      "rows_equal": mixed["rows"] == want_mix}}
+    print("sql " + json.dumps(report), flush=True)
+    check(report["config1"]["rows_equal"], f"sql: config 1's rows are not the query's: {report}")
+    check(report["mix"]["rows_equal"], f"sql: the mix's rows are not exactly value > 10, "
+                                       f"in order, with fahrenheit in float64: {report}")
+    return report
+
+
+#: the Kafka part's texts (and the obs part's four runs'): 4096 until the
+#: SQL slice
+BROKER_TEXTS = 3072
 #: rows of the eager generate run (the graphed run serves all 48 of the
 #: example): cut 48 -> 24 to pay for the obs part
 GENERATE_EAGER_ROWS = 24
 BROKER_CODECS = ["gzip", "snappy", "lz4", None]
 MQTT_WINDOWS = 1024
+#: every 8th MQTT window scaled by 30: the anomalies config 3's remap keeps
+#: (the LSTM phase's random windows score below its 0.5)
+MQTT_OUTLIER_EVERY, MQTT_OUTLIER_SCALE = 8, 30.0
 HTTP_IMAGES = 256
 CDC_PROMPTS = 16
 KAFKA_BERT_CONFIG = os.path.join(EXAMPLES, "kafka_bert_kafka.json")
@@ -1677,6 +1760,51 @@ def swap_in(stream, index: int, runner, counted: dict) -> None:
     reset_counts()
 
 
+async def kafka_key_cost(raw: dict, values: list[bytes], traffic_s: float) -> dict:
+    """Config 2's key on its own, on this host: the Kafka part's output
+    records, in batches of the input's ``batch_size``, written through the
+    example's Kafka output with its key expression and without it, in turns
+    (unkeyed, keyed, keyed, unkeyed), to a fake broker of 4 partitions; and
+    the key expression alone on the same batches. The keyed writes' extra
+    seconds over the part's traffic seconds bound the share of its time
+    the key can explain (the output overlaps the device in the stream)."""
+    from arkflow_tpu_torch.components import Resource
+    from arkflow_tpu_torch.components.registry import build_component
+    from arkflow_tpu_torch.tools.fake_brokers import FakeKafkaBroker
+    from arkflow_tpu_torch.utils.expr import DynValue
+
+    s = raw["streams"][0]
+    rows = int(s["input"]["batch_size"])
+    batches = [MessageBatch.new_binary(values[i:i + rows]) for i in range(0, len(values), rows)]
+    broker = FakeKafkaBroker({s["output"]["topic"]: 4})
+    await broker.start()
+    secs: dict = {"keyed": [], "unkeyed": []}
+    try:
+        keyed = {**s["output"], "brokers": f"127.0.0.1:{broker.port}"}
+        cfgs = {"keyed": keyed, "unkeyed": {k: v for k, v in keyed.items() if k != "key"}}
+        for name in ("unkeyed", "keyed", "keyed", "unkeyed"):
+            out = build_component("output", cfgs[name], Resource())
+            await out.connect()
+            t0 = time.perf_counter()
+            for b in batches:
+                await out.write(b)
+            secs[name].append(time.perf_counter() - t0)
+            await out.close()
+    finally:
+        await broker.stop()
+    key = DynValue.from_config(s["output"]["key"], "key")
+    t0 = time.perf_counter()
+    for b in batches:
+        key.eval_per_row(b)
+    eval_s = time.perf_counter() - t0
+    extra = statistics.mean(secs["keyed"]) - statistics.mean(secs["unkeyed"])
+    return {"rows": len(values), "batch_rows": rows, "keyed_s": secs["keyed"],
+            "unkeyed_s": secs["unkeyed"], "key_eval_s": eval_s,
+            "extra_us_per_row": extra / max(1, len(values)) * 1e6,
+            "key_eval_us_per_row": eval_s / max(1, len(values)) * 1e6,
+            "extra_share_of_traffic": extra / traffic_s}
+
+
 def run_kafka_bert(runner: ModelRunner, ab: dict) -> dict:
     """``kafka_bert_kafka.json`` on the padded BERT-base runner: BROKER_TEXTS
     texts produced before the run into 4 partitions (gzip, snappy, lz4,
@@ -1738,6 +1866,20 @@ def run_kafka_bert(runner: ModelRunner, ab: dict) -> dict:
     check(report["captures_on_path"] == 0, f"kafka -> bert -> kafka captured on the path: "
                                            f"{report}")
     check(launches["k2"] == launches["k3"] == 0, f"kafka -> bert launched K2 or K3: {report}")
+    # config 2's key: json_get_str(__value__, 'label') on every record, and
+    # a keyed record on the partition the port's partitioner gives its key
+    keyed = [(k, p, r) for k, p, r in zip(rep["keys"], rep["partitions_out"], rows)]
+    report["keys"] = {"records": len(keyed),
+                      "equal_label": sum(k == str(r["label"]).encode() for k, _, r in keyed),
+                      "on_key_partition": sum(
+                          p == kafka_client.partition_for_key(k, 4) for k, p, _ in keyed
+                          if k is not None)}
+    check(report["keys"]["equal_label"] == report["keys"]["on_key_partition"] == BROKER_TEXTS,
+          f"kafka: a record's key is not its label, or it sits off its key's partition: "
+          f"{report['keys']}")
+    report["key_cost"] = asyncio.run(kafka_key_cost(raw, rep["values"],
+                                                    report["traffic_seconds"]))
+    print("brokers kafka key_cost " + json.dumps(report["key_cost"]), flush=True)
     labels = check_json_rows([{"id": int(r["__value__"].split()[0][3:]), "label": r["label"],
                                "score": r["score"]} for r in by_id],
                              list(range(BROKER_TEXTS)), state["ref"], "kafka")
@@ -1951,8 +2093,9 @@ def run_obs(runner: ModelRunner) -> dict:
     (the ``brokers kafka`` part's texts, broker and warm padded runner),
     four runs: traced with a profile capture, untraced, traced again,
     untraced again (tracing's cost: the second pair). Exact: the exposition
-    parses and its histograms conform; rows in and out 4096 on the stream's
-    label; batches out = the e2e count; ``arkflow_tpu_rows_total`` 4096; the
+    parses and its histograms conform; rows in and out BROKER_TEXTS on the
+    stream's label; batches out = the e2e count; ``arkflow_tpu_rows_total``
+    BROKER_TEXTS; the
     infer count = the steps, K1 = 12 x steps all ``mma``; no process or
     write error; every traced batch's stages; root spans after the ingest
     stamp within e2e + 1 ms; device events in the profile; no trace from
@@ -2065,16 +2208,37 @@ def run_obs(runner: ModelRunner) -> dict:
     return report
 
 
+def arrow_alert_text(score) -> str:
+    """The text Arrow writes for ``cast(round(score, 3) as string)`` of a
+    float32 score in [0, 1e9), worked apart from the port's SQL engine, one
+    score at a time: Arrow's round scales by 10^3 in float32, rounds only a
+    value with a fraction (to nearest, half to even on an exact tie: what
+    Python's ``round`` does) and scales back; its cast writes the shortest
+    float32 digits, positional in this range, with no trailing ``.0``.
+    ``tests/test_torch_sql.py`` holds it to pyarrow."""
+    x = np.float32(score)
+    if not 0 <= x < 1e9:
+        raise ValueError(f"score {x} is outside [0, 1e9), where Arrow writes positional digits")
+    scaled = x * np.float32(1000)
+    if scaled != np.float32(math.floor(scaled)):
+        x = np.float32(round(float(scaled))) / np.float32(1000)
+    return np.format_float_positional(x, unique=True, trim="-")
+
+
 def run_mqtt_lstm(lstm: dict) -> dict:
     """``mqtt_lstm_anomaly.json`` on the LSTM phase's graphed runner:
     MQTT_WINDOWS ``{"window": [...]}`` messages (the LSTM phase's windows'
-    float32 values) published at QoS 1; every stdout line's score equal
-    bit for bit to the runner's on the same windows in the stream's own
-    batches (a batch bucket is a GEMM shape, and float32 GEMMs of two
-    shapes may round apart), and to the raw-bytes run's (its batches of
-    64) at the float32 floor."""
+    float32 values, every MQTT_OUTLIER_EVERY-th scaled by
+    MQTT_OUTLIER_SCALE) published at QoS 1. The example's ``remap`` keeps
+    exactly the rows whose score, the runner's on the same windows in the
+    stream's own batches, is above 0.5 (bit for bit: a batch bucket is a
+    GEMM shape, and float32 GEMMs of two shapes may round apart), in order,
+    each with the alert text Arrow writes for ``round(score, 3)``; their
+    scores equal the runner's in batches of 64 (the raw-bytes run's) at
+    the float32 floor."""
     raw = broker_config(MQTT_LSTM_CONFIG)
-    values = lstm["values"][:MQTT_WINDOWS]
+    values = lstm["values"][:MQTT_WINDOWS].copy()
+    values[::MQTT_OUTLIER_EVERY] *= MQTT_OUTLIER_SCALE  # a sensor fault: the anomalies
     payloads = [json.dumps({"window": v.reshape(-1).tolist()}).encode() for v in values]
     runner = lstm["runner"]
     counted: dict = {}
@@ -2087,37 +2251,52 @@ def run_mqtt_lstm(lstm: dict) -> dict:
     rep = asyncio.run(broker_streams.mqtt_to_stdout(raw, payloads, qos=1, prepare=prepare))
     torch.cuda.synchronize()
     lines = [json.loads(x) for x in rep["lines"]]
-    keys_ok = all(list(r) == ["window", "score"] for r in lines)
+    keys_ok = all(list(r) == ["window", "score", "alert"] for r in lines)
     got = np.array([r["score"] for r in lines], np.float32) if keys_ok else np.zeros(0)
     ref, at = [], 0
     for n in emitted:  # the stream's own batches, through the same runner
         ref.append(np.asarray(runner.infer_sync({"values": values[at:at + n]})["score"]))
         at += n
     ref = np.concatenate(ref).astype(np.float32) if ref else np.zeros(0, np.float32)
-    want = lstm["scores"][:MQTT_WINDOWS]
+    # config 3's remap: the rows with score > 0.5, each with the text Arrow
+    # writes for round(score, 3)
+    kept = np.flatnonzero(ref > 0.5)
+    alerts = ["anomaly: " + arrow_alert_text(x) for x in ref[kept]]
+    ref_kept = ref[kept]
+    # the raw-bytes stream's batches of 64 on the same windows
+    want = np.concatenate([
+        np.asarray(runner.infer_sync({"values": values[i:i + 64]})["score"])
+        for i in range(0, len(values), 64)]).astype(np.float32)[kept]
     err = np.abs(got - want) if got.shape == want.shape else np.array([np.inf])
     report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
-                                  "rows_per_s", "published")}
-    report.update(lines=len(lines), keys_exact=keys_ok,
+                                  "rows_per_s", "published", "filtered")}
+    report.update(lines=len(lines), keys_exact=keys_ok, anomalies_expected=len(kept),
                   raw_rows_per_s=lstm["report"]["traffic_windows_per_s"],
                   emissions=len(emitted),
                   emission_rows={"min": min(emitted), "max": max(emitted)} if emitted else None,
-                  equal_bitwise_same_batches=bool(got.shape == ref.shape and np.array_equal(
-                      got.view(np.int32), ref.view(np.int32))),
+                  equal_bitwise_same_batches=bool(got.shape == ref_kept.shape and np.array_equal(
+                      got.view(np.int32), ref_kept.view(np.int32))),
                   equal_bitwise_raw_run=bool(got.shape == want.shape and np.array_equal(
                       got.view(np.int32), want.view(np.int32))),
-                  max_abs_err_vs_raw_run=float(err.max()),
-                  windows_in_order=keys_ok and all(
-                      np.array_equal(np.float32(r["window"]), v.reshape(-1))
-                      for r, v in zip(lines, values)),
+                  max_abs_err_vs_raw_run=float(err.max()) if err.size else 0.0,
+                  alerts_equal=keys_ok and [r["alert"] for r in lines] == alerts,
+                  alert_examples=alerts[:3],
+                  windows_in_order=keys_ok and len(lines) == len(kept) and all(
+                      np.array_equal(np.float32(r["window"]), values[i].reshape(-1))
+                      for r, i in zip(lines, kept)),
                   captures_on_path=runner.captures - counted["captures"])
     print("brokers mqtt " + json.dumps(report), flush=True)
-    check(keys_ok and len(lines) == MQTT_WINDOWS and rep["errors"] == 0,
-          f"mqtt -> lstm -> stdout lost or misshaped rows: {report}")
+    check(keys_ok and len(lines) == len(kept) and len(lines) + rep["filtered"] == MQTT_WINDOWS
+          and rep["errors"] == 0, f"mqtt -> lstm -> remap -> stdout lost, kept or misshaped "
+                                  f"rows: {report}")
+    check(report["alerts_equal"], f"mqtt -> lstm -> remap: an alert is not Arrow's text of "
+                                  f"round(score, 3): {report}")
+    check(len(kept) >= MQTT_WINDOWS // MQTT_OUTLIER_EVERY // 2,
+          f"mqtt -> lstm -> remap: too few anomalies to hold the remap to: {report}")
     check(report["windows_in_order"], f"mqtt -> lstm: windows out of order: {report}")
     check(report["equal_bitwise_same_batches"],
           f"mqtt -> lstm scores != the runner's on the same batches: {report}")
-    check(bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))),
+    check(bool(np.all(err <= LSTM_TOL + LSTM_TOL * np.abs(want))) if len(kept) else True,
           f"mqtt -> lstm scores off the raw-bytes run's float32 floor: {report}")
     check(report["captures_on_path"] == 0, f"mqtt -> lstm captured on the path: {report}")
     return report
@@ -2522,7 +2701,8 @@ TENANT_POSTS = {"premium": (8, 0), "free": (40, 45), "other": (7, 0)}
 TENANT_POST_GAP_S = 0.005
 TENANT_POSTS_MAX = 160
 CACHE_DUPLICATES = 16
-RESTART_TEXTS = 1024
+#: texts of the BERT restart part, one a read (1024 until the SQL slice)
+RESTART_TEXTS = 512
 
 
 class ShedSink(Output):
@@ -2548,7 +2728,8 @@ class ShedSink(Output):
             "reason": batch.get_meta("__meta_ext_shed_reason"), "rows": batch.num_rows,
             "texts": batch.to_binary(),
             "e2e_s": None if ingest is None else time.time() - ingest / 1000.0,
-            **{n: np.asarray(batch.column(n)) for n in self.names}})
+            **{n: (np.asarray(batch.column(n)) if isinstance(batch.column(n), np.ndarray)
+                   else batch.column(n).to_pylist()) for n in self.names}})
         await self.inner.write(batch)
 
     async def close(self) -> None:
@@ -2618,6 +2799,67 @@ def reference_outputs(runner: ModelRunner, tokenizer, texts: list[bytes], max_se
     return ref
 
 
+class GcWatch:
+    """Python's collections and the first steps of one admission stream.
+    ``collect_before`` runs the ``gc.collect()`` the stream starts after
+    and times it: the full pass that would otherwise fall due inside the
+    run, and one that lands in a first step sets the controller's step
+    estimate (JAX's rule, ROADMAP Queue C). While the watch is entered it
+    records every collection (generation, ms) through ``gc.callbacks`` and
+    each step time the controller observes, so the report shows whether a
+    collection overlapped the first step and how long that step took."""
+
+    def __init__(self, ctrl) -> None:
+        self.ctrl = ctrl
+        self.before: dict = {}
+        self.passes: list = []  # (generation, start, seconds)
+        self.steps: list = []  # (end, seconds)
+        self._start: dict = {}
+
+    def collect_before(self) -> None:
+        counts = gc.get_count()
+        t0 = time.perf_counter()
+        found = gc.collect()
+        self.before = {"ms": (time.perf_counter() - t0) * 1e3, "found": found,
+                       "counts": list(counts)}
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start[info["generation"]] = time.monotonic()
+        elif info["generation"] in self._start:
+            t0 = self._start.pop(info["generation"])
+            self.passes.append((info["generation"], t0, time.monotonic() - t0))
+
+    def __enter__(self) -> "GcWatch":
+        gc.callbacks.append(self._on_gc)
+        if self.ctrl is not None:
+            inner = self.ctrl.observe_step
+
+            def observe_step(dt_s: float) -> None:
+                self.steps.append((time.monotonic(), dt_s))
+                inner(dt_s)
+
+            self.ctrl.observe_step = observe_step
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._on_gc)
+        if self.ctrl is not None:
+            del self.ctrl.observe_step
+
+    def report(self) -> dict:
+        first = self.steps[0] if self.steps else None
+        in_first = sum(max(0.0, min(t0 + d, first[0]) - max(t0, first[0] - first[1]))
+                       for _, t0, d in self.passes) if first else 0.0
+        return {"gc_before": self.before, "gc_in_run": len(self.passes),
+                "gc_in_run_gen2": sum(1 for g, _, _ in self.passes if g == 2),
+                "gc_in_run_max_ms": max((d for _, _, d in self.passes), default=0.0) * 1e3,
+                "gc_in_run_total_ms": sum(d for _, _, d in self.passes) * 1e3,
+                "gc_in_first_step_ms": in_first * 1e3,
+                "first_steps_ms": [d * 1e3 for _, d in self.steps[:5]],
+                "max_step_ms": max((d for _, d in self.steps), default=0.0) * 1e3}
+
+
 def run_burst_stream(runner: ModelRunner, texts: list[str], controller: bool) -> dict:
     """``overload_stream.json`` with its latency stand-in replaced by
     ``gpu_inference`` on the padded runner: generate (the example's 2 rows
@@ -2658,7 +2900,10 @@ def run_burst_stream(runner: ModelRunner, texts: list[str], controller: bool) ->
             if sampler is not None:
                 sampler.cancel()
 
-    asyncio.run(go())
+    watch = GcWatch(ctrl)
+    watch.collect_before()
+    with watch:
+        asyncio.run(go())
     torch.cuda.synchronize()
     steps = runner.device_steps - counted["device_steps"]
     delivered_rows = sum(b["rows"] for b in sink.batches)
@@ -2674,7 +2919,7 @@ def run_burst_stream(runner: ModelRunner, texts: list[str], controller: bool) ->
               "e2e_p50_ms": quantile_ms(e2e, 0.50), "e2e_p99_ms": quantile_ms(e2e, 0.99),
               "device_steps": steps, "captures_on_path": runner.captures - counted["captures"],
               "k1_launches": ra.launches.value, "k1_variants": dict(ra.launches.variants),
-              "errors": stream.errors}
+              "errors": stream.errors, **watch.report()}
     if ctrl is not None:
         reasons = [b["reason"] for b in shed.batches]
         report.update(
@@ -2770,7 +3015,10 @@ def run_tenant_stream(runner: ModelRunner, ref: dict) -> dict:
     swap_in(stream, 0, runner, counted)
     ctrl = stream.overload
     quota0 = ctrl.m_shed["quota"].value
-    asyncio.run(engine.run())
+    watch = GcWatch(ctrl)
+    watch.collect_before()
+    with watch:
+        asyncio.run(engine.run())
     torch.cuda.synchronize()
     deadline = s["pipeline"]["deadline_ms"]
     tenants = {}
@@ -2792,7 +3040,8 @@ def run_tenant_stream(runner: ModelRunner, ref: dict) -> dict:
               "cache": cache, "device_steps": steps, "k1_launches": ra.launches.value,
               "k1_variants": dict(ra.launches.variants),
               "captures_on_path": runner.captures - counted["captures"],
-              "traffic_seconds": stream.traffic_seconds, "errors": stream.errors}
+              "traffic_seconds": stream.traffic_seconds, "errors": stream.errors,
+              **watch.report()}
     report["rows"] = held_to_reference(sink.batches, ref, "overload tenants")
     print("overload tenants stream " + json.dumps(report), flush=True)
     check(mixed == 0 and all(b["tenant"] in tenants for b in sink.batches + shed.batches),
@@ -2969,20 +3218,22 @@ def restart_config(name: str, texts: list[str], crash: bool) -> dict:
                 "output": {"type": "drop"}}]}
 
 
-def run_restart_engine(raw: dict, health: bool = False) -> dict:
+def run_restart_engine(raw: dict, health: bool = False,
+                       names: tuple = ("label", "logits")) -> dict:
     """The engine over ``raw``; every build's output wrapped (the rebuild's
-    too), ``/health`` read once the rebuilt stream runs."""
+    too) to keep the ``names`` columns, ``/health`` read once the rebuilt
+    stream runs."""
     import arkflow_tpu_torch.runtime.engine as engine_mod
 
     engine = Engine(EngineConfig.from_mapping(raw))
     first = engine.build()[0]
-    sinks = [ShedSink(first.output, ("label", "logits"))]
+    sinks = [ShedSink(first.output, names)]
     first.output = sinks[0]
     built = engine_mod.build_stream
 
     def rebuild(cfg, name=None):
         stream = built(cfg, name=name)
-        stream.output = ShedSink(stream.output, ("label", "logits"))
+        stream.output = ShedSink(stream.output, names)
         sinks.append(stream.output)
         return stream
 
@@ -3077,11 +3328,104 @@ def run_overload_restart() -> dict:
     return report
 
 
+#: the generate restart's decoder depth (Llama-3-8B widths) and prompts
+GEN_RESTART_LAYERS = 2
+GEN_RESTART_PROMPTS = 8
+
+
+def gen_restart_config(name: str, prompts: list[str], crash: bool) -> dict:
+    """``llama_generate_stream.json``'s ``gpu_generate`` (continuous, paged
+    KV, Llama-3-8B widths, random weights from seed 0) cut to
+    GEN_RESTART_LAYERS layers, 4 slots and 16 new tokens, behind a memory
+    input of the prompts (one a read) under a crash fault at its third
+    read; restart ``{max_retries: 3, backoff: 10ms}``."""
+    with open(GENERATE_CONFIG) as f:
+        proc = json.load(f)["streams"][0]["pipeline"]["processors"][0]
+    proc["model_config"]["layers"] = GEN_RESTART_LAYERS
+    proc.update(slots=4, max_new_tokens=16)
+    return {"health_check": {"enabled": False},
+            "streams": [{
+                "name": name, "restart": {"max_retries": 3, "backoff": "10ms"},
+                "input": {"type": "fault", "faults": [{"kind": "crash", "at": 3}] if crash else [],
+                          "inner": {"type": "memory", "messages": prompts}},
+                "pipeline": {"thread_num": 1, "processors": [proc]},
+                "output": {"type": "drop"}}]}
+
+
+def generated_by_text(sinks) -> dict:
+    out: dict = {}
+    for sink in sinks:
+        for b in sink.batches:
+            for text, gen_ in zip(b["texts"], b["generated"]):
+                out.setdefault(text, []).append(gen_)
+    return out
+
+
+def run_generate_restart() -> dict:
+    """The generate restart: a crash-free run (the reference, and one
+    server's footprint in ``memory_reserved``), then the crashing one. Exact:
+    the crash fires once; the crashed stream's server released before the
+    rebuild (weights, KV pools, graphs, the processor's tree); every prompt
+    delivered, the rebuilt stream's text equal to the crash-free run's;
+    K3 launched; after the engine stops, ``memory_reserved`` within one
+    server's footprint of its value before."""
+    prompts = broker_texts(GEN_RESTART_PROMPTS, seed=43)
+    release_memory()
+    before_ref = reserved_bytes()
+    ref = run_restart_engine(gen_restart_config("gen-restart-reference", prompts, False),
+                             names=("generated",))
+    footprint = reserved_bytes() - before_ref
+    clean = generated_by_text(ref["sinks"])
+    ref["engine"].streams[0].release()
+    del ref
+    release_memory()
+    raw = gen_restart_config("gen-restart-crash", prompts, True)
+    before = reserved_bytes()
+    reset_counts()
+    run = run_restart_engine(raw, names=("generated",))
+    k3 = ra.paged_flash_attention.launches.value
+    engine, first = run["engine"], run["first"]
+    live = engine.streams[0]
+    release_memory()
+    after = reserved_bytes()
+    proc = first.pipeline.processors[0]
+    server = proc.server
+    crashed = generated_by_text(run["sinks"])
+    rebuilt = generated_by_text(run["sinks"][1:])
+    report = {"fired": raw["streams"][0]["input"]["faults"][0]["_state"]["fired"],
+              "layers": GEN_RESTART_LAYERS, "prompts": len(prompts),
+              "delivered_prompts": len(crashed), "rebuilt_prompts": len(rebuilt),
+              "rebuilt_equal_clean": all(rebuilt[t][-1] == clean[t][0] for t in rebuilt),
+              "rebuild_ms": engine.rebuild_ms.get("gen-restart-crash"), "k3_launches": k3,
+              "released": {"weights": server.params == {} and proc.params == {},
+                           "kv_pools": server.k_pages is None and server.v_pages is None,
+                           "graphs": len(server._compiled) == 0,
+                           "host_sets": not server._host.by_key},
+              "reserved_before": before, "reserved_after": after, "server_footprint": footprint}
+    print("overload generate restart " + json.dumps(report), flush=True)
+    check(report["fired"] == 1, f"generate restart: the crash did not fire once: {report}")
+    check(set(crashed) == {t.encode() for t in prompts} and len(clean) == len(prompts),
+          f"generate restart: a prompt was not delivered: {report}")
+    check(report["rebuilt_equal_clean"] and len(rebuilt) == len(prompts),
+          f"generate restart: the rebuilt stream's texts differ from the crash-free run's: "
+          f"{report}")
+    check(all(report["released"].values()),
+          f"generate restart: the crashed server kept device state: {report}")
+    check(k3 > 0, f"generate restart: K3 never launched: {report}")
+    check(after - before <= footprint * 1.02 + (4 << 20),
+          f"generate restart: memory_reserved grew past one server's footprint: {report}")
+    live.release()
+    del run, engine, first, live, server, proc
+    release_memory()
+    return report
+
+
 def run_overload(runner: ModelRunner) -> dict:
-    """The ``overload`` phase's three parts, then its summary line."""
+    """The ``overload`` phase's parts, then its summary line."""
     burst = run_overload_burst(runner)
     tenants = run_overload_tenants(runner)
     restart = run_overload_restart()
+    gen_restart = run_generate_restart()
     b = burst["controlled"]
     summary = {
         "burst": {"e2e_p50_ms": b["e2e_p50_ms"], "e2e_p99_ms": b["e2e_p99_ms"],
@@ -3100,6 +3444,10 @@ def run_overload(runner: ModelRunner) -> dict:
         "restart": {k: restart[k] for k in ("fired", "rebuild_ms", "rebuilt_equal_clean",
                                             "reserved_before", "reserved_after",
                                             "runner_footprint")},
+        "generate_restart": {k: gen_restart[k] for k in (
+            "fired", "rebuild_ms", "rebuilt_equal_clean", "released", "reserved_before",
+            "reserved_after", "server_footprint")},
+        "k3_launches": gen_restart["k3_launches"],
         "k1_launches": (b["k1_launches"] + burst["control"]["k1_launches"]
                         + tenants["stream"]["k1_launches"] + tenants["cache"]["k1_launches"]
                         + tenants["http"]["k1_launches"] + restart["k1_launches"])}
@@ -6516,6 +6864,8 @@ def main() -> int:
     phases.mark("packed")
     json_phase = run_json(runner, prunner, ab)
     phases.mark("json")
+    run_sql()
+    phases.mark("sql")
     brokers = {"kafka": phases.carve("brokers", run_kafka_bert, runner, ab)}
     # the obs part runs last on this runner: its profile capture leaves
     # CUPTI installed, which slows every later eager launch of the process
@@ -6738,7 +7088,7 @@ def main() -> int:
         "launches": (generated["report"]["k3_launches"] + gen_life["stream"]["k3_launches"]
                      + serving["report"]["k3_launches"]
                      + sampling["stream"]["k3_launches"] + moe["report"]["k3_launches"]
-                     + hf_llama["k3_launches"]),
+                     + hf_llama["k3_launches"] + overload["k3_launches"]),
         "ok": True,
         **kernel_line(k3_main), "redesigned": PAGED_REDESIGN,
         "chunks": {o: {k: k3_chunks[o][k] for k in ("kernel_device_ms", "library_device_ms",

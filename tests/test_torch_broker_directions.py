@@ -377,8 +377,13 @@ def test_mqtt_output_config_matches_jax(monkeypatch):
     j, p = both("output", cfg)
     keys = ("host", "port", "qos", "retain", "client_id", "username", "password")
     assert {k: getattr(p, k) for k in keys} == {k: getattr(j, k) for k in keys}
-    with pytest.raises(ConfigError, match="SQL expression form .* not yet ported"):
-        check_component("output", {"type": "mqtt", "topic": {"expr": "concat('a', b)"}})
+    # an {expr: ...} topic validates, builds and takes the batch's first row
+    expr_cfg = {"type": "mqtt", "topic": {"expr": "concat('a', b)"}}
+    check_component("output", expr_cfg)
+    j, p = both("output", expr_cfg)
+    assert p.topic.is_expr and j.topic.is_expr
+    assert (p.topic.eval_scalar(MessageBatch.from_pydict({"b": ["x", "y"]}))
+            == j.topic.eval_scalar(JaxBatch.from_pydict({"b": ["x", "y"]})) == "ax")
 
 
 # -- HTTP output -------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Each port example (``arkflow_tpu_torch/examples/{kafka_bert_kafka,
 mqtt_lstm_anomaly,http_vit_redis,cdc_llm_nats}.json``) runs at a tiny width
 on ``device: cpu`` beside the JAX stream of the YAML of the same name
 (``examples/*.yaml``, with ``tpu_inference``/``tpu_generate`` at the same
-tiny width and, where the port leaves it out, no ``key`` expression or
-``remap``), both on the JAX stream's weights, through fake brokers, and
+tiny width; the MQTT stream without its ``remap``, so that every row's
+score is compared, the remap then held on those rows), both on the JAX
+stream's weights, through fake brokers, and
 their output topic, stdout lines, Redis list or NATS subject are compared:
 ids and keys exactly, bf16 BERT scores within 1/64 with labels exact on
 tie-free rows, LSTM scores within 1e-5, ViT embeddings within 1/64 of their
@@ -26,12 +27,17 @@ import numpy as np
 import pytest
 import yaml
 
+from arkflow_tpu.batch import MessageBatch as JaxBatch
+from arkflow_tpu.components import Resource as JaxResource
+from arkflow_tpu.components import build_component as jax_build
 from arkflow_tpu.components import ensure_plugins_loaded as jax_plugins
 from arkflow_tpu.config import StreamConfig as JaxStreamConfig
 from arkflow_tpu.runtime import build_stream as jax_build_stream
-from arkflow_tpu_torch.components import ensure_plugins_loaded
+from arkflow_tpu_torch.batch import MessageBatch
+from arkflow_tpu_torch.components import Resource, build_component, ensure_plugins_loaded
 from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.connect import kafka_client as pk
+from arkflow_tpu_torch.connect.kafka_client import partition_for_key
 from arkflow_tpu_torch.convert import params_from_jax
 from arkflow_tpu_torch.models import decoder as dec
 from arkflow_tpu_torch.runtime.engine import Engine
@@ -130,7 +136,6 @@ def test_kafka_bert_kafka_matches_the_jax_stream():
                 raw["input"].update(brokers=brokers, group=f"g-{kind}", batch_size=8)
                 raw["buffer"].update(capacity=8)
                 raw["output"].update(brokers=brokers, topic=f"scores-{kind}")
-                raw["output"].pop("key", None)  # the port has no SQL key yet
                 raw["pipeline"]["processors"][0].update(proc_keys)
                 if kind == "jax":
                     stream = jax_build_stream(JaxStreamConfig.from_mapping(raw))
@@ -161,7 +166,10 @@ def test_kafka_bert_kafka_matches_the_jax_stream():
     assert len(out["port"]) == len(texts)  # each record exactly once
     for text in texts:
         (_, pk_, pr), (_, jk_, jr) = by_text["port"][text], by_text["jax"][text]
-        assert pk_ is None and jk_ is None
+        # config 2's key: each record keyed by its own label, on the
+        # partition the key hashes to
+        assert pk_ == str(pr["label"]).encode() and jk_ == str(jr["label"]).encode()
+        assert by_text["port"][text][0] == partition_for_key(pk_, 4)
         assert list(pr) == list(jr) == ["__value__", "label", "score"]
         assert abs(pr["score"] - jr["score"]) <= SCORE_TOL
         if jr["score"] > TIE_FREE_SCORE:
@@ -222,6 +230,16 @@ def test_mqtt_lstm_anomaly_matches_the_jax_stream():
     np.testing.assert_allclose([r["score"] for r in out["port"]],
                                [r["score"] for r in out["jax"]], atol=F32_TOL, rtol=F32_TOL)
     assert int(np.argmax([r["score"] for r in out["port"]])) == 5
+    # config 3's remap on the port's scores, in each package: the same
+    # anomalies with the same alert texts
+    remap = next(p for p in jax_raw["pipeline"]["processors"] if p["type"] == "remap")
+    scores = {"score": [r["score"] for r in out["port"]]}
+    jrem = asyncio.run(jax_build("processor", remap, JaxResource()).process(
+        JaxBatch.from_pydict(scores)))
+    prem = asyncio.run(build_component("processor", remap, Resource()).process(
+        MessageBatch.from_pydict(scores)))
+    assert [b.to_pydict() for b in prem] == [b.to_pydict() for b in jrem]
+    assert prem and prem[0].to_pydict()["score"] == [x for x in scores["score"] if x > 0.5]
 
 
 async def _post_all(port: int, bodies: list) -> list:
@@ -382,8 +400,8 @@ def test_cdc_llm_nats_matches_the_jax_stream(tmp_path, monkeypatch):
                                   "cdc_llm_nats"])
 def test_broker_examples_validate_and_mirror_their_yaml(name, capsys):
     """Each example passes ``--validate``, names its YAML, and keeps the
-    YAML's stream name, input, buffer and output keys (bar the SQL ``key``
-    the port's description says it leaves out)."""
+    YAML's stream name, input, buffer and output keys (the SQL ``key``
+    included) and its ``remap``."""
     from arkflow_tpu_torch.runtime import cli
 
     path = ROOT / "arkflow_tpu_torch" / "examples" / f"{name}.json"
@@ -394,7 +412,6 @@ def test_broker_examples_validate_and_mirror_their_yaml(name, capsys):
     assert f"examples/{name}.yaml" in port_raw["description"]
     assert port["name"] == jax_raw["name"]
     assert port["input"] == jax_raw["input"] and port["buffer"] == jax_raw["buffer"]
-    want_out = {k: v for k, v in jax_raw["output"].items() if k != "key"}
-    assert port["output"] == want_out
-    if "key" in jax_raw["output"]:
-        assert "key" in port_raw["description"]
+    assert port["output"] == jax_raw["output"]
+    assert ([p for p in port["pipeline"]["processors"] if p["type"] == "remap"]
+            == [p for p in jax_raw["pipeline"]["processors"] if p["type"] == "remap"])

@@ -459,10 +459,22 @@ def test_nats_output_matches_jax():
     ("output", {"type": "kafka", "brokers": "b:1", "topic": "t", "key": {"expr": "id"}}),
 ], ids=["redis_target", "nats_subject", "kafka_key"])
 def test_expr_values_raise_not_ported(family, cfg):
-    with pytest.raises(ConfigError, match="SQL expression form .* not yet ported"):
-        check_component(family, cfg)
-    with pytest.raises(ConfigError, match="SQL expression form .* not yet ported"):
-        build_component(family, cfg, Resource())
+    """The ``{expr: ...}`` values, once refused as not ported, now validate
+    and build, and evaluate on a batch as JAX's ``DynValue`` does (per row
+    for the NATS subject and the Kafka key, the first row for Redis)."""
+    from arkflow_tpu.utils.expr import DynValue as JaxDyn
+
+    check_component(family, cfg)
+    out = build_component(family, cfg, Resource())
+    field = next(k for k, v in cfg.items() if isinstance(v, dict))
+    dyn = getattr(out, field)
+    data = {"id": [1, 2], "city": ["sf", "la"]}
+    jdyn = JaxDyn.from_config(cfg[field], field)
+    assert dyn.is_expr
+    assert (dyn.eval_per_row(MessageBatch.from_pydict(data))
+            == jdyn.eval_per_row(JaxBatch.from_pydict(data)))
+    assert (dyn.eval_scalar(MessageBatch.from_pydict(data))
+            == jdyn.eval_scalar(JaxBatch.from_pydict(data)))
 
 
 def test_output_config_errors_match_jax():

@@ -246,6 +246,7 @@ rep = asyncio.run(bs.kafka_to_kafka(
 rows = [json.loads(v) for v in rep["values"]]
 assert sorted(r["__value__"] for r in rows) == sorted(texts), rows
 assert all(list(r) == ["__value__", "label", "score"] for r in rows)
+assert rep["keys"] == [str(r["label"]).encode() for r in rows], rep["keys"]
 assert rep["committed"] == rep["log_end"] == [6] * 4 and rep["errors"] == 0, rep
 assert rep["generation_before"] == rep["generation_after"] == 1, rep
 assert rep["input_codecs"] == [0, 1, 2, 3], rep
@@ -255,7 +256,9 @@ rep = asyncio.run(bs.mqtt_to_stdout(
     example("mqtt_lstm_anomaly.json", model_config=lstm, batch_buckets=[4, 8]),
     [json.dumps({"window": w.tolist()}).encode() for w in windows], qos=1, window=8))
 lines = [json.loads(x) for x in rep["lines"]]
-assert [r["window"] for r in lines] == windows.tolist() and rep["errors"] == 0
+assert len(lines) + rep["filtered"] == 20 and rep["errors"] == 0, rep
+assert all(list(r) == ["window", "score", "alert"] and r["score"] > 0.5
+           and r["alert"].startswith("anomaly: ") for r in lines), lines
 vit = {"image_size": 32, "patch": 16, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32}
 raw = example("http_vit_redis.json", model_config=vit, batch_buckets=[4, 8])
 raw["streams"][0]["input"]["rate_limit"] = {"capacity": 12, "per_second": 0.01}
@@ -299,6 +302,61 @@ leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu", "t
 assert not leaked, leaked
 print("BROKERS_OK")
 """
+
+
+_SQL_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "websockets",
+             "google.protobuf"):
+    sys.modules[name] = None  # any import of these now fails
+import asyncio
+import json
+from arkflow_tpu_torch.components import ensure_plugins_loaded
+from arkflow_tpu_torch.config import StreamConfig
+from arkflow_tpu_torch.runtime.stream import build_stream
+
+ensure_plugins_loaded()
+stream = build_stream(StreamConfig.from_mapping({
+    "input": {"type": "generate", "batch_size": 64, "count": 320,
+              "payload": '{"sensor": "temperature", "value": 42.5, "station": "eu-1"}'},
+    "pipeline": {"thread_num": 4, "processors": [
+        {"type": "json_to_arrow"},
+        {"type": "sql", "query": "SELECT sensor, value * 1.8 + 32 AS fahrenheit, station "
+                                 "FROM flow WHERE value > 10"},
+        {"type": "remap", "mappings": {"f2": "round(fahrenheit, 1)"}},
+        {"type": "arrow_to_json"}]},
+    "output": {"type": "drop"}}))
+asyncio.run(stream.run(asyncio.Event()))
+assert stream.output.dropped_rows == 320 and stream.errors == 0, stream.errors
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "arkflow_tpu", "pyarrow")
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("SQL_OK")
+"""
+
+SQL_FILES = sorted((ROOT / "arkflow_tpu_torch" / "sql").glob("*.py")) + [
+    ROOT / "arkflow_tpu_torch" / "plugins" / "processor" / "sql.py",
+    ROOT / "arkflow_tpu_torch" / "plugins" / "processor" / "remap.py",
+    ROOT / "arkflow_tpu_torch" / "utils" / "expr.py"]
+
+
+@pytest.mark.parametrize("path", SQL_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sql_modules_import_no_pyarrow_anywhere(path):
+    """The SQL engine and its users compute without Arrow: no import of
+    pyarrow at any level, not even inside a function."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert "pyarrow" not in list(_imports(tree, top_level_only=False)), path
+
+
+def test_sql_stream_runs_with_jax_reference_and_pyarrow_blocked():
+    """BASELINE config 1's stream (generate -> json_to_arrow -> sql, then a
+    remap and arrow_to_json) with JAX, the JAX package and pyarrow blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _SQL_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SQL_OK" in proc.stdout
 
 
 def test_broker_examples_run_with_jax_and_reference_blocked():

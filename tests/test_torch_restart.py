@@ -318,3 +318,92 @@ def test_gpu_inference_restart_releases_the_crashed_runner_and_matches_a_clean_r
     assert live.params and live.device_steps >= 12
     assert set(crashed_out) == set(clean_out) and len(clean_out) == 12
     assert crashed_out == clean_out
+
+
+TINY_DECODER = dict(vocab_size=128, dim=64, layers=2, heads=4, kv_heads=2, ffn=96, max_seq=64)
+
+
+def _generate_restart_stream(name: str, crash: bool, serving: str) -> dict:
+    faults = [{"kind": "crash", "at": 3}] if crash else []
+    proc = {"type": "gpu_generate", "model": "decoder_lm", "model_config": TINY_DECODER,
+            "max_input": 16, "max_new_tokens": 4, "device": "cpu", "serving": serving}
+    if serving == "continuous":
+        proc.update(slots=2, page_size=8)
+    else:
+        proc.update(batch_buckets=[1], seq_buckets=[16])
+    return {"name": name,
+            "input": {"type": "fault", "faults": faults, "inner": {
+                "type": "memory", "messages": [f"prompt {i} of the generate restart"
+                                               for i in range(8)]}},
+            "pipeline": {"thread_num": 1, "processors": [proc]},
+            "output": {"type": "drop"},
+            "restart": {"max_retries": 3, "backoff": "10ms"}}
+
+
+@pytest.mark.parametrize("serving", ["continuous", "batch"])
+def test_gpu_generate_restart_releases_the_crashed_server_and_matches_a_clean_run(serving):
+    """A ``gpu_generate`` stream (the tiny decoder on the CPU, each serving
+    mode) crashing at its third read: the crashed stream's server or
+    generator is released before the rebuild (its graphs, KV pools or
+    caches and weights gone, the processor's tree dropped), every prompt is
+    delivered, and each prompt's text from the rebuilt stream equals a
+    crash-free run's (greedy, same seed)."""
+    def run_engine(crash: bool):
+        raw = _generate_restart_stream(uname("gen-restart"), crash, serving)
+        engine = engine_of(PORT, raw)
+        first = engine.build()[0]
+        sinks = []
+        real_build = PORT.engine_mod.build_stream
+
+        def rebuilt(cfg, name=None):
+            s = real_build(cfg, name=name)
+            s.output = collect(PORT)
+            sinks.append(s.output)
+            return s
+
+        first.output = collect(PORT)
+        sinks.append(first.output)
+        PORT.engine_mod.build_stream = rebuilt
+        try:
+            run(engine.run(), timeout=60)
+        finally:
+            PORT.engine_mod.build_stream = real_build
+        out = {}
+        for sink in sinks:
+            for b in sink.batches:
+                for text, gen in zip(b.to_binary(), b.to_binary("generated")):
+                    out[text] = gen
+        return engine, first, out, raw
+
+    engine, first, crashed_out, raw = run_engine(crash=True)
+    _, _, clean_out, _ = run_engine(crash=False)
+    assert raw["input"]["faults"][0]["_state"]["fired"] == 1
+    assert engine.stream_health()[raw["name"]]["restarts"] == 1
+    proc = first.pipeline.processors[0]
+    part = proc.server if serving == "continuous" else proc.generator
+    assert part.params == {} and proc.params == {} and len(part._compiled) == 0
+    if serving == "continuous":
+        assert part.k_pages is None and part.v_pages is None and not part._host.by_key
+    else:
+        assert not part._spaces
+    live = engine.streams[0].pipeline.processors[0]
+    assert live.params and live.tokens > 0
+    assert set(crashed_out) == set(clean_out) and len(clean_out) == 8
+    assert crashed_out == clean_out
+
+
+def test_a_release_that_raises_does_not_end_supervision(monkeypatch):
+    """``Stream.release`` raising after a crash is logged and the restart
+    goes on: the rebuilt stream delivers, as JAX's loop goes on after a
+    crash (the JAX engine has no release step)."""
+    crashes = crash_first(monkeypatch, PORT, 1)
+
+    def bad_release(self):
+        raise RuntimeError("injected release failure")
+
+    monkeypatch.setattr(PORT.engine_mod.Stream, "release", bad_release)
+    raw = generate_stream("release-raises", {"max_retries": 2, "backoff": "10ms"})
+    engine = engine_of(PORT, raw)
+    run(engine.run(), timeout=10)
+    assert crashes["n"] == 1
+    assert engine.stream_health()[raw["name"]]["restarts"] == 1

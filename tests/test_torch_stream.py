@@ -172,7 +172,11 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
     ("processor", {"device_pool": 2}),
     ("processor", {"mesh": {"tp": 2}}),
     ("processor", {"pp_microbatch_rows": 4}),
-    ("input", {"context": "x"}),
+    # the generate input carries every key JAX's reads (``context`` since
+    # the SQL slice); a patch with a ``type`` replaces the input: the kafka
+    # input's ``pause_on_overload`` is one JAX reads and the port does not
+    ("input", {"type": "kafka", "brokers": "b:1", "topic": "t", "group": "g",
+               "pause_on_overload": True}),
     # the engine's own keys are all ported (``tracing``, ``profiling_dir``:
     # test_tracing_and_profiling_dir_are_accepted); an unported key inside
     # its streams list still refuses the whole engine config
@@ -187,6 +191,8 @@ def test_unported_keys_raise(tmp_path, where, patch):
     cfg = {"streams": [stream], "health_check": {"enabled": False}}
     target = {"stream": stream, "pipeline": stream["pipeline"], "engine": cfg,
               "processor": stream["pipeline"]["processors"][0], "input": stream["input"]}[where]
+    if "type" in patch:
+        target.clear()
     target.update(patch)
     with pytest.raises(ConfigError, match="not yet ported"):
         parsed = EngineConfig.from_mapping(cfg)

@@ -148,30 +148,109 @@ def _copy_into(live, new):
         _copy_into(live[k], v) if isinstance(v, dict) else live[k].copy_(v)
 
 
+#: a greedy step whose top-2 logit gap is at or below this is a near-tie
+TIE_MARGIN = 0.05
+
+
+def _record_port_generations(monkeypatch, proc) -> list:
+    """Each row the port's processor generates, in row order (one worker):
+    ``[ids, top-2 gap of each step]``. Continuous mode asks the server for
+    its margins; batch mode records ``decoder.select_token``'s gaps inside
+    each generation (the connect warmup left out)."""
+    from arkflow_tpu_torch.models import decoder as dec
+
+    rows: list = []
+    if proc.server is not None:
+        server, real_generate = proc.server, proc.server.generate
+        server.record_margins = True
+
+        async def generate(ids, max_new_tokens):
+            row = []
+            rows.append(row)  # at call time: the batch's row order
+            row.extend(await real_generate(ids, max_new_tokens=max_new_tokens,
+                                           with_margins=True))
+            return row[0]
+
+        monkeypatch.setattr(server, "generate", generate)
+        return rows
+    gens: list = []
+    start, select = dec.start_generation, dec.select_token
+
+    def recording_start(params, cfg, input_ids, lengths, n_real, *a, **kw):
+        warm = bool((input_ids == 1).all() and (lengths == 1).all())
+        gens.append((0 if warm else int(n_real.reshape(())), [], []))
+        return start(params, cfg, input_ids, lengths, n_real, *a, **kw)
+
+    def recording_select(logits, *a, **kw):
+        top2 = logits.float().topk(2, dim=-1).values
+        out = select(logits, *a, **kw)
+        gens[-1][1].append(out.tolist())
+        gens[-1][2].append((top2[:, 0] - top2[:, 1]).tolist())
+        return out
+
+    monkeypatch.setattr(dec, "start_generation", recording_start)
+    monkeypatch.setattr(dec, "select_token", recording_select)
+    real_generate = proc.generator.generate
+
+    def generate(input_ids, lengths, n_real, key):
+        tokens, counts, steps = real_generate(input_ids, lengths, n_real, key)
+        n, picks, gaps = gens[-1]
+        for r in range(n):
+            k = int(counts[r])
+            rows.append([[p[r] for p in picks][:k], [g[r] for g in gaps][:k]])
+        return tokens, counts, steps
+
+    monkeypatch.setattr(proc.generator, "generate", generate)
+    return rows
+
+
+#: prompts whose every greedy step has a top-2 gap above ``TIE_MARGIN`` on
+#: the JAX stream's seeded tiny decoder (the smallest is the second text's:
+#: 0.625 served continuously, 0.336 in batches of 4); the first is 12 tokens
+#: with [CLS] and [SEP], longer than the prefill chunk of 8
+TIE_FREE_TEXTS = ["w5 spike w33 w63 line w70 w20 w82 w30 w97", "w54 w59",
+                  "on w54 w79 spike w33 caf w14"]
+
+
 @pytest.mark.parametrize("serving", ["continuous", "batch"])
-def test_gpu_generate_with_tokenizer_gives_the_jax_texts(tok_dir, serving):
+def test_gpu_generate_with_tokenizer_gives_the_jax_texts(tok_dir, serving, monkeypatch):
     """Both serving modes: the prompts tokenized by the HF tokenizer and the
     generated ids decoded row by row (an HF tokenizer has no
-    ``decode_column``), on the JAX stream's weights."""
+    ``decode_column``), on the JAX stream's weights. The prompts are pinned
+    tie-free: every step of every row has a top-2 gap above ``TIE_MARGIN``
+    in the port (checked here), so each whole text must equal JAX's. One
+    worker in both packages, so the port's rows come in the order they were
+    generated."""
     import torch
 
     patch = {"tokenizer": tok_dir, "serving": serving}
     if serving == "batch":
         patch["batch_buckets"] = [4]
-    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(
-        _generate_stream("tpu_generate", **patch)))
+
+    def raw(kind):
+        r = _generate_stream(kind, **patch)
+        r["pipeline"]["thread_num"] = 1
+        r["input"]["payloads"] = TIE_FREE_TEXTS
+        return r
+
+    jax_stream = jax_build_stream(JaxStreamConfig.from_mapping(raw("tpu_generate")))
     jax_sink = jax_stream.output = JaxCollectOutput()
     asyncio.run(jax_stream.run(asyncio.Event()))
     host = params_from_jax(jax.device_get(jax_stream.pipeline.processors[0].params))
 
-    stream = build_stream(StreamConfig.from_mapping(_generate_stream("gpu_generate", **patch)))
+    stream = build_stream(StreamConfig.from_mapping(raw("gpu_generate")))
     proc = stream.pipeline.processors[0]
     assert isinstance(proc.tokenizer, ttok.HFTokenizer)
     with torch.no_grad():
         _copy_into(proc.params, host)
+    rows = _record_port_generations(monkeypatch, proc)
     sink = stream.output = Collect()
     asyncio.run(stream.run(asyncio.Event()))
     want = [t for b in jax_sink.batches for t in b.column("generated").to_pylist()]
     got = [t.decode() for b in sink.batches for t in b.column("generated").to_pylist()]
-    assert got == want and len(got) == 7 and stream.errors == 0
-    assert any(t for t in got) and proc.tokens > 0
+    assert len(got) == len(want) == len(rows) == 7 and stream.errors == 0
+    assert proc.tokens > 0
+    for g, (ids, gaps) in zip(got, rows):
+        assert proc.tokenizer.decode(ids) == g and g
+        assert len(ids) == len(gaps) == 5 and min(gaps) > TIE_MARGIN, (g, gaps)
+    assert got == want
