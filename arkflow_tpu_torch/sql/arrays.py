@@ -71,6 +71,14 @@ def is_varlen(t) -> bool:
     return t in ("string", "binary")
 
 
+def is_temporal(t) -> bool:
+    """A date, time or timestamp type (the file input's CSV and NDJSON
+    columns), held as Python ``datetime`` objects: projected, filtered,
+    compared with its own type and sorted, but no kernel takes it with
+    another type (ROADMAP Queue C)."""
+    return isinstance(t, str) and t.startswith(("date32", "time32", "timestamp"))
+
+
 class Arr:
     """One typed column: ``data`` (numpy, object dtype for non-numeric
     types), ``valid`` (bool mask or None) and the Arrow ``type``."""
@@ -141,6 +149,9 @@ def from_column(col: Column) -> Arr:
         if col.TYPE == "string":
             vals = [v.decode("utf-8") for v in vals]
         return Arr(col.TYPE, objects(vals), col.valid)
+    if is_temporal(col.type):
+        valid = np.fromiter((v is not None for v in col.values), bool, count=len(col))
+        return Arr(col.type, objects(col.values), valid)
     return from_pylist(col.values, col.type)
 
 
@@ -447,7 +458,7 @@ def compare(op: str, a: Arr, b: Arr) -> Arr:
         with np.errstate(all="ignore"):
             return Arr("bool", np.asarray(_cmp_values(op, numeric_data(a, t),
                                                       numeric_data(b, t)), bool), valid)
-    if a.type == b.type and (a.type == "bool" or is_varlen(a.type)):
+    if a.type == b.type and (a.type == "bool" or is_varlen(a.type) or is_temporal(a.type)):
         if a.type == "bool":
             out = _cmp_values(op, a.data, b.data)
         else:
@@ -591,7 +602,8 @@ def sort_ranks(a: Arr, ascending: bool) -> np.ndarray:
     live = ok & ~nan
     vals = a.data[live]
     if len(vals):
-        if a.type == "null" or vals.dtype == object and not is_varlen(a.type):
+        if a.type == "null" or (vals.dtype == object and not is_varlen(a.type)
+                                and not is_temporal(a.type)):
             raise ComputeError(f"sort on {type_name(a.type)} is not supported")
         _, inv = np.unique(vals, return_inverse=True)
         top = int(inv.max()) if len(inv) else 0

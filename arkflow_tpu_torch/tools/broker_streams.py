@@ -4,12 +4,14 @@ Each driver takes an engine config of one of the examples
 (``examples/kafka_bert_kafka.json``, ``mqtt_lstm_anomaly.json``,
 ``http_vit_redis.json``, ``cdc_llm_nats.json``, ``nats_bert_mqtt.json``,
 ``redis_lstm_influx.json``, ``ws_redis_bert_http.json``,
-``modbus_influx.json``), points its input and output at fakes started on
+``modbus_influx.json``, ``file_bert_pulsar.json``, ``pulsar_example.json``,
+``avro_file_example.json``), points its input and output at fakes started on
 127.0.0.1 in the same process, feeds the input, runs the stream through
 ``Engine`` until its output holds every expected row (a count: the push
 inputs never end), stops it (``Engine.shutdown``: the stream drains and
 acks before it closes) and returns what the output received with the
-stream's counters:
+stream's counters (the file examples' input ends by itself: their drivers
+run the stream to its end):
 
     report = asyncio.run(kafka_to_kafka(raw, texts, codecs=["gzip", "snappy"]))
     report["values"], report["committed"], report["log_end"], report["rows_per_s"]
@@ -35,12 +37,13 @@ from arkflow_tpu_torch.config import EngineConfig
 from arkflow_tpu_torch.connect.kafka_client import KafkaClient
 from arkflow_tpu_torch.connect.mqtt_client import MqttClient
 from arkflow_tpu_torch.connect.nats_client import NatsClient
+from arkflow_tpu_torch.connect.pulsar_client import validate_topic
 from arkflow_tpu_torch.connect.redis_client import RedisClient
 from arkflow_tpu_torch.runtime.engine import Engine
 from arkflow_tpu_torch.tools.fake_brokers import (FakeKafkaBroker, FakeModbusServer,
                                                   FakeMqttBroker, FakeNatsServer,
-                                                  FakeRedisServer, FakeWebsocketServer,
-                                                  HttpSink)
+                                                  FakePulsarBroker, FakeRedisServer,
+                                                  FakeWebsocketServer, HttpSink)
 
 Prepare = Optional[Callable[[object], None]]
 
@@ -466,3 +469,80 @@ async def modbus_to_influx(raw: dict, polls: int, prepare: Prepare = None,
     finally:
         await srv.stop()
         await sink.stop()
+
+
+async def run_to_end(engine: Engine, stream, timeout_s: float = 120.0) -> float:
+    """Run ``engine`` until its finite input ends and the stream drained;
+    the wall seconds. A stream that reported errors raises."""
+    t0 = time.perf_counter()
+    await asyncio.wait_for(engine.run(), timeout_s)
+    wall = time.perf_counter() - t0
+    if stream.errors:
+        raise StreamFailed(f"the stream reported errors: {stream.errors}")
+    return wall
+
+
+async def file_to_pulsar(raw: dict, paths: list[str], prepare: Prepare = None,
+                         timeout_s: float = 120.0) -> dict:
+    """``file_bert_pulsar.json``: the file input over ``paths``, the pulsar
+    output on a ``FakePulsarBroker``; the stream runs to the end of its
+    files. Returns the output topic's payloads in arrival order and the
+    producers that sent them."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    broker = FakePulsarBroker()
+    await broker.start()
+    try:
+        s["input"]["path"] = list(paths)
+        s["output"]["service_url"] = f"pulsar://127.0.0.1:{broker.port}"
+        engine, stream = _build(raw, prepare)
+        wall = await run_to_end(engine, stream, timeout_s)
+        topic = validate_topic(s["output"]["topic"])
+        return {**_stream_report(stream, wall),
+                "payloads": [p for p, _ in broker.topics.get(topic, [])],
+                "entries": len(broker.logs.get(topic, []))}
+    finally:
+        await broker.stop()
+
+
+async def pulsar_to_pulsar(raw: dict, values: list[bytes], prepare: Prepare = None,
+                           timeout_s: float = 120.0) -> dict:
+    """``pulsar_example.json``: ``values`` stored in the input topic before
+    the run; the stream stops once its subscription acked every one (each
+    message is its own batch, acked after its write). Returns the output
+    topic's payloads in order, the acks and the redeliveries."""
+    raw = _copy(raw)
+    s = raw["streams"][0]
+    inp = s["input"]
+    broker = FakePulsarBroker()
+    await broker.start()
+    try:
+        inp["service_url"] = s["output"]["service_url"] = f"pulsar://127.0.0.1:{broker.port}"
+        in_topic = validate_topic(inp["topic"])
+        for v in values:
+            broker.append(in_topic, [v])
+        engine, stream = _build(raw, prepare)
+        sub = inp["subscription_name"]
+        wall = await run_until(engine, lambda: broker.unacked(in_topic, sub) == 0,
+                               timeout_s=timeout_s)
+        await asyncio.sleep(0.05)  # a late duplicate would land by now
+        out_topic = validate_topic(s["output"]["topic"])
+        return {**_stream_report(stream, wall),
+                "payloads": [p for p, _ in broker.topics.get(out_topic, [])],
+                "acked": len(broker.acked), "unacked": broker.unacked(in_topic, sub),
+                "redelivered": broker.redelivered}
+    finally:
+        await broker.stop()
+
+
+async def file_to_stdout(raw: dict, path: str, prepare: Prepare = None,
+                         timeout_s: float = 120.0) -> dict:
+    """``avro_file_example.json``: the file input over ``path`` (its
+    ``format`` by extension), run to the end; returns the stdout lines."""
+    raw = _copy(raw)
+    raw["streams"][0]["input"]["path"] = path
+    engine, stream = _build(raw, prepare)
+    lines: list[bytes] = []
+    stream.output._write = lines.append
+    wall = await run_to_end(engine, stream, timeout_s)
+    return {**_stream_report(stream, wall), "lines": lines}

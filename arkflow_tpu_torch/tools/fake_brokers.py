@@ -31,6 +31,14 @@ memory for a checker to read:
 - ``FakeModbusServer``: Modbus TCP reads of coils, discrete inputs, holding
   and input registers whose values change with every request; every
   request's values recorded.
+- ``FakePulsarBroker``: the Pulsar binary protocol on the port's proto2
+  codec (``connect/pulsar_proto.py``): CONNECT (token auth, an
+  AUTH_CHALLENGE after it on request), LOOKUP (a redirect to another fake
+  on request), PRODUCER and SEND (scripted SEND_ERRORs), SUBSCRIBE with
+  FLOW permits and MESSAGE delivery, individual ACKs, PING/PONG and
+  CLOSE_*; a subscription keeps its cursor and acks, so a consumer that
+  subscribes again is redelivered every unacked message, and
+  ``publish_batch`` stores one batched entry.
 - ``HttpSink``: an HTTP/1.1 server on ``utils/http1.HttpServer`` that
   records every request and answers a scripted status sequence.
 
@@ -49,7 +57,9 @@ import struct
 import time
 from typing import Optional, Union
 
+from arkflow_tpu_torch.connect import pulsar_client as pc
 from arkflow_tpu_torch.connect.kafka_client import Reader, Writer, decode_record_set
+from arkflow_tpu_torch.connect.pulsar_proto import Message
 from arkflow_tpu_torch.connect.ws_client import (OP_BINARY, OP_CLOSE, OP_CONT, OP_PING,
                                                  OP_PONG, OP_TEXT, accept_key, close_payload,
                                                  encode_frame, read_frame)
@@ -956,6 +966,290 @@ class FakeModbusServer(_Server):
                 body = struct.pack(">BB", func | 0x80, 1)  # illegal function
             writer.write(struct.pack(">HHHB", tid, 0, len(body) + 1, unit) + body)
             await writer.drain()
+
+
+# -- Pulsar ----------------------------------------------------------------------
+
+
+class _Entry:
+    """One entry of a topic's log: a single message or a batch."""
+
+    __slots__ = ("entry_id", "payloads", "key", "batched")
+
+    def __init__(self, entry_id: int, payloads: list[bytes], key: Optional[str], batched: bool):
+        self.entry_id, self.payloads, self.key, self.batched = entry_id, payloads, key, batched
+
+
+class _Subscription:
+    """A subscription's cursor: entries never delivered start at ``next``;
+    delivered-but-unacked ones are ``pending`` on a consumer and go back to
+    ``redeliver`` when that consumer leaves."""
+
+    def __init__(self, start: int):
+        self.next = start
+        self.acked: set[int] = set()
+        self.pending: dict[int, tuple] = {}  # entry index -> consumer key
+        self.redeliver: list[int] = []
+        self.redeliveries: dict[int, int] = {}
+        self.consumers: list[tuple] = []
+
+
+class FakePulsarBroker(_Server):
+    """A one-node Pulsar broker: in-memory topic logs (ledger 1, entry ids
+    counted across topics), subscriptions with cursors, and the scripted
+    faults of the JAX package's test fake (``required_token``,
+    ``redirect_to``, ``fail_sends``, ``challenge_after_connect``). Its
+    CONNECTED carries a field outside the ``PulsarApi`` subset, as a newer
+    broker's does. ``acked`` records every ACK's ``(ledger, entry,
+    batch_index)``; ``subscriptions`` every SUBSCRIBE's ``(topic,
+    subscription, subType)``; ``redelivered`` counts redeliveries."""
+
+    def __init__(self, *, required_token: Optional[str] = None,
+                 redirect_to: "FakePulsarBroker | None" = None,
+                 fail_sends: int = 0, challenge_after_connect: bool = False):
+        super().__init__()
+        self.required_token = required_token
+        self.redirect_to = redirect_to
+        self.fail_sends = fail_sends
+        self.challenge_after_connect = challenge_after_connect
+        self.auth_responses: list[tuple[str, bytes]] = []
+        self.logs: dict[str, list[_Entry]] = {}
+        self.acked: list[tuple[int, int, int]] = []
+        self.subscriptions: list[tuple[str, str, int]] = []
+        self.lookups = 0
+        self.pongs = 0
+        self.redelivered = 0
+        self._subs: dict[tuple[str, str], _Subscription] = {}
+        self._consumers: dict[tuple, dict] = {}  # (connection, consumer id) -> state
+        self._producers: dict[tuple, str] = {}
+        self._entry_id = 0
+        #: entry id -> its index in its topic's log
+        self._entry_index: dict[int, int] = {}
+        self._conn_ids = 0
+
+    @property
+    def topics(self) -> dict[str, list[tuple[bytes, dict]]]:
+        """Every message of each topic as ``(payload, {"key", "entry"})``,
+        the JAX fake's view."""
+        return {t: [(p, {"key": e.key, "entry": e.entry_id}) for e in log for p in e.payloads]
+                for t, log in self.logs.items()}
+
+    def unacked(self, topic: str, subscription: str) -> int:
+        """Entries of ``topic`` the subscription has not acked."""
+        sub = self._subs.get((topic, subscription))
+        log = self.logs.get(topic, [])
+        return len(log) - (len(sub.acked) if sub is not None else 0)
+
+    def append(self, topic: str, payloads: list[bytes], key: Optional[str] = None,
+               batched: bool = False) -> int:
+        """Store one entry in ``topic``'s log (a full topic name) without
+        delivering it; its entry id."""
+        self._entry_id += 1
+        log = self.logs.setdefault(topic, [])
+        self._entry_index[self._entry_id] = len(log)
+        log.append(_Entry(self._entry_id, payloads, key, batched))
+        return self._entry_id
+
+    async def publish_batch(self, topic: str, payloads: list[bytes]) -> int:
+        """Store one batched entry of ``payloads`` and deliver it."""
+        entry = self.append(pc.validate_topic(topic), list(payloads), None, batched=True)
+        await self._deliver_all()
+        return entry
+
+    async def ping_all(self) -> None:
+        """Send a PING on every open connection (each answers a PONG)."""
+        for w in list(self._writers):
+            w.write(pc.encode_simple(Message("BaseCommand", type=pc.PING)))
+            await w.drain()
+
+    async def close_consumer(self, consumer_id: int) -> None:
+        """Push a broker-initiated CLOSE_CONSUMER (a topic unload)."""
+        for key, state in list(self._consumers.items()):
+            if key[1] == consumer_id:
+                self._drop_consumer(key)
+                state["writer"].write(pc.encode_simple(pc.command(
+                    pc.CLOSE_CONSUMER, "close_consumer", consumer_id=consumer_id,
+                    request_id=0)))
+                await state["writer"].drain()
+
+    async def _client(self, reader, writer) -> None:
+        self._conn_ids += 1
+        conn = self._conn_ids
+        try:
+            cmd, _ = await self._read_frame(reader)
+            if cmd.type != pc.CONNECT:
+                return
+            if self.required_token is not None and (
+                    cmd.connect.auth_method_name != "token"
+                    or cmd.connect.auth_data != self.required_token.encode()):
+                writer.write(pc.encode_simple(pc.command(
+                    pc.ERROR, "error", request_id=0, error=3, message="bad token")))
+                await writer.drain()
+                return
+            connected = Message("CommandConnected", server_version="fake-pulsar",
+                                protocol_version=12).encode()
+            connected += b"\x22\x02\x08\x01"  # feature_flags (field 4), outside the subset
+            body = (Message("BaseCommand", type=pc.CONNECTED).encode()
+                    + b"\x1a" + bytes([len(connected)]) + connected)
+            writer.write(struct.pack(">II", 4 + len(body), len(body)) + body)
+            await writer.drain()
+            if self.challenge_after_connect:
+                writer.write(pc.encode_simple(pc.command(
+                    pc.AUTH_CHALLENGE, "authChallenge", server_version="fake-pulsar",
+                    challenge=Message("AuthData", auth_method_name="token"))))
+                await writer.drain()
+            while True:
+                cmd, payload = await self._read_frame(reader)
+                await self._handle(conn, cmd, payload, writer)
+        finally:
+            for key in [k for k in self._consumers if k[0] == conn]:
+                self._drop_consumer(key)
+
+    @staticmethod
+    async def _read_frame(reader) -> tuple[Message, Optional[bytes]]:
+        (total,) = struct.unpack(">I", await reader.readexactly(4))
+        return pc.decode_frame(await reader.readexactly(total))
+
+    def _drop_consumer(self, key: tuple) -> None:
+        """A consumer left: its unacked deliveries go back for redelivery."""
+        state = self._consumers.pop(key, None)
+        if state is None:
+            return
+        sub = self._subs[(state["topic"], state["sub"])]
+        sub.consumers.remove(key)
+        back = sorted(i for i, k in sub.pending.items() if k == key)
+        for i in back:
+            del sub.pending[i]
+        sub.redeliver = sorted(set(sub.redeliver) | set(back))
+
+    async def _handle(self, conn: int, cmd: Message, payload: Optional[bytes], writer) -> None:
+        t = cmd.type
+        if t == pc.AUTH_RESPONSE:
+            r = cmd.authResponse.response
+            self.auth_responses.append((r.auth_method_name, bytes(r.auth_data)))
+            return
+        if t == pc.PONG:
+            self.pongs += 1
+            return
+        if t == pc.PING:
+            out = Message("BaseCommand", type=pc.PONG)
+        elif t == pc.LOOKUP:
+            self.lookups += 1
+            lr = dict(request_id=cmd.lookupTopic.request_id, response=pc.LOOKUP_CONNECT)
+            if self.redirect_to is not None:
+                lr.update(response=pc.LOOKUP_REDIRECT,
+                          brokerServiceUrl=f"pulsar://127.0.0.1:{self.redirect_to.port}")
+            out = pc.command(pc.LOOKUP_RESPONSE, "lookupTopicResponse", **lr)
+        elif t == pc.SUBSCRIBE:
+            sub = cmd.subscribe
+            self.subscriptions.append((sub.topic, sub.subscription, sub.subType))
+            skey = (sub.topic, sub.subscription)
+            if skey not in self._subs:
+                start = 0 if sub.initialPosition == 1 else len(self.logs.get(sub.topic, []))
+                self._subs[skey] = _Subscription(start)
+            key = (conn, sub.consumer_id)
+            self._consumers[key] = {"topic": sub.topic, "sub": sub.subscription,
+                                    "permits": 0, "writer": writer}
+            self._subs[skey].consumers.append(key)
+            out = pc.command(pc.SUCCESS, "success", request_id=sub.request_id)
+        elif t == pc.FLOW:
+            state = self._consumers.get((conn, cmd.flow.consumer_id))
+            if state is not None:
+                state["permits"] += cmd.flow.messagePermits
+                await self._deliver(self._subs[(state["topic"], state["sub"])], state["topic"])
+            return
+        elif t == pc.ACK:
+            state = self._consumers.get((conn, cmd.ack.consumer_id))
+            for mid in cmd.ack.message_id:
+                self.acked.append((mid.ledgerId, mid.entryId, mid.batch_index))
+                if state is not None:
+                    sub = self._subs[(state["topic"], state["sub"])]
+                    idx = self._entry_index.get(mid.entryId)
+                    if idx is not None:
+                        sub.acked.add(idx)
+                        sub.pending.pop(idx, None)
+            return
+        elif t == pc.PRODUCER:
+            self._producers[(conn, cmd.producer.producer_id)] = cmd.producer.topic
+            out = pc.command(pc.PRODUCER_SUCCESS, "producer_success",
+                             request_id=cmd.producer.request_id,
+                             producer_name=f"fake-prod-{cmd.producer.producer_id}")
+        elif t == pc.SEND:
+            _meta, msgs = pc.decode_payload_section(payload)
+            ids = dict(producer_id=cmd.send.producer_id, sequence_id=cmd.send.sequence_id)
+            if self.fail_sends > 0:
+                self.fail_sends -= 1
+                out = pc.command(pc.SEND_ERROR, "send_error", error=2,
+                                 message="injected failure", **ids)
+            else:
+                topic = self._producers.get((conn, cmd.send.producer_id),
+                                            "persistent://public/default/t")
+                entry = 0
+                for m in msgs:
+                    entry = self.append(topic, [m.payload], m.partition_key, batched=False)
+                out = pc.command(pc.SEND_RECEIPT, "send_receipt",
+                                 message_id=Message("MessageIdData", ledgerId=1, entryId=entry),
+                                 **ids)
+                writer.write(pc.encode_simple(out))
+                await writer.drain()
+                await self._deliver_all()
+                return
+        elif t in (pc.UNSUBSCRIBE, pc.CLOSE_PRODUCER, pc.CLOSE_CONSUMER):
+            req = (cmd.unsubscribe if t == pc.UNSUBSCRIBE else
+                   cmd.close_producer if t == pc.CLOSE_PRODUCER else cmd.close_consumer)
+            if t == pc.CLOSE_CONSUMER:
+                self._drop_consumer((conn, req.consumer_id))
+            out = pc.command(pc.SUCCESS, "success", request_id=req.request_id)
+        else:
+            return
+        writer.write(pc.encode_simple(out))
+        await writer.drain()
+
+    async def _deliver_all(self) -> None:
+        for (topic, _name), sub in list(self._subs.items()):
+            await self._deliver(sub, topic)
+
+    async def _deliver(self, sub: _Subscription, topic: str) -> None:
+        """Hand the subscription's next entries to its consumers with
+        permits, redeliveries first."""
+        log = self.logs.get(topic, [])
+        for key in list(sub.consumers):
+            state = self._consumers[key]
+            while state["permits"] > 0:
+                while sub.redeliver and sub.redeliver[0] in sub.acked:
+                    sub.redeliver.pop(0)
+                if sub.redeliver:
+                    idx = sub.redeliver.pop(0)
+                    sub.redeliveries[idx] = sub.redeliveries.get(idx, 0) + 1
+                    self.redelivered += 1
+                elif sub.next < len(log):
+                    idx, sub.next = sub.next, sub.next + 1
+                else:
+                    break
+                sub.pending[idx] = key
+                state["permits"] -= 1
+                state["writer"].write(self._message_frame(key[1], log[idx],
+                                                          sub.redeliveries.get(idx, 0)))
+                await state["writer"].drain()
+
+    @staticmethod
+    def _message_frame(consumer_id: int, entry: _Entry, redeliveries: int) -> bytes:
+        cmd = pc.command(pc.MESSAGE, "message", consumer_id=consumer_id,
+                         message_id=Message("MessageIdData", ledgerId=1,
+                                            entryId=entry.entry_id),
+                         redelivery_count=redeliveries)
+        meta = Message("MessageMetadata", producer_name="fake", sequence_id=entry.entry_id,
+                       publish_time=1)
+        if entry.key:
+            meta.partition_key = entry.key
+        if not entry.batched:
+            return pc.encode_payload_cmd(cmd, meta, entry.payloads[0])
+        meta.num_messages_in_batch = len(entry.payloads)
+        body = b""
+        for p in entry.payloads:
+            smm = Message("SingleMessageMetadata", payload_size=len(p)).encode()
+            body += struct.pack(">I", len(smm)) + smm + p
+        return pc.encode_payload_cmd(cmd, meta, body)
 
 
 # -- HTTP sink -----------------------------------------------------------------

@@ -38,7 +38,9 @@ last line):
    shape key (``tpu/compiled_step.py``), captured at the processor's
    warmup, and the exact counts hold under replay. Then the same stream
    with the runner's eager twin (``eager=True``, same weights) for the
-   A/B; every captured key's graph against the eager twin on random
+   A/B, on half the rows (``half_rows``: every eager A/B rerun of a
+   stream, padded, packed, int8, serving, MoE, ViT and LSTM, to keep the
+   smoke inside its time budget); every captured key's graph against the eager twin on random
    inputs of that shape (``graphs padded``: 0 differing elements, the
    captures, ``memory_reserved`` around them); then the K1 path's outputs
    against the plain attention's on a few hundred rows;
@@ -182,7 +184,7 @@ last line):
    every step key (decode, chunk, each one-shot prefill bucket; paged and
    gather) of a graphed server against an eager twin on the same weights,
    pools and inputs, 0 differing elements in next tokens and top-2 gaps;
-   then the generate stream's first ``GENERATE_EAGER_ROWS`` (24) rows
+   then the generate stream's first ``GENERATE_EAGER_ROWS`` (12) rows
    again with an eager twin server, for the A/B;
 11. the generate lifecycle phase (``llama_lifecycle_stream.json``: the
     generate stream of step 10 behind a redelivering ``fault`` input, with
@@ -288,7 +290,7 @@ last line):
     ``remap`` keeps exactly the rows scoring above 0.5, each score equal bit
     for bit to the runner's on the stream's own batches and each alert
     Arrow's text of ``round(score, 3)``. The other directions, after the Kafka stream:
-    ``nats_bert_mqtt.json`` on the packed runner (``NATS_TEXTS`` (2048)
+    ``nats_bert_mqtt.json`` on the packed runner (``NATS_TEXTS`` (1024)
     JetStream rows pulled 64 at a time; every id once at a QoS 1 MQTT
     subscriber, the consumer's ack floor at the last sequence with no
     redelivery, labels and scores bit for bit the packed runner's on the
@@ -304,7 +306,26 @@ last line):
     write answered 500: exactly one retry, scores bit for bit the runner's
     on the stream's own batches). The ``brokers kafka|nats|fanin|modbus|
     cdc|http|mqtt|redis`` lines and the ``brokers`` line: each stream's
-    rows/s beside its raw stream's, the host CRC's cost;
+    rows/s beside its raw stream's, the host CRC's cost. The ``file``
+    phase (``run_file``, ``phases.file``), after the Modbus stream, its
+    data files written with the standard library into a temp dir: (a)
+    ``file_bert_pulsar.json`` on the packed runner over ``FILE_TEXTS``
+    (4096) rows of 8-100 words, the first ``FILE_CSV_ROWS`` (3400) in a CSV
+    file over 1 MiB (the reader's 1 MiB blocks cut it) and the rest NDJSON,
+    the example's query keeping 3072; every kept id once and in order at
+    the port's fake Pulsar broker, labels and scores bit for bit the packed
+    runner's on the stream's own emissions and held to the packed runner
+    called directly on the kept texts (tie-free labels equal, scores within
+    1/64), K2 = layers x packed steps all ``mma``, K1 0, 0 captures (line
+    ``file bert``); (b) ``pulsar_example.json`` over ``PULSAR_READINGS``
+    (4096) seeded JSON readings: the output rows equal, in order, the
+    readings above 10 with ``value * 1.8 + 32`` computed in Python, every
+    message acked, none redelivered (``file pulsar``); (c)
+    ``avro_file_example.json`` over a deflate Avro file of ``AVRO_RECORDS``
+    (50000) records, about 1.8 MB: the lines are the kept records' ``id``
+    and ``name`` in order, bar exactly the rows the ``batch`` processor
+    held when the file ended, which it drops as JAX's does (``file
+    avro``). The ``file`` line sums them;
 16. the ``overload`` phase (``run_overload``, ``phases.overload``), after
     the Modbus stream on the padded runner, before it is released. ``overload
     burst``: ``overload_stream.json`` with ``gpu_inference`` (the padded
@@ -1196,6 +1217,15 @@ def measure_warmup(obj, report: dict) -> None:
     obj.warmup = warmup
 
 
+def half_rows(cfg_raw: dict) -> dict:
+    """A copy of an example whose generate input makes half its rows: the
+    eager A/B reruns' traffic (half the graphed run's, which pays for the
+    file phase inside the smoke's time budget)."""
+    raw = json.loads(json.dumps(cfg_raw))
+    raw["streams"][0]["input"]["count"] //= 2
+    return raw
+
+
 def build_stream_runner(cfg_raw: dict, eager: bool):
     """The config's engine, built, with its runner swapped for its eager
     twin when ``eager``; the warmup's memory is recorded in ``memory``."""
@@ -1680,7 +1710,7 @@ def run_sql() -> dict:
 BROKER_TEXTS = 3072
 #: rows of the eager generate run (the graphed run serves all 48 of the
 #: example): cut 48 -> 24 to pay for the obs part
-GENERATE_EAGER_ROWS = 24
+GENERATE_EAGER_ROWS = 12
 BROKER_CODECS = ["gzip", "snappy", "lz4", None]
 MQTT_WINDOWS = 1024
 #: every 8th MQTT window scaled by 30: the anomalies config 3's remap keeps
@@ -2409,7 +2439,7 @@ def run_cdc_nats(proc, rows: list[bytes], generated: list[bytes], ref: list,
 #: the other directions of the brokers: JetStream texts into the packed
 #: runner, Redis list windows into the LSTM, the websocket + Redis
 #: subscribe fan-in's texts into the padded runner, Modbus polls
-NATS_TEXTS = 2048
+NATS_TEXTS = 1024
 REDIS_WINDOWS = 1024
 FANIN_TEXTS = 256
 MODBUS_POLLS = 64
@@ -2615,6 +2645,249 @@ def run_modbus_influx() -> dict:
     check(len(got) >= MODBUS_POLLS and report["lines_equal"] and rep["errors"] == 0,
           f"modbus -> influxdb lines != encode_lines of the served values: {report}")
     return report
+
+
+#: the file phase: FILE_TEXTS ``{"id", "text"}`` rows, the first
+#: FILE_CSV_ROWS in a CSV file (over 1 MiB, so that the reader's 1 MiB
+#: blocks are cut) and the rest in an NDJSON file; PULSAR_READINGS JSON
+#: sensor readings; AVRO_RECORDS records in a deflate Avro file (reads of
+#: 8192 records keep 4096 rows each and the last 424: the example's
+#: ``batch`` processor emits 10000 rows or more at a time and drops what it
+#: still holds at close, as JAX's does, so the file's kept tail is lost)
+FILE_TEXTS = 4096
+FILE_CSV_ROWS = 3400
+PULSAR_READINGS = 4096
+AVRO_RECORDS = 50000
+FILE_BERT_CONFIG = os.path.join(EXAMPLES, "file_bert_pulsar.json")
+PULSAR_CONFIG = os.path.join(EXAMPLES, "pulsar_example.json")
+AVRO_CONFIG = os.path.join(EXAMPLES, "avro_file_example.json")
+AVRO_SCHEMA = {"type": "record", "name": "Event", "fields": [
+    {"name": "id", "type": "long"}, {"name": "name", "type": "string"},
+    {"name": "temp", "type": ["null", "double"]}, {"name": "ok", "type": "boolean"},
+    {"name": "tag", "type": "string"}]}
+
+
+def write_text_files(workdir: str, texts: list[str]) -> list[str]:
+    """The texts as ``{"id", "text"}`` rows, written with the standard
+    library: the first FILE_CSV_ROWS by ``csv.writer``, the rest one
+    ``json.dumps`` a line."""
+    import csv
+
+    paths = [os.path.join(workdir, "texts.csv"), os.path.join(workdir, "texts.ndjson")]
+    with open(paths[0], "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "text"])
+        w.writerows([i, texts[i]] for i in range(FILE_CSV_ROWS))
+    with open(paths[1], "w") as f:
+        f.writelines(json.dumps({"id": i, "text": texts[i]}) + "\n"
+                     for i in range(FILE_CSV_ROWS, len(texts)))
+    return paths
+
+
+def run_file_bert(prunner: ModelRunner, ab: dict, workdir: str) -> dict:
+    """``file_bert_pulsar.json`` on the packed BERT-base runner: FILE_TEXTS
+    rows of 8-100 words split between a CSV file over 1 MiB and an NDJSON
+    file, the example's query keeping ids with ``id % 4 <> 3``; every kept
+    id once at the fake Pulsar broker, in order; labels and scores bit for
+    bit the packed runner's on the stream's own emissions, and held to the
+    packed runner called directly on the kept texts (its own windows):
+    labels equal on tie-free rows, scores within 1/64; K2 = layers x packed
+    steps, all ``mma``, K1 0, 0 captures."""
+    from arkflow_tpu_torch.utils.tabular import blocks
+
+    raw = broker_config(FILE_BERT_CONFIG)
+    built_small(raw)
+    texts = broker_texts(FILE_TEXTS, seed=23)
+    paths = write_text_files(workdir, texts)
+    sizes = [os.path.getsize(p) for p in paths]
+    check(sizes[0] > 1 << 20, f"the file phase's CSV is not over 1 MiB: {sizes}")
+    with open(paths[0], "rb") as f:
+        csv_blocks = sum(1 for _ in blocks(f))
+    kept = [i for i in range(FILE_TEXTS) if i % 4 != 3]
+    counted: dict = {}
+    state: dict = {"emitted": []}
+
+    def prepare(stream) -> None:
+        proc = stream.pipeline.processors[0]
+        state["proc"] = proc
+        ids, mask = proc.tokenizer.encode_batch([texts[i].encode() for i in kept],
+                                                proc.max_seq)
+        windows = pack_windows(ids, mask, prunner.buckets)
+        state["ref"] = scatter_windows(windows, [prunner.infer_sync(w) for w, _ in windows],
+                                       len(kept))
+        inner_read = stream.buffer.read
+
+        async def read():
+            item = await inner_read()
+            if item is not None:
+                state["emitted"].append(item[0])
+            return item
+
+        stream.buffer.read = read
+        counted["packed_steps"] = prunner.packed_steps
+        torch.cuda.synchronize()
+        swap_in(stream, 0, prunner, counted)
+
+    rep = asyncio.run(broker_streams.file_to_pulsar(raw, paths, prepare=prepare))
+    torch.cuda.synchronize()
+    launches = {"k1": ra.launches.value, "k2": sa.launches.value,
+                "k2_variants": dict(sa.launches.variants)}
+    steps = prunner.packed_steps - counted["packed_steps"]
+    captures = prunner.captures - counted["captures"]
+    rows = [json.loads(p) for p in rep["payloads"]]
+    keys_ok = all(list(r) == JSON_KEYS for r in rows)
+    got_ids = [r["id"] for r in rows] if keys_ok else []
+    ref = state["ref"]
+    top2 = np.sort(ref["logits"], axis=1)
+    tie_free = (top2[:, -1] - top2[:, -2]) > LABEL_MARGIN
+    by_id = {r["id"]: r for r in rows} if keys_ok else {}
+    label = np.array([by_id[i]["label"] if i in by_id else -1 for i in kept])
+    score = np.array([by_id[i]["score"] if i in by_id else np.nan for i in kept])
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "entries")}
+    report.update(rows_in=FILE_TEXTS, kept=len(kept), payloads=len(rows),
+                  csv_bytes=sizes[0], ndjson_bytes=sizes[1], csv_blocks=csv_blocks,
+                  raw_rows_per_s=ab["packed"]["graphed"]["traffic_rows_per_s"],
+                  in_order=got_ids == kept, emissions=len(state["emitted"]),
+                  packed_steps=steps, layers=prunner.cfg.layers, captures_on_path=captures,
+                  launches=launches, tie_free_rows=int(tie_free.sum()),
+                  label_mismatches_tie_free=int((label[tie_free] != ref["label"][tie_free]).sum()),
+                  label_mismatches_all=int((label != ref["label"]).sum()),
+                  max_score_abs_err=float(np.nanmax(np.abs(score - ref["score"])))
+                  if len(by_id) else None)
+    print("file bert " + json.dumps(report), flush=True)
+    check(keys_ok and sorted(got_ids) == kept and len(rows) == len(kept),
+          f"file -> bert -> pulsar lost, repeated or misshaped rows: {report}")
+    check(report["in_order"], f"file -> bert -> pulsar reordered rows: {report}")
+    check(rep["errors"] == 0, f"file -> bert -> pulsar reported errors: {report}")
+    check(report["label_mismatches_tie_free"] == 0 and report["max_score_abs_err"] <= LOGIT_TOL,
+          f"file -> bert: labels or scores off the packed runner's direct call: {report}")
+
+    async def emissions_again() -> dict:
+        out = {}
+        for batch in state["emitted"]:  # the stream's own emissions, through the same processor
+            for b in await state["proc"].process(batch):
+                cols = b.to_pydict()
+                out.update(zip(cols["id"], zip(cols["label"], cols["score"])))
+        return out
+
+    again = asyncio.run(emissions_again())
+    report["equal_bitwise_same_emissions"] = again == {i: (r["label"], r["score"])
+                                                       for i, r in by_id.items()}
+    check(report["equal_bitwise_same_emissions"],
+          f"file -> bert: outputs != the packed runner's on the same emissions: {report}")
+    check(launches["k2"] > 0 and launches["k2"] == prunner.cfg.layers * steps,
+          f"file -> bert: K2 launches != layers x packed steps: {report}")
+    check(launches["k2_variants"].get("mma") == launches["k2"],
+          f"file -> bert: a K2 launch missed the mma tile: {report}")
+    check(launches["k1"] == 0, f"file -> bert launched K1: {report}")
+    check(captures == 0, f"file -> bert captured on the path: {report}")
+    return report
+
+
+def run_pulsar_example() -> dict:
+    """``pulsar_example.json`` over PULSAR_READINGS seeded JSON readings
+    (values -20..40) stored in the input topic before the run: the output
+    topic's rows equal, in order, the readings above 10 with ``value * 1.8
+    + 32`` computed in Python; every input message acked, none left to
+    redeliver. Host only."""
+    raw = broker_config(PULSAR_CONFIG)
+    rng = np.random.default_rng(24)
+    readings = [{"sensor": f"s{i % 32}", "value": round(float(v), 3)}
+                for i, v in enumerate(rng.uniform(-20, 40, PULSAR_READINGS))]
+    rep = asyncio.run(broker_streams.pulsar_to_pulsar(
+        raw, [json.dumps(r).encode() for r in readings]))
+    want = [{"sensor": r["sensor"], "fahrenheit": r["value"] * 1.8 + 32}
+            for r in readings if r["value"] > 10]
+    got = [json.loads(p) for p in rep["payloads"]]
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s", "acked", "unacked", "redelivered")}
+    report.update(messages=PULSAR_READINGS, kept=len(want), payloads=len(got),
+                  rows_equal=got == want,
+                  messages_per_s=PULSAR_READINGS / rep["wall_s"])
+    print("file pulsar " + json.dumps(report), flush=True)
+    check(report["rows_equal"], f"pulsar -> sql -> pulsar rows != the Python filter: {report}")
+    check(rep["unacked"] == 0 and rep["redelivered"] == 0 and rep["acked"] >= PULSAR_READINGS,
+          f"pulsar: an input message was left unacked or redelivered: {report}")
+    check(rep["errors"] == 0, f"pulsar -> pulsar reported errors: {report}")
+    return report
+
+
+def run_avro_example(workdir: str) -> dict:
+    """``avro_file_example.json`` over a deflate Avro file of AVRO_RECORDS
+    seeded records (a random 48-hex-digit ``tag`` each, about 2 MB): the
+    stdout lines are the ``id`` and ``name`` of the records with ``ok``, in
+    order, up to the rows the ``batch`` processor still held at close,
+    which it drops (JAX's does too; ROADMAP Queue C): lines plus the held
+    rows equal the kept records, the lines end at a read's boundary and the
+    held rows are fewer than the processor's count. Host only."""
+    from arkflow_tpu_torch.utils.avro import write_container
+
+    rng = np.random.default_rng(25)
+    tags = rng.integers(0, 2 ** 63, size=(AVRO_RECORDS, 3))
+    records = [{"id": i, "name": f"n{i}", "temp": None if i % 3 == 0 else i * 0.5,
+                "ok": i % 2 == 0, "tag": "%016x%016x%016x" % tuple(t)}
+               for i, t in enumerate(tags.tolist())]
+    path = os.path.join(workdir, "events.avro")
+    with open(path, "wb") as f:
+        write_container(f, AVRO_SCHEMA, records, codec="deflate")
+    raw = broker_config(AVRO_CONFIG)
+    seen: dict = {"reads": [], "emissions": 0}
+
+    def prepare(stream) -> None:
+        proc = stream.pipeline.processors[0]
+        seen["count"] = proc.count
+        inner_process, inner_close = proc.process, proc.close
+
+        async def process(batch):
+            seen["reads"].append(batch.num_rows)
+            out = await inner_process(batch)
+            seen["emissions"] += len(out)
+            return out
+
+        async def close():
+            seen["held_at_close"] = proc._held_rows
+            await inner_close()
+
+        proc.process, proc.close = process, close
+
+    rep = asyncio.run(broker_streams.file_to_stdout(raw, path, prepare=prepare))
+    want = [{"id": r["id"], "name": r["name"]} for r in records if r["ok"]]
+    got = [json.loads(line) for line in rep["lines"]]
+    ends = set(np.cumsum([0] + seen["reads"]).tolist())
+    held, count = seen.get("held_at_close"), seen["count"]
+    report = {k: rep[k] for k in ("rows_out", "errors", "wall_s", "traffic_seconds",
+                                  "rows_per_s")}
+    report.update(records=AVRO_RECORDS, file_bytes=os.path.getsize(path), kept=len(want),
+                  lines=len(got), reads=len(seen["reads"]), emissions=seen["emissions"],
+                  held_at_close_dropped=held, lines_are_kept_prefix=got == want[:len(got)],
+                  records_per_s=AVRO_RECORDS / rep["wall_s"])
+    print("file avro " + json.dumps(report), flush=True)
+    check(report["lines_are_kept_prefix"] and held is not None
+          and len(got) + held == len(want) and len(got) in ends and held < count,
+          f"avro -> batch -> stdout lost rows other than the tail held at close: {report}")
+    check(rep["errors"] == 0, f"avro -> stdout reported errors: {report}")
+    return report
+
+
+def run_file(prunner: ModelRunner, ab: dict) -> dict:
+    """The file phase: (a) file -> BERT-base -> Pulsar, (b) the Pulsar
+    example, (c) the Avro example, in a temp dir removed after."""
+    workdir = tempfile.mkdtemp(prefix="arkflow-file-")
+    try:
+        out = {"bert": run_file_bert(prunner, ab, workdir), "pulsar": run_pulsar_example(),
+               "avro": run_avro_example(workdir)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("file " + json.dumps({
+        "rows_per_s": {"file_bert": out["bert"]["rows_per_s"],
+                       "packed_raw": out["bert"]["raw_rows_per_s"],
+                       "pulsar_messages": out["pulsar"]["messages_per_s"],
+                       "avro_records": out["avro"]["records_per_s"]},
+        "k2_launches": out["bert"]["launches"]["k2"],
+        "csv_bytes": out["bert"]["csv_bytes"], "csv_blocks": out["bert"]["csv_blocks"],
+        "avro_bytes": out["avro"]["file_bytes"]}), flush=True)
+    return out
 
 
 def run_redis_lstm(lstm: dict) -> dict:
@@ -4764,10 +5037,12 @@ def graph_check_server(server: GenerationServer, path: str = "generate",
 
 
 def ab_numbers(report: dict) -> dict:
-    """One stream run's numbers for the A/B line."""
+    """One stream run's numbers for the A/B line, with the rows it served
+    (an eager rerun serves half its graphed run's: ``half_rows``)."""
     keys = (("traffic_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "traffic_ms_per_decode_step")
             if "traffic_tokens_per_s" in report else ("traffic_rows_per_s",))
-    return {**{k: report[k] for k in keys}, "duty_cycle": report["duty_cycle"],
+    return {**{k: report[k] for k in keys}, "rows": report["rows_out"],
+            "duty_cycle": report["duty_cycle"],
             "captures": report["captures"], "traffic_seconds": report["traffic_seconds"]}
 
 
@@ -4858,7 +5133,7 @@ def run_serving_features(cfg_raw: dict) -> dict:
           f"serving: no verify graph checked: {graphs}")
     del server, graphed["server"]
     release_memory()
-    eager = run_generate_slice(cfg_raw, eager=True, label="serving")
+    eager = run_generate_slice(half_rows(cfg_raw), eager=True, label="serving")
     del eager["server"]
     release_memory()
     return {"report": rep, "eager": eager["report"], "streams": streams, "graphs": graphs}
@@ -5254,7 +5529,7 @@ def run_moe(cfg_raw: dict) -> dict:
     peak_graphed = torch.cuda.max_memory_reserved()
     del server, graphed["server"]
     release_memory()
-    eager = run_generate_slice(cfg_raw, eager=True, label="moe eager")
+    eager = run_generate_slice(half_rows(cfg_raw), eager=True, label="moe eager")
     del eager["server"]
     release_memory()
     report = graphed["report"]
@@ -6556,7 +6831,7 @@ def run_vit(cfg_raw: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_reserved()
     graphed = run_tensor_stream(cfg_raw, payloads, "vit", "embedding")
-    eager = run_tensor_stream(cfg_raw, payloads, "vit", "embedding", eager=True)
+    eager = run_tensor_stream(half_rows(cfg_raw), payloads, "vit", "embedding", eager=True)
     runner, proc = graphed["runner"], graphed["proc"]
     params_bytes = tree_bytes(runner.params)
     bound = bound_of(vit_flops, cfg, params_bytes, size * 4, cfg.hidden * 4, torch.bfloat16)
@@ -6585,6 +6860,7 @@ def run_vit(cfg_raw: dict) -> dict:
               "layers": cfg.layers, "params_mb": params_bytes / 1e6,
               "traffic_images_per_s": graphed["report"]["traffic_rows_per_s"],
               "eager_traffic_images_per_s": eager["report"]["traffic_rows_per_s"],
+              "eager_images": eager["report"]["rows_out"],
               "processor_images_per_s": {"graphed": VIT_IMAGES / graphed_s,
                                          "eager": VIT_IMAGES / eager_s},
               "step": steps, "flops_per_image": vit_flops(cfg, 1),
@@ -6630,7 +6906,7 @@ def run_lstm(cfg_raw: dict) -> dict:
     windows[outlier] = np.where(np.arange(width) % 2 == 0, 255, 0)  # a saw-tooth at the rails
     payloads = [windows[i].tobytes() for i in range(LSTM_WINDOWS)]
     graphed = run_tensor_stream(cfg_raw, payloads, "lstm", "score")
-    eager = run_tensor_stream(cfg_raw, payloads, "lstm", "score", eager=True)
+    eager = run_tensor_stream(half_rows(cfg_raw), payloads, "lstm", "score", eager=True)
     runner, proc = graphed["runner"], graphed["proc"]
     params_bytes = tree_bytes(runner.params)
     bound = bound_of(lstm_flops, cfg, params_bytes, width * 4, 4, torch.float32)
@@ -6648,6 +6924,7 @@ def run_lstm(cfg_raw: dict) -> dict:
     report = {"windows": LSTM_WINDOWS, **dataclasses.asdict(cfg),
               "traffic_windows_per_s": graphed["report"]["traffic_rows_per_s"],
               "eager_traffic_windows_per_s": eager["report"]["traffic_rows_per_s"],
+              "eager_windows": eager["report"]["rows_out"],
               "step": steps, "flops_per_window": lstm_flops(cfg, 1),
               "graphed_equals_eager": bool(np.array_equal(got.view(np.int32),
                                                           got_eager.view(np.int32))),
@@ -6829,9 +7106,10 @@ def main() -> int:
     batch = cfg_raw["streams"][0]["input"]["batch_size"]
     result = run_slice(cfg_raw)
     runner = result["runner"]
-    # the A/B: each stream graphed (the default), then eager on the same rows
+    # the A/B: each stream graphed (the default), then eager on the first
+    # half of the same rows (``half_rows``)
     ab = {"padded": {"graphed": ab_numbers(result["report"]),
-                     "eager": ab_numbers(run_slice(cfg_raw, eager=True)["report"])}}
+                     "eager": ab_numbers(run_slice(half_rows(cfg_raw), eager=True)["report"])}}
     graphs = {"padded": graph_check_runner("padded", runner, result["report"], seed=11)}
     main_len = slice_lengths(cfg_raw, batch)
     main_seq = runner.buckets.seq_bucket(int(main_len.max()))
@@ -6849,7 +7127,8 @@ def main() -> int:
     packed = run_packed_slice(packed_raw)
     prunner = packed["runner"]
     ab["packed"] = {"graphed": ab_numbers(packed["report"]),
-                    "eager": ab_numbers(run_packed_slice(packed_raw, eager=True)["report"])}
+                    "eager": ab_numbers(run_packed_slice(half_rows(packed_raw),
+                                                         eager=True)["report"])}
     graphs["packed"] = graph_check_runner("packed", prunner, packed["report"], seed=12)
     dh = prunner.cfg.hidden // prunner.cfg.heads
     k2_cases = []
@@ -6873,6 +7152,7 @@ def main() -> int:
     brokers["nats"] = phases.carve("brokers", run_nats_bert, prunner, runner, ab)
     brokers["fanin"] = phases.carve("brokers", run_fanin_bert, runner, ab)
     brokers["modbus"] = phases.carve("brokers", run_modbus_influx)
+    file_phase = phases.carve("file", run_file, prunner, ab)
     # the overload phase on the padded runner, before it is released and
     # before obs (whose capture slows later launches)
     overload = phases.carve("overload", run_overload, runner)
@@ -6894,7 +7174,7 @@ def main() -> int:
     bf16_raw["streams"][0]["pipeline"]["processors"][0]["serving_dtype"] = "bfloat16"
     int8_run, bf16_run = run_int8_slice(int8_raw), run_int8_slice(bf16_raw)
     ab["int8"] = {"graphed": ab_numbers(int8_run["report"]),
-                  "eager": ab_numbers(run_int8_slice(int8_raw, eager=True)["report"])}
+                  "eager": ab_numbers(run_int8_slice(half_rows(int8_raw), eager=True)["report"])}
     graphs["int8"] = graph_check_runner("int8", int8_run["runner"], int8_run["report"], seed=13)
     print("int8 traffic rows/s " + json.dumps({
         "int8": int8_run["report"]["traffic_rows_per_s"],
@@ -7077,7 +7357,7 @@ def main() -> int:
         "replaces": "arkflow_tpu/ops/segment_attention.py:52",
         "launches": (packed["report"]["k2_launches"] + tuner["k2_launches"]
                      + delivery["cost"]["k2_launches"] + json_phase["packed"]["k2_launches"]
-                     + brokers["nats"]["launches"]["k2"]),
+                     + brokers["nats"]["launches"]["k2"] + file_phase["bert"]["launches"]["k2"]),
         "ok": True,
         **kernel_line(k2_main), "redesigned": REDESIGN,
         "tuner_buckets": {s: c["K2"] for s, c in tuner["kernels"].items()},

@@ -25,7 +25,7 @@ _UNPORTED = "is not yet ported to arkflow_tpu_torch"
 
 FIRST_REFUSAL = {
     "adaptive_shapes_example": None,
-    "avro_file_example": "stream[0]: unknown input type 'file'",
+    "avro_file_example": None,
     "cdc_llm_nats": None,
     "chaos_example": None,
     "cluster_example": "stream[0]: unknown processor type 'remote_tpu'",
@@ -53,10 +53,10 @@ FIRST_REFUSAL = {
     "postgres_sql_example": "stream[0]: unknown input type 'sql'",
     "pp_serving_example": f"stream[0]: processor 'gpu_inference' key 'mesh' {_UNPORTED}",
     "protobuf_example": None,
-    "pulsar_example": "stream[0]: unknown input type 'pulsar'",
+    "pulsar_example": None,
     "redis_cluster_example": None,
-    "remote_scan_example": "stream[0]: unknown input type 'file'",
-    "s3_scan_example": "stream[0]: unknown input type 'file'",
+    "remote_scan_example": f"stream[0]: input 'file' key 'remote_url' {_UNPORTED}",
+    "s3_scan_example": f"stream[0]: input 'file' key 'fs' {_UNPORTED}",
     "self_healing_example": f"stream[0]: processor 'gpu_inference' key 'device_pool' {_UNPORTED}",
     "session_window_example": None,
     "sharded_ingest_example": f"config error: pipeline.ingest_shards {_UNPORTED}",

@@ -4,8 +4,9 @@ paths (the padded, the packed and the generate stream, the BERT and
 Llama lifecycle streams with their health servers, the Llama serving,
 batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
 stream with a forced tuner cycle, the chaos and BERT delivery streams, the
-packed and windowed JSON BERT streams, and the eight broker examples against
-the port's fake brokers) needs pyarrow, yaml, aiohttp, websockets, zstandard
+packed and windowed JSON BERT streams, the eight broker examples against
+the port's fake brokers, and the file and Pulsar examples, whose CSV, NDJSON
+and Avro readers and proto2 codec are the port's own) needs pyarrow, yaml, aiohttp, websockets, zstandard
 or google.protobuf at import time or at run time. ``transformers`` is imported
 only inside ``HFTokenizer``, ``google.protobuf`` only inside the protobuf
 codec, ``zstandard`` only inside the zstd codec."""
@@ -511,3 +512,76 @@ def test_control_plane_runs_with_jax_and_reference_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CONTROL_OK" in proc.stdout
+
+
+_FILE_PULSAR_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "websockets",
+             "google.protobuf", "zstandard", "transformers"):
+    sys.modules[name] = None  # any import of these now fails
+import asyncio
+import csv
+import json
+import os
+import tempfile
+
+from arkflow_tpu_torch.tools import broker_streams as bs
+from arkflow_tpu_torch.utils.avro import write_container
+
+def example(name):
+    return json.load(open("arkflow_tpu_torch/examples/" + name))
+
+tmp = tempfile.mkdtemp()
+rows = [{"id": i, "text": f"msg{i} " + "w " * (i % 9)} for i in range(24)]
+with open(os.path.join(tmp, "t.csv"), "w", newline="") as f:
+    w = csv.writer(f)
+    w.writerow(["id", "text"])
+    w.writerows([r["id"], r["text"]] for r in rows[:12])
+with open(os.path.join(tmp, "t.ndjson"), "w") as f:
+    f.writelines(json.dumps(r) + "\n" for r in rows[12:])
+raw = example("file_bert_pulsar.json")
+s = raw["streams"][0]
+s["pipeline"]["processors"][0].update(
+    device="cpu", warmup=False, max_seq=32, batch_buckets=[4, 8], seq_buckets=[32],
+    model_config={"vocab_size": 128, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32,
+                  "max_positions": 64})
+s["buffer"].update(capacity=8)
+s["buffer"]["coalesce"].update(batch_buckets=[8], token_budget=256, max_row_tokens=32)
+rep = asyncio.run(bs.file_to_pulsar(raw, [os.path.join(tmp, "t.csv"),
+                                          os.path.join(tmp, "t.ndjson")]))
+ids = [json.loads(p)["id"] for p in rep["payloads"]]
+assert sorted(ids) == [i for i in range(24) if i % 4 != 3] and rep["errors"] == 0, rep
+vals = [json.dumps({"sensor": f"s{i}", "value": i}).encode() for i in range(20)]
+rep = asyncio.run(bs.pulsar_to_pulsar(example("pulsar_example.json"), vals))
+assert [json.loads(p)["sensor"] for p in rep["payloads"]] == [f"s{i}" for i in range(11, 20)]
+assert rep["unacked"] == 0 and rep["redelivered"] == 0, rep
+schema = {"type": "record", "name": "E", "fields": [
+    {"name": "id", "type": "long"}, {"name": "name", "type": "string"},
+    {"name": "ok", "type": "boolean"}]}
+with open(os.path.join(tmp, "e.avro"), "wb") as f:
+    write_container(f, schema, [{"id": i, "name": f"n{i}", "ok": i % 2 == 0}
+                                for i in range(20000)], codec="deflate")
+rep = asyncio.run(bs.file_to_stdout(example("avro_file_example.json"),
+                                    os.path.join(tmp, "e.avro")))
+assert [json.loads(x)["id"] for x in rep["lines"]] == list(range(0, 20000, 2)), rep["rows_out"]
+leaked = [m for m in sys.modules if (m.split(".")[0] in ("jax", "arkflow_tpu", "pyarrow",
+                                                         "transformers")
+                                     or m.startswith("google.protobuf"))
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("FILE_PULSAR_OK")
+"""
+
+
+def test_file_and_pulsar_examples_run_with_pyarrow_and_protobuf_blocked():
+    """``file_bert_pulsar.json`` at a tiny width, ``pulsar_example.json`` and
+    ``avro_file_example.json`` through ``tools/broker_streams.py`` on the
+    port's fake Pulsar broker, with JAX, the JAX package, pyarrow and
+    google.protobuf blocked: the port reads CSV, NDJSON and Avro and speaks
+    Pulsar's protocol on its own code."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _FILE_PULSAR_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FILE_PULSAR_OK" in proc.stdout
