@@ -508,6 +508,15 @@ class MessageBatch:
                         else column_from_pylist(list(v))) for k, v in data.items()})
 
     @classmethod
+    def from_pylist(cls, rows: Sequence[Mapping[str, Any]]) -> "MessageBatch":
+        """One row a mapping, as ``pa.RecordBatch.from_pylist`` takes them:
+        the columns are the first row's keys, a key a later row lacks is
+        null there, and a key only later rows have is dropped."""
+        if not rows:
+            return cls.empty()
+        return cls({k: column_from_pylist([r.get(k) for r in rows]) for k in rows[0]})
+
+    @classmethod
     def empty(cls) -> "MessageBatch":
         return cls({})
 
@@ -734,6 +743,21 @@ class MessageBatch:
         if not self.has_column(name) or self._rows == 0:
             return None
         return column_to_pylist(slice_column(self._cols[name], 0, 1))[0]
+
+    def filter(self, mask: Any) -> "MessageBatch":
+        """The rows where ``mask`` is true, as ``pa.RecordBatch.filter``
+        keeps them: a null in the mask drops its row. ``mask`` is a bool
+        column, a numpy array or a list of bools of the batch's length."""
+        from arkflow_tpu_torch.sql.arrays import take_column
+
+        vals = column_to_pylist(mask) if not isinstance(mask, (list, np.ndarray)) else mask
+        keep = np.fromiter((v is not None and bool(v) for v in
+                            (vals.tolist() if isinstance(vals, np.ndarray) else vals)),
+                           bool, count=len(vals))
+        if len(keep) != self._rows:
+            raise ArkError(f"filter mask length {len(keep)} != batch rows {self._rows}")
+        idx = np.flatnonzero(keep)
+        return MessageBatch({k: take_column(c, idx) for k, c in self._cols.items()}, len(idx))
 
     # -- chunking / merge --------------------------------------------------
 

@@ -146,11 +146,13 @@ def split_ack(ack: Ack, parts: int) -> list[Ack]:
 class Resource:
     """Shared build-time context passed to every builder.
 
+    - ``temporaries``: the stream's named ``Temporary`` lookup tables, which
+      the ``sql`` processor's ``temporary`` bindings read.
     - ``input_names``: child names registered by fan-in inputs
-      (``multiple_inputs``), for the windowed SQL join's tables (its
-      reader, like JAX's ``temporaries``, waits for the SQL engine).
+      (``multiple_inputs``), the windowed SQL join's tables.
     """
 
+    temporaries: dict[str, "Temporary"] = field(default_factory=dict)
     input_names: list[str] = field(default_factory=list)
 
 
@@ -224,3 +226,17 @@ class Encoder(abc.ABC):
 
 class Codec(Encoder, Decoder, abc.ABC):
     """Bidirectional codec."""
+
+
+class Temporary(abc.ABC):
+    """Async keyed lookup table for SQL enrichment."""
+
+    @abc.abstractmethod
+    async def connect(self) -> None: ...
+
+    @abc.abstractmethod
+    async def get(self, keys: Sequence[object]) -> MessageBatch:
+        """Fetch rows for the given key values; absent keys yield no rows."""
+
+    async def close(self) -> None:
+        return None

@@ -29,6 +29,7 @@ _REGISTRIES: dict[str, dict[str, tuple[Builder, frozenset, Optional[Check]]]] = 
     "processor": {},
     "buffer": {},
     "codec": {},
+    "temporary": {},
 }
 
 
@@ -67,6 +68,11 @@ def register_buffer(type_name: str, keys: Iterable[str] = (),
 def register_codec(type_name: str, keys: Iterable[str] = (),
                    check: Optional[Check] = None):
     return _register("codec", type_name, keys, check)
+
+
+def register_temporary(type_name: str, keys: Iterable[str] = (),
+                       check: Optional[Check] = None):
+    return _register("temporary", type_name, keys, check)
 
 
 def registered_types(family: str) -> list[str]:

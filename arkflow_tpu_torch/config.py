@@ -11,9 +11,11 @@ consumes are taken out of them first, as the JAX package takes them:
 control plane parses as JAX's does: the pipeline's ``queue_size``,
 ``deadline_ms``, ``priority`` and ``overload`` (``runtime/overload.py``),
 the stream's ``restart`` policy, and ``gpu_inference.response_cache``
-(``runtime/respcache.py``) through ``type: fault`` wrappers. Every key the
-JAX package reads and the port does not carry yet (the pipeline's
-``process_pool`` and ``ingest_shards``, the stream's ``temporary``) raises
+(``runtime/respcache.py``) through ``type: fault`` wrappers. The stream's
+``temporary`` list names the lookup tables the ``sql`` processor's
+bindings read; ``--validate`` checks each against the ``temporary``
+registry. Every key the JAX package reads and the port does not carry yet
+(the pipeline's ``process_pool`` and ``ingest_shards``) raises
 ``ConfigError(... not yet ported ...)``.
 """
 
@@ -32,9 +34,7 @@ from arkflow_tpu_torch.errors import ConfigError, not_ported
 _ENGINE_KEYS = ("streams", "logging", "health_check", "tracing", "description")
 _HEALTH_KEYS = ("enabled", "host", "port", "path", "profiling_dir")
 _STREAM_KEYS = ("input", "buffer", "pipeline", "output", "error_output", "name",
-                "restart")
-#: stream keys of the JAX package that the port does not carry yet
-_UNPORTED_STREAM_KEYS = ("temporary",)
+                "restart", "temporary")
 _PIPELINE_KEYS = ("thread_num", "processors", "max_delivery_attempts", "queue_size",
                   "deadline_ms", "priority", "overload")
 
@@ -214,6 +214,20 @@ def _sink_delivery(cfg: dict, where: str) -> tuple[Any, Any]:
 
 
 @dataclass
+class TemporaryConfig:
+    name: str
+    config: dict
+
+    @classmethod
+    def from_mapping(cls, m: Mapping[str, Any]) -> "TemporaryConfig":
+        m = dict(m)
+        name = m.pop("name", None)
+        if not name:
+            raise ConfigError("temporary config requires a 'name'")
+        return cls(name=name, config=m)
+
+
+@dataclass
 class StreamConfig:
     input: dict
     pipeline: PipelineConfig
@@ -223,6 +237,8 @@ class StreamConfig:
     #: and counts it in ``Stream.dropped_batches``
     error_output: Optional[dict] = None
     buffer: Optional[dict] = None
+    #: the stream's lookup tables, built before its input and processors
+    temporary: list[TemporaryConfig] = field(default_factory=list)
     name: Optional[str] = None
     #: retry schedule of ``output.write`` (``output.retry``); None: the
     #: ``RetryConfig`` defaults
@@ -246,9 +262,6 @@ class StreamConfig:
 
         if not isinstance(m, Mapping):
             raise ConfigError("stream config must be a mapping")
-        for key in _UNPORTED_STREAM_KEYS:
-            if key in m:
-                raise not_ported(f"stream.{key}")
         _check_keys(m, _STREAM_KEYS, "stream")
         for req in ("input", "output"):
             if req not in m:
@@ -257,6 +270,7 @@ class StreamConfig:
         _validate_token_coalesce(m.get("buffer"), pipeline.processors)
         _validate_response_cache(pipeline.processors)
         _validate_tuner(pipeline.processors)
+        temps = [TemporaryConfig.from_mapping(t) for t in m.get("temporary", [])]
         input_cfg = dict(m["input"])
         reconnect = input_cfg.pop("reconnect", None)
         if reconnect is not None and not isinstance(reconnect, Mapping):
@@ -270,7 +284,7 @@ class StreamConfig:
         return cls(input=input_cfg, pipeline=pipeline, output=output_cfg,
                    error_output=err_cfg,
                    buffer=dict(m["buffer"]) if m.get("buffer") else None,
-                   name=m.get("name"),
+                   temporary=temps, name=m.get("name"),
                    output_retry=out_retry, output_circuit_breaker=out_breaker,
                    error_output_retry=err_retry, error_output_circuit_breaker=err_breaker,
                    input_reconnect=RetryConfig.from_config(reconnect) if reconnect else None,
@@ -364,7 +378,8 @@ class EngineConfig:
             for family, c in (("input", s.input), ("output", s.output),
                               *((("output", s.error_output),) if s.error_output else ()),
                               *((("buffer", s.buffer),) if s.buffer else ()),
-                              *(("processor", p) for p in s.pipeline.processors)):
+                              *(("processor", p) for p in s.pipeline.processors),
+                              *(("temporary", t.config) for t in s.temporary)):
                 try:
                     check_component(family, c)
                 except ConfigError as e:

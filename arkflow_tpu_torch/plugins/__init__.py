@@ -7,3 +7,4 @@ import arkflow_tpu_torch.plugins.input  # noqa: F401
 import arkflow_tpu_torch.plugins.output  # noqa: F401
 import arkflow_tpu_torch.plugins.processor  # noqa: F401
 import arkflow_tpu_torch.plugins.fault  # noqa: F401
+import arkflow_tpu_torch.plugins.temporary  # noqa: F401

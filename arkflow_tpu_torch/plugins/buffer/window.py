@@ -1,9 +1,6 @@
-"""Window buffers: tumbling, sliding and session.
+"""Window buffers: tumbling, sliding and session, and the windowed SQL join.
 
-Counterpart of ``arkflow_tpu/plugins/buffer/window.py`` without its ``query``
-join, which runs the SQL engine (not yet ported: ``query`` raises at
-``--validate`` and at build). ``inputs``, which names the join's tables, is
-accepted as in the JAX package; without ``query`` it changes nothing.
+Counterpart of ``arkflow_tpu/plugins/buffer/window.py``.
 
 - ``WindowBase`` keeps one queue per input name, from ``__meta_source``.
 - Emission policies:
@@ -15,6 +12,12 @@ accepted as in the JAX package; without ``query`` it changes nothing.
     it; an optional ``interval`` also emits the current window on a timer,
     holding no acks;
   - session: a ``gap`` of inactivity closes the session.
+- ``query``: on emission each input's merged batch is registered as a
+  table named by its input and the query's result is emitted. The tables
+  are ``inputs``, else the fan-in input's children (``Resource.input_names``),
+  else the inputs the window holds. A window where a declared input has no
+  rows, or whose query raises (logged), emits nothing and acks its sources,
+  as JAX's does: their rows are acked unjoined.
 - Close flushes what is held. An emission's ``VecAck`` holds its sources'
   acks until the emitted batch is acked downstream (at-least-once).
 
@@ -26,26 +29,35 @@ accepted as in the JAX package; without ``query`` it changes nothing.
     interval: 1s           # optional timer emission
     type: session_window
     gap: 500ms
+    query: "SELECT ... FROM orders JOIN users ON ..."   # any of the three
+    inputs: [orders, users]                             # optional
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 from collections import deque
 from typing import Optional
 
 from arkflow_tpu_torch.batch import META_SOURCE, MessageBatch
 from arkflow_tpu_torch.components import Ack, Buffer, Resource, VecAck, register_buffer
-from arkflow_tpu_torch.errors import ConfigError, not_ported
+from arkflow_tpu_torch.errors import ConfigError
+from arkflow_tpu_torch.sql import SessionContext
 from arkflow_tpu_torch.utils.duration import parse_duration
+
+logger = logging.getLogger("arkflow.window")
 
 DEFAULT_INPUT = "__default__"
 
 
 class WindowBase(Buffer):
-    """Shared machinery: per-input queues and the condition the reader waits on."""
+    """Shared machinery: per-input queues, the join on emission and the
+    condition the reader waits on."""
 
-    def __init__(self):
+    def __init__(self, query: Optional[str] = None, input_names: Optional[list[str]] = None):
+        self.query = query
+        self.declared_inputs = list(input_names or [])
         self._queues: dict[str, deque] = {}
         self._cond = asyncio.Condition()
         self._closed = False
@@ -98,13 +110,26 @@ class WindowBase(Buffer):
 
     # -- emission ----------------------------------------------------------
 
-    @staticmethod
-    def _emit(due: tuple[dict, VecAck]) -> Optional[tuple[MessageBatch, Ack]]:
+    def _emit(self, due: tuple[dict, VecAck]) -> Optional[tuple[MessageBatch, Ack]]:
         per_input, acks = due
-        merged = [MessageBatch.concat(batches) for batches in per_input.values() if batches]
+        merged = {name: MessageBatch.concat(batches)
+                  for name, batches in per_input.items() if batches}
         if not merged:
             return None
-        return MessageBatch.concat(merged), acks
+        if self.query:
+            declared = self.declared_inputs or list(merged)
+            if any(name not in merged or merged[name].num_rows == 0 for name in declared):
+                return self._skip(acks)
+            ctx = SessionContext()
+            for name in declared:
+                ctx.register_batch(name, merged[name])
+            try:
+                result = ctx.sql(self.query)
+            except Exception:
+                logger.exception("window join query failed")
+                return self._skip(acks)
+            return result, acks
+        return MessageBatch.concat(list(merged.values())), acks
 
     @staticmethod
     def _skip(acks: VecAck) -> None:
@@ -116,8 +141,9 @@ class WindowBase(Buffer):
 class TumblingWindow(WindowBase):
     """Fixed, non-overlapping time window."""
 
-    def __init__(self, interval_s: float):
-        super().__init__()
+    def __init__(self, interval_s: float, query: Optional[str] = None,
+                 input_names: Optional[list[str]] = None):
+        super().__init__(query, input_names)
         if interval_s <= 0:
             raise ConfigError("tumbling_window.interval must be positive")
         self.interval_s = interval_s
@@ -155,8 +181,9 @@ class SlidingWindow(WindowBase):
     which it can no longer appear in any later window. An optional
     ``interval`` also emits the current window's contents on a timer."""
 
-    def __init__(self, window_size: int, slide_size: int, interval_s: float | None = None):
-        super().__init__()
+    def __init__(self, window_size: int, slide_size: int, interval_s: float | None = None,
+                 query: Optional[str] = None, input_names: Optional[list[str]] = None):
+        super().__init__(query, input_names)
         if window_size <= 0 or slide_size <= 0:
             raise ConfigError("sliding_window sizes must be positive")
         if interval_s is not None and interval_s <= 0:
@@ -232,8 +259,9 @@ class SlidingWindow(WindowBase):
 class SessionWindow(WindowBase):
     """Activity-gap sessions: ``gap`` of silence closes the session."""
 
-    def __init__(self, gap_s: float):
-        super().__init__()
+    def __init__(self, gap_s: float, query: Optional[str] = None,
+                 input_names: Optional[list[str]] = None):
+        super().__init__(query, input_names)
         if gap_s <= 0:
             raise ConfigError("session_window.gap must be positive")
         self.gap_s = gap_s
@@ -263,17 +291,20 @@ class SessionWindow(WindowBase):
 
 def _check(type_name: str, required: str):
     def check(config: dict) -> None:
-        if config.get("query") is not None:
-            raise not_ported(f"{type_name}.query (the windowed SQL join)")
         if config.get(required) is None:
             raise ConfigError(f"{type_name} requires {required!r}")
     return check
 
 
+def _common_kwargs(config: dict, resource: Resource) -> dict:
+    return {"query": config.get("query"),
+            "input_names": config.get("inputs") or resource.input_names or None}
+
+
 @register_buffer("tumbling_window", keys=("interval", "query", "inputs"),
                  check=_check("tumbling_window", "interval"))
 def _build_tumbling(config: dict, resource: Resource) -> TumblingWindow:
-    return TumblingWindow(parse_duration(config["interval"]))
+    return TumblingWindow(parse_duration(config["interval"]), **_common_kwargs(config, resource))
 
 
 @register_buffer("sliding_window", keys=("window_size", "slide_size", "interval", "query",
@@ -283,10 +314,11 @@ def _build_sliding(config: dict, resource: Resource) -> SlidingWindow:
     ws = config["window_size"]
     interval = config.get("interval")
     return SlidingWindow(int(ws), int(config.get("slide_size", ws)),
-                         interval_s=parse_duration(interval) if interval is not None else None)
+                         interval_s=parse_duration(interval) if interval is not None else None,
+                         **_common_kwargs(config, resource))
 
 
 @register_buffer("session_window", keys=("gap", "query", "inputs"),
                  check=_check("session_window", "gap"))
 def _build_session(config: dict, resource: Resource) -> SessionWindow:
-    return SessionWindow(parse_duration(config["gap"]))
+    return SessionWindow(parse_duration(config["gap"]), **_common_kwargs(config, resource))

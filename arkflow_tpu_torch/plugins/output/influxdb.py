@@ -10,6 +10,11 @@ fires; a flush POSTs them with ``Authorization: Token <token>``, retries
 failure re-queues the lines (at most ``MAX_PENDING``) and raises
 ``WriteError``. ``close`` cancels the flusher and flushes what is pending.
 
+One flush runs at a time: a write or the flusher that reaches a flush while
+another is in its retries waits for it, so a retry goes out before any later
+line and the lines keep their order. JAX's output has no such lock there,
+and a later flush can overtake a retry (ROADMAP Queue C).
+
 Config:
 
     type: influxdb
@@ -108,6 +113,8 @@ class InfluxDbOutput(Output):
         self._pending: list[str] = []
         self._client: Optional[HttpClient] = None
         self._flusher: Optional[asyncio.Task] = None
+        #: held for a whole flush, retries included
+        self._flushing = asyncio.Lock()
 
     async def connect(self) -> None:
         self._client = HttpClient(headers={"Authorization": f"Token {self.token}"},
@@ -126,24 +133,26 @@ class InfluxDbOutput(Output):
                 logger.warning("%s", e)
 
     async def _flush(self) -> None:
-        if not self._pending:
-            return
-        lines = self._pending
-        self._pending = []
-        body = "\n".join(lines).encode()
-        last: Optional[Exception] = None
-        for attempt in range(self.retries + 1):
-            try:
-                resp = await self._client.request("POST", self.write_url, body)
-                if resp.status < 300:
-                    return
-                last = WriteError(f"influxdb {resp.status}: {resp.text()[:200]}")
-            except HttpClientError as e:
-                last = e
-            await asyncio.sleep(min(2.0 ** attempt * 0.2, 5.0))
-        # re-queued so the lines survive a transient outage (bounded)
-        self._pending = (lines + self._pending)[-self.MAX_PENDING:]
-        raise WriteError(f"influxdb write failed after {self.retries + 1} attempts: {last}")
+        async with self._flushing:
+            if not self._pending:
+                return
+            lines = self._pending
+            self._pending = []
+            body = "\n".join(lines).encode()
+            last: Optional[Exception] = None
+            for attempt in range(self.retries + 1):
+                try:
+                    resp = await self._client.request("POST", self.write_url, body)
+                    if resp.status < 300:
+                        return
+                    last = WriteError(f"influxdb {resp.status}: {resp.text()[:200]}")
+                except HttpClientError as e:
+                    last = e
+                await asyncio.sleep(min(2.0 ** attempt * 0.2, 5.0))
+            # re-queued so the lines survive a transient outage (bounded)
+            self._pending = (lines + self._pending)[-self.MAX_PENDING:]
+            raise WriteError(
+                f"influxdb write failed after {self.retries + 1} attempts: {last}")
 
     async def write(self, batch: MessageBatch) -> None:
         measurement = str(self.measurement.eval_scalar(batch))

@@ -12,6 +12,8 @@ Counterpart of ``arkflow_tpu/runtime/stream.py``:
   A chain that returns nothing acks at once.
 - With a buffer, the input writes into it and a buffer task moves its
   emissions into the worker queue; an emission's ack covers its sources.
+- The stream's temporaries (``temporary``) are built before its input and
+  processors, connected after its output and closed with the others.
 - ``EndOfInput`` drains the stream and shuts it down. ``Disconnection``
   puts the input into a reconnect-forever loop on ``input.reconnect``'s
   capped exponential schedule (default 100 ms doubling to
@@ -93,7 +95,8 @@ from typing import Optional
 
 from arkflow_tpu_torch.batch import (DEFAULT_BINARY_VALUE_FIELD, META_INGEST_TIME, MessageBatch,
                                      VarlenColumn, batch_fingerprint)
-from arkflow_tpu_torch.components.base import Ack, Buffer, Input, Output, Resource
+from arkflow_tpu_torch.components.base import (Ack, Buffer, Input, Output, Resource,
+                                               Temporary)
 from arkflow_tpu_torch.components.registry import build_component
 from arkflow_tpu_torch.config import StreamConfig
 from arkflow_tpu_torch.errors import ArkError, Disconnection, EndOfInput
@@ -163,12 +166,15 @@ class Stream:
                  error_output_retry: Optional[RetryConfig] = None,
                  error_output_breaker: Optional[CircuitBreakerConfig] = None,
                  reconnect_retry: Optional[RetryConfig] = None,
-                 queue_size: int = 0, overload: Optional[OverloadConfig] = None):
+                 queue_size: int = 0, overload: Optional[OverloadConfig] = None,
+                 temporaries: Optional[dict[str, Temporary]] = None):
         self.input = input_
         self.buffer = buffer
         self.pipeline = pipeline
         self.output = output
         self.error_output = error_output
+        #: the stream's lookup tables, connected after the output
+        self.temporaries = temporaries or {}
         self.thread_num = max(1, thread_num)
         self.name = name
         self.queue_size = queue_size if queue_size > 0 else self.thread_num * 4
@@ -288,6 +294,8 @@ class Stream:
             await self.output.connect()
             if self.error_output is not None:
                 await self.error_output.connect()
+            for t in self.temporaries.values():
+                await t.connect()
             # the HTTP input's 429s, the buffer's lane cap and the cache's
             # tenant labels all follow the controller
             attach_overload(self.input, self.overload)
@@ -328,6 +336,8 @@ class Stream:
         for stage, closer in (("input", self.input.close),
                               *((("buffer", self.buffer.close),) if self.buffer else ()),
                               ("pipeline", self.pipeline.close),
+                              *((f"temporary:{name}", t.close)
+                                for name, t in self.temporaries.items()),
                               *((("error_output", self.error_output.close),)
                                 if self.error_output else ()),
                               ("output", self.output.close)):
@@ -812,6 +822,9 @@ class Stream:
 def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
     """Construct a Stream from config via the builder registries."""
     resource = Resource()
+    # temporaries first: the sql processors' bindings look them up
+    for tcfg in cfg.temporary:
+        resource.temporaries[tcfg.name] = build_component("temporary", tcfg.config, resource)
     input_ = build_component("input", cfg.input, resource)
     pipeline = Pipeline([build_component("processor", p, resource)
                          for p in cfg.pipeline.processors])
@@ -829,4 +842,4 @@ def build_stream(cfg: StreamConfig, name: Optional[str] = None) -> Stream:
                   error_output_breaker=cfg.error_output_circuit_breaker,
                   reconnect_retry=cfg.input_reconnect,
                   queue_size=cfg.pipeline.effective_queue_size(),
-                  overload=cfg.pipeline.overload)
+                  overload=cfg.pipeline.overload, temporaries=resource.temporaries)

@@ -1,7 +1,7 @@
 """The SQL engine of the port, without Arrow.
 
-Counterpart of ``arkflow_tpu/sql/`` (bar ``vrl.py``). The in-flight batch is
-registered as table ``flow``; a query runs in two tiers:
+Counterpart of ``arkflow_tpu/sql/``. The in-flight batch is registered as
+table ``flow``; a query runs in two tiers:
 
 - **Native tier** (``planner.py``): SELECT / WHERE / JOIN / GROUP BY /
   window functions / ORDER BY / LIMIT over whole columns, on the kernels of
@@ -13,7 +13,8 @@ registered as table ``flow``; a query runs in two tiers:
   ``sqlite3`` with batches bridged in as tables.
 
 ``SessionContext`` (``engine.py``) is the user-facing object; ``ContextPool``
-mirrors the reference's fixed 4-context pool. Scalar/aggregate UDFs
+mirrors the reference's fixed 4-context pool. ``vrl.py`` compiles VRL
+programs onto the same expression evaluator. Scalar/aggregate UDFs
 registered via ``functions`` are visible in both tiers.
 """
 

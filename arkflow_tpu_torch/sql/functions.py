@@ -275,6 +275,8 @@ def _json_to_str(v):
 def _split(args, n):
     """split(text, sep) -> list<string> column (VRL's split)."""
     s, sep = as_arr(args[0], n), str(args[1])
+    if s.type == "binary":  # pc.split_pattern splits binary into list<binary>
+        sep = sep.encode()
     vals = [v.split(sep) if ok else None for v, ok in zip(s.data.tolist(), s.mask())]
     return Arr(("list", s.type if s.type != "null" else "string"), A.objects(vals), s.valid)
 
@@ -677,10 +679,31 @@ def _parse_syslog(args, n):
         val = d.get(key)
         return None if val in (None, "-") else val
 
-    vals = [one(v) for v in s.to_pylist()]
+    raw = s.to_pylist()
+    vals = [one(v) for v in raw]
+    if not _syslog_vectorizable(s, raw):
+        # JAX's row-wise path: the type inferred from the values
+        return A.from_pylist(vals)
     if key in ("severity", "facility", "version"):
         return A.from_pylist(vals, "int64")
     return A.from_pylist(vals, "string")
+
+
+def _syslog_vectorizable(s: Arr, raw: list) -> bool:
+    """Whether JAX's vectorized ``parse_syslog`` serves this input (whose
+    result types are pinned): a string column, or a binary one that is all
+    valid UTF-8; anything else takes its row-wise path."""
+    if s.type == "string":
+        return True
+    if s.type != "binary":
+        return False
+    try:
+        for v in raw:
+            if v is not None:
+                v.decode("utf-8")
+    except UnicodeDecodeError:
+        return False
+    return True
 
 
 def _parse_url(args, n):

@@ -16,8 +16,9 @@ memory for a checker to read:
 - ``FakeMqttBroker``: MQTT 3.1.1 CONNECT, SUBSCRIBE, PUBLISH at QoS 0/1
   (a QoS 2 subscription is granted QoS 1), PINGREQ, DISCONNECT, with
   ``+``/``#`` topic filters.
-- ``FakeRedisServer``: RESP2 AUTH, SELECT, LPUSH, RPUSH, BLPOP (blocking
-  up to its timeout), SUBSCRIBE, PSUBSCRIBE (glob patterns) and PUBLISH.
+- ``FakeRedisServer``: RESP2 AUTH, SELECT, GET, SET, MGET, LPUSH, RPUSH,
+  LRANGE, BLPOP (blocking up to its timeout), SUBSCRIBE, PSUBSCRIBE (glob
+  patterns) and PUBLISH; string keys in ``kv``, lists in ``lists``.
 - ``FakeNatsServer``: INFO, CONNECT, PING, SUB, UNSUB, PUB with ``*`` and
   ``>`` wildcards, HMSG status replies, and the JetStream pull subset the
   port's ``JetStream`` speaks: streams capturing subjects (a publish with a
@@ -502,10 +503,11 @@ def _bulk(v: Optional[bytes]) -> bytes:
 
 
 class FakeRedisServer(_Server):
-    """RESP2 fake with lists, blocking pops and pub/sub."""
+    """RESP2 fake with string keys, lists, blocking pops and pub/sub."""
 
     def __init__(self):
         super().__init__()
+        self.kv: dict[bytes, bytes] = {}
         self.lists: dict[bytes, list] = {}
         #: (writer, channel or pattern, is a pattern)
         self.subscribers: list = []
@@ -559,6 +561,19 @@ class FakeRedisServer(_Server):
                 cmd = args[0].upper()
                 if cmd in (b"AUTH", b"SELECT"):
                     writer.write(b"+OK\r\n")
+                elif cmd == b"GET":
+                    writer.write(_bulk(self.kv.get(args[1])))
+                elif cmd == b"SET":
+                    self.kv[args[1]] = args[2]
+                    writer.write(b"+OK\r\n")
+                elif cmd == b"MGET":
+                    writer.write(b"*%d\r\n" % (len(args) - 1)
+                                 + b"".join(_bulk(self.kv.get(k)) for k in args[1:]))
+                elif cmd == b"LRANGE":
+                    lst = self.lists.get(args[1], [])
+                    lo, hi = (int(a) + (len(lst) if int(a) < 0 else 0) for a in args[2:4])
+                    got = lst[max(lo, 0):hi + 1]
+                    writer.write(b"*%d\r\n" % len(got) + b"".join(_bulk(v) for v in got))
                 elif cmd in (b"LPUSH", b"RPUSH"):
                     lst = self.lists.setdefault(args[1], [])
                     for v in args[2:]:

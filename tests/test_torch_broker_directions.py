@@ -594,6 +594,39 @@ def test_influx_output_requeues_and_raises_like_jax():
     assert msgs["port"][1] == ["m v=1i"] and msgs["port"][2] == [b"m v=1i"] * 3
 
 
+def test_influx_retry_goes_out_before_later_lines_where_jax_lets_them_overtake():
+    """The flusher's write of line ``a`` is answered 500 and backs off
+    0.2 s; a write of ``b`` and ``c`` then fills a batch. JAX's output
+    posts them at once, before ``a``'s retry; the port's waits for the
+    flush in its retries, so the lines keep their order (ROADMAP Queue C)."""
+    async def go():
+        out = {}
+        for kind, cls in (("jax", JaxBatch), ("port", MessageBatch)):
+            runner, port, seen = await aiohttp_sink([500])
+            try:
+                cfg = {"type": "influxdb", "url": f"http://127.0.0.1:{port}", "org": "o",
+                       "bucket": "b", "token": "t", "measurement": "m", "fields": {"v": "v"},
+                       "batch_size": 2, "flush_interval": "50ms", "retries": 1}
+                o = (jax_build("output", cfg, JaxResource()) if kind == "jax"
+                     else build_component("output", cfg, Resource()))
+                await o.connect()
+                await o.write(cls.from_pydict({"v": ["a"]}))
+                while not seen:  # the flusher's first post, answered 500
+                    await asyncio.sleep(0.005)
+                await asyncio.sleep(0.03)  # inside its 0.2 s backoff
+                await o.write(cls.from_pydict({"v": ["b", "c"]}))
+                while len(seen) < 3:  # JAX's retry of a, still backing off
+                    await asyncio.sleep(0.005)
+                await o.close()
+                out[kind] = [s[2] for s in seen]
+            finally:
+                await runner.cleanup()
+        return out
+
+    a, bc = b'm v="a"', b'm v="b"\nm v="c"'
+    assert run(go()) == {"jax": [a, bc, a], "port": [a, a, bc]}
+
+
 @pytest.mark.parametrize("missing", ["url", "org", "bucket", "token", "measurement", "fields"])
 def test_influx_output_refusals_match_jax(missing):
     cfg = {"type": "influxdb", "url": "http://h", "org": "o", "bucket": "b", "token": "t",

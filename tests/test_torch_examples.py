@@ -32,7 +32,7 @@ FIRST_REFUSAL = {
     "continuous_generation_example": f"stream[0]: input 'http' key 'address' {_UNPORTED}",
     "disagg_example": "stream[0]: unknown processor type 'remote_tpu'",
     "elastic_fleet_example": "stream[0]: unknown processor type 'remote_tpu'",
-    "enrichment_example": f"config error: stream.temporary {_UNPORTED}",
+    "enrichment_example": None,
     "generate_example": None,
     "generate_tp_example": f"stream[0]: processor 'gpu_generate' key 'mesh' {_UNPORTED}",
     "hotswap_example": f"stream[0]: processor 'gpu_inference' key 'device_pool' {_UNPORTED}",
@@ -50,7 +50,7 @@ FIRST_REFUSAL = {
     "overload_example": None,
     "packed_inference_example": None,
     "partition_tolerant_example": f"stream[0]: fault processor kind 'net_corrupt' {_UNPORTED}",
-    "postgres_sql_example": "stream[0]: unknown input type 'sql'",
+    "postgres_sql_example": None,
     "pp_serving_example": f"stream[0]: processor 'gpu_inference' key 'mesh' {_UNPORTED}",
     "protobuf_example": None,
     "pulsar_example": None,
@@ -62,10 +62,9 @@ FIRST_REFUSAL = {
     "sharded_ingest_example": f"config error: pipeline.ingest_shards {_UNPORTED}",
     "tpu_bert_example": None,
     "tracing_example": None,
-    "vrl_example": "stream[0]: unknown processor type 'vrl'",
+    "vrl_example": None,
     "websocket_example": None,
-    "windowed_join_example": ("stream[0]: session_window.query (the windowed SQL join) "
-                              f"{_UNPORTED}"),
+    "windowed_join_example": None,
 }
 
 

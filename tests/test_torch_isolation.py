@@ -5,8 +5,10 @@ Llama lifecycle streams with their health servers, the Llama serving,
 batch and MoE streams, the ViT and LSTM tensor streams, the adaptive
 stream with a forced tuner cycle, the chaos and BERT delivery streams, the
 packed and windowed JSON BERT streams, the eight broker examples against
-the port's fake brokers, and the file and Pulsar examples, whose CSV, NDJSON
-and Avro readers and proto2 codec are the port's own) needs pyarrow, yaml, aiohttp, websockets, zstandard
+the port's fake brokers, the file and Pulsar examples, whose CSV, NDJSON
+and Avro readers and proto2 codec are the port's own, and the 8(b) slice's
+Postgres -> VRL -> enrichment -> Postgres and windowed join -> MySQL
+examples) needs pyarrow, yaml, aiohttp, websockets, zstandard
 or google.protobuf at import time or at run time. ``transformers`` is imported
 only inside ``HFTokenizer``, ``google.protobuf`` only inside the protobuf
 codec, ``zstandard`` only inside the zstd codec."""
@@ -585,3 +587,71 @@ def test_file_and_pulsar_examples_run_with_pyarrow_and_protobuf_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FILE_PULSAR_OK" in proc.stdout
+
+
+_ENRICH_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "arkflow_tpu", "pyarrow", "yaml", "aiohttp", "websockets",
+             "google.protobuf", "zstandard", "transformers"):
+    sys.modules[name] = None  # any import of these now fails
+import asyncio
+import json
+
+from arkflow_tpu_torch.tools import broker_streams as bs
+
+TINY = {"vocab_size": 128, "hidden": 16, "layers": 1, "heads": 2, "ffn": 32,
+        "max_positions": 64}
+
+def example(name, at):
+    raw = json.load(open("arkflow_tpu_torch/examples/" + name))
+    raw["streams"][0]["pipeline"]["processors"][at].update(
+        device="cpu", warmup=False, max_seq=32, batch_buckets=[4, 8], seq_buckets=[32],
+        model_config=TINY)
+    return raw
+
+levels = ["error", "warn", "info"]
+events = [[i, i % 5, levels[i % 3], f"msg{i} w w"] for i in range(30)]
+devices = {d: {"dev": d, "site": f"s{d}", "model": "m"} for d in range(4)}
+rep = asyncio.run(bs.pg_enrich_to_pg(example("pg_vrl_enrich_bert_pg.json", 3), events, devices))
+kept = sorted(int(r[0]) for r in rep["copied"])
+assert kept == [i for i in range(30) if i % 3 != 2] and rep["errors"] == 0, rep
+assert {r[5] for r in rep["copied"]} == {"s0", "s1", "s2", "s3", None}, rep["copied"][:3]
+orders = [{"oid": i, "uid": i % 7, "review": f"r{i} good"} for i in range(20)]
+users = [{"uid": u, "name": f"u{u}", "tier": "t"} for u in range(5)]
+rep = asyncio.run(bs.join_to_mysql(example("windowed_join_bert_mysql.json", 0), orders, users))
+assert len(rep["inserts"]) == 1 and rep["errors"] == 0 and rep["rows_out"] == 15, rep
+leaked = [m for m in sys.modules if (m.split(".")[0] in ("jax", "arkflow_tpu", "pyarrow",
+                                                         "transformers")
+                                     or m.startswith("google.protobuf"))
+          and sys.modules[m] is not None]
+assert not leaked, leaked
+print("ENRICH_OK")
+"""
+
+SLICE_8B_FILES = [ROOT / "arkflow_tpu_torch" / rel for rel in (
+    "sql/vrl.py", "plugins/processor/vrl_proc.py", "plugins/processor/python_proc.py",
+    "plugins/processor/chaos.py", "plugins/temporary/memory.py",
+    "plugins/temporary/redis.py", "plugins/input/sql_input.py",
+    "plugins/output/sql_output.py", "plugins/buffer/window.py",
+    "connect/postgres_client.py", "connect/mysql_client.py", "tools/fake_databases.py")]
+
+
+@pytest.mark.parametrize("path", SLICE_8B_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_8b_modules_import_no_pyarrow_anywhere(path):
+    """VRL, the temporaries, the python, chaos and sql components, the wire
+    clients and their fakes compute without Arrow at any level."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert "pyarrow" not in list(_imports(tree, top_level_only=False)), path
+
+
+def test_8b_examples_run_with_jax_reference_and_pyarrow_blocked():
+    """``pg_vrl_enrich_bert_pg.json`` and ``windowed_join_bert_mysql.json``
+    at a tiny width through ``tools/broker_streams.py`` on the port's
+    Postgres, Redis and MySQL fakes, with JAX, the JAX package and pyarrow
+    blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _ENRICH_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ENRICH_OK" in proc.stdout

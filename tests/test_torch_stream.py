@@ -165,7 +165,9 @@ def test_yaml_without_the_module_names_it(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("where,patch", [
-    ("stream", {"temporary": [{"name": "t", "type": "memory"}]}),
+    # the stream's temporaries are carried (the 8(b) slice); a key no
+    # temporary builder carries still refuses
+    ("stream", {"temporary": [{"name": "t", "type": "redis", "ttl": 5}]}),
     ("stream", {"pipeline": {"processors": [], "process_pool": 2}}),
     ("pipeline", {"ingest_shards": 2}),
     ("processor", {"pp_layer_costs": [1.0, 1.0]}),

@@ -69,8 +69,6 @@ async def drive(pkg: dict, kind: str, kwargs: dict, ops: list) -> dict:
     ``("read",)``, ``("ack", k)`` (the k-th emission's ack), ``("close",)``,
     ``("sleep", s)``. Returns the emissions' rows and sources and the
     source acks fired, in order."""
-    if pkg is PORT:  # ``inputs`` only names the join's tables, which the port has not
-        kwargs = {k: v for k, v in kwargs.items() if k != "input_names"}
     win = pkg[kind](**kwargs)
     acked: list = []
     emitted: list = []
@@ -202,18 +200,19 @@ def test_window_config_validation(cfg):
                                         ("sliding_window", {"window_size": 4}),
                                         ("session_window", {"gap": "50ms"})])
 def test_window_query_is_not_yet_ported(tmp_path, kind, extra):
+    """The windowed SQL join is carried now: ``query`` and ``inputs`` check,
+    build into the window and validate through the CLI, as in JAX."""
     cfg = {"type": kind, **extra, "query": "SELECT * FROM a JOIN b ON a.k = b.k",
            "inputs": ["a", "b"]}
-    with pytest.raises(ConfigError, match="query .*not yet ported to arkflow_tpu_torch"):
-        check_component("buffer", cfg)
-    with pytest.raises(ConfigError, match="not yet ported to arkflow_tpu_torch"):
-        build_component("buffer", cfg, Resource())
+    check_component("buffer", cfg)
+    win = build_component("buffer", cfg, Resource())
+    jwin = jax_build("buffer", cfg, JaxResource())
+    assert (win.query, win.declared_inputs) == (jwin.query, jwin.declared_inputs)
     engine = {"streams": [{"input": {"type": "memory", "messages": ["a"]}, "buffer": cfg,
                            "output": {"type": "drop"}}]}
     path = tmp_path / "w.json"
     path.write_text(json.dumps(engine))
-    assert cli.main(["--config", str(path), "--validate"]) == 2
-    engine["streams"][0]["buffer"] = {"type": kind, **extra, "inputs": ["a", "b"]}
+    assert cli.main(["--config", str(path), "--validate"]) == 0
     assert EngineConfig.from_mapping(engine).validate_components() == []
 
 
@@ -235,3 +234,113 @@ def test_window_stream_with_json_codec_matches_jax():
     got = [r for b in sink.batches for r in b.strip_metadata().to_pylist()]
     assert got == want and [r["id"] for r in got] == list(range(12))
     assert stream.errors == 0
+
+
+# -- the windowed SQL join -------------------------------------------------------
+
+JOIN_QUERY = ("SELECT orders.oid, users.city FROM orders JOIN users "
+              "ON orders.uid = users.uid ORDER BY orders.oid")
+
+
+def _join_stream(orders: list, users: list, query: str = JOIN_QUERY, **buffer) -> dict:
+    return {"input": {"type": "multiple_inputs", "inputs": [
+                {"name": "orders", "type": "memory", "codec": "json",
+                 "messages": [json.dumps(o) for o in orders]},
+                {"name": "users", "type": "memory", "codec": "json",
+                 "messages": [json.dumps(u) for u in users]}]},
+            "buffer": {"type": "session_window", "gap": "50ms", "query": query, **buffer},
+            "pipeline": {"thread_num": 1, "processors": []},
+            "output": {"type": "drop"}}
+
+
+def _run_both(raw: dict) -> tuple[list, list, object]:
+    """The stream through each package; the rows each wrote, and the port's
+    stream."""
+    jstream = jax_build_stream(JaxStreamConfig.from_mapping(raw))
+    jsink = jstream.output = JaxCollect()
+    asyncio.run(asyncio.wait_for(jstream.run(asyncio.Event()), timeout=10))
+    stream = build_stream(StreamConfig.from_mapping(raw))
+    sink = stream.output = Collect()
+    asyncio.run(asyncio.wait_for(stream.run(asyncio.Event()), timeout=10))
+    want = [r for b in jsink.batches for r in b.record_batch.to_pylist()]
+    got = [r for b in sink.batches for r in b.to_pylist()]
+    return want, got, stream
+
+
+def test_windowed_join_end_to_end_matches_jax():
+    """``tests/test_windows.py``'s fan-in -> session window -> SQL join:
+    the same joined rows, typed alike, in the query's order."""
+    raw = _join_stream([{"oid": 1, "uid": 10}, {"oid": 2, "uid": 20}, {"oid": 3, "uid": 30}],
+                       [{"uid": 10, "city": "sf"}, {"uid": 20, "city": "la"}])
+    want, got, stream = _run_both(raw)
+    assert got == want == [{"oid": 1, "city": "sf"}, {"oid": 2, "city": "la"}]
+    assert stream.errors == 0
+
+
+def test_windowed_join_without_order_by_matches_jax_as_a_multiset():
+    """A join without ORDER BY has no defined order in JAX (Acero's hash
+    join): the same rows as a multiset, each input's tables declared by
+    ``inputs``."""
+    orders = [{"oid": i, "uid": i % 5, "amount": i * 1.5} for i in range(12)]
+    users = [{"uid": u, "city": f"c{u}"} for u in range(4)]
+    raw = _join_stream(orders, users, "SELECT orders.oid, orders.amount, users.city FROM "
+                       "orders JOIN users ON orders.uid = users.uid", inputs=["orders", "users"])
+    want, got, _ = _run_both(raw)
+    key = json.dumps
+    assert sorted(map(key, got)) == sorted(map(key, want)) and len(got) == 10
+
+
+def _skip_case(pkg: dict, query: str, names) -> tuple:
+    async def go():
+        acked: list = []
+        win = pkg["session"](0.03, query=query, input_names=names)
+        b = pkg["batch"].from_pydict({"k": [1]}).with_source("a")
+        await win.write(b, pkg["ack"](acked, 1))
+        await win.close()
+        out = await asyncio.wait_for(win.read(), timeout=2)
+        await asyncio.sleep(0)  # the skipped window's ack runs as a task
+        return out, acked
+
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("query,names", [
+    ("SELECT * FROM a JOIN b ON a.k = b.k", ["a", "b"]),  # b declared, never written
+    ("SELECT * FROM a JOIN nope ON a.k = nope.k", None),  # the query raises
+], ids=["declared_input_missing", "query_raises"])
+def test_join_skips_the_window_and_acks_its_rows_unjoined(query, names):
+    """``tests/test_windows.py``: a declared input with no rows in the
+    window, or a query that raises, drains the window with no emission and
+    acks its sources, in both packages; their rows are lost to the join
+    (ROADMAP Queue C, "Open, in the reference")."""
+    assert _skip_case(JAX, query, names) == _skip_case(PORT, query, names) == (None, [1])
+
+
+def test_join_tables_default_to_the_fan_in_children():
+    """Without ``inputs`` the tables are ``multiple_inputs``' children
+    (``Resource.input_names``), as in JAX."""
+    cfg = {"input": {"type": "multiple_inputs", "inputs": [
+               {"name": "left", "type": "memory", "messages": ["x"]},
+               {"name": "right", "type": "memory", "messages": ["y"]}]},
+           "buffer": {"type": "tumbling_window", "interval": "10ms",
+                      "query": "SELECT * FROM left"},
+           "output": {"type": "drop"}}
+    stream = build_stream(StreamConfig.from_mapping(cfg))
+    jstream = jax_build_stream(JaxStreamConfig.from_mapping(cfg))
+    assert stream.buffer.declared_inputs == jstream.buffer.declared_inputs == ["left", "right"]
+
+
+def test_fan_in_ends_early_when_a_child_ends_on_a_full_queue():
+    """The fan-in's shared queue holds 64 batches. A child that ends while
+    it is full counts itself out at once (its end marker has no room), so
+    once every child has ended the next read raises ``EndOfInput`` with
+    batches still queued, which are lost, in both packages (ROADMAP Queue
+    C, "Open, in the reference"): 100 + 64 one-row messages give fewer
+    rows, the same number in each."""
+    raw = {"input": {"type": "multiple_inputs", "inputs": [
+               {"name": "a", "type": "memory", "messages": [f"a{i}" for i in range(100)]},
+               {"name": "b", "type": "memory", "messages": [f"b{i}" for i in range(64)]}]},
+           "pipeline": {"thread_num": 1, "processors": []},
+           "output": {"type": "drop"}}
+    want, got, _ = _run_both(raw)
+    assert len(got) == len(want) < 164
